@@ -1,10 +1,13 @@
-"""Serving CLI: batched prefill+decode with the ServeEngine, attention
-through the FlashAttention kernel (``use_kernels=True``).
+"""Serving CLI: batched prefill+decode with the ServeEngine, with the
+kernels on (``use_kernels=True``): attention through the FlashAttention
+kernel, the Mamba-2 SSD scan through the SSD chunk-scan kernel.
 
 Runs on the CUDA card unless ``--device cpu`` is passed (the plain PyTorch
-path; no kernel).  Example (full glm4-9b on one H100):
+path; no kernel).  Examples (full glm4-9b, full mamba2-130m on one H100):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --requests 8 --batch 4 --prompt-len 1024 --cache-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --requests 16 --batch 8 --prompt-len 1024 --cache-len 2048
 Reduced config on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --smoke --device cpu

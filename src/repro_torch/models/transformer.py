@@ -1,10 +1,11 @@
-"""Decoder-LM engine, dense GQA/MQA path.  Layer parameters are stacked
-``(L, ...)`` leaves as in the JAX package; where JAX scans over the stack,
-the port loops over layer slices.
+"""Decoder-LM engine: dense GQA/MQA decoders and attention-free Mamba-2
+(ssm) decoders.  Layer parameters are stacked ``(L, ...)`` leaves as in
+the JAX package; where JAX scans over the stack, the port loops over layer
+slices.
 
 Paths: ``forward`` (full-seq causal logits), ``prefill`` (builds the
-cache), ``decode`` (one token, fixed shapes).  The moe, mla, ssm, hybrid
-and encdec families are not ported yet and raise ``NotImplementedError``.
+cache), ``decode`` (one token, fixed shapes).  The moe, mla, hybrid and
+encdec families are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (apply_norm, embed_apply, embed_specs, mlp_apply,
                      mlp_specs, norm_specs, unembed_apply)
@@ -29,11 +31,12 @@ def check_supported(cfg: ModelConfig) -> None:
     family = ("encdec" if cfg.is_encdec else "moe" if cfg.is_moe
               else "mla" if cfg.attn_type == "mla"
               else "hybrid" if cfg.family == "hybrid"
-              else "ssm" if cfg.has_ssm or not cfg.has_attention else None)
+              or (cfg.has_ssm and cfg.has_attention) else None)
     if family is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {family} family (config family "
-            f"{cfg.family!r}) is not ported yet; only dense GQA decoders are")
+            f"{cfg.family!r}) is not ported yet; only dense GQA decoders "
+            f"and ssm (Mamba-2) decoders are")
 
 
 def _layer(params: Dict, l: int) -> Dict:
@@ -49,8 +52,11 @@ def _n_layers(stacked: Dict) -> int:
 
 
 def _layer_specs(cfg: ModelConfig, L: int) -> Dict[str, Any]:
-    s: Dict[str, Any] = {"norm1": norm_specs(cfg, L),
-                         "attn": attn.gqa_specs(cfg, L)}
+    s: Dict[str, Any] = {"norm1": norm_specs(cfg, L)}
+    if cfg.has_ssm:
+        s["ssm"] = ssm_mod.ssm_specs(cfg, L)
+    else:
+        s["attn"] = attn.gqa_specs(cfg, L)
     if cfg.d_ff > 0:
         s["norm2"] = norm_specs(cfg, L)
         s["mlp"] = mlp_specs(cfg, L)
@@ -77,7 +83,11 @@ def _mlp_residual(cfg: ModelConfig, pl: Dict, x: torch.Tensor
 
 def _layer_train(cfg: ModelConfig, x: torch.Tensor, pl: Dict
                  ) -> torch.Tensor:
-    x = x + attn.attn_train(cfg, pl["attn"], apply_norm(cfg, pl["norm1"], x))
+    h = apply_norm(cfg, pl["norm1"], x)
+    if cfg.has_ssm:
+        x = x + ssm_mod.ssm_train(cfg, pl["ssm"], h)
+    else:
+        x = x + attn.attn_train(cfg, pl["attn"], h)
     return _mlp_residual(cfg, pl, x)
 
 
@@ -98,23 +108,44 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
 # ------------------------------------------------------------------ cache
 
 
+def _layer_cache(cfg: ModelConfig, B: int, cache_len: int,
+                 device: torch.device) -> Dict:
+    dt = torch_dtype(cfg.dtype)
+    if cfg.has_ssm:
+        return {"ssm": ssm_mod.init_ssm_cache(cfg, B, dt, device)}
+    return {"attn": attn.init_attn_cache(cfg, B, cache_len, dt, device)}
+
+
 def init_cache(cfg: ModelConfig, B: int, cache_len: int,
                device: torch.device) -> Dict:
     check_supported(cfg)
-    one = attn.init_attn_cache(cfg, B, cache_len, torch_dtype(cfg.dtype),
-                               device)
+    one = _layer_cache(cfg, B, cache_len, device)
     # per-row positions from the start (see decode)
     return {"pos": torch.zeros((B,), dtype=torch.int32, device=device),
-            "layers": {"attn": {k: a.expand((cfg.n_layers,) + a.shape).clone()
-                                for k, a in one.items()}}}
+            "layers": tree_map(lambda a: a.expand((cfg.n_layers,) + a.shape)
+                               .clone(), one)}
 
 
 # ---------------------------------------------------------------- prefill
 
 
 def _layer_prefill(cfg, x, pl):
-    mix, ca = attn.attn_prefill(cfg, pl["attn"], apply_norm(cfg, pl["norm1"], x))
-    return _mlp_residual(cfg, pl, x + mix), {"attn": ca}
+    h = apply_norm(cfg, pl["norm1"], x)
+    if cfg.has_ssm:
+        mix, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h)
+        new_c = {"ssm": cs}
+    else:
+        mix, ca = attn.attn_prefill(cfg, pl["attn"], h)
+        new_c = {"attn": ca}
+    return _mlp_residual(cfg, pl, x + mix), new_c
+
+
+def _stack(trees):
+    """Per-layer caches (a list of equal nested dicts) -> one nested dict
+    of stacked ``(L, ...)`` leaves."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -130,8 +161,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     for l in range(_n_layers(params["layers"])):
         x, c = _layer_prefill(cfg, x, _layer(params["layers"], l))
         per_layer.append(c)
-    stacked = {"attn": {k: torch.stack([c["attn"][k] for c in per_layer])
-                        for k in per_layer[0]["attn"]}}
+    stacked = _stack(per_layer)
     cache: Dict[str, Any] = {
         "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
         "layers": _pad_cache(cfg, stacked, cache_len)}
@@ -140,8 +170,9 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 
 def _pad_cache(cfg: ModelConfig, c: Dict, cache_len: int) -> Dict:
-    """Grow stacked prefill caches (seq dim S or ring W, axis 2 of
-    (L, B, S, ...)) to the serving cache_len; ``kpos`` pads with -1."""
+    """Grow stacked attention caches (seq dim S or ring W, axis 2 of
+    (L, B, S, ...)) to the serving cache_len; ``kpos`` pads with -1.  The
+    ssm cache has no sequence axis and passes through unchanged."""
     W = min(cfg.window, cache_len) if cfg.window else cache_len
 
     def pad_leaf(a):
@@ -151,15 +182,21 @@ def _pad_cache(cfg: ModelConfig, c: Dict, cache_len: int) -> Dict:
         return F.pad(a, [0, 0] * (a.ndim - 3) + [0, pad],
                      value=-1 if a.dtype == torch.int32 else 0)
 
-    return {"attn": {k: pad_leaf(a) for k, a in c["attn"].items()}}
+    out = dict(c)
+    if "attn" in c:
+        out["attn"] = {k: pad_leaf(a) for k, a in c["attn"].items()}
+    return out
 
 
 # ----------------------------------------------------------------- decode
 
 
 def _layer_decode(cfg, x, pl, cl, pos):
-    mix, _ = attn.attn_decode(cfg, pl["attn"], apply_norm(cfg, pl["norm1"], x),
-                              cl["attn"], pos)
+    h = apply_norm(cfg, pl["norm1"], x)
+    if cfg.has_ssm:
+        mix, _ = ssm_mod.ssm_decode(cfg, pl["ssm"], h, cl["ssm"])
+    else:
+        mix, _ = attn.attn_decode(cfg, pl["attn"], h, cl["attn"], pos)
     return _mlp_residual(cfg, pl, x + mix)
 
 

@@ -8,7 +8,8 @@ prefill call, and their rows of the KV cache, per-slot position vector and
 last-token vector are spliced in while the other slots keep decoding
 undisturbed.  (``cache['pos']`` is a (B,) vector and attention masks/RoPE
 are per-row, so a freshly prefilled slot decodes exactly as it would in a
-batch of its own.)
+batch of its own.  Every stacked cache leaf, the attention ``k``/``v``/
+``kpos`` and the ssm ``conv``/``state`` alike, has its batch on axis 1.)
 
 The engine runs on the device its parameters live on.  Mapping-plan warmup
 (the JAX engine's ``warm_plans``) is not ported yet.
@@ -93,7 +94,7 @@ class ServeEngine:
     def _refill_prefill(self, active: Sequence[Optional[Request]],
                         idxs: List[int], cache, last):
         """Prefill the newly refilled slots (one batched call however many
-        freed this step) and splice their rows — KV cache, position, last
+        freed this step) and splice their rows — cache, position, last
         token — into the live decode state."""
         rows = [r if i in idxs else None for i, r in enumerate(active)]
         fresh_last, fresh = self._prefill_batch(rows)

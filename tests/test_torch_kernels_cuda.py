@@ -1,17 +1,23 @@
-"""The FlashAttention kernel on the card against its plain version.
+"""The FlashAttention and SSD kernels on the card against their plain
+versions.
 
 These tests need an NVIDIA Hopper card (marker ``cuda``) and skip
 elsewhere; on the card run them with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerances: 2e-5 in f32, 3e-2 in bf16 (``TOL`` of tests/test_kernels.py).
+Tolerances: FlashAttention 2e-5 in f32, 3e-2 in bf16 (``TOL`` of
+tests/test_kernels.py); SSD 2e-3 in f32 (tests/test_kernels.py's SSD bar)
+and, in bf16, 1e-2 of the output's largest magnitude (both sides round y
+to bf16, one step of which is up to 2^-7 of the largest |y|; the kernel
+rounds two of its product operands to bf16).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels import ssd
+from repro_torch.kernels.ref import attention_ref, ssd_chunked_ref
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -89,3 +95,68 @@ def test_kernel_raises_instead_of_falling_back(hopper):
     q, k, v = _qkv(hopper, 1, 4, 2, 16, 16, 48, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd(q, k, v)
+
+
+def _ssd_inputs(gen, BH, S, P, N, dtype):
+    x = torch.randn(BH, S, P, generator=gen, device="cuda").to(dtype)
+    dA = -torch.rand(BH, S, generator=gen, device="cuda") * 0.2
+    B = torch.randn(BH, S, N, generator=gen, device="cuda").to(dtype)
+    C = torch.randn(BH, S, N, generator=gen, device="cuda").to(dtype)
+    return x, dA, B, C
+
+
+@pytest.mark.parametrize("BH,S,P,N,chunk", [
+    (2, 128, 16, 32, 64),
+    (4, 256, 32, 64, 64),
+    (1, 200, 16, 32, 64),
+    (4, 96, 16, 16, 64),
+    (4, 24, 16, 16, 8),
+    (3, 100, 64, 128, 64),
+    (2, 256, 64, 128, 32),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_version(hopper, BH, S, P, N, chunk, dtype):
+    x, dA, B, C = _ssd_inputs(hopper, BH, S, P, N, dtype)
+    before = ssd.ssd_scan_fwd.launches
+    out = ssd.ssd_scan_fwd(x, dA, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    want = ssd_chunked_ref(x, dA, B, C, chunk=min(chunk, S))
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
+    else:
+        err = (out.float() - want.float()).abs().max()
+        assert err <= 1e-2 * want.float().abs().max()
+
+
+@pytest.mark.parametrize("p_tile", [16, 32, 64])
+def test_ssd_kernel_p_tiles_agree(hopper, p_tile):
+    x, dA, B, C = _ssd_inputs(hopper, 3, 200, 64, 128, torch.bfloat16)
+    out = ssd.ssd_scan_fwd(x, dA, B, C, p_tile=p_tile)
+    want = ssd_chunked_ref(x, dA, B, C, chunk=64)
+    err = (out.float() - want.float()).abs().max()
+    assert err <= 1e-2 * want.float().abs().max()
+
+
+def test_ssd_kernel_through_ops_and_backward(hopper):
+    x, dA, B, C = [t.requires_grad_(True) for t in
+                   _ssd_inputs(hopper, 2, 128, 16, 32, torch.float32)]
+    out = ops.ssd(x, dA, B, C, chunk=64, use_kernel=True)
+    want = ssd_chunked_ref(x, dA, B, C, chunk=64)
+    torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
+    g1 = torch.autograd.grad(out.sum(), (x, dA, B, C))
+    g2 = torch.autograd.grad(want.sum(), (x, dA, B, C))
+    for a, b in zip(g1, g2):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_raises_instead_of_falling_back(hopper):
+    x, dA, B, C = _ssd_inputs(hopper, 1, 64, 16, 32, torch.bfloat16)
+    before = ssd.ssd_scan_fwd.launches
+    with pytest.raises(ValueError, match="state dim"):
+        ssd.ssd_scan_fwd(x, dA, B[..., :24].contiguous(),
+                         C[..., :24].contiguous())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd.ssd_scan_fwd(x, dA, B[:, :, 1:17], C[:, :, 1:17])
+    assert ssd.ssd_scan_fwd.launches == before

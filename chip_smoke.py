@@ -41,7 +41,7 @@ failure ends the run with a non-zero exit:
    launches == 24 x prefill calls over this run alone; one prefill and one
    decode step timed and profiled as in phase 5;
 10. continuous batching on the mamba2 smoke config (f32, kernel on), and
-    its kernel-path logits against the plain path's;
+    its kernel-path logits against the plain path's (1e-2);
 11. a JSON line of the kernels, then ``{"ok": true, ...}`` as the last line.
 """
 from __future__ import annotations
@@ -68,6 +68,11 @@ SSD_F32_TOL = 2e-3                       # tests/test_kernels.py's SSD bar
 # (2^-9 relative each); an element's error follows the size of the terms
 # it sums, not its own value.
 SSD_BF16_TOL = 1e-2
+# mamba2 smoke logits, kernel path against plain path (f32 config, bf16 SSD
+# inputs on both): the kernel's bf16 products put them 2.2e-3 apart on the
+# H100, while a 1% gain error in the scan's output moves them by 4e-2
+# (tests/test_torch_ssm.py::test_mamba2_logit_bar_catches_scan_faults).
+MAMBA_PATH_TOL = 1e-2
 H100_BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak
 H100_BYTES_PER_S = 3.35e12               # HBM3
 KERNEL_SOURCES = ("flash_attention", "ssd_scan")
@@ -317,8 +322,6 @@ def main() -> int:
         for P, N in ((16, 16), (16, 32), (32, 64), (64, 128)):
             log(f"  ssd_scan {str(dtype)[6:]} P {P} N {N}: dynamic shared "
                 f"memory {ssd.smem_bytes(dtype, P, N)} B")
-    log(f"  ssd_scan bfloat16 P 64 N 128 p_tile 64: dynamic shared memory "
-        f"{ssd.smem_bytes(torch.bfloat16, 64, 128, 64)} B")
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------- 3. kernel against its plain version
@@ -487,16 +490,15 @@ def main() -> int:
                              f"{ssd_err} (max |plain| {ssd_scale})")
     del out, want
     ssd_ms = cuda_ms(lambda: ssd.ssd_scan_fwd(x, dA, Bm, Cm), iters=50)
-    # the P columns one CTA owns: the default against the other tiles
-    p_tile_ms = {pt: cuda_ms(lambda pt=pt: ssd.ssd_scan_fwd(
-        x, dA, Bm, Cm, p_tile=pt), iters=50) for pt in ssd.HEAD_DIMS}
     ssd_plain_ms = cuda_ms(
         lambda: ssd_chunked_ref(x, dA, Bm, Cm, chunk=ssd.CHUNK), iters=5,
         warmup=1)
-    # the chunk-64 algorithm's products: C B^T, (.)X, C h and B^T X per
-    # chunk; bytes: each input read once, y written once
+    # the chunk-64 algorithm's products per chunk: C B^T and (.)X over the
+    # lower triangle the causal mask keeps, C h and B^T X in full; bytes:
+    # each input read once, y written once
     c = ssd.CHUNK
-    ssd_flops = 2 * BH * (S // c) * (c * c * N + c * c * P + 2 * c * N * P)
+    tri = c * (c + 1) // 2
+    ssd_flops = 2 * BH * (S // c) * (tri * (N + P) + 2 * c * N * P)
     ssd_bytes = sum(t.numel() * t.element_size() for t in (x, dA, Bm, Cm)) \
         + x.numel() * x.element_size()
     t_ops, t_bytes = ssd_flops / H100_BF16_FLOPS, ssd_bytes / H100_BYTES_PER_S
@@ -510,10 +512,8 @@ def main() -> int:
         f"bound_ms {ssd_bound_ms:.4f} ({ssd_bound_by})")
     log(f"  kernel {ssd_bytes / ssd_ms / 1e6:.1f} GB/s, "
         f"{100 * ssd_bound_ms / ssd_ms:.1f}% of bound")
-    log(f"  p_tile {ssd.p_tile_for(P)} (default); kernel_ms by p_tile: "
-        + ", ".join(f"{pt}: {ms:.4f}" for pt, ms in p_tile_ms.items()))
     ssd_shape = {"xdt": [BH, S, P], "B": [BH, S, N], "dtype": "bfloat16",
-                 "chunk": c, "p_tile": ssd.p_tile_for(P)}
+                 "chunk": c}
     del x, dA, Bm, Cm
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
@@ -549,13 +549,11 @@ def main() -> int:
     lk = smodel.logits(sparams, {"tokens": toks})
     lp = Model(scfg.with_(use_kernels=False)).logits(sparams, {"tokens": toks})
     mpath_err = float((lk - lp).abs().max())
-    # the SSD inputs are bf16 on both paths (as in the JAX package), but
-    # the kernel's products round more than the plain path's f32 einsums:
-    # 3e-2, TOL of bf16
-    if not torch.allclose(lk, lp, atol=BF16_TOL, rtol=BF16_TOL):
+    if not torch.allclose(lk, lp, atol=MAMBA_PATH_TOL, rtol=MAMBA_PATH_TOL):
         raise AssertionError(f"mamba2 kernel path logits differ: {mpath_err}")
     log(f"  7 requests through 3 slots == serial decoding; kernel-path "
-        f"logits vs plain path max_abs_err {mpath_err:.3e} (tol {BF16_TOL})")
+        f"logits vs plain path max_abs_err {mpath_err:.3e} "
+        f"(tol {MAMBA_PATH_TOL})")
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
     # -------------------------------------------------------- 11. the result
@@ -593,7 +591,6 @@ def main() -> int:
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
         "shape": ssd_shape,
-        "p_tile_ms": p_tile_ms,
         "build_s": build_s["ssd_scan"],
         "cases": ssd_cases,
     }]

@@ -27,15 +27,17 @@
 // Shared memory of the bf16 instance at N = 128: C and B tiles
 // 2 x 64 x 136 x 2 B each (double-buffered, +8 pad), X 2 x 64 x (PT + 8)
 // x 2 B, decayed X 64 x (PT + 8) x 2 B, the bf16 copy of h 128 x (PT + 8)
-// x 2 B, dA and cs 768 B: 96,000 B at PT = 32 (the wrapper's default; two
-// CTAs fit an SM) and 116,480 B at PT = 64 (one).  The f32 state itself
-// lives in the mma accumulator registers of the four warps (32 floats a
-// thread at N = 128, PT = 32).
+// x 2 B, dA and cs 768 B: 96,000 B at PT = 32, so two CTAs fit an SM.
+// PT = min(P, 32): at the mamba2 serving shape 32 was the fastest of 16,
+// 32 and 64 on the H100 (PERF.md).  The f32 state itself lives in the mma
+// accumulator registers of the four warps (32 floats a thread at N = 128,
+// PT = 32).
 //
 // What bounds it on this card: at the mamba2-130m serving prefill shape
 // (BH 192, S 1024, P 64, N 128, bf16 X/B/C, f32 dA) the chunk-64 algorithm
-// is 11.3 GFLOP against 151.8 MB of compulsory traffic, ~74 FLOP per byte,
-// far below the H100's ~295 FLOP/byte ridge: it is bound by bytes.  So the
+// is 8.9 GFLOP (the masked products' lower triangles only) against 151.8
+// MB of compulsory traffic, ~59 FLOP per byte, far below the H100's ~295
+// FLOP/byte ridge: it is bound by bytes.  So the
 // design reads every input once from device memory (B and C of one bh are
 // read by its P slices close together in time, through L2), keeps h, C B^T
 // and every intermediate on chip, double-buffers the next chunk's tiles
@@ -511,15 +513,16 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The P columns one bf16 CTA owns.
+constexpr int p_tile(int P) { return P < 32 ? P : 32; }
+
 template <int N>
-cudaError_t dispatch_p(const Params& p, bool bf16, int p_tile,
-                       cudaStream_t s) {
+cudaError_t dispatch_p(const Params& p, bool bf16, cudaStream_t s) {
   if (bf16) {
-    if (p.P % p_tile) return cudaErrorInvalidValue;
-    switch (p_tile) {
-      case 16: return launch_bf16<N, 16>(p, s);
-      case 32: return launch_bf16<N, 32>(p, s);
-      case 64: return launch_bf16<N, 64>(p, s);
+    switch (p.P) {
+      case 16: return launch_bf16<N, p_tile(16)>(p, s);
+      case 32: return launch_bf16<N, p_tile(32)>(p, s);
+      case 64: return launch_bf16<N, p_tile(64)>(p, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -534,14 +537,13 @@ cudaError_t dispatch_p(const Params& p, bool bf16, int p_tile,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of xdt, B, C and y; dA is float32).
-// Strides are in elements.  chunk in [1, 64]; p_tile (bf16 only) in
-// {16, 32, 64} dividing P.  Returns the launch's cudaError_t (0 on success).
+// Strides are in elements.  chunk in [1, 64].  Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int ssd_fwd(const void* x, const float* da, const void* b,
                        const void* c, void* y, int dtype, int BH, int S, int P,
-                       int N, int chunk, int p_tile, long long x_sb,
-                       long long x_ss, long long d_sb, long long b_sb,
-                       long long b_ss, long long c_sb, long long c_ss,
-                       void* stream) {
+                       int N, int chunk, long long x_sb, long long x_ss,
+                       long long d_sb, long long b_sb, long long b_ss,
+                       long long c_sb, long long c_ss, void* stream) {
   const Params p{x, da, b, c, y, BH, S, P, N, chunk,
                  x_sb, x_ss, d_sb, b_sb, b_ss, c_sb, c_ss};
   if ((dtype != 0 && dtype != 1) || chunk < 1 || chunk > CH || BH < 1 || S < 1)
@@ -549,16 +551,16 @@ extern "C" int ssd_fwd(const void* x, const float* da, const void* b,
   const bool bf16 = dtype == 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (N) {
-    case 16: return (int)dispatch_p<16>(p, bf16, p_tile, s);
-    case 32: return (int)dispatch_p<32>(p, bf16, p_tile, s);
-    case 64: return (int)dispatch_p<64>(p, bf16, p_tile, s);
-    case 128: return (int)dispatch_p<128>(p, bf16, p_tile, s);
+    case 16: return (int)dispatch_p<16>(p, bf16, s);
+    case 32: return (int)dispatch_p<32>(p, bf16, s);
+    case 64: return (int)dispatch_p<64>(p, bf16, s);
+    case 128: return (int)dispatch_p<128>(p, bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Dynamic shared memory (bytes) the instance for (dtype, N, P, p_tile)
-// launches with; the f32 instance ignores p_tile.
-extern "C" int ssd_smem_bytes(int dtype, int N, int P, int p_tile) {
-  return dtype == 1 ? smem_bf16(N, p_tile) : smem_f32(N, P);
+// Dynamic shared memory (bytes) the instance for (dtype, N, P) launches
+// with.
+extern "C" int ssd_smem_bytes(int dtype, int N, int P) {
+  return dtype == 1 ? smem_bf16(N, p_tile(P)) : smem_f32(N, P);
 }

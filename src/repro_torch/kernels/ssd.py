@@ -26,18 +26,18 @@ from .. import resolve_device
 from . import _build
 from .ref import ssd_chunked_ref
 
-__all__ = ["ssd_scan_fwd", "ssd_scan", "p_tile_for", "smem_bytes", "CHUNK",
-           "HEAD_DIMS", "STATE_DIMS"]
+__all__ = ["ssd_scan_fwd", "ssd_scan", "smem_bytes", "CHUNK", "HEAD_DIMS",
+           "STATE_DIMS"]
 
 CHUNK = 64                     # the kernel's chunk tile (rows)
 HEAD_DIMS = (16, 32, 64)       # P
 STATE_DIMS = (16, 32, 64, 128)  # N
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# ssd_fwd(x, dA, B, C, y, dtype, BH, S, P, N, chunk, p_tile, 7 strides,
-#         stream): pointers and the stream as c_void_p, or ctypes would pass
-# them as 32-bit ints
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+# ssd_fwd(x, dA, B, C, y, dtype, BH, S, P, N, chunk, 7 strides, stream):
+# pointers and the stream as c_void_p, or ctypes would pass them as 32-bit
+# ints
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
 
 
@@ -45,28 +45,18 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     lib.ssd_fwd.argtypes = _ARGTYPES
     lib.ssd_fwd.restype = ctypes.c_int
-    lib.ssd_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.ssd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.ssd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def p_tile_for(P: int) -> int:
-    """Columns of P one CTA of the bf16 kernel owns by default: 32 where P
-    allows.  At the mamba2 serving shape it is the fastest of 16, 32 and
-    64 on the H100 (two CTAs fit an SM at 32, one at 64); chip_smoke
-    phase 8 times all three."""
-    return min(P, 32)
-
-
-def smem_bytes(dtype: torch.dtype, P: int, N: int,
-               p_tile: Optional[int] = None) -> int:
+def smem_bytes(dtype: torch.dtype, P: int, N: int) -> int:
     """Dynamic shared memory of the kernel instance for these sizes."""
-    return _library().ssd_smem_bytes(_DTYPES[dtype], N, P,
-                                     p_tile or p_tile_for(P))
+    return _library().ssd_smem_bytes(_DTYPES[dtype], N, P)
 
 
 def _check(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
-           C: torch.Tensor, chunk: int, p_tile: int) -> None:
+           C: torch.Tensor, chunk: int) -> None:
     """Raise on anything the kernel does not take."""
     if not (xdt.device == dA.device == B.device == C.device):
         raise ValueError(f"xdt/dA/B/C on different devices: {xdt.device}, "
@@ -91,9 +81,6 @@ def _check(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"empty input: BH={BH}, S={S}")
     if not 1 <= chunk <= CHUNK:
         raise ValueError(f"chunk must be in [1, {CHUNK}], got {chunk}")
-    if p_tile not in HEAD_DIMS or P % p_tile:
-        raise ValueError(f"p_tile must be one of {HEAD_DIMS} dividing P = "
-                         f"{P}, got {p_tile}")
     # bf16 tiles move in 16-byte cp.async chunks: rows must start 16-byte
     # aligned; f32 tiles are read element by element
     align = 8 if xdt.dtype == torch.bfloat16 else 1
@@ -109,20 +96,17 @@ def _check(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
 
 
 def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
-                 C: torch.Tensor, *, chunk: Optional[int] = None,
-                 p_tile: Optional[int] = None) -> torch.Tensor:
+                 C: torch.Tensor, *, chunk: Optional[int] = None
+                 ) -> torch.Tensor:
     """xdt (BH, S, P), dA (BH, S) f32, B/C (BH, S, N) -> y (BH, S, P) in
     xdt.dtype.  ``chunk`` defaults to the kernel's 64 and is clipped to S
-    (the JAX rule ``min(chunk, S)``); ``p_tile``, the P columns of one CTA
-    of the bf16 kernel, defaults to :func:`p_tile_for` (the f32 kernel
-    takes all of P).
+    (the JAX rule ``min(chunk, S)``).
 
     On CUDA tensors this launches the kernel and adds one to
     ``ssd_scan_fwd.launches``; on CPU tensors it returns the plain
     ``ssd_chunked_ref``."""
     chunk = min(CHUNK if chunk is None else chunk, xdt.shape[1])
-    p_tile = p_tile or p_tile_for(xdt.shape[-1])
-    _check(xdt, dA, B, C, chunk, p_tile)
+    _check(xdt, dA, B, C, chunk)
     if xdt.device.type == "cpu":
         return ssd_chunked_ref(xdt, dA, B, C, chunk=chunk)
     resolve_device(xdt.device)
@@ -134,7 +118,7 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         err = lib.ssd_fwd(xdt.data_ptr(), dA.data_ptr(), B.data_ptr(),
                           C.data_ptr(), out.data_ptr(), _DTYPES[xdt.dtype],
-                          BH, S, P, N, chunk, p_tile,
+                          BH, S, P, N, chunk,
                           xdt.stride(0), xdt.stride(1), dA.stride(0),
                           B.stride(0), B.stride(1), C.stride(0), C.stride(1),
                           stream)

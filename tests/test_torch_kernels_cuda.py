@@ -130,15 +130,6 @@ def test_ssd_kernel_matches_plain_version(hopper, BH, S, P, N, chunk, dtype):
         assert err <= 1e-2 * want.float().abs().max()
 
 
-@pytest.mark.parametrize("p_tile", [16, 32, 64])
-def test_ssd_kernel_p_tiles_agree(hopper, p_tile):
-    x, dA, B, C = _ssd_inputs(hopper, 3, 200, 64, 128, torch.bfloat16)
-    out = ssd.ssd_scan_fwd(x, dA, B, C, p_tile=p_tile)
-    want = ssd_chunked_ref(x, dA, B, C, chunk=64)
-    err = (out.float() - want.float()).abs().max()
-    assert err <= 1e-2 * want.float().abs().max()
-
-
 def test_ssd_kernel_through_ops_and_backward(hopper):
     x, dA, B, C = [t.requires_grad_(True) for t in
                    _ssd_inputs(hopper, 2, 128, 16, 32, torch.float32)]

@@ -176,9 +176,6 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take():
         tssd.ssd_scan_fwd(torch.zeros(2, 128, 48), dA, B, C)
     with pytest.raises(ValueError, match="match"):
         tssd.ssd_scan_fwd(x, dA[:, :64], B, C)
-    for bad in (8, 32):                          # P is 16
-        with pytest.raises(ValueError, match="p_tile"):
-            tssd.ssd_scan_fwd(x, dA, B, C, p_tile=bad)
     # what it does take gives the plain version's answer on the CPU
     torch.testing.assert_close(tssd.ssd_scan_fwd(x, dA, B, C, chunk=32),
                                tref.ssd_chunked_ref(x, dA, B, C, chunk=32))
@@ -303,6 +300,42 @@ def test_prefill_cache_and_decode_step_match_jax():
     for key in ("conv", "state"):
         _close(tc2["layers"]["ssm"][key], jc2["layers"]["ssm"][key],
                F32_TOL)
+
+
+def _chunkwise(x, dA, B, C, chunk, scan):
+    """``scan`` on each chunk alone: the state is not carried across."""
+    return torch.cat([scan(x[:, i:i + chunk], dA[:, i:i + chunk],
+                           B[:, i:i + chunk], C[:, i:i + chunk], chunk=chunk)
+                      for i in range(0, x.shape[1], chunk)], 1)
+
+
+def test_mamba2_logit_bar_catches_scan_faults(monkeypatch):
+    """chip_smoke.py holds the mamba2 smoke model's kernel-path logits to
+    the plain path's within 1e-2 (atol and rtol; f32 config, 2 x 128
+    tokens).  Each fault below, put into the scan that the plain path runs,
+    moves the same logits past that bar."""
+    bar = 1e-2
+    cfg = get_smoke_config(ARCH).with_(dtype="float32", use_kernels=False)
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    toks = torch.arange(256).reshape(2, 128) % cfg.vocab_size
+    want = model.logits(params, {"tokens": toks})
+    scan = tref.ssd_chunked_ref
+    faults = {
+        "state not carried": lambda x, dA, B, C, chunk: _chunkwise(
+            x, dA, B, C, chunk, scan),
+        "decay one step late": lambda x, dA, B, C, chunk: scan(
+            x, torch.roll(dA, 1, 1), B, C, chunk=chunk),
+        "1% gain": lambda x, dA, B, C, chunk: scan(
+            x, dA, B, C, chunk=chunk) * 1.01,
+    }
+    for name, fault in faults.items():
+        monkeypatch.setattr(tref, "ssd_chunked_ref", fault)
+        got = model.logits(params, {"tokens": toks})
+        monkeypatch.setattr(tref, "ssd_chunked_ref", scan)
+        err = float((got - want).abs().max())
+        print(f"{name}: max_abs_err {err:.4g}")
+        assert not torch.allclose(got, want, atol=bar, rtol=bar), (name, err)
 
 
 def test_decode_after_prefill_equals_full_forward():

@@ -9,9 +9,11 @@ Needs one H100 (sm_90), ``nvcc`` under ``$CUDA_HOME/bin`` or
 failure ends the run with a non-zero exit:
 
 1. device: the card's name and power limit, capability (9, 0), TF32 off;
-2. build: the FlashAttention and SSD kernels from ``csrc/`` into
-   ``build/torch_kernels``, one ``nvcc`` for each source, started together;
-   registers, shared memory and spills of every instance;
+2. build: the FlashAttention, SSD and fused GEMM-epilogue kernels from
+   ``csrc/`` into ``build/torch_kernels``, one ``nvcc`` for each source,
+   started together; registers, shared memory and spills of every
+   instance, and ``cudaOccupancyMaxActiveClusters`` of every GEMM-epilogue
+   instance at every cluster size (each must be > 0);
 3. FlashAttention against its plain version ``attention_ref`` on the card,
    in f32 (tolerance 2e-5) and bf16 (3e-2), over GQA, ragged, Sq < Skv,
    window, fully-masked-row and head-dim cases;
@@ -42,7 +44,22 @@ failure ends the run with a non-zero exit:
    decode step timed and profiled as in phase 5;
 10. continuous batching on the mamba2 smoke config (f32, kernel on), and
     its kernel-path logits against the plain path's (1e-2);
-11. a JSON line of the kernels, then ``{"ok": true, ...}`` as the last line.
+11. the fused GEMM-Softmax, GEMM-LayerNorm and GEMM-RMSNorm kernel
+    against their plain versions on the card, within the bars of
+    ``gemm_epilogue.tolerance`` (f32: softmax 2e-5, norms 1e-4; bf16: 1e-2
+    of the output's largest magnitude): the JAX sweep shapes, ragged
+    M/K/N, M 1 and M 4, every
+    cluster size 1-16, a softmax row whose max sits in the last CTA's
+    slice, LayerNorm rows of mean 1e3 and std about 1, and the largest
+    paper shape (4096, 16384, 4096) three times;
+12. the kernel benchmark (``repro_torch.launch.kernel_bench.run_all``)
+    at the paper's eight GEMM shapes in bf16 (phases 4 and 8 time the
+    other two kernels), with every kernel's count set to 0 just before and
+    read just after: each kernel's launches equal the bench's calls to it
+    (no fallback), and each output is within the bar of phase 11;
+13. a JSON line of the kernels, then ``{"ok": true, ...}`` as the last line.
+
+Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
 """
 from __future__ import annotations
 
@@ -60,6 +77,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.launch import kernel_bench as kb  # noqa: E402
+
 F32_TOL, BF16_TOL = 2e-5, 3e-2           # TOL of tests/test_kernels.py
 SSD_F32_TOL = 2e-3                       # tests/test_kernels.py's SSD bar
 # bf16 SSD: max |kernel - plain| <= 1e-2 * max |plain|.  Both sides round
@@ -73,9 +92,8 @@ SSD_BF16_TOL = 1e-2
 # H100, while a 1% gain error in the scan's output moves them by 4e-2
 # (tests/test_torch_ssm.py::test_mamba2_logit_bar_catches_scan_faults).
 MAMBA_PATH_TOL = 1e-2
-H100_BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak
-H100_BYTES_PER_S = 3.35e12               # HBM3
-KERNEL_SOURCES = ("flash_attention", "ssd_scan")
+KERNEL_SOURCES = ("flash_attention", "ssd_scan", "gemm_epilogue")
+GEMM_KERNELS = ("gemm_softmax", "gemm_layernorm", "gemm_rmsnorm")
 
 
 def log(msg: str) -> None:
@@ -85,22 +103,6 @@ def log(msg: str) -> None:
 def phase(name: str):
     log(f"== {name}")
     return time.perf_counter()
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn`` over ``iters`` back-to-back launches,
-    timed with CUDA events after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def device_profile(fn):
@@ -159,16 +161,49 @@ def ssd_inputs(gen, BH, S, P, N, dtype):
     return x, dA, B, C
 
 
-def visible_pairs(Sq, Skv, causal, window) -> int:
-    """(q, k) pairs the masks leave visible: the work this input needs."""
-    q_pos = np.arange(Sq)[:, None] + (Skv - Sq)
-    k_pos = np.arange(Skv)[None, :]
-    mask = np.ones((Sq, Skv), bool)
-    if causal:
-        mask &= q_pos >= k_pos
-    if window is not None:
-        mask &= (q_pos - k_pos) < window
-    return int(mask.sum())
+def gemm_inputs(gen, M, K, N, dtype, kind="normal"):
+    """a (M, K), b (K, N) in ``dtype`` and f32 gamma/beta (N,) on the card.
+    ``spike``: column N - 1 of C is larger than the rest by about 30, so
+    each row's max lies in the last CTA's slice.  ``mean_1e3``: every row
+    of C is 1000 plus a sum of 31 products of {-1, 0, 1} and {-0.25, 0,
+    0.25} (std about 0.9); all of it exact in bf16 and f32, so only the
+    statistics can err."""
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+    if kind == "mean_1e3":
+        a = torch.randint(-1, 2, (M, K), generator=gen, device="cuda")
+        b = torch.randint(-1, 2, (K, N), generator=gen, device="cuda") * 0.25
+        a[:, 0], b[0] = 1, 1000.0
+        a, b = a.to(dtype), b.to(dtype)
+    else:
+        a, b = rand(M, K).to(dtype), rand(K, N, scale=0.2).to(dtype)
+        if kind == "spike":
+            a[:, 0], b[0, N - 1] = 1, 30.0
+    return a, b, rand(N), rand(N)
+
+
+def gemm_check(name, a, b, gamma, beta):
+    """The fused kernel of ``name`` against its plain version on the same
+    inputs, both through the ``ops`` entry: (max abs error, max |plain|,
+    tolerance, passed)."""
+    from repro_torch.kernels import gemm_epilogue as ge
+    from repro_torch.kernels import ops
+    entry = {"gemm_softmax": lambda k: ops.fused_gemm_softmax(
+                 a, b, use_kernel=k),
+             "gemm_layernorm": lambda k: ops.fused_gemm_layernorm(
+                 a, b, gamma, beta, use_kernel=k),
+             "gemm_rmsnorm": lambda k: ops.fused_gemm_rmsnorm(
+                 a, b, gamma, use_kernel=k)}[name]
+    out, want = entry(True), entry(False)
+    torch.cuda.synchronize()
+    if out.dtype != a.dtype or out.shape != want.shape:
+        raise AssertionError(f"{name}: output {out.dtype} "
+                             f"{tuple(out.shape)}, want {a.dtype} "
+                             f"{tuple(want.shape)}")
+    err = float((out.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    tol = ge.tolerance(name[len("gemm_"):], a.dtype, scale)
+    return err, scale, tol, err <= tol and bool(torch.isfinite(out).all())
 
 
 def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
@@ -228,8 +263,8 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
     def run_decode():
         return model.decode(params, cache, tok)
 
-    prefill_ms = cuda_ms(run_prefill, iters=3, warmup=1)
-    decode_ms = cuda_ms(run_decode, iters=10)
+    prefill_ms = kb.cuda_ms(run_prefill, iters=3, warmup=1)
+    decode_ms = kb.cuda_ms(run_decode, iters=10)
     breakdown = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms}
     for step_name, fn, ms in (("prefill", run_prefill, prefill_ms),
                               ("decode_step", run_decode, decode_ms)):
@@ -287,12 +322,18 @@ def main() -> int:
     from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_epilogue as ge
     from repro_torch.kernels import ssd
+    from repro_torch.kernels.gemm_layernorm import (gemm_layernorm,
+                                                     gemm_rmsnorm)
+    from repro_torch.kernels.gemm_softmax import gemm_softmax
     from repro_torch.kernels.ref import attention_ref, ssd_chunked_ref
     from repro_torch.models.model import Model
 
     counters = {"flash_attention": fa.flash_attention_fwd,
-                "ssd_scan": ssd.ssd_scan_fwd}
+                "ssd_scan": ssd.ssd_scan_fwd, "gemm_softmax": gemm_softmax,
+                "gemm_layernorm": gemm_layernorm,
+                "gemm_rmsnorm": gemm_rmsnorm}
     t_all = time.perf_counter()
     # ------------------------------------------------------------ 1. device
     t0 = phase("1. device")
@@ -322,6 +363,20 @@ def main() -> int:
         for P, N in ((16, 16), (16, 32), (32, 64), (64, 128)):
             log(f"  ssd_scan {str(dtype)[6:]} P {P} N {N}: dynamic shared "
                 f"memory {ssd.smem_bytes(dtype, P, N)} B")
+    if ge.slice_columns() != ge.SLICE_COLUMNS:
+        raise AssertionError(f"gemm_epilogue.cu holds {ge.slice_columns()} "
+                             f"columns a CTA, the wrapper assumes "
+                             f"{ge.SLICE_COLUMNS}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for epi in ge.EPILOGUES:
+            placed = {cl: ge.max_active_clusters(epi, dtype, cl)
+                      for cl in ge.CLUSTER_SIZES}
+            log(f"  gemm_epilogue {epi} {str(dtype)[6:]}: dynamic shared "
+                f"memory {ge.smem_bytes(dtype)} B; max active clusters "
+                + ", ".join(f"{n} of {cl}" for cl, n in placed.items()))
+            if min(placed.values()) <= 0:
+                raise AssertionError(f"gemm_epilogue {epi} {dtype}: a "
+                                     f"cluster cannot be placed: {placed}")
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------- 3. kernel against its plain version
@@ -363,7 +418,8 @@ def main() -> int:
 
     # ------------------------------------------ 4. kernel at the serve shape
     t0 = phase("4. kernel time at glm4-9b prefill shape")
-    B, Hq, Hkv, S, D = 4, 32, 2, 1024, 128
+    B, Hq, Hkv, S, D = (kb.ATTENTION_SHAPE[n] for n in
+                        ("B", "Hq", "Hkv", "S", "D"))
     q, k, v = attn_inputs(gen, B, Hq, Hkv, S, S, D, torch.bfloat16,
                           model_layout=True)
     out = fa.flash_attention_fwd(q, k, v, causal=True)
@@ -374,21 +430,12 @@ def main() -> int:
     if not bool((diff <= BF16_TOL + BF16_TOL * want.float().abs()).all()):
         raise AssertionError(f"kernel disagrees at the serve shape: {main_err}")
     del out, want, diff
-    kernel_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True),
-                        iters=50)
-    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), iters=5,
-                       warmup=1)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                      enable_gqa=True), iters=50)
-    flops = 4 * B * Hq * D * visible_pairs(S, S, True, None)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
-        + q.numel() * q.element_size()
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    bound_ms = 1e3 * max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    rec = kb.bench_attention(q, k, v)
+    kernel_ms, plain_ms, library_ms = rec["ms"], rec["plain_ms"], \
+        rec["library_ms"]
+    bound_ms, bound_by, flops = rec["bound_ms"], rec["bound_by"], rec["flops"]
     log(f"  q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal: "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+        f"{flops / 1e9:.2f} GFLOP, {rec['bytes'] / 1e6:.1f} MB")
     log(f"  max_abs_err {main_err:.3e}")
     log(f"  kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
         f"library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by})")
@@ -489,28 +536,20 @@ def main() -> int:
         raise AssertionError(f"ssd_scan disagrees at the serve shape: "
                              f"{ssd_err} (max |plain| {ssd_scale})")
     del out, want
-    ssd_ms = cuda_ms(lambda: ssd.ssd_scan_fwd(x, dA, Bm, Cm), iters=50)
-    ssd_plain_ms = cuda_ms(
-        lambda: ssd_chunked_ref(x, dA, Bm, Cm, chunk=ssd.CHUNK), iters=5,
-        warmup=1)
-    # the chunk-64 algorithm's products per chunk: C B^T and (.)X over the
-    # lower triangle the causal mask keeps, C h and B^T X in full; bytes:
-    # each input read once, y written once
+    if {"BH": BH, "S": S, "P": P, "N": N} != kb.SSD_SHAPE:
+        raise AssertionError(f"the bench's SSD shape {kb.SSD_SHAPE} is not "
+                             f"the serving shape")
+    rec = kb.bench_ssd(x, dA, Bm, Cm)
+    ssd_ms, ssd_plain_ms = rec["ms"], rec["plain_ms"]
+    ssd_bound_ms, ssd_bound_by = rec["bound_ms"], rec["bound_by"]
     c = ssd.CHUNK
-    tri = c * (c + 1) // 2
-    ssd_flops = 2 * BH * (S // c) * (tri * (N + P) + 2 * c * N * P)
-    ssd_bytes = sum(t.numel() * t.element_size() for t in (x, dA, Bm, Cm)) \
-        + x.numel() * x.element_size()
-    t_ops, t_bytes = ssd_flops / H100_BF16_FLOPS, ssd_bytes / H100_BYTES_PER_S
-    ssd_bound_ms = 1e3 * max(t_ops, t_bytes)
-    ssd_bound_by = "operations" if t_ops >= t_bytes else "bytes"
     log(f"  xdt {tuple(x.shape)} B/C {tuple(Bm.shape)} bf16, dA f32, chunk "
-        f"{c}: {ssd_flops / 1e9:.2f} GFLOP, {ssd_bytes / 1e6:.1f} MB")
+        f"{c}: {rec['flops'] / 1e9:.2f} GFLOP, {rec['bytes'] / 1e6:.1f} MB")
     log(f"  max_abs_err {ssd_err:.3e} (max |plain| {ssd_scale:.2f})")
     log(f"  kernel_ms {ssd_ms:.4f}  plain_ms {ssd_plain_ms:.4f}  "
         f"library_ms null (no single PyTorch call computes the SSD scan)  "
         f"bound_ms {ssd_bound_ms:.4f} ({ssd_bound_by})")
-    log(f"  kernel {ssd_bytes / ssd_ms / 1e6:.1f} GB/s, "
+    log(f"  kernel {rec['bytes'] / ssd_ms / 1e6:.1f} GB/s, "
         f"{100 * ssd_bound_ms / ssd_ms:.1f}% of bound")
     ssd_shape = {"xdt": [BH, S, P], "B": [BH, S, N], "dtype": "bfloat16",
                  "chunk": c}
@@ -556,7 +595,85 @@ def main() -> int:
         f"(tol {MAMBA_PATH_TOL})")
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 11. the result
+    # ---------------------- 11. fused GEMM epilogues against plain versions
+    t0 = phase("11. fused GEMM epilogues vs their plain versions")
+    gemm_spec = [  # name, M, K, N, kind, kernels
+        ("jax_sweep_1", 128, 64, 256, "normal", GEMM_KERNELS),
+        ("jax_sweep_2_ragged", 200, 96, 256, "normal", GEMM_KERNELS),
+        ("jax_sweep_3", 64, 128, 512, "normal", GEMM_KERNELS),
+        ("jax_norm_ragged_k", 96, 100, 128, "normal", GEMM_KERNELS),
+        ("ragged_n1000_cl1", 200, 100, 1000, "normal", GEMM_KERNELS),
+        ("ragged_cl2", 33, 40, 1032, "normal", GEMM_KERNELS),
+        ("cl4", 64, 64, 4096, "normal", GEMM_KERNELS),
+        ("ragged_cl8", 17, 72, 4104, "normal", GEMM_KERNELS),
+        ("cl16", 48, 64, 16384, "normal", GEMM_KERNELS),
+        ("m1_cloud", 1, 128, 16384, "normal", GEMM_KERNELS),
+        ("m4_cloud", 4, 128, 16384, "normal", GEMM_KERNELS),
+        ("softmax_max_in_last_slice", 8, 64, 16384, "spike",
+         ("gemm_softmax",)),
+        ("layernorm_mean_1e3", 32, 32, 4096, "mean_1e3",
+         ("gemm_layernorm",)),
+    ]
+    gemm_cases = []
+
+    def gemm_case(label, inputs, name):
+        err, scale, tol, ok = gemm_check(name, *inputs)
+        cl = ge.cluster_size(inputs[1].shape[1])
+        log(f"  {name:14s} {label:36s} cluster {cl:2d}  max_abs_err "
+            f"{err:.3e}  max|plain| {scale:.3g}  tol {tol:.3g}  "
+            f"{'ok' if ok else 'FAIL'}")
+        gemm_cases.append({"kernel": name, "case": label, "cluster": cl,
+                           "max_abs_err": err, "max_abs_plain": scale,
+                           "tol": tol})
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"in {label}: {err} > {tol}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, M, K, N, data, names in gemm_spec:
+            inputs = gemm_inputs(gen, M, K, N, dtype, data)
+            for name in names:
+                gemm_case(f"{label}_{str(dtype)[6:]}", inputs, name)
+    # the largest paper shape, three times each: a missing cluster barrier
+    # shows only now and then
+    inputs = gemm_inputs(gen, 4096, 4096, 16384, torch.bfloat16)
+    for name in GEMM_KERNELS:
+        for rep in range(3):
+            gemm_case(f"paper_4096x16384x4096_bf16_run{rep}", inputs, name)
+    del inputs
+    torch.cuda.empty_cache()
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ 12. the kernel bench
+    t0 = phase("12. kernel bench (repro_torch.launch.kernel_bench.run_all)")
+    for fn in counters.values():
+        fn.launches = 0
+    bench = kb.run_all("cuda", attention_shape=None, ssd_shape=None)
+    torch.cuda.synchronize()
+    bench_launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"  launches {bench_launches}  bench calls {bench['calls']}")
+    want_launches = {k: bench["calls"].get(k, 0) for k in counters}
+    if bench_launches != want_launches \
+            or 0 in (bench_launches[k] for k in GEMM_KERNELS):
+        raise AssertionError(f"launches {bench_launches} != the bench's "
+                             f"calls {bench['calls']}")
+    for rec in bench["records"]:
+        name = rec["name"]
+        tol = ge.tolerance(name[len("gemm_"):], torch.bfloat16,
+                           rec["max_abs_plain"])
+        if not rec["max_abs_err"] <= tol:
+            raise AssertionError(f"bench: {name} {rec['shape']} error "
+                                 f"{rec['max_abs_err']} > {tol}")
+    gemm_main = {r["name"]: r for r in bench["records"]
+                 if r["name"] in GEMM_KERNELS
+                 and (r["shape"]["M"], r["shape"]["N"], r["shape"]["K"])
+                 == (4096, 16384, 4096)}
+    if sorted(gemm_main) != sorted(GEMM_KERNELS):
+        raise AssertionError(f"the bench timed {sorted(gemm_main)} at "
+                             f"(4096, 16384, 4096)")
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 13. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -593,9 +710,31 @@ def main() -> int:
         "shape": ssd_shape,
         "build_s": build_s["ssd_scan"],
         "cases": ssd_cases,
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gemm_epilogue.cu",
+        "replaces": "src/repro/kernels/gemm_softmax.py:27"
+        if name == "gemm_softmax" else "src/repro/kernels/gemm_layernorm.py:26",
+        "tpu_kernel": "repro/kernels/gemm_softmax.py::_kernel"
+        if name == "gemm_softmax" else "repro/kernels/gemm_layernorm.py::_kernel",
+        "launches": bench_launches[name],
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+        "library": rec["library"],
+        "cluster": rec["cluster"],
+        "shape": rec["shape"],
+        "to_library": rec["to_library"],
+        "build_s": build_s["gemm_epilogue"],
+        "cases": [c for c in gemm_cases if c["kernel"] == name],
+    } for name, rec in gemm_main.items()]
     log(json.dumps({"card": smi, "serve_glm4_9b": serve,
-                    "serve_mamba2_130m": mserve}))
+                    "serve_mamba2_130m": mserve,
+                    "kernel_bench": bench["records"]}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(smi)

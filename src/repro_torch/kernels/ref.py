@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["attention_ref", "ssd_ref", "ssd_chunked_ref"]
+__all__ = ["attention_ref", "gemm_softmax_ref", "gemm_layernorm_ref",
+           "gemm_rmsnorm_ref", "ssd_ref", "ssd_chunked_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,6 +50,33 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)   # fully-masked rows
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def gemm_softmax_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """softmax(a @ b) over the last axis; math in f32, output in a.dtype."""
+    c = a.float() @ b.float()
+    return torch.softmax(c, dim=-1).to(a.dtype)
+
+
+def gemm_layernorm_ref(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, *, eps: float = 1e-6
+                       ) -> torch.Tensor:
+    """LayerNorm(a @ b) * gamma + beta over the last axis, with the centred
+    variance; math in f32, output in a.dtype."""
+    c = a.float() @ b.float()
+    mu = c.mean(dim=-1, keepdim=True)
+    var = ((c - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (c - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(a.dtype)
+
+
+def gemm_rmsnorm_ref(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor,
+                     *, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm(a @ b) * gamma over the last axis; math in f32, output in
+    a.dtype."""
+    c = a.float() @ b.float()
+    ms = (c ** 2).mean(dim=-1, keepdim=True)
+    return (c * torch.rsqrt(ms + eps) * gamma.float()).to(a.dtype)
 
 
 def ssd_ref(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,

@@ -1,5 +1,5 @@
-"""The FlashAttention and SSD kernels on the card against their plain
-versions.
+"""The FlashAttention, SSD and fused GEMM-epilogue kernels on the card
+against their plain versions.
 
 These tests need an NVIDIA Hopper card (marker ``cuda``) and skip
 elsewhere; on the card run them with
@@ -9,14 +9,23 @@ Tolerances: FlashAttention 2e-5 in f32, 3e-2 in bf16 (``TOL`` of
 tests/test_kernels.py); SSD 2e-3 in f32 (tests/test_kernels.py's SSD bar)
 and, in bf16, 1e-2 of the output's largest magnitude (both sides round y
 to bf16, one step of which is up to 2^-7 of the largest |y|; the kernel
-rounds two of its product operands to bf16).
+rounds two of its product operands to bf16); the fused GEMM epilogues
+those of ``gemm_epilogue.tolerance``: softmax 2e-5 and the norms 1e-4 in
+f32, and all three 1e-2 of the output's largest magnitude in bf16 (both
+sides round the output to bf16, one step of which is up to 2^-7 of the
+largest |y|; relative, because softmax outputs near 1/N would pass an
+absolute bar as zeros).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gemm_epilogue as ge
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels import ssd
+from repro_torch.kernels.gemm_layernorm import gemm_layernorm, gemm_rmsnorm
+from repro_torch.kernels.gemm_softmax import gemm_softmax
 from repro_torch.kernels.ref import attention_ref, ssd_chunked_ref
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -151,3 +160,101 @@ def test_ssd_kernel_raises_instead_of_falling_back(hopper):
     with pytest.raises(ValueError, match="16-byte aligned"):
         ssd.ssd_scan_fwd(x, dA, B[:, :, 1:17], C[:, :, 1:17])
     assert ssd.ssd_scan_fwd.launches == before
+
+
+GEMM_KERNELS = ("softmax", "layernorm", "rmsnorm")
+
+
+def _gemm_inputs(gen, M, K, N, dtype, kind="normal"):
+    """a (M, K), b (K, N) in ``dtype``, f32 gamma/beta (N,).  ``spike``:
+    column N - 1 of C exceeds the rest by about 30, so each row's max lies
+    in the last CTA's slice.  ``mean_1e3``: rows of C are 1000 plus a sum of
+    31 products of {-1, 0, 1} and {-0.25, 0, 0.25}, exact in both dtypes."""
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+    if kind == "mean_1e3":
+        a = torch.randint(-1, 2, (M, K), generator=gen, device="cuda")
+        b = torch.randint(-1, 2, (K, N), generator=gen, device="cuda") * 0.25
+        a[:, 0], b[0] = 1, 1000.0
+        a, b = a.to(dtype), b.to(dtype)
+    else:
+        a, b = rand(M, K).to(dtype), rand(K, N, scale=0.2).to(dtype)
+        if kind == "spike":
+            a[:, 0], b[0, N - 1] = 1, 30.0
+    return a, b, rand(N), rand(N)
+
+
+def _gemm_check(kernel, a, b, g, be):
+    fn = {"softmax": gemm_softmax, "layernorm": gemm_layernorm,
+          "rmsnorm": gemm_rmsnorm}[kernel]
+    before = fn.launches
+    if kernel == "softmax":
+        out, want = fn(a, b), ref.gemm_softmax_ref(a, b)
+    elif kernel == "layernorm":
+        out, want = fn(a, b, g, be), ref.gemm_layernorm_ref(a, b, g, be)
+    else:
+        out, want = fn(a, b, g), ref.gemm_rmsnorm_ref(a, b, g)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.dtype == a.dtype and out.shape == want.shape
+    assert torch.isfinite(out).all()
+    err = (out.float() - want.float()).abs().max()
+    tol = ge.tolerance(kernel, a.dtype, float(want.float().abs().max()))
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (128, 64, 256), (200, 96, 256), (64, 128, 512), (96, 100, 128),  # JAX
+    (200, 100, 1000),                  # ragged M/K/N, cluster 1
+    (33, 40, 1032),                    # cluster 2, a ragged last slice
+    (64, 64, 4096),                    # cluster 4
+    (17, 72, 4104),                    # cluster 8, a ragged last slice
+    (48, 64, 16384),                   # cluster 16
+    (1, 128, 16384), (4, 128, 16384),  # the paper's M 1 and M 4
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", GEMM_KERNELS)
+def test_gemm_epilogue_matches_plain_version(hopper, M, K, N, dtype, kernel):
+    _gemm_check(kernel, *_gemm_inputs(hopper, M, K, N, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_softmax_max_in_the_last_slice(hopper, dtype):
+    """The max must be the cluster's row max, not the CTA's."""
+    a, b, g, be = _gemm_inputs(hopper, 8, 64, 16384, dtype, "spike")
+    assert ge.cluster_size(16384) == 16
+    _gemm_check("softmax", a, b, g, be)
+    assert (gemm_softmax(a, b)[:, -1].float() > 0.99).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_layernorm_rows_of_mean_1e3(hopper, dtype):
+    """The centred variance: E[c^2] - mean^2 in f32 loses these rows."""
+    _gemm_check("layernorm", *_gemm_inputs(hopper, 32, 32, 4096, dtype,
+                                           "mean_1e3"))
+
+
+@pytest.mark.parametrize("kernel", GEMM_KERNELS)
+def test_gemm_epilogue_largest_shape_three_times(hopper, kernel):
+    """A missing cluster barrier shows only now and then."""
+    inputs = _gemm_inputs(hopper, 4096, 4096, 16384, torch.bfloat16)
+    for _ in range(3):
+        _gemm_check(kernel, *inputs)
+
+
+def test_gemm_epilogue_clusters_can_be_placed(hopper):
+    assert ge.slice_columns() == ge.SLICE_COLUMNS
+    for dtype in (torch.float32, torch.bfloat16):
+        for epi in ge.EPILOGUES:
+            for cl in ge.CLUSTER_SIZES:
+                assert ge.max_active_clusters(epi, dtype, cl) > 0
+
+
+def test_gemm_epilogue_raises_instead_of_falling_back(hopper):
+    a = torch.randn(4, 32, device="cuda")
+    before = gemm_softmax.launches
+    with pytest.raises(ValueError, match="does not fit 16 slices"):
+        gemm_softmax(a, torch.randn(32, 16392, device="cuda"))
+    with pytest.raises(TypeError, match="share one dtype"):
+        gemm_softmax(a, torch.randn(32, 64, device="cuda").bfloat16())
+    assert gemm_softmax.launches == before

@@ -9,11 +9,12 @@ Needs one H100 (sm_90), ``nvcc`` under ``$CUDA_HOME/bin`` or
 failure ends the run with a non-zero exit:
 
 1. device: the card's name and power limit, capability (9, 0), TF32 off;
-2. build: the FlashAttention, SSD and fused GEMM-epilogue kernels from
-   ``csrc/`` into ``build/torch_kernels``, one ``nvcc`` for each source,
-   started together; registers, shared memory and spills of every
-   instance, and ``cudaOccupancyMaxActiveClusters`` of every GEMM-epilogue
-   instance at every cluster size (each must be > 0);
+2. build: the FlashAttention, SSD, fused GEMM-epilogue and streamed GEMM
+   kernels from ``csrc/`` into ``build/torch_kernels``, one ``nvcc`` for
+   each source, started together; registers, shared memory and spills of
+   every instance, ``cudaOccupancyMaxActiveClusters`` of every
+   GEMM-epilogue instance at every cluster size (each must be > 0), and
+   the streamed GEMM's tiles (must equal the wrapper's ``TILES``);
 3. FlashAttention against its plain version ``attention_ref`` on the card,
    in f32 (tolerance 2e-5) and bf16 (3e-2), over GQA, ragged, Sq < Skv,
    window, fully-masked-row and head-dim cases;
@@ -57,7 +58,25 @@ failure ends the run with a non-zero exit:
     other two kernels), with every kernel's count set to 0 just before and
     read just after: each kernel's launches equal the bench's calls to it
     (no fallback), and each output is within the bar of phase 11;
-13. a JSON line of the kernels, then ``{"ok": true, ...}`` as the last line.
+13. the streamed GEMM against its plain version ``streamed_gemm_ref`` on
+    the card, both buffer modes, f32 (atol 2e-4, rtol 2e-5, the JAX test's
+    bar, w scaled 0.2 as there) and bf16 (1e-2 of the output's largest
+    magnitude), within ``allgather_gemm.tolerance``: the JAX test shapes,
+    the three ``BUDGET_SHAPES``, ragged M, N and K, chunks that are not a
+    multiple of the k-tile or smaller than it, and ``chunks=1``; the two
+    modes equal bit for bit; and the refusals (chunks that do not divide K,
+    ``buffers=3``, misaligned N) raise on the card and launch nothing;
+14. the overlap bench (``repro_torch.launch.overlap_bench.run_all``) in a
+    one-rank NCCL group (``mesh.host_group``), with the streamed GEMM's
+    count set to 0 just before and read just after (launches == the bench's
+    calls): ``allgather_gemm`` at glm4-9b's MLP input projection, (M, K, N)
+    = (4096, 4096, 13696) bf16, against ``allgather_gemm_reference``; both
+    buffer modes timed at that shape (``chunks=4``) and at the three
+    ``BUDGET_SHAPES`` in f32, beside the bound, the plain version and
+    ``torch.matmul``; the two modes within 1e-3 of each other; the hidden
+    fraction degenerate (one rank); the synthetic overlap recovery within
+    0.01 and 0.10;
+15. a JSON line of the kernels, then ``{"ok": true, ...}`` as the last line.
 
 Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
 """
@@ -92,7 +111,8 @@ SSD_BF16_TOL = 1e-2
 # H100, while a 1% gain error in the scan's output moves them by 4e-2
 # (tests/test_torch_ssm.py::test_mamba2_logit_bar_catches_scan_faults).
 MAMBA_PATH_TOL = 1e-2
-KERNEL_SOURCES = ("flash_attention", "ssd_scan", "gemm_epilogue")
+KERNEL_SOURCES = ("flash_attention", "ssd_scan", "gemm_epilogue",
+                  "streamed_gemm")
 GEMM_KERNELS = ("gemm_softmax", "gemm_layernorm", "gemm_rmsnorm")
 
 
@@ -324,6 +344,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm_epilogue as ge
     from repro_torch.kernels import ssd
+    from repro_torch.kernels.allgather_gemm import TILES, streamed_gemm, tile
+    from repro_torch.kernels.allgather_gemm import tolerance as ag_tolerance
     from repro_torch.kernels.gemm_layernorm import (gemm_layernorm,
                                                      gemm_rmsnorm)
     from repro_torch.kernels.gemm_softmax import gemm_softmax
@@ -333,7 +355,7 @@ def main() -> int:
     counters = {"flash_attention": fa.flash_attention_fwd,
                 "ssd_scan": ssd.ssd_scan_fwd, "gemm_softmax": gemm_softmax,
                 "gemm_layernorm": gemm_layernorm,
-                "gemm_rmsnorm": gemm_rmsnorm}
+                "gemm_rmsnorm": gemm_rmsnorm, "streamed_gemm": streamed_gemm}
     t_all = time.perf_counter()
     # ------------------------------------------------------------ 1. device
     t0 = phase("1. device")
@@ -377,6 +399,13 @@ def main() -> int:
             if min(placed.values()) <= 0:
                 raise AssertionError(f"gemm_epilogue {epi} {dtype}: a "
                                      f"cluster cannot be placed: {placed}")
+    for dtype, want_tile in TILES.items():
+        log(f"  streamed_gemm {str(dtype)[6:]}: tile {tile(dtype)} (rows, "
+            f"columns, k-tile)")
+        if tile(dtype) != want_tile:
+            raise AssertionError(f"streamed_gemm.cu's {dtype} tile is "
+                                 f"{tile(dtype)}, the wrapper assumes "
+                                 f"{want_tile}")
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------- 3. kernel against its plain version
@@ -648,7 +677,8 @@ def main() -> int:
     t0 = phase("12. kernel bench (repro_torch.launch.kernel_bench.run_all)")
     for fn in counters.values():
         fn.launches = 0
-    bench = kb.run_all("cuda", attention_shape=None, ssd_shape=None)
+    bench = kb.run_all("cuda", attention_shape=None, ssd_shape=None,
+                       streamed_shape=None)
     torch.cuda.synchronize()
     bench_launches = {k: fn.launches for k, fn in counters.items()}
     log(f"  launches {bench_launches}  bench calls {bench['calls']}")
@@ -673,7 +703,111 @@ def main() -> int:
                              f"(4096, 16384, 4096)")
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 13. the result
+    # ----------------- 13. the streamed GEMM against its plain version
+    t0 = phase("13. streamed GEMM vs streamed_gemm_ref")
+    from repro_torch.kernels.allgather_gemm import BUDGET_SHAPES
+    from repro_torch.kernels.ref import streamed_gemm_ref
+    sg_spec = [  # name, M, K, N, chunks
+        ("jax_1", 64, 256, 128, 8), ("jax_2", 128, 512, 256, 4),
+        ("jax_3_tiny_m", 8, 128, 128, 2),
+        *[(f"budget_{M}x{K}x{N}x{c}", M, K, N, c)
+          for M, K, N, c in BUDGET_SHAPES],
+        ("ragged_mnk", 200, 200, 136, 1),       # K 200: a ragged k-tile
+        ("ragged_chunk_40", 72, 160, 264, 4),   # kc 40 = 32 + 8 = 2 x 16 + 8
+        ("chunk_48", 96, 240, 128, 5),          # kc 48 = 32 + 16 (bf16)
+        ("chunk_below_k_tile", 33, 64, 40, 8),  # kc 8
+        ("chunks_1", 96, 256, 192, 1),
+    ]
+    sg_cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, M, K, N, chunks in sg_spec:
+            x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(K, N, generator=gen, device="cuda")
+                 * 0.2).to(dtype)
+            want = streamed_gemm_ref(x, w, chunks=chunks)
+            outs = {nbuf: streamed_gemm(x, w, chunks=chunks, buffers=nbuf)
+                    for nbuf in (2, 1)}
+            torch.cuda.synchronize()
+            want_abs = want.float().abs()
+            atol, rtol = ag_tolerance(dtype, float(want_abs.max()))
+            errs = {nbuf: float((o.float() - want.float()).abs().max())
+                    for nbuf, o in outs.items()}
+            ok = all(o.dtype == dtype and o.shape == want.shape
+                     and bool(((o.float() - want.float()).abs()
+                               <= atol + rtol * want_abs).all())
+                     for o in outs.values())
+            same = torch.equal(outs[1], outs[2])
+            label = f"{name}_{str(dtype)[6:]}"
+            log(f"  {label:30s} max_abs_err buffers=2 {errs[2]:.3e} "
+                f"buffers=1 {errs[1]:.3e}  max|plain| "
+                f"{float(want_abs.max()):.3g}  atol {atol:.3g} rtol {rtol:g}"
+                f"  modes equal {same}  {'ok' if ok and same else 'FAIL'}")
+            sg_cases.append({"case": label, "M": M, "K": K, "N": N,
+                             "chunks": chunks, "max_abs_err": errs[2],
+                             "max_abs_err_buffers1": errs[1],
+                             "max_abs_plain": float(want_abs.max()),
+                             "atol": atol, "rtol": rtol,
+                             "modes_equal": same})
+            if not (ok and same):
+                raise AssertionError(f"streamed_gemm disagrees with "
+                                     f"streamed_gemm_ref in {label}: {errs}"
+                                     f" (modes equal: {same})")
+    refusals = [  # x shape, w shape, dtype, chunks, buffers, message
+        ((16, 100), (100, 128), torch.float32, 3, 2, "must divide"),
+        ((16, 128), (128, 128), torch.float32, 2, 3, "buffers"),
+        ((16, 128), (128, 132), torch.bfloat16, 2, 2, "16-byte aligned"),
+    ]
+    before = streamed_gemm.launches
+    for xs, ws, dtype, chunks, nbuf, msg in refusals:
+        x = torch.randn(*xs, device="cuda").to(dtype)
+        w = torch.randn(*ws, device="cuda").to(dtype)
+        try:
+            streamed_gemm(x, w, chunks=chunks, buffers=nbuf)
+        except ValueError as e:
+            if msg not in str(e):
+                raise AssertionError(f"refusal of {xs} x {ws} chunks={chunks}"
+                                     f" buffers={nbuf}: {e}") from e
+            log(f"  refused on the card: {e}")
+        else:
+            raise AssertionError(f"streamed_gemm took {xs} x {ws} "
+                                 f"chunks={chunks} buffers={nbuf}")
+    if streamed_gemm.launches != before:
+        raise AssertionError("a refused streamed_gemm call launched")
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------- 14. the overlap bench
+    t0 = phase("14. overlap bench (repro_torch.launch.overlap_bench.run_all)")
+    from repro_torch.launch import overlap_bench as ob
+    for fn in counters.values():
+        fn.launches = 0
+    overlap = ob.run_all("cuda")
+    torch.cuda.synchronize()
+    overlap_launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"  launches {overlap_launches}  bench calls {overlap['calls']}")
+    want_launches = {k: overlap["calls"].get(k, 0) for k in counters}
+    if overlap_launches != want_launches \
+            or overlap_launches["streamed_gemm"] == 0:
+        raise AssertionError(f"launches {overlap_launches} != the bench's "
+                             f"calls {overlap['calls']}")
+    ag_rec = overlap["allgather_gemm"]
+    if ag_rec["participants"] != 1 or ag_rec["backend"] != "nccl" \
+            or not ag_rec["ok"]:
+        raise AssertionError(f"allgather_gemm through one NCCL rank: "
+                             f"{ag_rec}")
+    if not overlap["fused_gather_gemm"]["degenerate"]:
+        raise AssertionError("one rank must give a degenerate hidden "
+                             "fraction")
+    if not overlap["ok"]:
+        raise AssertionError(f"the overlap bench failed a bar: "
+                             f"{json.dumps(overlap)}")
+    sg_main = overlap["double_buffer"][0]
+    M, K, N, chunks = kb.STREAMED_GEMM_SHAPE
+    if sg_main["shape"] != {"M": M, "K": K, "N": N, "chunks": chunks,
+                            "dtype": "bfloat16"}:
+        raise AssertionError(f"the bench's first shape is {sg_main['shape']}")
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 15. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -731,10 +865,32 @@ def main() -> int:
         "to_library": rec["to_library"],
         "build_s": build_s["gemm_epilogue"],
         "cases": [c for c in gemm_cases if c["kernel"] == name],
-    } for name, rec in gemm_main.items()]
+    } for name, rec in gemm_main.items()] + [{
+        "name": "streamed_gemm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/streamed_gemm.cu",
+        "replaces": "src/repro/kernels/allgather_gemm.py:70",
+        "tpu_kernel": "repro/kernels/allgather_gemm.py::_kernel",
+        "launches": overlap_launches["streamed_gemm"],
+        "max_abs_err": sg_main["max_abs_err"],
+        "ms": sg_main["ms"],
+        "ms_buffers1": sg_main["ms_buffers1"],
+        "speedup": sg_main["speedup"],
+        "plain_ms": sg_main["plain_ms"],
+        "bound_ms": sg_main["bound_ms"],
+        "bound_by": sg_main["bound_by"],
+        "library_ms": sg_main["library_ms"],
+        "library": sg_main["library"],
+        "shape": sg_main["shape"],
+        "chunks": chunks,
+        "to_library": sg_main["to_library"],
+        "build_s": build_s["streamed_gemm"],
+        "cases": sg_cases,
+    }]
     log(json.dumps({"card": smi, "serve_glm4_9b": serve,
                     "serve_mamba2_130m": mserve,
-                    "kernel_bench": bench["records"]}))
+                    "kernel_bench": bench["records"],
+                    "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(smi)

@@ -1,0 +1,168 @@
+"""Streamed all-gather GEMM: the hand-written Hopper kernel's wrapper and
+its ``torch.distributed`` entry.
+
+Port of ``repro/kernels/allgather_gemm.py``.  Two layers, as there:
+
+* :func:`streamed_gemm` computes ``x @ w`` with the contraction K streamed
+  in ``chunks`` chunks, one per gather shard, through one or two
+  shared-memory stages (``csrc/streamed_gemm.cu``; its header says how the
+  TPU kernel's whole-chunk VMEM slots and (M, N) accumulator became tiles,
+  and what bounds it on the card).  ``buffers=2`` loads the next k-tile
+  while the current one's products run; ``buffers=1`` is the serial
+  baseline that ``launch/overlap_bench.py`` compares it with.
+* :func:`allgather_gemm` gathers the K-sharded activation over a process
+  group (NCCL on the card, gloo on the CPU) and streams the result through
+  :func:`streamed_gemm` with one chunk per rank.
+
+Dispatch: tensors on the CPU take the plain ``streamed_gemm_ref``; tensors
+on a CUDA device launch the kernel or raise.  The checks run on both, in
+the JAX package's order and with its messages, then the card's alignment
+rule.  There is no backward, as the JAX kernel has none.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from .. import resolve_device
+from . import _build
+from .ref import allgather_gemm_reference, gather_columns, streamed_gemm_ref
+
+__all__ = ["streamed_gemm", "allgather_gemm", "allgather_gemm_reference",
+           "BUDGET_SHAPES", "TILES", "check", "tile", "tolerance"]
+
+# The (M, K, N, chunks) configurations the JAX package's tests and overlap
+# bench drive its kernel with (repro/kernels/allgather_gemm.py:57-61).
+BUDGET_SHAPES = (
+    (256, 4096, 512, 8),   # overlap_bench.measure_hidden_fraction scale
+    (128, 1024, 256, 8),   # overlap_bench.measure_double_buffer
+    (128, 512, 256, 4),    # test_kernels streamed-GEMM cases (largest)
+)
+# (rows, columns, k-tile depth) of a CTA's tile in the source, per dtype
+TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# sg_fwd(x, w, out, dtype, M, N, K, chunks, buffers, stream): pointers and
+# the stream as c_void_p, or ctypes would pass them as 32-bit ints
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("streamed_gemm")
+    lib.sg_fwd.argtypes = _ARGTYPES
+    lib.sg_fwd.restype = ctypes.c_int
+    lib.sg_tile.argtypes = [ctypes.c_int] * 2
+    lib.sg_tile.restype = ctypes.c_int
+    return lib
+
+
+def tile(dtype: torch.dtype) -> tuple:
+    """The source's (rows, columns, k-tile depth) for ``dtype``, read from
+    the built library (must equal ``TILES[dtype]``)."""
+    lib = _library()
+    return tuple(lib.sg_tile(_DTYPES[dtype], i) for i in range(3))
+
+
+def tolerance(dtype: torch.dtype, max_abs_plain: float
+              ) -> Tuple[float, float]:
+    """(atol, rtol) of the bar |kernel - plain| <= atol + rtol |plain|,
+    elementwise, for ``dtype``, given the plain output's largest magnitude.
+
+    f32: atol 2e-4, rtol 2e-5, tests/test_kernels.py's bar for the JAX
+    kernel (with w scaled 0.2 there): the same f32 products, summed in
+    another order.  bf16: 1e-2 of the largest |plain|, the bf16 bar of
+    ``gemm_epilogue.tolerance``: both sides round the f32 sum to bf16, and
+    two roundings of nearly equal values differ by at most one step, 2^-7
+    (0.78%) of the largest |y|."""
+    if dtype == torch.float32:
+        return 2e-4, 2e-5
+    if dtype == torch.bfloat16:
+        return 1e-2 * max_abs_plain, 0.0
+    raise TypeError(f"no bar for {dtype}")
+
+
+def check(x: torch.Tensor, w: torch.Tensor, chunks: int, buffers: int
+          ) -> None:
+    """Raise on anything the kernel does not take: the JAX kernel's checks
+    first, in its order and with its messages, then the card's."""
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"want x (M, K) and w (K, N); got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    M, K = x.shape
+    K2, N = w.shape
+    if K != K2:
+        raise ValueError(f"x has K={K} columns but w has K={K2} rows")
+    if K % chunks != 0:
+        raise ValueError(f"chunks={chunks} must divide K={K}")
+    if buffers not in (1, 2):
+        raise ValueError(f"buffers must be 1 or 2, got {buffers}")
+    if x.device != w.device:
+        raise ValueError(f"x and w on different devices: {x.device}, "
+                         f"{w.device}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must share one dtype of {list(_DTYPES)}, "
+                        f"got {x.dtype}, {w.dtype}")
+    if M < 1 or N < 1:
+        raise ValueError(f"empty input: M={M}, K={K}, N={N}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"x and w must be contiguous, got strides "
+                         f"{x.stride()}, {w.stride()}")
+    # cp.async moves 16 bytes: W's rows, and the start of every chunk of
+    # X's columns, must be 16-byte aligned
+    per16 = 16 // x.element_size()
+    kc = K // chunks
+    if N % per16 or kc % per16 or x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"rows must be 16-byte aligned: N={N} and "
+                         f"K/chunks={kc} must be multiples of {per16} for "
+                         f"{x.dtype}")
+    if -(-N // TILES[x.dtype][1]) > 65535:
+        raise ValueError(f"N={N} exceeds {TILES[x.dtype][1] * 65535} columns")
+
+
+def streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
+                  buffers: int = 2) -> torch.Tensor:
+    """x @ w with K streamed in ``chunks`` chunks through ``buffers`` (1 or
+    2) stages; x (M, K), w (K, N), f32 or bf16, K % chunks == 0 -> (M, N)
+    in x.dtype, accumulated in f32.
+
+    On CUDA tensors this launches the kernel and adds one to
+    ``streamed_gemm.launches``; on CPU tensors it returns the plain
+    ``streamed_gemm_ref``."""
+    check(x, w, chunks, buffers)
+    if x.device.type == "cpu":
+        return streamed_gemm_ref(x, w, chunks=chunks)
+    resolve_device(x.device)
+    M, K = x.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.sg_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                         _DTYPES[x.dtype], M, N, K, chunks, buffers, stream)
+    if err != 0:
+        raise RuntimeError(f"streamed_gemm kernel launch failed: CUDA error "
+                           f"{err}")
+    streamed_gemm.launches += 1
+    return out
+
+
+streamed_gemm.launches = 0
+
+
+def allgather_gemm(x_shard: torch.Tensor, w: torch.Tensor, *,
+                   group: Optional[dist.ProcessGroup] = None,
+                   buffers: int = 2) -> torch.Tensor:
+    """Gather the K-sharded activation ``x_shard`` (M, K/P) over ``group``
+    (the default group if None) along dim 1 in rank order, then contract
+    the gathered (M, K) with the replicated ``w`` (K, N) through
+    :func:`streamed_gemm`, one chunk per rank.  Equals
+    :func:`allgather_gemm_reference` up to the f32 summation order."""
+    xg = gather_columns(x_shard, group)
+    return streamed_gemm(xg, w, chunks=dist.get_world_size(group),
+                         buffers=buffers)

@@ -11,10 +11,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 __all__ = ["attention_ref", "gemm_softmax_ref", "gemm_layernorm_ref",
-           "gemm_rmsnorm_ref", "ssd_ref", "ssd_chunked_ref"]
+           "gemm_rmsnorm_ref", "ssd_ref", "ssd_chunked_ref",
+           "streamed_gemm_ref", "gather_columns", "allgather_gemm_reference"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -150,3 +152,44 @@ def ssd_chunked_ref(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     y_inter = torch.einsum("bzcn,bznp,bzc->bzcp", Cf, prev, torch.exp(cs))
     y = (y_intra + y_inter).reshape(BH, S, P)
     return y.to(xdt.dtype)
+
+
+def streamed_gemm_ref(x: torch.Tensor, w: torch.Tensor, *,
+                      chunks: int) -> torch.Tensor:
+    """x @ w with K in ``chunks`` equal chunks: the f32 sum over c of
+    x[:, c kc:(c+1) kc] @ w[c kc:(c+1) kc], cast to x.dtype, as the TPU
+    kernel accumulates its chunk stream in an f32 scratch.  x (M, K),
+    w (K, N); K % chunks == 0."""
+    K = x.shape[1]
+    kc = K // chunks
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for c in range(chunks):
+        acc += x[:, c * kc:(c + 1) * kc].float() \
+            @ w[c * kc:(c + 1) * kc].float()
+    return acc.to(x.dtype)
+
+
+def gather_columns(x_shard: torch.Tensor,
+                   group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """All-gather ``x_shard`` (M, K/P) over ``group`` along dim 1 in rank
+    order: (M, K), JAX's ``all_gather(axis=1, tiled=True)``.
+
+    The list form of ``all_gather`` and a ``cat`` along dim 1: it takes
+    every dtype on both gloo and NCCL, where ``all_gather_into_tensor``
+    gathers only along dim 0 (a transpose and a copy each way to tile
+    dim 1) and is deprecated in newer releases."""
+    parts = [torch.empty_like(x_shard)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x_shard.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+def allgather_gemm_reference(x_shard: torch.Tensor, w: torch.Tensor, *,
+                             group: Optional[dist.ProcessGroup] = None
+                             ) -> torch.Tensor:
+    """Unfused oracle of ``allgather_gemm``: gather x_shard (M, K/P) along
+    dim 1 over ``group``, then one f32 product with w (K, N), cast to
+    x_shard.dtype."""
+    xg = gather_columns(x_shard, group)
+    return (xg.float() @ w.float()).to(x_shard.dtype)

@@ -17,7 +17,10 @@ there is one (a yardstick the port never calls):
   plan path's kernel shapes.  Their library is the unfused pair the paper
   compares against, ``torch.matmul`` and then ``torch.softmax``,
   ``F.layer_norm`` or ``F.rms_norm``, with C written to device memory
-  between them.
+  between them;
+- the streamed GEMM (``allgather_gemm.streamed_gemm``) at glm4-9b's MLP
+  input projection at the serving prefill, bf16, ``chunks=4``, in both
+  buffer modes; library ``torch.matmul``.
 
 Each line gives the kernel's ms, the bound ms and what sets it, the plain
 ms, the library ms, the kernel-to-library ratio and the kernel's fixed
@@ -33,6 +36,7 @@ The timing and bound helpers here are the ones ``chip_smoke.py`` uses.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -45,13 +49,16 @@ from repro_torch import resolve_device
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm_epilogue as ge
 from repro_torch.kernels import ops, ssd
-from repro_torch.kernels.ref import attention_ref, ssd_chunked_ref
+from repro_torch.kernels.allgather_gemm import (TILES, streamed_gemm,
+                                                tolerance)
+from repro_torch.kernels.ref import (attention_ref, ssd_chunked_ref,
+                                     streamed_gemm_ref)
 
 __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
-           "ATTENTION_SHAPE", "SSD_SHAPE", "cuda_ms", "bound", "nbytes",
-           "visible_pairs", "attention_flops", "ssd_flops", "gemm_flops",
-           "bench_attention", "bench_ssd", "bench_gemm_epilogue", "run_all",
-           "main"]
+           "ATTENTION_SHAPE", "SSD_SHAPE", "STREAMED_GEMM_SHAPE", "cuda_ms",
+           "bound", "nbytes", "visible_pairs", "attention_flops",
+           "ssd_flops", "gemm_flops", "bench_attention", "bench_ssd",
+           "bench_gemm_epilogue", "bench_streamed_gemm", "run_all", "main"]
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet, dense): bf16 on the
 # tensor cores; f32 on the CUDA cores (the kernels' f32 paths use no TF32)
@@ -69,6 +76,10 @@ PAPER_GEMM_SHAPES: List[Tuple[int, int, int]] = [
 ATTENTION_SHAPE = {"B": 4, "Hq": 32, "Hkv": 2, "S": 1024, "D": 128}
 # mamba2-130m prefill scan at batch 8 x 24 heads, prompt 1024
 SSD_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128}
+# (M, K, N, chunks): glm4-9b's MLP input projection x @ wi (d_model 4096,
+# d_ff 13696) at the serving prefill of batch 4 x 1024 tokens, the
+# activation sharded 4 ways along d_model as a 4-rank layer gathers it
+STREAMED_GEMM_SHAPE = (4096, 4096, 13696, 4)
 GEMM_ENTRIES = ("gemm_softmax", "gemm_layernorm", "gemm_rmsnorm")
 
 
@@ -245,12 +256,49 @@ def bench_gemm_epilogue(entry: str, a: torch.Tensor, b: torch.Tensor,
                    nbytes(a, b, *vecs) + M * N * a.element_size(), a.dtype)
 
 
+def bench_streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
+                        calls: Optional[Counter] = None) -> Dict:
+    """The streamed GEMM on x (M, K), w (K, N) in both buffer modes: ``ms``
+    with ``buffers=2``, ``ms_buffers1`` with ``buffers=1``, their largest
+    difference (``buffer_agreement_err``), and the error of ``buffers=2``
+    against ``streamed_gemm_ref`` with whether every element is within
+    ``allgather_gemm.tolerance`` (``tol``: atol, rtol; ``within_tol``)."""
+    calls = Counter() if calls is None else calls
+    kernel2, kernel1 = [_counted(calls, "streamed_gemm", functools.partial(
+        streamed_gemm, x, w, chunks=chunks, buffers=nbuf))
+        for nbuf in (2, 1)]
+    plain = functools.partial(streamed_gemm_ref, x, w, chunks=chunks)
+    library = functools.partial(torch.matmul, x, w)
+    M, K = x.shape
+    N = w.shape[1]
+    bm, bn, bk = TILES[x.dtype]
+    rec = {"name": "streamed_gemm", "shape": {
+        "M": M, "K": K, "N": N, "chunks": chunks, "dtype": str(x.dtype)[6:]},
+        "tile": f"{bm} x {bn}, k-tile {bk}", "library": "torch.matmul"}
+    out2, out1, want = kernel2(), kernel1(), plain()
+    rec.update(_timed(kernel2, plain, library, x.device, 20, 3))
+    rec["ms_buffers1"] = cuda_ms(kernel1, 20) \
+        if x.device.type == "cuda" else None
+    rec["buffer_agreement_err"] = float(
+        (out2.float() - out1.float()).abs().max())
+    want_abs = want.float().abs()
+    atol, rtol = tolerance(x.dtype, float(want_abs.max()))
+    rec["tol"] = [atol, rtol]
+    rec["within_tol"] = bool(((out2.float() - want.float()).abs()
+                              <= atol + rtol * want_abs).all())
+    return _finish(rec, out2, want, gemm_flops(M, N, K),
+                   nbytes(x, w) + M * N * x.element_size(), x.dtype)
+
+
 def _line(rec: Dict) -> str:
     def f(x):
         return "not measured" if x is None else f"{x:.4g}"
     ratio = rec["to_library"]
     shape = ", ".join(f"{k} {v}" for k, v in rec["shape"].items())
     extra = f"  cluster {rec['cluster']}" if "cluster" in rec else ""
+    if "ms_buffers1" in rec:
+        extra += (f"  ms_buffers1 {f(rec['ms_buffers1'])}  buffer_agreement"
+                  f"_err {rec['buffer_agreement_err']:.3e}")
     return (f"{rec['name']:16s} {shape}:  ms {f(rec['ms'])}  bound_ms "
             f"{rec['bound_ms']:.4g} ({rec['bound_by']})  plain_ms "
             f"{f(rec['plain_ms'])}  library_ms {f(rec['library_ms'])}  "
@@ -262,11 +310,14 @@ def _line(rec: Dict) -> str:
 def run_all(device: Optional[str] = None, *,
             gemm_shapes: Sequence[Tuple[int, int, int]] = PAPER_GEMM_SHAPES,
             attention_shape: Optional[Dict] = ATTENTION_SHAPE,
-            ssd_shape: Optional[Dict] = SSD_SHAPE) -> Dict:
+            ssd_shape: Optional[Dict] = SSD_SHAPE,
+            streamed_shape: Optional[Tuple[int, int, int, int]]
+            = STREAMED_GEMM_SHAPE) -> Dict:
     """Time every kernel of the port in bf16 on data from seed 0, printing
     a line each; ``device`` is ``cuda`` unless it says ``cpu``.  A shape
     of ``None`` leaves that kernel out (``chip_smoke.py`` times
-    FlashAttention and SSD in their own phases).  Returns {"device",
+    FlashAttention and SSD in their own phases, and the streamed GEMM
+    through the overlap bench).  Returns {"device",
     "records", "calls"}: ``calls`` counts the calls this run made to each
     kernel's wrapper (on the card each is a launch)."""
     dev = resolve_device(device)
@@ -309,6 +360,12 @@ def run_all(device: Optional[str] = None, *,
         del a, b
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    if streamed_shape is not None:
+        M, K, N, chunks = streamed_shape
+        x = randn(M, K).to(dtype)
+        w = randn(K, N, scale=K ** -0.5).to(dtype)
+        log(bench_streamed_gemm(x, w, chunks=chunks, calls=calls))
+        del x, w
     return {"device": torch.cuda.get_device_name(dev)
             if dev.type == "cuda" else "cpu",
             "records": records, "calls": dict(calls)}

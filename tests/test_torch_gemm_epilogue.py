@@ -213,26 +213,29 @@ def test_kernel_bench_runs_on_the_cpu():
     out = kb.run_all("cpu", gemm_shapes=shapes,
                      attention_shape={"B": 1, "Hq": 2, "Hkv": 1, "S": 16,
                                       "D": 16},
-                     ssd_shape={"BH": 2, "S": 16, "P": 16, "N": 16})
+                     ssd_shape={"BH": 2, "S": 16, "P": 16, "N": 16},
+                     streamed_shape=(24, 64, 40, 4))
     recs = out["records"]
     assert out["device"] == "cpu"
     assert [r["name"] for r in recs] == ["flash_attention", "ssd_scan"] \
-        + ["gemm_softmax", "gemm_layernorm", "gemm_rmsnorm"] * 2
+        + ["gemm_softmax", "gemm_layernorm", "gemm_rmsnorm"] * 2 \
+        + ["streamed_gemm"]
     assert out["calls"] == {"flash_attention": 1, "ssd_scan": 1,
                             "gemm_softmax": 2, "gemm_layernorm": 2,
-                            "gemm_rmsnorm": 2}
+                            "gemm_rmsnorm": 2, "streamed_gemm": 2}
     for r in recs:
         # no device metric from a CPU run
         assert r["ms"] is None and r["plain_ms"] is None \
             and r["library_ms"] is None and r["to_library"] is None
         assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
-    assert [r["cluster"] for r in recs[2:]] == [1] * 3 + [2] * 3
+    assert [r["cluster"] for r in recs[2:-1]] == [1] * 3 + [2] * 3
+    assert recs[-1]["ms_buffers1"] is None and recs[-1]["within_tol"]
 
 
 def test_kernel_bench_leaves_out_the_kernels_it_is_not_given():
     """chip_smoke.py's phase 12 asks for the fused GEMMs alone."""
     out = kb.run_all("cpu", gemm_shapes=[(4, 64, 32)], attention_shape=None,
-                     ssd_shape=None)
+                     ssd_shape=None, streamed_shape=None)
     assert [r["name"] for r in out["records"]] == list(kb.GEMM_ENTRIES)
     assert out["calls"] == {name: 1 for name in kb.GEMM_ENTRIES}
 

@@ -1,5 +1,5 @@
-"""The FlashAttention, SSD and fused GEMM-epilogue kernels on the card
-against their plain versions.
+"""The FlashAttention, SSD, fused GEMM-epilogue and streamed GEMM kernels
+on the card against their plain versions.
 
 These tests need an NVIDIA Hopper card (marker ``cuda``) and skip
 elsewhere; on the card run them with
@@ -14,7 +14,11 @@ those of ``gemm_epilogue.tolerance``: softmax 2e-5 and the norms 1e-4 in
 f32, and all three 1e-2 of the output's largest magnitude in bf16 (both
 sides round the output to bf16, one step of which is up to 2^-7 of the
 largest |y|; relative, because softmax outputs near 1/N would pass an
-absolute bar as zeros).
+absolute bar as zeros); the streamed GEMM those of
+``allgather_gemm.tolerance``: atol 2e-4, rtol 2e-5 in f32
+(tests/test_kernels.py's bar, w scaled 0.2 as there) and 1e-2 of the
+output's largest magnitude in bf16, with its two buffer modes equal bit for
+bit.
 """
 import pytest
 import torch
@@ -24,6 +28,10 @@ from repro_torch.kernels import gemm_epilogue as ge
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd
+from repro_torch.kernels.allgather_gemm import (TILES, allgather_gemm,
+                                                allgather_gemm_reference,
+                                                streamed_gemm, tile,
+                                                tolerance)
 from repro_torch.kernels.gemm_layernorm import gemm_layernorm, gemm_rmsnorm
 from repro_torch.kernels.gemm_softmax import gemm_softmax
 from repro_torch.kernels.ref import attention_ref, ssd_chunked_ref
@@ -258,3 +266,67 @@ def test_gemm_epilogue_raises_instead_of_falling_back(hopper):
     with pytest.raises(TypeError, match="share one dtype"):
         gemm_softmax(a, torch.randn(32, 64, device="cuda").bfloat16())
     assert gemm_softmax.launches == before
+
+
+@pytest.mark.parametrize("M,K,N,chunks", [
+    (64, 256, 128, 8), (128, 512, 256, 4), (8, 128, 128, 2),   # JAX tests
+    (256, 4096, 512, 8), (128, 1024, 256, 8),                  # budget
+    (200, 200, 136, 1),        # ragged M, N and a ragged k-tile
+    (72, 160, 264, 4),         # kc 40: a ragged last k-tile in each chunk
+    (33, 64, 40, 8),           # kc 8, below the k-tile
+    (96, 256, 192, 1),         # one chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_gemm_matches_plain_version(hopper, M, K, N, chunks, dtype):
+    x = torch.randn(M, K, generator=hopper, device="cuda").to(dtype)
+    w = (torch.randn(K, N, generator=hopper, device="cuda") * 0.2).to(dtype)
+    want = ref.streamed_gemm_ref(x, w, chunks=chunks)
+    before = streamed_gemm.launches
+    outs = [streamed_gemm(x, w, chunks=chunks, buffers=nbuf)
+            for nbuf in (2, 1)]
+    torch.cuda.synchronize()
+    assert streamed_gemm.launches == before + 2
+    atol, rtol = tolerance(dtype, float(want.float().abs().max()))
+    for out in outs:
+        assert out.dtype == dtype and out.shape == (M, N)
+        torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    assert torch.equal(outs[0], outs[1])       # the same sums, in order
+
+
+def test_streamed_gemm_tiles(hopper):
+    for dtype, want in TILES.items():
+        assert tile(dtype) == want
+
+
+def test_streamed_gemm_raises_instead_of_falling_back(hopper):
+    before = streamed_gemm.launches
+    with pytest.raises(ValueError, match="must divide"):
+        streamed_gemm(torch.randn(16, 100, device="cuda"),
+                      torch.randn(100, 128, device="cuda"), chunks=3)
+    with pytest.raises(ValueError, match="buffers"):
+        streamed_gemm(torch.randn(16, 128, device="cuda"),
+                      torch.randn(128, 128, device="cuda"), chunks=2,
+                      buffers=3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        streamed_gemm(torch.randn(16, 128, device="cuda").bfloat16(),
+                      torch.randn(128, 132, device="cuda").bfloat16(),
+                      chunks=2)
+    assert streamed_gemm.launches == before
+
+
+def test_allgather_gemm_through_one_nccl_rank(hopper):
+    from repro_torch.launch import mesh
+    group = mesh.host_group("cuda")
+    try:
+        x = torch.randn(512, 1024, generator=hopper, device="cuda").bfloat16()
+        w = (torch.randn(1024, 768, generator=hopper, device="cuda")
+             * 0.03).bfloat16()
+        want = allgather_gemm_reference(x, w, group=group)
+        atol, _ = tolerance(torch.bfloat16, float(want.float().abs().max()))
+        for nbuf in (1, 2):
+            out = allgather_gemm(x, w, group=group, buffers=nbuf)
+            torch.cuda.synchronize()
+            assert (out.float() - want.float()).abs().max() <= atol
+    finally:
+        mesh.destroy()

@@ -12,9 +12,12 @@ failure ends the run with a non-zero exit:
 2. build: the FlashAttention, SSD, fused GEMM-epilogue and streamed GEMM
    kernels from ``csrc/`` into ``build/torch_kernels``, one ``nvcc`` for
    each source, started together; registers, shared memory and spills of
-   every instance, ``cudaOccupancyMaxActiveClusters`` of every
-   GEMM-epilogue instance at every cluster size (each must be > 0), and
-   the streamed GEMM's tiles (must equal the wrapper's ``TILES``);
+   every instance (a bf16 GEMM-epilogue instance must not spill); the
+   GEMM epilogue's tiling as the source computes it at every boundary N
+   (must equal ``gemm_epilogue.tiling``), its dynamic shared memory and
+   ``cudaOccupancyMaxActiveClusters`` of every instance at every cluster
+   size its tiling uses (each must be > 0); and the streamed GEMM's tiles
+   (must equal the wrapper's ``TILES``);
 3. FlashAttention against its plain version ``attention_ref`` on the card,
    in f32 (tolerance 2e-5) and bf16 (3e-2), over GQA, ragged, Sq < Skv,
    window, fully-masked-row and head-dim cases;
@@ -51,13 +54,21 @@ failure ends the run with a non-zero exit:
     of the output's largest magnitude): the JAX sweep shapes, ragged
     M/K/N, M 1 and M 4, every
     cluster size 1-16, a softmax row whose max sits in the last CTA's
-    slice, LayerNorm rows of mean 1e3 and std about 1, and the largest
-    paper shape (4096, 16384, 4096) three times;
+    slice, LayerNorm rows of mean 1e3 and std about 1, the bf16 cases of
+    each tiling regime again with A multicast across the cluster (off by
+    default; timed beside the default at the two large shapes), both
+    sides of every
+    change of tiling in both dtypes (``gemm_epilogue.boundary_shapes``: N
+    at 256/264, 4096/4104, 8192/8200 and 16384; M at 1, BM - 1, BM + 1 and
+    a ragged multiple; K at 8, 100 and one off the K step), and the
+    largest paper shape (4096, 16384, 4096) three times;
 12. the kernel benchmark (``repro_torch.launch.kernel_bench.run_all``)
     at the paper's eight GEMM shapes in bf16 (phases 4 and 8 time the
     other two kernels), with every kernel's count set to 0 just before and
     read just after: each kernel's launches equal the bench's calls to it
-    (no fallback), and each output is within the bar of phase 11;
+    (no fallback), and each output is within the bar of phase 11; beside
+    the CUDA-event times, device-only times of the kernel and of the
+    library pair from ``torch.profiler``;
 13. the streamed GEMM against its plain version ``streamed_gemm_ref`` on
     the card, both buffer modes, f32 (atol 2e-4, rtol 2e-5, the JAX test's
     bar, w scaled 0.2 as there) and bf16 (1e-2 of the output's largest
@@ -202,18 +213,24 @@ def gemm_inputs(gen, M, K, N, dtype, kind="normal"):
     return a, b, rand(N), rand(N)
 
 
+def gemm_entry(name, a, b, gamma, beta):
+    """The ``ops`` entry of fused kernel ``name`` on these inputs, as a
+    function of ``use_kernel``."""
+    from repro_torch.kernels import ops
+    return {"gemm_softmax": lambda k: ops.fused_gemm_softmax(
+                a, b, use_kernel=k),
+            "gemm_layernorm": lambda k: ops.fused_gemm_layernorm(
+                a, b, gamma, beta, use_kernel=k),
+            "gemm_rmsnorm": lambda k: ops.fused_gemm_rmsnorm(
+                a, b, gamma, use_kernel=k)}[name]
+
+
 def gemm_check(name, a, b, gamma, beta):
     """The fused kernel of ``name`` against its plain version on the same
     inputs, both through the ``ops`` entry: (max abs error, max |plain|,
     tolerance, passed)."""
     from repro_torch.kernels import gemm_epilogue as ge
-    from repro_torch.kernels import ops
-    entry = {"gemm_softmax": lambda k: ops.fused_gemm_softmax(
-                 a, b, use_kernel=k),
-             "gemm_layernorm": lambda k: ops.fused_gemm_layernorm(
-                 a, b, gamma, beta, use_kernel=k),
-             "gemm_rmsnorm": lambda k: ops.fused_gemm_rmsnorm(
-                 a, b, gamma, use_kernel=k)}[name]
+    entry = gemm_entry(name, a, b, gamma, beta)
     out, want = entry(True), entry(False)
     torch.cuda.synchronize()
     if out.dtype != a.dtype or out.shape != want.shape:
@@ -385,20 +402,35 @@ def main() -> int:
         for P, N in ((16, 16), (16, 32), (32, 64), (64, 128)):
             log(f"  ssd_scan {str(dtype)[6:]} P {P} N {N}: dynamic shared "
                 f"memory {ssd.smem_bytes(dtype, P, N)} B")
-    if ge.slice_columns() != ge.SLICE_COLUMNS:
-        raise AssertionError(f"gemm_epilogue.cu holds {ge.slice_columns()} "
-                             f"columns a CTA, the wrapper assumes "
-                             f"{ge.SLICE_COLUMNS}")
+    for entry, used, spill in ptxas_summary(built["gemm_epilogue"][2]):
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      spill)
+        if "ge_bf16_kernel" in entry and (not m or m.groups() != ("0", "0")):
+            raise AssertionError(f"a bf16 gemm_epilogue instance spills: "
+                                 f"{entry}: {spill}")
     for dtype in (torch.float32, torch.bfloat16):
-        for epi in ge.EPILOGUES:
-            placed = {cl: ge.max_active_clusters(epi, dtype, cl)
-                      for cl in ge.CLUSTER_SIZES}
-            log(f"  gemm_epilogue {epi} {str(dtype)[6:]}: dynamic shared "
-                f"memory {ge.smem_bytes(dtype)} B; max active clusters "
-                + ", ".join(f"{n} of {cl}" for cl, n in placed.items()))
+        for n in ge.TILING_BOUNDARIES + (16392,):
+            try:
+                want = ge.tiling(n, dtype)
+            except ValueError:
+                want = None                     # refused: N > 16384
+            got = ge.source_tiling(n, dtype)
+            if got != want:
+                raise AssertionError(f"gemm_epilogue.cu tiles N={n} "
+                                     f"{dtype} as {got}, the wrapper as "
+                                     f"{want}")
+        for rows, passes, cl in ge.instances(dtype):
+            placed = {epi: ge.max_active_clusters(epi, dtype, rows, passes,
+                                                  cl) for epi in ge.EPILOGUES}
+            log(f"  gemm_epilogue {str(dtype)[6:]} {rows} rows {passes} "
+                f"pass(es) cluster {cl:2d}: dynamic shared memory "
+                f"{ge.smem_bytes(dtype, rows, passes)} B; max active "
+                f"clusters " + ", ".join(f"{epi} {n}"
+                                         for epi, n in placed.items()))
             if min(placed.values()) <= 0:
-                raise AssertionError(f"gemm_epilogue {epi} {dtype}: a "
-                                     f"cluster cannot be placed: {placed}")
+                raise AssertionError(f"gemm_epilogue {dtype} {rows} rows "
+                                     f"{passes} passes: a cluster of {cl} "
+                                     f"cannot be placed: {placed}")
     for dtype, want_tile in TILES.items():
         log(f"  streamed_gemm {str(dtype)[6:]}: tile {tile(dtype)} (rows, "
             f"columns, k-tile)")
@@ -647,11 +679,12 @@ def main() -> int:
 
     def gemm_case(label, inputs, name):
         err, scale, tol, ok = gemm_check(name, *inputs)
-        cl = ge.cluster_size(inputs[1].shape[1])
-        log(f"  {name:14s} {label:36s} cluster {cl:2d}  max_abs_err "
+        t = ge.tiling(inputs[1].shape[1], inputs[0].dtype)
+        log(f"  {name:14s} {label:36s} tiling {tuple(t)}  max_abs_err "
             f"{err:.3e}  max|plain| {scale:.3g}  tol {tol:.3g}  "
             f"{'ok' if ok else 'FAIL'}")
-        gemm_cases.append({"kernel": name, "case": label, "cluster": cl,
+        gemm_cases.append({"kernel": name, "case": label,
+                           "cluster": t.cluster, "tiling": list(t),
                            "max_abs_err": err, "max_abs_plain": scale,
                            "tol": tol})
         if not ok:
@@ -663,12 +696,41 @@ def main() -> int:
             inputs = gemm_inputs(gen, M, K, N, dtype, data)
             for name in names:
                 gemm_case(f"{label}_{str(dtype)[6:]}", inputs, name)
+        # both sides of every change of tiling (ge.boundary_shapes)
+        for M, K, N in ge.boundary_shapes(dtype):
+            inputs = gemm_inputs(gen, M, K, N, dtype)
+            for name in GEMM_KERNELS:
+                gemm_case(f"edge_{M}x{K}x{N}_{str(dtype)[6:]}", inputs, name)
     # the largest paper shape, three times each: a missing cluster barrier
     # shows only now and then
     inputs = gemm_inputs(gen, 4096, 4096, 16384, torch.bfloat16)
     for name in GEMM_KERNELS:
         for rep in range(3):
             gemm_case(f"paper_4096x16384x4096_bf16_run{rep}", inputs, name)
+    del inputs
+    # TMA multicast of A (off by default: gemm_epilogue.multicast_a): its
+    # results in each bf16 regime, then its CUDA-event time beside the
+    # default's at the two large paper shapes
+    with ge.multicast_a():
+        for M, K, N in ((200, 96, 256), (33, 40, 1032), (65, 40, 4104),
+                        (163, 100, 8200), (48, 64, 16384),
+                        (4096, 4096, 16384)):
+            inputs = gemm_inputs(gen, M, K, N, torch.bfloat16)
+            for name in GEMM_KERNELS:
+                gemm_case(f"multicast_{M}x{K}x{N}_bf16", inputs, name)
+    multicast_ms = {name: {} for name in GEMM_KERNELS}
+    for M, N, K in ((4096, 16384, 4096), (4096, 4096, 4096)):
+        inputs = gemm_inputs(gen, M, K, N, torch.bfloat16)
+        for name in GEMM_KERNELS:
+            fn = gemm_entry(name, *inputs)
+            times = {}
+            for mode in ("off", "on", "off", "on"):   # interleaved
+                with ge.multicast_a(mode == "on"):
+                    times.setdefault(mode, []).append(
+                        kb.cuda_ms(lambda: fn(True), 10))
+            multicast_ms[name][f"{M}x{N}x{K}"] = times
+            log(f"  {name:14s} ({M}, {N}, {K}) bf16 ms, A loaded by every "
+                f"CTA {times['off']} / multicast {times['on']}")
     del inputs
     torch.cuda.empty_cache()
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
@@ -860,7 +922,11 @@ def main() -> int:
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
         "library": rec["library"],
+        "device_ms": rec["device_ms"],
+        "library_device_ms": rec["library_device_ms"],
         "cluster": rec["cluster"],
+        "tile": rec["tile"],
+        "multicast_a_ms": multicast_ms[name],
         "shape": rec["shape"],
         "to_library": rec["to_library"],
         "build_s": build_s["gemm_epilogue"],

@@ -5,8 +5,8 @@ Port of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
 says what bounds the kernel on the card and how it is laid out.
 
 Dispatch: tensors on the CPU take the plain ``attention_ref``; tensors on a
-CUDA device launch the kernel or raise.  There is no fallback between the
-two.
+CUDA device launch the kernel or raise.  The checks run on both, so the
+CPU refuses what the card refuses.  There is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -86,13 +86,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On CUDA tensors this launches the kernel and adds one to
     ``flash_attention_fwd.launches``; on CPU tensors it returns the plain
     ``attention_ref``."""
+    _check(q, k, v, window)     # on both devices: the CPU refuses alike
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
+    if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale,
                              window=window)
-    _check(q, k, v, window)
     resolve_device(q.device)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]

@@ -1,4 +1,4 @@
-"""The fused GEMM-epilogue kernel's library: checks, cluster size, launch.
+"""The fused GEMM-epilogue kernel's library: tiling, checks, launch.
 
 ``csrc/gemm_epilogue.cu`` holds one thread-block-cluster kernel for the
 three row epilogues of ``C = A @ B`` (softmax, LayerNorm, RMSNorm); its
@@ -7,37 +7,60 @@ wrappers that users call are ``gemm_softmax.gemm_softmax`` and
 ``gemm_layernorm.gemm_layernorm`` / ``gemm_rmsnorm``; each counts its own
 launches.
 
+``tiling(N, dtype)`` says how a row of N columns is cut: the cluster of
+CTAs that shares a block of rows, the rows per block, the columns of a
+CTA's slice and the column passes a CTA makes over its slice.  The source
+computes the same (``ge_tiling``, compared by ``source_tiling``).
+
 The checks run on every device, so a call the kernel would refuse is
 refused on the CPU too, where the wrappers take the plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import resolve_device
 from . import _build
 
-__all__ = ["EPILOGUES", "SLICE_COLUMNS", "CLUSTER_SIZES", "ROW_BLOCK",
-           "slice_width", "cluster_size", "check", "launch", "smem_bytes",
-           "slice_columns", "max_active_clusters", "tolerance"]
+__all__ = ["EPILOGUES", "CLUSTER_SIZES", "TILING_BOUNDARIES", "Tiling",
+           "tiling", "instances", "boundary_shapes", "check",
+           "kernel_operand", "multicast_a",
+           "launch", "smem_bytes", "source_tiling", "max_active_clusters",
+           "tolerance"]
 
 EPILOGUES = {"softmax": 0, "layernorm": 1, "rmsnorm": 2}
-SLICE_COLUMNS = 1024           # NT of the source: the columns a CTA holds
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-ROW_BLOCK = 16                 # BM of the source: rows per cluster
+# N on either side of every change of tiling (bf16 and f32), and the
+# widest row taken
+TILING_BOUNDARIES = (8, 256, 264, 512, 520, 1024, 1032, 2048, 2056, 4096,
+                     4104, 8192, 8200, 16384)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+_F32_SLICE = 1024              # most columns an f32 CTA holds
+_BF16_PASS = {128: 256, 64: 512}   # columns a bf16 pass holds, by rows
 
-# ge_fwd(a, b, gamma, beta, out, epilogue, dtype, M, N, K, cluster, eps,
-# stream): pointers and the stream as c_void_p, or ctypes would pass them
-# as 32-bit ints
+# ge_fwd(a, b, gamma, beta, out, epilogue, dtype, M, N, K, lda, eps,
+# multicast, stream): pointers and the stream as c_void_p, or ctypes would
+# pass them as 32-bit ints
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# bf16: the cluster's CTAs multicast A's tiles (``multicast_a``)
+_multicast = False
+
+
+class Tiling(NamedTuple):
+    """How a row block of C is cut across a thread-block cluster."""
+    cluster: int     # CTAs that share a block of rows
+    rows: int        # rows of C per block
+    columns: int     # columns of a CTA's slice
+    passes: int      # column passes a CTA makes over its slice
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,30 +68,60 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("gemm_epilogue")
     lib.ge_fwd.argtypes = _ARGTYPES
     lib.ge_fwd.restype = ctypes.c_int
-    lib.ge_max_active_clusters.argtypes = [ctypes.c_int] * 3
+    lib.ge_max_active_clusters.argtypes = [ctypes.c_int] * 5
     lib.ge_max_active_clusters.restype = ctypes.c_int
-    lib.ge_smem_bytes.argtypes = [ctypes.c_int]
+    lib.ge_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.ge_smem_bytes.restype = ctypes.c_int
-    lib.ge_slice_columns.restype = ctypes.c_int
+    lib.ge_tiling.argtypes = [ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_int)]
+    lib.ge_tiling.restype = ctypes.c_int
     return lib
 
 
-def slice_width(N: int, cluster: int) -> int:
-    """Columns of a CTA's slice: ceil(N / cluster) rounded up to 16."""
-    return math.ceil(math.ceil(N / cluster) / 16) * 16
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
-def cluster_size(N: int) -> int:
-    """The smallest cluster of ``CLUSTER_SIZES`` whose per-CTA slice of N
-    columns fits the kernel's ``SLICE_COLUMNS``; ValueError if none does
-    (N > 16384)."""
-    for cl in CLUSTER_SIZES:
-        if slice_width(N, cl) <= SLICE_COLUMNS:
-            return cl
+def tiling(N: int, dtype: torch.dtype) -> Tiling:
+    """The kernel's tiling of a row of N columns in ``dtype``; ValueError
+    if no cluster of 16 CTAs holds it (N > 16384).
+
+    f32 (CUDA cores): 16 rows, the smallest cluster whose slice,
+    ceil(N / cluster) rounded up to 16, fits 1024 columns.
+    bf16 (wgmma): the smallest cluster whose slice, rounded up to 8, fits
+    256 columns, at 128 rows (N <= 4096); else 16 CTAs at 64 rows, with
+    slices of up to 512 columns in one pass (N <= 8192) or up to 1024 in
+    two (N <= 16384).  B is read once per row block, so at least once per
+    64 rows, at every N it takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"no tiling for {dtype}")
+    if dtype == torch.float32:
+        for cl in CLUSTER_SIZES:
+            ns = _round_up(math.ceil(N / cl), 16)
+            if ns <= _F32_SLICE:
+                return Tiling(cl, 16, ns, 1)
+        widest = _F32_SLICE
+    else:
+        for cl in CLUSTER_SIZES:
+            ns = _round_up(math.ceil(N / cl), 8)
+            if ns <= _BF16_PASS[128]:
+                return Tiling(cl, 128, ns, 1)
+        ns = _round_up(math.ceil(N / CLUSTER_SIZES[-1]), 8)
+        if ns <= 2 * _BF16_PASS[64]:
+            return Tiling(CLUSTER_SIZES[-1], 64, ns,
+                          1 if ns <= _BF16_PASS[64] else 2)
+        widest = 2 * _BF16_PASS[64]
     raise ValueError(
-        f"N={N} does not fit {CLUSTER_SIZES[-1]} slices of "
-        f"{SLICE_COLUMNS} columns: the fused kernel holds a row of C on "
-        f"one thread-block cluster")
+        f"N={N} does not fit {CLUSTER_SIZES[-1]} slices of {widest} "
+        f"columns: the fused kernel holds a row of C on one thread-block "
+        f"cluster")
+
+
+def instances(dtype: torch.dtype) -> Tuple[Tuple[int, int, int], ...]:
+    """(rows, passes, cluster) of every instance the tiling launches for
+    ``dtype``, over ``TILING_BOUNDARIES``."""
+    return tuple(sorted({(t.rows, t.passes, t.cluster) for t in
+                         (tiling(n, dtype) for n in TILING_BOUNDARIES)}))
 
 
 def tolerance(epilogue: str, dtype: torch.dtype,
@@ -96,11 +149,26 @@ def tolerance(epilogue: str, dtype: torch.dtype,
     raise TypeError(f"no bar for {dtype}")
 
 
+def boundary_shapes(dtype: torch.dtype) -> Tuple[Tuple[int, int, int], ...]:
+    """(M, K, N) on both sides of every change of tiling: N at 256 / 264,
+    4096 / 4104, 8192 / 8200 and 16384; at each N, M at 1, BM - 1, BM + 1
+    and a ragged 2.5 BM + 3 (BM the rows per block there); K in turn at 8,
+    100 (not a multiple of 8: bf16 A goes padded) and one that is a
+    multiple of 8 but not of the K step (40 for bf16's 32, 12 for f32's
+    8).  The card's tests hold the kernel to its plain version at each."""
+    ks = (8, 100, 40 if dtype == torch.bfloat16 else 12)
+    shapes = []
+    for i, n in enumerate((256, 264, 4096, 4104, 8192, 8200, 16384)):
+        bm = tiling(n, dtype).rows
+        for j, m in enumerate((1, bm - 1, bm + 1, 2 * bm + bm // 2 + 3)):
+            shapes.append((m, ks[(i + j) % 3], n))
+    return tuple(shapes)
+
+
 def check(a: torch.Tensor, b: torch.Tensor,
           gamma: Optional[torch.Tensor] = None,
-          beta: Optional[torch.Tensor] = None) -> int:
-    """Raise on anything the kernel does not take; returns the cluster
-    size."""
+          beta: Optional[torch.Tensor] = None) -> Tiling:
+    """Raise on anything the kernel does not take; returns the tiling."""
     ts = [t for t in (a, b, gamma, beta) if t is not None]
     if any(t.device != a.device for t in ts):
         raise ValueError(f"a/b/gamma/beta on different devices: "
@@ -126,58 +194,105 @@ def check(a: torch.Tensor, b: torch.Tensor,
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"a and b must be contiguous, got strides "
                          f"{a.stride()}, {b.stride()}")
-    # B's rows move in 16-byte cp.async chunks
+    # B's rows move in 16-byte chunks (cp.async in f32, TMA boxes in bf16)
     per16 = 16 // a.element_size()
     if N % per16 or b.data_ptr() % 16:
         raise ValueError(f"b's rows must be 16-byte aligned: N={N} must be a "
                          f"multiple of {per16} for {a.dtype}")
-    if -(-M // ROW_BLOCK) > _MAX_GRID_Y:
-        raise ValueError(f"M={M} exceeds {ROW_BLOCK * _MAX_GRID_Y} rows")
-    return cluster_size(N)
+    t = tiling(N, a.dtype)
+    if -(-M // t.rows) > _MAX_GRID_Y:
+        raise ValueError(f"M={M} exceeds {t.rows * _MAX_GRID_Y} rows "
+                         f"(65535 blocks of {t.rows} at N={N})")
+    return t
+
+
+def kernel_operand(a: torch.Tensor) -> torch.Tensor:
+    """A as the kernel reads it.  bf16 tiles of A come by TMA, whose rows
+    must start 16 bytes apart and whose base must be 16-byte aligned: for K
+    not a multiple of 8 (or an unaligned A) the kernel gets a copy of A
+    with its rows zero-padded to a multiple of 8.  The kernel still reads
+    only K columns (the tensor map's width is K), so this changes no
+    result; it happens only at shapes far smaller than the paper's (the
+    JAX sweep's K = 100).  f32 A is read element by element and passes as
+    it is."""
+    K = a.shape[1]
+    if a.dtype != torch.bfloat16 or (K % 8 == 0 and a.data_ptr() % 16 == 0):
+        return a
+    return F.pad(a, (0, _round_up(K, 8) - K))
 
 
 def launch(epilogue: str, a: torch.Tensor, b: torch.Tensor,
            gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
-           eps: float, cluster: int) -> torch.Tensor:
+           eps: float) -> torch.Tensor:
     """Launch the kernel on checked CUDA tensors; raise on a non-zero CUDA
     error.  gamma/beta are handed to the kernel as f32, as the TPU kernel
     casts them."""
     resolve_device(a.device)
-    M, N = a.shape[0], b.shape[1]
+    M, K = a.shape
+    N = b.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    ak = kernel_operand(a)
     g = gamma.float().contiguous() if gamma is not None else None
     be = beta.float().contiguous() if beta is not None else None
     lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.ge_fwd(a.data_ptr(), b.data_ptr(),
+        err = lib.ge_fwd(ak.data_ptr(), b.data_ptr(),
                          g.data_ptr() if g is not None else None,
                          be.data_ptr() if be is not None else None,
                          out.data_ptr(), EPILOGUES[epilogue],
-                         _DTYPES[a.dtype], M, N, a.shape[1], cluster,
-                         float(eps), stream)
+                         _DTYPES[a.dtype], M, N, K, ak.shape[1], float(eps),
+                         int(_multicast), stream)
     if err != 0:
         raise RuntimeError(f"gemm_{epilogue} kernel launch failed: CUDA "
                            f"error {err}")
     return out
 
 
-def smem_bytes(dtype: torch.dtype) -> int:
-    """Dynamic shared memory of the kernel for ``dtype``."""
-    return _library().ge_smem_bytes(_DTYPES[dtype])
+@contextlib.contextmanager
+def multicast_a(on: bool = True) -> Iterator[None]:
+    """Within the block, bf16 launches multicast each A tile across the
+    cluster (every rank loads a share of the rows into all CTAs) instead
+    of every CTA loading its own copy.  Off by default: it cuts A's L2
+    reads by the cluster size, but ties every stage of the ring to the
+    slowest of the cluster's CTAs, and on the H100 it was slower at both
+    large paper shapes (PERF.md, section 6).  ``chip_smoke.py`` checks and
+    times it."""
+    global _multicast
+    before, _multicast = _multicast, bool(on)
+    try:
+        yield
+    finally:
+        _multicast = before
 
 
-def slice_columns() -> int:
-    """The source's per-CTA slice budget (must equal ``SLICE_COLUMNS``)."""
-    return _library().ge_slice_columns()
+def smem_bytes(dtype: torch.dtype, rows: int, passes: int) -> int:
+    """Dynamic shared memory of the instance for ``dtype``, ``rows`` and
+    ``passes``."""
+    n = _library().ge_smem_bytes(_DTYPES[dtype], rows, passes)
+    if n < 0:
+        raise ValueError(f"no {dtype} instance of {rows} rows and {passes} "
+                         f"passes")
+    return n
 
 
-def max_active_clusters(epilogue: str, dtype: torch.dtype,
-                        cluster: int) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of one instance (0: a cluster of
-    that size cannot be placed); raises on a failed query."""
+def source_tiling(N: int, dtype: torch.dtype) -> Optional[Tiling]:
+    """The tiling the source computes for N (``None``: it refuses N); must
+    equal ``tiling``."""
+    out = (ctypes.c_int * 4)()
+    if _library().ge_tiling(N, _DTYPES[dtype], out) != 0:
+        return None
+    return Tiling(*out)
+
+
+def max_active_clusters(epilogue: str, dtype: torch.dtype, rows: int,
+                        passes: int, cluster: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of one instance at a cluster of
+    ``cluster`` CTAs (0: such a cluster cannot be placed); raises on a
+    failed query."""
     n = _library().ge_max_active_clusters(EPILOGUES[epilogue],
-                                          _DTYPES[dtype], cluster)
+                                          _DTYPES[dtype], rows, passes,
+                                          cluster)
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
                            f"error {-n}")

@@ -23,15 +23,15 @@ __all__ = ["gemm_softmax"]
 
 def gemm_softmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """softmax(a @ b, -1); a (M, K), b (K, N), f32 or bf16 -> (M, N) in
-    a.dtype.  The cluster size follows from N (``ge.cluster_size``).
+    a.dtype.  The tiling follows from N (``ge.tiling``).
 
     On CUDA tensors this launches the kernel and adds one to
     ``gemm_softmax.launches``; on CPU tensors it returns the plain
     ``gemm_softmax_ref``."""
-    cluster = ge.check(a, b)
+    ge.check(a, b)
     if a.device.type == "cpu":
         return gemm_softmax_ref(a, b)
-    out = ge.launch("softmax", a, b, None, None, 0.0, cluster)
+    out = ge.launch("softmax", a, b, None, None, 0.0)
     gemm_softmax.launches += 1
     return out
 

@@ -24,10 +24,14 @@ there is one (a yardstick the port never calls):
 
 Each line gives the kernel's ms, the bound ms and what sets it, the plain
 ms, the library ms, the kernel-to-library ratio and the kernel's fixed
-tile (for the fused GEMMs: 16 rows and the cluster size chosen from N; the
-plan-chosen tile is later work).  On the CPU (``device="cpu"``, for tests
-at small shapes) the wrappers take their plain versions and no time is
-measured: every time is ``None`` ("not measured").
+tile (for the fused GEMMs: ``gemm_epilogue.tiling`` of N; the plan-chosen
+tile is later work).  The fused GEMMs also get device-only times from
+``torch.profiler`` (``device_ms``: the fused kernel; ``library_device_ms``:
+the matmul's and the row operation's kernels summed), which leave out the
+host's cost of issuing a call, the larger part at the cloud shapes.  On
+the CPU (``device="cpu"``, for tests at small shapes) the wrappers take
+their plain versions and no time is measured: every time is ``None``
+("not measured").
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_bench [--json PATH]
 
@@ -56,8 +60,10 @@ from repro_torch.kernels.ref import (attention_ref, ssd_chunked_ref,
 
 __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
            "ATTENTION_SHAPE", "SSD_SHAPE", "STREAMED_GEMM_SHAPE", "cuda_ms",
+           "device_ms",
            "bound", "nbytes", "visible_pairs", "attention_flops",
-           "ssd_flops", "gemm_flops", "bench_attention", "bench_ssd",
+           "ssd_flops", "gemm_flops", "gemm_l2_bytes", "bench_attention",
+           "bench_ssd",
            "bench_gemm_epilogue", "bench_streamed_gemm", "run_all", "main"]
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet, dense): bf16 on the
@@ -81,6 +87,8 @@ SSD_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128}
 # activation sharded 4 ways along d_model as a 4-rank layer gathers it
 STREAMED_GEMM_SHAPE = (4096, 4096, 13696, 4)
 GEMM_ENTRIES = ("gemm_softmax", "gemm_layernorm", "gemm_rmsnorm")
+# the fused kernel's instances as the profiler names them
+GEMM_KERNEL_NAMES = ("ge_bf16_kernel", "ge_f32_kernel")
 
 
 def cuda_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
@@ -145,13 +153,62 @@ def gemm_flops(M: int, N: int, K: int) -> int:
     return 2 * M * N * K
 
 
+def device_ms(fn: Callable[[], object], iters: int,
+              match: Optional[Tuple[str, ...]] = None) -> float:
+    """Device milliseconds of ``fn`` per call: the CUDA kernels of
+    ``iters`` back-to-back calls under ``torch.profiler``, summed and
+    divided by ``iters``; with ``match``, only the kernels whose name
+    holds one of its strings.  Unlike ``cuda_ms`` this leaves out the
+    host's cost of issuing each call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.name != "Command Buffer Full"
+             and (match is None or any(m in e.name for m in match)))
+    return us / 1e3 / iters
+
+
+def gemm_l2_bytes(M: int, N: int, K: int, dtype: torch.dtype
+                  ) -> Tuple[int, int]:
+    """(B, A) bytes the fused GEMM epilogue reads from L2 at (M, N, K):
+    every block of ``gemm_epilogue.tiling(N, dtype).rows`` rows reads all
+    of B once, and each CTA of its cluster reads the block's rows of A
+    once a column pass (A loaded by every CTA, the default)."""
+    t = ge.tiling(N, dtype)
+    e = torch.empty((), dtype=dtype).element_size()
+    return -(-M // t.rows) * K * N * e, M * K * e * t.cluster * t.passes
+
+
 def _timed(kernel: Callable, plain: Callable, library: Optional[Callable],
-           device: torch.device, iters: int, plain_iters: int) -> Dict:
+           device: torch.device, iters: int, plain_iters: int,
+           kernel_match: Optional[Tuple[str, ...]] = None) -> Dict:
+    """CUDA-event ms of the kernel, the plain version and the library call
+    (``None`` off the card).  With ``kernel_match`` the three warm-up calls
+    of the kernel and of the library run under the profiler and give
+    ``device_ms`` (the kernels named by ``kernel_match``) and
+    ``library_device_ms`` (every kernel of the library call), so the call
+    count stays 1 + 3 + ``iters``."""
     if device.type != "cuda":
-        return {"ms": None, "plain_ms": None, "library_ms": None}
-    return {"ms": cuda_ms(kernel, iters),
+        rec = {"ms": None, "plain_ms": None, "library_ms": None}
+        if kernel_match:
+            rec.update(device_ms=None, library_device_ms=None)
+        return rec
+    if kernel_match:
+        dev = {"device_ms": device_ms(kernel, 3, kernel_match),
+               "library_device_ms": device_ms(library, 3)}
+        warm = 0
+    else:
+        dev, warm = {}, 3
+    return {"ms": cuda_ms(kernel, iters, warm),
             "plain_ms": cuda_ms(plain, plain_iters, warmup=1),
-            "library_ms": cuda_ms(library, iters) if library else None}
+            "library_ms": cuda_ms(library, iters, warm) if library else None,
+            **dev}
 
 
 def _finish(rec: Dict, out: torch.Tensor, want: torch.Tensor, flops: int,
@@ -243,15 +300,18 @@ def bench_gemm_epilogue(entry: str, a: torch.Tensor, b: torch.Tensor,
                          f"{GEMM_ENTRIES}")
     kernel = _counted(calls, entry, lambda: fused(True))
     plain = lambda: fused(False)  # noqa: E731
-    cluster = ge.cluster_size(N)
+    t = ge.tiling(N, a.dtype)
     rec = {"name": entry, "shape": {"M": M, "N": N, "K": K,
                                     "dtype": str(a.dtype)[6:]},
-           "cluster": cluster,
-           "tile": f"{ge.ROW_BLOCK} rows x {ge.slice_width(N, cluster)} "
-                   f"columns a CTA",
+           "cluster": t.cluster,
+           "tile": f"{t.rows} rows x {t.columns} columns a CTA in "
+                   f"{t.passes} pass{'es' if t.passes > 1 else ''}, "
+                   f"cluster {t.cluster}",
            "library": lib_name}
+    rec["l2_bytes_b"], rec["l2_bytes_a"] = gemm_l2_bytes(M, N, K, a.dtype)
     out, want = kernel(), plain()
-    rec.update(_timed(kernel, plain, library, a.device, 20, 3))
+    rec.update(_timed(kernel, plain, library, a.device, 20, 3,
+                      kernel_match=GEMM_KERNEL_NAMES))
     return _finish(rec, out, want, gemm_flops(M, N, K),
                    nbytes(a, b, *vecs) + M * N * a.element_size(), a.dtype)
 
@@ -296,6 +356,9 @@ def _line(rec: Dict) -> str:
     ratio = rec["to_library"]
     shape = ", ".join(f"{k} {v}" for k, v in rec["shape"].items())
     extra = f"  cluster {rec['cluster']}" if "cluster" in rec else ""
+    if "device_ms" in rec:
+        extra += (f"  device_ms {f(rec['device_ms'])}  library_device_ms "
+                  f"{f(rec['library_device_ms'])}")
     if "ms_buffers1" in rec:
         extra += (f"  ms_buffers1 {f(rec['ms_buffers1'])}  buffer_agreement"
                   f"_err {rec['buffer_agreement_err']:.3e}")

@@ -85,6 +85,25 @@ def test_fully_masked_rows_give_zero_like_jax_ref():
     assert torch.count_nonzero(out[:, :, 4:]) > 0
 
 
+@pytest.mark.parametrize("dtype,D,window,error,message", [
+    (torch.float32, 24, None, ValueError, r"head dim 24 not in \(16, 32"),
+    (torch.float16, 32, None, TypeError, "must share one dtype"),
+    (torch.float32, 32, 0, ValueError, "window must be >= 1, got 0"),
+])
+def test_flash_attention_refuses_on_the_cpu_what_the_card_refuses(
+        dtype, D, window, error, message):
+    """The wrapper's checks run before the CPU branch, with the card's
+    messages: a CPU run never accepts what a CUDA launch would refuse."""
+    q = torch.zeros(1, 4, 8, D, dtype=dtype)
+    k = v = torch.zeros(1, 2, 8, D, dtype=dtype)
+    before = tfa.flash_attention_fwd.launches
+    with pytest.raises(error, match=message):
+        tfa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    with pytest.raises(error, match=message):
+        tops.mha(q, k, v, causal=True, window=window, use_kernel=True)
+    assert tfa.flash_attention_fwd.launches == before
+
+
 def test_flash_attention_grads_match_ref_autograd():
     _, tx = _inputs(5, 1, 2, 2, 128, 128, 32, "float32")
     a = [t.clone().requires_grad_(True) for t in tx]

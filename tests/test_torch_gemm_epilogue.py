@@ -114,6 +114,58 @@ def test_fused_gemm_norms_match_pallas_kernel(M, K, N, dtype):
     _assert_close(out, want, dtype, "rmsnorm")
 
 
+@pytest.mark.parametrize("N", [256, 4096, 8192, 16384])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plain_versions_match_pallas_per_tiling_regime(N, dtype):
+    """One shape in each bf16 regime (128 rows; 64 rows in one pass; 64
+    rows in two passes at 8192 < N), M and K ragged against the Pallas
+    blocks: the plain versions the card is held to agree with the Pallas
+    kernels in interpret mode."""
+    (ja, jb, jg, jbe), (a, b, g, be) = _inputs(6, 20, 40, N, dtype, 0.2)
+    _assert_close(tref.gemm_softmax_ref(a, b),
+                  jops.gemm_softmax(ja, jb, block_m=16, block_k=32,
+                                    interpret=True), dtype, "softmax")
+    _assert_close(tref.gemm_layernorm_ref(a, b, g, be),
+                  jops.gemm_layernorm(ja, jb, jg, jbe, block_m=16,
+                                      block_k=32, interpret=True),
+                  dtype, "layernorm")
+    _assert_close(tref.gemm_rmsnorm_ref(a, b, g),
+                  jops.gemm_rmsnorm(ja, jb, jg, block_m=16, block_k=32,
+                                    interpret=True), dtype, "rmsnorm")
+
+
+@pytest.mark.parametrize("K,padded", [(100, 104), (64, 64), (8, 8)])
+def test_bf16_a_is_padded_for_tma(K, padded):
+    """bf16 A reaches the kernel with rows 16 bytes apart: K = 100 gets a
+    zero-padded copy; f32 A and bf16 A with K a multiple of 8 pass as they
+    are."""
+    a = torch.randn(5, K).bfloat16()
+    ak = ge.kernel_operand(a)
+    assert ak.shape == (5, padded) and torch.equal(ak[:, :K], a)
+    assert (ak is a) == (padded == K)
+    assert not ak[:, K:].any()
+    f = torch.randn(5, K)
+    assert ge.kernel_operand(f) is f
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_boundary_shapes_cover_every_tiling_edge(dtype):
+    """The card's boundary cases: N on both sides of every change, M at 1,
+    BM - 1, BM + 1 and a ragged multiple, K at 8, 100 and one that is not
+    a multiple of the K step."""
+    dt = getattr(torch, dtype)
+    shapes = ge.boundary_shapes(dt)
+    assert {n for _, _, n in shapes} == {256, 264, 4096, 4104, 8192, 8200,
+                                         16384}
+    step = 32 if dtype == "bfloat16" else 8
+    for n in {n for _, _, n in shapes}:
+        bm = ge.tiling(n, dt).rows
+        ms = {m for m, _, n2 in shapes if n2 == n}
+        assert ms == {1, bm - 1, bm + 1, 2 * bm + bm // 2 + 3}
+    ks = {k for _, k, _ in shapes}
+    assert 8 in ks and 100 in ks and any(k % step for k in ks - {100})
+
+
 def test_layernorm_plain_version_uses_the_centred_variance():
     """Rows of mean 1e3 and std about 1 (exact in f32): E[c^2] - mean^2
     would lose the variance to cancellation; the centred form keeps it to
@@ -134,13 +186,53 @@ def test_layernorm_plain_version_uses_the_centred_variance():
     assert np.abs(var - c.var(-1)).max() > 1e-2   # what the centred form avoids
 
 
-def test_cluster_size_follows_n():
-    assert [ge.cluster_size(n) for n in
-            (8, 1000, 1024, 1032, 2048, 4096, 4104, 8192, 16384)] \
-        == [1, 1, 1, 2, 2, 4, 8, 8, 16]
-    assert ge.slice_width(4104, 8) == 528
-    with pytest.raises(ValueError, match="does not fit 16 slices"):
-        ge.cluster_size(16392)
+# N -> (cluster, rows per block, columns per CTA, passes), by dtype: both
+# sides of every boundary; f32 keeps the cluster sizes of the first
+# version (16 rows, slices of up to 1024 columns)
+TILINGS = {
+    "bfloat16": {8: (1, 128, 8, 1), 256: (1, 128, 256, 1),
+                 264: (2, 128, 136, 1), 512: (2, 128, 256, 1),
+                 520: (4, 128, 136, 1), 1024: (4, 128, 256, 1),
+                 1032: (8, 128, 136, 1), 2048: (8, 128, 256, 1),
+                 2056: (16, 128, 136, 1), 4096: (16, 128, 256, 1),
+                 4104: (16, 64, 264, 1), 8192: (16, 64, 512, 1),
+                 8200: (16, 64, 520, 2), 16384: (16, 64, 1024, 2)},
+    "float32": {8: (1, 16, 16, 1), 1000: (1, 16, 1008, 1),
+                1024: (1, 16, 1024, 1), 1032: (2, 16, 528, 1),
+                2048: (2, 16, 1024, 1), 4096: (4, 16, 1024, 1),
+                4104: (8, 16, 528, 1), 8192: (8, 16, 1024, 1),
+                8200: (16, 16, 528, 1), 16384: (16, 16, 1024, 1)},
+}
+
+
+@pytest.mark.parametrize("dtype,N", [(d, n) for d in TILINGS
+                                     for n in TILINGS[d]] + [
+    ("bfloat16", 16392), ("float32", 16392)])
+def test_cluster_size_follows_n(dtype, N):
+    """The tiling at each boundary; N > 16384 does not fit 16 CTAs."""
+    dt = getattr(torch, dtype)
+    if N > 16384:
+        with pytest.raises(ValueError, match="does not fit 16 slices"):
+            ge.tiling(N, dt)
+        return
+    t = ge.tiling(N, dt)
+    assert tuple(t) == TILINGS[dtype][N]
+    assert t.cluster * t.columns >= N > (t.cluster - 1) * t.columns
+    if N in ge.TILING_BOUNDARIES:
+        assert (t.rows, t.passes, t.cluster) in ge.instances(dt)
+
+
+def test_bf16_tiling_reads_b_once_per_64_rows():
+    """At every N the bf16 kernel takes, a block has at least 64 rows (B
+    crosses L2 at most once per 64 rows of A), a pass holds at most 256
+    columns a warpgroup, and the cluster's slices cover the row."""
+    for N in range(8, 16385, 8):
+        t = ge.tiling(N, torch.bfloat16)
+        assert t.rows >= 64 and t.rows in (64, 128)
+        assert t.columns * t.cluster >= N and t.columns % 8 == 0
+        per_pass = 256 if t.rows == 128 else 512
+        assert t.columns <= t.passes * per_pass and t.passes in (1, 2)
+        assert t.cluster in ge.CLUSTER_SIZES
 
 
 def test_wrappers_refuse_what_the_kernel_refuses():
@@ -206,6 +298,12 @@ def test_bound_at_the_paper_shapes():
     assert by == "bytes" and 1.5e-3 < ms < 1.7e-3
     assert (1, 16384, 128) in kb.PAPER_GEMM_SHAPES \
         and len(kb.PAPER_GEMM_SHAPES) == 8
+    # B from L2 once per block of 64 rows (two passes over A) at the
+    # largest shape, once per 128 rows at (4096, 4096, 4096)
+    b, a = kb.gemm_l2_bytes(M, N, K, torch.bfloat16)
+    assert b == 64 * K * N * 2 and a == 16 * 2 * M * K * 2
+    b, a = kb.gemm_l2_bytes(4096, 4096, 4096, torch.bfloat16)
+    assert b == 32 * 4096 * 4096 * 2 and a == 16 * 4096 * 4096 * 2
 
 
 def test_kernel_bench_runs_on_the_cpu():
@@ -228,7 +326,11 @@ def test_kernel_bench_runs_on_the_cpu():
         assert r["ms"] is None and r["plain_ms"] is None \
             and r["library_ms"] is None and r["to_library"] is None
         assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
-    assert [r["cluster"] for r in recs[2:-1]] == [1] * 3 + [2] * 3
+    assert [r["cluster"] for r in recs[2:-1]] == [1] * 3 + [8] * 3
+    assert recs[2]["tile"] == "128 rows x 64 columns a CTA in 1 pass, " \
+        "cluster 1"
+    for r in recs[2:-1]:   # device-only times: not measured on the CPU
+        assert r["device_ms"] is None and r["library_device_ms"] is None
     assert recs[-1]["ms_buffers1"] is None and recs[-1]["within_tol"]
 
 

@@ -230,7 +230,7 @@ def test_gemm_epilogue_matches_plain_version(hopper, M, K, N, dtype, kernel):
 def test_gemm_softmax_max_in_the_last_slice(hopper, dtype):
     """The max must be the cluster's row max, not the CTA's."""
     a, b, g, be = _gemm_inputs(hopper, 8, 64, 16384, dtype, "spike")
-    assert ge.cluster_size(16384) == 16
+    assert ge.tiling(16384, dtype).cluster == 16
     _gemm_check("softmax", a, b, g, be)
     assert (gemm_softmax(a, b)[:, -1].float() > 0.99).all()
 
@@ -250,12 +250,43 @@ def test_gemm_epilogue_largest_shape_three_times(hopper, kernel):
         _gemm_check(kernel, *inputs)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(28))
+def test_gemm_epilogue_tiling_boundaries(hopper, dtype, case):
+    """Both sides of every change of tiling (``ge.boundary_shapes``): N,
+    then M around the row block, then K at 8, 100 (bf16 A padded) and off
+    the K step."""
+    shapes = ge.boundary_shapes(dtype)
+    assert len(shapes) == 28
+    M, K, N = shapes[case]
+    inputs = _gemm_inputs(hopper, M, K, N, dtype)
+    for kernel in GEMM_KERNELS:
+        _gemm_check(kernel, *inputs)
+
+
+@pytest.mark.parametrize("M,K,N", [(200, 96, 256), (33, 40, 1032),
+                                   (65, 40, 4104), (163, 100, 8200),
+                                   (48, 64, 16384)])
+def test_gemm_epilogue_multicast_matches_plain_version(hopper, M, K, N):
+    """A multicast across the cluster (off by default) in each bf16
+    tiling regime."""
+    inputs = _gemm_inputs(hopper, M, K, N, torch.bfloat16)
+    with ge.multicast_a():
+        for kernel in GEMM_KERNELS:
+            _gemm_check(kernel, *inputs)
+
+
 def test_gemm_epilogue_clusters_can_be_placed(hopper):
-    assert ge.slice_columns() == ge.SLICE_COLUMNS
+    """The source tiles every boundary N as the wrapper does, and every
+    instance the tiling launches can be placed at its cluster size."""
     for dtype in (torch.float32, torch.bfloat16):
-        for epi in ge.EPILOGUES:
-            for cl in ge.CLUSTER_SIZES:
-                assert ge.max_active_clusters(epi, dtype, cl) > 0
+        for n in ge.TILING_BOUNDARIES:
+            assert ge.source_tiling(n, dtype) == ge.tiling(n, dtype)
+        assert ge.source_tiling(16392, dtype) is None
+        for rows, passes, cl in ge.instances(dtype):
+            for epi in ge.EPILOGUES:
+                assert ge.max_active_clusters(epi, dtype, rows, passes,
+                                              cl) > 0
 
 
 def test_gemm_epilogue_raises_instead_of_falling_back(hopper):

@@ -13,11 +13,10 @@ failure ends the run with a non-zero exit:
    kernels from ``csrc/`` into ``build/torch_kernels``, one ``nvcc`` for
    each source, started together; registers, shared memory and spills of
    every instance (a bf16 GEMM-epilogue instance must not spill); the
-   GEMM epilogue's tiling as the source computes it at every boundary N
-   (must equal ``gemm_epilogue.tiling``), its dynamic shared memory and
+   GEMM epilogue's dynamic shared memory and
    ``cudaOccupancyMaxActiveClusters`` of every instance at every cluster
-   size its tiling uses (each must be > 0); and the streamed GEMM's tiles
-   (must equal the wrapper's ``TILES``);
+   size ``gemm_epilogue.tiling`` uses (each must be > 0); and the streamed
+   GEMM's tiles (must equal the wrapper's ``TILES``);
 3. FlashAttention against its plain version ``attention_ref`` on the card,
    in f32 (tolerance 2e-5) and bf16 (3e-2), over GQA, ragged, Sq < Skv,
    window, fully-masked-row and head-dim cases;
@@ -52,16 +51,13 @@ failure ends the run with a non-zero exit:
     against their plain versions on the card, within the bars of
     ``gemm_epilogue.tolerance`` (f32: softmax 2e-5, norms 1e-4; bf16: 1e-2
     of the output's largest magnitude): the JAX sweep shapes, ragged
-    M/K/N, M 1 and M 4, every
-    cluster size 1-16, a softmax row whose max sits in the last CTA's
-    slice, LayerNorm rows of mean 1e3 and std about 1, the bf16 cases of
-    each tiling regime again with A multicast across the cluster (off by
-    default; timed beside the default at the two large shapes), both
-    sides of every
-    change of tiling in both dtypes (``gemm_epilogue.boundary_shapes``: N
-    at 256/264, 4096/4104, 8192/8200 and 16384; M at 1, BM - 1, BM + 1 and
-    a ragged multiple; K at 8, 100 and one off the K step), and the
-    largest paper shape (4096, 16384, 4096) three times;
+    M/K/N, M 1 and M 4, every cluster size 1-16, a softmax row whose max
+    sits in the last CTA's slice, LayerNorm rows of mean 1e3 and std about
+    1, both sides of every change of tiling in both dtypes
+    (``gemm_epilogue.boundary_shapes``: N at 256/264, 4096/4104, 8192/8200
+    and 16384; M at 1, BM - 1, BM + 1 and a ragged multiple; K at 8, 100
+    and one off the K step), and the largest paper shape (4096, 16384,
+    4096) three times;
 12. the kernel benchmark (``repro_torch.launch.kernel_bench.run_all``)
     at the paper's eight GEMM shapes in bf16 (phases 4 and 8 time the
     other two kernels), with every kernel's count set to 0 just before and
@@ -409,16 +405,6 @@ def main() -> int:
             raise AssertionError(f"a bf16 gemm_epilogue instance spills: "
                                  f"{entry}: {spill}")
     for dtype in (torch.float32, torch.bfloat16):
-        for n in ge.TILING_BOUNDARIES + (16392,):
-            try:
-                want = ge.tiling(n, dtype)
-            except ValueError:
-                want = None                     # refused: N > 16384
-            got = ge.source_tiling(n, dtype)
-            if got != want:
-                raise AssertionError(f"gemm_epilogue.cu tiles N={n} "
-                                     f"{dtype} as {got}, the wrapper as "
-                                     f"{want}")
         for rows, passes, cl in ge.instances(dtype):
             placed = {epi: ge.max_active_clusters(epi, dtype, rows, passes,
                                                   cl) for epi in ge.EPILOGUES}
@@ -708,30 +694,6 @@ def main() -> int:
         for rep in range(3):
             gemm_case(f"paper_4096x16384x4096_bf16_run{rep}", inputs, name)
     del inputs
-    # TMA multicast of A (off by default: gemm_epilogue.multicast_a): its
-    # results in each bf16 regime, then its CUDA-event time beside the
-    # default's at the two large paper shapes
-    with ge.multicast_a():
-        for M, K, N in ((200, 96, 256), (33, 40, 1032), (65, 40, 4104),
-                        (163, 100, 8200), (48, 64, 16384),
-                        (4096, 4096, 16384)):
-            inputs = gemm_inputs(gen, M, K, N, torch.bfloat16)
-            for name in GEMM_KERNELS:
-                gemm_case(f"multicast_{M}x{K}x{N}_bf16", inputs, name)
-    multicast_ms = {name: {} for name in GEMM_KERNELS}
-    for M, N, K in ((4096, 16384, 4096), (4096, 4096, 4096)):
-        inputs = gemm_inputs(gen, M, K, N, torch.bfloat16)
-        for name in GEMM_KERNELS:
-            fn = gemm_entry(name, *inputs)
-            times = {}
-            for mode in ("off", "on", "off", "on"):   # interleaved
-                with ge.multicast_a(mode == "on"):
-                    times.setdefault(mode, []).append(
-                        kb.cuda_ms(lambda: fn(True), 10))
-            multicast_ms[name][f"{M}x{N}x{K}"] = times
-            log(f"  {name:14s} ({M}, {N}, {K}) bf16 ms, A loaded by every "
-                f"CTA {times['off']} / multicast {times['on']}")
-    del inputs
     torch.cuda.empty_cache()
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
@@ -926,7 +888,6 @@ def main() -> int:
         "library_device_ms": rec["library_device_ms"],
         "cluster": rec["cluster"],
         "tile": rec["tile"],
-        "multicast_a_ms": multicast_ms[name],
         "shape": rec["shape"],
         "to_library": rec["to_library"],
         "build_s": build_s["gemm_epilogue"],

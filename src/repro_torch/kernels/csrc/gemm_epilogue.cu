@@ -23,8 +23,9 @@
 // columns [r ns, r ns + ns) of the cluster's row block, runs the whole K
 // loop for that slice, and the row statistics are all-reduced over the
 // cluster.  The tiling (cluster, rows per block BM, columns per CTA ns,
-// column passes) is `tiling_of` below, mirrored by the wrapper's
-// gemm_epilogue.py::tiling.
+// column passes) is chosen by the wrapper, gemm_epilogue.py::tiling, and
+// passed to ge_fwd, which checks only that this source has such an
+// instance and that the slices cover N.
 //
 // What bounds it on this card.  At (M, N, K) = (4096, 16384, 4096) bf16
 // the product is 549.8 GFLOP against 302 MB of compulsory traffic (A, B,
@@ -41,8 +42,7 @@
 //   (4096,  4096, 4096)   16, 128, 256, 1              1.07 GB     0.54 GB
 //   cloud (M <= 512, K <= 128)  B once per 64-128 rows: 0.26-4.2 MB
 //
-// (A as the default reads it: each of the CL CTAs, and each pass, reads
-// the block's rows; the multicast below would cut it by CL.)  At
+// (Each of the CL CTAs, and each pass, reads the block's rows of A.)  At
 // (4096, 16384, 4096) the L2 reads, not the products, set the pace: the
 // register and shared-memory capacity of 16 CTAs holds 64 rows of a
 // 16384-wide row, not more.  launch/kernel_bench.py::gemm_l2_bytes counts
@@ -63,19 +63,11 @@
 //   The tensor maps are encoded by the host launcher and passed as
 //   __grid_constant__ parameters; out-of-bounds rows and columns of a box
 //   arrive as zeros, which is how M, N and K are ragged.
-// - A can be multicast (the launcher's `multicast` argument, off by
-//   default): the cluster's CTAs share the block's rows, so each rank
-//   loads a share of every A tile (8 rows or more) into every CTA of the
-//   cluster (.multicast::cluster), and every consumer warpgroup releases a
-//   stage in every CTA's empty barrier (mapa + a remote mbarrier.arrive),
-//   so no stage is overwritten while any CTA still reads it.  It cuts A's
-//   L2 reads by CL but ties every stage to the slowest of 16 CTAs, and on
-//   the H100 it is slower at both large shapes (PERF.md, section 6).
 // - The consumers issue wgmma.mma_async m64n256k16, bf16 in, f32
 //   accumulate, A K-major from shared memory and B MN-major (B is row-major
 //   (K, N): the transpose-B form).  One wgmma group stays in flight; a
 //   stage is released when the group that read it has retired.
-// - The row block and the slice, from N (`tiling_of`):
+// - The row block and the slice, from N (the wrapper's tiling):
 //     ns <= 256 (N <= 4096):   BM = 128, warpgroup w owns rows 64w..64w+63
 //                              of all ns columns, CL = the smallest power
 //                              of 2 that fits;
@@ -143,42 +135,11 @@ struct Params {
   int lda;             // A's row length in elements (>= K)
   int ns;              // columns of a CTA's slice
   float eps;
-  int multicast;       // bf16: the ranks multicast A to the cluster
 };
 
 struct Tiling {
   int cluster, rows, cols, passes;
 };
-
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// The tiling of a row of N columns (dtype 0 float32, 1 bfloat16); false
-// when no cluster of 16 CTAs holds the row.  Mirrors
-// gemm_epilogue.py::tiling.
-bool tiling_of(int N, int dtype, Tiling* t) {
-  if (N < 1) return false;
-  if (dtype == 0) {
-    for (int cl = 1; cl <= MAX_CLUSTER; cl *= 2) {
-      const int ns = ceil_div(ceil_div(N, cl), 16) * 16;
-      if (ns <= F32_NT) {
-        *t = {cl, F32_BM, ns, 1};
-        return true;
-      }
-    }
-    return false;
-  }
-  for (int cl = 1; cl <= MAX_CLUSTER; cl *= 2) {
-    const int ns = ceil_div(ceil_div(N, cl), 8) * 8;
-    if (ns <= 256) {
-      *t = {cl, 128, ns, 1};
-      return true;
-    }
-  }
-  const int ns = ceil_div(ceil_div(N, MAX_CLUSTER), 8) * 8;
-  if (ns > 1024) return false;
-  *t = {MAX_CLUSTER, 64, ns, ns <= 512 ? 1 : 2};
-  return true;
-}
 
 // statistic rounds of an epilogue, each between two cluster syncs
 __host__ __device__ constexpr int rounds(int epilogue) {
@@ -218,12 +179,6 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
 }
 
 // ------------------------------------------------------- the row epilogue
@@ -314,17 +269,6 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// arrive on the barrier at the same offset in cluster rank `cta`
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
-                                                    uint32_t cta) {
-  asm volatile(
-      "{\n\t.reg .b32 remote;\n\t"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n\t"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n\t}"
-      ::"r"(smem_u32(bar)), "r"(cta)
-      : "memory");
-}
-
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done;
   asm volatile(
@@ -354,21 +298,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
-      : "memory");
-}
-
-// the same box into the same offset of every CTA in `mask`, each CTA's
-// barrier at `bar`'s offset counting the bytes
-__device__ __forceinline__ void tma_load_multicast(void* dst,
-                                                   const CUtensorMap* map,
-                                                   uint64_t* bar, int c0,
-                                                   int c1, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -555,8 +484,7 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
       smem_bf16 + ((1024 - (smem_u32(smem_bf16) & 1023)) & 1023);
 
   const int tid = threadIdx.x;
-  const uint32_t rank = cluster_rank(), ncta = cluster_size();
-  const bool mc = p.multicast && ncta > 1;
+  const uint32_t rank = cluster_rank();
   const int col0 = (int)rank * p.ns;
   const int ncols = max(0, min(p.ns, p.N - col0));
   const int m0 = blockIdx.y * BM;
@@ -565,12 +493,11 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);  // the producer's expect_tx; TMA's bytes
-      mbar_init(&empty[s], 2 * (mc ? ncta : 1));  // each consumer warpgroup
+      mbar_init(&empty[s], 2);  // each consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  cluster_sync();  // every CTA's barriers exist before any remote arrive
 
   if (tid >= BF16_CONSUMERS) {
     // ---------------------------------------------------------- producer
@@ -582,11 +509,6 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&tma_b))
                    : "memory");
-      const uint16_t mask = (uint16_t)((1u << ncta) - 1);
-      // with multicast, rank r loads rows [r a_rows, (r + 1) a_rows) of
-      // each A tile into every CTA (whole 8-row swizzle atoms)
-      const int a_rows = mc ? max(8, BM / (int)ncta) : BM;
-      const bool a_loader = (int)rank * a_rows < BM;
       int s = 0;
       uint32_t phase = 0;
       for (int pass = 0; pass < PASSES; ++pass) {
@@ -594,11 +516,7 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
           mbar_wait(&empty[s], phase ^ 1);
           unsigned char* st = smem + s * Cfg::STAGE_BYTES;
           mbar_expect_tx(&full[s], Cfg::STAGE_BYTES);
-          if (!mc)
-            tma_load(st, &tma_a, &full[s], kt * BK, m0);
-          else if (a_loader)
-            tma_load_multicast(st + rank * a_rows * BK * 2, &tma_a, &full[s],
-                               kt * BK, m0 + (int)rank * a_rows, mask);
+          tma_load(st, &tma_a, &full[s], kt * BK, m0);
 #pragma unroll
           for (int j = 0; j < Cfg::NBOX; ++j)
             tma_load(st + Cfg::A_BYTES + j * Cfg::BOX_BYTES, &tma_b, &full[s],
@@ -625,11 +543,7 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
     const uint32_t b_off =
         Cfg::A_BYTES + (Cfg::SPLIT_ROWS ? 0 : wg * 4 * Cfg::BOX_BYTES);
     auto release = [&](int s) {
-      if (mc) {
-        if (t < (int)ncta) mbar_arrive_cluster(&empty[s], t);
-      } else if (t == 0) {
-        mbar_arrive(&empty[s]);
-      }
+      if (t == 0) mbar_arrive(&empty[s]);
     };
     int s = 0;
     uint32_t phase = 0;
@@ -984,10 +898,7 @@ template <int EPI, int BM, int PASSES>
 cudaError_t launch_bf16(const Params& p, const Tiling& t, cudaStream_t stream) {
   using Cfg = Bf16Cfg<BM, PASSES>;
   CUtensorMap ta, tb;
-  // the A box: the whole tile, or one rank's share of it with multicast
-  const int a_rows =
-      p.multicast && t.cluster > 1 ? max(8, BM / t.cluster) : BM;
-  if (!encode_map(&ta, p.a, p.K, p.M, (uint64_t)p.lda * 2, Cfg::BK, a_rows,
+  if (!encode_map(&ta, p.a, p.K, p.M, (uint64_t)p.lda * 2, Cfg::BK, BM,
                   Cfg::A_ROW_BYTES == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                          : CU_TENSOR_MAP_SWIZZLE_32B) ||
       !encode_map(&tb, p.b, p.N, p.K, (uint64_t)p.N * 2, Cfg::BOX_COLS,
@@ -1066,20 +977,20 @@ bool valid_instance(int dtype, int rows, int passes) {
   return false;
 }
 
-}  // namespace
-
-// The tiling of N columns for dtype (0 float32, 1 bfloat16):
-// out = {cluster, rows per block, columns per CTA, column passes}.
-// Returns 0, or -1 when N does not fit a cluster of 16 CTAs.
-extern "C" int ge_tiling(int N, int dtype, int* out) {
-  Tiling t;
-  if ((dtype != 0 && dtype != 1) || !tiling_of(N, dtype, &t)) return -1;
-  out[0] = t.cluster;
-  out[1] = t.rows;
-  out[2] = t.cols;
-  out[3] = t.passes;
-  return 0;
+// a tiling this source runs: an instance, a cluster it is built for, and
+// slices that cover N, fit the instance's columns and keep its stores
+// aligned (f32 float4, bf16 pairs)
+bool valid_tiling(int dtype, int N, const Tiling& t) {
+  if (!valid_instance(dtype, t.rows, t.passes) || !valid_cluster(t.cluster) ||
+      t.cols < 1 || (long long)t.cols * t.cluster < N)
+    return false;
+  if (dtype == 0) return t.cols % 4 == 0 && t.cols <= F32_NT;
+  const int pass_cols = t.rows == 128 ? Bf16Cfg<128, 1>::PASS_COLS
+                                      : Bf16Cfg<64, 1>::PASS_COLS;
+  return t.cols % 8 == 0 && t.cols <= t.passes * pass_cols;
 }
+
+}  // namespace
 
 // Dynamic shared memory of the instance for dtype, rows and passes (-1: no
 // such instance).
@@ -1092,23 +1003,24 @@ extern "C" int ge_smem_bytes(int dtype, int rows, int passes) {
 
 // epilogue: 0 softmax, 1 LayerNorm, 2 RMSNorm; dtype: 0 float32, 1 bfloat16.
 // a (M, K) with rows of lda elements, b (K, N), gamma/beta f32 (N,) (beta
-// LayerNorm only), out (M, N).  The tiling follows from N (ge_tiling).
-// multicast: bf16, the cluster's ranks multicast A's tiles (0 or 1).
+// LayerNorm only), out (M, N).  The tiling is the wrapper's
+// (gemm_epilogue.py::tiling): a cluster of `cluster` CTAs, `rows` rows per
+// block, `cols` columns a CTA in `passes` column passes.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int ge_fwd(const void* a, const void* b, const void* gamma,
                       const void* beta, void* out, int epilogue, int dtype,
-                      int M, int N, int K, int lda, float eps, int multicast,
-                      void* stream) {
-  Tiling t;
+                      int M, int N, int K, int lda, float eps, int cluster,
+                      int rows, int cols, int passes, void* stream) {
+  const Tiling t{cluster, rows, cols, passes};
   if (M < 1 || N < 1 || K < 1 || lda < K || (dtype != 0 && dtype != 1) ||
-      epilogue < 0 || epilogue > 2 || !tiling_of(N, dtype, &t) ||
+      epilogue < 0 || epilogue > 2 || !valid_tiling(dtype, N, t) ||
       (M + t.rows - 1) / t.rows > 65535 || N % (dtype == 1 ? 8 : 4) != 0 ||
       (dtype == 1 && (lda % 8 != 0 || (uintptr_t)a % 16 != 0 ||
                       (uintptr_t)b % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   const Params p{a, b, static_cast<const float*>(gamma),
                  static_cast<const float*>(beta), out, M, N, K, lda, t.cols,
-                 eps, multicast != 0};
+                 eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
     case SOFTMAX:

@@ -9,19 +9,19 @@ launches.
 
 ``tiling(N, dtype)`` says how a row of N columns is cut: the cluster of
 CTAs that shares a block of rows, the rows per block, the columns of a
-CTA's slice and the column passes a CTA makes over its slice.  The source
-computes the same (``ge_tiling``, compared by ``source_tiling``).
+CTA's slice and the column passes a CTA makes over its slice.  It is the
+only copy of that rule: ``launch`` hands it to the source, which checks
+only that it has such an instance and that the slices cover N.
 
 The checks run on every device, so a call the kernel would refuse is
 refused on the CPU too, where the wrappers take the plain versions.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
-from typing import Iterator, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,8 +31,7 @@ from . import _build
 
 __all__ = ["EPILOGUES", "CLUSTER_SIZES", "TILING_BOUNDARIES", "Tiling",
            "tiling", "instances", "boundary_shapes", "check",
-           "kernel_operand", "multicast_a",
-           "launch", "smem_bytes", "source_tiling", "max_active_clusters",
+           "kernel_operand", "launch", "smem_bytes", "max_active_clusters",
            "tolerance"]
 
 EPILOGUES = {"softmax": 0, "layernorm": 1, "rmsnorm": 2}
@@ -47,12 +46,10 @@ _F32_SLICE = 1024              # most columns an f32 CTA holds
 _BF16_PASS = {128: 256, 64: 512}   # columns a bf16 pass holds, by rows
 
 # ge_fwd(a, b, gamma, beta, out, epilogue, dtype, M, N, K, lda, eps,
-# multicast, stream): pointers and the stream as c_void_p, or ctypes would
-# pass them as 32-bit ints
+# cluster, rows, columns, passes, stream): pointers and the stream as
+# c_void_p, or ctypes would pass them as 32-bit ints
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# bf16: the cluster's CTAs multicast A's tiles (``multicast_a``)
-_multicast = False
+             + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 class Tiling(NamedTuple):
@@ -72,9 +69,6 @@ def _library() -> ctypes.CDLL:
     lib.ge_max_active_clusters.restype = ctypes.c_int
     lib.ge_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.ge_smem_bytes.restype = ctypes.c_int
-    lib.ge_tiling.argtypes = [ctypes.c_int, ctypes.c_int,
-                              ctypes.POINTER(ctypes.c_int)]
-    lib.ge_tiling.restype = ctypes.c_int
     return lib
 
 
@@ -223,10 +217,10 @@ def kernel_operand(a: torch.Tensor) -> torch.Tensor:
 
 def launch(epilogue: str, a: torch.Tensor, b: torch.Tensor,
            gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
-           eps: float) -> torch.Tensor:
-    """Launch the kernel on checked CUDA tensors; raise on a non-zero CUDA
-    error.  gamma/beta are handed to the kernel as f32, as the TPU kernel
-    casts them."""
+           eps: float, t: Tiling) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors that ``check`` passed, with the
+    tiling it returned; raise on a non-zero CUDA error.  gamma/beta are
+    handed to the kernel as f32, as the TPU kernel casts them."""
     resolve_device(a.device)
     M, K = a.shape
     N = b.shape[1]
@@ -242,28 +236,11 @@ def launch(epilogue: str, a: torch.Tensor, b: torch.Tensor,
                          be.data_ptr() if be is not None else None,
                          out.data_ptr(), EPILOGUES[epilogue],
                          _DTYPES[a.dtype], M, N, K, ak.shape[1], float(eps),
-                         int(_multicast), stream)
+                         *t, stream)
     if err != 0:
         raise RuntimeError(f"gemm_{epilogue} kernel launch failed: CUDA "
                            f"error {err}")
     return out
-
-
-@contextlib.contextmanager
-def multicast_a(on: bool = True) -> Iterator[None]:
-    """Within the block, bf16 launches multicast each A tile across the
-    cluster (every rank loads a share of the rows into all CTAs) instead
-    of every CTA loading its own copy.  Off by default: it cuts A's L2
-    reads by the cluster size, but ties every stage of the ring to the
-    slowest of the cluster's CTAs, and on the H100 it was slower at both
-    large paper shapes (PERF.md, section 6).  ``chip_smoke.py`` checks and
-    times it."""
-    global _multicast
-    before, _multicast = _multicast, bool(on)
-    try:
-        yield
-    finally:
-        _multicast = before
 
 
 def smem_bytes(dtype: torch.dtype, rows: int, passes: int) -> int:
@@ -274,15 +251,6 @@ def smem_bytes(dtype: torch.dtype, rows: int, passes: int) -> int:
         raise ValueError(f"no {dtype} instance of {rows} rows and {passes} "
                          f"passes")
     return n
-
-
-def source_tiling(N: int, dtype: torch.dtype) -> Optional[Tiling]:
-    """The tiling the source computes for N (``None``: it refuses N); must
-    equal ``tiling``."""
-    out = (ctypes.c_int * 4)()
-    if _library().ge_tiling(N, _DTYPES[dtype], out) != 0:
-        return None
-    return Tiling(*out)
 
 
 def max_active_clusters(epilogue: str, dtype: torch.dtype, rows: int,

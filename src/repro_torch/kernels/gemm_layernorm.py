@@ -30,10 +30,10 @@ def gemm_layernorm(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor,
     On CUDA tensors this launches the kernel and adds one to
     ``gemm_layernorm.launches``; on CPU tensors it returns the plain
     ``gemm_layernorm_ref``."""
-    ge.check(a, b, gamma, beta)
+    t = ge.check(a, b, gamma, beta)
     if a.device.type == "cpu":
         return gemm_layernorm_ref(a, b, gamma, beta, eps=eps)
-    out = ge.launch("layernorm", a, b, gamma, beta, eps)
+    out = ge.launch("layernorm", a, b, gamma, beta, eps, t)
     gemm_layernorm.launches += 1
     return out
 
@@ -46,10 +46,10 @@ def gemm_rmsnorm(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, *,
     On CUDA tensors this launches the kernel and adds one to
     ``gemm_rmsnorm.launches``; on CPU tensors it returns the plain
     ``gemm_rmsnorm_ref``."""
-    ge.check(a, b, gamma)
+    t = ge.check(a, b, gamma)
     if a.device.type == "cpu":
         return gemm_rmsnorm_ref(a, b, gamma, eps=eps)
-    out = ge.launch("rmsnorm", a, b, gamma, None, eps)
+    out = ge.launch("rmsnorm", a, b, gamma, None, eps, t)
     gemm_rmsnorm.launches += 1
     return out
 

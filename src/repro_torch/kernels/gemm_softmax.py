@@ -28,10 +28,10 @@ def gemm_softmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     On CUDA tensors this launches the kernel and adds one to
     ``gemm_softmax.launches``; on CPU tensors it returns the plain
     ``gemm_softmax_ref``."""
-    ge.check(a, b)
+    t = ge.check(a, b)
     if a.device.type == "cpu":
         return gemm_softmax_ref(a, b)
-    out = ge.launch("softmax", a, b, None, None, 0.0)
+    out = ge.launch("softmax", a, b, None, None, 0.0, t)
     gemm_softmax.launches += 1
     return out
 

@@ -179,7 +179,7 @@ def gemm_l2_bytes(M: int, N: int, K: int, dtype: torch.dtype
     """(B, A) bytes the fused GEMM epilogue reads from L2 at (M, N, K):
     every block of ``gemm_epilogue.tiling(N, dtype).rows`` rows reads all
     of B once, and each CTA of its cluster reads the block's rows of A
-    once a column pass (A loaded by every CTA, the default)."""
+    once a column pass."""
     t = ge.tiling(N, dtype)
     e = torch.empty((), dtype=dtype).element_size()
     return -(-M // t.rows) * K * N * e, M * K * e * t.cluster * t.passes
@@ -189,26 +189,24 @@ def _timed(kernel: Callable, plain: Callable, library: Optional[Callable],
            device: torch.device, iters: int, plain_iters: int,
            kernel_match: Optional[Tuple[str, ...]] = None) -> Dict:
     """CUDA-event ms of the kernel, the plain version and the library call
-    (``None`` off the card).  With ``kernel_match`` the three warm-up calls
-    of the kernel and of the library run under the profiler and give
+    (``None`` off the card), each over ``iters`` calls after 3 warm-up
+    calls.  With ``kernel_match``, ``iters`` more calls of the kernel and
+    of the library, after their timed ones, run under the profiler and give
     ``device_ms`` (the kernels named by ``kernel_match``) and
-    ``library_device_ms`` (every kernel of the library call), so the call
-    count stays 1 + 3 + ``iters``."""
+    ``library_device_ms`` (every kernel of the library call); the kernel's
+    call count is then 1 + 3 + 2 ``iters``."""
     if device.type != "cuda":
         rec = {"ms": None, "plain_ms": None, "library_ms": None}
         if kernel_match:
             rec.update(device_ms=None, library_device_ms=None)
         return rec
-    if kernel_match:
-        dev = {"device_ms": device_ms(kernel, 3, kernel_match),
-               "library_device_ms": device_ms(library, 3)}
-        warm = 0
-    else:
-        dev, warm = {}, 3
-    return {"ms": cuda_ms(kernel, iters, warm),
-            "plain_ms": cuda_ms(plain, plain_iters, warmup=1),
-            "library_ms": cuda_ms(library, iters, warm) if library else None,
-            **dev}
+    rec = {"ms": cuda_ms(kernel, iters, 3),
+           "plain_ms": cuda_ms(plain, plain_iters, warmup=1),
+           "library_ms": cuda_ms(library, iters, 3) if library else None}
+    if kernel_match:   # steady state: after the warm-up and timed calls
+        rec.update(device_ms=device_ms(kernel, iters, kernel_match),
+                   library_device_ms=device_ms(library, iters))
+    return rec
 
 
 def _finish(rec: Dict, out: torch.Tensor, want: torch.Tensor, flops: int,

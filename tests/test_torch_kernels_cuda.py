@@ -264,29 +264,30 @@ def test_gemm_epilogue_tiling_boundaries(hopper, dtype, case):
         _gemm_check(kernel, *inputs)
 
 
-@pytest.mark.parametrize("M,K,N", [(200, 96, 256), (33, 40, 1032),
-                                   (65, 40, 4104), (163, 100, 8200),
-                                   (48, 64, 16384)])
-def test_gemm_epilogue_multicast_matches_plain_version(hopper, M, K, N):
-    """A multicast across the cluster (off by default) in each bf16
-    tiling regime."""
-    inputs = _gemm_inputs(hopper, M, K, N, torch.bfloat16)
-    with ge.multicast_a():
-        for kernel in GEMM_KERNELS:
-            _gemm_check(kernel, *inputs)
-
-
 def test_gemm_epilogue_clusters_can_be_placed(hopper):
-    """The source tiles every boundary N as the wrapper does, and every
-    instance the tiling launches can be placed at its cluster size."""
+    """Every instance the tiling launches can be placed at its cluster
+    size."""
     for dtype in (torch.float32, torch.bfloat16):
-        for n in ge.TILING_BOUNDARIES:
-            assert ge.source_tiling(n, dtype) == ge.tiling(n, dtype)
-        assert ge.source_tiling(16392, dtype) is None
         for rows, passes, cl in ge.instances(dtype):
             for epi in ge.EPILOGUES:
                 assert ge.max_active_clusters(epi, dtype, rows, passes,
                                               cl) > 0
+
+
+@pytest.mark.parametrize("dtype,N,bad", [
+    (torch.bfloat16, 4096, (8, 128, 256, 1)),    # slices miss N's last half
+    (torch.bfloat16, 8192, (16, 64, 1024, 1)),   # more than a pass holds
+    (torch.bfloat16, 256, (1, 32, 256, 1)),      # no 32-row instance
+    (torch.float32, 1024, (3, 16, 352, 1)),      # no cluster of 3
+])
+def test_gemm_epilogue_source_refuses_a_tiling_it_cannot_run(hopper, dtype,
+                                                            N, bad):
+    """The source takes its tiling from the wrapper and checks it: a tiling
+    without an instance, or whose slices do not cover N, is refused."""
+    a, b, _, _ = _gemm_inputs(hopper, 8, 64, N, dtype)
+    ge.launch("softmax", a, b, None, None, 0.0, ge.tiling(N, dtype))
+    with pytest.raises(RuntimeError, match="CUDA error 1$"):
+        ge.launch("softmax", a, b, None, None, 0.0, ge.Tiling(*bad))
 
 
 def test_gemm_epilogue_raises_instead_of_falling_back(hopper):

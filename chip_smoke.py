@@ -12,18 +12,26 @@ failure ends the run with a non-zero exit:
 2. build: the FlashAttention, SSD, fused GEMM-epilogue and streamed GEMM
    kernels from ``csrc/`` into ``build/torch_kernels``, one ``nvcc`` for
    each source, started together; registers, shared memory and spills of
-   every instance (a bf16 GEMM-epilogue instance must not spill); the
+   every instance (a bf16 FlashAttention or GEMM-epilogue instance must not
+   spill); FlashAttention's keys a tile and ring stages of every head dim
+   (must equal ``flash_attention.tiling``'s) and its shared memory; the
    GEMM epilogue's dynamic shared memory and
    ``cudaOccupancyMaxActiveClusters`` of every instance at every cluster
    size ``gemm_epilogue.tiling`` uses (each must be > 0); and the streamed
    GEMM's tiles (must equal the wrapper's ``TILES``);
 3. FlashAttention against its plain version ``attention_ref`` on the card,
    in f32 (tolerance 2e-5) and bf16 (3e-2), over GQA, ragged, Sq < Skv,
-   window, fully-masked-row and head-dim cases;
+   window, fully-masked-row and head-dim cases, and at every edge of the
+   tiling (``flash_attention.BOUNDARY_CASES``: both sides of the q and key
+   tiles, a single key tile, groups of 1, 3 and 16, windows inside one key
+   tile and across several, Sq > Skv, Sq = 1, every head dim); rows that
+   see no key must be exactly 0;
 4. FlashAttention at glm4-9b's serving prefill shape: error against the
    plain version, CUDA-event times of the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
-   and the least time the card could take;
+   device-only times of the kernel and of SDPA from ``torch.profiler``, the
+   least time the card could take, and the Q, K/V and O bytes the tiling
+   moves through L2 (``kernel_bench.attention_l2_bytes``) with their rate;
 5. serving glm4-9b at full width and depth, bf16, random weights from seed
    0, with every layer's prefill attention through the kernel; every
    kernel's launches are counted over this run alone; then one prefill and
@@ -398,12 +406,26 @@ def main() -> int:
         for P, N in ((16, 16), (16, 32), (32, 64), (64, 128)):
             log(f"  ssd_scan {str(dtype)[6:]} P {P} N {N}: dynamic shared "
                 f"memory {ssd.smem_bytes(dtype, P, N)} B")
-    for entry, used, spill in ptxas_summary(built["gemm_epilogue"][2]):
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      spill)
-        if "ge_bf16_kernel" in entry and (not m or m.groups() != ("0", "0")):
-            raise AssertionError(f"a bf16 gemm_epilogue instance spills: "
-                                 f"{entry}: {spill}")
+    for source, bf16_entry in (("flash_attention", "fa_fwd_bf16"),
+                               ("gemm_epilogue", "ge_bf16_kernel")):
+        for entry, used, spill in ptxas_summary(built[source][2]):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", spill)
+            if bf16_entry in entry and (not m or m.groups() != ("0", "0")):
+                raise AssertionError(f"a bf16 {source} instance spills: "
+                                     f"{entry}: {used}; {spill}")
+    for D in fa.HEAD_DIMS:
+        keys, stages = fa.source_tile(D)
+        t = fa.tiling(4, 32, 2, 1024, 1024, D, torch.bfloat16)
+        log(f"  flash_attention D {D}: bf16 {keys} keys a tile, {stages} "
+            f"stages, dynamic shared memory "
+            f"{fa.smem_bytes(torch.bfloat16, D)} B; f32 "
+            f"{fa.smem_bytes(torch.float32, D)} B")
+        if (keys, stages) != (t.keys, t.stages):
+            raise AssertionError(f"flash_attention.cu's bf16 D {D} tile is "
+                                 f"{keys} keys x {stages} stages, the "
+                                 f"wrapper's tiling says {t.keys} x "
+                                 f"{t.stages}")
     for dtype in (torch.float32, torch.bfloat16):
         for rows, passes, cl in ge.instances(dtype):
             placed = {epi: ge.max_active_clusters(epi, dtype, rows, passes,
@@ -431,20 +453,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     cases = []
-    spec = [  # name, B, Hq, Hkv, Sq, Skv, D, causal, window
-        ("glm4_gqa", 2, 32, 2, 256, 256, 128, True, None),
-        ("glm4_gqa_noncausal", 2, 32, 2, 256, 256, 128, False, None),
-        ("ragged_100", 1, 4, 2, 100, 100, 64, True, None),
-        ("sq_lt_skv", 2, 8, 2, 64, 192, 32, True, None),
-        ("sq_lt_skv_noncausal", 2, 8, 2, 64, 192, 32, False, None),
-        ("window_64", 1, 4, 4, 256, 256, 64, True, 64),
-        ("fully_masked_rows", 1, 4, 2, 100, 40, 128, True, None),
-        ("head_dim_16", 1, 4, 2, 72, 72, 16, True, None),
-    ]
+    spec = [  # name, B, Hq, Hkv, Sq, Skv, D, causal, window, model layout
+        ("glm4_gqa", 2, 32, 2, 256, 256, 128, True, None, True),
+        ("glm4_gqa_noncausal", 2, 32, 2, 256, 256, 128, False, None, True),
+        ("ragged_100", 1, 4, 2, 100, 100, 64, True, None, False),
+        ("sq_lt_skv", 2, 8, 2, 64, 192, 32, True, None, False),
+        ("sq_lt_skv_noncausal", 2, 8, 2, 64, 192, 32, False, None, False),
+        ("window_64", 1, 4, 4, 256, 256, 64, True, 64, False),
+        ("fully_masked_rows", 1, 4, 2, 100, 40, 128, True, None, False),
+        ("head_dim_16", 1, 4, 2, 72, 72, 16, True, None, False),
+    ] + list(fa.BOUNDARY_CASES)
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for name, B, Hq, Hkv, Sq, Skv, D, causal, window in spec:
+        for name, B, Hq, Hkv, Sq, Skv, D, causal, window, layout in spec:
             q, k, v = attn_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype,
-                                  model_layout=name.startswith("glm4"))
+                                  model_layout=layout)
             out = fa.flash_attention_fwd(q, k, v, causal=causal,
                                          window=window)
             want = attention_ref(q, k, v, causal=causal, window=window)
@@ -452,11 +474,13 @@ def main() -> int:
             diff = (out.float() - want.float()).abs()
             err = float(diff.max())
             ok = bool((diff <= tol + tol * want.float().abs()).all())
-            if name == "fully_masked_rows":   # rows before the first key
+            if causal and Sq > Skv:   # rows before the first key: exactly 0
                 ok &= bool((out[:, :, :Sq - Skv] == 0).all())
             label = f"{name}_{str(dtype)[6:]}"
-            log(f"  {label:32s} max_abs_err {err:.3e}  tol {tol:g}  "
-                f"{'ok' if ok else 'FAIL'}")
+            t = fa.tiling(B, Hq, Hkv, Sq, Skv, D, dtype)
+            log(f"  {label:36s} tiling {t.keys} keys {t.heads} head(s) "
+                f"{t.stages} stages {t.items} items  max_abs_err "
+                f"{err:.3e}  tol {tol:g}  {'ok' if ok else 'FAIL'}")
             cases.append({"case": label, "max_abs_err": err, "tol": tol})
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with "
@@ -486,10 +510,18 @@ def main() -> int:
     log(f"  max_abs_err {main_err:.3e}")
     log(f"  kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
         f"library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by})")
+    log(f"  device_ms {rec['device_ms']:.4f}  library_device_ms "
+        f"{rec['library_device_ms']:.4f} (torch.profiler, 50 calls)")
+    l2 = rec["l2_bytes_q"] + rec["l2_bytes_kv"] + rec["l2_bytes_o"]
+    log(f"  tiling {rec['tile']}")
+    log(f"  L2 bytes: q {rec['l2_bytes_q'] / 1e6:.1f} MB, k/v "
+        f"{rec['l2_bytes_kv'] / 1e6:.1f} MB, o {rec['l2_bytes_o'] / 1e6:.1f}"
+        f" MB; {l2 / rec['device_ms'] / 1e9:.2f} TB/s over the device time")
     log(f"  kernel {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
         f"{100 * bound_ms / kernel_ms:.1f}% of bound")
     fa_shape = {"q": [B, Hq, S, D], "kv": [B, Hkv, S, D],
                 "dtype": "bfloat16", "causal": True}
+    fa_rec = rec
     del q, k, v
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
@@ -847,6 +879,14 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": library_ms,
         "library": "torch.nn.functional.scaled_dot_product_attention",
+        "device_ms": fa_rec["device_ms"],
+        "library_device_ms": fa_rec["library_device_ms"],
+        "tiling": fa_rec["tiling"],
+        "tile": fa_rec["tile"],
+        "l2_bytes_q": fa_rec["l2_bytes_q"],
+        "l2_bytes_kv": fa_rec["l2_bytes_kv"],
+        "l2_bytes_o": fa_rec["l2_bytes_o"],
+        "to_library": fa_rec["to_library"],
         "shape": fa_shape,
         "build_s": build_s["flash_attention"],
         "cases": cases,

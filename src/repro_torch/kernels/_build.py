@@ -4,20 +4,23 @@ Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher.  It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, at first use, and
 loaded with ``ctypes``.  The library's file name carries a hash of the
-source, so an edited source is rebuilt and a stale library is never loaded.
-Nothing here runs at import time.
+source and of every ``#include "..."`` header it reaches under ``csrc/``
+(``source_digest``), so an edited source or header is rebuilt and a stale
+library is never loaded.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
-__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "sources", "source_digest",
+           "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/_build.py -> the checkout's root
@@ -27,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> Path:
@@ -40,11 +44,39 @@ def nvcc_path() -> Path:
         "nvcc not found under $CUDA_HOME/bin or /usr/local/cuda/bin")
 
 
+def sources(name: str, csrc: Optional[Path] = None) -> List[Path]:
+    """``<name>.cu`` under ``csrc`` (default ``CSRC``) and every file it
+    reaches through ``#include "..."``, resolved next to the including
+    file: each once, in the order first reached."""
+    root = Path(csrc) if csrc is not None else CSRC
+    seen: List[Path] = []
+    todo = [root / f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        for inc in _INCLUDE.findall(f.read_text()):
+            dep = f.parent / inc
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
+def source_digest(name: str, csrc: Optional[Path] = None) -> str:
+    """Hash of ``<name>.cu`` and of every header it includes under
+    ``csrc``: it names the built library, so editing either rebuilds."""
+    h = hashlib.sha1()
+    for f in sources(name, csrc):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> Tuple[Path, float, str]:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
     Returns (library path, seconds spent compiling, compiler log)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    digest = source_digest(name)
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib.with_suffix(".log")
     if lib.is_file():

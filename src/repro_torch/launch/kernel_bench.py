@@ -8,7 +8,8 @@ version, and one PyTorch library call computing the same function where
 there is one (a yardstick the port never calls):
 
 - FlashAttention at glm4-9b's serving prefill shape, library
-  ``F.scaled_dot_product_attention``;
+  ``F.scaled_dot_product_attention`` (``--attention-sweep``: at the shapes
+  of ``ATTENTION_SWEEP`` around it instead);
 - the SSD chunk scan at mamba2-130m's serving prefill shape (no library
   call computes it);
 - the fused GEMM epilogues (``ops.fused_gemm_softmax``,
@@ -24,16 +25,19 @@ there is one (a yardstick the port never calls):
 
 Each line gives the kernel's ms, the bound ms and what sets it, the plain
 ms, the library ms, the kernel-to-library ratio and the kernel's fixed
-tile (for the fused GEMMs: ``gemm_epilogue.tiling`` of N; the plan-chosen
-tile is later work).  The fused GEMMs also get device-only times from
-``torch.profiler`` (``device_ms``: the fused kernel; ``library_device_ms``:
-the matmul's and the row operation's kernels summed), which leave out the
-host's cost of issuing a call, the larger part at the cloud shapes.  On
+tile (FlashAttention: ``flash_attention.tiling``; the fused GEMMs:
+``gemm_epilogue.tiling`` of N; the plan-chosen tile is later work).
+FlashAttention and the fused GEMMs also get device-only times from
+``torch.profiler`` (``device_ms``: the kernel; ``library_device_ms``: every
+kernel of the library call, summed), which leave out the host's cost of
+issuing a call, and the bytes they move through L2
+(``attention_l2_bytes``, ``gemm_l2_bytes``).  On
 the CPU (``device="cpu"``, for tests at small shapes) the wrappers take
 their plain versions and no time is measured: every time is ``None``
 ("not measured").
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_bench [--json PATH]
+        [--attention-sweep]
 
 The timing and bound helpers here are the ones ``chip_smoke.py`` uses.
 """
@@ -59,10 +63,11 @@ from repro_torch.kernels.ref import (attention_ref, ssd_chunked_ref,
                                      streamed_gemm_ref)
 
 __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
-           "ATTENTION_SHAPE", "SSD_SHAPE", "STREAMED_GEMM_SHAPE", "cuda_ms",
+           "ATTENTION_SHAPE", "ATTENTION_SWEEP", "SSD_SHAPE", "STREAMED_GEMM_SHAPE", "cuda_ms",
            "device_ms",
            "bound", "nbytes", "visible_pairs", "attention_flops",
-           "ssd_flops", "gemm_flops", "gemm_l2_bytes", "bench_attention",
+           "attention_l2_bytes", "ssd_flops", "gemm_flops", "gemm_l2_bytes",
+           "bench_attention",
            "bench_ssd",
            "bench_gemm_epilogue", "bench_streamed_gemm", "run_all", "main"]
 
@@ -80,6 +85,14 @@ PAPER_GEMM_SHAPES: List[Tuple[int, int, int]] = [
     (4096, 16384, 4096)]
 # glm4-9b prefill attention at batch 4, prompt 1024 (q heads 32, kv 2)
 ATTENTION_SHAPE = {"B": 4, "Hq": 32, "Hkv": 2, "S": 1024, "D": 128}
+# FlashAttention around the serve shape (B, Hq, Hkv, Sq, Skv, D, causal),
+# model layout, bf16: the serve shape, the same without the causal mask,
+# a long kv (the kernel's steady state), a long causal prompt, head dim 64,
+# and MHA (one q head a work item)
+ATTENTION_SWEEP: List[Tuple[int, int, int, int, int, int, bool]] = [
+    (4, 32, 2, 1024, 1024, 128, True), (4, 32, 2, 1024, 1024, 128, False),
+    (4, 32, 2, 1024, 4096, 128, False), (4, 32, 2, 4096, 4096, 128, True),
+    (4, 32, 2, 1024, 1024, 64, True), (4, 32, 32, 1024, 1024, 128, True)]
 # mamba2-130m prefill scan at batch 8 x 24 heads, prompt 1024
 SSD_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128}
 # (M, K, N, chunks): glm4-9b's MLP input projection x @ wi (d_model 4096,
@@ -89,6 +102,8 @@ STREAMED_GEMM_SHAPE = (4096, 4096, 13696, 4)
 GEMM_ENTRIES = ("gemm_softmax", "gemm_layernorm", "gemm_rmsnorm")
 # the fused kernel's instances as the profiler names them
 GEMM_KERNEL_NAMES = ("ge_bf16_kernel", "ge_f32_kernel")
+# the FlashAttention kernel's instances as the profiler names them
+ATTENTION_KERNEL_NAMES = ("fa_fwd_bf16", "fa_fwd_f32")
 
 
 def cuda_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
@@ -138,6 +153,29 @@ def attention_flops(B: int, Hq: int, D: int, Sq: int, Skv: int,
                     causal: bool, window: Optional[int] = None) -> int:
     """QK^T and PV over the visible pairs."""
     return 4 * B * Hq * D * visible_pairs(Sq, Skv, causal, window)
+
+
+def attention_l2_bytes(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
+                       causal: bool, window: Optional[int],
+                       dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(Q, K/V, O) bytes the FlashAttention kernel moves through L2 at this
+    shape, with ``flash_attention.tiling``: each work item (a CTA's q tile
+    of ``tiling.heads`` heads) reads its q rows once, and every K/V tile of
+    its range (``flash_attention.tile_range`` over the item's rows) once
+    for K and once for V, the rows past Skv not at all; every output row is
+    written once.  An item whose rows see no key reads nothing in bf16 (the
+    f32 kernel still reads its q rows)."""
+    t = fa.tiling(B, Hq, Hkv, Sq, Skv, D, dtype)
+    e = torch.empty((), dtype=dtype).element_size()
+    items = B * Hq // t.heads     # work items at each q tile
+    q_rows = kv_rows = 0          # rows one item of each q tile reads
+    for q0 in range(0, Sq, t.rows):
+        lo, hi = fa.tile_range(Sq, Skv, q0, t.rows, t.keys, causal, window)
+        if lo < hi or dtype == torch.float32:
+            q_rows += min(t.rows, Sq - q0) * t.heads
+        kv_rows += sum(min(t.keys, Skv - j * t.keys) for j in range(lo, hi))
+    return (q_rows * items * D * e, 2 * kv_rows * items * D * e,
+            B * Hq * Sq * D * e)
 
 
 def ssd_flops(BH: int, S: int, P: int, N: int, chunk: int) -> int:
@@ -205,7 +243,8 @@ def _timed(kernel: Callable, plain: Callable, library: Optional[Callable],
            "library_ms": cuda_ms(library, iters, 3) if library else None}
     if kernel_match:   # steady state: after the warm-up and timed calls
         rec.update(device_ms=device_ms(kernel, iters, kernel_match),
-                   library_device_ms=device_ms(library, iters))
+                   library_device_ms=device_ms(library, iters)
+                   if library else None)
     return rec
 
 
@@ -229,23 +268,37 @@ def _counted(calls: Counter, name: str, fn: Callable) -> Callable:
 
 
 def bench_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
                     calls: Optional[Counter] = None) -> Dict:
-    """Causal FlashAttention on q (B, Hq, S, D), k/v (B, Hkv, S, D)."""
+    """FlashAttention on q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D).  SDPA's
+    causal mask aligns q to the start of kv, the port's to its end, so a
+    causal call with Sq != Skv has no library time."""
     calls = Counter() if calls is None else calls
     kernel = _counted(calls, "flash_attention",
-                      lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-    plain = lambda: attention_ref(q, k, v, causal=True)  # noqa: E731
-    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=True, enable_gqa=True)
+                      lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
+    plain = lambda: attention_ref(q, k, v, causal=causal)  # noqa: E731
+    library = None
     B, Hq, S, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if not causal or S == Skv:
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+    t = fa.tiling(B, Hq, Hkv, S, Skv, D, q.dtype)
     rec = {"name": "flash_attention", "shape": {
         "q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype)[6:],
-        "causal": True}, "tile": "64 q rows x 64 keys",
-        "library": "torch.nn.functional.scaled_dot_product_attention"}
+        "causal": causal}, "tiling": t._asdict(),
+        "tile": f"{t.q_rows} q rows x {t.keys} keys a consumer, {t.heads} "
+                f"head{'s' if t.heads > 1 else ''} a work item, "
+                f"{t.stages} stages, {t.items} items on {t.grid[0]} CTAs",
+        "library": "torch.nn.functional.scaled_dot_product_attention"
+        if library else None}
+    rec["l2_bytes_q"], rec["l2_bytes_kv"], rec["l2_bytes_o"] = \
+        attention_l2_bytes(B, Hq, Hkv, S, Skv, D, causal, None, q.dtype)
     out, want = kernel(), plain()
-    rec.update(_timed(kernel, plain, library, q.device, 50, 5))
+    rec.update(_timed(kernel, plain, library, q.device, 50, 5,
+                      kernel_match=ATTENTION_KERNEL_NAMES))
     return _finish(rec, out, want,
-                   attention_flops(B, Hq, D, S, k.shape[2], True),
+                   attention_flops(B, Hq, D, S, Skv, causal),
                    nbytes(q, k, v) + nbytes(q), q.dtype)
 
 
@@ -432,14 +485,41 @@ def run_all(device: Optional[str] = None, *,
             "records": records, "calls": dict(calls)}
 
 
+def attention_sweep(device: Optional[str] = None,
+                    shapes: Sequence[Tuple[int, int, int, int, int, int, bool]]
+                    = tuple(ATTENTION_SWEEP)) -> Dict:
+    """``bench_attention`` at each of ``shapes`` in bf16, q/k/v as (B, H,
+    S, D) views of (B, S, H, D) tensors from seed 0, printing a line each.
+    Returns {"device", "records", "calls"} as ``run_all``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    calls: Counter = Counter()
+    records = []
+    for B, Hq, Hkv, Sq, Skv, D, causal in shapes:
+        q, k, v = [torch.randn(B, S, H, D, generator=gen, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv))]
+        rec = bench_attention(q, k, v, causal=causal, calls=calls)
+        records.append(rec)
+        print(_line(rec), flush=True)
+        del q, k, v
+    return {"device": torch.cuda.get_device_name(dev)
+            if dev.type == "cuda" else "cpu",
+            "records": records, "calls": dict(calls)}
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions, untimed)")
     ap.add_argument("--json", default=None,
                     help="also write the records to this file")
+    ap.add_argument("--attention-sweep", action="store_true",
+                    help="time FlashAttention at ATTENTION_SWEEP's shapes "
+                         "instead of every kernel")
     args = ap.parse_args(argv)
-    out = run_all(args.device)
+    out = (attention_sweep if args.attention_sweep else run_all)(args.device)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

@@ -157,3 +157,166 @@ def test_kernel_wrapper_accepts_model_layout_views():
     q = torch.zeros(2, 16, 4, 32, dtype=torch.bfloat16).transpose(1, 2)
     k = torch.zeros(2, 16, 2, 32, dtype=torch.bfloat16).transpose(1, 2)
     tfa._check(q, k, k, None)
+
+
+# --------------------------------------------- the kernel's tiling rule
+
+_SMEM_BYTES = 232448 - 1024      # a CTA's shared memory less the barriers
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,D,heads,items", [
+    (1, 2, 1, 64, 128, 2, 1),      # even group: two heads an item, 64 rows
+    (1, 2, 1, 65, 128, 2, 2),
+    (4, 32, 2, 1024, 128, 2, 4 * 2 * 8 * 16),   # glm4-9b's prefill
+    (1, 32, 2, 1, 64, 2, 16),      # Sq = 1
+    (1, 4, 4, 128, 32, 1, 4),      # group 1: one head an item, 128 rows
+    (1, 4, 4, 129, 32, 1, 8),
+    (2, 6, 2, 128, 16, 1, 2 * 2 * 3),   # odd group 3
+    (1, 6, 2, 129, 64, 1, 2 * 3 * 2),
+])
+def test_bf16_tiling_at_its_boundaries(B, Hq, Hkv, Sq, D, heads, items):
+    t = tfa.tiling(B, Hq, Hkv, Sq, 300, D, torch.bfloat16)
+    assert (t.q_rows, t.consumers, t.keys) == (64, 2, 128)
+    assert (t.heads, t.items, t.rows) == (heads, items, 128 // heads)
+    assert t.grid == (min(items, tfa.SMS), 1)
+    assert tfa.tiling(B, Hq, Hkv, Sq, 300, D, torch.bfloat16,
+                      sms=3).grid == (min(items, 3), 1)
+
+
+@pytest.mark.parametrize("D,stages", [(16, 8), (32, 8), (64, 6), (128, 3)])
+def test_bf16_ring_is_as_deep_as_shared_memory_allows(D, stages):
+    t = tfa.tiling(1, 2, 1, 64, 64, D, torch.bfloat16)
+    assert t.stages == stages
+    used = lambda n: 1024 + 2 * 64 * 2 * D + n * 2 * t.keys * 2 * D  # noqa: E731
+    assert used(stages) <= _SMEM_BYTES
+    assert stages == 8 or used(stages + 1) > _SMEM_BYTES
+
+
+@pytest.mark.parametrize("B,Hq,Sq", [(1, 4, 64), (2, 3, 65), (1, 1, 1)])
+def test_f32_tiling_is_a_cta_per_64_rows_of_a_head(B, Hq, Sq):
+    t = tfa.tiling(B, Hq, 1, Sq, 10, 32, torch.float32)
+    nqt = -(-Sq // 64)
+    assert t == tfa.Tiling(64, 1, 64, 1, 1, nqt * B * Hq, (nqt, B * Hq))
+
+
+@pytest.mark.parametrize("args,error,message", [
+    ((1, 4, 2, 8, 8, 24, torch.bfloat16), ValueError, "head dim 24"),
+    ((1, 4, 3, 8, 8, 32, torch.bfloat16), ValueError, "unsupported sizes"),
+    ((1, 65536, 1, 8, 8, 32, torch.float32), ValueError, "exceeds the grid"),
+    ((1, 4, 2, 8, 8, 32, torch.float16), TypeError, "no tiling"),
+])
+def test_tiling_refuses_what_the_kernel_does_not_take(args, error, message):
+    with pytest.raises(error, match=message):
+        tfa.tiling(*args)
+
+
+def _strided(shape, strides, offset=0, dtype=torch.bfloat16):
+    base = torch.zeros(offset + sum((n - 1) * s for n, s in
+                                    zip(shape, strides)) + 1, dtype=dtype)
+    return base.as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("case", ["row_stride", "base", "zero_stride"])
+def test_tma_checks_refuse_on_the_cpu_what_the_card_refuses(case):
+    """bf16 tiles move by TMA: a 16-byte aligned base and nonzero strides of
+    a multiple of 16 bytes.  The CPU refuses the same inputs with the card's
+    message, through the wrapper and through ``ops.mha``; f32 takes them."""
+    q = torch.zeros(1, 4, 8, 32, dtype=torch.bfloat16)
+    k = v = torch.zeros(1, 2, 8, 32, dtype=torch.bfloat16)
+    if case == "row_stride":      # rows 72 bytes apart
+        q = _strided((1, 4, 8, 32), (4 * 8 * 36, 8 * 36, 36, 1))
+    elif case == "base":          # base 2 bytes past a 16-byte boundary
+        q = _strided((1, 4, 8, 32), (4 * 8 * 32, 8 * 32, 32, 1), offset=1)
+    else:                         # kv heads expanded from one
+        k = v = torch.zeros(1, 1, 8, 32, dtype=torch.bfloat16).expand(
+            1, 2, 8, 32)
+    before = tfa.flash_attention_fwd.launches
+    for fn in (lambda: tfa.flash_attention_fwd(q, k, v, causal=True),
+               lambda: tops.mha(q, k, v, causal=True, use_kernel=True)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn()
+    assert tfa.flash_attention_fwd.launches == before
+    assert tfa.flash_attention_fwd(q.float(), k.float(), v.float()).shape \
+        == q.shape
+
+
+def test_a_size_one_dim_takes_any_stride():
+    """A dim of size 1 is never stepped: its stride reaches the tensor map
+    as the head dim's extent, whatever the view gives it."""
+    k = _strided((1, 1, 8, 32), (3, 5, 32, 1))
+    q = torch.zeros(1, 2, 8, 32, dtype=torch.bfloat16)
+    assert tfa.kernel_strides(k) == (32, 32, 32)
+    tfa._check(q, k, k, None)
+
+
+# --------------------------------------- bytes the tiling moves through L2
+
+def _brute_l2_bytes(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype):
+    """Walk every q tile of every work item and every key of every K/V
+    tile: a tile is read if any of the item's rows sees any of its keys."""
+    t = tfa.tiling(B, Hq, Hkv, Sq, Skv, D, dtype)
+    e = 2 if dtype == torch.bfloat16 else 4
+    qpos = np.arange(Sq)[:, None] + (Skv - Sq)
+    kpos = np.arange(Skv)[None, :]
+    vis = np.ones((Sq, Skv), bool)
+    if causal:
+        vis &= qpos >= kpos
+    if window is not None:
+        vis &= qpos - kpos < window
+    q_bytes = kv_bytes = 0
+    for b in range(B):
+        for h0 in range(0, Hq, t.heads):          # an item's heads
+            for q0 in range(0, Sq, t.rows):
+                rows = vis[q0:q0 + t.rows]
+                tiles = [j for j in range(-(-Skv // t.keys))
+                         if rows[:, j * t.keys:(j + 1) * t.keys].any()]
+                if tiles or dtype == torch.float32:
+                    q_bytes += rows.shape[0] * t.heads * D * e
+                kv_bytes += sum(2 * min(t.keys, Skv - j * t.keys) * D * e
+                                for j in tiles)
+    return q_bytes, kv_bytes, B * Hq * Sq * D * e
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,window", [
+    (4, 32, 2, 1024, 1024, 128, True, None),   # glm4-9b's prefill
+    (1, 32, 2, 200, 333, 64, True, None),      # group 16, ragged
+    (2, 4, 2, 130, 130, 32, False, None),      # group 2
+    (1, 3, 3, 257, 257, 16, True, 100),        # group 1, window
+    (1, 4, 4, 300, 130, 64, True, None),       # Sq > Skv: items see nothing
+    (1, 6, 2, 150, 400, 128, False, 60),       # odd group, window
+    (1, 2, 1, 1, 500, 32, True, None),         # Sq = 1
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_l2_bytes_matches_a_count_over_the_tiles(
+        B, Hq, Hkv, Sq, Skv, D, causal, window, dtype):
+    from repro_torch.launch.kernel_bench import attention_l2_bytes
+    assert attention_l2_bytes(B, Hq, Hkv, Sq, Skv, D, causal, window,
+                              dtype) == _brute_l2_bytes(
+        B, Hq, Hkv, Sq, Skv, D, causal, window, dtype)
+
+
+def test_glm4_prefill_kv_bytes():
+    """glm4-9b's prefill: each of the 4 x 2 x 8 items at q tile i (two q
+    heads, 64 rows) reads ceil(64 (i + 1) / 128) K/V tiles of 128 keys,
+    0.30 GB in all: half of what one q head a K/V tile would read."""
+    from repro_torch.launch.kernel_bench import attention_l2_bytes
+    _, kv, _ = attention_l2_bytes(4, 32, 2, 1024, 1024, 128, True, None,
+                                  torch.bfloat16)
+    assert kv == 4 * 2 * 8 * sum(-(-64 * (i + 1) // 128) for i in range(16)) \
+        * 2 * 128 * 128 * 2
+
+
+def test_attention_sweep_runs_untimed_on_the_cpu():
+    """The bench's FlashAttention sweep at small shapes: one counted call a
+    shape, nothing timed off the card, and no library time where SDPA's
+    causal mask (aligned to the start of kv) is another function."""
+    from repro_torch.launch.kernel_bench import attention_sweep
+    out = attention_sweep("cpu", shapes=[(1, 4, 2, 64, 64, 32, True),
+                                         (1, 4, 2, 64, 200, 32, True),
+                                         (1, 2, 2, 64, 100, 16, False)])
+    assert out["calls"] == {"flash_attention": 3}
+    recs = out["records"]
+    assert all(r["ms"] is None and r["device_ms"] is None for r in recs)
+    assert [r["library"] is not None for r in recs] == [True, False, True]
+    assert [r["shape"]["causal"] for r in recs] == [True, True, False]
+    assert all(r["max_abs_err"] == 0.0 for r in recs)

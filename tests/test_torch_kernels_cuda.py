@@ -96,6 +96,36 @@ def test_kernel_window_and_fully_masked_rows(hopper, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("case", fa.BOUNDARY_CASES,
+                         ids=[c[0] for c in fa.BOUNDARY_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_the_tiling_edges(hopper, case, dtype):
+    """Every edge of ``flash_attention.tiling``; rows that see no key are
+    exactly 0."""
+    name, B, Hq, Hkv, Sq, Skv, D, causal, window, model_layout = case
+    if model_layout:   # (B, H, S, D) views of (B, S, H, D), as the model
+        q, k, v = [torch.randn(B, S, H, D, generator=hopper, device="cuda",
+                               dtype=dtype).transpose(1, 2)
+                   for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv))]
+    else:
+        q, k, v = _qkv(hopper, B, Hq, Hkv, Sq, Skv, D, dtype)
+    before = fa.flash_attention_fwd.launches
+    out = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if causal and Sq > Skv:
+        assert (out[:, :, :Sq - Skv] == 0).all()
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_source_tile_is_the_wrappers(hopper, D):
+    t = fa.tiling(4, 32, 2, 1024, 1024, D, torch.bfloat16)
+    assert fa.source_tile(D) == (t.keys, t.stages)
+
+
 def test_kernel_reads_strided_model_layout_and_backward(hopper):
     q, k, v = [torch.randn(2, 128, H, 32, generator=hopper, device="cuda")
                .transpose(1, 2).requires_grad_(True) for H in (8, 2, 2)]

@@ -4,15 +4,22 @@ its ``torch.distributed`` entry.
 Port of ``repro/kernels/allgather_gemm.py``.  Two layers, as there:
 
 * :func:`streamed_gemm` computes ``x @ w`` with the contraction K streamed
-  in ``chunks`` chunks, one per gather shard, through one or two
-  shared-memory stages (``csrc/streamed_gemm.cu``; its header says how the
-  TPU kernel's whole-chunk VMEM slots and (M, N) accumulator became tiles,
-  and what bounds it on the card).  ``buffers=2`` loads the next k-tile
-  while the current one's products run; ``buffers=1`` is the serial
-  baseline that ``launch/overlap_bench.py`` compares it with.
+  in ``chunks`` chunks, one per gather shard (``csrc/streamed_gemm.cu``;
+  its header says how the TPU kernel's whole-chunk VMEM slots and (M, N)
+  accumulator became tiles, and what bounds it on the card).  In bf16 a
+  persistent, warp-specialised kernel streams each chunk's k-tiles by TMA
+  into an mbarrier ring and runs its products on wgmma; ``buffers=2``
+  keeps the next k-tiles' loads in flight under the current products,
+  ``buffers=1`` (a ring of one stage) is the serial baseline that
+  ``launch/overlap_bench.py`` compares it with.  The f32 path runs on the
+  CUDA cores through one or two cp.async stages.
 * :func:`allgather_gemm` gathers the K-sharded activation over a process
   group (NCCL on the card, gloo on the CPU) and streams the result through
   :func:`streamed_gemm` with one chunk per rank.
+
+``cluster_shape`` is the rule that picks the bf16 kernel's thread-block
+cluster, and :func:`launch` sizes its persistent grid; the source checks
+only that it has such an instance and that the grid fits.
 
 Dispatch: tensors on the CPU take the plain ``streamed_gemm_ref``; tensors
 on a CUDA device launch the kernel or raise.  The checks run on both, in
@@ -33,7 +40,9 @@ from . import _build
 from .ref import allgather_gemm_reference, gather_columns, streamed_gemm_ref
 
 __all__ = ["streamed_gemm", "allgather_gemm", "allgather_gemm_reference",
-           "BUDGET_SHAPES", "TILES", "check", "tile", "tolerance"]
+           "BUDGET_SHAPES", "TILES", "CLUSTER_SHAPES", "boundary_shapes",
+           "check", "cluster_shape", "launch", "max_active_clusters",
+           "tile", "tolerance"]
 
 # The (M, K, N, chunks) configurations the JAX package's tests and overlap
 # bench drive its kernel with (repro/kernels/allgather_gemm.py:57-61).
@@ -43,12 +52,18 @@ BUDGET_SHAPES = (
     (128, 512, 256, 4),    # test_kernels streamed-GEMM cases (largest)
 )
 # (rows, columns, k-tile depth) of a CTA's tile in the source, per dtype
-TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
+TILES = {torch.bfloat16: (256, 128, 64), torch.float32: (64, 64, 16)}
+# (rows, columns) of tiles a bf16 thread-block cluster shares: 1 x 2 shares
+# X's tile (TMA multicast), 2 x 1 W's, 2 x 2 both; the source's instances
+CLUSTER_SHAPES = ((1, 1), (1, 2), (2, 1), (2, 2))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_Y = 65535     # the f32 grid's column tiles
+_MAX_UNITS = 2 ** 31 - 1   # the bf16 kernel's tile index is an int
 
-# sg_fwd(x, w, out, dtype, M, N, K, chunks, buffers, stream): pointers and
-# the stream as c_void_p, or ctypes would pass them as 32-bit ints
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# sg_fwd(x, w, out, dtype, M, N, K, chunks, buffers, cm, cn, ctas,
+# stream): pointers and the stream as c_void_p, or ctypes would pass them
+# as 32-bit ints
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,6 +73,8 @@ def _library() -> ctypes.CDLL:
     lib.sg_fwd.restype = ctypes.c_int
     lib.sg_tile.argtypes = [ctypes.c_int] * 2
     lib.sg_tile.restype = ctypes.c_int
+    lib.sg_max_active_clusters.argtypes = [ctypes.c_int] * 2
+    lib.sg_max_active_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -66,6 +83,49 @@ def tile(dtype: torch.dtype) -> tuple:
     the built library (must equal ``TILES[dtype]``)."""
     lib = _library()
     return tuple(lib.sg_tile(_DTYPES[dtype], i) for i in range(3))
+
+
+def cluster_shape(M: int, N: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(rows, columns) of tiles that one thread-block cluster of the kernel
+    shares at an (M, N) output: in bf16 2 x 1, two CTAs of a column block
+    sharing W's tile; f32 always 1 x 1 (no clusters)."""
+    if dtype == torch.bfloat16:
+        return 2, 1
+    return 1, 1
+
+
+def units(M: int, N: int, dtype: torch.dtype,
+          cluster: Tuple[int, int]) -> int:
+    """Clusters' worth of tiles at an (M, N) output: cm x cn tiles a unit
+    (a unit's tiles past M or N are computed and not stored)."""
+    bm, bn, _ = TILES[dtype]
+    cm, cn = cluster
+    return _cdiv(_cdiv(M, bm), cm) * _cdiv(_cdiv(N, bn), cn)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def boundary_shapes(dtype: torch.dtype
+                    ) -> Tuple[Tuple[int, int, int, int], ...]:
+    """(M, K, N, chunks) at every edge of the kernel's tiling in ``dtype``
+    (BM x BN tiles, k-tiles of BK; ``TILES``): M at 1, BM - 1 and BM + 1;
+    N at BN - 8, BN + 8 and at an odd count of column tiles (a 1 x 2
+    cluster's spare tile); a chunk's columns kc at 8, 40, 56, 64, 72 and
+    1024 (below, at and across a k-tile); ``chunks=1``; and more tiles than
+    the card runs at once, so that a persistent CTA takes several.  The
+    card's tests hold the kernel to its plain version at each."""
+    bm, bn, _ = TILES[dtype]
+    shapes = [(m, 128, bn, 2) for m in (1, bm - 1, bm + 1)]
+    shapes += [(bm + 1, 128, n, 2) for n in (bn - 8, bn + 8, 3 * bn - 8)]
+    shapes += [(bm // 2 + 3, kc * c, 2 * bn + 8, c)
+               for kc, c in ((8, 8), (40, 4), (56, 3), (64, 2), (72, 2),
+                             (1024, 2))]
+    shapes.append((3 * bm // 2, 520, 3 * bn, 1))
+    # 9 x 33 tiles of 256 x 128 in bf16: 297 tiles, 153 units of 1 x 2
+    shapes.append((8 * 256 + 8, 256, 32 * 128 + 8, 4))
+    return tuple(shapes)
 
 
 def tolerance(dtype: torch.dtype, max_abs_plain: float
@@ -112,16 +172,20 @@ def check(x: torch.Tensor, w: torch.Tensor, chunks: int, buffers: int
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"x and w must be contiguous, got strides "
                          f"{x.stride()}, {w.stride()}")
-    # cp.async moves 16 bytes: W's rows, and the start of every chunk of
-    # X's columns, must be 16-byte aligned
+    # TMA (bf16) and cp.async (f32) move 16-byte groups: W's rows, and the
+    # start of every chunk of X's columns, must be 16-byte aligned
     per16 = 16 // x.element_size()
     kc = K // chunks
     if N % per16 or kc % per16 or x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"rows must be 16-byte aligned: N={N} and "
                          f"K/chunks={kc} must be multiples of {per16} for "
                          f"{x.dtype}")
-    if -(-N // TILES[x.dtype][1]) > 65535:
-        raise ValueError(f"N={N} exceeds {TILES[x.dtype][1] * 65535} columns")
+    if x.dtype == torch.float32 and -(-N // TILES[x.dtype][1]) > _MAX_GRID_Y:
+        raise ValueError(f"N={N} exceeds {TILES[x.dtype][1] * _MAX_GRID_Y} "
+                         f"columns (65535 column tiles in f32)")
+    if x.dtype == torch.bfloat16 and units(
+            M, N, x.dtype, cluster_shape(M, N, x.dtype)) > _MAX_UNITS:
+        raise ValueError(f"(M, N)=({M}, {N}) exceeds {_MAX_UNITS} tiles")
 
 
 def streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
@@ -136,23 +200,60 @@ def streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
     check(x, w, chunks, buffers)
     if x.device.type == "cpu":
         return streamed_gemm_ref(x, w, chunks=chunks)
+    out = launch(x, w, chunks, buffers,
+                 cluster_shape(x.shape[0], w.shape[1], x.dtype))
+    streamed_gemm.launches += 1
+    return out
+
+
+streamed_gemm.launches = 0
+
+
+def max_active_clusters(cluster: Tuple[int, int]) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the bf16 instance of cluster
+    shape ``cluster`` (0: such a cluster cannot be placed); raises on a
+    failed query.  Queried once per process and shape."""
+    return _max_active_clusters(tuple(cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_active_clusters(cluster: Tuple[int, int]) -> int:
+    n = _library().sg_max_active_clusters(*cluster)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
+                           f"error {-n}")
+    return n
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, chunks: int, buffers: int,
+           cluster: Tuple[int, int]) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors that ``check`` passed, bf16 in
+    clusters of ``cluster`` (f32: (1, 1)) on a persistent grid of as many
+    clusters as the card holds at once, at most one a unit of tiles; raise
+    on a non-zero CUDA error.  Counts nothing: :func:`streamed_gemm` is the
+    entry that counts its launches."""
     resolve_device(x.device)
     M, K = x.shape
     N = w.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
+        ctas = 0
+        if x.dtype == torch.bfloat16:
+            slots = max_active_clusters(cluster)
+            if slots < 1:
+                raise RuntimeError(f"a {cluster} cluster of the streamed "
+                                   f"GEMM cannot be placed")
+            ctas = min(slots, units(M, N, x.dtype, cluster)) \
+                * cluster[0] * cluster[1]
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sg_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                         _DTYPES[x.dtype], M, N, K, chunks, buffers, stream)
+                         _DTYPES[x.dtype], M, N, K, chunks, buffers,
+                         *cluster, ctas, stream)
     if err != 0:
         raise RuntimeError(f"streamed_gemm kernel launch failed: CUDA error "
                            f"{err}")
-    streamed_gemm.launches += 1
     return out
-
-
-streamed_gemm.launches = 0
 
 
 def allgather_gemm(x_shard: torch.Tensor, w: torch.Tensor, *,

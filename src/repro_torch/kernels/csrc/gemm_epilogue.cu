@@ -107,7 +107,7 @@
 #include <cooperative_groups.h>
 #include <math.h>
 
-#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors, the tensor-map encoder
+#include "hopper.cuh"  // mbarriers, clusters, TMA, wgmma descriptors, the tensor-map encoder
 
 namespace cg = cooperative_groups;
 
@@ -157,18 +157,6 @@ struct SumOp {
     return x + y;
   }
 };
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
 
 // ------------------------------------------------------- the row epilogue
 //

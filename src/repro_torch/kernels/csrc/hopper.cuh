@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// mbarriers, TMA tensor loads, wgmma shared-memory descriptors and fences,
-// and the host-side tensor-map encoder.  Included by gemm_epilogue.cu and
-// flash_attention.cu; each source is its own library, so everything here
+// mbarriers (local and across a thread-block cluster), cluster rank and
+// barrier, TMA tensor loads (also multicast to a cluster) and stores,
+// wgmma shared-memory descriptors and fences, and the host-side tensor-map
+// encoder.  Included by gemm_epilogue.cu, flash_attention.cu and
+// streamed_gemm.cu; each source is its own library, so everything here
 // lives in an anonymous namespace of the including file.
 //
 // The build (kernels/_build.py::source_digest) hashes this header with the
-// sources that include it, so an edit here rebuilds both libraries.
+// sources that include it, so an edit here rebuilds all three libraries.
 
 #pragma once
 
@@ -48,6 +50,18 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// arrive on the barrier at `bar`'s offset in the shared memory of cluster
+// rank `cta` (this CTA's own rank too)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n\t.reg .b32 remote;\n\t"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n\t"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n\t}"
+      ::"r"(smem_u32(bar)), "r"(cta)
+      : "memory");
+}
+
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done;
   asm volatile(
@@ -68,6 +82,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (i == (1u << 26)) __trap();
 }
 
+// Thread-block clusters ---------------------------------------------------------
+
+// every thread of every CTA of the cluster arrives; release/acquire order
+// shared-memory writes (and remote mbarrier arrives) across the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
 // TMA -----------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -80,6 +110,33 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same box into the same offset of every CTA of the cluster in `mask`,
+// each CTA's barrier at `bar`'s offset counting the bytes
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -89,6 +146,40 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// the box at (c0, c1) of `map` from shared memory at `src`, as one bulk
+// group of this thread (bulk_commit); parts past the tensor's edge are not
+// written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// order this thread's shared-memory writes before later TMA (async proxy)
+// reads of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {

@@ -1,6 +1,6 @@
 // Streamed GEMM for Hopper (sm_90a): C = X W with the contraction K streamed
-// in `chunks` equal chunks through one or two shared-memory stages, f32 and
-// bf16 in, f32 accumulation, C in X's dtype.
+// in `chunks` equal chunks, f32 and bf16 in, f32 accumulation, C in X's
+// dtype.
 //
 // Replaces: src/repro/kernels/allgather_gemm.py, the Pallas TPU kernel
 // `_kernel` (line 70) launched by `streamed_gemm` (line 124), which the
@@ -8,61 +8,90 @@
 // source shard.  The TPU kernel DMAs chunk c of X (M, kc) and of W (kc, N)
 // into one of `buffers` VMEM slots and adds their product into a whole
 // (M, N) f32 accumulator in VMEM; with two slots the copy of chunk c + 1 is
-// in flight while the MXU contracts chunk c, with one slot copy and compute
-// alternate.  The pair measures how much of the copy hides under compute.
+// in flight while the MXU contracts chunk c (lines 85-106), with one slot
+// copy and compute alternate (lines 107-119).  The pair measures how much
+// of the copy hides under compute.
 //
 // The design problem: at the smallest shape the JAX bench drives, (M, K, N,
 // chunks) = (256, 4096, 512, 8) in f32, one X slot alone is 512 KB, and the
 // accumulator another 512 KB; a CTA on the H100 has at most 227 KB of shared
-// memory.  So nothing here holds a whole chunk or the whole C:
-//
-// - One CTA for each output tile, the accumulator in registers: bf16 tiles
-//   of 128 x 128 (8 warps of 64 x 32, mma.sync m16n8k16 with f32
-//   accumulation, ldmatrix for X, ldmatrix.trans for the row-major W tile);
-//   f32 tiles of 64 x 64 (256 threads of 4 x 4, f32 FMAs on the CUDA cores,
-//   no TF32).  The grid runs over M fastest, so the CTAs of a wave share a
-//   column tile of W and X stays in L2.
-// - The K loop follows the chunk order: chunk c = 0 .. chunks - 1, and inside
-//   each chunk its kc columns in k-tiles of BK (32 in bf16, 16 in f32).  The
-//   last k-tile of a chunk is ragged when BK does not divide kc and is padded
-//   with zeros; no k-tile straddles two chunks.  The chunk stays the unit of
-//   the stream, so that a 4-card version can make chunk c wait for its
-//   arrival from rank c.
-// - NBUF = 2: two shared-memory stages filled with cp.async, committed as
-//   one group per k-tile; the next k-tile (the first tile of chunk c + 1
-//   after the last of chunk c) is in flight while the current one's products
-//   run, and `cp.async.wait_group 1` waits for the current one only.  This is
-//   the TPU kernel's prefetch (lines 85-106) at the granularity that shared
-//   memory allows.
-// - NBUF = 1: one stage; issue, `wait_group 0`, __syncthreads, products,
-//   __syncthreads: the serial baseline of lines 107-119.
-// - Both modes run the same products in the same order, so their outputs
-//   agree bit for bit.
-// - Ragged M, N and K: rows past M, columns past N and the padded columns of
-//   a ragged k-tile are staged as zeros (cp.async with src-size 0), and C is
-//   stored under a mask.  cp.async moves 16 bytes, so the rows of X and W
-//   and the start of every chunk are 16-byte aligned: N and kc = K / chunks
-//   are multiples of 8 in bf16 and of 4 in f32 (the wrapper checks this,
-//   and the launcher refuses it too).
+// memory.  So nothing here holds a whole chunk or the whole C: a CTA holds
+// one output tile's accumulator in registers and streams K through it in
+// k-tiles.  In both paths the K loop follows the chunk order: chunk c = 0 ..
+// chunks - 1, and inside each chunk its kc columns in k-tiles of BK; the
+// last k-tile of a chunk is ragged when BK does not divide kc and is filled
+// with zeros; no k-tile straddles two chunks.  The chunk stays the unit of
+// the stream, so that a 4-card version can make chunk c wait for its
+// arrival from rank c.
 //
 // What bounds it on this card: at glm4-9b's MLP input projection at the
 // serving prefill, (M, K, N) = (4096, 4096, 13696) bf16 with chunks = 4,
 // the product is 459.6 GFLOP against 258 MB of compulsory traffic (X, W,
 // C): operations bound it, 0.465 ms at 989 TFLOP/s against 0.077 ms of
-// bytes at 3.35 TB/s.  At the JAX bench's f32 shapes (BUDGET_SHAPES of the
-// wrapper) the bound is 0.5-16 us and the grid fills 8-32 of the 132 SMs:
-// a call costs its launch and one CTA's serial walk over K, which is latency.
-// There the two stages matter most: with one CTA on an SM nothing else
-// hides a k-tile's load, so NBUF = 2 puts it under the previous tile's
-// products.  This first version issues mma.sync, not wgmma, from a
-// two-stage cp.async ring; TMA with mbarriers, a third stage and split-K
-// for the small grids are later work.
+// bytes at 3.35 TB/s.  What stands between a tile loop and that bound is
+// the tensor cores' rate (only wgmma reaches it) and the bytes the tiling
+// reads from L2: every output tile reads a BM-row panel of X and a
+// BN-column panel of W, so X crosses L2 once per column tile and W once per
+// row tile (launch/kernel_bench.py::streamed_l2_bytes counts them).
+//
+// The bf16 path (`sg_bf16_kernel<CM, CN>`):
+// - Tile 256 x 128, k-tile 64.  Warp specialisation: 384 threads.
+//   Warpgroups 0 and 1 are consumers (setmaxnreg 232), each owning 128 rows
+//   x 128 columns as two wgmma.mma_async m64n128k16 per 16-deep step (128
+//   f32 accumulators a thread); warpgroup 2 is the producer (setmaxnreg 40),
+//   one thread of which issues every TMA load.
+// - Chunk-aware tensor maps: X (M, K) is encoded as a rank-3 map of dims
+//   (kc, chunks, M) and W (K, N) as one of dims (N, kc, chunks), so a box
+//   never leaves its chunk; columns past kc, rows past M and columns past N
+//   arrive as zeros.  That is how kc, M and N are ragged, with no padding
+//   copy and no masked load.  TMA wants 16-byte global strides and a
+//   16-byte-aligned base: kc and N multiples of 8 (the wrapper checks it,
+//   and the launcher refuses it too).  Both operands come with the 128-byte
+//   swizzle: X's tile K-major (256 rows of 64 columns), W's as two
+//   64-column boxes of 64 rows, wgmma's transpose-B (MN-major) form.
+// - The ring: STAGES = 4 stages of 48 KB (32 KB of X, 16 KB of W), a full
+//   and an empty mbarrier each; a consumer warpgroup releases a stage when
+//   the wgmma group that read it has retired.  Every wait is bounded and
+//   traps instead of hanging the card.
+// - buffers = 2 runs all STAGES stages: the next k-tiles' loads are in
+//   flight under the current one's products, which is the TPU kernel's
+//   "prefetch chunk c + 1 while contracting chunk c" (lines 85-106) at the
+//   granularity shared memory allows.  buffers = 1 runs a ring of depth 1:
+//   the producer waits for the stage to be released before every load, and
+//   the consumers retire each k-tile's products before releasing it, so
+//   copies and products alternate (lines 107-119).  Both modes issue the
+//   same wgmma sequence on the same tiles, so their outputs are equal bit
+//   for bit (and so are those of every cluster shape).
+// - A persistent grid: one CTA an SM (or one cluster per slot that
+//   cudaOccupancyMaxActiveClusters reports); the wrapper passes the grid.
+//   The clusters walk the tiles M-fastest, so a round's tiles hold all of X
+//   and a few panels of W in the 50 MB L2.  The producer runs ahead into
+//   the next tile while the consumers store the last one (masked st.global
+//   of packed bf16 pairs).
+// - The cluster shape CM x CN (the wrapper's `cluster_shape`): 1 x 1; 1 x 2,
+//   two CTAs of one row block that share X's tile (each loads half of it by
+//   TMA multicast into both); 2 x 1, two CTAs of one column block that
+//   share W's tile (each loads one of its two boxes into both).  Every
+//   consumer warpgroup then releases a stage in every CTA of the cluster
+//   (mapa + a remote mbarrier.arrive), since a peer's multicast writes into
+//   it.  A cluster whose second tile lies past M or N (an odd count of tiles
+//   along the shared axis) loads its share of the common operand, computes
+//   on whatever the stage holds and stores nothing.
+//
+// The f32 path (`sg_fwd_kernel<F32Tile, NBUF>`) stays on the CUDA cores
+// without TF32 (the JAX test's 2e-4 / 2e-5 bar): one CTA for each 64 x 64
+// tile (256 threads of 4 x 4, f32 FMAs), k-tiles of 16 through NBUF = 2
+// cp.async stages (the next in flight under the current one's products,
+// `cp.async.wait_group 1`) or NBUF = 1 (issue, wait, compute); rows past M,
+// columns past N and the padding of a ragged k-tile are staged as zeros
+// (cp.async with src-size 0), and C is stored under a mask.  At the JAX
+// bench's f32 shapes (BUDGET_SHAPES of the wrapper) the bound is 0.5-16 us
+// and the grid fills 8-32 of the 132 SMs: a call costs its launch and one
+// CTA's serial walk over K, which is latency; split-K is later work.
 //
 // Layout: X (M, K), W (K, N) and C (M, N) row-major and contiguous.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mbarriers, clusters, TMA, wgmma descriptors, the tensor-map encoder
 
 namespace {
 
@@ -73,11 +102,286 @@ struct Params {
   int M, N, K;
   int kc;      // columns of a chunk: K / chunks
   int chunks;
+  int depth;   // bf16: ring stages in use (buffers = 2: STAGES; 1: one)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+// ============================================================= bf16 path
+
+constexpr int BF16_THREADS = 384;    // 2 consumer warpgroups + 1 producer
+constexpr int BF16_CONSUMERS = 256;
+
+struct Bf16Cfg {
+  static constexpr int BM = 256, BN = 128, BK = 64;
+  static constexpr int STAGES = 4;
+  static constexpr int BOX = 64;                  // columns in a 128-byte row
+  static constexpr int ROW_BYTES = BOX * 2;       // of every box here
+  static constexpr int X_BYTES = BM * BK * 2;     // 256 rows of 64 columns
+  static constexpr int W_BOX_BYTES = BK * ROW_BYTES;  // 64 rows of 64 columns
+  static constexpr int W_BYTES = (BN / BOX) * W_BOX_BYTES;
+  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
+  // a consumer warpgroup stages 64 rows of C for a TMA store: two 64-column
+  // boxes
+  static constexpr int C_BOX_BYTES = 64 * ROW_BYTES;
+  static constexpr int C_BYTES = (BN / BOX) * C_BOX_BYTES;
+  // 1024 bytes of slack to align the ring for the 128-byte swizzle
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * C_BYTES;
+  static_assert(BK == BOX && X_BYTES % 1024 == 0 && W_BOX_BYTES % 1024 == 0,
+                "alignment");
+};
+
+// d (64 x 128, f32) += A (64 x 16, K-major) B (16 x 128, MN-major: the
+// transpose-B form), both from shared memory
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
+
+// The tile grid of a launch, walked by clusters of CM x CN CTAs: a unit is
+// CM row tiles x CN column tiles, rank r of the cluster takes row tile
+// CM mu + r % CM and column tile CN nu + r / CM of unit (mu, nu), and the
+// units run M-fastest.
+template <int CM, int CN>
+struct Grid {
+  int tm, tn, um, units;
+  __device__ Grid(const Params& p)
+      : tm((p.M + Bf16Cfg::BM - 1) / Bf16Cfg::BM),
+        tn((p.N + Bf16Cfg::BN - 1) / Bf16Cfg::BN),
+        um((tm + CM - 1) / CM),
+        units(um * ((tn + CN - 1) / CN)) {}
+  __device__ void tile(int u, int rank, int& mi, int& ni) const {
+    mi = (u % um) * CM + rank % CM;
+    ni = (u / um) * CN + rank / CM;
+  }
+};
+
+// bar.sync among the 128 threads of consumer warpgroup wg
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+template <int CM, int CN>
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+    sg_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_c, const Params p) {
+  using Cfg = Bf16Cfg;
+  constexpr int CS = CM * CN, S = Cfg::STAGES, BM = Cfg::BM, BN = Cfg::BN,
+                BK = Cfg::BK;
+  // a shared X tile splits into CN row slices, a shared W tile into its CM
+  // boxes
+  static_assert(CM == 1 || CM == BN / Cfg::BOX, "one W box a rank");
+  static_assert((BM / CN) % 8 == 0, "whole swizzle atoms a rank");
+  extern __shared__ unsigned char sg_smem[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  // the ring, then the two warpgroups' C staging, at a 1024-byte boundary
+  // of the shared window
+  unsigned char* smem = sg_smem + ((1024 - (smem_u32(sg_smem) & 1023)) & 1023);
+
+  const int tid = threadIdx.x;
+  const int rank = CS > 1 ? (int)cluster_rank() : 0;
+  const int rm = rank % CM, rn = rank / CM;
+  const Grid<CM, CN> grid(p);
+  const int per_chunk = (p.kc + BK - 1) / BK;  // k-tiles a chunk
+  const int steps = p.chunks * per_chunk;
+  const int cluster0 = blockIdx.x / CS, clusters = gridDim.x / CS;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);        // the producer's expect_tx; TMA's bytes
+      mbar_init(&empty[s], 2 * CS);  // each consumer warpgroup of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (CS > 1) cluster_sync();  // every CTA's barriers exist before any remote arrive
+
+  if (tid >= BF16_CONSUMERS) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == BF16_CONSUMERS) {
+      prefetch_map(&tm_x);
+      prefetch_map(&tm_w);
+      // X's tile goes to the ranks of this row tile, W's to those of this
+      // column tile
+      uint16_t mask_x = 0;
+      for (int k = 0; k < CN; ++k) mask_x |= (uint16_t)(1u << (rm + CM * k));
+      const uint16_t mask_w = (uint16_t)(((1u << CM) - 1) << (CM * rn));
+      int s = 0;
+      uint32_t phase = 0;
+      for (int u = cluster0; u < grid.units; u += clusters) {
+        int mi, ni;
+        grid.tile(u, rank, mi, ni);
+        // an operand past M or N is loaded by none of the ranks that share
+        // it, and none of them waits for it
+        const bool x_in = mi < grid.tm, w_in = ni < grid.tn;
+        const uint32_t bytes =
+            (x_in ? Cfg::X_BYTES : 0) + (w_in ? Cfg::W_BYTES : 0);
+        for (int c = 0; c < p.chunks; ++c) {
+          for (int kt = 0; kt < per_chunk; ++kt) {
+            mbar_wait(&empty[s], phase ^ 1);
+            unsigned char* st = smem + s * Cfg::STAGE_BYTES;
+#ifdef SG_EXP_NO_LOAD
+            mbar_arrive(&full[s]);
+            if (++s == p.depth) { s = 0; phase ^= 1; }
+            continue;
+#endif
+            mbar_expect_tx(&full[s], bytes);
+            const int k = kt * BK;  // within chunk c
+            if (x_in) {
+              if (CN > 1)  // row slice rn of X's tile, to its row's ranks
+                tma_load_3d_multicast(st + rn * (BM / CN) * Cfg::ROW_BYTES,
+                                      &tm_x, &full[s], k, c,
+                                      mi * BM + rn * (BM / CN), mask_x);
+              else
+                tma_load_3d(st, &tm_x, &full[s], k, c, mi * BM);
+            }
+            unsigned char* wt = st + Cfg::X_BYTES;
+            if (w_in) {
+              if (CM > 1)  // box rm of W's tile, to its column's ranks
+                tma_load_3d_multicast(wt + rm * Cfg::W_BOX_BYTES, &tm_w,
+                                      &full[s], ni * BN + rm * Cfg::BOX, k,
+                                      c, mask_w);
+              else {
+#pragma unroll
+                for (int j = 0; j < BN / Cfg::BOX; ++j)
+                  tma_load_3d(wt + j * Cfg::W_BOX_BYTES, &tm_w, &full[s],
+                              ni * BN + j * Cfg::BOX, k, c);
+              }
+            }
+            if (++s == p.depth) {
+              s = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = tid / 128, t = tid % 128;
+    const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+    // acc[h][4 j + e]: row 128 wg + 64 h + 16 warp + g + 8 (e >> 1) of the
+    // tile, column 8 j + 2 tq + (e & 1)
+    float acc[2][64];
+    const uint32_t a_off = wg * 128 * Cfg::ROW_BYTES;  // this warpgroup's rows
+    unsigned char* c_stage = smem + S * Cfg::STAGE_BYTES + wg * Cfg::C_BYTES;
+    if (t == 0) prefetch_map(&tm_c);
+    auto release = [&](int s) {
+      if (CS == 1) {
+        if (t == 0) mbar_arrive(&empty[s]);
+      } else if (t < CS) {
+        mbar_arrive_cluster(&empty[s], t);
+      }
+    };
+    int s = 0;
+    uint32_t phase = 0;
+    for (int u = cluster0; u < grid.units; u += clusters) {
+      int mi, ni;
+      grid.tile(u, rank, mi, ni);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+      int prev = -1;
+      for (int step = 0; step < steps; ++step) {
+        mbar_wait(&full[s], phase);
+        const uint32_t st = smem_u32(smem + s * Cfg::STAGE_BYTES);
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        wgmma_fence();
+#ifndef SG_EXP_NO_MMA
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {  // X: +32 bytes; W: +16 rows
+          const uint64_t db = smem_desc(st + Cfg::X_BYTES + 16 * Cfg::ROW_BYTES * kk,
+                                        Cfg::W_BOX_BYTES, 8 * Cfg::ROW_BYTES, 1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            wgmma_128(acc[h],
+                      smem_desc(st + a_off + h * 64 * Cfg::ROW_BYTES + 32 * kk,
+                                16, 8 * Cfg::ROW_BYTES, 1),
+                      db);
+        }
+#endif
+        wgmma_commit();
+        if (p.depth > 1) {
+          wgmma_wait<1>();  // the previous stage's group has retired
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          if (prev >= 0) release(prev);
+          prev = s;
+        } else {  // one stage: retire this k-tile before the next load
+          wgmma_wait<0>();
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          release(s);
+        }
+        if (++s == p.depth) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (prev >= 0) release(prev);
+      if (mi >= grid.tm || ni >= grid.tn) continue;  // a cluster's spare tile
+#ifdef SG_EXP_NO_STORE
+      if (p.M > 0) continue;
+#endif
+      // C through shared memory, 64 rows at a time: bf16 pairs into the
+      // staging boxes (the 128-byte swizzle: 16-byte group j % 8 of row r
+      // lands at group (j % 8) ^ (r % 8), so a warp's stores hit 32 banks),
+      // then one thread stores both boxes by TMA, which leaves out the rows
+      // and columns past M and N
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (t == 0) bulk_wait_read<0>();  // the last store has read the staging
+        warpgroup_sync(wg);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = warp * 16 + g + 8 * r;  // row % 8 == g
+            *reinterpret_cast<uint32_t*>(
+                c_stage + (j / 8) * Cfg::C_BOX_BYTES + row * Cfg::ROW_BYTES +
+                (((j % 8) ^ g) << 4) + 4 * tq) =
+                pack_bf16(acc[h][4 * j + 2 * r], acc[h][4 * j + 2 * r + 1]);
+          }
+        fence_proxy_async();
+        warpgroup_sync(wg);
+        if (t == 0) {
+#pragma unroll
+          for (int b = 0; b < BN / Cfg::BOX; ++b)
+            tma_store_2d(&tm_c, c_stage + b * Cfg::C_BOX_BYTES,
+                         ni * BN + b * Cfg::BOX, mi * BM + wg * 128 + h * 64);
+          bulk_commit();
+        }
+      }
+    }
+    if (t == 0) bulk_wait<0>();  // C written before the CTA exits
+  }
+  // no CTA may exit while a peer can still multicast into it or arrive on
+  // its barriers
+  if (CS > 1) cluster_sync();
+}
+
+// ============================================================== f32 path
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
@@ -97,115 +401,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// ------------------------------------------------------------- bf16 tile
-//
-// Warp w (0..7) owns rows (w / 4) * 64 .. + 64 and columns (w % 4) * 32 ..
-// + 32 of the 128 x 128 tile: acc[i][j] is m16 tile i, n8 tile j.  In an
-// (m16, n8) tile, thread (g = lane / 4, tq = lane % 4) holds rows g
-// (elements 0, 1) and g + 8 (elements 2, 3), columns 2 tq and 2 tq + 1.
-
-struct Bf16Tile {
-  using T = __nv_bfloat16;  // in device memory
-  using S = uint16_t;       // its bits in shared memory
-  static constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256;
-  static constexpr int PER16 = 8;        // elements in 16 bytes
-  static constexpr int LDX = BK + 8;     // 80-byte rows: ldmatrix conflict-free
-  static constexpr int LDW = BN + 8;     // 272-byte rows: likewise
-  struct Stage {
-    S x[BM * LDX];
-    S w[BK * LDW];
-  };
-  struct Acc {
-    float v[4][4][4];
-    __device__ __forceinline__ void zero() {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) v[i][j][e] = 0.f;
-    }
-  };
-
-  static __device__ __forceinline__ void mma(const Stage& st, Acc& acc) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / 4, wn = warp % 4;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(a[i], smem_u32(st.x + (wm * 64 + i * 16 + lane % 16) * LDX +
-                                   kk + (lane / 16) * 8));
-      uint32_t b[2][4];  // b[j]: the fragments of n8 tiles 2 j and 2 j + 1
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldmatrix_x4_trans(
-            b[j], smem_u32(st.w + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDW +
-                           wn * 32 + j * 16 + (lane / 16) * 8));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_bf16(acc.v[i][2 * j], a[i], b[j][0], b[j][1]);
-          mma_bf16(acc.v[i][2 * j + 1], a[i], b[j][2], b[j][3]);
-        }
-    }
-  }
-
-  static __device__ void store(const Params& p, const Acc& acc, int m0,
-                               int n0) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / 4, wn = warp % 4, g = lane / 4, tq = lane % 4;
-    T* out = static_cast<T*>(p.out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + j * 8 + 2 * tq;  // even, N even: n + 1 < N
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm * 64 + i * 16 + g + 8 * h;
-          if (m < p.M && n < p.N)
-            *reinterpret_cast<uint32_t*>(out + (long long)m * p.N + n) =
-                pack_bf16(acc.v[i][j][2 * h], acc.v[i][j][2 * h + 1]);
-        }
-      }
-  }
-};
-
-// -------------------------------------------------------------- f32 tile
-//
 // Thread t owns rows 4 (t / 16) .. + 4 and columns 4 (t % 16) .. + 4 of the
 // 64 x 64 tile: acc.v[u][j] is row 4 (t / 16) + u, column 4 (t % 16) + j.
 
@@ -262,8 +457,6 @@ struct F32Tile {
     }
   }
 };
-
-// ---------------------------------------------------------- the k stream
 
 // Stage the BM x BK tile of X and the BK x BN tile of W at column/row k0,
 // zero past M, N and the chunk's end `kend`.  k0 and kend are multiples of
@@ -334,16 +527,90 @@ __global__ void __launch_bounds__(256, 2) sg_fwd_kernel(const Params p) {
   Tile::store(p, acc, m0, n0);
 }
 
-template <class Tile>
-cudaError_t launch(const Params& p, int buffers, cudaStream_t stream) {
-  const dim3 grid((p.M + Tile::BM - 1) / Tile::BM,
-                  (p.N + Tile::BN - 1) / Tile::BN, 1);
+// ============================================================ the launch
+
+cudaError_t launch_f32(const Params& p, int buffers, cudaStream_t stream) {
+  const dim3 grid((p.M + F32Tile::BM - 1) / F32Tile::BM,
+                  (p.N + F32Tile::BN - 1) / F32Tile::BN, 1);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   if (buffers == 2)
-    sg_fwd_kernel<Tile, 2><<<grid, Tile::THREADS, 0, stream>>>(p);
+    sg_fwd_kernel<F32Tile, 2><<<grid, F32Tile::THREADS, 0, stream>>>(p);
   else
-    sg_fwd_kernel<Tile, 1><<<grid, Tile::THREADS, 0, stream>>>(p);
+    sg_fwd_kernel<F32Tile, 1><<<grid, F32Tile::THREADS, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int CM, int CN>
+cudaError_t configure_bf16(int ctas, cudaStream_t stream,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
+  static bool set = false;  // once per instance and process
+  if (!set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sg_bf16_kernel<CM, CN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Bf16Cfg::SMEM);
+    if (e != cudaSuccess) return e;
+    set = true;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(BF16_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = Bf16Cfg::SMEM;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CM * CN;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int CM, int CN>
+cudaError_t launch_bf16(const Params& p, int ctas, cudaStream_t stream) {
+  using Cfg = Bf16Cfg;
+  // X (M, K) as (kc, chunks, M) and W (K, N) as (N, kc, chunks): a box
+  // never leaves its chunk
+  const cuuint64_t xd[3] = {(cuuint64_t)p.kc, (cuuint64_t)p.chunks,
+                            (cuuint64_t)p.M};
+  const cuuint64_t xs[2] = {(cuuint64_t)p.kc * 2, (cuuint64_t)p.K * 2};
+  const cuuint32_t xb[3] = {Cfg::BOX, 1, Cfg::BM / CN};
+  const cuuint64_t wd[3] = {(cuuint64_t)p.N, (cuuint64_t)p.kc,
+                            (cuuint64_t)p.chunks};
+  const cuuint64_t ws[2] = {(cuuint64_t)p.N * 2, (cuuint64_t)p.kc * p.N * 2};
+  const cuuint32_t wb[3] = {Cfg::BOX, Cfg::BK, 1};
+  CUtensorMap tx, tw, tc;
+  if (!encode_tiled(&tx, p.x, 3, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_tiled(&tw, p.w, 3, wd, ws, wb, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map(&tc, p.out, p.N, p.M, (uint64_t)p.N * 2, Cfg::BOX, 64,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = configure_bf16<CM, CN>(ctas, stream, cfg, attr);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, sg_bf16_kernel<CM, CN>, tx, tw, tc, p);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int CM, int CN>
+cudaError_t occupancy_bf16(int* n) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = configure_bf16<CM, CN>(CM * CN, 0, cfg, attr);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(n, sg_bf16_kernel<CM, CN>, &cfg);
+}
+
+// the bf16 instances: cluster shapes CM x CN
+bool valid_cluster(int cm, int cn) {
+  return (cm == 1 || cm == 2) && (cn == 1 || cn == 2);
+}
+
+long long bf16_units(int M, int N, int cm, int cn) {
+  const long long tm = (M + Bf16Cfg::BM - 1) / Bf16Cfg::BM;
+  const long long tn = (N + Bf16Cfg::BN - 1) / Bf16Cfg::BN;
+  return ((tm + cm - 1) / cm) * ((tn + cn - 1) / cn);
 }
 
 }  // namespace
@@ -352,28 +619,57 @@ cudaError_t launch(const Params& p, int buffers, cudaStream_t stream) {
 // 1 columns (BN), 2 k-tile depth (BK); -1 for anything else.
 extern "C" int sg_tile(int dtype, int which) {
   if (dtype == 1)
-    return which == 0 ? Bf16Tile::BM : which == 1 ? Bf16Tile::BN
-                                     : which == 2 ? Bf16Tile::BK : -1;
+    return which == 0 ? Bf16Cfg::BM : which == 1 ? Bf16Cfg::BN
+                                    : which == 2 ? Bf16Cfg::BK : -1;
   if (dtype == 0)
     return which == 0 ? F32Tile::BM : which == 1 ? F32Tile::BN
                                     : which == 2 ? F32Tile::BK : -1;
   return -1;
 }
 
-// C = X W with K streamed in `chunks` chunks through `buffers` (1 or 2)
-// shared-memory stages; dtype 0 float32, 1 bfloat16 (X, W and C alike).
-// Requires K % chunks == 0, and N and K / chunks multiples of 8 (bf16) or
-// 4 (f32).  Returns the launch's cudaError_t (0 on success).
+// cudaOccupancyMaxActiveClusters of the bf16 instance of cluster shape
+// cm x cn: how many such clusters the card holds at once (0: the cluster
+// cannot be placed).  Returns the count, or minus the cudaError_t.
+extern "C" int sg_max_active_clusters(int cm, int cn) {
+  if (!valid_cluster(cm, cn)) return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t e = cm == 1 ? (cn == 1 ? occupancy_bf16<1, 1>(&n)
+                                           : occupancy_bf16<1, 2>(&n))
+                                : (cn == 1 ? occupancy_bf16<2, 1>(&n)
+                                           : occupancy_bf16<2, 2>(&n));
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// C = X W with K streamed in `chunks` chunks; dtype 0 float32, 1 bfloat16
+// (X, W and C alike).  buffers 2 keeps the next k-tiles' loads in flight
+// under the current products, 1 alternates them.  bf16 runs `ctas`
+// persistent CTAs in clusters of cm x cn (the wrapper's choice: a multiple
+// of cm cn, at most one cluster a unit of cm x cn tiles); f32 takes a CTA a
+// 64 x 64 tile, cm = cn = 1, and ignores `ctas`.  Requires K % chunks == 0,
+// and N and K / chunks multiples of 8 (bf16, with x and w 16-byte aligned
+// for TMA) or 4 (f32).  Returns the launch's cudaError_t (0 on success).
 extern "C" int sg_fwd(const void* x, const void* w, void* out, int dtype,
-                      int M, int N, int K, int chunks, int buffers,
-                      void* stream) {
+                      int M, int N, int K, int chunks, int buffers, int cm,
+                      int cn, int ctas, void* stream) {
   if (M < 1 || N < 1 || K < 1 || chunks < 1 || K % chunks != 0 ||
       (buffers != 1 && buffers != 2) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int per16 = dtype == 1 ? 8 : 4;
-  const Params p{x, w, out, M, N, K, K / chunks, chunks};
+  const Params p{x, w, out, M, N, K, K / chunks, chunks,
+                 buffers == 2 ? Bf16Cfg::STAGES : 1};
   if (N % per16 != 0 || p.kc % per16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1 ? launch<Bf16Tile>(p, buffers, s)
-                          : launch<F32Tile>(p, buffers, s));
+  if (dtype == 0) {
+    if (cm != 1 || cn != 1) return (int)cudaErrorInvalidValue;
+    return (int)launch_f32(p, buffers, s);
+  }
+  if (!valid_cluster(cm, cn) || (uintptr_t)x % 16 != 0 ||
+      (uintptr_t)w % 16 != 0 || (uintptr_t)out % 16 != 0 || ctas < cm * cn || ctas % (cm * cn) != 0 ||
+      ctas / (cm * cn) > bf16_units(M, N, cm, cn))
+    return (int)cudaErrorInvalidValue;
+  if (cm == 1)
+    return (int)(cn == 1 ? launch_bf16<1, 1>(p, ctas, s)
+                         : launch_bf16<1, 2>(p, ctas, s));
+  return (int)(cn == 1 ? launch_bf16<2, 1>(p, ctas, s)
+                       : launch_bf16<2, 2>(p, ctas, s));
 }

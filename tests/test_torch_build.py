@@ -14,6 +14,8 @@ def test_sources_follow_the_includes():
         "flash_attention.cu", "hopper.cuh"]
     assert [f.name for f in _build.sources("gemm_epilogue")] == [
         "gemm_epilogue.cu", "hopper.cuh"]
+    assert [f.name for f in _build.sources("streamed_gemm")] == [
+        "streamed_gemm.cu", "hopper.cuh"]
     assert [f.name for f in _build.sources("ssd_scan")] == ["ssd_scan.cu"]
 
 
@@ -26,4 +28,4 @@ def test_editing_a_header_changes_the_digest_of_its_includers(tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: _build.source_digest(n, csrc) for n in SOURCES}
     changed = {n for n in SOURCES if after[n] != before[n]}
-    assert changed == {"flash_attention", "gemm_epilogue"}
+    assert changed == {"flash_attention", "gemm_epilogue", "streamed_gemm"}

@@ -12,13 +12,15 @@ failure ends the run with a non-zero exit:
 2. build: the FlashAttention, SSD, fused GEMM-epilogue and streamed GEMM
    kernels from ``csrc/`` into ``build/torch_kernels``, one ``nvcc`` for
    each source, started together; registers, shared memory and spills of
-   every instance (a bf16 FlashAttention or GEMM-epilogue instance must not
-   spill); FlashAttention's keys a tile and ring stages of every head dim
-   (must equal ``flash_attention.tiling``'s) and its shared memory; the
-   GEMM epilogue's dynamic shared memory and
+   every instance (a bf16 FlashAttention, GEMM-epilogue or streamed-GEMM
+   instance must not spill); FlashAttention's keys a tile and ring stages
+   of every head dim (must equal ``flash_attention.tiling``'s) and its
+   shared memory; the GEMM epilogue's dynamic shared memory and
    ``cudaOccupancyMaxActiveClusters`` of every instance at every cluster
    size ``gemm_epilogue.tiling`` uses (each must be > 0); and the streamed
-   GEMM's tiles (must equal the wrapper's ``TILES``);
+   GEMM's tiles and cluster (must equal the wrapper's ``TILES`` and
+   ``CLUSTER``) and the clusters of its bf16 kernel the card holds
+   (must be > 0);
 3. FlashAttention against its plain version ``attention_ref`` on the card,
    in f32 (tolerance 2e-5) and bf16 (3e-2), over GQA, ragged, Sq < Skv,
    window, fully-masked-row and head-dim cases, and at every edge of the
@@ -31,7 +33,8 @@ failure ends the run with a non-zero exit:
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
    device-only times of the kernel and of SDPA from ``torch.profiler``, the
    least time the card could take, and the Q, K/V and O bytes the tiling
-   moves through L2 (``kernel_bench.attention_l2_bytes``) with their rate;
+   loads through L2 (``kernel_bench.attention_l2_bytes``: a count of the
+   tiling's loads, not a reading) over the device time;
 5. serving glm4-9b at full width and depth, bf16, random weights from seed
    0, with every layer's prefill attention through the kernel; every
    kernel's launches are counted over this run alone; then one prefill and
@@ -78,9 +81,13 @@ failure ends the run with a non-zero exit:
     bar, w scaled 0.2 as there) and bf16 (1e-2 of the output's largest
     magnitude), within ``allgather_gemm.tolerance``: the JAX test shapes,
     the three ``BUDGET_SHAPES``, ragged M, N and K, chunks that are not a
-    multiple of the k-tile or smaller than it, and ``chunks=1``; the two
-    modes equal bit for bit; and the refusals (chunks that do not divide K,
-    ``buffers=3``, misaligned N) raise on the card and launch nothing;
+    multiple of the k-tile or smaller than it, ``chunks=1``, every edge of
+    the tiling (``allgather_gemm.boundary_shapes``: M and N on both sides of
+    a tile, odd counts of row and column tiles, kc of 8 to 1024, more tiles
+    than the persistent grid's CTAs) and, in bf16, glm4-9b's (4096, 4096,
+    13696) once; the two modes equal bit for bit; and the refusals (chunks
+    that do not divide K, ``buffers=3``, misaligned N) raise on the card and
+    launch nothing;
 14. the overlap bench (``repro_torch.launch.overlap_bench.run_all``) in a
     one-rank NCCL group (``mesh.host_group``), with the streamed GEMM's
     count set to 0 just before and read just after (launches == the bench's
@@ -88,10 +95,14 @@ failure ends the run with a non-zero exit:
     = (4096, 4096, 13696) bf16, against ``allgather_gemm_reference``; both
     buffer modes timed at that shape (``chunks=4``) and at the three
     ``BUDGET_SHAPES`` in f32, beside the bound, the plain version and
-    ``torch.matmul``; the two modes within 1e-3 of each other; the hidden
-    fraction degenerate (one rank); the synthetic overlap recovery within
-    0.01 and 0.10;
-15. a JSON line of the kernels, then ``{"ok": true, ...}`` as the last line.
+    ``torch.matmul``, with device-only times from ``torch.profiler`` and
+    the X and W bytes the tiling loads from L2
+    (``kernel_bench.streamed_l2_bytes``: a count, not a reading); the two
+    modes within 1e-3 of each other; the hidden fraction degenerate (one rank); the synthetic overlap
+    recovery within 0.01 and 0.10;
+15. a JSON line of the kernels (every number in it measured in this run,
+    but ``bound_ms``, computed from this run's inputs, and ``launches``,
+    counted), then ``{"ok": true, ...}`` as the last line.
 
 Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
 """
@@ -365,7 +376,10 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm_epilogue as ge
     from repro_torch.kernels import ssd
-    from repro_torch.kernels.allgather_gemm import TILES, streamed_gemm, tile
+    from repro_torch.kernels.allgather_gemm import (CLUSTER, TILES,
+                                                    cluster,
+                                                    max_active_clusters,
+                                                    streamed_gemm, tile)
     from repro_torch.kernels.allgather_gemm import tolerance as ag_tolerance
     from repro_torch.kernels.gemm_layernorm import (gemm_layernorm,
                                                      gemm_rmsnorm)
@@ -407,7 +421,8 @@ def main() -> int:
             log(f"  ssd_scan {str(dtype)[6:]} P {P} N {N}: dynamic shared "
                 f"memory {ssd.smem_bytes(dtype, P, N)} B")
     for source, bf16_entry in (("flash_attention", "fa_fwd_bf16"),
-                               ("gemm_epilogue", "ge_bf16_kernel")):
+                               ("gemm_epilogue", "ge_bf16_kernel"),
+                               ("streamed_gemm", "sg_bf16_kernel")):
         for entry, used, spill in ptxas_summary(built[source][2]):
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", spill)
@@ -441,11 +456,18 @@ def main() -> int:
                                      f"cannot be placed: {placed}")
     for dtype, want_tile in TILES.items():
         log(f"  streamed_gemm {str(dtype)[6:]}: tile {tile(dtype)} (rows, "
-            f"columns, k-tile)")
-        if tile(dtype) != want_tile:
+            f"columns, k-tile), cluster {cluster(dtype)}")
+        if tile(dtype) != want_tile or cluster(dtype) != CLUSTER[dtype]:
             raise AssertionError(f"streamed_gemm.cu's {dtype} tile is "
-                                 f"{tile(dtype)}, the wrapper assumes "
-                                 f"{want_tile}")
+                                 f"{tile(dtype)} in clusters of "
+                                 f"{cluster(dtype)}, the wrapper assumes "
+                                 f"{want_tile} in clusters of "
+                                 f"{CLUSTER[dtype]}")
+    sg_clusters = max_active_clusters()
+    log(f"  streamed_gemm bf16: max active clusters {sg_clusters}")
+    if sg_clusters <= 0:
+        raise AssertionError("a cluster of the bf16 streamed GEMM cannot be "
+                             "placed")
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------- 3. kernel against its plain version
@@ -514,7 +536,8 @@ def main() -> int:
         f"{rec['library_device_ms']:.4f} (torch.profiler, 50 calls)")
     l2 = rec["l2_bytes_q"] + rec["l2_bytes_kv"] + rec["l2_bytes_o"]
     log(f"  tiling {rec['tile']}")
-    log(f"  L2 bytes: q {rec['l2_bytes_q'] / 1e6:.1f} MB, k/v "
+    log(f"  L2 loads counted from the tiling: q "
+        f"{rec['l2_bytes_q'] / 1e6:.1f} MB, k/v "
         f"{rec['l2_bytes_kv'] / 1e6:.1f} MB, o {rec['l2_bytes_o'] / 1e6:.1f}"
         f" MB; {l2 / rec['device_ms'] / 1e9:.2f} TB/s over the device time")
     log(f"  kernel {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
@@ -761,7 +784,8 @@ def main() -> int:
 
     # ----------------- 13. the streamed GEMM against its plain version
     t0 = phase("13. streamed GEMM vs streamed_gemm_ref")
-    from repro_torch.kernels.allgather_gemm import BUDGET_SHAPES
+    from repro_torch.kernels.allgather_gemm import (BUDGET_SHAPES,
+                                                    boundary_shapes)
     from repro_torch.kernels.ref import streamed_gemm_ref
     sg_spec = [  # name, M, K, N, chunks
         ("jax_1", 64, 256, 128, 8), ("jax_2", 128, 512, 256, 4),
@@ -776,7 +800,11 @@ def main() -> int:
     ]
     sg_cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, M, K, N, chunks in sg_spec:
+        edges = [(f"edge_{M}x{K}x{N}x{c}", M, K, N, c)
+                 for M, K, N, c in boundary_shapes(dtype)]
+        glm4 = [("glm4_mlp_in", *kb.STREAMED_GEMM_SHAPE)] \
+            if dtype == torch.bfloat16 else []
+        for name, M, K, N, chunks in sg_spec + edges + glm4:
             x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
             w = (torch.randn(K, N, generator=gen, device="cuda")
                  * 0.2).to(dtype)
@@ -794,7 +822,7 @@ def main() -> int:
                      for o in outs.values())
             same = torch.equal(outs[1], outs[2])
             label = f"{name}_{str(dtype)[6:]}"
-            log(f"  {label:30s} max_abs_err buffers=2 {errs[2]:.3e} "
+            log(f"  {label:36s} max_abs_err buffers=2 {errs[2]:.3e} "
                 f"buffers=1 {errs[1]:.3e}  max|plain| "
                 f"{float(want_abs.max()):.3g}  atol {atol:.3g} rtol {rtol:g}"
                 f"  modes equal {same}  {'ok' if ok and same else 'FAIL'}")
@@ -861,6 +889,16 @@ def main() -> int:
     if sg_main["shape"] != {"M": M, "K": K, "N": N, "chunks": chunks,
                             "dtype": "bfloat16"}:
         raise AssertionError(f"the bench's first shape is {sg_main['shape']}")
+    sg_l2 = sg_main["l2_bytes_x"] + sg_main["l2_bytes_w"]
+    log(f"  streamed_gemm (M, K, N) = ({M}, {K}, {N}) chunks {chunks} bf16: "
+        f"ms {sg_main['ms']:.4f} (device {sg_main['device_ms']:.4f}), "
+        f"torch.matmul {sg_main['library_ms']:.4f} (device "
+        f"{sg_main['library_device_ms']:.4f}), bound "
+        f"{sg_main['bound_ms']:.4f}; t1/t2 {sg_main['speedup']:.3f}; L2 "
+        f"loads counted from the tiling ({sg_main['tile']}): x "
+        f"{sg_main['l2_bytes_x'] / 1e9:.3f} GB, w "
+        f"{sg_main['l2_bytes_w'] / 1e9:.3f} GB, "
+        f"{sg_l2 / sg_main['device_ms'] / 1e9:.2f} TB/s over the device time")
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
     # -------------------------------------------------------- 15. the result
@@ -881,11 +919,7 @@ def main() -> int:
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "device_ms": fa_rec["device_ms"],
         "library_device_ms": fa_rec["library_device_ms"],
-        "tiling": fa_rec["tiling"],
         "tile": fa_rec["tile"],
-        "l2_bytes_q": fa_rec["l2_bytes_q"],
-        "l2_bytes_kv": fa_rec["l2_bytes_kv"],
-        "l2_bytes_o": fa_rec["l2_bytes_o"],
         "to_library": fa_rec["to_library"],
         "shape": fa_shape,
         "build_s": build_s["flash_attention"],
@@ -926,7 +960,6 @@ def main() -> int:
         "library": rec["library"],
         "device_ms": rec["device_ms"],
         "library_device_ms": rec["library_device_ms"],
-        "cluster": rec["cluster"],
         "tile": rec["tile"],
         "shape": rec["shape"],
         "to_library": rec["to_library"],
@@ -948,6 +981,9 @@ def main() -> int:
         "bound_by": sg_main["bound_by"],
         "library_ms": sg_main["library_ms"],
         "library": sg_main["library"],
+        "device_ms": sg_main["device_ms"],
+        "library_device_ms": sg_main["library_device_ms"],
+        "tile": sg_main["tile"],
         "shape": sg_main["shape"],
         "chunks": chunks,
         "to_library": sg_main["to_library"],

@@ -17,9 +17,9 @@ Port of ``repro/kernels/allgather_gemm.py``.  Two layers, as there:
   group (NCCL on the card, gloo on the CPU) and streams the result through
   :func:`streamed_gemm` with one chunk per rank.
 
-``cluster_shape`` is the rule that picks the bf16 kernel's thread-block
-cluster, and :func:`launch` sizes its persistent grid; the source checks
-only that it has such an instance and that the grid fits.
+In bf16 the source sizes the kernel's persistent grid: a cluster of two
+CTAs per slot the card holds at once (:func:`max_active_clusters`), each
+cluster taking units of two tiles that share an operand.
 
 Dispatch: tensors on the CPU take the plain ``streamed_gemm_ref``; tensors
 on a CUDA device launch the kernel or raise.  The checks run on both, in
@@ -40,9 +40,8 @@ from . import _build
 from .ref import allgather_gemm_reference, gather_columns, streamed_gemm_ref
 
 __all__ = ["streamed_gemm", "allgather_gemm", "allgather_gemm_reference",
-           "BUDGET_SHAPES", "TILES", "CLUSTER_SHAPES", "boundary_shapes",
-           "check", "cluster_shape", "launch", "max_active_clusters",
-           "tile", "tolerance"]
+           "BUDGET_SHAPES", "TILES", "CLUSTER", "boundary_shapes",
+           "check", "cluster", "max_active_clusters", "tile", "tolerance"]
 
 # The (M, K, N, chunks) configurations the JAX package's tests and overlap
 # bench drive its kernel with (repro/kernels/allgather_gemm.py:57-61).
@@ -53,17 +52,16 @@ BUDGET_SHAPES = (
 )
 # (rows, columns, k-tile depth) of a CTA's tile in the source, per dtype
 TILES = {torch.bfloat16: (256, 128, 64), torch.float32: (64, 64, 16)}
-# (rows, columns) of tiles a bf16 thread-block cluster shares: 1 x 2 shares
-# X's tile (TMA multicast), 2 x 1 W's, 2 x 2 both; the source's instances
-CLUSTER_SHAPES = ((1, 1), (1, 2), (2, 1), (2, 2))
+# CTAs of a thread-block cluster in the source, per dtype: in bf16 two
+# tiles of a row share X's tile by TMA multicast (and, with an odd count of
+# column tiles, two of the last column share W's); f32 has no clusters
+CLUSTER = {torch.bfloat16: 2, torch.float32: 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535     # the f32 grid's column tiles
-_MAX_UNITS = 2 ** 31 - 1   # the bf16 kernel's tile index is an int
 
-# sg_fwd(x, w, out, dtype, M, N, K, chunks, buffers, cm, cn, ctas,
-# stream): pointers and the stream as c_void_p, or ctypes would pass them
-# as 32-bit ints
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# sg_fwd(x, w, out, dtype, M, N, K, chunks, buffers, stream): pointers and
+# the stream as c_void_p, or ctypes would pass them as 32-bit ints
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,7 +71,7 @@ def _library() -> ctypes.CDLL:
     lib.sg_fwd.restype = ctypes.c_int
     lib.sg_tile.argtypes = [ctypes.c_int] * 2
     lib.sg_tile.restype = ctypes.c_int
-    lib.sg_max_active_clusters.argtypes = [ctypes.c_int] * 2
+    lib.sg_max_active_clusters.argtypes = []
     lib.sg_max_active_clusters.restype = ctypes.c_int
     return lib
 
@@ -85,45 +83,32 @@ def tile(dtype: torch.dtype) -> tuple:
     return tuple(lib.sg_tile(_DTYPES[dtype], i) for i in range(3))
 
 
-def cluster_shape(M: int, N: int, dtype: torch.dtype) -> Tuple[int, int]:
-    """(rows, columns) of tiles that one thread-block cluster of the kernel
-    shares at an (M, N) output: in bf16 2 x 1, two CTAs of a column block
-    sharing W's tile; f32 always 1 x 1 (no clusters)."""
-    if dtype == torch.bfloat16:
-        return 2, 1
-    return 1, 1
-
-
-def units(M: int, N: int, dtype: torch.dtype,
-          cluster: Tuple[int, int]) -> int:
-    """Clusters' worth of tiles at an (M, N) output: cm x cn tiles a unit
-    (a unit's tiles past M or N are computed and not stored)."""
-    bm, bn, _ = TILES[dtype]
-    cm, cn = cluster
-    return _cdiv(_cdiv(M, bm), cm) * _cdiv(_cdiv(N, bn), cn)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+def cluster(dtype: torch.dtype) -> int:
+    """The source's CTAs of a cluster for ``dtype``, read from the built
+    library (must equal ``CLUSTER[dtype]``)."""
+    return _library().sg_tile(_DTYPES[dtype], 3)
 
 
 def boundary_shapes(dtype: torch.dtype
                     ) -> Tuple[Tuple[int, int, int, int], ...]:
     """(M, K, N, chunks) at every edge of the kernel's tiling in ``dtype``
-    (BM x BN tiles, k-tiles of BK; ``TILES``): M at 1, BM - 1 and BM + 1;
-    N at BN - 8, BN + 8 and at an odd count of column tiles (a 1 x 2
-    cluster's spare tile); a chunk's columns kc at 8, 40, 56, 64, 72 and
-    1024 (below, at and across a k-tile); ``chunks=1``; and more tiles than
-    the card runs at once, so that a persistent CTA takes several.  The
-    card's tests hold the kernel to its plain version at each."""
+    (BM x BN tiles, k-tiles of BK; ``TILES``): M at 1, BM - 1, BM + 1 and
+    2 BM + 8; N at BN - 8, BN + 8 and at an odd count of column tiles (in
+    bf16 the last column's tiles go in column pairs, and with an odd count
+    of row tiles the last pair's second tile lies past M); a chunk's
+    columns kc at 8, 40, 56, 64, 72 and 1024 (below, at and across a
+    k-tile); ``chunks=1``; and more bf16 units than the card runs at once,
+    so that a persistent cluster takes several.  The card's tests hold the
+    kernel to its plain version at each."""
     bm, bn, _ = TILES[dtype]
-    shapes = [(m, 128, bn, 2) for m in (1, bm - 1, bm + 1)]
+    shapes = [(m, 128, bn, 2) for m in (1, bm - 1, bm + 1, 2 * bm + 8)]
     shapes += [(bm + 1, 128, n, 2) for n in (bn - 8, bn + 8, 3 * bn - 8)]
     shapes += [(bm // 2 + 3, kc * c, 2 * bn + 8, c)
                for kc, c in ((8, 8), (40, 4), (56, 3), (64, 2), (72, 2),
                              (1024, 2))]
     shapes.append((3 * bm // 2, 520, 3 * bn, 1))
-    # 9 x 33 tiles of 256 x 128 in bf16: 297 tiles, 153 units of 1 x 2
+    # 9 x 33 tiles of 256 x 128 in bf16: 16 x 9 + 5 = 149 units on 66
+    # clusters
     shapes.append((8 * 256 + 8, 256, 32 * 128 + 8, 4))
     return tuple(shapes)
 
@@ -183,9 +168,6 @@ def check(x: torch.Tensor, w: torch.Tensor, chunks: int, buffers: int
     if x.dtype == torch.float32 and -(-N // TILES[x.dtype][1]) > _MAX_GRID_Y:
         raise ValueError(f"N={N} exceeds {TILES[x.dtype][1] * _MAX_GRID_Y} "
                          f"columns (65535 column tiles in f32)")
-    if x.dtype == torch.bfloat16 and units(
-            M, N, x.dtype, cluster_shape(M, N, x.dtype)) > _MAX_UNITS:
-        raise ValueError(f"(M, N)=({M}, {N}) exceeds {_MAX_UNITS} tiles")
 
 
 def streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
@@ -200,8 +182,18 @@ def streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
     check(x, w, chunks, buffers)
     if x.device.type == "cpu":
         return streamed_gemm_ref(x, w, chunks=chunks)
-    out = launch(x, w, chunks, buffers,
-                 cluster_shape(x.shape[0], w.shape[1], x.dtype))
+    resolve_device(x.device)
+    M, K = x.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.sg_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                         _DTYPES[x.dtype], M, N, K, chunks, buffers, stream)
+    if err != 0:
+        raise RuntimeError(f"streamed_gemm kernel launch failed: CUDA error "
+                           f"{err}")
     streamed_gemm.launches += 1
     return out
 
@@ -209,51 +201,17 @@ def streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
 streamed_gemm.launches = 0
 
 
-def max_active_clusters(cluster: Tuple[int, int]) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of the bf16 instance of cluster
-    shape ``cluster`` (0: such a cluster cannot be placed); raises on a
-    failed query.  Queried once per process and shape."""
-    return _max_active_clusters(tuple(cluster))
-
-
-@functools.lru_cache(maxsize=None)
-def _max_active_clusters(cluster: Tuple[int, int]) -> int:
-    n = _library().sg_max_active_clusters(*cluster)
+def max_active_clusters(device: Optional[torch.device] = None) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the bf16 kernel on ``device``
+    (the current CUDA device if None; 0: its cluster cannot be placed), the
+    count that sizes its persistent grid there; raises on a failed query.
+    The source asks each device once."""
+    with torch.cuda.device(device):
+        n = _library().sg_max_active_clusters()
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
                            f"error {-n}")
     return n
-
-
-def launch(x: torch.Tensor, w: torch.Tensor, chunks: int, buffers: int,
-           cluster: Tuple[int, int]) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors that ``check`` passed, bf16 in
-    clusters of ``cluster`` (f32: (1, 1)) on a persistent grid of as many
-    clusters as the card holds at once, at most one a unit of tiles; raise
-    on a non-zero CUDA error.  Counts nothing: :func:`streamed_gemm` is the
-    entry that counts its launches."""
-    resolve_device(x.device)
-    M, K = x.shape
-    N = w.shape[1]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        ctas = 0
-        if x.dtype == torch.bfloat16:
-            slots = max_active_clusters(cluster)
-            if slots < 1:
-                raise RuntimeError(f"a {cluster} cluster of the streamed "
-                                   f"GEMM cannot be placed")
-            ctas = min(slots, units(M, N, x.dtype, cluster)) \
-                * cluster[0] * cluster[1]
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.sg_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                         _DTYPES[x.dtype], M, N, K, chunks, buffers,
-                         *cluster, ctas, stream)
-    if err != 0:
-        raise RuntimeError(f"streamed_gemm kernel launch failed: CUDA error "
-                           f"{err}")
-    return out
 
 
 def allgather_gemm(x_shard: torch.Tensor, w: torch.Tensor, *,

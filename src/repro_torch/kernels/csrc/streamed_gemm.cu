@@ -34,7 +34,7 @@
 // BN-column panel of W, so X crosses L2 once per column tile and W once per
 // row tile (launch/kernel_bench.py::streamed_l2_bytes counts them).
 //
-// The bf16 path (`sg_bf16_kernel<CM, CN>`):
+// The bf16 path (`sg_bf16_kernel`):
 // - Tile 256 x 128, k-tile 64.  Warp specialisation: 384 threads.
 //   Warpgroups 0 and 1 are consumers (setmaxnreg 232), each owning 128 rows
 //   x 128 columns as two wgmma.mma_async m64n128k16 per 16-deep step (128
@@ -61,22 +61,35 @@
 //   the consumers retire each k-tile's products before releasing it, so
 //   copies and products alternate (lines 107-119).  Both modes issue the
 //   same wgmma sequence on the same tiles, so their outputs are equal bit
-//   for bit (and so are those of every cluster shape).
-// - A persistent grid: one CTA an SM (or one cluster per slot that
-//   cudaOccupancyMaxActiveClusters reports); the wrapper passes the grid.
-//   The clusters walk the tiles M-fastest, so a round's tiles hold all of X
-//   and a few panels of W in the 50 MB L2.  The producer runs ahead into
-//   the next tile while the consumers store the last one (masked st.global
-//   of packed bf16 pairs).
-// - The cluster shape CM x CN (the wrapper's `cluster_shape`): 1 x 1; 1 x 2,
-//   two CTAs of one row block that share X's tile (each loads half of it by
-//   TMA multicast into both); 2 x 1, two CTAs of one column block that
-//   share W's tile (each loads one of its two boxes into both).  Every
-//   consumer warpgroup then releases a stage in every CTA of the cluster
-//   (mapa + a remote mbarrier.arrive), since a peer's multicast writes into
-//   it.  A cluster whose second tile lies past M or N (an odd count of tiles
-//   along the shared axis) loads its share of the common operand, computes
-//   on whatever the stage holds and stores nothing.
+//   for bit.
+// - Clusters of two CTAs, each unit of work two tiles that share an
+//   operand by TMA multicast (Grid): a row pair, two column tiles of one row
+//   tile, shares X's tile (each CTA loads 128 of its 256 rows into both, and
+//   its own W), so X crosses L2 once per 256 columns; with an odd count of
+//   column tiles the last column goes in column pairs, two row tiles of it
+//   sharing W's tile (each CTA loads one of its two boxes into both, and its
+//   own X).  Every unit costs the same, so at glm4-9b's shape the 16 x 107
+//   tiles make 848 + 8 = 856 units, 13 rounds of the card's 66 clusters,
+//   against 14 for row pairs alone (864 units: 53.5 pairs a row); the
+//   tiling loads 3.60 GB from L2 (single CTAs 5.39 GB, column pairs
+//   everywhere 4.49 GB, which measured 1.5% slower: PERF.md).  Every consumer
+//   warpgroup releases a stage in both CTAs (mapa + a remote
+//   mbarrier.arrive), since the peer's multicast writes into it.  With an
+//   odd count of row tiles the last column pair's second tile lies past M:
+//   that CTA loads its box of W, no X, computes on whatever the stage holds
+//   and stores nothing.
+// - A persistent grid: one cluster per slot that
+//   cudaOccupancyMaxActiveClusters reports on the device, at most one a
+//   unit (sg_fwd sizes it).  The row pairs run M-fastest, so a round's
+//   tiles hold all of X and a few panels of W in the 50 MB L2.  The
+//   producer runs ahead into the next tile while the consumers store the
+//   last one.
+// - The store: each consumer warpgroup writes its accumulators as bf16
+//   pairs into a 64-row staging tile in shared memory (two 64-column boxes,
+//   128-byte swizzle, so a warp's writes hit 32 banks), and one thread
+//   stores it by TMA, which leaves out rows and columns past M and N and
+//   writes whole lines asynchronously.  (Masked st.global of bf16 pairs
+//   straight from the registers measured slower: PERF.md.)
 //
 // The f32 path (`sg_fwd_kernel<F32Tile, NBUF>`) stays on the CUDA cores
 // without TF32 (the JAX test's 2e-4 / 2e-5 bar): one CTA for each 64 x 64
@@ -113,6 +126,8 @@ constexpr int BF16_CONSUMERS = 256;
 struct Bf16Cfg {
   static constexpr int BM = 256, BN = 128, BK = 64;
   static constexpr int STAGES = 4;
+  static constexpr int CLUSTER = 2;               // CTAs sharing a tile
+  static constexpr int X_HALF = BM / CLUSTER;     // rows of X's box
   static constexpr int BOX = 64;                  // columns in a 128-byte row
   static constexpr int ROW_BYTES = BOX * 2;       // of every box here
   static constexpr int X_BYTES = BM * BK * 2;     // 256 rows of 64 columns
@@ -127,6 +142,8 @@ struct Bf16Cfg {
   static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * C_BYTES;
   static_assert(BK == BOX && X_BYTES % 1024 == 0 && W_BOX_BYTES % 1024 == 0,
                 "alignment");
+  static_assert(BN / BOX == CLUSTER, "one W box a rank");
+  static_assert(X_HALF % 8 == 0, "whole swizzle atoms a rank");
 };
 
 // d (64 x 128, f32) += A (64 x 16, K-major) B (16 x 128, MN-major: the
@@ -152,21 +169,30 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// The tile grid of a launch, walked by clusters of CM x CN CTAs: a unit is
-// CM row tiles x CN column tiles, rank r of the cluster takes row tile
-// CM mu + r % CM and column tile CN nu + r / CM of unit (mu, nu), and the
-// units run M-fastest.
-template <int CM, int CN>
+// The tile grid of a launch, walked by clusters of two CTAs in units of two
+// tiles.  Units 0 .. np tm - 1 are row pairs: row tile u % tm, column tiles
+// 2 p and 2 p + 1 of p = u / tm, which share X's tile.  With an odd count of
+// column tiles, the last column's tiles go in column pairs after them: row
+// tiles 2 v and 2 v + 1 of unit np tm + v, which share W's tile.  Rank r of
+// the cluster takes the unit's tile r.  A row pair runs M-fastest, so a
+// round's tiles hold all of X and a few panels of W in the 50 MB L2.
 struct Grid {
-  int tm, tn, um, units;
-  __device__ Grid(const Params& p)
-      : tm((p.M + Bf16Cfg::BM - 1) / Bf16Cfg::BM),
-        tn((p.N + Bf16Cfg::BN - 1) / Bf16Cfg::BN),
-        um((tm + CM - 1) / CM),
-        units(um * ((tn + CN - 1) / CN)) {}
-  __device__ void tile(int u, int rank, int& mi, int& ni) const {
-    mi = (u % um) * CM + rank % CM;
-    ni = (u / um) * CN + rank / CM;
+  int tm, tn, np, units;
+  __host__ __device__ Grid(int M, int N)
+      : tm((M + Bf16Cfg::BM - 1) / Bf16Cfg::BM),
+        tn((N + Bf16Cfg::BN - 1) / Bf16Cfg::BN),
+        np(tn / 2),
+        units(np * tm + (tn % 2) * ((tm + 1) / 2)) {}
+  // rank's tile of unit u; true if the unit shares X, false if W
+  __device__ bool tile(int u, int rank, int& mi, int& ni) const {
+    if (u < np * tm) {
+      mi = u % tm;
+      ni = 2 * (u / tm) + rank;
+      return true;
+    }
+    mi = 2 * (u - np * tm) + rank;
+    ni = tn - 1;
+    return false;
   }
 };
 
@@ -175,18 +201,13 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-template <int CM, int CN>
 __global__ void __launch_bounds__(BF16_THREADS, 1)
     sg_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
                    const __grid_constant__ CUtensorMap tm_w,
                    const __grid_constant__ CUtensorMap tm_c, const Params p) {
   using Cfg = Bf16Cfg;
-  constexpr int CS = CM * CN, S = Cfg::STAGES, BM = Cfg::BM, BN = Cfg::BN,
-                BK = Cfg::BK;
-  // a shared X tile splits into CN row slices, a shared W tile into its CM
-  // boxes
-  static_assert(CM == 1 || CM == BN / Cfg::BOX, "one W box a rank");
-  static_assert((BM / CN) % 8 == 0, "whole swizzle atoms a rank");
+  constexpr int CL = Cfg::CLUSTER, S = Cfg::STAGES, BM = Cfg::BM,
+                BN = Cfg::BN, BK = Cfg::BK;
   extern __shared__ unsigned char sg_smem[];
   __shared__ __align__(8) uint64_t full[S], empty[S];
   // the ring, then the two warpgroups' C staging, at a 1024-byte boundary
@@ -194,22 +215,21 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   unsigned char* smem = sg_smem + ((1024 - (smem_u32(sg_smem) & 1023)) & 1023);
 
   const int tid = threadIdx.x;
-  const int rank = CS > 1 ? (int)cluster_rank() : 0;
-  const int rm = rank % CM, rn = rank / CM;
-  const Grid<CM, CN> grid(p);
+  const int rank = (int)cluster_rank();
+  const Grid grid(p.M, p.N);
   const int per_chunk = (p.kc + BK - 1) / BK;  // k-tiles a chunk
   const int steps = p.chunks * per_chunk;
-  const int cluster0 = blockIdx.x / CS, clusters = gridDim.x / CS;
+  const int cluster0 = blockIdx.x / CL, clusters = gridDim.x / CL;
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);        // the producer's expect_tx; TMA's bytes
-      mbar_init(&empty[s], 2 * CS);  // each consumer warpgroup of the cluster
+      mbar_init(&empty[s], 2 * CL);  // each consumer warpgroup of the cluster
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (CS > 1) cluster_sync();  // every CTA's barriers exist before any remote arrive
+  cluster_sync();  // both CTAs' barriers exist before any remote arrive
 
   if (tid >= BF16_CONSUMERS) {
     // ---------------------------------------------------------- producer
@@ -217,52 +237,41 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
     if (tid == BF16_CONSUMERS) {
       prefetch_map(&tm_x);
       prefetch_map(&tm_w);
-      // X's tile goes to the ranks of this row tile, W's to those of this
-      // column tile
-      uint16_t mask_x = 0;
-      for (int k = 0; k < CN; ++k) mask_x |= (uint16_t)(1u << (rm + CM * k));
-      const uint16_t mask_w = (uint16_t)(((1u << CM) - 1) << (CM * rn));
+      const uint16_t both = (uint16_t)((1u << CL) - 1);
       int s = 0;
       uint32_t phase = 0;
       for (int u = cluster0; u < grid.units; u += clusters) {
         int mi, ni;
-        grid.tile(u, rank, mi, ni);
-        // an operand past M or N is loaded by none of the ranks that share
-        // it, and none of them waits for it
-        const bool x_in = mi < grid.tm, w_in = ni < grid.tn;
-        const uint32_t bytes =
-            (x_in ? Cfg::X_BYTES : 0) + (w_in ? Cfg::W_BYTES : 0);
+        const bool share_x = grid.tile(u, rank, mi, ni);
+        // a row tile past M (a column pair's second) loads no X, and
+        // nothing waits for it
+        const bool x_in = mi < grid.tm;
+        const uint32_t bytes = (x_in ? Cfg::X_BYTES : 0) + Cfg::W_BYTES;
         for (int c = 0; c < p.chunks; ++c) {
           for (int kt = 0; kt < per_chunk; ++kt) {
             mbar_wait(&empty[s], phase ^ 1);
             unsigned char* st = smem + s * Cfg::STAGE_BYTES;
-#ifdef SG_EXP_NO_LOAD
-            mbar_arrive(&full[s]);
-            if (++s == p.depth) { s = 0; phase ^= 1; }
-            continue;
-#endif
+            unsigned char* wt = st + Cfg::X_BYTES;
             mbar_expect_tx(&full[s], bytes);
             const int k = kt * BK;  // within chunk c
-            if (x_in) {
-              if (CN > 1)  // row slice rn of X's tile, to its row's ranks
-                tma_load_3d_multicast(st + rn * (BM / CN) * Cfg::ROW_BYTES,
-                                      &tm_x, &full[s], k, c,
-                                      mi * BM + rn * (BM / CN), mask_x);
-              else
-                tma_load_3d(st, &tm_x, &full[s], k, c, mi * BM);
-            }
-            unsigned char* wt = st + Cfg::X_BYTES;
-            if (w_in) {
-              if (CM > 1)  // box rm of W's tile, to its column's ranks
-                tma_load_3d_multicast(wt + rm * Cfg::W_BOX_BYTES, &tm_w,
-                                      &full[s], ni * BN + rm * Cfg::BOX, k,
-                                      c, mask_w);
-              else {
+            if (share_x) {  // half `rank` of X's tile to both; W's own
+              tma_load_3d_multicast(st + rank * Cfg::X_HALF * Cfg::ROW_BYTES,
+                                    &tm_x, &full[s], k, c,
+                                    mi * BM + rank * Cfg::X_HALF, both);
 #pragma unroll
-                for (int j = 0; j < BN / Cfg::BOX; ++j)
-                  tma_load_3d(wt + j * Cfg::W_BOX_BYTES, &tm_w, &full[s],
-                              ni * BN + j * Cfg::BOX, k, c);
+              for (int b = 0; b < CL; ++b)
+                tma_load_3d(wt + b * Cfg::W_BOX_BYTES, &tm_w, &full[s],
+                            ni * BN + b * Cfg::BOX, k, c);
+            } else {  // X's own; box `rank` of W's tile to both
+              if (x_in) {
+#pragma unroll
+                for (int h = 0; h < CL; ++h)
+                  tma_load_3d(st + h * Cfg::X_HALF * Cfg::ROW_BYTES, &tm_x,
+                              &full[s], k, c, mi * BM + h * Cfg::X_HALF);
               }
+              tma_load_3d_multicast(wt + rank * Cfg::W_BOX_BYTES, &tm_w,
+                                    &full[s], ni * BN + rank * Cfg::BOX, k, c,
+                                    both);
             }
             if (++s == p.depth) {
               s = 0;
@@ -284,12 +293,8 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
     const uint32_t a_off = wg * 128 * Cfg::ROW_BYTES;  // this warpgroup's rows
     unsigned char* c_stage = smem + S * Cfg::STAGE_BYTES + wg * Cfg::C_BYTES;
     if (t == 0) prefetch_map(&tm_c);
-    auto release = [&](int s) {
-      if (CS == 1) {
-        if (t == 0) mbar_arrive(&empty[s]);
-      } else if (t < CS) {
-        mbar_arrive_cluster(&empty[s], t);
-      }
+    auto release = [&](int s) {  // in both CTAs
+      if (t < CL) mbar_arrive_cluster(&empty[s], t);
     };
     int s = 0;
     uint32_t phase = 0;
@@ -305,7 +310,6 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
         fence_acc(acc[0]);
         fence_acc(acc[1]);
         wgmma_fence();
-#ifndef SG_EXP_NO_MMA
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {  // X: +32 bytes; W: +16 rows
           const uint64_t db = smem_desc(st + Cfg::X_BYTES + 16 * Cfg::ROW_BYTES * kk,
@@ -317,7 +321,6 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
                                 16, 8 * Cfg::ROW_BYTES, 1),
                       db);
         }
-#endif
         wgmma_commit();
         if (p.depth > 1) {
           wgmma_wait<1>();  // the previous stage's group has retired
@@ -340,15 +343,11 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
       fence_acc(acc[0]);
       fence_acc(acc[1]);
       if (prev >= 0) release(prev);
-      if (mi >= grid.tm || ni >= grid.tn) continue;  // a cluster's spare tile
-#ifdef SG_EXP_NO_STORE
-      if (p.M > 0) continue;
-#endif
+      if (mi >= grid.tm) continue;  // a column pair's spare tile
       // C through shared memory, 64 rows at a time: bf16 pairs into the
       // staging boxes (the 128-byte swizzle: 16-byte group j % 8 of row r
-      // lands at group (j % 8) ^ (r % 8), so a warp's stores hit 32 banks),
-      // then one thread stores both boxes by TMA, which leaves out the rows
-      // and columns past M and N
+      // lands at group (j % 8) ^ (r % 8)), then one thread stores both boxes
+      // by TMA
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (t == 0) bulk_wait_read<0>();  // the last store has read the staging
@@ -376,9 +375,9 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
     }
     if (t == 0) bulk_wait<0>();  // C written before the CTA exits
   }
-  // no CTA may exit while a peer can still multicast into it or arrive on
-  // its barriers
-  if (CS > 1) cluster_sync();
+  // no CTA may exit while its peer can still multicast into it or arrive
+  // on its barriers
+  cluster_sync();
 }
 
 // ============================================================== f32 path
@@ -540,40 +539,58 @@ cudaError_t launch_f32(const Params& p, int buffers, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int CM, int CN>
-cudaError_t configure_bf16(int ctas, cudaStream_t stream,
-                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
-  static bool set = false;  // once per instance and process
-  if (!set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sg_bf16_kernel<CM, CN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Bf16Cfg::SMEM);
-    if (e != cudaSuccess) return e;
-    set = true;
-  }
+void configure_bf16(int ctas, cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                    cudaLaunchAttribute* attr) {
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3(ctas, 1, 1);
   cfg.blockDim = dim3(BF16_THREADS, 1, 1);
   cfg.dynamicSmemBytes = Bf16Cfg::SMEM;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CM * CN;
+  attr[0].val.clusterDim.x = Bf16Cfg::CLUSTER;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaSuccess;
 }
 
-template <int CM, int CN>
-cudaError_t launch_bf16(const Params& p, int ctas, cudaStream_t stream) {
+// The bf16 kernel's clusters the current device holds at once (0: a
+// cluster cannot be placed), after raising its shared-memory limit there;
+// each device is asked once.  Returns the count, or minus the cudaError_t.
+int bf16_slots() {
+  constexpr int DEVICES = 64;
+  static int known[DEVICES];  // a device's count + 1; 0 until asked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (dev < DEVICES && known[dev] > 0) return known[dev] - 1;
+  e = cudaFuncSetAttribute(sg_bf16_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Bf16Cfg::SMEM);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  configure_bf16(Bf16Cfg::CLUSTER, 0, cfg, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, sg_bf16_kernel, &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  if (dev < DEVICES) known[dev] = n + 1;
+  return n;
+}
+
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   using Cfg = Bf16Cfg;
+  const int slots = bf16_slots();
+  if (slots < 0) return (cudaError_t)-slots;
+  if (slots == 0) return cudaErrorInvalidConfiguration;
+  const Grid grid(p.M, p.N);
+  const int ctas = (slots < grid.units ? slots : grid.units) * Cfg::CLUSTER;
   // X (M, K) as (kc, chunks, M) and W (K, N) as (N, kc, chunks): a box
   // never leaves its chunk
   const cuuint64_t xd[3] = {(cuuint64_t)p.kc, (cuuint64_t)p.chunks,
                             (cuuint64_t)p.M};
   const cuuint64_t xs[2] = {(cuuint64_t)p.kc * 2, (cuuint64_t)p.K * 2};
-  const cuuint32_t xb[3] = {Cfg::BOX, 1, Cfg::BM / CN};
+  const cuuint32_t xb[3] = {Cfg::BOX, 1, Cfg::X_HALF};
   const cuuint64_t wd[3] = {(cuuint64_t)p.N, (cuuint64_t)p.kc,
                             (cuuint64_t)p.chunks};
   const cuuint64_t ws[2] = {(cuuint64_t)p.N * 2, (cuuint64_t)p.kc * p.N * 2};
@@ -586,71 +603,49 @@ cudaError_t launch_bf16(const Params& p, int ctas, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = configure_bf16<CM, CN>(ctas, stream, cfg, attr);
-  if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, sg_bf16_kernel<CM, CN>, tx, tw, tc, p);
+  configure_bf16(ctas, stream, cfg, attr);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, sg_bf16_kernel, tx, tw, tc, p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
-}
-
-template <int CM, int CN>
-cudaError_t occupancy_bf16(int* n) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  cudaError_t e = configure_bf16<CM, CN>(CM * CN, 0, cfg, attr);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveClusters(n, sg_bf16_kernel<CM, CN>, &cfg);
-}
-
-// the bf16 instances: cluster shapes CM x CN
-bool valid_cluster(int cm, int cn) {
-  return (cm == 1 || cm == 2) && (cn == 1 || cn == 2);
-}
-
-long long bf16_units(int M, int N, int cm, int cn) {
-  const long long tm = (M + Bf16Cfg::BM - 1) / Bf16Cfg::BM;
-  const long long tn = (N + Bf16Cfg::BN - 1) / Bf16Cfg::BN;
-  return ((tm + cm - 1) / cm) * ((tn + cn - 1) / cn);
 }
 
 }  // namespace
 
 // The tile of `dtype` (0 = float32, 1 = bfloat16): which 0 rows (BM),
-// 1 columns (BN), 2 k-tile depth (BK); -1 for anything else.
+// 1 columns (BN), 2 k-tile depth (BK), 3 CTAs of a cluster along M; -1 for
+// anything else.
 extern "C" int sg_tile(int dtype, int which) {
   if (dtype == 1)
-    return which == 0 ? Bf16Cfg::BM : which == 1 ? Bf16Cfg::BN
-                                    : which == 2 ? Bf16Cfg::BK : -1;
+    return which == 0   ? Bf16Cfg::BM
+           : which == 1 ? Bf16Cfg::BN
+           : which == 2 ? Bf16Cfg::BK
+           : which == 3 ? Bf16Cfg::CLUSTER
+                        : -1;
   if (dtype == 0)
-    return which == 0 ? F32Tile::BM : which == 1 ? F32Tile::BN
-                                    : which == 2 ? F32Tile::BK : -1;
+    return which == 0   ? F32Tile::BM
+           : which == 1 ? F32Tile::BN
+           : which == 2 ? F32Tile::BK
+           : which == 3 ? 1
+                        : -1;
   return -1;
 }
 
-// cudaOccupancyMaxActiveClusters of the bf16 instance of cluster shape
-// cm x cn: how many such clusters the card holds at once (0: the cluster
-// cannot be placed).  Returns the count, or minus the cudaError_t.
-extern "C" int sg_max_active_clusters(int cm, int cn) {
-  if (!valid_cluster(cm, cn)) return -(int)cudaErrorInvalidValue;
-  int n = 0;
-  const cudaError_t e = cm == 1 ? (cn == 1 ? occupancy_bf16<1, 1>(&n)
-                                           : occupancy_bf16<1, 2>(&n))
-                                : (cn == 1 ? occupancy_bf16<2, 1>(&n)
-                                           : occupancy_bf16<2, 2>(&n));
-  return e == cudaSuccess ? n : -(int)e;
-}
+// cudaOccupancyMaxActiveClusters of the bf16 kernel on the current device:
+// how many of its clusters the card holds at once (0: a cluster cannot be
+// placed).  Returns the count, or minus the cudaError_t.
+extern "C" int sg_max_active_clusters() { return bf16_slots(); }
 
 // C = X W with K streamed in `chunks` chunks; dtype 0 float32, 1 bfloat16
 // (X, W and C alike).  buffers 2 keeps the next k-tiles' loads in flight
-// under the current products, 1 alternates them.  bf16 runs `ctas`
-// persistent CTAs in clusters of cm x cn (the wrapper's choice: a multiple
-// of cm cn, at most one cluster a unit of cm x cn tiles); f32 takes a CTA a
-// 64 x 64 tile, cm = cn = 1, and ignores `ctas`.  Requires K % chunks == 0,
-// and N and K / chunks multiples of 8 (bf16, with x and w 16-byte aligned
-// for TMA) or 4 (f32).  Returns the launch's cudaError_t (0 on success).
+// under the current products, 1 alternates them.  bf16 runs a persistent
+// grid of one cluster per slot of the current device, at most one a unit of
+// tiles (Grid); f32 takes a CTA a 64 x 64 tile.  Requires K % chunks == 0,
+// and N and K / chunks multiples of 8 (bf16, with x, w and out 16-byte
+// aligned for TMA) or 4 (f32).  Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int sg_fwd(const void* x, const void* w, void* out, int dtype,
-                      int M, int N, int K, int chunks, int buffers, int cm,
-                      int cn, int ctas, void* stream) {
+                      int M, int N, int K, int chunks, int buffers,
+                      void* stream) {
   if (M < 1 || N < 1 || K < 1 || chunks < 1 || K % chunks != 0 ||
       (buffers != 1 && buffers != 2) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -659,17 +654,9 @@ extern "C" int sg_fwd(const void* x, const void* w, void* out, int dtype,
                  buffers == 2 ? Bf16Cfg::STAGES : 1};
   if (N % per16 != 0 || p.kc % per16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (cm != 1 || cn != 1) return (int)cudaErrorInvalidValue;
-    return (int)launch_f32(p, buffers, s);
-  }
-  if (!valid_cluster(cm, cn) || (uintptr_t)x % 16 != 0 ||
-      (uintptr_t)w % 16 != 0 || (uintptr_t)out % 16 != 0 || ctas < cm * cn || ctas % (cm * cn) != 0 ||
-      ctas / (cm * cn) > bf16_units(M, N, cm, cn))
+  if (dtype == 0) return (int)launch_f32(p, buffers, s);
+  if ((uintptr_t)x % 16 != 0 || (uintptr_t)w % 16 != 0 ||
+      (uintptr_t)out % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (cm == 1)
-    return (int)(cn == 1 ? launch_bf16<1, 1>(p, ctas, s)
-                         : launch_bf16<1, 2>(p, ctas, s));
-  return (int)(cn == 1 ? launch_bf16<2, 1>(p, ctas, s)
-                       : launch_bf16<2, 2>(p, ctas, s));
+  return (int)launch_bf16(p, s);
 }

@@ -21,8 +21,7 @@ there is one (a yardstick the port never calls):
   between them;
 - the streamed GEMM (``allgather_gemm.streamed_gemm``) at glm4-9b's MLP
   input projection at the serving prefill, bf16, ``chunks=4``, in both
-  buffer modes; library ``torch.matmul`` (``--streamed-sweep``: at that
-  shape in every cluster shape of the source instead).
+  buffer modes; library ``torch.matmul``.
 
 Each line gives the kernel's ms, the bound ms and what sets it, the plain
 ms, the library ms, the kernel-to-library ratio and the kernel's fixed
@@ -39,7 +38,7 @@ their plain versions and no time is measured: every time is ``None``
 ("not measured").
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_bench [--json PATH]
-        [--attention-sweep | --streamed-sweep]
+        [--attention-sweep]
 
 The timing and bound helpers here are the ones ``chip_smoke.py`` uses.
 """
@@ -59,10 +58,8 @@ from repro_torch import resolve_device
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm_epilogue as ge
 from repro_torch.kernels import ops, ssd
-from repro_torch.kernels.allgather_gemm import (CLUSTER_SHAPES, TILES,
-                                                cluster_shape, streamed_gemm,
-                                                tolerance)
-from repro_torch.kernels.allgather_gemm import launch as streamed_launch
+from repro_torch.kernels.allgather_gemm import (CLUSTER, TILES,
+                                                streamed_gemm, tolerance)
 from repro_torch.kernels.ref import (attention_ref, ssd_chunked_ref,
                                      streamed_gemm_ref)
 
@@ -71,9 +68,9 @@ __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
            "device_ms",
            "bound", "nbytes", "visible_pairs", "attention_flops",
            "attention_l2_bytes", "ssd_flops", "gemm_flops", "gemm_l2_bytes",
-           "streamed_l2_bytes", "bench_attention", "bench_ssd",
-           "bench_gemm_epilogue", "bench_streamed_gemm", "run_all",
-           "attention_sweep", "streamed_sweep", "main"]
+           "streamed_l2_bytes", "bench_attention",
+           "bench_ssd",
+           "bench_gemm_epilogue", "bench_streamed_gemm", "run_all", "main"]
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet, dense): bf16 on the
 # tensor cores; f32 on the CUDA cores (the kernels' f32 paths use no TF32)
@@ -229,21 +226,24 @@ def gemm_l2_bytes(M: int, N: int, K: int, dtype: torch.dtype
     return -(-M // t.rows) * K * N * e, M * K * e * t.cluster * t.passes
 
 
-def streamed_l2_bytes(M: int, N: int, K: int, dtype: torch.dtype,
-                      cluster: Optional[Tuple[int, int]] = None
+def streamed_l2_bytes(M: int, N: int, K: int, dtype: torch.dtype
                       ) -> Tuple[int, int]:
-    """(X, W) bytes the streamed GEMM's tiling reads from L2 at (M, N, K)
-    in ``dtype``, in clusters of ``cluster`` tiles (default: the wrapper's
-    ``allgather_gemm.cluster_shape``).  Every tile reads its rows of X and
-    its columns of W over all of K, the parts past M, N or a chunk's end
-    not at all (they arrive as zeros); a cluster of cm x cn tiles reads its
-    shared operand once: X once per group of cn column tiles, W once per
-    group of cm row tiles."""
+    """(X, W) bytes the streamed GEMM's tiling loads from L2 at (M, N, K)
+    in ``dtype`` (``TILES``): a count of the tiling's loads, not a
+    reading.  Every tile loads its rows of X and its columns of W over all
+    of K, the parts past M, N or a chunk's end not at all (they arrive as
+    zeros).  f32: X once per column tile, W once per row tile.  bf16: a row pair of tiles loads X's tile once between them, so X
+    crosses L2 once per two column tiles, and W once per row tile, except
+    the last column of an odd count, which column pairs load once per two
+    row tiles."""
     bm, bn, _ = TILES[dtype]
-    cm, cn = cluster or cluster_shape(M, N, dtype)
     e = torch.empty((), dtype=dtype).element_size()
     tm, tn = -(-M // bm), -(-N // bn)     # row and column tiles
-    return -(-tn // cn) * M * K * e, -(-tm // cm) * K * N * e
+    if dtype == torch.float32:
+        return tn * M * K * e, tm * K * N * e
+    paired = min(N, tn // 2 * 2 * bn)     # columns of the row pairs
+    return (-(-tn // 2) * M * K * e,
+            (tm * paired + -(-tm // 2) * (N - paired)) * K * e)
 
 
 def _timed(kernel: Callable, plain: Callable, library: Optional[Callable],
@@ -408,11 +408,10 @@ def bench_streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
     M, K = x.shape
     N = w.shape[1]
     bm, bn, bk = TILES[x.dtype]
-    cm, cn = cluster_shape(M, N, x.dtype)
+    cl = CLUSTER[x.dtype]
     rec = {"name": "streamed_gemm", "shape": {
         "M": M, "K": K, "N": N, "chunks": chunks, "dtype": str(x.dtype)[6:]},
-        "cluster": [cm, cn],
-        "tile": f"{bm} x {bn}, k-tile {bk}, cluster {cm} x {cn}",
+        "cluster": cl, "tile": f"{bm} x {bn}, k-tile {bk}, cluster {cl}",
         "library": "torch.matmul"}
     rec["l2_bytes_x"], rec["l2_bytes_w"] = streamed_l2_bytes(M, N, K,
                                                              x.dtype)
@@ -543,78 +542,17 @@ def attention_sweep(device: Optional[str] = None,
             "records": records, "calls": dict(calls)}
 
 
-def streamed_sweep(device: Optional[str] = None,
-                   shape: Tuple[int, int, int, int] = STREAMED_GEMM_SHAPE
-                   ) -> Dict:
-    """The bf16 streamed GEMM at ``shape`` (M, K, N, chunks), data from seed
-    0, in every cluster shape of the source (``allgather_gemm.CLUSTER_SHAPES``,
-    through ``allgather_gemm.launch``, ``buffers=2``), beside
-    ``torch.matmul`` in the same run: CUDA-event and device ms, the L2 bytes
-    of each shape (``streamed_l2_bytes``), and whether every shape's output
-    equals the first's bit for bit (they issue the same products in the
-    same order) and is within ``allgather_gemm.tolerance`` of the plain
-    version.  Returns {"device", "records", "matmul_ms",
-    "matmul_device_ms", "ok"}; on the CPU nothing is launched and every
-    time is ``None``."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    M, K, N, chunks = shape
-    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-    w = (torch.randn(K, N, generator=gen, device=dev)
-         * K ** -0.5).to(torch.bfloat16)
-    want = streamed_gemm_ref(x, w, chunks=chunks).float()
-    atol, rtol = tolerance(torch.bfloat16, float(want.abs().max()))
-    on_card = dev.type == "cuda"
-    out = {"device": torch.cuda.get_device_name(dev) if on_card else "cpu",
-           "shape": {"M": M, "K": K, "N": N, "chunks": chunks,
-                     "dtype": "bfloat16"}, "records": [], "ok": True}
-    mm = functools.partial(torch.matmul, x, w)
-    first = None
-    for cluster in CLUSTER_SHAPES:
-        lx, lw = streamed_l2_bytes(M, N, K, torch.bfloat16, cluster)
-        rec = {"cluster": list(cluster), "l2_bytes_x": lx, "l2_bytes_w": lw,
-               "ms": None, "device_ms": None}
-        if on_card:
-            fn = functools.partial(streamed_launch, x, w, chunks, 2, cluster)
-            got = fn()
-            rec["ms"] = cuda_ms(fn, 20)
-            rec["device_ms"] = device_ms(fn, 20, STREAMED_KERNEL_NAMES)
-            rec["max_abs_err"] = float((got.float() - want).abs().max())
-            rec["within_tol"] = bool(((got.float() - want).abs()
-                                      <= atol + rtol * want.abs()).all())
-            first = got if first is None else first
-            rec["equal_to_first"] = bool(torch.equal(got, first))
-            out["ok"] &= rec["within_tol"] and rec["equal_to_first"]
-        out["records"].append(rec)
-        print(f"streamed_gemm cluster {cluster[0]} x {cluster[1]}: ms "
-              f"{rec['ms']}  device_ms {rec['device_ms']}  l2 x "
-              f"{lx / 1e9:.3f} GB w {lw / 1e9:.3f} GB  max_abs_err "
-              f"{rec.get('max_abs_err')}  equal {rec.get('equal_to_first')}",
-              flush=True)
-    out["matmul_ms"] = cuda_ms(mm, 20) if on_card else None
-    out["matmul_device_ms"] = device_ms(mm, 20) if on_card else None
-    print(f"torch.matmul: ms {out['matmul_ms']}  device_ms "
-          f"{out['matmul_device_ms']}", flush=True)
-    return out
-
-
 def main(argv: Optional[List[str]] = None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions, untimed)")
     ap.add_argument("--json", default=None,
                     help="also write the records to this file")
-    sweeps = ap.add_mutually_exclusive_group()
-    sweeps.add_argument("--attention-sweep", action="store_true",
-                        help="time FlashAttention at ATTENTION_SWEEP's "
-                             "shapes instead of every kernel")
-    sweeps.add_argument("--streamed-sweep", action="store_true",
-                        help="time the bf16 streamed GEMM in every cluster "
-                             "shape at STREAMED_GEMM_SHAPE instead")
+    ap.add_argument("--attention-sweep", action="store_true",
+                    help="time FlashAttention at ATTENTION_SWEEP's shapes "
+                         "instead of every kernel")
     args = ap.parse_args(argv)
-    out = (attention_sweep if args.attention_sweep else streamed_sweep
-           if args.streamed_sweep else run_all)(args.device)
+    out = (attention_sweep if args.attention_sweep else run_all)(args.device)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

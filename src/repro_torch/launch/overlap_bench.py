@@ -7,12 +7,13 @@ Port of ``benchmarks/overlap_bench.py``.  Four measurements:
   ``allgather_gemm`` (gather over the group, then the kernel with one chunk
   per rank) against its unfused oracle ``allgather_gemm_reference``.
 - ``measure_double_buffer``: the streamed GEMM with ``buffers=2`` (the next
-  k-tile loaded under the current one's products) against ``buffers=1``
+  k-tiles loaded under the current one's products) against ``buffers=1``
   (load, wait, compute), timed with CUDA events through
-  ``kernel_bench.bench_streamed_gemm``: each time, their ratio t1/t2 (the
-  JAX bench's ``speedup``), the largest difference between the two modes,
-  the bound, the plain version's time and ``torch.matmul``'s (a yardstick
-  the port never calls).  At ``BUDGET_SHAPES`` in f32, the JAX bench's
+  ``kernel_bench.bench_streamed_gemm``: each time (``buffers=2`` also
+  device-only, from ``torch.profiler``), their ratio t1/t2 (the JAX
+  bench's ``speedup``), the largest difference between the two modes, the
+  bound, the plain version's time and ``torch.matmul``'s (a yardstick the
+  port never calls).  At ``BUDGET_SHAPES`` in f32, the JAX bench's
   scale, and at glm4-9b's MLP input projection at the serving prefill in
   bf16 (``kernel_bench.STREAMED_GEMM_SHAPE``).
 - ``measure_hidden_fraction``: an all-gather over the group and the
@@ -301,7 +302,8 @@ def _report(out: Dict) -> None:
               f"{h['hidden_fraction']:.3f} ({h['participants']} "
               f"{h['backend']} ranks on {h['device']})", flush=True)
     for r in out["double_buffer"]:
-        print(f"streamed_gemm {r['shape']}: ms {f(r['ms'])}  ms_buffers1 "
+        print(f"streamed_gemm {r['shape']}: ms {f(r['ms'])} (device "
+              f"{f(r['device_ms'])})  ms_buffers1 "
               f"{f(r['ms_buffers1'])}  t1/t2 {f(r['speedup'])}  bound_ms "
               f"{r['bound_ms']:.4g} ({r['bound_by']})  plain_ms "
               f"{f(r['plain_ms'])}  matmul_ms {f(r['library_ms'])}  "

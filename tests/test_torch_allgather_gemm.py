@@ -32,7 +32,8 @@ import torch
 
 from repro.kernels import streamed_gemm as jax_streamed_gemm
 from repro.kernels.allgather_gemm import BUDGET_SHAPES as JAX_BUDGET_SHAPES
-from repro_torch.kernels.allgather_gemm import (BUDGET_SHAPES, TILES, check,
+from repro_torch.kernels.allgather_gemm import (BUDGET_SHAPES, CLUSTER,
+                                                TILES, boundary_shapes, check,
                                                 streamed_gemm, tolerance)
 from repro_torch.kernels.ref import streamed_gemm_ref
 from repro_torch.launch import kernel_bench as kb
@@ -150,7 +151,111 @@ def test_budget_shapes_and_tiles():
         for dtype in (torch.float32, torch.bfloat16):
             check(torch.empty(M, K, dtype=dtype, device="meta"),
                   torch.empty(K, N, dtype=dtype, device="meta"), chunks, 2)
-    assert set(TILES) == {torch.float32, torch.bfloat16}
+    assert set(TILES) == set(CLUSTER) == {torch.float32, torch.bfloat16}
+
+
+N_EDGES = 15
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(N_EDGES))
+def test_boundary_shapes_pass_the_checks_and_the_plain_version(dtype, case):
+    """Every edge of the tiling (``boundary_shapes``, which the card's tests
+    and chip_smoke run) is a shape the kernel takes, and the plain version
+    there is the f32 product rounded once to the dtype."""
+    shapes = boundary_shapes(dtype)
+    assert len(shapes) == N_EDGES
+    M, K, N, chunks = shapes[case]
+    (_, _), (x, w) = _inputs(10 + case, M, K, N, str(dtype)[6:])
+    check(x, w, chunks, 2)
+    got = streamed_gemm(x, w, chunks=chunks)
+    want = (x.float() @ w.float())
+    assert got.dtype == dtype and got.shape == (M, N)
+    atol, rtol = (1e-4, 1e-5) if dtype == torch.float32 else \
+        tolerance(dtype, float(want.abs().max()))
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+def test_boundary_shapes_reach_every_edge():
+    """What the edges are for: M and N on both sides of a tile, odd counts
+    of row tiles (a bf16 cluster's spare tile) and of column tiles, kc from
+    below a k-tile to 1024, one chunk, and more bf16 units (clusters' worth
+    of tiles) than 66 clusters (132 SMs) run at once."""
+    for dtype in (torch.float32, torch.bfloat16):
+        bm, bn, bk = TILES[dtype]
+        shapes = boundary_shapes(dtype)
+        ms = {M for M, _, _, _ in shapes}
+        ns = {N for _, _, N, _ in shapes}
+        kcs = {K // c for _, K, _, c in shapes}
+        assert {1, bm - 1, bm + 1} <= ms and {bn - 8, bn + 8} <= ns
+        assert any(-(-M // bm) % 2 == 1 and M > bm for M in ms)
+        assert any(-(-N // bn) % 2 == 1 and N > bn for N in ns)
+        assert {8, 40, 56, 64, 72, 1024} <= kcs
+        assert any(c == 1 for _, _, _, c in shapes)
+    assert max(_units(M, N, torch.bfloat16)
+               for M, _, N, _ in boundary_shapes(torch.bfloat16)) > 66
+
+
+def _units(M, N, dtype):
+    """Clusters' worth of tiles of a launch.  f32: a tile each.  bf16: two
+    tiles each, the column tiles 2p and 2p + 1 of one row tile, then, with
+    an odd count of column tiles, the last column's row tiles 2v and
+    2v + 1."""
+    bm, bn, _ = TILES[dtype]
+    tm, tn = -(-M // bm), -(-N // bn)
+    if dtype == torch.float32:
+        return tm * tn
+    return tn // 2 * tm + tn % 2 * -(-tm // 2)
+
+
+def _l2_bytes_over_the_tiles(M, N, K, dtype):
+    """The X and W bytes the CTAs of a launch load, unit by unit.  f32: a
+    unit is one tile, which loads its rows of X and columns of W.  bf16: a
+    unit is a row pair (one row tile, column tiles 2p and 2p + 1: X's tile
+    loaded once for both, each its own W) while two column tiles are left,
+    then column pairs of the last column (W's tile once for both, each its
+    own X, none for a tile past M).  Rows past M and columns past N load
+    nothing."""
+    bm, bn, _ = TILES[dtype]
+    e = torch.empty((), dtype=dtype).element_size()
+    tm, tn = -(-M // bm), -(-N // bn)
+    rows = [min(bm, M - m * bm) for m in range(tm)]
+    cols = [min(bn, N - n * bn) for n in range(tn)]
+    x_bytes = w_bytes = 0
+    if dtype == torch.float32:
+        for m in range(tm):
+            for n in range(tn):
+                x_bytes += rows[m] * K * e
+                w_bytes += cols[n] * K * e
+        return x_bytes, w_bytes
+    for n in range(0, tn - 1, 2):           # row pairs
+        for m in range(tm):
+            x_bytes += rows[m] * K * e
+            w_bytes += (cols[n] + cols[n + 1]) * K * e
+    if tn % 2:                              # column pairs of the last column
+        for m in range(0, tm, 2):
+            x_bytes += sum(rows[m:m + 2]) * K * e
+            w_bytes += cols[-1] * K * e
+    return x_bytes, w_bytes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,K", [(4096, 13696, 4096), (777, 1000, 96)])
+def test_streamed_l2_bytes_is_a_count_over_the_tiles(dtype, M, N, K):
+    assert kb.streamed_l2_bytes(M, N, K, dtype) == \
+        _l2_bytes_over_the_tiles(M, N, K, dtype)
+
+
+def test_streamed_l2_bytes_at_glm4_shape():
+    """The bf16 tiling at glm4-9b's MLP input projection: 16 x 107 tiles in
+    16 x 53 row pairs and 8 column pairs, 856 units, 13 rounds of the card's
+    66 clusters; X crosses L2 54 times, W's first 13568 columns 16 times
+    and its last 128 columns 8 times."""
+    M, K, N, _ = kb.STREAMED_GEMM_SHAPE
+    x_bytes, w_bytes = kb.streamed_l2_bytes(M, N, K, torch.bfloat16)
+    assert x_bytes == 54 * M * K * 2
+    assert w_bytes == (16 * 13568 + 8 * 128) * K * 2
+    assert _units(M, N, torch.bfloat16) == 16 * 53 + 8 == 856 <= 13 * 66
 
 
 def test_bench_record_on_the_cpu():
@@ -160,6 +265,9 @@ def test_bench_record_on_the_cpu():
     rec = kb.bench_streamed_gemm(x, w, chunks=4)
     assert rec["ms"] is None and rec["ms_buffers1"] is None \
         and rec["plain_ms"] is None and rec["library_ms"] is None
+    assert rec["device_ms"] is None and rec["library_device_ms"] is None
+    assert (rec["l2_bytes_x"], rec["l2_bytes_w"]) == kb.streamed_l2_bytes(
+        40, 72, 128, torch.float32)
     assert rec["buffer_agreement_err"] == 0.0 and rec["within_tol"]
     assert rec["shape"] == {"M": 40, "K": 128, "N": 72, "chunks": 4,
                             "dtype": "float32"}

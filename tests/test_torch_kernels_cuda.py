@@ -28,8 +28,11 @@ from repro_torch.kernels import gemm_epilogue as ge
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd
-from repro_torch.kernels.allgather_gemm import (TILES, allgather_gemm,
+from repro_torch.kernels.allgather_gemm import (CLUSTER, TILES,
+                                                allgather_gemm,
                                                 allgather_gemm_reference,
+                                                boundary_shapes, cluster,
+                                                max_active_clusters,
                                                 streamed_gemm, tile,
                                                 tolerance)
 from repro_torch.kernels.gemm_layernorm import gemm_layernorm, gemm_rmsnorm
@@ -340,8 +343,14 @@ def test_gemm_epilogue_raises_instead_of_falling_back(hopper):
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_streamed_gemm_matches_plain_version(hopper, M, K, N, chunks, dtype):
-    x = torch.randn(M, K, generator=hopper, device="cuda").to(dtype)
-    w = (torch.randn(K, N, generator=hopper, device="cuda") * 0.2).to(dtype)
+    _streamed_check(hopper, M, K, N, chunks, dtype)
+
+
+def _streamed_check(gen, M, K, N, chunks, dtype):
+    """Both buffer modes against the plain version, equal bit for bit, each
+    call one launch."""
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(K, N, generator=gen, device="cuda") * 0.2).to(dtype)
     want = ref.streamed_gemm_ref(x, w, chunks=chunks)
     before = streamed_gemm.launches
     outs = [streamed_gemm(x, w, chunks=chunks, buffers=nbuf)
@@ -354,6 +363,32 @@ def test_streamed_gemm_matches_plain_version(hopper, M, K, N, chunks, dtype):
         torch.testing.assert_close(out.float(), want.float(), atol=atol,
                                    rtol=rtol)
     assert torch.equal(outs[0], outs[1])       # the same sums, in order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(15))
+def test_streamed_gemm_at_the_tiling_edges(hopper, dtype, case):
+    """Every edge of the tiling (``boundary_shapes``): M and N on both sides
+    of a tile, odd counts of row and column tiles, kc 8 to 1024, one chunk,
+    more tiles than the persistent grid has CTAs."""
+    shapes = boundary_shapes(dtype)
+    assert len(shapes) == 15
+    _streamed_check(hopper, *shapes[case], dtype)
+
+
+def test_streamed_gemm_at_glm4_mlp_shape(hopper):
+    """glm4-9b's MLP input projection, (4096, 4096, 13696), chunks=4."""
+    _streamed_check(hopper, 4096, 4096, 13696, 4, torch.bfloat16)
+
+
+def test_streamed_gemm_cluster_can_be_placed(hopper):
+    """The persistent grid's slots, asked of the device the tensors lie on
+    (each device is asked once)."""
+    assert max_active_clusters() > 0
+    for d in range(torch.cuda.device_count()):
+        assert max_active_clusters(torch.device("cuda", d)) > 0
+    for dtype, rows in CLUSTER.items():
+        assert cluster(dtype) == rows
 
 
 def test_streamed_gemm_tiles(hopper):

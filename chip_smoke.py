@@ -17,10 +17,14 @@ failure ends the run with a non-zero exit:
    of every head dim (must equal ``flash_attention.tiling``'s) and its
    shared memory; the GEMM epilogue's dynamic shared memory and
    ``cudaOccupancyMaxActiveClusters`` of every instance at every cluster
-   size ``gemm_epilogue.tiling`` uses (each must be > 0); and the streamed
+   size ``gemm_epilogue.tiling`` uses (each must be > 0); the streamed
    GEMM's tiles and cluster (must equal the wrapper's ``TILES`` and
    ``CLUSTER``) and the clusters of its bf16 kernel the card holds
-   (must be > 0);
+   (must be > 0); and the SSD scan's bf16 instances: registers and spills
+   (none may spill), ring stages and shared memory (must equal
+   ``ssd.bf16_layout``'s) and the CTAs an SM holds (from the occupancy
+   calculator, must equal ``ssd.tiling``'s), with every unit of mamba2's
+   serving shape resident at once in both input forms;
 3. FlashAttention against its plain version ``attention_ref`` on the card,
    in f32 (tolerance 2e-5) and bf16 (3e-2), over GQA, ragged, Sq < Skv,
    window, fully-masked-row and head-dim cases, and at every edge of the
@@ -43,19 +47,26 @@ failure ends the run with a non-zero exit:
 6. continuous batching on the card (glm4 smoke config, f32, kernel on):
    a 3-slot engine equals serial 1-slot decoding, and the kernel path's
    logits equal the plain path's;
-7. the SSD kernel against its plain version ``ssd_chunked_ref`` on the
-   card, in f32 (2e-3, as tests/test_kernels.py) and bf16 (1e-2 of the
-   output's largest magnitude), over the JAX sweep shapes, a ragged S, a
-   chunk below 64, the mamba2 smoke head (P 16, N 16) and the full head
-   (P 64, N 128);
+7. the SSD kernel against its plain version ``ssd_chunked_ref`` (on B and
+   C repeated to one row a head) on the card, in f32 (2e-3, as
+   tests/test_kernels.py) and bf16 (1e-2 of the output's largest
+   magnitude), with B/C in group form at r 1 and 24: the JAX sweep shapes,
+   a ragged S, a chunk below 64, the mamba2 smoke head (P 16, N 16), the
+   full head (P 64, N 128), and every edge of the tiling
+   (``ssd.BOUNDARY_CASES``: chunks of 8 and 40, ragged S, P 16/32/64, N
+   16-128, groups of 1-24, B/C as strided views of a conv output);
 8. the SSD kernel at mamba2-130m's serving prefill shape (BH 192, S 1024,
-   P 64, N 128, bf16): error, CUDA-event times of the kernel and the plain
-   version, and the least time the card could take (no single PyTorch
-   call computes the scan, so there is no library time);
+   P 64, N 128, bf16), B/C one row a head (``kernel_bench.SSD_SHAPE``) and
+   in the model's group form (``SSD_GROUP_SHAPE``, r 24): error, CUDA-event
+   times of the kernel and the plain version, device-only times from
+   ``torch.profiler``, and the least time the card could take for the
+   bytes each form reads (no single PyTorch call computes the scan, so
+   there is no library time);
 9. serving mamba2-130m at full width and depth, bf16, random weights from
-   seed 0, with every layer's prefill SSD scan through the kernel:
-   launches == 24 x prefill calls over this run alone; one prefill and one
-   decode step timed and profiled as in phase 5;
+   seed 0, with every layer's prefill SSD scan through the kernel, B and C
+   handed over in group form: launches == 24 x prefill calls over this run
+   alone; one prefill and one decode step timed and profiled as in phase 5,
+   with the SSD kernel's share of the prefill;
 10. continuous batching on the mamba2 smoke config (f32, kernel on), and
     its kernel-path logits against the plain path's (1e-2);
 11. the fused GEMM-Softmax, GEMM-LayerNorm and GEMM-RMSNorm kernel
@@ -197,13 +208,20 @@ def attn_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype, model_layout=False):
     return make(Hq, Sq), make(Hkv, Skv), make(Hkv, Skv)
 
 
-def ssd_inputs(gen, BH, S, P, N, dtype):
-    """xdt/B/C in ``dtype`` and dA f32 < 0 on the card, contiguous as the
-    model hands them to the kernel."""
+def ssd_inputs(gen, BH, S, P, N, dtype, r=1, xbc_view=False):
+    """xdt in ``dtype`` and dA f32 < 0 on the card, contiguous as the model
+    hands them to the kernel, and B/C in group form (BH / r rows):
+    contiguous, or with ``xbc_view`` strided views of one (BH / r, S,
+    conv_dim) tensor, as the model hands over its conv output."""
     x = torch.randn(BH, S, P, generator=gen, device="cuda").to(dtype)
     dA = -torch.rand(BH, S, generator=gen, device="cuda") * 0.2
-    B = torch.randn(BH, S, N, generator=gen, device="cuda").to(dtype)
-    C = torch.randn(BH, S, N, generator=gen, device="cuda").to(dtype)
+    G = BH // r
+    if xbc_view:    # (x, B, C) columns, x's r heads of P first
+        xbc = torch.randn(G, S, r * P + 2 * N, generator=gen,
+                          device="cuda").to(dtype)
+        return x, dA, xbc[..., r * P:r * P + N], xbc[..., r * P + N:]
+    B = torch.randn(G, S, N, generator=gen, device="cuda").to(dtype)
+    C = torch.randn(G, S, N, generator=gen, device="cuda").to(dtype)
     return x, dA, B, C
 
 
@@ -416,11 +434,8 @@ def main() -> int:
         log(f"built {lib.relative_to(ROOT)} in {seconds:.1f} s")
         for entry, used, spill in ptxas_summary(build_log):
             log(f"  ptxas: {entry}: {used}; {spill}")
-    for dtype in (torch.float32, torch.bfloat16):
-        for P, N in ((16, 16), (16, 32), (32, 64), (64, 128)):
-            log(f"  ssd_scan {str(dtype)[6:]} P {P} N {N}: dynamic shared "
-                f"memory {ssd.smem_bytes(dtype, P, N)} B")
     for source, bf16_entry in (("flash_attention", "fa_fwd_bf16"),
+                               ("ssd_scan", "ssd_fwd_bf16"),
                                ("gemm_epilogue", "ge_bf16_kernel"),
                                ("streamed_gemm", "sg_bf16_kernel")):
         for entry, used, spill in ptxas_summary(built[source][2]):
@@ -468,6 +483,27 @@ def main() -> int:
     if sg_clusters <= 0:
         raise AssertionError("a cluster of the bf16 streamed GEMM cannot be "
                              "placed")
+    for P, N in ((16, 16), (16, 32), (32, 64), (64, 128)):
+        log(f"  ssd_scan f32 P {P} N {N}: dynamic shared memory "
+            f"{ssd.f32_smem_bytes(N, P)} B")
+    mcfg = get_config("mamba2-130m").with_(use_kernels=True)
+    m_batch = 8     # phases 8 and 9: BH = 8 x 24 heads, S 1024
+    for r in (1, mcfg.ssm_nheads // mcfg.ssm_ngroups):
+        t = ssd.tiling(m_batch * mcfg.ssm_nheads, r, 1024,
+                       mcfg.ssm_headdim, mcfg.ssm_state, torch.bfloat16)
+        stages, smem, per_sm = ssd.bf16_tile(mcfg.ssm_state, t.p_slice,
+                                             t.heads, t.cluster)
+        log(f"  ssd_scan bf16 serving shape, r {r}: {t.units} units of "
+            f"{t.heads} head(s) x P {t.p_slice}, {stages} stages, dynamic "
+            f"shared memory {smem} B, {per_sm} CTAs an SM (tiling "
+            f"{t.ctas_per_sm}), {ssd.SMS * per_sm} resident")
+        if (stages, smem) != ssd.bf16_layout(mcfg.ssm_state, t.p_slice,
+                                             t.heads) \
+                or per_sm != t.ctas_per_sm or t.units > ssd.SMS * per_sm:
+            raise AssertionError(f"ssd_scan.cu's unit does not match "
+                                 f"ssd.tiling or is not one wave: {t}, "
+                                 f"stages {stages}, smem {smem}, {per_sm} "
+                                 f"an SM")
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------- 3. kernel against its plain version
@@ -588,20 +624,24 @@ def main() -> int:
     # --------------------------------- 7. SSD kernel against its plain version
     t0 = phase("7. SSD kernel vs ssd_chunked_ref")
     ssd_cases = []
-    ssd_spec = [  # name, BH, S, P, N, chunk
-        ("jax_sweep_1", 2, 128, 16, 32, 64),
-        ("jax_sweep_2", 4, 256, 32, 64, 64),
-        ("jax_sweep_ragged", 1, 200, 16, 32, 64),
-        ("smoke_head", 4, 96, 16, 16, 64),
-        ("smoke_head_chunk8", 4, 24, 16, 16, 8),
-        ("full_head", 4, 512, 64, 128, 64),
-        ("full_head_ragged", 3, 100, 64, 128, 64),
-    ]
+    ssd_spec = [  # name, BH, r, S, P, N, chunk, xbc view
+        ("jax_sweep_1", 2, 1, 128, 16, 32, 64, False),
+        ("jax_sweep_2", 4, 1, 256, 32, 64, 64, False),
+        ("jax_sweep_ragged", 1, 1, 200, 16, 32, 64, False),
+        ("smoke_head", 4, 1, 96, 16, 16, 64, False),
+        ("smoke_head_chunk8", 4, 1, 24, 16, 16, 8, False),
+        ("full_head", 4, 1, 512, 64, 128, 64, False),
+        ("full_head_ragged", 3, 1, 100, 64, 128, 64, False),
+        ("full_head_group24", 48, 24, 512, 64, 128, 64, False),
+        ("full_head_group24_ragged", 24, 24, 100, 64, 128, 64, False),
+    ] + list(ssd.BOUNDARY_CASES)
     for dtype in (torch.float32, torch.bfloat16):
-        for name, BH, S_, P, N, chunk in ssd_spec:
-            x, dA, Bm, Cm = ssd_inputs(gen, BH, S_, P, N, dtype)
+        for name, BH, r, S_, P, N, chunk, view in ssd_spec:
+            x, dA, Bm, Cm = ssd_inputs(gen, BH, S_, P, N, dtype, r, view)
             out = ssd.ssd_scan_fwd(x, dA, Bm, Cm, chunk=chunk)
-            want = ssd_chunked_ref(x, dA, Bm, Cm, chunk=min(chunk, S_))
+            want = ssd_chunked_ref(x, dA, ssd.expand_groups(Bm, r),
+                                   ssd.expand_groups(Cm, r),
+                                   chunk=min(chunk, S_))
             torch.cuda.synchronize()
             diff = (out.float() - want.float()).abs()
             err = float(diff.max())
@@ -612,10 +652,11 @@ def main() -> int:
             else:
                 tol = SSD_BF16_TOL
                 ok = err <= tol * scale
+            ok &= out.dtype == dtype and out.shape == x.shape
             label = f"{name}_{str(dtype)[6:]}"
-            log(f"  {label:28s} max_abs_err {err:.3e}  max|plain| "
+            log(f"  {label:36s} r {r:2d}  max_abs_err {err:.3e}  max|plain| "
                 f"{scale:.2f}  tol {tol:g}  {'ok' if ok else 'FAIL'}")
-            ssd_cases.append({"case": label, "max_abs_err": err,
+            ssd_cases.append({"case": label, "r": r, "max_abs_err": err,
                               "max_abs_plain": scale, "tol": tol})
             if not ok:
                 raise AssertionError(f"ssd_scan disagrees with "
@@ -624,38 +665,41 @@ def main() -> int:
 
     # ------------------------------------- 8. SSD at the mamba2 serve shape
     t0 = phase("8. SSD kernel time at mamba2-130m prefill shape")
-    mcfg = get_config("mamba2-130m").with_(use_kernels=True)
-    m_batch = 8
     BH, S, P, N = m_batch * mcfg.ssm_nheads, 1024, mcfg.ssm_headdim, \
         mcfg.ssm_state
-    x, dA, Bm, Cm = ssd_inputs(gen, BH, S, P, N, torch.bfloat16)
-    out = ssd.ssd_scan_fwd(x, dA, Bm, Cm)
-    want = ssd_chunked_ref(x, dA, Bm, Cm, chunk=ssd.CHUNK)
-    torch.cuda.synchronize()
-    ssd_err = float((out.float() - want.float()).abs().max())
-    ssd_scale = float(want.float().abs().max())
-    if ssd_err > SSD_BF16_TOL * ssd_scale:
-        raise AssertionError(f"ssd_scan disagrees at the serve shape: "
-                             f"{ssd_err} (max |plain| {ssd_scale})")
-    del out, want
-    if {"BH": BH, "S": S, "P": P, "N": N} != kb.SSD_SHAPE:
-        raise AssertionError(f"the bench's SSD shape {kb.SSD_SHAPE} is not "
-                             f"the serving shape")
-    rec = kb.bench_ssd(x, dA, Bm, Cm)
-    ssd_ms, ssd_plain_ms = rec["ms"], rec["plain_ms"]
+    if {"BH": BH, "S": S, "P": P, "N": N} != kb.SSD_SHAPE \
+            or dict(kb.SSD_SHAPE, r=mcfg.ssm_nheads // mcfg.ssm_ngroups) \
+            != kb.SSD_GROUP_SHAPE:
+        raise AssertionError(f"the bench's SSD shapes {kb.SSD_SHAPES} are "
+                             f"not the serving shape")
+    ssd_recs = {}
+    for form, shape in (("per_head", kb.SSD_SHAPE),
+                        ("group", kb.SSD_GROUP_SHAPE)):
+        x, dA, Bm, Cm = kb.ssd_inputs(gen, shape, torch.bfloat16, dev)
+        rec = kb.bench_ssd(x, dA, Bm, Cm)
+        if rec["max_abs_err"] > SSD_BF16_TOL * rec["max_abs_plain"]:
+            raise AssertionError(f"ssd_scan disagrees at the serve shape "
+                                 f"({form}): {rec['max_abs_err']} (max "
+                                 f"|plain| {rec['max_abs_plain']})")
+        log(f"  {form}: xdt {tuple(x.shape)} B/C {tuple(Bm.shape)} bf16, dA "
+            f"f32, chunk {ssd.CHUNK}: {rec['flops'] / 1e9:.2f} GFLOP, "
+            f"{rec['bytes'] / 1e6:.1f} MB; tiling {rec['tile']}")
+        log(f"    max_abs_err {rec['max_abs_err']:.3e} (max |plain| "
+            f"{rec['max_abs_plain']:.2f})")
+        log(f"    kernel_ms {rec['ms']:.4f}  device_ms {rec['device_ms']:.4f}"
+            f" (torch.profiler, 50 calls)  plain_ms {rec['plain_ms']:.4f}  "
+            f"library_ms null (no single PyTorch call computes the SSD "
+            f"scan)  bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})")
+        log(f"    kernel {rec['bytes'] / rec['ms'] / 1e6:.1f} GB/s, "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of bound "
+            f"({100 * rec['bound_ms'] / rec['device_ms']:.1f}% by device "
+            f"time)")
+        ssd_recs[form] = rec
+        del x, dA, Bm, Cm
+    rec = ssd_recs["per_head"]
+    ssd_err, ssd_ms, ssd_plain_ms = rec["max_abs_err"], rec["ms"], \
+        rec["plain_ms"]
     ssd_bound_ms, ssd_bound_by = rec["bound_ms"], rec["bound_by"]
-    c = ssd.CHUNK
-    log(f"  xdt {tuple(x.shape)} B/C {tuple(Bm.shape)} bf16, dA f32, chunk "
-        f"{c}: {rec['flops'] / 1e9:.2f} GFLOP, {rec['bytes'] / 1e6:.1f} MB")
-    log(f"  max_abs_err {ssd_err:.3e} (max |plain| {ssd_scale:.2f})")
-    log(f"  kernel_ms {ssd_ms:.4f}  plain_ms {ssd_plain_ms:.4f}  "
-        f"library_ms null (no single PyTorch call computes the SSD scan)  "
-        f"bound_ms {ssd_bound_ms:.4f} ({ssd_bound_by})")
-    log(f"  kernel {rec['bytes'] / ssd_ms / 1e6:.1f} GB/s, "
-        f"{100 * ssd_bound_ms / ssd_ms:.1f}% of bound")
-    ssd_shape = {"xdt": [BH, S, P], "B": [BH, S, N], "dtype": "bfloat16",
-                 "chunk": c}
-    del x, dA, Bm, Cm
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------- 9. serve mamba2-130m
@@ -675,6 +719,13 @@ def main() -> int:
         raise AssertionError(f"ssd_scan launched {launches_ssd} times for "
                              f"{mserve['prefill_calls']} prefills of "
                              f"{mcfg.n_layers} layers")
+    pre = mserve["breakdown"]["prefill"]
+    log(f"  ssd_scan launches {launches_ssd} == {mcfg.n_layers} layers x "
+        f"{mserve['prefill_calls']} prefills; its share of one prefill: "
+        f"{pre['ssd_scan_ms']:.3f} of {mserve['breakdown']['prefill_ms']:.2f}"
+        f" ms ({100 * pre['ssd_scan_ms'] / mserve['breakdown']['prefill_ms']:.1f}"
+        f"% by CUDA events; {100 * pre['ssd_scan_ms'] / pre['kernel_ms']:.1f}"
+        f"% of the kernel time)")
     del params, model
     torch.cuda.empty_cache()
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
@@ -756,7 +807,7 @@ def main() -> int:
     t0 = phase("12. kernel bench (repro_torch.launch.kernel_bench.run_all)")
     for fn in counters.values():
         fn.launches = 0
-    bench = kb.run_all("cuda", attention_shape=None, ssd_shape=None,
+    bench = kb.run_all("cuda", attention_shape=None, ssd_shapes=(),
                        streamed_shape=None)
     torch.cuda.synchronize()
     bench_launches = {k: fn.launches for k, fn in counters.items()}
@@ -939,7 +990,12 @@ def main() -> int:
         "bound_by": ssd_bound_by,
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
-        "shape": ssd_shape,
+        "device_ms": ssd_recs["per_head"]["device_ms"],
+        "tile": ssd_recs["per_head"]["tile"],
+        "shape": ssd_recs["per_head"]["shape"],
+        "group_form": {k: ssd_recs["group"][k] for k in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "tile")},
         "build_s": build_s["ssd_scan"],
         "cases": ssd_cases,
     }] + [{

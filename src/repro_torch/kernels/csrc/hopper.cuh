@@ -2,12 +2,12 @@
 // mbarriers (local and across a thread-block cluster), cluster rank and
 // barrier, TMA tensor loads (also multicast to a cluster) and stores,
 // wgmma shared-memory descriptors and fences, and the host-side tensor-map
-// encoder.  Included by gemm_epilogue.cu, flash_attention.cu and
-// streamed_gemm.cu; each source is its own library, so everything here
-// lives in an anonymous namespace of the including file.
+// encoder.  Included by gemm_epilogue.cu, flash_attention.cu,
+// streamed_gemm.cu and ssd_scan.cu; each source is its own library, so
+// everything here lives in an anonymous namespace of the including file.
 //
 // The build (kernels/_build.py::source_digest) hashes this header with the
-// sources that include it, so an edit here rebuilds all three libraries.
+// sources that include it, so an edit here rebuilds all four libraries.
 
 #pragma once
 

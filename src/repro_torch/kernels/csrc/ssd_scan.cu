@@ -9,66 +9,75 @@
 //   h <- exp(cs_last) h + (B o exp(cs_last - cs))^T X
 //
 // where X = xdt (S, P), B and C are (S, N) and h is the (N, P) f32 state.
-// Math is f32; y is written in xdt's dtype.
+// Math is f32; y is written in xdt's dtype.  B and C come in group form:
+// (BH / r, S, N), head row bh reading group row bh / r (jnp.repeat's order,
+// each group's r heads adjacent); r = 1 is one row a head.
 //
 // Translation: the TPU kernel carries h in VMEM scratch across a sequential
 // ("arbitrary") grid axis over chunks.  Blocks on the card run in no order,
-// so one CTA owns one bh row and one slice of PT of its P columns (the state
-// columns depend only on the same columns of X, so splitting P is exact) and
-// loops over the chunks itself, the state staying in the CTA.  A ragged S
-// and a chunk below 64 are masked: every chunk is staged as a 64-row tile
-// whose rows past the chunk or past S are zero (dA 0), which is what the
-// Pallas kernel's zero padding computes.
-//
-// Chunk: the kernel's tile is 64 rows; `chunk` may be 1..64 (the model
-// passes min(64, S)).  The JAX plan path picks 512 at the serve shape (S 1024,
-// P 64, N 128) for a 64 MiB VMEM budget; a 512 x 512 f32 intra-chunk
-// matrix is 1 MB, and a block has at most 227 KB of shared memory.
-// Shared memory of the bf16 instance at N = 128: C and B tiles
-// 2 x 64 x 136 x 2 B each (double-buffered, +8 pad), X 2 x 64 x (PT + 8)
-// x 2 B, decayed X 64 x (PT + 8) x 2 B, the bf16 copy of h 128 x (PT + 8)
-// x 2 B, dA and cs 768 B: 96,000 B at PT = 32, so two CTAs fit an SM.
-// PT = min(P, 32): at the mamba2 serving shape 32 was the fastest of 16,
-// 32 and 64 on the H100 (PERF.md).  The f32 state itself lives in the mma
-// accumulator registers of the four warps (32 floats a thread at N = 128,
-// PT = 32).
+// so a CTA owns a work unit, one head and a slice of PT of its P columns
+// (the state's columns depend only on the same columns of X, so splitting P
+// is exact), and loops over the chunks itself, the state staying in the
+// CTA.  A ragged S and a chunk below 64 are masked: every chunk is staged as
+// a 64-row tile whose rows past the chunk or past S are zero (dA 0), which
+// is what the Pallas kernel's zero padding computes.
 //
 // What bounds it on this card: at the mamba2-130m serving prefill shape
 // (BH 192, S 1024, P 64, N 128, bf16 X/B/C, f32 dA) the chunk-64 algorithm
-// is 8.9 GFLOP (the masked products' lower triangles only) against 151.8
-// MB of compulsory traffic, ~59 FLOP per byte, far below the H100's ~295
-// FLOP/byte ridge: it is bound by bytes.  So the
-// design reads every input once from device memory (B and C of one bh are
-// read by its P slices close together in time, through L2), keeps h, C B^T
-// and every intermediate on chip, double-buffers the next chunk's tiles
-// with cp.async so its load overlaps this chunk's math, and runs the four
-// products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate).  Tiles of C B^T above the diagonal are neither computed nor
-// multiplied.  C B^T o L enters its product with X as a bf16 high and low
-// part (two mma), because rounding it to one bf16 was the largest of the
-// design's rounding errors; the decayed X (before B^T) and h (before C)
-// are rounded to bf16, each a relative 2^-9 of the terms it sums, so the
-// bf16 instance holds a tolerance scaled to the output's magnitude, not
-// the f32 one.  wgmma, TMA and reading a
-// group's B/C once for all its heads are later work.
+// is 8.9 GFLOP (the masked products' lower triangles only) against 151.8 MB
+// of compulsory traffic when B and C come one row a head, ~59 FLOP per byte,
+// or 55.3 MB in mamba2's own group form (one group of 24 heads), ~161 FLOP
+// per byte: both far below the H100's ~295 FLOP/byte ridge, so bytes bound
+// it.  The bf16 path (`ssd_fwd_bf16`):
+//
+// - One wave: a unit is a CTA of one consumer warpgroup and one producer
+//   warp, 200 registers a thread and 100 KB of shared memory, two CTAs an
+//   SM; the mamba2 serving shape's 192 units are all resident on 132 SMs
+//   at once.  The wrapper's rule (ssd.py::tiling) picks the unit;
+//   `ssd_fwd` checks only that this source has the instance.
+// - TMA and an mbarrier ring: one thread of the producer loads each chunk's
+//   C and B (from the group row) and X tiles by TMA over rank-3 tensor maps
+//   of the real strides (N or P, S, rows), so the model's strided view of
+//   its conv output is read in place.  The box is `chunk` rows; the tile
+//   rows past it are zeroed once, and TMA zero-fills rows past S.  The
+//   producer warp stores the chunk's dA (0 past the chunk) beside them and
+//   arrives; each consumer warp releases a stage with an mbarrier arrive.
+// - wgmma for the four products, f32 accumulate.  S = C B^T: C and B K-major
+//   from shared memory.  (S o L) X: S o L from registers (the accumulator
+//   layout of S is wgmma's A layout) as a bf16 high and low part, because
+//   rounding it to one bf16 was the largest of the rounding errors; X
+//   MN-major (the transpose-B form).  C h: h's bf16 copy written by the
+//   consumer into a swizzled tile; with one head a CTA, C's rows are first
+//   scaled by exp(cs) in place, so C h sums into y's accumulator.  h += B^T Xd: A is the B tile read
+//   M-major (the transpose-A form), one m64 tile per 64 state rows (a state
+//   of N < 64 rows reads its one atom for every 64 rows and keeps the first
+//   N); Xd, X decayed, is written by the consumer beside the ring.  The f32
+//   state stays in the accumulator registers of the warpgroup.
+// - Two wgmma groups a chunk overlap the rest: (S o L) X with C h, under
+//   which the warpgroup writes Xd; then the state update, under which it
+//   adds and stores y.  Only the state update's wait, h's bf16 copy and
+//   the stage's release sit between one chunk's products and the next
+//   chunk's.  Two CTAs an SM fill each other's waits.
+// - An mbarrier wait that lasts far beyond any load traps (a launch error)
+//   instead of hanging the card.
 //
 // The f32 instance runs every product as f32 FMAs on the CUDA cores (no
 // TF32), so that it holds the 2e-3 tolerance of the JAX kernel tests; it is
 // the path of the f32 tests, not of serving.
 //
-// Layout: xdt, B and C are read through their (bh, seq) strides with a unit
-// inner stride; dA through its bh stride with a unit seq stride; y is
-// contiguous (BH, S, P).
+// Layout: xdt, B and C are read through their (row, seq) strides with a
+// unit inner stride (bf16: 16-byte aligned base and strides, for TMA); dA
+// through its row stride with a unit seq stride; y is contiguous (BH, S, P).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, clusters, TMA, wgmma descriptors, the tensor-map encoder
 
 namespace {
 
-constexpr int CH = 64;        // rows of a chunk tile
-constexpr int THREADS = 128;  // four warps
+constexpr int CH = 64;            // rows of a chunk tile
+constexpr int F32_THREADS = 128;  // the f32 CTA: four warps
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const void* x;
@@ -76,17 +85,19 @@ struct Params {
   const void* b;
   const void* c;
   void* y;
-  int BH, S, P, N, chunk;
+  int BH, S, P, N, chunk, r;  // r: heads a B/C group row
   long long x_sb, x_ss, d_sb, b_sb, b_ss, c_sb, c_ss;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
+// The tiling the wrapper hands over (ssd.py::tiling).
+struct Tiling {
+  int heads, p_slice, stages, cluster, grid;
+};
 
 // Inclusive prefix sum of the 64 values v[0..63] by one warp (two a lane);
-// writes cs[0..63].
-__device__ __forceinline__ void warp_cumsum64(const float* v, float* cs) {
+// writes cs[0..63] times `scale`.
+__device__ __forceinline__ void warp_cumsum64(const float* v, float* cs,
+                                              float scale) {
   const int lane = threadIdx.x % 32;
   const float a = v[2 * lane], b = v[2 * lane + 1];
   float s = a + b;
@@ -96,63 +107,16 @@ __device__ __forceinline__ void warp_cumsum64(const float* v, float* cs) {
     if (lane >= o) s += t;
   }
   const float excl = s - (a + b);
-  cs[2 * lane] = excl + a;
-  cs[2 * lane + 1] = excl + a + b;
+  cs[2 * lane] = (excl + a) * scale;
+  cs[2 * lane + 1] = (excl + a + b) * scale;
 }
 
-// ------------------------------------------------------------- bf16 path
+// ============================================================= bf16 path
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  // src-size 0 zero-fills the 16 bytes (rows past the chunk or S)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // (a, b) as a bf16 pair hi and the bf16 pair lo of what hi leaves out
@@ -163,244 +127,480 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
-// Stage rows [0, 64) of a tile of W columns whose row r is src + r * stride
-// into shared memory with a row pitch of W + 8 elements (ldmatrix reads
-// without bank conflicts).  Rows at or past `rows` are zero-filled.
-template <int W>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long stride, int rows) {
-  constexpr int CPR = W / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < CH * CPR; i += THREADS) {
-    const int r = i / CPR, c = i % CPR;
-    const bool ok = r < rows;
-    cp_async16(dst + r * (W + 8) + c * 8, ok ? src + r * stride + c * 8 : src,
-               ok);
+// The 8 bf16 values at src (16 bytes of shared memory) times f, to dst.
+__device__ __forceinline__ void scale_group(const unsigned char* src, float f,
+                                            unsigned char* dst) {
+  uint4 v = *reinterpret_cast<const uint4*>(src);
+  uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u[k]);
+    u[k] = pack_bf16(__low2float(b) * f, __high2float(b) * f);
   }
+  *reinterpret_cast<uint4*>(dst) = v;
 }
 
-// One chunk's tiles (C, B, X, dA) into buffer `buf`, rows past `rows` zero.
-template <int N, int PT>
-__device__ __forceinline__ void load_chunk(
-    const Params& p, __nv_bfloat16* Cs, __nv_bfloat16* Bs, __nv_bfloat16* Xs,
-    float* Ds, const __nv_bfloat16* cg, const __nv_bfloat16* bg,
-    const __nv_bfloat16* xg, const float* dg, int row0, int rows) {
-  load_tile_bf16<N>(Cs, cg + row0 * p.c_ss, p.c_ss, rows);
-  load_tile_bf16<N>(Bs, bg + row0 * p.b_ss, p.b_ss, rows);
-  load_tile_bf16<PT>(Xs, xg + row0 * p.x_ss, p.x_ss, rows);
-  if (threadIdx.x < CH) {
-    const bool ok = threadIdx.x < rows;
-    cp_async4(Ds + threadIdx.x, ok ? dg + row0 + threadIdx.x : dg, ok);
-  }
-  cp_async_commit();
+__device__ __forceinline__ void scale_group(unsigned char* p, float f) {
+  scale_group(p, f, p);
 }
 
-// 128 threads.  Warp w owns chunk rows [16w, 16w + 16) for the output and
-// the (m-tile, n-pair) units w, w + 4, ... of the (N, PT) state.
-template <int N, int PT>
-__global__ void __launch_bounds__(THREADS) ssd_fwd_bf16(const Params p) {
-  constexpr int LDN = N + 8, LDP = PT + 8;
-  constexpr int MT = N / 16, NP = PT / 16;  // state: m-tiles, n-tile pairs
-  constexpr int UNITS = MT * NP, UPW = (UNITS + 3) / 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 buffers
-  __nv_bfloat16* Bs = Cs + 2 * CH * LDN;                       // 2 buffers
-  __nv_bfloat16* Xs = Bs + 2 * CH * LDN;                       // 2 buffers
-  __nv_bfloat16* Xd = Xs + 2 * CH * LDP;  // decayed X of this chunk
-  __nv_bfloat16* Hs = Xd + CH * LDP;      // bf16 copy of h (N x PT)
-  float* Ds = reinterpret_cast<float*>(Hs + N * LDP);  // dA, 2 buffers
-  float* cs = Ds + 2 * CH;                              // cumsum of dA
+// bar.sync among the 128 threads of consumer warpgroup wg
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
 
+constexpr int round1k(int b) { return (b + 1023) / 1024 * 1024; }
+
+// wgmma's swizzle code for rows of 128, 64 or 32 bytes
+constexpr uint64_t swizzle_code(int row_bytes) {
+  return row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+}
+
+// Byte offset of (row, byte column) in a tile of RB-byte rows at a
+// 1024-byte boundary under the RB swizzle, as TMA writes it and wgmma reads
+// it: the 16-byte group's index is XORed with the row's bits above 128 bytes.
+template <int RB>
+__device__ __forceinline__ uint32_t swz(int row, int col_bytes) {
+  const uint32_t o = row * RB + col_bytes;
+  constexpr uint32_t mask = RB == 128 ? 7 : RB == 64 ? 3 : 1;
+  return o ^ (((o >> 7) & mask) << 4);
+}
+
+// d (64 x NN, f32) (+)= A (64 x 16) B (16 x NN), bf16.  ss: both from
+// shared memory, TA / TB 1 for an M- / N-major operand; rs: A from
+// registers in the accumulator layout, B N-major.  scale_d 0 starts the sum.
+template <int NN>
+struct Wg;
+
+template <>
+struct Wg<16> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  // A from registers (a[0..3]), B MN-major (the transpose-B form)
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wg<32> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  // A from registers (a[0..3]), B MN-major (the transpose-B form)
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wg<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  // A from registers (a[0..3]), B MN-major (the transpose-B form)
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+// The bf16 instance of a unit of W heads of one group (W consumer
+// warpgroups, one a head) and PT columns of P, in clusters of CL CTAs
+// (CL > 1: the CTAs of a cluster take W CL heads of one group, each loading
+// part of C's and B's boxes for all of them by TMA multicast).
+template <int N_, int PT_, int W_, int CL_>
+struct SsdCfg {
+  static constexpr int N = N_, PT = PT_, W = W_, CL = CL_;
+  // W consumer warpgroups and one producer warp: 200 registers a thread at
+  // two CTAs an SM (W 1), 224 at one (W 2)
+  static constexpr int THREADS = 128 * W + 32;
+  static constexpr int MIN_CTAS = W == 1 ? 2 : 1;  // CTAs an SM
+  static constexpr int BOXN = N < 64 ? N : 64;  // B/C columns a TMA box
+  static constexpr int NBOX = N / BOXN;
+  static constexpr int ROWB_N = 2 * BOXN;       // bytes a B/C box row
+  static constexpr uint64_t SW_N = swizzle_code(ROWB_N);
+  static constexpr int CB_BOX = CH * ROWB_N;
+  static constexpr int CB_BYTES = NBOX * CB_BOX;  // a C or B tile
+  static constexpr int ROWB_P = 2 * PT;           // bytes an X row
+  static constexpr uint64_t SW_P = swizzle_code(ROWB_P);
+  static constexpr int X_BYTES = round1k(CH * ROWB_P);
+  static constexpr int MT = N < 64 ? 1 : N / 64;  // m64 tiles of the state
+  // a stage: C, B, then each head's X tile and dA
+  static constexpr int OFF_B = round1k(CB_BYTES);
+  static constexpr int OFF_X = 2 * round1k(CB_BYTES);
+  static constexpr int OFF_D = OFF_X + W * X_BYTES;
+  static constexpr int STAGE = OFF_D + round1k(W * CH * 4);
+  static constexpr int HS_BYTES = round1k(N * ROWB_P);  // h's bf16 copy
+  // 1024 bytes of slack to align the tiles, each head's copy of h and
+  // decayed X, each consumer warp's cumsum; then as many stages as fit
+  // MIN_CTAS CTAs an SM, at most 4
+  static constexpr int FIXED = 1024 + W * (HS_BYTES + X_BYTES) + W * 4 * CH * 4;
+  static constexpr int BUDGET =
+      (233472 / MIN_CTAS - 1024 < 232448 ? 233472 / MIN_CTAS - 1024 : 232448) -
+      256;
+  static constexpr int FIT = (BUDGET - FIXED) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int SMEM = FIXED + STAGES * STAGE;
+  static_assert(STAGES >= 2, "a ring of two stages at least");
+  static_assert(PT <= 64 && (PT == 16 || PT == 32 || PT == 64), "P slice");
+
+  // C or B, K-major (K = N), at k-step kk: its box, and the step's 32 bytes
+  // in the swizzled row
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
+    return smem_desc(base + (16 * kk / BOXN) * CB_BOX + (16 * kk % BOXN) * 2,
+                     16, 8 * ROWB_N, SW_N);
+  }
+  // B^T, M-major (M = N, K = chunk rows): state rows 64 mt .. of m-tile mt
+  // are box mt; a state of N < 64 rows has one atom, read again for every
+  // N rows of the 64 (a leading byte offset of 0)
+  static __device__ __forceinline__ uint64_t bt_desc(uint32_t base, int mt,
+                                                     int kk) {
+    return smem_desc(base + mt * CB_BOX + 16 * kk * ROWB_N,
+                     N >= 64 ? CB_BOX : 0, 8 * ROWB_N, SW_N);
+  }
+  // X, Xd or h's copy, N-major (N = PT), at k-step kk (16 rows)
+  static __device__ __forceinline__ uint64_t nmajor(uint32_t base, int kk) {
+    return smem_desc(base + 16 * kk * ROWB_P, X_BYTES, 8 * ROWB_P, SW_P);
+  }
+};
+
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_CTAS)
+    ssd_fwd_bf16(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_b,
+                 const __grid_constant__ CUtensorMap tm_c, const Params p) {
+  constexpr int N = Cfg::N, PT = Cfg::PT, W = Cfg::W, CL = Cfg::CL,
+                ST = Cfg::STAGES, MT = Cfg::MT;
+  extern __shared__ unsigned char ssd_smem[];
+  __shared__ __align__(8) uint64_t full[ST], empty[ST];
+  // the ring at a 1024-byte boundary of the shared window, then h's bf16
+  // copies and the decayed X (one a head) and the consumer warps' cumsums
+  unsigned char* smem =
+      ssd_smem + ((1024 - (smem_u32(ssd_smem) & 1023)) & 1023);
+  unsigned char* hs_base = smem + ST * Cfg::STAGE;
+  unsigned char* xd_base = hs_base + W * Cfg::HS_BYTES;
+  float* cs_base = reinterpret_cast<float*>(xd_base + W * Cfg::X_BYTES);
+
+  const int tid = threadIdx.x;
+  const int rank = CL > 1 ? (int)cluster_rank() : 0;
   const int slices = p.P / PT;
-  const int bh = blockIdx.x / slices, p0 = (blockIdx.x % slices) * PT;
-  const __nv_bfloat16* xg =
-      static_cast<const __nv_bfloat16*>(p.x) + bh * p.x_sb + p0;
-  const __nv_bfloat16* bg = static_cast<const __nv_bfloat16*>(p.b) + bh * p.b_sb;
-  const __nv_bfloat16* cg = static_cast<const __nv_bfloat16*>(p.c) + bh * p.c_sb;
-  const float* dg = p.da + bh * p.d_sb;
-  __nv_bfloat16* yg = static_cast<__nv_bfloat16*>(p.y) +
-                      (long long)bh * p.S * p.P + p0;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;  // mma fragment row / column pair
+  const int unit = blockIdx.x / CL;  // the cluster's heads and P slice
+  const int p0 = (unit % slices) * PT;
+  const int head0 = (unit / slices) * (W * CL) + rank * W;  // this CTA's
+  const int grp = head0 / p.r;  // the B/C row of every head of the cluster
   const int nc = (p.S + p.chunk - 1) / p.chunk;
 
-  for (int i = threadIdx.x; i < N * LDP; i += THREADS)
-    Hs[i] = __float2bfloat16(0.f);
-  float h[UPW][2][4];  // the f32 state, as mma accumulators
-#pragma unroll
-  for (int u = 0; u < UPW; ++u)
-#pragma unroll
-    for (int t = 0; t < 2; ++t) h[u][t][0] = h[u][t][1] = h[u][t][2] = h[u][t][3] = 0.f;
-
-  load_chunk<N, PT>(p, Cs, Bs, Xs, Ds, cg, bg, xg, dg, 0, min(p.chunk, p.S));
-
-  for (int ci = 0; ci < nc; ++ci) {
-    const int buf = ci & 1;
-    const int row0 = ci * p.chunk, rows = min(p.chunk, p.S - row0);
-    cp_async_wait_all();
-    __syncthreads();  // tiles of ci visible, buffer buf^1 and Xd free
-    if (ci + 1 < nc) {
-      const int nrow0 = row0 + p.chunk;
-      load_chunk<N, PT>(p, Cs + (buf ^ 1) * CH * LDN, Bs + (buf ^ 1) * CH * LDN,
-                        Xs + (buf ^ 1) * CH * LDP, Ds + (buf ^ 1) * CH, cg, bg,
-                        xg, dg, nrow0, min(p.chunk, p.S - nrow0));
+  // a zero ring: the rows past a chunk below 64 stay zero (TMA writes the
+  // chunk's rows only)
+  for (int i = tid; i < ST * Cfg::STAGE / 16; i += Cfg::THREADS)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 2);  // expect_tx, the dA stores; TMA's bytes
+      mbar_init(&empty[s], CL * W * 4);  // each consumer warp of the cluster
     }
-    const __nv_bfloat16* Cb = Cs + buf * CH * LDN;
-    const __nv_bfloat16* Bb = Bs + buf * CH * LDN;
-    const __nv_bfloat16* Xb = Xs + buf * CH * LDP;
-    if (warp == 0) warp_cumsum64(Ds + buf * CH, cs);
-    __syncthreads();  // cs visible
-    const float total = cs[CH - 1];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (CL > 1) cluster_sync();  // every CTA's ring and barriers are ready
 
-    // decayed X for the state update: Xd[r] = X[r] * exp(total - cs[r])
-    for (int i = threadIdx.x; i < CH * PT / 2; i += THREADS) {
-      const int r = i / (PT / 2), c = (i % (PT / 2)) * 2;
-      const float d = expf(total - cs[r]);
-      const __nv_bfloat162 v =
-          *reinterpret_cast<const __nv_bfloat162*>(Xb + r * LDP + c);
-      *reinterpret_cast<uint32_t*>(Xd + r * LDP + c) =
-          pack_bf16(__low2float(v) * d, __high2float(v) * d);
-    }
-
-    // this warp's 16 rows of C as mma A fragments (k = N)
-    uint32_t cf[N / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < N / 16; ++kc)
-      ldmatrix_x4(cf[kc], smem_u32(Cb + (warp * 16 + (lane % 16)) * LDN +
-                                   kc * 16 + (lane / 16) * 8));
-
-    // S = C B^T for 16 rows x 64 columns; column pairs past the diagonal
-    // block are zero and skipped
-    float s[CH / 8][4];
-#pragma unroll
-    for (int i = 0; i < CH / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int np = 0; np < CH / 16; ++np) {
-      if (np > warp) continue;
-#pragma unroll
-      for (int kc = 0; kc < N / 16; ++kc) {
-        uint32_t bf[4];  // B fragments of n-tiles 2np and 2np+1
-        ldmatrix_x4(bf, smem_u32(Bb + (np * 16 + (lane % 8) + (lane / 16) * 8) * LDN +
-                                 kc * 16 + ((lane / 8) % 2) * 8));
-        mma_bf16(s[2 * np], cf[kc], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], cf[kc], bf[2], bf[3]);
+  if (tid >= W * 128) {
+    // ------------------------------------------------------------ producer
+    {  // one warp: a thread's TMA, the warp's dA
+      const int lane = tid % 32;
+      if (lane == 0) {
+        prefetch_map(&tm_x);
+        prefetch_map(&tm_b);
+        prefetch_map(&tm_c);
       }
-    }
-    // o L: exp(cs_i - cs_j) on and below the diagonal, 0 above
-    const int i0 = warp * 16 + g;
-    const float csi[2] = {cs[i0], cs[i0 + 8]};
+      const uint16_t all = (uint16_t)((1u << CL) - 1);
+      const uint32_t bytes = (uint32_t)p.chunk * (2 * N * 2 + W * PT * 2);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int c = 0; c < nc; ++c) {
+        const int row0 = c * p.chunk, rows = min(p.chunk, p.S - row0);
+        mbar_wait(&empty[s], phase ^ 1);
+        unsigned char* st = smem + s * Cfg::STAGE;
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], bytes);
+          // C's boxes, then B's: box i by rank i % CL, to every CTA of the
+          // cluster
+          for (int i = rank; i < 2 * Cfg::NBOX; i += CL) {
+            const bool is_b = i >= Cfg::NBOX;
+            const int bx = i % Cfg::NBOX;
+            unsigned char* dst =
+                st + (is_b ? Cfg::OFF_B : 0) + bx * Cfg::CB_BOX;
+            const CUtensorMap* m = is_b ? &tm_b : &tm_c;
+            if (CL > 1)
+              tma_load_3d_multicast(dst, m, &full[s], bx * Cfg::BOXN, row0,
+                                    grp, all);
+            else
+              tma_load_3d(dst, m, &full[s], bx * Cfg::BOXN, row0, grp);
+          }
 #pragma unroll
-    for (int nt = 0; nt < CH / 8; ++nt) {
-      if (nt / 2 > warp) continue;
+          for (int w = 0; w < W; ++w)
+            tma_load_3d(st + Cfg::OFF_X + w * Cfg::X_BYTES, &tm_x, &full[s],
+                        p0, row0, head0 + w);
+        }
+        float* ds = reinterpret_cast<float*>(st + Cfg::OFF_D);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + (e >> 1) * 8, j = nt * 8 + tq * 2 + (e & 1);
-        s[nt][e] = j <= i ? s[nt][e] * expf(csi[e >> 1] - cs[j]) : 0.f;
-      }
-    }
-
-    // y = (C B^T o L) X: the masked scores are the A fragments, 16 columns
-    // at a time, split into a bf16 high and low part (two products) so
-    // that rounding them costs ~2^-17 instead of 2^-9
-    float y[PT / 8][4];
+        for (int w = 0; w < W; ++w) {
+          const float* dg = p.da + (long long)(head0 + w) * p.d_sb + row0;
 #pragma unroll
-    for (int i = 0; i < PT / 8; ++i) y[i][0] = y[i][1] = y[i][2] = y[i][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < CH / 16; ++kc) {
-      if (kc > warp) continue;
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)  // r: (row g | g + 8) x (n-tile 2kc | +1)
-        split_bf16(s[2 * kc + r / 2][2 * (r % 2)], s[2 * kc + r / 2][2 * (r % 2) + 1],
-                   hi[r], lo[r]);
-#pragma unroll
-      for (int dp = 0; dp < PT / 16; ++dp) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, smem_u32(Xb + (kc * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDP +
-                                       dp * 16 + (lane / 16) * 8));
-        mma_bf16(y[2 * dp], hi, bf[0], bf[1]);
-        mma_bf16(y[2 * dp + 1], hi, bf[2], bf[3]);
-        mma_bf16(y[2 * dp], lo, bf[0], bf[1]);
-        mma_bf16(y[2 * dp + 1], lo, bf[2], bf[3]);
-      }
-    }
-
-    // y += (C h) o exp(cs), h being the state before this chunk
-    {
-      float t[PT / 8][4];
-#pragma unroll
-      for (int i = 0; i < PT / 8; ++i) t[i][0] = t[i][1] = t[i][2] = t[i][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < N / 16; ++kc) {
-#pragma unroll
-        for (int dp = 0; dp < PT / 16; ++dp) {
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, smem_u32(Hs + (kc * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDP +
-                                         dp * 16 + (lane / 16) * 8));
-          mma_bf16(t[2 * dp], cf[kc], bf[0], bf[1]);
-          mma_bf16(t[2 * dp + 1], cf[kc], bf[2], bf[3]);
+          for (int k = lane; k < CH; k += 32)
+            ds[w * CH + k] = k < rows ? dg[k] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
+        if (++s == ST) {
+          s = 0;
+          phase ^= 1;
         }
       }
-      const float ecs[2] = {expf(csi[0]), expf(csi[1])};
-#pragma unroll
-      for (int i = 0; i < PT / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) y[i][e] += t[i][e] * ecs[e >> 1];
     }
+  } else {
+    // ----------------------------------------------------------- consumers
+    const int w = tid / 128, t = tid % 128;
+    const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+    const int bh = head0 + w;
+    float* csw = cs_base + (w * 4 + warp) * CH;  // log2 units
+    unsigned char* hs = hs_base + w * Cfg::HS_BYTES;
+    const uint32_t hs_addr = smem_u32(hs);
+    unsigned char* xd = xd_base + w * Cfg::X_BYTES;  // X decayed
+    const uint32_t xd_addr = smem_u32(xd);
+    __nv_bfloat16* yg = static_cast<__nv_bfloat16*>(p.y) +
+                        (long long)bh * p.S * p.P + p0;
+    const int i0 = 16 * warp + g;  // this thread's rows: i0 and i0 + 8
 
+    // accumulators: element 4 j + e is row i0 + 8 (e >> 1), column 8 j +
+    // 2 tq + (e & 1) (h: state row 64 mt + i0 + 8 (e >> 1))
+    float h[MT][PT / 2];
+    float sc[32], y[PT / 2], tc[PT / 2];
+    uint32_t hi[16], lo[16];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = i0 + r * 8;
-      if (i < rows) {
-        __nv_bfloat16* out = yg + (long long)(row0 + i) * p.P;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < PT / 8; ++nt)
-          *reinterpret_cast<uint32_t*>(out + nt * 8 + tq * 2) =
-              pack_bf16(y[nt][2 * r], y[nt][2 * r + 1]);
-      }
-    }
-    __syncthreads();  // Xd written; every read of Hs done
+      for (int i = 0; i < PT / 2; ++i) h[mt][i] = 0.f;
 
-    // h <- exp(total) h + B^T Xd, then its bf16 copy for the next chunk
-    const float et = expf(total);
+    auto release = [&](int s) {  // in every CTA of the cluster
+      __syncwarp();
+      if (lane == 0) {
+        if (CL == 1)
+          mbar_arrive(&empty[s]);
+        else
+          for (int k = 0; k < CL; ++k) mbar_arrive_cluster(&empty[s], k);
+      }
+    };
+
+    // h -> its bf16 copy (state rows < N), visible to wgmma
+    auto copy_h = [&]() {
 #pragma unroll
-    for (int uu = 0; uu < UPW; ++uu) {
-      const int u = warp + 4 * uu;
-      if (u >= UNITS) continue;
-      const int mt = u / NP, np = u % NP;
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int t = 0; t < 2; ++t)
+        for (int r = 0; r < 2; ++r) {
+          const int n = 64 * mt + i0 + 8 * r;
+          if (n < N) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) h[uu][t][e] *= et;
+            for (int j = 0; j < PT / 8; ++j)
+              *reinterpret_cast<uint32_t*>(
+                  hs + swz<Cfg::ROWB_P>(n, 16 * j + 4 * tq)) =
+                  pack_bf16(h[mt][4 * j + 2 * r], h[mt][4 * j + 2 * r + 1]);
+          }
+        }
+      fence_proxy_async();
+      warpgroup_sync(w);
+    };
+    copy_h();
+
+    int s = 0;
+    uint32_t phase = 0;
+    for (int c = 0; c < nc; ++c) {
+      const int row0 = c * p.chunk, rows = min(p.chunk, p.S - row0);
+      mbar_wait(&full[s], phase);
+      unsigned char* st = smem + s * Cfg::STAGE;
+      const uint32_t c_addr = smem_u32(st), b_addr = smem_u32(st + Cfg::OFF_B);
+      const unsigned char* xt = st + Cfg::OFF_X + w * Cfg::X_BYTES;
+      const uint32_t x_addr = smem_u32(xt);
+      warp_cumsum64(reinterpret_cast<const float*>(st + Cfg::OFF_D) + w * CH,
+                    csw, LOG2E);
+      __syncwarp();
+
+      // S = C B^T
+      wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < CH / 16; ++kc) {
-        uint32_t a[4];  // A = B^T: ldmatrix.trans of the (chunk, N) tile
-        const int mi = lane / 8;
-        ldmatrix_x4_trans(a, smem_u32(Bb + (kc * 16 + (lane % 8) + (mi / 2) * 8) * LDN +
-                                      mt * 16 + (mi % 2) * 8));
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, smem_u32(Xd + (kc * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDP +
-                                       np * 16 + (lane / 16) * 8));
-        mma_bf16(h[uu][0], a, bf[0], bf[1]);
-        mma_bf16(h[uu][1], a, bf[2], bf[3]);
+      for (int kk = 0; kk < N / 16; ++kk)
+        Wg<64>::ss<0, 0>(sc, Cfg::kmajor(c_addr, kk), Cfg::kmajor(b_addr, kk),
+                         kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      if constexpr (W == 1) {
+        // C's row i times exp(cs_i) in place (S has read C), so that C h
+        // sums into y: a 16-byte group stays in its row under the swizzle
+        for (int v = t; v < Cfg::CB_BYTES / 16; v += 128)
+          scale_group(st + 16 * v, ex2(csw[(16 * v % Cfg::CB_BOX) / Cfg::ROWB_N]));
+        fence_proxy_async();
+        warpgroup_sync(w);
+      }
+
+      // S o L: exp(cs_i - cs_j) on and below the diagonal, 0 above; then
+      // its bf16 high and low parts as the A fragments of (S o L) X
+      const float ci[2] = {csw[i0], csw[i0 + 8]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * tq + (e & 1), row = i0 + 8 * (e >> 1);
+          sc[4 * j + e] = col <= row ? sc[4 * j + e] * ex2(ci[e >> 1] - csw[col])
+                                     : 0.f;
+        }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) split_bf16(sc[2 * k], sc[2 * k + 1], hi[k], lo[k]);
+
+      // y = (S o L) X (high part, then low) and C h, one group: W 1 sums C h
+      // (C scaled) into y, W > 1 (C shared by the heads) into t
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wg<PT>::rs(y, &hi[4 * kk], Cfg::nmajor(x_addr, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wg<PT>::rs(y, &lo[4 * kk], Cfg::nmajor(x_addr, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        if constexpr (W == 1)
+          Wg<PT>::template ss<0, 1>(y, Cfg::kmajor(c_addr, kk),
+                                    Cfg::nmajor(hs_addr, kk), 1);
+        else
+          Wg<PT>::template ss<0, 1>(tc, Cfg::kmajor(c_addr, kk),
+                                    Cfg::nmajor(hs_addr, kk), kk > 0);
+      }
+      wgmma_commit();
+
+      // under them, X decayed into Xd: row j times exp(total - cs_j) (a
+      // 16-byte group stays in its row under the swizzle)
+      const float total = csw[CH - 1];
+      for (int v = t; v < CH * Cfg::ROWB_P / 16; v += 128)
+        scale_group(xt + 16 * v, ex2(total - csw[16 * v / Cfg::ROWB_P]),
+                    xd + 16 * v);
+      fence_proxy_async();
+      warpgroup_sync(w);
+
+      // h <- exp(total) h + B^T Xd, a second group
+      const float et = ex2(total);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < PT / 2; ++i) h[mt][i] *= et;
+      wgmma_fence();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wg<PT>::template ss<1, 1>(h[mt], Cfg::bt_desc(b_addr, mt, kk),
+                                    Cfg::nmajor(xd_addr, kk), 1);
+      wgmma_commit();
+
+      // y += t o exp(cs) once the first group has retired, under the state
+      // update; rows past the chunk or S are not stored
+      wgmma_wait<1>();
+      fence_acc(y);
+      fence_regs(hi);
+      fence_regs(lo);
+      if constexpr (W > 1) {
+        fence_acc(tc);
+        const float ec[2] = {ex2(ci[0]), ex2(ci[1])};
+#pragma unroll
+        for (int i = 0; i < PT / 2; ++i) y[i] += tc[i] * ec[(i >> 1) & 1];
       }
 #pragma unroll
-      for (int t = 0; t < 2; ++t)
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + 8 * r;
+        if (i < rows) {
+          __nv_bfloat16* out = yg + (long long)(row0 + i) * p.P;
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<uint32_t*>(Hs + (mt * 16 + g + r * 8) * LDP +
-                                       (2 * np + t) * 8 + tq * 2) =
-              pack_bf16(h[uu][t][2 * r], h[uu][t][2 * r + 1]);
+          for (int j = 0; j < PT / 8; ++j)
+            *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * tq) =
+                pack_bf16(y[4 * j + 2 * r], y[4 * j + 2 * r + 1]);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) fence_acc(h[mt]);
+      release(s);   // the stage's last reads (B, X) are done
+      copy_h();     // the state before the next chunk
+      if (++s == ST) {
+        s = 0;
+        phase ^= 1;
+      }
     }
   }
+  // no CTA may exit while its peer can still multicast into it or arrive on
+  // its barriers
+  if (CL > 1) cluster_sync();
 }
 
-// -------------------------------------------------------------- f32 path
+// ============================================================== f32 path
 
-// 128 threads; one CTA owns one bh row and all P columns.
+// 128 threads; one CTA owns one bh row and all P columns; B and C come
+// from its group row bh / r.
 template <int N, int P>
-__global__ void __launch_bounds__(THREADS) ssd_fwd_f32(const Params p) {
+__global__ void __launch_bounds__(F32_THREADS) ssd_fwd_f32(const Params p) {
   constexpr int LDN = N + 1, LDC = CH + 1;  // odd pitches
   extern __shared__ float smf[];
   float* Xs = smf;             // CH x P
@@ -413,32 +613,32 @@ __global__ void __launch_bounds__(THREADS) ssd_fwd_f32(const Params p) {
   float* ec = cs + CH;         // exp(cs)
   float* dc = ec + CH;         // exp(total - cs)
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x, grp = bh / p.r;
   const float* xg = static_cast<const float*>(p.x) + bh * p.x_sb;
-  const float* bg = static_cast<const float*>(p.b) + bh * p.b_sb;
-  const float* cg = static_cast<const float*>(p.c) + bh * p.c_sb;
+  const float* bg = static_cast<const float*>(p.b) + grp * p.b_sb;
+  const float* cg = static_cast<const float*>(p.c) + grp * p.c_sb;
   const float* dg = p.da + bh * p.d_sb;
   float* yg = static_cast<float*>(p.y) + (long long)bh * p.S * P;
   const int tid = threadIdx.x;
   const int nc = (p.S + p.chunk - 1) / p.chunk;
 
-  for (int i = tid; i < N * P; i += THREADS) Hs[i] = 0.f;
+  for (int i = tid; i < N * P; i += F32_THREADS) Hs[i] = 0.f;
 
   for (int ci = 0; ci < nc; ++ci) {
     const int row0 = ci * p.chunk, rows = min(p.chunk, p.S - row0);
     __syncthreads();  // previous chunk consumed
-    for (int i = tid; i < CH * P; i += THREADS) {
+    for (int i = tid; i < CH * P; i += F32_THREADS) {
       const int r = i / P, c = i % P;
       Xs[i] = r < rows ? xg[(row0 + r) * p.x_ss + c] : 0.f;
     }
-    for (int i = tid; i < CH * N; i += THREADS) {
+    for (int i = tid; i < CH * N; i += F32_THREADS) {
       const int r = i / N, c = i % N;
       Bs[r * LDN + c] = r < rows ? bg[(row0 + r) * p.b_ss + c] : 0.f;
       Cs[r * LDN + c] = r < rows ? cg[(row0 + r) * p.c_ss + c] : 0.f;
     }
     if (tid < CH) Ds[tid] = tid < rows ? dg[row0 + tid] : 0.f;
     __syncthreads();
-    if (tid < 32) warp_cumsum64(Ds, cs);
+    if (tid < 32) warp_cumsum64(Ds, cs, 1.f);
     __syncthreads();
     const float total = cs[CH - 1];
     if (tid < CH) {
@@ -446,7 +646,7 @@ __global__ void __launch_bounds__(THREADS) ssd_fwd_f32(const Params p) {
       dc[tid] = expf(total - cs[tid]);
     }
     // C B^T o L
-    for (int i = tid; i < CH * CH; i += THREADS) {
+    for (int i = tid; i < CH * CH; i += F32_THREADS) {
       const int r = i / CH, j = i % CH;
       float acc = 0.f;
       if (j <= r) {
@@ -458,7 +658,7 @@ __global__ void __launch_bounds__(THREADS) ssd_fwd_f32(const Params p) {
     }
     __syncthreads();
     // y = (C B^T o L) X + (C h) o exp(cs)
-    for (int i = tid; i < CH * P; i += THREADS) {
+    for (int i = tid; i < CH * P; i += F32_THREADS) {
       const int r = i / P, c = i % P;
       if (r >= rows) continue;
       float a = 0.f, b = 0.f;
@@ -470,7 +670,7 @@ __global__ void __launch_bounds__(THREADS) ssd_fwd_f32(const Params p) {
     __syncthreads();  // every read of h done
     // h <- exp(total) h + (B o exp(total - cs))^T X
     const float et = expf(total);
-    for (int i = tid; i < N * P; i += THREADS) {
+    for (int i = tid; i < N * P; i += F32_THREADS) {
       const int n = i / P, c = i % P;
       float acc = 0.f;
       for (int j = 0; j < CH; ++j)
@@ -480,52 +680,108 @@ __global__ void __launch_bounds__(THREADS) ssd_fwd_f32(const Params p) {
   }
 }
 
-// Dynamic shared memory of each instance, in bytes (see the layouts in the
-// kernels).
-constexpr int smem_bf16(int N, int PT) {
-  return (4 * CH * (N + 8) + 3 * CH * (PT + 8) + N * (PT + 8)) *
-             (int)sizeof(__nv_bfloat16) +
-         3 * CH * (int)sizeof(float);
-}
-
 constexpr int smem_f32(int N, int P) {
   return (CH * P + 2 * CH * (N + 1) + CH * (CH + 1) + N * P + 5 * CH) *
          (int)sizeof(float);
 }
 
-template <int N, int PT>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  const int smem = smem_bf16(N, PT);
-  cudaError_t e = cudaFuncSetAttribute(
-      ssd_fwd_bf16<N, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  ssd_fwd_bf16<N, PT><<<p.BH * (p.P / PT), THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int N, int P>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const int smem = smem_f32(N, P);
-  cudaError_t e = cudaFuncSetAttribute(
-      ssd_fwd_f32<N, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  ssd_fwd_f32<N, P><<<p.BH, THREADS, smem, stream>>>(p);
+  static bool set = false;  // once per instance and process
+  if (!set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_fwd_f32<N, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_f32(N, P));
+    if (e != cudaSuccess) return e;
+    set = true;
+  }
+  ssd_fwd_f32<N, P><<<p.BH, F32_THREADS, smem_f32(N, P), stream>>>(p);
   return cudaGetLastError();
 }
 
-// The P columns one bf16 CTA owns.
-constexpr int p_tile(int P) { return P < 32 ? P : 32; }
+// ============================================================ the launch
+
+// The bf16 instances: (N, PT, W, CL).
+#define SSD_BF16_INSTANCES(X)                                              \
+  X(16, 16, 1, 1) X(16, 32, 1, 1) X(16, 64, 1, 1) X(32, 16, 1, 1)          \
+  X(32, 32, 1, 1) X(32, 64, 1, 1) X(64, 16, 1, 1) X(64, 32, 1, 1)          \
+  X(64, 64, 1, 1) X(128, 16, 1, 1) X(128, 32, 1, 1) X(128, 64, 1, 1)       \
+  X(128, 64, 2, 1) X(128, 64, 1, 2)
+
+// Call f(Cfg{}) with the instance (N, PT, W, CL); false if there is none.
+template <class F>
+bool with_bf16(int N, int PT, int W, int CL, F&& f) {
+#define SSD_CASE(n, pt, w, cl)                                   \
+  if (N == n && PT == pt && W == w && CL == cl) {                \
+    f(SsdCfg<n, pt, w, cl>{});                                   \
+    return true;                                                 \
+  }
+  SSD_BF16_INSTANCES(SSD_CASE)
+#undef SSD_CASE
+  return false;
+}
+
+constexpr CUtensorMapSwizzle swizzle_mode(int row_bytes) {
+  return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// The rank-3 bf16 map (cols, S, rows) of a (rows, S, cols) tensor with
+// these element strides, in boxes of `box_cols` columns and `box_rows`
+// sequence rows of one row.
+bool encode_rows(CUtensorMap* map, const void* ptr, int cols, int S, int rows,
+                 long long sb, long long ss, int box_cols, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)S,
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  return encode_tiled(map, ptr, 3, dims, strides, box,
+                      swizzle_mode(2 * box_cols));
+}
+
+template <class Kernel>
+cudaError_t set_smem(Kernel kernel, int smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <class Cfg>
+cudaError_t launch_bf16(const Params& p, int grid, cudaStream_t stream) {
+  CUtensorMap tx, tb, tc;
+  const int groups = p.BH / p.r;
+  if (!encode_rows(&tx, p.x, p.P, p.S, p.BH, p.x_sb, p.x_ss, Cfg::PT,
+                   p.chunk) ||
+      !encode_rows(&tb, p.b, Cfg::N, p.S, groups, p.b_sb, p.b_ss, Cfg::BOXN,
+                   p.chunk) ||
+      !encode_rows(&tc, p.c, Cfg::N, p.S, groups, p.c_sb, p.c_ss, Cfg::BOXN,
+                   p.chunk))
+    return cudaErrorInvalidValue;
+  static bool set = false;  // once per instance and process
+  if (!set) {
+    cudaError_t e = set_smem(ssd_fwd_bf16<Cfg>, Cfg::SMEM);
+    if (e != cudaSuccess) return e;
+    set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(Cfg::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = Cfg::SMEM;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Cfg::CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = Cfg::CL > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, ssd_fwd_bf16<Cfg>, tx, tb, tc, p);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
 
 template <int N>
-cudaError_t dispatch_p(const Params& p, bool bf16, cudaStream_t s) {
-  if (bf16) {
-    switch (p.P) {
-      case 16: return launch_bf16<N, p_tile(16)>(p, s);
-      case 32: return launch_bf16<N, p_tile(32)>(p, s);
-      case 64: return launch_bf16<N, p_tile(64)>(p, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+cudaError_t dispatch_f32(const Params& p, cudaStream_t s) {
   switch (p.P) {
     case 16: return launch_f32<N, 16>(p, s);
     case 32: return launch_f32<N, 32>(p, s);
@@ -534,33 +790,95 @@ cudaError_t dispatch_p(const Params& p, bool bf16, cudaStream_t s) {
   }
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (of xdt, B, C and y; dA is float32).
-// Strides are in elements.  chunk in [1, 64].  Returns the launch's
-// cudaError_t (0 on success).
-extern "C" int ssd_fwd(const void* x, const float* da, const void* b,
-                       const void* c, void* y, int dtype, int BH, int S, int P,
-                       int N, int chunk, long long x_sb, long long x_ss,
-                       long long d_sb, long long b_sb, long long b_ss,
-                       long long c_sb, long long c_ss, void* stream) {
-  const Params p{x, da, b, c, y, BH, S, P, N, chunk,
-                 x_sb, x_ss, d_sb, b_sb, b_ss, c_sb, c_ss};
-  if ((dtype != 0 && dtype != 1) || chunk < 1 || chunk > CH || BH < 1 || S < 1)
-    return (int)cudaErrorInvalidValue;
-  const bool bf16 = dtype == 1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 16: return (int)dispatch_p<16>(p, bf16, s);
-    case 32: return (int)dispatch_p<32>(p, bf16, s);
-    case 64: return (int)dispatch_p<64>(p, bf16, s);
-    case 128: return (int)dispatch_p<128>(p, bf16, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// A tiling this source runs.  f32: one CTA a row, all of P, no ring.
+// bf16: an instance (N, p_slice, heads, cluster), its stages, and a grid of
+// one CTA a unit, a unit's heads (heads x cluster) all of one group.
+bool valid_tiling(int dtype, const Params& p, const Tiling& t) {
+  if (dtype == 0)
+    return t.heads == 1 && t.p_slice == p.P && t.stages == 1 &&
+           t.cluster == 1 && t.grid == p.BH;
+  int stages = -1;
+  if (!with_bf16(p.N, t.p_slice, t.heads, t.cluster,
+                 [&](auto cfg) { stages = decltype(cfg)::STAGES; }))
+    return false;
+  const int span = t.heads * t.cluster;  // heads of a cluster
+  return t.stages == stages && p.P % t.p_slice == 0 && p.r % span == 0 &&
+         (long long)t.grid == (long long)p.BH / t.heads * (p.P / t.p_slice);
 }
 
-// Dynamic shared memory (bytes) the instance for (dtype, N, P) launches
-// with.
-extern "C" int ssd_smem_bytes(int dtype, int N, int P) {
-  return dtype == 1 ? smem_bf16(N, p_tile(P)) : smem_f32(N, P);
+}  // namespace
+
+// The bf16 instance (N, PT, W heads a CTA, CL CTAs a cluster): its ring
+// stages, dynamic shared memory and the CTAs of it the current device holds
+// at once (CL 1: per SM, from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+// CL > 1: on the device, CL x cudaOccupancyMaxActiveClusters).  Returns 0,
+// -1 if there is no such instance, or the cudaError_t of the query.
+extern "C" int ssd_bf16_tile(int N, int PT, int W, int CL, int* stages,
+                             int* smem, int* resident) {
+  cudaError_t e = cudaSuccess;
+  if (!with_bf16(N, PT, W, CL, [&](auto cfg) {
+        using Cfg = decltype(cfg);
+        *stages = Cfg::STAGES;
+        *smem = Cfg::SMEM;
+        e = set_smem(ssd_fwd_bf16<Cfg>, Cfg::SMEM);
+        if (e != cudaSuccess) return;
+        if (Cfg::CL == 1) {
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              resident, ssd_fwd_bf16<Cfg>, Cfg::THREADS, Cfg::SMEM);
+          return;
+        }
+        cudaLaunchConfig_t cfg2 = {};
+        cudaLaunchAttribute attr[1];
+        cfg2.gridDim = dim3(Cfg::CL, 1, 1);
+        cfg2.blockDim = dim3(Cfg::THREADS, 1, 1);
+        cfg2.dynamicSmemBytes = Cfg::SMEM;
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = Cfg::CL;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg2.attrs = attr;
+        cfg2.numAttrs = 1;
+        int n = 0;
+        e = cudaOccupancyMaxActiveClusters(&n, ssd_fwd_bf16<Cfg>, &cfg2);
+        *resident = n * Cfg::CL;
+      }))
+    return -1;
+  return (int)e;
+}
+
+// Dynamic shared memory of the f32 instance for (N, P), in bytes.
+extern "C" int ssd_f32_smem_bytes(int N, int P) { return smem_f32(N, P); }
+
+// dtype: 0 = float32, 1 = bfloat16 (of xdt, B, C and y; dA is float32).
+// B and C have BH / r rows (head bh reads row bh / r).  Strides are in
+// elements.  chunk in [1, 64].  The tiling is the wrapper's (ssd.py::
+// tiling): heads a CTA, P columns a unit, ring stages, CTAs a cluster and
+// the grid.  Returns the launch's cudaError_t (0 on success).
+extern "C" int ssd_fwd(const void* x, const float* da, const void* b,
+                       const void* c, void* y, int dtype, int BH, int S, int P,
+                       int N, int chunk, int r, long long x_sb, long long x_ss,
+                       long long d_sb, long long b_sb, long long b_ss,
+                       long long c_sb, long long c_ss, int heads, int p_slice,
+                       int stages, int cluster, int grid, void* stream) {
+  const Params p{x,    da,   b,    c,    y,    BH,   S,    P,   N,
+                 chunk, r,   x_sb, x_ss, d_sb, b_sb, b_ss, c_sb, c_ss};
+  const Tiling t{heads, p_slice, stages, cluster, grid};
+  if ((dtype != 0 && dtype != 1) || chunk < 1 || chunk > CH || BH < 1 ||
+      S < 1 || r < 1 || BH % r != 0 || !valid_tiling(dtype, p, t))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    switch (N) {
+      case 16: return (int)dispatch_f32<16>(p, s);
+      case 32: return (int)dispatch_f32<32>(p, s);
+      case 64: return (int)dispatch_f32<64>(p, s);
+      case 128: return (int)dispatch_f32<128>(p, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  cudaError_t e = cudaErrorInvalidValue;
+  with_bf16(N, p_slice, heads, cluster, [&](auto cfg) {
+    e = launch_bf16<decltype(cfg)>(p, grid, s);
+  });
+  return (int)e;
 }

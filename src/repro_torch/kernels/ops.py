@@ -17,7 +17,7 @@ from . import ref
 from .flash_attention import flash_attention
 from .gemm_layernorm import gemm_layernorm, gemm_rmsnorm
 from .gemm_softmax import gemm_softmax
-from .ssd import ssd_scan
+from .ssd import expand_groups, ssd_scan
 
 __all__ = ["mha", "ssd", "fused_gemm_softmax", "fused_gemm_layernorm",
            "fused_gemm_rmsnorm", "flash_attention", "ssd_scan",
@@ -67,10 +67,13 @@ def fused_gemm_rmsnorm(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor,
 def ssd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         C: torch.Tensor, *, chunk: Optional[int] = None,
         use_kernel: bool = False) -> torch.Tensor:
-    """Mamba-2 SSD chunk scan: the kernel, else the chunked reference when
-    a chunk is given, else the sequential recurrence."""
+    """Mamba-2 SSD chunk scan on B/C in group form (BH/r, S, N): the
+    kernel, else the chunked reference when a chunk is given, else the
+    sequential recurrence (both on B and C repeated to one row a head)."""
     if use_kernel:
         return ssd_scan(xdt, dA, B, C, chunk)
+    r = xdt.shape[0] // B.shape[0]
+    B, C = expand_groups(B, r), expand_groups(C, r)
     if chunk:
         return ref.ssd_chunked_ref(xdt, dA, B, C, chunk=chunk)
     return ref.ssd_ref(xdt, dA, B, C)

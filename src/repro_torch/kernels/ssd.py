@@ -8,17 +8,29 @@ kernel on the card and how it is laid out.
 y_t = C_t · h_t,   h_t = exp(dA_t) · h_{t-1} + B_t ⊗ xdt_t
 
 Inputs (per flattened batch*heads row):
-  xdt (BH, S, P)  dA (BH, S)  B (BH, S, N)  C (BH, S, N)
+  xdt (BH, S, P)  dA (BH, S)  B (BH/r, S, N)  C (BH/r, S, N)
 
-Dispatch: tensors on the CPU take the plain ``ssd_chunked_ref``; tensors
-on a CUDA device launch the kernel or raise.  There is no fallback between
-the two.  The checks below run on both, so a call the kernel would refuse
-is refused on the CPU too.
+B and C come in group form: head row ``bh`` reads group row ``bh // r``,
+``r = BH // B.shape[0]`` (``jnp.repeat``'s order: each group's heads
+adjacent, BH flattened as (batch, head)).  ``r = 1`` is one row a head, the
+interface of the JAX kernel.
+
+``tiling(BH, r, S, P, N, dtype)`` says how the work is cut: the heads and
+P columns of a unit (one CTA), the ring's stages, the CTAs of a cluster,
+the units and the CTAs an SM holds.  It is the only copy of that rule:
+``ssd_scan_fwd`` hands it to the source, which checks only that it has
+such an instance.
+
+Dispatch: tensors on the CPU take the plain ``ssd_chunked_ref`` on B and C
+repeated to one row a head; tensors on a CUDA device launch the kernel or
+raise.  There is no fallback between the two.  The checks below run on
+both, so a call the kernel would refuse is refused on the CPU too.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,38 +38,163 @@ from .. import resolve_device
 from . import _build
 from .ref import ssd_chunked_ref
 
-__all__ = ["ssd_scan_fwd", "ssd_scan", "smem_bytes", "CHUNK", "HEAD_DIMS",
-           "STATE_DIMS"]
+__all__ = ["ssd_scan_fwd", "ssd_scan", "expand_groups", "Tiling", "tiling",
+           "bf16_layout", "bf16_tile", "f32_smem_bytes", "kernel_strides",
+           "CHUNK", "HEAD_DIMS", "STATE_DIMS", "SMS", "BOUNDARY_CASES"]
 
 CHUNK = 64                     # the kernel's chunk tile (rows)
 HEAD_DIMS = (16, 32, 64)       # P
 STATE_DIMS = (16, 32, 64, 128)  # N
+SMS = 132                      # streaming multiprocessors of an H100 SXM
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_SM = 233472              # shared memory of an SM
+_SMEM_CTA = 232448             # the most a CTA may take
+_MAX_STAGES = 4
 
-# ssd_fwd(x, dA, B, C, y, dtype, BH, S, P, N, chunk, 7 strides, stream):
-# pointers and the stream as c_void_p, or ctypes would pass them as 32-bit
-# ints
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
+# (name, BH, r, S, P, N, chunk, xbc view): every edge of ``tiling`` and of
+# the kernel's masks: a chunk below 64 (8, 40) and a ragged S (the box's
+# rows past S), each P (the unit's columns) and N (one B/C box of 16, 32 or
+# 64 columns, two of 128; a state of fewer than 64 rows), group sizes 1, 2,
+# 8 and 24 (mamba2's), and B/C as strided views of a conv output (B, S,
+# conv_dim) as the model hands them over.  The card's checks (chip_smoke
+# phase 7, tests/test_torch_kernels_cuda.py) hold the kernel to the plain
+# version at each, in both dtypes.
+BOUNDARY_CASES = (
+    ("chunk8_p16_n16", 4, 1, 24, 16, 16, 8, False),
+    ("chunk40_ragged_p32_n32", 4, 2, 100, 32, 32, 40, False),
+    ("ragged_p64_n64", 3, 1, 130, 64, 64, 64, False),
+    ("s63_p64_n128", 2, 2, 63, 64, 128, 64, False),
+    ("s65_p16_n128", 8, 8, 65, 16, 128, 64, False),
+    ("group24_p64_n128", 48, 24, 256, 64, 128, 64, False),
+    ("group24_xbc_view", 48, 24, 192, 64, 128, 64, True),
+    ("group8_xbc_view_ragged", 16, 8, 77, 32, 64, 64, True),
+    ("group1_xbc_view_p16_n16", 4, 4, 40, 16, 16, 8, True),
+)
+
+# ssd_fwd(x, dA, B, C, y, dtype, BH, S, P, N, chunk, r, 7 strides, heads,
+#         p_slice, stages, cluster, grid, stream): pointers and the stream
+# as c_void_p, or ctypes would pass them as 32-bit ints
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+             + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p])
 
 
+class Tiling(NamedTuple):
+    """How the scan of one call is cut across CTAs."""
+    heads: int        # heads of one group a CTA serves (one warpgroup each)
+    p_slice: int      # P columns of a unit
+    stages: int       # ring stages (1: no ring, the f32 CTA)
+    cluster: int      # CTAs of a cluster (sharing B/C by multicast)
+    units: int        # CTAs: BH / heads x P / p_slice
+    ctas_per_sm: int  # CTAs an SM holds (shared memory and registers)
+
+    @property
+    def grid(self) -> int:
+        return self.units
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     lib.ssd_fwd.argtypes = _ARGTYPES
     lib.ssd_fwd.restype = ctypes.c_int
-    lib.ssd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.ssd_smem_bytes.restype = ctypes.c_int
+    lib.ssd_bf16_tile.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.ssd_bf16_tile.restype = ctypes.c_int
+    lib.ssd_f32_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.ssd_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(dtype: torch.dtype, P: int, N: int) -> int:
-    """Dynamic shared memory of the kernel instance for these sizes."""
-    return _library().ssd_smem_bytes(_DTYPES[dtype], N, P)
+def _round1k(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def bf16_layout(N: int, p_slice: int, heads: int) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory) of the bf16 unit of ``heads``
+    heads and ``p_slice`` columns at state dim N: a stage holds C's and
+    B's 64-row tiles and each head's X tile and dA; beside the ring, each
+    head's bf16 copy of h, its decayed X and its warps' cumsums; as many
+    stages as fit the
+    CTAs an SM must hold (two of one head, one of two), at most 4.  The
+    source's ``SsdCfg``, which phase 2 of chip_smoke holds to it."""
+    ctas = 2 if heads == 1 else 1
+    stage = (2 * _round1k(64 * 2 * N) + heads * _round1k(64 * 2 * p_slice)
+             + _round1k(heads * 64 * 4))
+    fixed = 1024 + heads * (_round1k(N * 2 * p_slice)
+                            + _round1k(64 * 2 * p_slice)) + heads * 4 * 64 * 4
+    budget = min(_SMEM_SM // ctas - 1024, _SMEM_CTA) - 256
+    stages = min(_MAX_STAGES, (budget - fixed) // stage)
+    return stages, fixed + stages * stage
+
+
+def f32_smem_bytes(N: int, P: int) -> int:
+    """Dynamic shared memory of the f32 CTA (the source's ``smem_f32``)."""
+    return (64 * P + 2 * 64 * (N + 1) + 64 * 65 + N * P + 5 * 64) * 4
+
+
+def tiling(BH: int, r: int, S: int, P: int, N: int, dtype: torch.dtype,
+           *, heads: int = 1, p_slice: Optional[int] = None,
+           cluster: int = 1) -> Tiling:
+    """The kernel's tiling of a scan of BH heads in groups of r, S rows,
+    head dim P and state dim N in ``dtype``; ValueError on sizes it does
+    not take.
+
+    bf16 (TMA, wgmma): a unit is one head and all its P columns, a CTA of
+    one consumer and one producer warpgroup with a two-stage ring, two CTAs
+    an SM: mamba2-130m's serving shape (BH 192) is one wave on 132 SMs.
+    ``heads``, ``p_slice`` and ``cluster`` name the other units the source
+    has (``kernel_bench --ssd-sweep`` times them): two heads of a group a
+    CTA sharing its B/C tiles, 32 columns a unit, or two CTAs of a cluster
+    sharing B/C by multicast.
+    f32 (CUDA cores): one CTA a head, all of P, no ring."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"no tiling for {dtype}")
+    if P not in HEAD_DIMS or N not in STATE_DIMS:
+        raise ValueError(f"head dim {P} not in {HEAD_DIMS} or state dim {N} "
+                         f"not in {STATE_DIMS}")
+    if min(BH, r, S) < 1 or BH % r:
+        raise ValueError(f"unsupported sizes BH={BH}, r={r}, S={S}")
+    if dtype == torch.float32:
+        smem = f32_smem_bytes(N, P)
+        return Tiling(1, P, 1, 1, BH, min(_SMEM_SM // (smem + 1024), 16))
+    p_slice = P if p_slice is None else p_slice
+    if P % p_slice or r % (heads * cluster):
+        raise ValueError(f"a unit of {heads} head(s) x {cluster} CTA(s) and "
+                         f"{p_slice} columns does not divide r={r}, P={P}")
+    stages, _ = bf16_layout(N, p_slice, heads)
+    return Tiling(heads, p_slice, stages, cluster,
+                  BH // heads * (P // p_slice), 2 if heads == 1 else 1)
+
+
+def bf16_tile(N: int, p_slice: int, heads: int = 1, cluster: int = 1
+              ) -> Tuple[int, int, int]:
+    """The source's bf16 instance (N, p_slice, heads, cluster): its ring
+    stages, dynamic shared memory, and the CTAs of it the current card
+    holds at once (cluster 1: an SM's, from the occupancy calculator;
+    cluster > 1: the card's).  ValueError if there is no such instance."""
+    out = [ctypes.c_int() for _ in range(3)]
+    err = _library().ssd_bf16_tile(N, p_slice, heads, cluster,
+                                   *(ctypes.byref(o) for o in out))
+    if err == -1:
+        raise ValueError(f"no bf16 instance N={N}, p_slice={p_slice}, "
+                         f"heads={heads}, cluster={cluster}")
+    if err:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return tuple(o.value for o in out)
+
+
+def kernel_strides(t: torch.Tensor) -> Tuple[int, int]:
+    """The (row, seq) element strides handed to the kernel: a dim of size 1
+    is never stepped, so it takes the extent of the dims inside it, which
+    the tensor map accepts, whatever stride the view gives it."""
+    ss = t.stride(1) if t.shape[1] > 1 else t.shape[2]
+    sb = t.stride(0) if t.shape[0] > 1 else t.shape[1] * ss
+    return sb, ss
 
 
 def _check(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
-           C: torch.Tensor, chunk: int) -> None:
-    """Raise on anything the kernel does not take."""
+           C: torch.Tensor, chunk: int) -> int:
+    """Raise on anything the kernel does not take; returns r."""
     if not (xdt.device == dA.device == B.device == C.device):
         raise ValueError(f"xdt/dA/B/C on different devices: {xdt.device}, "
                          f"{dA.device}, {B.device}, {C.device}")
@@ -67,13 +204,17 @@ def _check(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     if dA.dtype != torch.float32:
         raise TypeError(f"dA must be float32, got {dA.dtype}")
     if xdt.dim() != 3 or dA.dim() != 2 or B.dim() != 3 or B.shape != C.shape:
-        raise ValueError(f"want xdt (BH,S,P), dA (BH,S), B = C (BH,S,N); got "
-                         f"{tuple(xdt.shape)}, {tuple(dA.shape)}, "
+        raise ValueError(f"want xdt (BH,S,P), dA (BH,S), B = C (BH/r,S,N); "
+                         f"got {tuple(xdt.shape)}, {tuple(dA.shape)}, "
                          f"{tuple(B.shape)}, {tuple(C.shape)}")
     BH, S, P = xdt.shape
-    if tuple(dA.shape) != (BH, S) or tuple(B.shape[:2]) != (BH, S):
+    G = B.shape[0]
+    if tuple(dA.shape) != (BH, S) or B.shape[1] != S:
         raise ValueError(f"dA {tuple(dA.shape)} / B {tuple(B.shape)} do not "
                          f"match xdt {tuple(xdt.shape)}")
+    if G < 1 or BH % G:
+        raise ValueError(f"B/C rows {G} do not divide BH {BH}: want BH/r "
+                         f"group rows")
     if P not in HEAD_DIMS or B.shape[2] not in STATE_DIMS:
         raise ValueError(f"head dim {P} not in {HEAD_DIMS} or state dim "
                          f"{B.shape[2]} not in {STATE_DIMS}")
@@ -81,46 +222,56 @@ def _check(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"empty input: BH={BH}, S={S}")
     if not 1 <= chunk <= CHUNK:
         raise ValueError(f"chunk must be in [1, {CHUNK}], got {chunk}")
-    # bf16 tiles move in 16-byte cp.async chunks: rows must start 16-byte
-    # aligned; f32 tiles are read element by element
-    align = 8 if xdt.dtype == torch.bfloat16 else 1
     for name, t in (("xdt", xdt), ("dA", dA), ("B", B), ("C", C)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a unit inner stride, got strides "
                              f"{t.stride()}")
-    for name, t in (("xdt", xdt), ("B", B), ("C", C)):
-        if any(s % align for s in t.stride()[:2]) \
-                or t.data_ptr() % (2 * align):
-            raise ValueError(f"{name} rows are not 16-byte aligned "
-                             f"(strides {t.stride()})")
+    # bf16 tiles move by TMA: 16-byte aligned base and strides; f32 tiles
+    # are read element by element
+    if xdt.dtype == torch.bfloat16:
+        for name, t in (("xdt", xdt), ("B", B), ("C", C)):
+            if any(s % 8 for s in kernel_strides(t)) or t.data_ptr() % 16:
+                raise ValueError(f"{name} rows are not 16-byte aligned "
+                                 f"(strides {t.stride()})")
+    return BH // G
+
+
+def expand_groups(B: torch.Tensor, r: int) -> torch.Tensor:
+    """Group form (BH/r, S, N) -> one row a head (BH, S, N), as
+    ``jnp.repeat(B, r, 0)``."""
+    return B if r == 1 else B.repeat_interleave(r, dim=0)
 
 
 def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
-                 C: torch.Tensor, *, chunk: Optional[int] = None
-                 ) -> torch.Tensor:
-    """xdt (BH, S, P), dA (BH, S) f32, B/C (BH, S, N) -> y (BH, S, P) in
+                 C: torch.Tensor, *, chunk: Optional[int] = None,
+                 unit: Optional[Tiling] = None) -> torch.Tensor:
+    """xdt (BH, S, P), dA (BH, S) f32, B/C (BH/r, S, N) -> y (BH, S, P) in
     xdt.dtype.  ``chunk`` defaults to the kernel's 64 and is clipped to S
-    (the JAX rule ``min(chunk, S)``).
+    (the JAX rule ``min(chunk, S)``).  ``unit`` defaults to ``tiling``'s
+    rule (the sweep passes the other units the source has).
 
     On CUDA tensors this launches the kernel and adds one to
     ``ssd_scan_fwd.launches``; on CPU tensors it returns the plain
-    ``ssd_chunked_ref``."""
+    ``ssd_chunked_ref`` of B and C repeated to one row a head."""
     chunk = min(CHUNK if chunk is None else chunk, xdt.shape[1])
-    _check(xdt, dA, B, C, chunk)
+    r = _check(xdt, dA, B, C, chunk)
     if xdt.device.type == "cpu":
-        return ssd_chunked_ref(xdt, dA, B, C, chunk=chunk)
+        return ssd_chunked_ref(xdt, dA, expand_groups(B, r),
+                               expand_groups(C, r), chunk=chunk)
     resolve_device(xdt.device)
     BH, S, P = xdt.shape
     N = B.shape[2]
+    t = unit or tiling(BH, r, S, P, N, xdt.dtype)
     out = torch.empty((BH, S, P), dtype=xdt.dtype, device=xdt.device)
     lib = _library()
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         err = lib.ssd_fwd(xdt.data_ptr(), dA.data_ptr(), B.data_ptr(),
                           C.data_ptr(), out.data_ptr(), _DTYPES[xdt.dtype],
-                          BH, S, P, N, chunk,
-                          xdt.stride(0), xdt.stride(1), dA.stride(0),
-                          B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+                          BH, S, P, N, chunk, r,
+                          *kernel_strides(xdt), dA.stride(0),
+                          *kernel_strides(B), *kernel_strides(C),
+                          t.heads, t.p_slice, t.stages, t.cluster, t.grid,
                           stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
@@ -134,7 +285,9 @@ ssd_scan_fwd.launches = 0
 class _SSDScan(torch.autograd.Function):
     """Forward through the kernel; backward recomputes through
     ``ssd_chunked_ref`` with chunk 64 when none is given, as the JAX
-    package's ``custom_vjp`` does (there is no SSD backward kernel)."""
+    package's ``custom_vjp`` does (there is no SSD backward kernel), on B
+    and C repeated to one row a head inside autograd, so their gradients
+    come back in group form, summed over each group's heads."""
 
     @staticmethod
     def forward(ctx, xdt, dA, B, C, chunk):
@@ -145,12 +298,15 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        r = xs[0].shape[0] // xs[2].shape[0]
         with torch.enable_grad():
-            out = ssd_chunked_ref(*xs, chunk=ctx.chunk or CHUNK)
+            out = ssd_chunked_ref(xs[0], xs[1], expand_groups(xs[2], r),
+                                  expand_groups(xs[3], r),
+                                  chunk=ctx.chunk or CHUNK)
             grads = torch.autograd.grad(out, xs, g)
         return (*grads, None)
 
 
 def ssd_scan(xdt, dA, B, C, chunk: Optional[int] = None) -> torch.Tensor:
-    """SSD chunk scan with a recompute-based backward."""
+    """SSD chunk scan with a recompute-based backward; B/C (BH/r, S, N)."""
     return _SSDScan.apply(xdt, dA, B, C, chunk)

@@ -10,8 +10,11 @@ there is one (a yardstick the port never calls):
 - FlashAttention at glm4-9b's serving prefill shape, library
   ``F.scaled_dot_product_attention`` (``--attention-sweep``: at the shapes
   of ``ATTENTION_SWEEP`` around it instead);
-- the SSD chunk scan at mamba2-130m's serving prefill shape (no library
-  call computes it);
+- the SSD chunk scan at mamba2-130m's serving prefill shape, with B and C
+  one row a head (``SSD_SHAPE``) and in mamba2's own group form, one group
+  of 24 heads (``SSD_GROUP_SHAPE``); no library call computes it
+  (``--ssd-sweep``: every unit the source has, ``SSD_SWEEP_UNITS``, at both
+  forms instead);
 - the fused GEMM epilogues (``ops.fused_gemm_softmax``,
   ``fused_gemm_layernorm``, ``fused_gemm_rmsnorm``) at the paper's shapes
   in bf16: the six cloud GEMMs of Table II and the two large shapes of the
@@ -27,8 +30,8 @@ Each line gives the kernel's ms, the bound ms and what sets it, the plain
 ms, the library ms, the kernel-to-library ratio and the kernel's fixed
 tile (FlashAttention: ``flash_attention.tiling``; the fused GEMMs:
 ``gemm_epilogue.tiling`` of N; the plan-chosen tile is later work).
-FlashAttention, the fused GEMMs and the streamed GEMM also get
-device-only times from ``torch.profiler`` (``device_ms``: the kernel;
+FlashAttention, the SSD scan, the fused GEMMs and the streamed GEMM also
+get device-only times from ``torch.profiler`` (``device_ms``: the kernel;
 ``library_device_ms``: every kernel of the library call, summed), which
 leave out the host's cost of issuing a call, and the bytes they move
 through L2 (``attention_l2_bytes``, ``gemm_l2_bytes``,
@@ -38,7 +41,7 @@ their plain versions and no time is measured: every time is ``None``
 ("not measured").
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_bench [--json PATH]
-        [--attention-sweep]
+        [--attention-sweep | --ssd-sweep]
 
 The timing and bound helpers here are the ones ``chip_smoke.py`` uses.
 """
@@ -64,13 +67,15 @@ from repro_torch.kernels.ref import (attention_ref, ssd_chunked_ref,
                                      streamed_gemm_ref)
 
 __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
-           "ATTENTION_SHAPE", "ATTENTION_SWEEP", "SSD_SHAPE", "STREAMED_GEMM_SHAPE", "cuda_ms",
+           "ATTENTION_SHAPE", "ATTENTION_SWEEP", "SSD_SHAPE", "SSD_GROUP_SHAPE",
+           "SSD_SHAPES", "SSD_SWEEP_UNITS", "STREAMED_GEMM_SHAPE", "cuda_ms",
            "device_ms",
            "bound", "nbytes", "visible_pairs", "attention_flops",
            "attention_l2_bytes", "ssd_flops", "gemm_flops", "gemm_l2_bytes",
            "streamed_l2_bytes", "bench_attention",
-           "bench_ssd",
-           "bench_gemm_epilogue", "bench_streamed_gemm", "run_all", "main"]
+           "bench_ssd", "ssd_inputs",
+           "bench_gemm_epilogue", "bench_streamed_gemm", "run_all",
+           "attention_sweep", "ssd_sweep", "main"]
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet, dense): bf16 on the
 # tensor cores; f32 on the CUDA cores (the kernels' f32 paths use no TF32)
@@ -94,8 +99,17 @@ ATTENTION_SWEEP: List[Tuple[int, int, int, int, int, int, bool]] = [
     (4, 32, 2, 1024, 1024, 128, True), (4, 32, 2, 1024, 1024, 128, False),
     (4, 32, 2, 1024, 4096, 128, False), (4, 32, 2, 4096, 4096, 128, True),
     (4, 32, 2, 1024, 1024, 64, True), (4, 32, 32, 1024, 1024, 128, True)]
-# mamba2-130m prefill scan at batch 8 x 24 heads, prompt 1024
+# mamba2-130m prefill scan at batch 8 x 24 heads, prompt 1024: B and C one
+# row a head (r 1, the JAX kernel's interface), and in the model's group
+# form (one group of 24 heads a batch row, r 24: B/C (8, 1024, 128))
 SSD_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128}
+SSD_GROUP_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128, "r": 24}
+SSD_SHAPES = (SSD_SHAPE, SSD_GROUP_SHAPE)
+# the units of the SSD source's bf16 instances, as ``ssd.tiling`` options:
+# one head and all of P a CTA (the rule), 32 columns a CTA, two heads of a
+# group a CTA sharing its B/C tiles, two CTAs of a cluster sharing B/C by
+# multicast
+SSD_SWEEP_UNITS = ({}, {"p_slice": 32}, {"heads": 2}, {"cluster": 2})
 # (M, K, N, chunks): glm4-9b's MLP input projection x @ wi (d_model 4096,
 # d_ff 13696) at the serving prefill of batch 4 x 1024 tokens, the
 # activation sharded 4 ways along d_model as a 4-rank layer gathers it
@@ -105,6 +119,8 @@ GEMM_ENTRIES = ("gemm_softmax", "gemm_layernorm", "gemm_rmsnorm")
 GEMM_KERNEL_NAMES = ("ge_bf16_kernel", "ge_f32_kernel")
 # the FlashAttention kernel's instances as the profiler names them
 ATTENTION_KERNEL_NAMES = ("fa_fwd_bf16", "fa_fwd_f32")
+# the SSD kernel's instances as the profiler names them
+SSD_KERNEL_NAMES = ("ssd_fwd_bf16", "ssd_fwd_f32")
 # the streamed GEMM's bf16 and f32 instances as the profiler names them
 STREAMED_KERNEL_NAMES = ("sg_bf16_kernel", "sg_fwd_kernel")
 
@@ -326,22 +342,45 @@ def bench_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def bench_ssd(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
-              Cm: torch.Tensor, *, calls: Optional[Counter] = None) -> Dict:
-    """The SSD chunk scan on xdt (BH, S, P), dA (BH, S), B/C (BH, S, N)."""
+              Cm: torch.Tensor, *, calls: Optional[Counter] = None,
+              unit: Optional[ssd.Tiling] = None) -> Dict:
+    """The SSD chunk scan on xdt (BH, S, P), dA (BH, S), B/C (BH/r, S, N),
+    with ``unit`` (default: ``ssd.tiling``'s rule).  The bound counts the
+    bytes this input form reads: B and C once a group row."""
     calls = Counter() if calls is None else calls
     kernel = _counted(calls, "ssd_scan",
-                      lambda: ssd.ssd_scan_fwd(x, dA, Bm, Cm))
+                      lambda: ssd.ssd_scan_fwd(x, dA, Bm, Cm, unit=unit))
     chunk = min(ssd.CHUNK, x.shape[1])
-    plain = lambda: ssd_chunked_ref(x, dA, Bm, Cm, chunk=chunk)  # noqa: E731
     BH, S, P = x.shape
+    r = BH // Bm.shape[0]
+    Bh, Ch = ssd.expand_groups(Bm, r), ssd.expand_groups(Cm, r)
+    plain = lambda: ssd_chunked_ref(x, dA, Bh, Ch, chunk=chunk)  # noqa: E731
+    t = unit or ssd.tiling(BH, r, S, P, Bm.shape[2], x.dtype)
     rec = {"name": "ssd_scan", "shape": {
-        "xdt": [BH, S, P], "B": list(Bm.shape), "dtype": str(x.dtype)[6:],
-        "chunk": chunk}, "tile": f"chunk {ssd.CHUNK} x P {min(P, 32)}",
+        "xdt": [BH, S, P], "B": list(Bm.shape), "r": r,
+        "dtype": str(x.dtype)[6:], "chunk": chunk}, "tiling": t._asdict(),
+        "tile": f"chunk {ssd.CHUNK}, {t.heads} head{'s' if t.heads > 1 else ''}"
+                f" x P {t.p_slice} a CTA, {t.stages} stages, cluster "
+                f"{t.cluster}, {t.units} CTAs",
         "library": None}
     out, want = kernel(), plain()
-    rec.update(_timed(kernel, plain, None, x.device, 50, 5))
+    rec.update(_timed(kernel, plain, None, x.device, 50, 5,
+                      kernel_match=SSD_KERNEL_NAMES))
     return _finish(rec, out, want, ssd_flops(BH, S, P, Bm.shape[2], chunk),
                    nbytes(x, dA, Bm, Cm) + nbytes(x), x.dtype)
+
+
+def ssd_inputs(gen: torch.Generator, shape: Dict, dtype: torch.dtype,
+               device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """xdt, dA (f32 < 0), B and C of ``shape`` ({"BH", "S", "P", "N"} and
+    optionally "r", default 1: B/C of BH / r rows) from ``gen``."""
+    BH, S, P, N = (shape[k] for k in ("BH", "S", "P", "N"))
+    G = BH // shape.get("r", 1)
+    x = torch.randn(BH, S, P, generator=gen, device=device).to(dtype)
+    dA = -torch.rand(BH, S, generator=gen, device=device) * 0.2
+    Bm, Cm = [torch.randn(G, S, N, generator=gen, device=device).to(dtype)
+              for _ in range(2)]
+    return x, dA, Bm, Cm
 
 
 def bench_gemm_epilogue(entry: str, a: torch.Tensor, b: torch.Tensor,
@@ -457,13 +496,13 @@ def _line(rec: Dict) -> str:
 def run_all(device: Optional[str] = None, *,
             gemm_shapes: Sequence[Tuple[int, int, int]] = PAPER_GEMM_SHAPES,
             attention_shape: Optional[Dict] = ATTENTION_SHAPE,
-            ssd_shape: Optional[Dict] = SSD_SHAPE,
+            ssd_shapes: Sequence[Dict] = SSD_SHAPES,
             streamed_shape: Optional[Tuple[int, int, int, int]]
             = STREAMED_GEMM_SHAPE) -> Dict:
     """Time every kernel of the port in bf16 on data from seed 0, printing
     a line each; ``device`` is ``cuda`` unless it says ``cpu``.  A shape
-    of ``None`` leaves that kernel out (``chip_smoke.py`` times
-    FlashAttention and SSD in their own phases, and the streamed GEMM
+    of ``None`` (no SSD shapes) leaves that kernel out (``chip_smoke.py``
+    times FlashAttention and SSD in their own phases, and the streamed GEMM
     through the overlap bench).  Returns {"device",
     "records", "calls"}: ``calls`` counts the calls this run made to each
     kernel's wrapper (on the card each is a launch)."""
@@ -491,13 +530,8 @@ def run_all(device: Optional[str] = None, *,
                 .transpose(1, 2) for _ in range(2)]   # (B, H, S, D) views
         log(bench_attention(q, k, v, calls=calls))
         del q, k, v
-    s = ssd_shape
-    if s is not None:
-        x = randn(s["BH"], s["S"], s["P"]).to(dtype)
-        dA = -torch.rand(s["BH"], s["S"], generator=gen, device=dev) * 0.2
-        Bm, Cm = [randn(s["BH"], s["S"], s["N"]).to(dtype) for _ in range(2)]
-        log(bench_ssd(x, dA, Bm, Cm, calls=calls))
-        del x, dA, Bm, Cm
+    for s in ssd_shapes:
+        log(bench_ssd(*ssd_inputs(gen, s, dtype, dev), calls=calls))
     for M, N, K in gemm_shapes:
         a = randn(M, K).to(dtype)
         b = randn(K, N, scale=K ** -0.5).to(dtype)
@@ -542,17 +576,51 @@ def attention_sweep(device: Optional[str] = None,
             "records": records, "calls": dict(calls)}
 
 
+def ssd_sweep(device: Optional[str] = None,
+              shapes: Sequence[Dict] = SSD_SHAPES,
+              units: Sequence[Dict] = SSD_SWEEP_UNITS) -> Dict:
+    """``bench_ssd`` in bf16 at each of ``shapes`` with each unit of
+    ``units`` (``ssd.tiling`` options) that the shape's group size takes,
+    data from seed 0, printing a line each.  Returns {"device", "records",
+    "calls"} as ``run_all``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    calls: Counter = Counter()
+    records = []
+    for s in shapes:
+        args = ssd_inputs(gen, s, torch.bfloat16, dev)
+        for opts in units:
+            try:
+                t = ssd.tiling(s["BH"], s.get("r", 1), s["S"], s["P"],
+                               s["N"], torch.bfloat16, **opts)
+            except ValueError:     # a unit this group size cannot take
+                continue
+            rec = bench_ssd(*args, calls=calls, unit=t)
+            records.append(rec)
+            print(_line(rec), flush=True)
+        del args
+    return {"device": torch.cuda.get_device_name(dev)
+            if dev.type == "cuda" else "cpu",
+            "records": records, "calls": dict(calls)}
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions, untimed)")
     ap.add_argument("--json", default=None,
                     help="also write the records to this file")
-    ap.add_argument("--attention-sweep", action="store_true",
-                    help="time FlashAttention at ATTENTION_SWEEP's shapes "
-                         "instead of every kernel")
+    sweep = ap.add_mutually_exclusive_group()
+    sweep.add_argument("--attention-sweep", action="store_true",
+                       help="time FlashAttention at ATTENTION_SWEEP's shapes "
+                            "instead of every kernel")
+    sweep.add_argument("--ssd-sweep", action="store_true",
+                       help="time the SSD scan's units (SSD_SWEEP_UNITS) at "
+                            "SSD_SHAPES instead of every kernel")
     args = ap.parse_args(argv)
-    out = (attention_sweep if args.attention_sweep else run_all)(args.device)
+    out = (attention_sweep if args.attention_sweep else ssd_sweep
+           if args.ssd_sweep else run_all)(args.device)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

@@ -74,43 +74,50 @@ def _conv1d(cfg: ModelConfig, w: torch.Tensor, b: torch.Tensor,
 
 def _ssd_inputs(cfg: ModelConfig, p, xbc_conv: torch.Tensor,
                 dt_raw: torch.Tensor):
-    """Split conv output & build (xdt, dA, B, C) for the SSD scan."""
+    """Split conv output & build (xh, xdt, dA, B, C) for the SSD scan.  B
+    and C stay in group form, (B, S, ngroups, ns) views of ``xbc_conv``:
+    the scan reads each group once for its heads (the JAX package repeats
+    them to every head, ``jnp.repeat``, which ``_group_heads`` does for
+    the one-token decode step)."""
     di, ng, ns, nh, hp = (cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state,
                           cfg.ssm_nheads, cfg.ssm_headdim)
     B_, S = dt_raw.shape[0], dt_raw.shape[1]
     xin = xbc_conv[..., :di]
-    Bm = xbc_conv[..., di:di + ng * ns].reshape(B_, S, ng, ns)
-    Cm = xbc_conv[..., di + ng * ns:].reshape(B_, S, ng, ns)
+    Bm = xbc_conv[..., di:di + ng * ns].unflatten(-1, (ng, ns))
+    Cm = xbc_conv[..., di + ng * ns:].unflatten(-1, (ng, ns))
     dt = F.softplus(dt_raw.to(F32) + p["dt_bias"].to(F32))       # (B,S,nh)
     A = -torch.exp(p["A_log"].to(F32))                            # (nh,)
     dA = dt * A                                                   # (B,S,nh)
     xh = xin.reshape(B_, S, nh, hp)
     xdt = xh.to(F32) * dt[..., None]
-    # broadcast groups to heads (jnp.repeat: each group's heads adjacent)
-    rep = nh // ng
-    Bh = Bm.repeat_interleave(rep, dim=2)
-    Ch = Cm.repeat_interleave(rep, dim=2)
-    return xh, xdt, dA, Bh, Ch
+    return xh, xdt, dA, Bm, Cm
 
 
-def _ssd_scan(cfg: ModelConfig, xdt, dA, Bh, Ch) -> torch.Tensor:
-    """(B,S,nh,hp) x (B,S,nh) x (B,S,nh,ns) -> y (B,S,nh,hp) in bf16.
+def _group_heads(cfg: ModelConfig, Bm: torch.Tensor) -> torch.Tensor:
+    """(..., ngroups, ns) -> (..., nheads, ns), each group's heads adjacent
+    (``jnp.repeat``)."""
+    return Bm.repeat_interleave(cfg.ssm_nheads // cfg.ssm_ngroups, dim=-2)
 
-    The chunk is the kernel's 64, clipped to S (the JAX package asks its
-    TPU plan instead, and cuts a ragged S's chunk to a divisor of S; here
-    the kernel and the chunked reference zero-pad the ragged tail)."""
+
+def _ssd_scan(cfg: ModelConfig, xdt, dA, Bm, Cm) -> torch.Tensor:
+    """(B,S,nh,hp) x (B,S,nh) x (B,S,ng,ns) -> y (B,S,nh,hp) in bf16.
+
+    B and C go to the scan in group form, (B*ng, S, ns): at ng = 1 a view
+    of the conv output with no copy in a bf16 model.  The chunk is the
+    kernel's 64, clipped to S (the JAX package asks its TPU plan instead,
+    and cuts a ragged S's chunk to a divisor of S; here the kernel and the
+    chunked reference zero-pad the ragged tail)."""
     B_, S, nh, hp = xdt.shape
-    ns = Bh.shape[-1]
-    # flatten batch x heads for the kernel layout
+    ng, ns = Bm.shape[-2:]
+    # flatten batch x heads (and batch x groups) for the kernel layout
     xk = xdt.transpose(1, 2).reshape(B_ * nh, S, hp)
     dk = dA.transpose(1, 2).reshape(B_ * nh, S)
-    bk = Bh.transpose(1, 2).reshape(B_ * nh, S, ns)
-    ck = Ch.transpose(1, 2).reshape(B_ * nh, S, ns)
+    bk = Bm.transpose(1, 2).reshape(B_ * ng, S, ns)
+    ck = Cm.transpose(1, 2).reshape(B_ * ng, S, ns)
     chunk = min(CHUNK, S)
     bf16 = torch.bfloat16
-    y = kops.ssd(xk.to(bf16).contiguous(), dk.contiguous(),
-                 bk.to(bf16).contiguous(), ck.to(bf16).contiguous(),
-                 chunk=chunk, use_kernel=cfg.use_kernels)
+    y = kops.ssd(xk.to(bf16).contiguous(), dk.contiguous(), bk.to(bf16),
+                 ck.to(bf16), chunk=chunk, use_kernel=cfg.use_kernels)
     return y.reshape(B_, nh, S, hp).transpose(1, 2)
 
 
@@ -121,8 +128,8 @@ def ssm_train(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     z, xin, Bm, Cm, dt_raw = _split_proj(cfg, proj)
     xbc = torch.cat([xin, Bm, Cm], dim=-1)
     xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc)
-    xh, xdt, dA, Bh, Ch = _ssd_inputs(cfg, p, xbc, dt_raw)
-    y = _ssd_scan(cfg, xdt, dA, Bh, Ch)
+    xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw)
+    y = _ssd_scan(cfg, xdt, dA, Bm, Cm)
     y = y + xh.to(F32) * p["D"].to(F32)[None, None, :, None]
     y = y.reshape(B_, S, di).to(x.dtype)
     y = _gated_norm(cfg, p["norm_scale"], y, z)
@@ -148,18 +155,21 @@ def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor
     z, xin, Bm, Cm, dt_raw = _split_proj(cfg, proj)
     xbc_raw = torch.cat([xin, Bm, Cm], dim=-1)
     xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc_raw)
-    xh, xdt, dA, Bh, Ch = _ssd_inputs(cfg, p, xbc, dt_raw)
-    y = _ssd_scan(cfg, xdt, dA, Bh, Ch)
+    xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw)
+    y = _ssd_scan(cfg, xdt, dA, Bm, Cm)
     y = y + xh.to(F32) * p["D"].to(F32)[None, None, :, None]
     yo = _gated_norm(cfg, p["norm_scale"], y.reshape(B_, S, di).to(x.dtype),
                      z)
     out = yo @ p["out_proj"]
     # final state: h_S = sum_t exp(sum_{u>t} dA_u) B_t xdt_t^T  (per head),
-    # one f32 einsum over the whole sequence as in the JAX package
+    # one f32 einsum over the whole sequence as in the JAX package, with
+    # each group's B shared by its heads: (B,S,ng,r,hp) against (B,S,ng,ns)
+    ng, ns = Bm.shape[-2:]
     cs = torch.cumsum(dA, dim=1)
     decay = torch.exp(cs[:, -1:, :] - cs)                     # (B,S,nh)
-    state = torch.einsum("bshn,bsh,bshp->bhnp", Bh.to(F32), decay,
-                         xdt)                                 # (B,nh,ns,hp)
+    xd = (decay[..., None] * xdt).unflatten(2, (ng, -1))      # (B,S,ng,r,hp)
+    state = torch.einsum("bsgn,bsgrp->bgrnp", Bm.to(F32), xd) \
+        .reshape(B_, -1, ns, xdt.shape[-1])                   # (B,nh,ns,hp)
     conv_state = xbc_raw[:, -(cfg.conv_kernel - 1):, :]
     return out, {"conv": conv_state, "state": state}
 
@@ -179,11 +189,12 @@ def ssm_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: Dict
     conv_prev = cache["conv"]
     xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc1, prev=conv_prev)
     new_conv = torch.cat([conv_prev, xbc1], dim=1)[:, 1:, :]  # a new tensor
-    xh, xdt, dA, Bh, Ch = _ssd_inputs(cfg, p, xbc, dt_raw)
+    xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw)
+    Bh, Ch = _group_heads(cfg, Bm[:, 0]), _group_heads(cfg, Cm[:, 0])
     # recurrence: h' = exp(dA) h + B ⊗ xdt
     h = torch.exp(dA[:, 0, :, None, None]) * cache["state"] \
-        + torch.einsum("bhn,bhp->bhnp", Bh[:, 0].to(F32), xdt[:, 0])
-    y = torch.einsum("bhn,bhnp->bhp", Ch[:, 0].to(F32), h)    # (B,nh,hp)
+        + torch.einsum("bhn,bhp->bhnp", Bh.to(F32), xdt[:, 0])
+    y = torch.einsum("bhn,bhnp->bhp", Ch.to(F32), h)          # (B,nh,hp)
     y = y + xh[:, 0].to(F32) * p["D"].to(F32)[None, :, None]
     y = y.reshape(B_, 1, di).to(x.dtype)
     y = _gated_norm(cfg, p["norm_scale"], y, z)

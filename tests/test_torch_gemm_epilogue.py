@@ -311,7 +311,7 @@ def test_kernel_bench_runs_on_the_cpu():
     out = kb.run_all("cpu", gemm_shapes=shapes,
                      attention_shape={"B": 1, "Hq": 2, "Hkv": 1, "S": 16,
                                       "D": 16},
-                     ssd_shape={"BH": 2, "S": 16, "P": 16, "N": 16},
+                     ssd_shapes=[{"BH": 2, "S": 16, "P": 16, "N": 16}],
                      streamed_shape=(24, 64, 40, 4))
     recs = out["records"]
     assert out["device"] == "cpu"
@@ -337,7 +337,7 @@ def test_kernel_bench_runs_on_the_cpu():
 def test_kernel_bench_leaves_out_the_kernels_it_is_not_given():
     """chip_smoke.py's phase 12 asks for the fused GEMMs alone."""
     out = kb.run_all("cpu", gemm_shapes=[(4, 64, 32)], attention_shape=None,
-                     ssd_shape=None, streamed_shape=None)
+                     ssd_shapes=(), streamed_shape=None)
     assert [r["name"] for r in out["records"]] == list(kb.GEMM_ENTRIES)
     assert out["calls"] == {name: 1 for name in kb.GEMM_ENTRIES}
 

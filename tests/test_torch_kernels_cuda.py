@@ -147,12 +147,36 @@ def test_kernel_raises_instead_of_falling_back(hopper):
         fa.flash_attention_fwd(q, k, v)
 
 
-def _ssd_inputs(gen, BH, S, P, N, dtype):
+def _ssd_inputs(gen, BH, S, P, N, dtype, r=1, xbc_view=False):
+    """xdt, dA (f32 < 0) and B/C in group form (BH / r rows): contiguous,
+    or with ``xbc_view`` strided views of one (BH / r, S, conv_dim)
+    tensor, as the model hands over its conv output."""
     x = torch.randn(BH, S, P, generator=gen, device="cuda").to(dtype)
     dA = -torch.rand(BH, S, generator=gen, device="cuda") * 0.2
-    B = torch.randn(BH, S, N, generator=gen, device="cuda").to(dtype)
-    C = torch.randn(BH, S, N, generator=gen, device="cuda").to(dtype)
+    G = BH // r
+    if xbc_view:
+        xbc = torch.randn(G, S, r * P + 2 * N, generator=gen,
+                          device="cuda").to(dtype)
+        return x, dA, xbc[..., r * P:r * P + N], xbc[..., r * P + N:]
+    B = torch.randn(G, S, N, generator=gen, device="cuda").to(dtype)
+    C = torch.randn(G, S, N, generator=gen, device="cuda").to(dtype)
     return x, dA, B, C
+
+
+def _ssd_check(gen, BH, r, S, P, N, chunk, dtype, xbc_view=False):
+    x, dA, B, C = _ssd_inputs(gen, BH, S, P, N, dtype, r, xbc_view)
+    before = ssd.ssd_scan_fwd.launches
+    out = ssd.ssd_scan_fwd(x, dA, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    want = ssd_chunked_ref(x, dA, ssd.expand_groups(B, r),
+                           ssd.expand_groups(C, r), chunk=min(chunk, S))
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
+    else:
+        err = (out.float() - want.float()).abs().max()
+        assert err <= 1e-2 * want.float().abs().max()
 
 
 @pytest.mark.parametrize("BH,S,P,N,chunk", [
@@ -166,18 +190,37 @@ def _ssd_inputs(gen, BH, S, P, N, dtype):
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain_version(hopper, BH, S, P, N, chunk, dtype):
-    x, dA, B, C = _ssd_inputs(hopper, BH, S, P, N, dtype)
-    before = ssd.ssd_scan_fwd.launches
-    out = ssd.ssd_scan_fwd(x, dA, B, C, chunk=chunk)
-    torch.cuda.synchronize()
-    assert ssd.ssd_scan_fwd.launches == before + 1
-    assert out.dtype == dtype and out.shape == x.shape
-    want = ssd_chunked_ref(x, dA, B, C, chunk=min(chunk, S))
-    if dtype == torch.float32:
-        torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
-    else:
-        err = (out.float() - want.float()).abs().max()
-        assert err <= 1e-2 * want.float().abs().max()
+    _ssd_check(hopper, BH, 1, S, P, N, chunk, dtype)
+
+
+@pytest.mark.parametrize("BH,r,S,P,N,chunk", [
+    (48, 24, 256, 64, 128, 64),      # mamba2's group of 24 heads
+    (24, 24, 100, 64, 128, 64),
+    (8, 1, 130, 64, 128, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_group_form(hopper, BH, r, S, P, N, chunk, dtype):
+    _ssd_check(hopper, BH, r, S, P, N, chunk, dtype)
+
+
+@pytest.mark.parametrize("case", ssd.BOUNDARY_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_every_edge_of_its_tiling(hopper, case, dtype):
+    _, BH, r, S, P, N, chunk, view = case
+    _ssd_check(hopper, BH, r, S, P, N, chunk, dtype, view)
+
+
+def test_ssd_units_of_the_serving_shape_are_one_wave(hopper):
+    """Every unit of mamba2's serving shape resident at once, in both
+    forms; the source's stages and shared memory are the rule's."""
+    for r in (1, 24):
+        t = ssd.tiling(192, r, 1024, 64, 128, torch.bfloat16)
+        stages, smem, per_sm = ssd.bf16_tile(128, t.p_slice, t.heads,
+                                             t.cluster)
+        assert (stages, smem) == ssd.bf16_layout(128, t.p_slice, t.heads)
+        assert per_sm == t.ctas_per_sm
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert t.units <= sms * per_sm
 
 
 def test_ssd_kernel_through_ops_and_backward(hopper):
@@ -200,6 +243,11 @@ def test_ssd_kernel_raises_instead_of_falling_back(hopper):
                          C[..., :24].contiguous())
     with pytest.raises(ValueError, match="16-byte aligned"):
         ssd.ssd_scan_fwd(x, dA, B[:, :, 1:17], C[:, :, 1:17])
+    with pytest.raises(ValueError, match="do not divide BH"):
+        ssd.ssd_scan_fwd(x.expand(3, -1, -1).contiguous(),
+                         dA.expand(3, -1).contiguous(),
+                         B.expand(2, -1, -1).contiguous(),
+                         C.expand(2, -1, -1).contiguous())
     assert ssd.ssd_scan_fwd.launches == before
 
 

@@ -181,6 +181,178 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take():
                                tref.ssd_chunked_ref(x, dA, B, C, chunk=32))
 
 
+# ------------------------------------------------- B and C in group form
+
+
+def _group_inputs(seed, BH, r, S, P, N, dtype="float32"):
+    """Same bits for both packages, B/C in group form (BH / r rows): the
+    port's (xdt, dA, B, C), and the JAX kernel's with B/C repeated to one
+    row a head (``jnp.repeat``, each group's heads adjacent)."""
+    rng = np.random.default_rng(seed)
+    G = BH // r
+    xs = [rng.normal(size=(BH, S, P)), -np.abs(rng.normal(size=(BH, S))) * 0.1,
+          rng.normal(size=(G, S, N)), rng.normal(size=(G, S, N))]
+    jx = [jnp.asarray(x, jnp.float32 if i == 1 else getattr(jnp, dtype))
+          for i, x in enumerate(xs)]
+    tx = [tensor_from_numpy(np.asarray(x)) for x in jx]
+    return tx, jx[:2] + [jnp.repeat(b, r, axis=0) for b in jx[2:]]
+
+
+@pytest.mark.parametrize("BH,r,S,P,N,chunk", [
+    (4, 1, 128, 16, 32, 64),
+    (4, 2, 200, 16, 32, 64),      # ragged S: the padding path
+    (8, 8, 24, 16, 16, 8),        # a chunk below 64
+    (8, 2, 96, 32, 64, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_form_matches_jax_pallas_kernel_on_repeated_inputs(
+        BH, r, S, P, N, chunk, dtype):
+    """B/C of BH / r rows through ``ssd_scan_fwd``, ``ops.ssd`` and
+    ``ssd_scan`` against the Pallas kernel (interpret mode) on B/C repeated
+    to every head: 2e-3 in f32, 1e-2 of max |y| in bf16."""
+    tx, jx = _group_inputs(9, BH, r, S, P, N, dtype)
+    want = jops.ssd_scan(*jx, chunk, True)
+    for got in (tssd.ssd_scan_fwd(*tx, chunk=chunk),
+                tops.ssd(*tx, chunk=chunk, use_kernel=True),
+                tssd.ssd_scan(*tx, chunk)):
+        assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+        if dtype == "float32":
+            _close(got, want, 2e-3)
+        else:
+            _close_scaled(got, want, 1e-2)
+    # the plain entries of ops take the group form too
+    _close_scaled(tops.ssd(*tx, chunk=chunk), want,
+                  1e-2 if dtype != "float32" else 2e-3)
+
+
+@pytest.mark.parametrize("r", [2, 8])
+def test_group_form_backward_sums_each_groups_heads(r):
+    """The recompute backward on group-form B/C against JAX's vjp through
+    ``jnp.repeat``: B's and C's gradients come back one row a group, summed
+    over its heads; all four within 1e-5 of their largest magnitude."""
+    BH, S, P, N = 8, 100, 16, 32
+    tx, _ = _group_inputs(10, BH, r, S, P, N)
+    jx = [jnp.asarray(t.numpy()) for t in tx]
+    g = np.random.default_rng(11).normal(size=(BH, S, P)).astype(np.float32)
+    want = jax.jit(lambda gg, *a: jax.vjp(
+        lambda x, d, b, c: jops.ssd_scan(x, d, jnp.repeat(b, r, axis=0),
+                                         jnp.repeat(c, r, axis=0), 64, True),
+        *a)[1](gg))(jnp.asarray(g), *jx)
+    xs = [t.clone().requires_grad_(True) for t in tx]
+    got = torch.autograd.grad(tops.ssd(*xs, use_kernel=True), xs,
+                              torch.from_numpy(g))
+    assert [tuple(a.shape) for a in got] == [tuple(t.shape) for t in tx]
+    for a, b in zip(got, want):
+        _close_scaled(a, b, 1e-5)
+
+
+def test_rows_that_do_not_divide_bh_are_refused():
+    tx, _ = _group_inputs(12, 6, 2, 32, 16, 16)
+    x, dA, B, C = tx
+    for bad in (B[:1].expand(4, -1, -1), torch.cat([B, B[:2]])):  # 4, 5
+        with pytest.raises(ValueError, match="do not divide BH"):
+            tssd.ssd_scan_fwd(x, dA, bad, bad.clone())
+    with pytest.raises(ValueError, match="do not divide BH"):
+        tops.ssd(x, dA, B[:1].expand(4, -1, -1), C[:1].expand(4, -1, -1),
+                 use_kernel=True)
+
+
+@pytest.mark.parametrize("N,p_slice,heads,stage,want_stages,want_smem", [
+    (128, 64, 1, 41984, 2, 110592),  # mamba2: two stages, two CTAs an SM
+    (128, 32, 1, 37888, 2, 90112),
+    (64, 64, 1, 25600, 3, 95232),    # a fourth stage would not fit a pair
+    (32, 64, 1, 17408, 4, 83968),    # the ring's cap of four stages
+    (16, 16, 1, 7168, 4, 33792),
+    (128, 64, 2, 50176, 3, 202752),  # two heads: one CTA an SM, 3 stages
+])
+def test_bf16_layout_at_its_edges(N, p_slice, heads, stage, want_stages,
+                                  want_smem):
+    """The ring's stages and shared memory (the source's SsdCfg): as many
+    stages of ``stage`` bytes as fit the CTAs an SM must hold, at most 4;
+    the card's SM has 233,472 B, 1 KB of it reserved for each CTA."""
+    stages, smem = tssd.bf16_layout(N, p_slice, heads)
+    assert (stages, smem) == (want_stages, want_smem)
+    ctas = 2 if heads == 1 else 1
+    assert ctas * (smem + 1024) <= 233472 and smem <= 232448
+    assert stages == 4 or ctas * (smem + stage + 1024) > 233472 \
+        or smem + stage > 232448
+
+
+def test_tiling_at_its_edges():
+    bf16, f32 = torch.bfloat16, torch.float32
+    # mamba2's serving shape: 192 units of one head, two an SM: one wave
+    t = tssd.tiling(192, 24, 1024, 64, 128, bf16)
+    assert (t.heads, t.p_slice, t.stages, t.cluster, t.units, t.grid,
+            t.ctas_per_sm) == (1, 64, 2, 1, 192, 192, 2)
+    assert t.units <= tssd.SMS * t.ctas_per_sm
+    assert tssd.tiling(192, 1, 1024, 64, 128, bf16) == t   # r does not matter
+    # the units the sweep names
+    assert tssd.tiling(192, 24, 1024, 64, 128, bf16, p_slice=32).units == 384
+    t2 = tssd.tiling(192, 24, 1024, 64, 128, bf16, heads=2)
+    assert (t2.units, t2.ctas_per_sm, t2.stages) == (96, 1, 3)
+    assert tssd.tiling(192, 24, 1024, 64, 128, bf16, cluster=2).units == 192
+    for bad in (dict(heads=2), dict(cluster=2)):     # a group of one head
+        with pytest.raises(ValueError, match="does not divide"):
+            tssd.tiling(192, 1, 1024, 64, 128, bf16, **bad)
+    with pytest.raises(ValueError, match="does not divide"):
+        tssd.tiling(4, 2, 64, 16, 16, bf16, p_slice=32)
+    # every P and N, f32 one CTA a head
+    for P in tssd.HEAD_DIMS:
+        for N in tssd.STATE_DIMS:
+            assert tssd.tiling(3, 1, 1, P, N, bf16).p_slice == P
+            tf = tssd.tiling(3, 3, 70, P, N, f32)
+            assert (tf.heads, tf.p_slice, tf.stages, tf.units) == (1, P, 1, 3)
+    for bad in ((2, 1, 64, 48, 16), (2, 1, 64, 16, 24), (3, 2, 64, 16, 16),
+                (0, 1, 64, 16, 16), (2, 1, 0, 16, 16)):
+        with pytest.raises(ValueError):
+            tssd.tiling(*bad, bf16)
+    with pytest.raises(TypeError):
+        tssd.tiling(2, 1, 64, 16, 16, torch.float16)
+
+
+def test_kernel_strides_of_the_models_group_view():
+    """At one group the model hands B/C over as views of its conv output,
+    (B, S, conv_dim): 16-byte aligned rows, taken with no copy; a dim of
+    size 1 takes the extent inside it."""
+    cd, N = 1792, 128
+    xbc = torch.zeros(2, 100, cd, dtype=torch.bfloat16)
+    B = xbc[..., 1536:1536 + N]
+    assert tssd.kernel_strides(B) == (100 * cd, cd)
+    assert tssd.kernel_strides(xbc[:1, :, 1536:1536 + N]) == (100 * cd, cd)
+    assert tssd.kernel_strides(xbc[:1, :1, 1536:1536 + N]) == (N, N)
+    x = torch.zeros(48, 100, 64, dtype=torch.bfloat16)
+    dA = torch.zeros(48, 100)
+    out = tssd.ssd_scan_fwd(x, dA, B, xbc[..., 1536 + N:])
+    assert out.shape == x.shape
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tssd.ssd_scan_fwd(x, dA, xbc[..., 1:1 + N], xbc[..., 1 + N:1 + 2 * N])
+
+
+def test_prefill_hands_the_scan_group_views(monkeypatch):
+    """ssm_prefill hands the scan B/C of B x ngroups rows, views of the
+    conv output at ngroups 1 (no per-head copy), in a bf16 model."""
+    cfg = get_smoke_config(ARCH)
+    assert cfg.ssm_ngroups == 1 and cfg.dtype == "bfloat16"
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    seen = []
+    real = tops.ssd
+
+    def spy(xdt, dA, B, C, **kw):
+        seen.append((xdt.shape, B.shape, B._base is not None,
+                     C._base is not None, B.stride()))
+        return real(xdt, dA, B, C, **kw)
+
+    monkeypatch.setattr(tops, "ssd", spy)
+    toks = torch.arange(2 * 20).reshape(2, 20) % cfg.vocab_size
+    model.prefill(params, {"tokens": toks}, 24)
+    assert len(seen) == cfg.n_layers
+    nh, N = cfg.ssm_nheads, cfg.ssm_state
+    for xs, bs, b_view, c_view, stride in seen:
+        assert tuple(xs)[0] == 2 * nh and tuple(bs) == (2, 20, N)
+        assert b_view and c_view and stride[1] == cfg.conv_dim
+
+
 # ---------------------------------------------------------------- mixer
 
 

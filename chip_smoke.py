@@ -21,7 +21,8 @@ failure ends the run with a non-zero exit:
    GEMM's tiles and cluster (must equal the wrapper's ``TILES`` and
    ``CLUSTER``) and the clusters of its bf16 kernel the card holds
    (must be > 0); and the SSD scan's bf16 instances: registers and spills
-   (none may spill), ring stages and shared memory (must equal
+   (none may spill or have its wgmma serialized by ptxas), ring stages
+   and shared memory (must equal
    ``ssd.bf16_layout``'s) and the CTAs an SM holds (from the occupancy
    calculator, must equal ``ssd.tiling``'s), with every unit of mamba2's
    serving shape resident at once in both input forms;
@@ -483,6 +484,11 @@ def main() -> int:
     if sg_clusters <= 0:
         raise AssertionError("a cluster of the bf16 streamed GEMM cannot be "
                              "placed")
+    serialized = [line for line in built["ssd_scan"][2].splitlines()
+                  if "C7512" in line and "ssd_fwd_bf16" in line]
+    if serialized:   # ptxas waits after each wgmma: the overlap is gone
+        raise AssertionError(f"a bf16 ssd_scan instance's wgmma are "
+                             f"serialized: {serialized[0]}")
     for P, N in ((16, 16), (16, 32), (32, 64), (64, 128)):
         log(f"  ssd_scan f32 P {P} N {N}: dynamic shared memory "
             f"{ssd.f32_smem_bytes(N, P)} B")
@@ -491,14 +497,12 @@ def main() -> int:
     for r in (1, mcfg.ssm_nheads // mcfg.ssm_ngroups):
         t = ssd.tiling(m_batch * mcfg.ssm_nheads, r, 1024,
                        mcfg.ssm_headdim, mcfg.ssm_state, torch.bfloat16)
-        stages, smem, per_sm = ssd.bf16_tile(mcfg.ssm_state, t.p_slice,
-                                             t.heads, t.cluster)
-        log(f"  ssd_scan bf16 serving shape, r {r}: {t.units} units of "
-            f"{t.heads} head(s) x P {t.p_slice}, {stages} stages, dynamic "
-            f"shared memory {smem} B, {per_sm} CTAs an SM (tiling "
-            f"{t.ctas_per_sm}), {ssd.SMS * per_sm} resident")
-        if (stages, smem) != ssd.bf16_layout(mcfg.ssm_state, t.p_slice,
-                                             t.heads) \
+        stages, smem, per_sm = ssd.bf16_tile(mcfg.ssm_state, t.p_slice)
+        log(f"  ssd_scan bf16 serving shape, r {r}: {t.units} units of one "
+            f"head x P {t.p_slice}, {stages} stages, dynamic shared memory "
+            f"{smem} B, {per_sm} CTAs an SM (tiling {t.ctas_per_sm}), "
+            f"{ssd.SMS * per_sm} resident")
+        if (stages, smem) != ssd.bf16_layout(mcfg.ssm_state, t.p_slice) \
                 or per_sm != t.ctas_per_sm or t.units > ssd.SMS * per_sm:
             raise AssertionError(f"ssd_scan.cu's unit does not match "
                                  f"ssd.tiling or is not one wave: {t}, "

@@ -160,6 +160,18 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       : "memory");
 }
 
+// the 3-D box at (c0, c1, c2) of `map` from shared memory at `src`, as one
+// bulk group of this thread; parts past the tensor's edge are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

@@ -30,34 +30,44 @@
 // per byte: both far below the H100's ~295 FLOP/byte ridge, so bytes bound
 // it.  The bf16 path (`ssd_fwd_bf16`):
 //
-// - One wave: a unit is a CTA of one consumer warpgroup and one producer
-//   warp, 200 registers a thread and 100 KB of shared memory, two CTAs an
-//   SM; the mamba2 serving shape's 192 units are all resident on 132 SMs
-//   at once.  The wrapper's rule (ssd.py::tiling) picks the unit;
-//   `ssd_fwd` checks only that this source has the instance.
-// - TMA and an mbarrier ring: one thread of the producer loads each chunk's
-//   C and B (from the group row) and X tiles by TMA over rank-3 tensor maps
-//   of the real strides (N or P, S, rows), so the model's strided view of
-//   its conv output is read in place.  The box is `chunk` rows; the tile
-//   rows past it are zeroed once, and TMA zero-fills rows past S.  The
-//   producer warp stores the chunk's dA (0 past the chunk) beside them and
-//   arrives; each consumer warp releases a stage with an mbarrier arrive.
+// - One wave: a unit is one head and all its P columns (the wrapper's rule,
+//   ssd.py::tiling; `ssd_fwd` checks only that this source has the
+//   instance), a CTA of one warpgroup with up to 255 registers a thread and
+//   108,544 bytes of shared memory at N 128, two CTAs an SM: mamba2's serving
+//   shape's 192 units are all resident on 132 SMs at once.  A separate
+//   producer warp would cap the registers at 168 (ptxas counts the
+//   160-thread CTA as 192 threads at two an SM), where the warpgroup's
+//   accumulators spill.
+// - TMA and an mbarrier ring: thread 0 loads each chunk's C and B (from the
+//   group row) and X tiles by TMA over rank-3 tensor maps of the real
+//   strides (N or P, S, rows), so the model's strided view of its conv
+//   output is read in place, into a two-stage ring; a stage's full barrier
+//   counts TMA's bytes, and the same thread refills the stage two chunks
+//   ahead as soon as each tile is read: C and X once the intra product and
+//   C h have retired, B after the state update and the end-of-chunk
+//   barrier.  The box is `chunk` rows; the tile rows past it are zeroed once,
+//   and TMA zero-fills rows past S.  Each warp loads the chunk's dA a chunk
+//   ahead into registers (two values a lane), so the cumsum waits for no
+//   load and dA needs no alignment.
 // - wgmma for the four products, f32 accumulate.  S = C B^T: C and B K-major
 //   from shared memory.  (S o L) X: S o L from registers (the accumulator
 //   layout of S is wgmma's A layout) as a bf16 high and low part, because
 //   rounding it to one bf16 was the largest of the rounding errors; X
 //   MN-major (the transpose-B form).  C h: h's bf16 copy written by the
-//   consumer into a swizzled tile; with one head a CTA, C's rows are first
-//   scaled by exp(cs) in place, so C h sums into y's accumulator.  h += B^T Xd: A is the B tile read
+//   warpgroup into a swizzled tile (stmatrix), into its own accumulator,
+//   which the store scales by exp(cs) and adds to y (scaling C's rows in
+//   place instead costs the warpgroup more than the second accumulator).  h += B^T Xd: A is the B tile read
 //   M-major (the transpose-A form), one m64 tile per 64 state rows (a state
 //   of N < 64 rows reads its one atom for every 64 rows and keeps the first
-//   N); Xd, X decayed, is written by the consumer beside the ring.  The f32
-//   state stays in the accumulator registers of the warpgroup.
+//   N); Xd, X decayed, is written by the warpgroup beside the ring.  The
+//   f32 state stays in the accumulator registers of the warpgroup.
 // - Two wgmma groups a chunk overlap the rest: (S o L) X with C h, under
-//   which the warpgroup writes Xd; then the state update, under which it
-//   adds and stores y.  Only the state update's wait, h's bf16 copy and
-//   the stage's release sit between one chunk's products and the next
-//   chunk's.  Two CTAs an SM fill each other's waits.
+//   which the warpgroup writes Xd; then the state update, under which y is
+//   staged (stmatrix) in h's copy's tile and stored by TMA.  Stored thread
+//   by thread, y's 16 stores a thread held the next chunk's dA load back
+//   in the load/store queue.  Only the state update's wait, h's bf16 copy and the stage's
+//   refill sit between one chunk's products and the next chunk's.  Two
+//   CTAs an SM fill each other's waits.
 // - An mbarrier wait that lasts far beyond any load traps (a launch error)
 //   instead of hanging the card.
 //
@@ -71,7 +81,7 @@
 
 #include <math.h>
 
-#include "hopper.cuh"  // mbarriers, clusters, TMA, wgmma descriptors, the tensor-map encoder
+#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors, the tensor-map encoder
 
 namespace {
 
@@ -91,15 +101,14 @@ struct Params {
 
 // The tiling the wrapper hands over (ssd.py::tiling).
 struct Tiling {
-  int heads, p_slice, stages, cluster, grid;
+  int p_slice, stages, grid;
 };
 
-// Inclusive prefix sum of the 64 values v[0..63] by one warp (two a lane);
-// writes cs[0..63] times `scale`.
-__device__ __forceinline__ void warp_cumsum64(const float* v, float* cs,
+// Inclusive prefix sum over one warp of the 64 values a lane holds two of
+// (lane l: values 2 l and 2 l + 1); writes cs[0..63] times `scale`.
+__device__ __forceinline__ void warp_cumsum64(float a, float b, float* cs,
                                               float scale) {
   const int lane = threadIdx.x % 32;
-  const float a = v[2 * lane], b = v[2 * lane + 1];
   float s = a + b;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -140,13 +149,16 @@ __device__ __forceinline__ void scale_group(const unsigned char* src, float f,
   *reinterpret_cast<uint4*>(dst) = v;
 }
 
-__device__ __forceinline__ void scale_group(unsigned char* p, float f) {
-  scale_group(p, f, p);
-}
-
-// bar.sync among the 128 threads of consumer warpgroup wg
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+// four 8 x 8 bf16 matrices from the mma accumulator layout (register k:
+// matrix k, row lane / 4, columns 2 (lane % 4) and + 1) to shared memory
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+          addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 constexpr int round1k(int b) { return (b + 1023) / 1024 * 1024; }
@@ -258,17 +270,13 @@ struct Wg<64> {
   }
 };
 
-// The bf16 instance of a unit of W heads of one group (W consumer
-// warpgroups, one a head) and PT columns of P, in clusters of CL CTAs
-// (CL > 1: the CTAs of a cluster take W CL heads of one group, each loading
-// part of C's and B's boxes for all of them by TMA multicast).
-template <int N_, int PT_, int W_, int CL_>
+// The bf16 instance of state dim N and a unit of PT columns of P: one
+// warpgroup a CTA, two CTAs an SM.
+template <int N_, int PT_>
 struct SsdCfg {
-  static constexpr int N = N_, PT = PT_, W = W_, CL = CL_;
-  // W consumer warpgroups and one producer warp: 200 registers a thread at
-  // two CTAs an SM (W 1), 224 at one (W 2)
-  static constexpr int THREADS = 128 * W + 32;
-  static constexpr int MIN_CTAS = W == 1 ? 2 : 1;  // CTAs an SM
+  static constexpr int N = N_, PT = PT_;
+  static constexpr int THREADS = 128;  // one warpgroup
+  static constexpr int MIN_CTAS = 2;   // CTAs an SM
   static constexpr int BOXN = N < 64 ? N : 64;  // B/C columns a TMA box
   static constexpr int NBOX = N / BOXN;
   static constexpr int ROWB_N = 2 * BOXN;       // bytes a B/C box row
@@ -279,24 +287,22 @@ struct SsdCfg {
   static constexpr uint64_t SW_P = swizzle_code(ROWB_P);
   static constexpr int X_BYTES = round1k(CH * ROWB_P);
   static constexpr int MT = N < 64 ? 1 : N / 64;  // m64 tiles of the state
-  // a stage: C, B, then each head's X tile and dA
+  // a stage: C, B and X
   static constexpr int OFF_B = round1k(CB_BYTES);
   static constexpr int OFF_X = 2 * round1k(CB_BYTES);
-  static constexpr int OFF_D = OFF_X + W * X_BYTES;
-  static constexpr int STAGE = OFF_D + round1k(W * CH * 4);
-  static constexpr int HS_BYTES = round1k(N * ROWB_P);  // h's bf16 copy
-  // 1024 bytes of slack to align the tiles, each head's copy of h and
-  // decayed X, each consumer warp's cumsum; then as many stages as fit
-  // MIN_CTAS CTAs an SM, at most 4
-  static constexpr int FIXED = 1024 + W * (HS_BYTES + X_BYTES) + W * 4 * CH * 4;
-  static constexpr int BUDGET =
-      (233472 / MIN_CTAS - 1024 < 232448 ? 233472 / MIN_CTAS - 1024 : 232448) -
-      256;
+  static constexpr int STAGE = OFF_X + X_BYTES;
+  // h's bf16 copy, which also stages y's tile for its TMA store
+  static constexpr int HS_BYTES = round1k((N > CH ? N : CH) * ROWB_P);
+  // 1024 bytes of slack to align the tiles, h's copy, the decayed X, each
+  // warp's cumsum; then as many stages as fit two CTAs an SM (233,472
+  // bytes, 1 KB of it reserved a CTA), at most 4
+  static constexpr int FIXED = 1024 + HS_BYTES + X_BYTES + 4 * CH * 4;
+  static constexpr int BUDGET = 233472 / MIN_CTAS - 1024 - 256;
   static constexpr int FIT = (BUDGET - FIXED) / STAGE;
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static constexpr int SMEM = FIXED + STAGES * STAGE;
   static_assert(STAGES >= 2, "a ring of two stages at least");
-  static_assert(PT <= 64 && (PT == 16 || PT == 32 || PT == 64), "P slice");
+  static_assert(PT == 16 || PT == 32 || PT == 64, "P slice");
 
   // C or B, K-major (K = N), at k-step kk: its box, and the step's 32 bytes
   // in the swizzled row
@@ -322,277 +328,235 @@ template <class Cfg>
 __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_CTAS)
     ssd_fwd_bf16(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_b,
-                 const __grid_constant__ CUtensorMap tm_c, const Params p) {
-  constexpr int N = Cfg::N, PT = Cfg::PT, W = Cfg::W, CL = Cfg::CL,
-                ST = Cfg::STAGES, MT = Cfg::MT;
+                 const __grid_constant__ CUtensorMap tm_c,
+                 const __grid_constant__ CUtensorMap tm_y, const Params p) {
+  constexpr int N = Cfg::N, PT = Cfg::PT, ST = Cfg::STAGES, MT = Cfg::MT;
   extern __shared__ unsigned char ssd_smem[];
-  __shared__ __align__(8) uint64_t full[ST], empty[ST];
+  __shared__ __align__(8) uint64_t full[ST];
   // the ring at a 1024-byte boundary of the shared window, then h's bf16
-  // copies and the decayed X (one a head) and the consumer warps' cumsums
+  // copy, the decayed X and the warps' cumsums
   unsigned char* smem =
       ssd_smem + ((1024 - (smem_u32(ssd_smem) & 1023)) & 1023);
-  unsigned char* hs_base = smem + ST * Cfg::STAGE;
-  unsigned char* xd_base = hs_base + W * Cfg::HS_BYTES;
-  float* cs_base = reinterpret_cast<float*>(xd_base + W * Cfg::X_BYTES);
+  unsigned char* hs = smem + ST * Cfg::STAGE;
+  unsigned char* xd = hs + Cfg::HS_BYTES;
+  const uint32_t hs_addr = smem_u32(hs), xd_addr = smem_u32(xd);
 
-  const int tid = threadIdx.x;
-  const int rank = CL > 1 ? (int)cluster_rank() : 0;
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
   const int slices = p.P / PT;
-  const int unit = blockIdx.x / CL;  // the cluster's heads and P slice
-  const int p0 = (unit % slices) * PT;
-  const int head0 = (unit / slices) * (W * CL) + rank * W;  // this CTA's
-  const int grp = head0 / p.r;  // the B/C row of every head of the cluster
+  const int bh = blockIdx.x / slices, p0 = (blockIdx.x % slices) * PT;
+  const int grp = bh / p.r;  // the B/C row of this head
   const int nc = (p.S + p.chunk - 1) / p.chunk;
+  float* csw = reinterpret_cast<float*>(xd + Cfg::X_BYTES) + warp * CH;
+  const float* dg = p.da + (long long)bh * p.d_sb;
+  const int i0 = 16 * warp + g;  // this thread's rows: i0 and i0 + 8
+
+  // chunk c's C (from the group row) and X into stage s by TMA, the box
+  // `chunk` rows (rows past S arrive as zeros); the stage's barrier expects
+  // B's bytes too, which load_b brings
+  auto load_cx = [&](int c, int s) {
+    unsigned char* st = smem + s * Cfg::STAGE;
+    const int row0 = c * p.chunk;
+    mbar_expect_tx(&full[s], (uint32_t)p.chunk * (2 * N * 2 + PT * 2));
+#pragma unroll
+    for (int bx = 0; bx < Cfg::NBOX; ++bx)
+      tma_load_3d(st + bx * Cfg::CB_BOX, &tm_c, &full[s], bx * Cfg::BOXN,
+                  row0, grp);
+    tma_load_3d(st + Cfg::OFF_X, &tm_x, &full[s], p0, row0, bh);
+  };
+  auto load_b = [&](int c, int s) {
+    unsigned char* st = smem + s * Cfg::STAGE;
+#pragma unroll
+    for (int bx = 0; bx < Cfg::NBOX; ++bx)
+      tma_load_3d(st + Cfg::OFF_B + bx * Cfg::CB_BOX, &tm_b, &full[s],
+                  bx * Cfg::BOXN, c * p.chunk, grp);
+  };
+  // chunk c's dA, two values a lane (0 past the chunk), loaded a chunk
+  // ahead of their use
+  auto load_da = [&](int c, float (&v)[2]) {
+    const int row0 = c * p.chunk, rows = min(p.chunk, p.S - row0);
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      v[k] = 2 * lane + k < rows ? dg[row0 + 2 * lane + k] : 0.f;
+  };
 
   // a zero ring: the rows past a chunk below 64 stay zero (TMA writes the
   // chunk's rows only)
-  for (int i = tid; i < ST * Cfg::STAGE / 16; i += Cfg::THREADS)
+  for (int i = t; i < ST * Cfg::STAGE / 16; i += Cfg::THREADS)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
   fence_proxy_async();
-  if (tid == 0) {
-    for (int s = 0; s < ST; ++s) {
-      mbar_init(&full[s], 2);  // expect_tx, the dA stores; TMA's bytes
-      mbar_init(&empty[s], CL * W * 4);  // each consumer warp of the cluster
-    }
+  if (t == 0) {
+    for (int s = 0; s < ST; ++s) mbar_init(&full[s], 1);  // expect_tx; bytes
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (CL > 1) cluster_sync();  // every CTA's ring and barriers are ready
+  if (t == 0) {
+    prefetch_map(&tm_x);
+    prefetch_map(&tm_b);
+    prefetch_map(&tm_c);
+    prefetch_map(&tm_y);
+    for (int c = 0; c < ST && c < nc; ++c) {
+      load_cx(c, c);
+      load_b(c, c);
+    }
+  }
+  float da[2], da_next[2];
+  load_da(0, da);
 
-  if (tid >= W * 128) {
-    // ------------------------------------------------------------ producer
-    {  // one warp: a thread's TMA, the warp's dA
-      const int lane = tid % 32;
-      if (lane == 0) {
-        prefetch_map(&tm_x);
-        prefetch_map(&tm_b);
-        prefetch_map(&tm_c);
+  // accumulators: element 4 j + e is row i0 + 8 (e >> 1), column 8 j +
+  // 2 tq + (e & 1) (h: state row 64 mt + i0 + 8 (e >> 1))
+  float h[MT][PT / 2];
+  float sc[32], y[PT / 2], tc[PT / 2];
+  uint32_t hi[16], lo[16];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < PT / 2; ++i) h[mt][i] = 0.f;
+
+  // an m64 x PT accumulator's 64 rows from row0 on, as bf16, into hs (the
+  // PT-column swizzled tile): a warp's 16 rows x 8 columns are two 8 x 8
+  // matrices, four to a stmatrix; lane l gives the address of row l % 8 of
+  // matrix l / 8
+  auto stage = [&](const float (&a)[PT / 2], int row0) {
+    const int q = lane / 8;
+    const int n = row0 + 16 * warp + 8 * (q & 1) + lane % 8;
+#pragma unroll
+    for (int j = 0; j < PT / 8; j += 2)
+      stmatrix_x4(hs_addr + swz<Cfg::ROWB_P>(n, 16 * (j + (q >> 1))),
+                  pack_bf16(a[4 * j], a[4 * j + 1]),
+                  pack_bf16(a[4 * j + 2], a[4 * j + 3]),
+                  pack_bf16(a[4 * j + 4], a[4 * j + 5]),
+                  pack_bf16(a[4 * j + 6], a[4 * j + 7]));
+  };
+  // h -> its bf16 copy (state rows < N), visible to wgmma
+  auto copy_h = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      if (64 * mt + 16 * warp < N) stage(h[mt], 64 * mt);
+    fence_proxy_async();
+    __syncthreads();
+  };
+  copy_h();
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int c = 0; c < nc; ++c) {
+    const int row0 = c * p.chunk;
+    if (c + 1 < nc) load_da(c + 1, da_next);
+    warp_cumsum64(da[0], da[1], csw, LOG2E);
+    __syncwarp();
+    mbar_wait(&full[s], phase);
+    unsigned char* st = smem + s * Cfg::STAGE;
+    const uint32_t c_addr = smem_u32(st), b_addr = smem_u32(st + Cfg::OFF_B);
+    const unsigned char* xt = st + Cfg::OFF_X;
+    const uint32_t x_addr = smem_u32(xt);
+
+    // S = C B^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      Wg<64>::ss<0, 0>(sc, Cfg::kmajor(c_addr, kk), Cfg::kmajor(b_addr, kk),
+                       kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+
+    // S o L: exp(cs_i - cs_j) on and below the diagonal, 0 above (the
+    // column blocks wholly above this warp's rows are skipped); then its
+    // bf16 high and low parts as the A fragments of (S o L) X
+    const float ci[2] = {csw[i0], csw[i0 + 8]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (8 * j > 16 * warp + 15) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[4 * j + e] = 0.f;
+        continue;
       }
-      const uint16_t all = (uint16_t)((1u << CL) - 1);
-      const uint32_t bytes = (uint32_t)p.chunk * (2 * N * 2 + W * PT * 2);
-      int s = 0;
-      uint32_t phase = 0;
-      for (int c = 0; c < nc; ++c) {
-        const int row0 = c * p.chunk, rows = min(p.chunk, p.S - row0);
-        mbar_wait(&empty[s], phase ^ 1);
-        unsigned char* st = smem + s * Cfg::STAGE;
-        if (lane == 0) {
-          mbar_expect_tx(&full[s], bytes);
-          // C's boxes, then B's: box i by rank i % CL, to every CTA of the
-          // cluster
-          for (int i = rank; i < 2 * Cfg::NBOX; i += CL) {
-            const bool is_b = i >= Cfg::NBOX;
-            const int bx = i % Cfg::NBOX;
-            unsigned char* dst =
-                st + (is_b ? Cfg::OFF_B : 0) + bx * Cfg::CB_BOX;
-            const CUtensorMap* m = is_b ? &tm_b : &tm_c;
-            if (CL > 1)
-              tma_load_3d_multicast(dst, m, &full[s], bx * Cfg::BOXN, row0,
-                                    grp, all);
-            else
-              tma_load_3d(dst, m, &full[s], bx * Cfg::BOXN, row0, grp);
-          }
 #pragma unroll
-          for (int w = 0; w < W; ++w)
-            tma_load_3d(st + Cfg::OFF_X + w * Cfg::X_BYTES, &tm_x, &full[s],
-                        p0, row0, head0 + w);
-        }
-        float* ds = reinterpret_cast<float*>(st + Cfg::OFF_D);
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          const float* dg = p.da + (long long)(head0 + w) * p.d_sb + row0;
-#pragma unroll
-          for (int k = lane; k < CH; k += 32)
-            ds[w * CH + k] = k < rows ? dg[k] : 0.f;
-        }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&full[s]);
-        if (++s == ST) {
-          s = 0;
-          phase ^= 1;
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * tq + (e & 1), row = i0 + 8 * (e >> 1);
+        sc[4 * j + e] =
+            col <= row ? sc[4 * j + e] * ex2(ci[e >> 1] - csw[col]) : 0.f;
       }
     }
-  } else {
-    // ----------------------------------------------------------- consumers
-    const int w = tid / 128, t = tid % 128;
-    const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
-    const int bh = head0 + w;
-    float* csw = cs_base + (w * 4 + warp) * CH;  // log2 units
-    unsigned char* hs = hs_base + w * Cfg::HS_BYTES;
-    const uint32_t hs_addr = smem_u32(hs);
-    unsigned char* xd = xd_base + w * Cfg::X_BYTES;  // X decayed
-    const uint32_t xd_addr = smem_u32(xd);
-    __nv_bfloat16* yg = static_cast<__nv_bfloat16*>(p.y) +
-                        (long long)bh * p.S * p.P + p0;
-    const int i0 = 16 * warp + g;  // this thread's rows: i0 and i0 + 8
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      split_bf16(sc[2 * k], sc[2 * k + 1], hi[k], lo[k]);
 
-    // accumulators: element 4 j + e is row i0 + 8 (e >> 1), column 8 j +
-    // 2 tq + (e & 1) (h: state row 64 mt + i0 + 8 (e >> 1))
-    float h[MT][PT / 2];
-    float sc[32], y[PT / 2], tc[PT / 2];
-    uint32_t hi[16], lo[16];
+    // y = (S o L) X (high part, then low) and t = C h, one group
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wg<PT>::rs(y, &hi[4 * kk], Cfg::nmajor(x_addr, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wg<PT>::rs(y, &lo[4 * kk], Cfg::nmajor(x_addr, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      Wg<PT>::template ss<0, 1>(tc, Cfg::kmajor(c_addr, kk),
+                                Cfg::nmajor(hs_addr, kk), kk > 0);
+    wgmma_commit();
+
+    // under it, X decayed into Xd: row j times exp(total - cs_j)
+    const float total = csw[CH - 1];
+    for (int v = t; v < CH * Cfg::ROWB_P / 16; v += Cfg::THREADS)
+      scale_group(xt + 16 * v, ex2(total - csw[16 * v / Cfg::ROWB_P]),
+                  xd + 16 * v);
+    fence_proxy_async();
+    __syncthreads();
+
+    // h <- exp(total) h + B^T Xd, a second group
+    const float et = ex2(total);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < PT / 2; ++i) h[mt][i] = 0.f;
-
-    auto release = [&](int s) {  // in every CTA of the cluster
-      __syncwarp();
-      if (lane == 0) {
-        if (CL == 1)
-          mbar_arrive(&empty[s]);
-        else
-          for (int k = 0; k < CL; ++k) mbar_arrive_cluster(&empty[s], k);
-      }
-    };
-
-    // h -> its bf16 copy (state rows < N), visible to wgmma
-    auto copy_h = [&]() {
+      for (int i = 0; i < PT / 2; ++i) h[mt][i] *= et;
+    wgmma_fence();
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int n = 64 * mt + i0 + 8 * r;
-          if (n < N) {
-#pragma unroll
-            for (int j = 0; j < PT / 8; ++j)
-              *reinterpret_cast<uint32_t*>(
-                  hs + swz<Cfg::ROWB_P>(n, 16 * j + 4 * tq)) =
-                  pack_bf16(h[mt][4 * j + 2 * r], h[mt][4 * j + 2 * r + 1]);
-          }
-        }
-      fence_proxy_async();
-      warpgroup_sync(w);
-    };
-    copy_h();
-
-    int s = 0;
-    uint32_t phase = 0;
-    for (int c = 0; c < nc; ++c) {
-      const int row0 = c * p.chunk, rows = min(p.chunk, p.S - row0);
-      mbar_wait(&full[s], phase);
-      unsigned char* st = smem + s * Cfg::STAGE;
-      const uint32_t c_addr = smem_u32(st), b_addr = smem_u32(st + Cfg::OFF_B);
-      const unsigned char* xt = st + Cfg::OFF_X + w * Cfg::X_BYTES;
-      const uint32_t x_addr = smem_u32(xt);
-      warp_cumsum64(reinterpret_cast<const float*>(st + Cfg::OFF_D) + w * CH,
-                    csw, LOG2E);
-      __syncwarp();
-
-      // S = C B^T
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < N / 16; ++kk)
-        Wg<64>::ss<0, 0>(sc, Cfg::kmajor(c_addr, kk), Cfg::kmajor(b_addr, kk),
-                         kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(sc);
-      if constexpr (W == 1) {
-        // C's row i times exp(cs_i) in place (S has read C), so that C h
-        // sums into y: a 16-byte group stays in its row under the swizzle
-        for (int v = t; v < Cfg::CB_BYTES / 16; v += 128)
-          scale_group(st + 16 * v, ex2(csw[(16 * v % Cfg::CB_BOX) / Cfg::ROWB_N]));
-        fence_proxy_async();
-        warpgroup_sync(w);
-      }
-
-      // S o L: exp(cs_i - cs_j) on and below the diagonal, 0 above; then
-      // its bf16 high and low parts as the A fragments of (S o L) X
-      const float ci[2] = {csw[i0], csw[i0 + 8]};
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * tq + (e & 1), row = i0 + 8 * (e >> 1);
-          sc[4 * j + e] = col <= row ? sc[4 * j + e] * ex2(ci[e >> 1] - csw[col])
-                                     : 0.f;
-        }
-#pragma unroll
-      for (int k = 0; k < 16; ++k) split_bf16(sc[2 * k], sc[2 * k + 1], hi[k], lo[k]);
-
-      // y = (S o L) X (high part, then low) and C h, one group: W 1 sums C h
-      // (C scaled) into y, W > 1 (C shared by the heads) into t
-      wgmma_fence();
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        Wg<PT>::rs(y, &hi[4 * kk], Cfg::nmajor(x_addr, kk), kk > 0);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        Wg<PT>::rs(y, &lo[4 * kk], Cfg::nmajor(x_addr, kk), 1);
-#pragma unroll
-      for (int kk = 0; kk < N / 16; ++kk) {
-        if constexpr (W == 1)
-          Wg<PT>::template ss<0, 1>(y, Cfg::kmajor(c_addr, kk),
-                                    Cfg::nmajor(hs_addr, kk), 1);
-        else
-          Wg<PT>::template ss<0, 1>(tc, Cfg::kmajor(c_addr, kk),
-                                    Cfg::nmajor(hs_addr, kk), kk > 0);
-      }
-      wgmma_commit();
+        Wg<PT>::template ss<1, 1>(h[mt], Cfg::bt_desc(b_addr, mt, kk),
+                                  Cfg::nmajor(xd_addr, kk), 1);
+    wgmma_commit();
 
-      // under them, X decayed into Xd: row j times exp(total - cs_j) (a
-      // 16-byte group stays in its row under the swizzle)
-      const float total = csw[CH - 1];
-      for (int v = t; v < CH * Cfg::ROWB_P / 16; v += 128)
-        scale_group(xt + 16 * v, ex2(total - csw[16 * v / Cfg::ROWB_P]),
-                    xd + 16 * v);
-      fence_proxy_async();
-      warpgroup_sync(w);
-
-      // h <- exp(total) h + B^T Xd, a second group
-      const float et = ex2(total);
+    // y += t o exp(cs) once the first group has retired, under the state
+    // update; rows past the chunk or S are not stored
+    wgmma_wait<1>();
+    // C and X of the stage are read (C h and the decayed X are done): its
+    // next chunk's C and X load under the store and the state update
+    if (t == 0 && c + ST < nc) load_cx(c + ST, s);
+    fence_acc(y);
+    fence_acc(tc);
+    fence_regs(hi);
+    fence_regs(lo);
+    // y = y + t o exp(cs), staged in hs (C h has read it) and stored by
+    // TMA: the box is the chunk's rows, and rows past S are not written
+    const float ec[2] = {ex2(ci[0]), ex2(ci[1])};
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+    for (int i = 0; i < PT / 2; ++i) y[i] = fmaf(tc[i], ec[(i >> 1) & 1], y[i]);
+    stage(y, 0);
+    fence_proxy_async();
+    __syncthreads();
+    if (t == 0) {
+      tma_store_3d(&tm_y, hs, p0, row0, bh);
+      bulk_commit();
+    }
+    wgmma_wait<0>();
 #pragma unroll
-        for (int i = 0; i < PT / 2; ++i) h[mt][i] *= et;
-      wgmma_fence();
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          Wg<PT>::template ss<1, 1>(h[mt], Cfg::bt_desc(b_addr, mt, kk),
-                                    Cfg::nmajor(xd_addr, kk), 1);
-      wgmma_commit();
-
-      // y += t o exp(cs) once the first group has retired, under the state
-      // update; rows past the chunk or S are not stored
-      wgmma_wait<1>();
-      fence_acc(y);
-      fence_regs(hi);
-      fence_regs(lo);
-      if constexpr (W > 1) {
-        fence_acc(tc);
-        const float ec[2] = {ex2(ci[0]), ex2(ci[1])};
-#pragma unroll
-        for (int i = 0; i < PT / 2; ++i) y[i] += tc[i] * ec[(i >> 1) & 1];
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = i0 + 8 * r;
-        if (i < rows) {
-          __nv_bfloat16* out = yg + (long long)(row0 + i) * p.P;
-#pragma unroll
-          for (int j = 0; j < PT / 8; ++j)
-            *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * tq) =
-                pack_bf16(y[4 * j + 2 * r], y[4 * j + 2 * r + 1]);
-        }
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) fence_acc(h[mt]);
-      release(s);   // the stage's last reads (B, X) are done
-      copy_h();     // the state before the next chunk
-      if (++s == ST) {
-        s = 0;
-        phase ^= 1;
-      }
+    for (int mt = 0; mt < MT; ++mt) fence_acc(h[mt]);
+    if (t == 0) bulk_wait_read<0>();  // the store has read y from hs
+    __syncthreads();
+    copy_h();  // the state before the next chunk; every read of stage s done
+    if (t == 0 && c + ST < nc) load_b(c + ST, s);
+    da[0] = da_next[0];
+    da[1] = da_next[1];
+    if (++s == ST) {
+      s = 0;
+      phase ^= 1;
     }
   }
-  // no CTA may exit while its peer can still multicast into it or arrive on
-  // its barriers
-  if (CL > 1) cluster_sync();
+  if (t == 0) bulk_wait<0>();  // y written before the CTA exits
 }
 
 // ============================================================== f32 path
@@ -638,7 +602,7 @@ __global__ void __launch_bounds__(F32_THREADS) ssd_fwd_f32(const Params p) {
     }
     if (tid < CH) Ds[tid] = tid < rows ? dg[row0 + tid] : 0.f;
     __syncthreads();
-    if (tid < 32) warp_cumsum64(Ds, cs, 1.f);
+    if (tid < 32) warp_cumsum64(Ds[2 * tid], Ds[2 * tid + 1], cs, 1.f);
     __syncthreads();
     const float total = cs[CH - 1];
     if (tid < CH) {
@@ -685,36 +649,47 @@ constexpr int smem_f32(int N, int P) {
          (int)sizeof(float);
 }
 
+// Raise `kernel`'s dynamic shared-memory limit to `smem` on the current
+// device, once per device (the attribute is a device's) and instance (Tag).
+template <class Tag>
+cudaError_t set_smem(const void* kernel, int smem) {
+  constexpr int DEVICES = 64;
+  static bool done[DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < DEVICES && done[dev])) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess && dev < DEVICES) done[dev] = true;
+  return e;
+}
+
+template <int N, int P>
+struct F32Tag {};
+
 template <int N, int P>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  static bool set = false;  // once per instance and process
-  if (!set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ssd_fwd_f32<N, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_f32(N, P));
-    if (e != cudaSuccess) return e;
-    set = true;
-  }
+  cudaError_t e = set_smem<F32Tag<N, P>>((const void*)ssd_fwd_f32<N, P>,
+                                         smem_f32(N, P));
+  if (e != cudaSuccess) return e;
   ssd_fwd_f32<N, P><<<p.BH, F32_THREADS, smem_f32(N, P), stream>>>(p);
   return cudaGetLastError();
 }
 
 // ============================================================ the launch
 
-// The bf16 instances: (N, PT, W, CL).
-#define SSD_BF16_INSTANCES(X)                                              \
-  X(16, 16, 1, 1) X(16, 32, 1, 1) X(16, 64, 1, 1) X(32, 16, 1, 1)          \
-  X(32, 32, 1, 1) X(32, 64, 1, 1) X(64, 16, 1, 1) X(64, 32, 1, 1)          \
-  X(64, 64, 1, 1) X(128, 16, 1, 1) X(128, 32, 1, 1) X(128, 64, 1, 1)       \
-  X(128, 64, 2, 1) X(128, 64, 1, 2)
+// The bf16 instances: (N, PT).
+#define SSD_BF16_INSTANCES(X)                                  \
+  X(16, 16) X(16, 32) X(16, 64) X(32, 16) X(32, 32) X(32, 64)  \
+  X(64, 16) X(64, 32) X(64, 64) X(128, 16) X(128, 32) X(128, 64)
 
-// Call f(Cfg{}) with the instance (N, PT, W, CL); false if there is none.
+// Call f(Cfg{}) with the instance (N, PT); false if there is none.
 template <class F>
-bool with_bf16(int N, int PT, int W, int CL, F&& f) {
-#define SSD_CASE(n, pt, w, cl)                                   \
-  if (N == n && PT == pt && W == w && CL == cl) {                \
-    f(SsdCfg<n, pt, w, cl>{});                                   \
-    return true;                                                 \
+bool with_bf16(int N, int PT, F&& f) {
+#define SSD_CASE(n, pt)          \
+  if (N == n && PT == pt) {      \
+    f(SsdCfg<n, pt>{});          \
+    return true;                 \
   }
   SSD_BF16_INSTANCES(SSD_CASE)
 #undef SSD_CASE
@@ -740,43 +715,23 @@ bool encode_rows(CUtensorMap* map, const void* ptr, int cols, int S, int rows,
                       swizzle_mode(2 * box_cols));
 }
 
-template <class Kernel>
-cudaError_t set_smem(Kernel kernel, int smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
 template <class Cfg>
 cudaError_t launch_bf16(const Params& p, int grid, cudaStream_t stream) {
-  CUtensorMap tx, tb, tc;
+  CUtensorMap tx, tb, tc, ty;
   const int groups = p.BH / p.r;
   if (!encode_rows(&tx, p.x, p.P, p.S, p.BH, p.x_sb, p.x_ss, Cfg::PT,
                    p.chunk) ||
+      !encode_rows(&ty, p.y, p.P, p.S, p.BH, (long long)p.S * p.P, p.P,
+                   Cfg::PT, p.chunk) ||
       !encode_rows(&tb, p.b, Cfg::N, p.S, groups, p.b_sb, p.b_ss, Cfg::BOXN,
                    p.chunk) ||
       !encode_rows(&tc, p.c, Cfg::N, p.S, groups, p.c_sb, p.c_ss, Cfg::BOXN,
                    p.chunk))
     return cudaErrorInvalidValue;
-  static bool set = false;  // once per instance and process
-  if (!set) {
-    cudaError_t e = set_smem(ssd_fwd_bf16<Cfg>, Cfg::SMEM);
-    if (e != cudaSuccess) return e;
-    set = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(grid, 1, 1);
-  cfg.blockDim = dim3(Cfg::THREADS, 1, 1);
-  cfg.dynamicSmemBytes = Cfg::SMEM;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = Cfg::CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = Cfg::CL > 1 ? 1 : 0;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, ssd_fwd_bf16<Cfg>, tx, tb, tc, p);
+  cudaError_t e = set_smem<Cfg>((const void*)ssd_fwd_bf16<Cfg>, Cfg::SMEM);
   if (e != cudaSuccess) return e;
+  ssd_fwd_bf16<Cfg><<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(tx, tb, tc, ty,
+                                                             p);
   return cudaGetLastError();
 }
 
@@ -790,79 +745,56 @@ cudaError_t dispatch_f32(const Params& p, cudaStream_t s) {
   }
 }
 
-// A tiling this source runs.  f32: one CTA a row, all of P, no ring.
-// bf16: an instance (N, p_slice, heads, cluster), its stages, and a grid of
-// one CTA a unit, a unit's heads (heads x cluster) all of one group.
+// A tiling this source runs.  f32: one CTA a head, all of P, no ring.
+// bf16: an instance (N, p_slice), its stages, and a grid of one CTA a head
+// and P slice.
 bool valid_tiling(int dtype, const Params& p, const Tiling& t) {
   if (dtype == 0)
-    return t.heads == 1 && t.p_slice == p.P && t.stages == 1 &&
-           t.cluster == 1 && t.grid == p.BH;
+    return t.p_slice == p.P && t.stages == 1 && t.grid == p.BH;
   int stages = -1;
-  if (!with_bf16(p.N, t.p_slice, t.heads, t.cluster,
+  if (!with_bf16(p.N, t.p_slice,
                  [&](auto cfg) { stages = decltype(cfg)::STAGES; }))
     return false;
-  const int span = t.heads * t.cluster;  // heads of a cluster
-  return t.stages == stages && p.P % t.p_slice == 0 && p.r % span == 0 &&
-         (long long)t.grid == (long long)p.BH / t.heads * (p.P / t.p_slice);
+  return t.stages == stages && p.P % t.p_slice == 0 &&
+         (long long)t.grid == (long long)p.BH * (p.P / t.p_slice);
 }
 
 }  // namespace
 
-// The bf16 instance (N, PT, W heads a CTA, CL CTAs a cluster): its ring
-// stages, dynamic shared memory and the CTAs of it the current device holds
-// at once (CL 1: per SM, from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
-// CL > 1: on the device, CL x cudaOccupancyMaxActiveClusters).  Returns 0,
-// -1 if there is no such instance, or the cudaError_t of the query.
-extern "C" int ssd_bf16_tile(int N, int PT, int W, int CL, int* stages,
-                             int* smem, int* resident) {
+// The bf16 instance (N, PT): its ring stages, dynamic shared memory and
+// the CTAs of it an SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns 0, -1 if
+// there is no such instance, or the cudaError_t of the query.
+extern "C" int ssd_bf16_tile(int N, int PT, int* stages, int* smem,
+                             int* per_sm) {
   cudaError_t e = cudaSuccess;
-  if (!with_bf16(N, PT, W, CL, [&](auto cfg) {
+  if (!with_bf16(N, PT, [&](auto cfg) {
         using Cfg = decltype(cfg);
         *stages = Cfg::STAGES;
         *smem = Cfg::SMEM;
-        e = set_smem(ssd_fwd_bf16<Cfg>, Cfg::SMEM);
-        if (e != cudaSuccess) return;
-        if (Cfg::CL == 1) {
+        e = set_smem<Cfg>((const void*)ssd_fwd_bf16<Cfg>, Cfg::SMEM);
+        if (e == cudaSuccess)
           e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              resident, ssd_fwd_bf16<Cfg>, Cfg::THREADS, Cfg::SMEM);
-          return;
-        }
-        cudaLaunchConfig_t cfg2 = {};
-        cudaLaunchAttribute attr[1];
-        cfg2.gridDim = dim3(Cfg::CL, 1, 1);
-        cfg2.blockDim = dim3(Cfg::THREADS, 1, 1);
-        cfg2.dynamicSmemBytes = Cfg::SMEM;
-        attr[0].id = cudaLaunchAttributeClusterDimension;
-        attr[0].val.clusterDim.x = Cfg::CL;
-        attr[0].val.clusterDim.y = 1;
-        attr[0].val.clusterDim.z = 1;
-        cfg2.attrs = attr;
-        cfg2.numAttrs = 1;
-        int n = 0;
-        e = cudaOccupancyMaxActiveClusters(&n, ssd_fwd_bf16<Cfg>, &cfg2);
-        *resident = n * Cfg::CL;
+              per_sm, ssd_fwd_bf16<Cfg>, Cfg::THREADS, Cfg::SMEM);
       }))
     return -1;
   return (int)e;
 }
 
-// Dynamic shared memory of the f32 instance for (N, P), in bytes.
-extern "C" int ssd_f32_smem_bytes(int N, int P) { return smem_f32(N, P); }
-
 // dtype: 0 = float32, 1 = bfloat16 (of xdt, B, C and y; dA is float32).
 // B and C have BH / r rows (head bh reads row bh / r).  Strides are in
 // elements.  chunk in [1, 64].  The tiling is the wrapper's (ssd.py::
-// tiling): heads a CTA, P columns a unit, ring stages, CTAs a cluster and
-// the grid.  Returns the launch's cudaError_t (0 on success).
+// tiling): P columns a CTA, ring stages and the grid.  Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int ssd_fwd(const void* x, const float* da, const void* b,
                        const void* c, void* y, int dtype, int BH, int S, int P,
                        int N, int chunk, int r, long long x_sb, long long x_ss,
                        long long d_sb, long long b_sb, long long b_ss,
-                       long long c_sb, long long c_ss, int heads, int p_slice,
-                       int stages, int cluster, int grid, void* stream) {
+                       long long c_sb, long long c_ss, int p_slice, int stages,
+                       int grid, void* stream) {
   const Params p{x,    da,   b,    c,    y,    BH,   S,    P,   N,
                  chunk, r,   x_sb, x_ss, d_sb, b_sb, b_ss, c_sb, c_ss};
-  const Tiling t{heads, p_slice, stages, cluster, grid};
+  const Tiling t{p_slice, stages, grid};
   if ((dtype != 0 && dtype != 1) || chunk < 1 || chunk > CH || BH < 1 ||
       S < 1 || r < 1 || BH % r != 0 || !valid_tiling(dtype, p, t))
     return (int)cudaErrorInvalidValue;
@@ -877,8 +809,7 @@ extern "C" int ssd_fwd(const void* x, const float* da, const void* b,
     }
   }
   cudaError_t e = cudaErrorInvalidValue;
-  with_bf16(N, p_slice, heads, cluster, [&](auto cfg) {
-    e = launch_bf16<decltype(cfg)>(p, grid, s);
-  });
+  with_bf16(N, p_slice,
+            [&](auto cfg) { e = launch_bf16<decltype(cfg)>(p, grid, s); });
   return (int)e;
 }

@@ -15,9 +15,9 @@ B and C come in group form: head row ``bh`` reads group row ``bh // r``,
 adjacent, BH flattened as (batch, head)).  ``r = 1`` is one row a head, the
 interface of the JAX kernel.
 
-``tiling(BH, r, S, P, N, dtype)`` says how the work is cut: the heads and
-P columns of a unit (one CTA), the ring's stages, the CTAs of a cluster,
-the units and the CTAs an SM holds.  It is the only copy of that rule:
+``tiling(BH, r, S, P, N, dtype)`` says how the work is cut: the P columns
+of a unit (one CTA, one head), the ring's stages, the units and the CTAs
+an SM holds.  It is the only copy of that rule:
 ``ssd_scan_fwd`` hands it to the source, which checks only that it has
 such an instance.
 
@@ -48,7 +48,7 @@ STATE_DIMS = (16, 32, 64, 128)  # N
 SMS = 132                      # streaming multiprocessors of an H100 SXM
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_SM = 233472              # shared memory of an SM
-_SMEM_CTA = 232448             # the most a CTA may take
+_BF16_CTAS = 2                 # bf16 CTAs an SM
 _MAX_STAGES = 4
 
 # (name, BH, r, S, P, N, chunk, xbc view): every edge of ``tiling`` and of
@@ -71,26 +71,21 @@ BOUNDARY_CASES = (
     ("group1_xbc_view_p16_n16", 4, 4, 40, 16, 16, 8, True),
 )
 
-# ssd_fwd(x, dA, B, C, y, dtype, BH, S, P, N, chunk, r, 7 strides, heads,
-#         p_slice, stages, cluster, grid, stream): pointers and the stream
-# as c_void_p, or ctypes would pass them as 32-bit ints
+# ssd_fwd(x, dA, B, C, y, dtype, BH, S, P, N, chunk, r, 7 strides,
+#         p_slice, stages, grid, stream): pointers and the stream as
+# c_void_p, or ctypes would pass them as 32-bit ints
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
 
 
 class Tiling(NamedTuple):
-    """How the scan of one call is cut across CTAs."""
-    heads: int        # heads of one group a CTA serves (one warpgroup each)
+    """How the scan of one call is cut across CTAs: a CTA a unit of one
+    head and ``p_slice`` of its P columns."""
     p_slice: int      # P columns of a unit
     stages: int       # ring stages (1: no ring, the f32 CTA)
-    cluster: int      # CTAs of a cluster (sharing B/C by multicast)
-    units: int        # CTAs: BH / heads x P / p_slice
+    units: int        # CTAs: BH x P / p_slice
     ctas_per_sm: int  # CTAs an SM holds (shared memory and registers)
-
-    @property
-    def grid(self) -> int:
-        return self.units
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,10 +93,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     lib.ssd_fwd.argtypes = _ARGTYPES
     lib.ssd_fwd.restype = ctypes.c_int
-    lib.ssd_bf16_tile.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.ssd_bf16_tile.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.ssd_bf16_tile.restype = ctypes.c_int
-    lib.ssd_f32_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.ssd_f32_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -109,20 +102,17 @@ def _round1k(n: int) -> int:
     return -(-n // 1024) * 1024
 
 
-def bf16_layout(N: int, p_slice: int, heads: int) -> Tuple[int, int]:
-    """(ring stages, dynamic shared memory) of the bf16 unit of ``heads``
-    heads and ``p_slice`` columns at state dim N: a stage holds C's and
-    B's 64-row tiles and each head's X tile and dA; beside the ring, each
-    head's bf16 copy of h, its decayed X and its warps' cumsums; as many
-    stages as fit the
-    CTAs an SM must hold (two of one head, one of two), at most 4.  The
-    source's ``SsdCfg``, which phase 2 of chip_smoke holds to it."""
-    ctas = 2 if heads == 1 else 1
-    stage = (2 * _round1k(64 * 2 * N) + heads * _round1k(64 * 2 * p_slice)
-             + _round1k(heads * 64 * 4))
-    fixed = 1024 + heads * (_round1k(N * 2 * p_slice)
-                            + _round1k(64 * 2 * p_slice)) + heads * 4 * 64 * 4
-    budget = min(_SMEM_SM // ctas - 1024, _SMEM_CTA) - 256
+def bf16_layout(N: int, p_slice: int) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory) of the bf16 unit of
+    ``p_slice`` columns at state dim N: a stage holds C's, B's and X's
+    64-row tiles; beside the ring, the bf16 copy of h (at least 64 rows:
+    it also stages y's tile), the decayed X and the warps' cumsums; as many
+    stages as fit two CTAs an SM, at most 4.  The source's ``SsdCfg``,
+    which phase 2 of chip_smoke holds to it."""
+    stage = 2 * _round1k(64 * 2 * N) + _round1k(64 * 2 * p_slice)
+    fixed = (1024 + _round1k(max(N, 64) * 2 * p_slice)
+             + _round1k(64 * 2 * p_slice) + 4 * 64 * 4)
+    budget = _SMEM_SM // _BF16_CTAS - 1024 - 256
     stages = min(_MAX_STAGES, (budget - fixed) // stage)
     return stages, fixed + stages * stage
 
@@ -133,19 +123,17 @@ def f32_smem_bytes(N: int, P: int) -> int:
 
 
 def tiling(BH: int, r: int, S: int, P: int, N: int, dtype: torch.dtype,
-           *, heads: int = 1, p_slice: Optional[int] = None,
-           cluster: int = 1) -> Tiling:
+           *, p_slice: Optional[int] = None) -> Tiling:
     """The kernel's tiling of a scan of BH heads in groups of r, S rows,
     head dim P and state dim N in ``dtype``; ValueError on sizes it does
     not take.
 
     bf16 (TMA, wgmma): a unit is one head and all its P columns, a CTA of
-    one consumer and one producer warpgroup with a two-stage ring, two CTAs
-    an SM: mamba2-130m's serving shape (BH 192) is one wave on 132 SMs.
-    ``heads``, ``p_slice`` and ``cluster`` name the other units the source
-    has (``kernel_bench --ssd-sweep`` times them): two heads of a group a
-    CTA sharing its B/C tiles, 32 columns a unit, or two CTAs of a cluster
-    sharing B/C by multicast.
+    one warpgroup, two CTAs an SM (a ring of two stages at N 128):
+    mamba2-130m's serving shape (BH 192) is one wave on 132 SMs.
+    ``p_slice`` names the smaller units the source also has (32 or 16
+    columns; ``kernel_bench --ssd-sweep`` times them).  r does not change
+    the unit: a head reads its group's B/C row.
     f32 (CUDA cores): one CTA a head, all of P, no ring."""
     if dtype not in _DTYPES:
         raise TypeError(f"no tiling for {dtype}")
@@ -156,28 +144,25 @@ def tiling(BH: int, r: int, S: int, P: int, N: int, dtype: torch.dtype,
         raise ValueError(f"unsupported sizes BH={BH}, r={r}, S={S}")
     if dtype == torch.float32:
         smem = f32_smem_bytes(N, P)
-        return Tiling(1, P, 1, 1, BH, min(_SMEM_SM // (smem + 1024), 16))
+        return Tiling(P, 1, BH, min(_SMEM_SM // (smem + 1024), 16))
     p_slice = P if p_slice is None else p_slice
-    if P % p_slice or r % (heads * cluster):
-        raise ValueError(f"a unit of {heads} head(s) x {cluster} CTA(s) and "
-                         f"{p_slice} columns does not divide r={r}, P={P}")
-    stages, _ = bf16_layout(N, p_slice, heads)
-    return Tiling(heads, p_slice, stages, cluster,
-                  BH // heads * (P // p_slice), 2 if heads == 1 else 1)
+    if p_slice not in HEAD_DIMS or P % p_slice:
+        raise ValueError(f"a unit of {p_slice} columns does not divide "
+                         f"P={P}")
+    stages, _ = bf16_layout(N, p_slice)
+    return Tiling(p_slice, stages, BH * (P // p_slice), _BF16_CTAS)
 
 
-def bf16_tile(N: int, p_slice: int, heads: int = 1, cluster: int = 1
-              ) -> Tuple[int, int, int]:
-    """The source's bf16 instance (N, p_slice, heads, cluster): its ring
-    stages, dynamic shared memory, and the CTAs of it the current card
-    holds at once (cluster 1: an SM's, from the occupancy calculator;
-    cluster > 1: the card's).  ValueError if there is no such instance."""
+def bf16_tile(N: int, p_slice: int) -> Tuple[int, int, int]:
+    """The source's bf16 instance (N, p_slice): its ring stages, dynamic
+    shared memory, and the CTAs of it an SM of the current card holds at
+    once (the occupancy calculator).  ValueError if there is no such
+    instance."""
     out = [ctypes.c_int() for _ in range(3)]
-    err = _library().ssd_bf16_tile(N, p_slice, heads, cluster,
+    err = _library().ssd_bf16_tile(N, p_slice,
                                    *(ctypes.byref(o) for o in out))
     if err == -1:
-        raise ValueError(f"no bf16 instance N={N}, p_slice={p_slice}, "
-                         f"heads={heads}, cluster={cluster}")
+        raise ValueError(f"no bf16 instance N={N}, p_slice={p_slice}")
     if err:
         raise RuntimeError(f"occupancy query failed: CUDA error {err}")
     return tuple(o.value for o in out)
@@ -248,7 +233,7 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     """xdt (BH, S, P), dA (BH, S) f32, B/C (BH/r, S, N) -> y (BH, S, P) in
     xdt.dtype.  ``chunk`` defaults to the kernel's 64 and is clipped to S
     (the JAX rule ``min(chunk, S)``).  ``unit`` defaults to ``tiling``'s
-    rule (the sweep passes the other units the source has).
+    rule (the sweep passes the smaller units the source has).
 
     On CUDA tensors this launches the kernel and adds one to
     ``ssd_scan_fwd.launches``; on CPU tensors it returns the plain
@@ -271,8 +256,7 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
                           BH, S, P, N, chunk, r,
                           *kernel_strides(xdt), dA.stride(0),
                           *kernel_strides(B), *kernel_strides(C),
-                          t.heads, t.p_slice, t.stages, t.cluster, t.grid,
-                          stream)
+                          t.p_slice, t.stages, t.units, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan_fwd.launches += 1

@@ -106,10 +106,9 @@ SSD_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128}
 SSD_GROUP_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128, "r": 24}
 SSD_SHAPES = (SSD_SHAPE, SSD_GROUP_SHAPE)
 # the units of the SSD source's bf16 instances, as ``ssd.tiling`` options:
-# one head and all of P a CTA (the rule), 32 columns a CTA, two heads of a
-# group a CTA sharing its B/C tiles, two CTAs of a cluster sharing B/C by
-# multicast
-SSD_SWEEP_UNITS = ({}, {"p_slice": 32}, {"heads": 2}, {"cluster": 2})
+# one head and all of P a CTA (the rule: one wave at the serving shape), and
+# 32 columns a CTA (twice the CTAs: two rounds at two an SM)
+SSD_SWEEP_UNITS = ({}, {"p_slice": 32})
 # (M, K, N, chunks): glm4-9b's MLP input projection x @ wi (d_model 4096,
 # d_ff 13696) at the serving prefill of batch 4 x 1024 tokens, the
 # activation sharded 4 ways along d_model as a 4-rank layer gathers it
@@ -359,9 +358,8 @@ def bench_ssd(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     rec = {"name": "ssd_scan", "shape": {
         "xdt": [BH, S, P], "B": list(Bm.shape), "r": r,
         "dtype": str(x.dtype)[6:], "chunk": chunk}, "tiling": t._asdict(),
-        "tile": f"chunk {ssd.CHUNK}, {t.heads} head{'s' if t.heads > 1 else ''}"
-                f" x P {t.p_slice} a CTA, {t.stages} stages, cluster "
-                f"{t.cluster}, {t.units} CTAs",
+        "tile": f"chunk {ssd.CHUNK}, one head x P {t.p_slice} a CTA, "
+                f"{t.stages} stages, {t.units} CTAs",
         "library": None}
     out, want = kernel(), plain()
     rec.update(_timed(kernel, plain, None, x.device, 50, 5,
@@ -580,7 +578,7 @@ def ssd_sweep(device: Optional[str] = None,
               shapes: Sequence[Dict] = SSD_SHAPES,
               units: Sequence[Dict] = SSD_SWEEP_UNITS) -> Dict:
     """``bench_ssd`` in bf16 at each of ``shapes`` with each unit of
-    ``units`` (``ssd.tiling`` options) that the shape's group size takes,
+    ``units`` (``ssd.tiling`` options) that the shape's head dim takes,
     data from seed 0, printing a line each.  Returns {"device", "records",
     "calls"} as ``run_all``."""
     dev = resolve_device(device)
@@ -594,7 +592,7 @@ def ssd_sweep(device: Optional[str] = None,
             try:
                 t = ssd.tiling(s["BH"], s.get("r", 1), s["S"], s["P"],
                                s["N"], torch.bfloat16, **opts)
-            except ValueError:     # a unit this group size cannot take
+            except ValueError:     # a unit this head dim cannot take
                 continue
             rec = bench_ssd(*args, calls=calls, unit=t)
             records.append(rec)

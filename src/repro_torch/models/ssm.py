@@ -163,10 +163,12 @@ def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor
     out = yo @ p["out_proj"]
     # final state: h_S = sum_t exp(sum_{u>t} dA_u) B_t xdt_t^T  (per head),
     # one f32 einsum over the whole sequence as in the JAX package, with
-    # each group's B shared by its heads: (B,S,ng,r,hp) against (B,S,ng,ns)
+    # each group's B shared by its heads: (B,S,ng,r,hp) against (B,S,ng,ns).
+    # The cumsum runs along the contiguous dim (a scan across the middle
+    # dim of (B,S,nh) is the card's slowest pass of the prefill)
     ng, ns = Bm.shape[-2:]
-    cs = torch.cumsum(dA, dim=1)
-    decay = torch.exp(cs[:, -1:, :] - cs)                     # (B,S,nh)
+    cs = torch.cumsum(dA.transpose(1, 2).contiguous(), dim=-1)  # (B,nh,S)
+    decay = torch.exp(cs[..., -1:] - cs).transpose(1, 2)      # (B,S,nh)
     xd = (decay[..., None] * xdt).unflatten(2, (ng, -1))      # (B,S,ng,r,hp)
     state = torch.einsum("bsgn,bsgrp->bgrnp", Bm.to(F32), xd) \
         .reshape(B_, -1, ns, xdt.shape[-1])                   # (B,nh,ns,hp)

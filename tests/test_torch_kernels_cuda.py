@@ -215,9 +215,8 @@ def test_ssd_units_of_the_serving_shape_are_one_wave(hopper):
     forms; the source's stages and shared memory are the rule's."""
     for r in (1, 24):
         t = ssd.tiling(192, r, 1024, 64, 128, torch.bfloat16)
-        stages, smem, per_sm = ssd.bf16_tile(128, t.p_slice, t.heads,
-                                             t.cluster)
-        assert (stages, smem) == ssd.bf16_layout(128, t.p_slice, t.heads)
+        stages, smem, per_sm = ssd.bf16_tile(128, t.p_slice)
+        assert (stages, smem) == ssd.bf16_layout(128, t.p_slice)
         assert per_sm == t.ctas_per_sm
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         assert t.units <= sms * per_sm

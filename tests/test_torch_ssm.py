@@ -257,51 +257,44 @@ def test_rows_that_do_not_divide_bh_are_refused():
                  use_kernel=True)
 
 
-@pytest.mark.parametrize("N,p_slice,heads,stage,want_stages,want_smem", [
-    (128, 64, 1, 41984, 2, 110592),  # mamba2: two stages, two CTAs an SM
-    (128, 32, 1, 37888, 2, 90112),
-    (64, 64, 1, 25600, 3, 95232),    # a fourth stage would not fit a pair
-    (32, 64, 1, 17408, 4, 83968),    # the ring's cap of four stages
-    (16, 16, 1, 7168, 4, 33792),
-    (128, 64, 2, 50176, 3, 202752),  # two heads: one CTA an SM, 3 stages
+@pytest.mark.parametrize("N,p_slice,stage,want_stages,want_smem", [
+    (128, 64, 40960, 2, 108544),   # mamba2: two stages, two CTAs an SM
+    (128, 32, 36864, 2, 88064),
+    (64, 64, 24576, 3, 92160),     # a fourth stage would not fit a pair
+    (32, 64, 16384, 4, 83968),     # the ring's cap of four stages
+    (16, 16, 6144, 4, 30720),
 ])
-def test_bf16_layout_at_its_edges(N, p_slice, heads, stage, want_stages,
+def test_bf16_layout_at_its_edges(N, p_slice, stage, want_stages,
                                   want_smem):
     """The ring's stages and shared memory (the source's SsdCfg): as many
-    stages of ``stage`` bytes as fit the CTAs an SM must hold, at most 4;
-    the card's SM has 233,472 B, 1 KB of it reserved for each CTA."""
-    stages, smem = tssd.bf16_layout(N, p_slice, heads)
+    stages of ``stage`` bytes as fit two CTAs an SM, at most 4; the card's
+    SM has 233,472 B, 1 KB of it reserved for each CTA."""
+    stages, smem = tssd.bf16_layout(N, p_slice)
     assert (stages, smem) == (want_stages, want_smem)
-    ctas = 2 if heads == 1 else 1
-    assert ctas * (smem + 1024) <= 233472 and smem <= 232448
-    assert stages == 4 or ctas * (smem + stage + 1024) > 233472 \
-        or smem + stage > 232448
+    assert 2 * (smem + 1024) <= 233472
+    assert stages == 4 or 2 * (smem + stage + 1024) > 233472
 
 
 def test_tiling_at_its_edges():
     bf16, f32 = torch.bfloat16, torch.float32
     # mamba2's serving shape: 192 units of one head, two an SM: one wave
     t = tssd.tiling(192, 24, 1024, 64, 128, bf16)
-    assert (t.heads, t.p_slice, t.stages, t.cluster, t.units, t.grid,
-            t.ctas_per_sm) == (1, 64, 2, 1, 192, 192, 2)
+    assert (t.p_slice, t.stages, t.units, t.ctas_per_sm) == (64, 2, 192, 2)
     assert t.units <= tssd.SMS * t.ctas_per_sm
     assert tssd.tiling(192, 1, 1024, 64, 128, bf16) == t   # r does not matter
-    # the units the sweep names
-    assert tssd.tiling(192, 24, 1024, 64, 128, bf16, p_slice=32).units == 384
-    t2 = tssd.tiling(192, 24, 1024, 64, 128, bf16, heads=2)
-    assert (t2.units, t2.ctas_per_sm, t2.stages) == (96, 1, 3)
-    assert tssd.tiling(192, 24, 1024, 64, 128, bf16, cluster=2).units == 192
-    for bad in (dict(heads=2), dict(cluster=2)):     # a group of one head
+    # the smaller units the sweep names: two rounds at the serving shape
+    t32 = tssd.tiling(192, 24, 1024, 64, 128, bf16, p_slice=32)
+    assert t32.units == 384 > tssd.SMS * t32.ctas_per_sm
+    assert tssd.tiling(4, 2, 64, 64, 16, bf16, p_slice=16).units == 16
+    for bad in (48, 64):     # not a head dim, or more than P
         with pytest.raises(ValueError, match="does not divide"):
-            tssd.tiling(192, 1, 1024, 64, 128, bf16, **bad)
-    with pytest.raises(ValueError, match="does not divide"):
-        tssd.tiling(4, 2, 64, 16, 16, bf16, p_slice=32)
+            tssd.tiling(4, 2, 64, 32, 16, bf16, p_slice=bad)
     # every P and N, f32 one CTA a head
     for P in tssd.HEAD_DIMS:
         for N in tssd.STATE_DIMS:
             assert tssd.tiling(3, 1, 1, P, N, bf16).p_slice == P
             tf = tssd.tiling(3, 3, 70, P, N, f32)
-            assert (tf.heads, tf.p_slice, tf.stages, tf.units) == (1, P, 1, 3)
+            assert (tf.p_slice, tf.stages, tf.units) == (P, 1, 3)
     for bad in ((2, 1, 64, 48, 16), (2, 1, 64, 16, 24), (3, 2, 64, 16, 16),
                 (0, 1, 64, 16, 16), (2, 1, 0, 16, 16)):
         with pytest.raises(ValueError):
@@ -351,6 +344,43 @@ def test_prefill_hands_the_scan_group_views(monkeypatch):
     for xs, bs, b_view, c_view, stride in seen:
         assert tuple(xs)[0] == 2 * nh and tuple(bs) == (2, 20, N)
         assert b_view and c_view and stride[1] == cfg.conv_dim
+
+
+def test_ssd_bench_and_sweep_run_untimed_on_the_cpu():
+    """``kernel_bench.bench_ssd`` counts the bytes each input form reads
+    (B and C once a group row) in its bound; ``ssd_sweep`` runs every unit
+    the head dim takes at both forms, untimed on the CPU."""
+    from repro_torch.launch import kernel_bench as kb
+    shapes = [{"BH": 8, "S": 40, "P": 64, "N": 16},
+              {"BH": 8, "S": 40, "P": 64, "N": 16, "r": 4}]
+    out = kb.ssd_sweep("cpu", shapes=shapes)
+    recs = out["records"]
+    assert out["device"] == "cpu" and out["calls"] == {"ssd_scan": 4}
+    assert [r["tiling"]["p_slice"] for r in recs] == [64, 32, 64, 32]
+    for rec, shape in zip(recs, [shapes[0]] * 2 + [shapes[1]] * 2):
+        G = 8 // shape.get("r", 1)
+        want = 2 * 8 * 40 * 64 * 2 + 8 * 40 * 4 + 2 * G * 40 * 16 * 2
+        assert rec["bytes"] == want and rec["shape"]["B"] == [G, 40, 16]
+        assert rec["bound_ms"] == kb.bound(rec["flops"], want,
+                                           torch.bfloat16)[0]
+        assert rec["ms"] is None and rec["device_ms"] is None \
+            and rec["max_abs_err"] == 0.0
+    assert kb.SSD_GROUP_SHAPE == dict(kb.SSD_SHAPE, r=24)
+
+
+def test_ssd_trace_stamps_every_phase_of_the_chunk_loop():
+    """launch/ssd_trace.py finds each phase's line in the kernel's chunk
+    loop (it is run on the card; here only its source edit is checked)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import ssd_trace
+    text = (_build.CSRC / "ssd_scan.cu").read_text()
+    out = ssd_trace.stamped_source(text)
+    assert [f"SSD_STAMP({k});" in out
+            for k in range(1, len(ssd_trace.PHASES) + 1)] \
+        == [True] * len(ssd_trace.PHASES)
+    assert out.count("SSD_STAMP(") == len(ssd_trace.PHASES) + 1
+    with pytest.raises(ValueError, match="no line for phase"):
+        ssd_trace.stamped_source(text.replace("    fence_regs(lo);", ""))
 
 
 # ---------------------------------------------------------------- mixer

@@ -58,7 +58,8 @@ failure ends the run with a non-zero exit:
    16-128, groups of 1-24, B/C as strided views of a conv output);
 8. the SSD kernel at mamba2-130m's serving prefill shape (BH 192, S 1024,
    P 64, N 128, bf16), B/C one row a head (``kernel_bench.SSD_SHAPE``) and
-   in the model's group form (``SSD_GROUP_SHAPE``, r 24): error, CUDA-event
+   as the model hands them over (``SSD_GROUP_SHAPE``: r 24, strided views
+   of a conv output of 1792 columns): error, CUDA-event
    times of the kernel and the plain version, device-only times from
    ``torch.profiler``, and the least time the card could take for the
    bytes each form reads (no single PyTorch call computes the scan, so
@@ -207,23 +208,6 @@ def attn_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype, model_layout=False):
         return torch.randn(B, H, S, D, generator=gen, device="cuda",
                            dtype=dtype)
     return make(Hq, Sq), make(Hkv, Skv), make(Hkv, Skv)
-
-
-def ssd_inputs(gen, BH, S, P, N, dtype, r=1, xbc_view=False):
-    """xdt in ``dtype`` and dA f32 < 0 on the card, contiguous as the model
-    hands them to the kernel, and B/C in group form (BH / r rows):
-    contiguous, or with ``xbc_view`` strided views of one (BH / r, S,
-    conv_dim) tensor, as the model hands over its conv output."""
-    x = torch.randn(BH, S, P, generator=gen, device="cuda").to(dtype)
-    dA = -torch.rand(BH, S, generator=gen, device="cuda") * 0.2
-    G = BH // r
-    if xbc_view:    # (x, B, C) columns, x's r heads of P first
-        xbc = torch.randn(G, S, r * P + 2 * N, generator=gen,
-                          device="cuda").to(dtype)
-        return x, dA, xbc[..., r * P:r * P + N], xbc[..., r * P + N:]
-    B = torch.randn(G, S, N, generator=gen, device="cuda").to(dtype)
-    C = torch.randn(G, S, N, generator=gen, device="cuda").to(dtype)
-    return x, dA, B, C
 
 
 def gemm_inputs(gen, M, K, N, dtype, kind="normal"):
@@ -497,12 +481,13 @@ def main() -> int:
     for r in (1, mcfg.ssm_nheads // mcfg.ssm_ngroups):
         t = ssd.tiling(m_batch * mcfg.ssm_nheads, r, 1024,
                        mcfg.ssm_headdim, mcfg.ssm_state, torch.bfloat16)
-        stages, smem, per_sm = ssd.bf16_tile(mcfg.ssm_state, t.p_slice)
-        log(f"  ssd_scan bf16 serving shape, r {r}: {t.units} units of one "
-            f"head x P {t.p_slice}, {stages} stages, dynamic shared memory "
-            f"{smem} B, {per_sm} CTAs an SM (tiling {t.ctas_per_sm}), "
+        stages, smem, per_sm = ssd.bf16_tile(mcfg.ssm_state, mcfg.ssm_headdim)
+        log(f"  ssd_scan bf16 serving shape, r {r}: {t.units} CTAs of one "
+            f"head, {stages} stages, dynamic shared memory {smem} B, "
+            f"{per_sm} CTAs an SM (tiling {t.ctas_per_sm}), "
             f"{ssd.SMS * per_sm} resident")
-        if (stages, smem) != ssd.bf16_layout(mcfg.ssm_state, t.p_slice) \
+        if (stages, smem) != ssd.bf16_layout(mcfg.ssm_state,
+                                              mcfg.ssm_headdim) \
                 or per_sm != t.ctas_per_sm or t.units > ssd.SMS * per_sm:
             raise AssertionError(f"ssd_scan.cu's unit does not match "
                                  f"ssd.tiling or is not one wave: {t}, "
@@ -641,7 +626,9 @@ def main() -> int:
     ] + list(ssd.BOUNDARY_CASES)
     for dtype in (torch.float32, torch.bfloat16):
         for name, BH, r, S_, P, N, chunk, view in ssd_spec:
-            x, dA, Bm, Cm = ssd_inputs(gen, BH, S_, P, N, dtype, r, view)
+            x, dA, Bm, Cm = kb.ssd_inputs(
+                gen, {"BH": BH, "S": S_, "P": P, "N": N, "r": r, "xbc": view},
+                dtype, "cuda")
             out = ssd.ssd_scan_fwd(x, dA, Bm, Cm, chunk=chunk)
             want = ssd_chunked_ref(x, dA, ssd.expand_groups(Bm, r),
                                    ssd.expand_groups(Cm, r),
@@ -672,20 +659,25 @@ def main() -> int:
     BH, S, P, N = m_batch * mcfg.ssm_nheads, 1024, mcfg.ssm_headdim, \
         mcfg.ssm_state
     if {"BH": BH, "S": S, "P": P, "N": N} != kb.SSD_SHAPE \
-            or dict(kb.SSD_SHAPE, r=mcfg.ssm_nheads // mcfg.ssm_ngroups) \
-            != kb.SSD_GROUP_SHAPE:
+            or dict(kb.SSD_SHAPE, r=mcfg.ssm_nheads // mcfg.ssm_ngroups,
+                    xbc=True) != kb.SSD_GROUP_SHAPE:
         raise AssertionError(f"the bench's SSD shapes {kb.SSD_SHAPES} are "
                              f"not the serving shape")
     ssd_recs = {}
     for form, shape in (("per_head", kb.SSD_SHAPE),
                         ("group", kb.SSD_GROUP_SHAPE)):
         x, dA, Bm, Cm = kb.ssd_inputs(gen, shape, torch.bfloat16, dev)
+        if form == "group" and Bm.stride(1) != mcfg.conv_dim:
+            raise AssertionError(f"the group form's B/C rows {Bm.stride()} "
+                                 f"are not the model's conv output rows "
+                                 f"({mcfg.conv_dim} columns)")
         rec = kb.bench_ssd(x, dA, Bm, Cm)
         if rec["max_abs_err"] > SSD_BF16_TOL * rec["max_abs_plain"]:
             raise AssertionError(f"ssd_scan disagrees at the serve shape "
                                  f"({form}): {rec['max_abs_err']} (max "
                                  f"|plain| {rec['max_abs_plain']})")
-        log(f"  {form}: xdt {tuple(x.shape)} B/C {tuple(Bm.shape)} bf16, dA "
+        log(f"  {form}: xdt {tuple(x.shape)} B/C {tuple(Bm.shape)} (strides "
+            f"{Bm.stride()}) bf16, dA "
             f"f32, chunk {ssd.CHUNK}: {rec['flops'] / 1e9:.2f} GFLOP, "
             f"{rec['bytes'] / 1e6:.1f} MB; tiling {rec['tile']}")
         log(f"    max_abs_err {rec['max_abs_err']:.3e} (max |plain| "

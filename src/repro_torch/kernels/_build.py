@@ -6,7 +6,9 @@ compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 loaded with ``ctypes``.  The library's file name carries a hash of the
 source and of every ``#include "..."`` header it reaches under ``csrc/``
 (``source_digest``), so an edited source or header is rebuilt and a stale
-library is never loaded.  Nothing here runs at import time.
+library is never loaded.  ``build(name, edit)`` builds a copy of the
+source's text changed by ``edit`` (a diagnostic build, such as clock
+stamps) beside the real one.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import re
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 __all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "sources", "source_digest",
            "build", "load"]
@@ -29,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Optional[Callable[[str], str]]], ctypes.CDLL] = {}
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
@@ -72,18 +74,28 @@ def source_digest(name: str, csrc: Optional[Path] = None) -> str:
     return h.hexdigest()[:12]
 
 
-def build(name: str) -> Tuple[Path, float, str]:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Returns (library path, seconds spent compiling, compiler log)."""
+def build(name: str, edit: Optional[Callable[[str], str]] = None
+          ) -> Tuple[Path, float, str]:
+    """Compile ``csrc/<name>.cu`` unless its library is already built;
+    with ``edit``, a copy of its text changed by ``edit``, written under
+    ``BUILD_DIR`` and named by a hash of that text too.  Returns (library
+    path, seconds spent compiling, compiler log)."""
     src = CSRC / f"{name}.cu"
     digest = source_digest(name)
+    if edit is not None:
+        text = edit(src.read_text())
+        digest = hashlib.sha1((digest + text).encode()).hexdigest()[:12]
+        name, src = f"{name}-edited", BUILD_DIR / f"{name}-edited-{digest}.cu"
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib.with_suffix(".log")
     if lib.is_file():
         return lib, 0.0, log_path.read_text() if log_path.is_file() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if edit is not None:
+        src.write_text(text)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [str(nvcc_path()), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [str(nvcc_path()), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+           str(src)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -96,8 +108,10 @@ def build(name: str) -> Tuple[Path, float, str]:
     return lib, seconds, log
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)[0]))
-    return _loaded[name]
+def load(name: str, edit: Optional[Callable[[str], str]] = None
+         ) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (``edit``: of its edited
+    copy, as ``build``), built on first use."""
+    if (name, edit) not in _loaded:
+        _loaded[name, edit] = ctypes.CDLL(str(build(name, edit)[0]))
+    return _loaded[name, edit]

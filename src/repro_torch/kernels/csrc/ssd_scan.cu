@@ -15,12 +15,10 @@
 //
 // Translation: the TPU kernel carries h in VMEM scratch across a sequential
 // ("arbitrary") grid axis over chunks.  Blocks on the card run in no order,
-// so a CTA owns a work unit, one head and a slice of PT of its P columns
-// (the state's columns depend only on the same columns of X, so splitting P
-// is exact), and loops over the chunks itself, the state staying in the
-// CTA.  A ragged S and a chunk below 64 are masked: every chunk is staged as
-// a 64-row tile whose rows past the chunk or past S are zero (dA 0), which
-// is what the Pallas kernel's zero padding computes.
+// so a CTA owns one head and loops over its chunks itself, the state
+// staying in the CTA.  A ragged S and a chunk below 64 are masked: every
+// chunk is staged as a 64-row tile whose rows past the chunk or past S are
+// zero (dA 0), which is what the Pallas kernel's zero padding computes.
 //
 // What bounds it on this card: at the mamba2-130m serving prefill shape
 // (BH 192, S 1024, P 64, N 128, bf16 X/B/C, f32 dA) the chunk-64 algorithm
@@ -43,10 +41,11 @@
 //   strides (N or P, S, rows), so the model's strided view of its conv
 //   output is read in place, into a two-stage ring; a stage's full barrier
 //   counts TMA's bytes, and the same thread refills the stage two chunks
-//   ahead as soon as each tile is read: C and X once the intra product and
-//   C h have retired, B after the state update and the end-of-chunk
-//   barrier.  The box is `chunk` rows; the tile rows past it are zeroed once,
-//   and TMA zero-fills rows past S.  Each warp loads the chunk's dA a chunk
+//   ahead as soon as each tile is read: C and X once every warp has waited
+//   for the intra product and C h, B after the state update; a barrier of
+//   the whole CTA precedes each refill, so no warp still reads the stage.
+//   The box is `chunk` rows; the tile rows past it are zeroed once, and TMA
+//   zero-fills rows past S.  Each warp loads the chunk's dA a chunk
 //   ahead into registers (two values a lane), so the cumsum waits for no
 //   load and dA needs no alignment.
 // - wgmma for the four products, f32 accumulate.  S = C B^T: C and B K-major
@@ -101,7 +100,7 @@ struct Params {
 
 // The tiling the wrapper hands over (ssd.py::tiling).
 struct Tiling {
-  int p_slice, stages, grid;
+  int stages, grid;
 };
 
 // Inclusive prefix sum over one warp of the 64 values a lane holds two of
@@ -270,11 +269,11 @@ struct Wg<64> {
   }
 };
 
-// The bf16 instance of state dim N and a unit of PT columns of P: one
-// warpgroup a CTA, two CTAs an SM.
-template <int N_, int PT_>
+// The bf16 instance of state dim N and head dim P: one head a CTA, one
+// warpgroup, two CTAs an SM.
+template <int N_, int P_>
 struct SsdCfg {
-  static constexpr int N = N_, PT = PT_;
+  static constexpr int N = N_, P = P_;
   static constexpr int THREADS = 128;  // one warpgroup
   static constexpr int MIN_CTAS = 2;   // CTAs an SM
   static constexpr int BOXN = N < 64 ? N : 64;  // B/C columns a TMA box
@@ -283,7 +282,7 @@ struct SsdCfg {
   static constexpr uint64_t SW_N = swizzle_code(ROWB_N);
   static constexpr int CB_BOX = CH * ROWB_N;
   static constexpr int CB_BYTES = NBOX * CB_BOX;  // a C or B tile
-  static constexpr int ROWB_P = 2 * PT;           // bytes an X row
+  static constexpr int ROWB_P = 2 * P;           // bytes an X row
   static constexpr uint64_t SW_P = swizzle_code(ROWB_P);
   static constexpr int X_BYTES = round1k(CH * ROWB_P);
   static constexpr int MT = N < 64 ? 1 : N / 64;  // m64 tiles of the state
@@ -302,7 +301,7 @@ struct SsdCfg {
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static constexpr int SMEM = FIXED + STAGES * STAGE;
   static_assert(STAGES >= 2, "a ring of two stages at least");
-  static_assert(PT == 16 || PT == 32 || PT == 64, "P slice");
+  static_assert(P == 16 || P == 32 || P == 64, "head dim");
 
   // C or B, K-major (K = N), at k-step kk: its box, and the step's 32 bytes
   // in the swizzled row
@@ -318,7 +317,7 @@ struct SsdCfg {
     return smem_desc(base + mt * CB_BOX + 16 * kk * ROWB_N,
                      N >= 64 ? CB_BOX : 0, 8 * ROWB_N, SW_N);
   }
-  // X, Xd or h's copy, N-major (N = PT), at k-step kk (16 rows)
+  // X, Xd or h's copy, N-major (N = P), at k-step kk (16 rows)
   static __device__ __forceinline__ uint64_t nmajor(uint32_t base, int kk) {
     return smem_desc(base + 16 * kk * ROWB_P, X_BYTES, 8 * ROWB_P, SW_P);
   }
@@ -330,7 +329,7 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_CTAS)
                  const __grid_constant__ CUtensorMap tm_b,
                  const __grid_constant__ CUtensorMap tm_c,
                  const __grid_constant__ CUtensorMap tm_y, const Params p) {
-  constexpr int N = Cfg::N, PT = Cfg::PT, ST = Cfg::STAGES, MT = Cfg::MT;
+  constexpr int N = Cfg::N, P = Cfg::P, ST = Cfg::STAGES, MT = Cfg::MT;
   extern __shared__ unsigned char ssd_smem[];
   __shared__ __align__(8) uint64_t full[ST];
   // the ring at a 1024-byte boundary of the shared window, then h's bf16
@@ -343,8 +342,7 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_CTAS)
 
   const int t = threadIdx.x;
   const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
-  const int slices = p.P / PT;
-  const int bh = blockIdx.x / slices, p0 = (blockIdx.x % slices) * PT;
+  const int bh = blockIdx.x;
   const int grp = bh / p.r;  // the B/C row of this head
   const int nc = (p.S + p.chunk - 1) / p.chunk;
   float* csw = reinterpret_cast<float*>(xd + Cfg::X_BYTES) + warp * CH;
@@ -357,12 +355,12 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_CTAS)
   auto load_cx = [&](int c, int s) {
     unsigned char* st = smem + s * Cfg::STAGE;
     const int row0 = c * p.chunk;
-    mbar_expect_tx(&full[s], (uint32_t)p.chunk * (2 * N * 2 + PT * 2));
+    mbar_expect_tx(&full[s], (uint32_t)p.chunk * (2 * N * 2 + P * 2));
 #pragma unroll
     for (int bx = 0; bx < Cfg::NBOX; ++bx)
       tma_load_3d(st + bx * Cfg::CB_BOX, &tm_c, &full[s], bx * Cfg::BOXN,
                   row0, grp);
-    tma_load_3d(st + Cfg::OFF_X, &tm_x, &full[s], p0, row0, bh);
+    tma_load_3d(st + Cfg::OFF_X, &tm_x, &full[s], 0, row0, bh);
   };
   auto load_b = [&](int c, int s) {
     unsigned char* st = smem + s * Cfg::STAGE;
@@ -405,23 +403,23 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_CTAS)
 
   // accumulators: element 4 j + e is row i0 + 8 (e >> 1), column 8 j +
   // 2 tq + (e & 1) (h: state row 64 mt + i0 + 8 (e >> 1))
-  float h[MT][PT / 2];
-  float sc[32], y[PT / 2], tc[PT / 2];
+  float h[MT][P / 2];
+  float sc[32], y[P / 2], tc[P / 2];
   uint32_t hi[16], lo[16];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < PT / 2; ++i) h[mt][i] = 0.f;
+    for (int i = 0; i < P / 2; ++i) h[mt][i] = 0.f;
 
-  // an m64 x PT accumulator's 64 rows from row0 on, as bf16, into hs (the
-  // PT-column swizzled tile): a warp's 16 rows x 8 columns are two 8 x 8
+  // an m64 x P accumulator's 64 rows from row0 on, as bf16, into hs (the
+  // P-column swizzled tile): a warp's 16 rows x 8 columns are two 8 x 8
   // matrices, four to a stmatrix; lane l gives the address of row l % 8 of
   // matrix l / 8
-  auto stage = [&](const float (&a)[PT / 2], int row0) {
+  auto stage = [&](const float (&a)[P / 2], int row0) {
     const int q = lane / 8;
     const int n = row0 + 16 * warp + 8 * (q & 1) + lane % 8;
 #pragma unroll
-    for (int j = 0; j < PT / 8; j += 2)
+    for (int j = 0; j < P / 8; j += 2)
       stmatrix_x4(hs_addr + swz<Cfg::ROWB_P>(n, 16 * (j + (q >> 1))),
                   pack_bf16(a[4 * j], a[4 * j + 1]),
                   pack_bf16(a[4 * j + 2], a[4 * j + 3]),
@@ -487,13 +485,13 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_CTAS)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      Wg<PT>::rs(y, &hi[4 * kk], Cfg::nmajor(x_addr, kk), kk > 0);
+      Wg<P>::rs(y, &hi[4 * kk], Cfg::nmajor(x_addr, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      Wg<PT>::rs(y, &lo[4 * kk], Cfg::nmajor(x_addr, kk), 1);
+      Wg<P>::rs(y, &lo[4 * kk], Cfg::nmajor(x_addr, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < N / 16; ++kk)
-      Wg<PT>::template ss<0, 1>(tc, Cfg::kmajor(c_addr, kk),
+      Wg<P>::template ss<0, 1>(tc, Cfg::kmajor(c_addr, kk),
                                 Cfg::nmajor(hs_addr, kk), kk > 0);
     wgmma_commit();
 
@@ -510,22 +508,19 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_CTAS)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < PT / 2; ++i) h[mt][i] *= et;
+      for (int i = 0; i < P / 2; ++i) h[mt][i] *= et;
     wgmma_fence();
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        Wg<PT>::template ss<1, 1>(h[mt], Cfg::bt_desc(b_addr, mt, kk),
+        Wg<P>::template ss<1, 1>(h[mt], Cfg::bt_desc(b_addr, mt, kk),
                                   Cfg::nmajor(xd_addr, kk), 1);
     wgmma_commit();
 
     // y += t o exp(cs) once the first group has retired, under the state
     // update; rows past the chunk or S are not stored
     wgmma_wait<1>();
-    // C and X of the stage are read (C h and the decayed X are done): its
-    // next chunk's C and X load under the store and the state update
-    if (t == 0 && c + ST < nc) load_cx(c + ST, s);
     fence_acc(y);
     fence_acc(tc);
     fence_regs(hi);
@@ -534,13 +529,16 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_CTAS)
     // TMA: the box is the chunk's rows, and rows past S are not written
     const float ec[2] = {ex2(ci[0]), ex2(ci[1])};
 #pragma unroll
-    for (int i = 0; i < PT / 2; ++i) y[i] = fmaf(tc[i], ec[(i >> 1) & 1], y[i]);
+    for (int i = 0; i < P / 2; ++i) y[i] = fmaf(tc[i], ec[(i >> 1) & 1], y[i]);
     stage(y, 0);
     fence_proxy_async();
     __syncthreads();
     if (t == 0) {
-      tma_store_3d(&tm_y, hs, p0, row0, bh);
+      tma_store_3d(&tm_y, hs, 0, row0, bh);
       bulk_commit();
+      // every warp has waited for (S o L) X and C h, so C and X of the
+      // stage are read: its next chunk's C and X load under the update
+      if (c + ST < nc) load_cx(c + ST, s);
     }
     wgmma_wait<0>();
 #pragma unroll
@@ -678,17 +676,17 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 
 // ============================================================ the launch
 
-// The bf16 instances: (N, PT).
+// The bf16 instances: (N, P).
 #define SSD_BF16_INSTANCES(X)                                  \
   X(16, 16) X(16, 32) X(16, 64) X(32, 16) X(32, 32) X(32, 64)  \
   X(64, 16) X(64, 32) X(64, 64) X(128, 16) X(128, 32) X(128, 64)
 
-// Call f(Cfg{}) with the instance (N, PT); false if there is none.
+// Call f(Cfg{}) with the instance (N, P); false if there is none.
 template <class F>
-bool with_bf16(int N, int PT, F&& f) {
-#define SSD_CASE(n, pt)          \
-  if (N == n && PT == pt) {      \
-    f(SsdCfg<n, pt>{});          \
+bool with_bf16(int N, int P, F&& f) {
+#define SSD_CASE(n, hp)          \
+  if (N == n && P == hp) {       \
+    f(SsdCfg<n, hp>{});          \
     return true;                 \
   }
   SSD_BF16_INSTANCES(SSD_CASE)
@@ -719,10 +717,10 @@ template <class Cfg>
 cudaError_t launch_bf16(const Params& p, int grid, cudaStream_t stream) {
   CUtensorMap tx, tb, tc, ty;
   const int groups = p.BH / p.r;
-  if (!encode_rows(&tx, p.x, p.P, p.S, p.BH, p.x_sb, p.x_ss, Cfg::PT,
+  if (!encode_rows(&tx, p.x, p.P, p.S, p.BH, p.x_sb, p.x_ss, Cfg::P,
                    p.chunk) ||
       !encode_rows(&ty, p.y, p.P, p.S, p.BH, (long long)p.S * p.P, p.P,
-                   Cfg::PT, p.chunk) ||
+                   Cfg::P, p.chunk) ||
       !encode_rows(&tb, p.b, Cfg::N, p.S, groups, p.b_sb, p.b_ss, Cfg::BOXN,
                    p.chunk) ||
       !encode_rows(&tc, p.c, Cfg::N, p.S, groups, p.c_sb, p.c_ss, Cfg::BOXN,
@@ -745,30 +743,26 @@ cudaError_t dispatch_f32(const Params& p, cudaStream_t s) {
   }
 }
 
-// A tiling this source runs.  f32: one CTA a head, all of P, no ring.
-// bf16: an instance (N, p_slice), its stages, and a grid of one CTA a head
-// and P slice.
+// A tiling this source runs: one CTA a head; f32 no ring, bf16 the
+// instance (N, P)'s stages.
 bool valid_tiling(int dtype, const Params& p, const Tiling& t) {
-  if (dtype == 0)
-    return t.p_slice == p.P && t.stages == 1 && t.grid == p.BH;
-  int stages = -1;
-  if (!with_bf16(p.N, t.p_slice,
-                 [&](auto cfg) { stages = decltype(cfg)::STAGES; }))
+  int stages = dtype == 0 ? 1 : -1;
+  if (dtype != 0 &&
+      !with_bf16(p.N, p.P, [&](auto cfg) { stages = decltype(cfg)::STAGES; }))
     return false;
-  return t.stages == stages && p.P % t.p_slice == 0 &&
-         (long long)t.grid == (long long)p.BH * (p.P / t.p_slice);
+  return t.stages == stages && t.grid == p.BH;
 }
 
 }  // namespace
 
-// The bf16 instance (N, PT): its ring stages, dynamic shared memory and
+// The bf16 instance (N, P): its ring stages, dynamic shared memory and
 // the CTAs of it an SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns 0, -1 if
 // there is no such instance, or the cudaError_t of the query.
-extern "C" int ssd_bf16_tile(int N, int PT, int* stages, int* smem,
+extern "C" int ssd_bf16_tile(int N, int P, int* stages, int* smem,
                              int* per_sm) {
   cudaError_t e = cudaSuccess;
-  if (!with_bf16(N, PT, [&](auto cfg) {
+  if (!with_bf16(N, P, [&](auto cfg) {
         using Cfg = decltype(cfg);
         *stages = Cfg::STAGES;
         *smem = Cfg::SMEM;
@@ -784,17 +778,17 @@ extern "C" int ssd_bf16_tile(int N, int PT, int* stages, int* smem,
 // dtype: 0 = float32, 1 = bfloat16 (of xdt, B, C and y; dA is float32).
 // B and C have BH / r rows (head bh reads row bh / r).  Strides are in
 // elements.  chunk in [1, 64].  The tiling is the wrapper's (ssd.py::
-// tiling): P columns a CTA, ring stages and the grid.  Returns the
-// launch's cudaError_t (0 on success).
+// tiling): ring stages and the grid.  Returns the launch's cudaError_t (0
+// on success).
 extern "C" int ssd_fwd(const void* x, const float* da, const void* b,
                        const void* c, void* y, int dtype, int BH, int S, int P,
                        int N, int chunk, int r, long long x_sb, long long x_ss,
                        long long d_sb, long long b_sb, long long b_ss,
-                       long long c_sb, long long c_ss, int p_slice, int stages,
-                       int grid, void* stream) {
+                       long long c_sb, long long c_ss, int stages, int grid,
+                       void* stream) {
   const Params p{x,    da,   b,    c,    y,    BH,   S,    P,   N,
                  chunk, r,   x_sb, x_ss, d_sb, b_sb, b_ss, c_sb, c_ss};
-  const Tiling t{p_slice, stages, grid};
+  const Tiling t{stages, grid};
   if ((dtype != 0 && dtype != 1) || chunk < 1 || chunk > CH || BH < 1 ||
       S < 1 || r < 1 || BH % r != 0 || !valid_tiling(dtype, p, t))
     return (int)cudaErrorInvalidValue;
@@ -809,7 +803,7 @@ extern "C" int ssd_fwd(const void* x, const float* da, const void* b,
     }
   }
   cudaError_t e = cudaErrorInvalidValue;
-  with_bf16(N, p_slice,
+  with_bf16(N, P,
             [&](auto cfg) { e = launch_bf16<decltype(cfg)>(p, grid, s); });
   return (int)e;
 }

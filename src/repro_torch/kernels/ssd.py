@@ -15,9 +15,9 @@ B and C come in group form: head row ``bh`` reads group row ``bh // r``,
 adjacent, BH flattened as (batch, head)).  ``r = 1`` is one row a head, the
 interface of the JAX kernel.
 
-``tiling(BH, r, S, P, N, dtype)`` says how the work is cut: the P columns
-of a unit (one CTA, one head), the ring's stages, the units and the CTAs
-an SM holds.  It is the only copy of that rule:
+``tiling(BH, r, S, P, N, dtype)`` says how the work is cut: one CTA a
+head, the ring's stages, the CTAs and the CTAs an SM holds.  It is the only
+copy of that rule:
 ``ssd_scan_fwd`` hands it to the source, which checks only that it has
 such an instance.
 
@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,8 +53,8 @@ _MAX_STAGES = 4
 
 # (name, BH, r, S, P, N, chunk, xbc view): every edge of ``tiling`` and of
 # the kernel's masks: a chunk below 64 (8, 40) and a ragged S (the box's
-# rows past S), each P (the unit's columns) and N (one B/C box of 16, 32 or
-# 64 columns, two of 128; a state of fewer than 64 rows), group sizes 1, 2,
+# rows past S), each P and N (one B/C box of 16, 32 or 64 columns, two of
+# 128; a state of fewer than 64 rows), group sizes 1, 2,
 # 8 and 24 (mamba2's), and B/C as strided views of a conv output (B, S,
 # conv_dim) as the model hands them over.  The card's checks (chip_smoke
 # phase 7, tests/test_torch_kernels_cuda.py) hold the kernel to the plain
@@ -72,25 +72,27 @@ BOUNDARY_CASES = (
 )
 
 # ssd_fwd(x, dA, B, C, y, dtype, BH, S, P, N, chunk, r, 7 strides,
-#         p_slice, stages, grid, stream): pointers and the stream as
-# c_void_p, or ctypes would pass them as 32-bit ints
+#         stages, grid, stream): pointers and the stream as c_void_p, or
+# ctypes would pass them as 32-bit ints
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 3
+             + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 2
              + [ctypes.c_void_p])
 
 
 class Tiling(NamedTuple):
-    """How the scan of one call is cut across CTAs: a CTA a unit of one
-    head and ``p_slice`` of its P columns."""
-    p_slice: int      # P columns of a unit
+    """How the scan of one call is cut across CTAs: a CTA a head, all
+    of its P columns."""
     stages: int       # ring stages (1: no ring, the f32 CTA)
-    units: int        # CTAs: BH x P / p_slice
+    units: int        # CTAs: BH
     ctas_per_sm: int  # CTAs an SM holds (shared memory and registers)
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("ssd_scan")
+def _library(edit: Optional[Callable[[str], str]] = None) -> ctypes.CDLL:
+    """The built ``ssd_scan.cu``; ``edit`` builds a copy of its text
+    changed by that function instead (``launch/ssd_trace.py``'s clock
+    stamps)."""
+    lib = _build.load("ssd_scan", edit)
     lib.ssd_fwd.argtypes = _ARGTYPES
     lib.ssd_fwd.restype = ctypes.c_int
     lib.ssd_bf16_tile.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
@@ -102,16 +104,16 @@ def _round1k(n: int) -> int:
     return -(-n // 1024) * 1024
 
 
-def bf16_layout(N: int, p_slice: int) -> Tuple[int, int]:
-    """(ring stages, dynamic shared memory) of the bf16 unit of
-    ``p_slice`` columns at state dim N: a stage holds C's, B's and X's
-    64-row tiles; beside the ring, the bf16 copy of h (at least 64 rows:
-    it also stages y's tile), the decayed X and the warps' cumsums; as many
-    stages as fit two CTAs an SM, at most 4.  The source's ``SsdCfg``,
+def bf16_layout(N: int, P: int) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory) of the bf16 CTA at state dim
+    N and head dim P: a stage holds C's, B's and X's 64-row tiles; beside
+    the ring, the bf16 copy of h (at least 64 rows: it also stages y's
+    tile), the decayed X and the warps' cumsums; as many stages as fit two
+    CTAs an SM, at most 4.  The source's ``SsdCfg``,
     which phase 2 of chip_smoke holds to it."""
-    stage = 2 * _round1k(64 * 2 * N) + _round1k(64 * 2 * p_slice)
-    fixed = (1024 + _round1k(max(N, 64) * 2 * p_slice)
-             + _round1k(64 * 2 * p_slice) + 4 * 64 * 4)
+    stage = 2 * _round1k(64 * 2 * N) + _round1k(64 * 2 * P)
+    fixed = (1024 + _round1k(max(N, 64) * 2 * P)
+             + _round1k(64 * 2 * P) + 4 * 64 * 4)
     budget = _SMEM_SM // _BF16_CTAS - 1024 - 256
     stages = min(_MAX_STAGES, (budget - fixed) // stage)
     return stages, fixed + stages * stage
@@ -122,19 +124,17 @@ def f32_smem_bytes(N: int, P: int) -> int:
     return (64 * P + 2 * 64 * (N + 1) + 64 * 65 + N * P + 5 * 64) * 4
 
 
-def tiling(BH: int, r: int, S: int, P: int, N: int, dtype: torch.dtype,
-           *, p_slice: Optional[int] = None) -> Tiling:
+def tiling(BH: int, r: int, S: int, P: int, N: int,
+           dtype: torch.dtype) -> Tiling:
     """The kernel's tiling of a scan of BH heads in groups of r, S rows,
     head dim P and state dim N in ``dtype``; ValueError on sizes it does
     not take.
 
-    bf16 (TMA, wgmma): a unit is one head and all its P columns, a CTA of
-    one warpgroup, two CTAs an SM (a ring of two stages at N 128):
-    mamba2-130m's serving shape (BH 192) is one wave on 132 SMs.
-    ``p_slice`` names the smaller units the source also has (32 or 16
-    columns; ``kernel_bench --ssd-sweep`` times them).  r does not change
-    the unit: a head reads its group's B/C row.
-    f32 (CUDA cores): one CTA a head, all of P, no ring."""
+    bf16 (TMA, wgmma): one head and all its P columns a CTA of one
+    warpgroup, two CTAs an SM (a ring of two stages at N 128):
+    mamba2-130m's serving shape (BH 192) is one wave on 132 SMs.  r does
+    not change the unit: a head reads its group's B/C row.
+    f32 (CUDA cores): one CTA a head, no ring."""
     if dtype not in _DTYPES:
         raise TypeError(f"no tiling for {dtype}")
     if P not in HEAD_DIMS or N not in STATE_DIMS:
@@ -144,25 +144,19 @@ def tiling(BH: int, r: int, S: int, P: int, N: int, dtype: torch.dtype,
         raise ValueError(f"unsupported sizes BH={BH}, r={r}, S={S}")
     if dtype == torch.float32:
         smem = f32_smem_bytes(N, P)
-        return Tiling(P, 1, BH, min(_SMEM_SM // (smem + 1024), 16))
-    p_slice = P if p_slice is None else p_slice
-    if p_slice not in HEAD_DIMS or P % p_slice:
-        raise ValueError(f"a unit of {p_slice} columns does not divide "
-                         f"P={P}")
-    stages, _ = bf16_layout(N, p_slice)
-    return Tiling(p_slice, stages, BH * (P // p_slice), _BF16_CTAS)
+        return Tiling(1, BH, min(_SMEM_SM // (smem + 1024), 16))
+    return Tiling(bf16_layout(N, P)[0], BH, _BF16_CTAS)
 
 
-def bf16_tile(N: int, p_slice: int) -> Tuple[int, int, int]:
-    """The source's bf16 instance (N, p_slice): its ring stages, dynamic
-    shared memory, and the CTAs of it an SM of the current card holds at
-    once (the occupancy calculator).  ValueError if there is no such
+def bf16_tile(N: int, P: int) -> Tuple[int, int, int]:
+    """The source's bf16 instance (N, P): its ring stages, dynamic shared
+    memory, and the CTAs of it an SM of the current card holds at once
+    (the occupancy calculator).  ValueError if there is no such
     instance."""
     out = [ctypes.c_int() for _ in range(3)]
-    err = _library().ssd_bf16_tile(N, p_slice,
-                                   *(ctypes.byref(o) for o in out))
+    err = _library().ssd_bf16_tile(N, P, *(ctypes.byref(o) for o in out))
     if err == -1:
-        raise ValueError(f"no bf16 instance N={N}, p_slice={p_slice}")
+        raise ValueError(f"no bf16 instance N={N}, P={P}")
     if err:
         raise RuntimeError(f"occupancy query failed: CUDA error {err}")
     return tuple(o.value for o in out)
@@ -228,12 +222,11 @@ def expand_groups(B: torch.Tensor, r: int) -> torch.Tensor:
 
 
 def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
-                 C: torch.Tensor, *, chunk: Optional[int] = None,
-                 unit: Optional[Tiling] = None) -> torch.Tensor:
+                 C: torch.Tensor, *, chunk: Optional[int] = None
+                 ) -> torch.Tensor:
     """xdt (BH, S, P), dA (BH, S) f32, B/C (BH/r, S, N) -> y (BH, S, P) in
     xdt.dtype.  ``chunk`` defaults to the kernel's 64 and is clipped to S
-    (the JAX rule ``min(chunk, S)``).  ``unit`` defaults to ``tiling``'s
-    rule (the sweep passes the smaller units the source has).
+    (the JAX rule ``min(chunk, S)``).
 
     On CUDA tensors this launches the kernel and adds one to
     ``ssd_scan_fwd.launches``; on CPU tensors it returns the plain
@@ -243,12 +236,23 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     if xdt.device.type == "cpu":
         return ssd_chunked_ref(xdt, dA, expand_groups(B, r),
                                expand_groups(C, r), chunk=chunk)
+    out = _launch(_library(), xdt, dA, B, C, chunk, r)
+    ssd_scan_fwd.launches += 1
+    return out
+
+
+ssd_scan_fwd.launches = 0
+
+
+def _launch(lib: ctypes.CDLL, xdt: torch.Tensor, dA: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, chunk: int,
+            r: int) -> torch.Tensor:
+    """y of the checked CUDA inputs from ``lib``'s ``ssd_fwd``."""
     resolve_device(xdt.device)
     BH, S, P = xdt.shape
     N = B.shape[2]
-    t = unit or tiling(BH, r, S, P, N, xdt.dtype)
+    t = tiling(BH, r, S, P, N, xdt.dtype)
     out = torch.empty((BH, S, P), dtype=xdt.dtype, device=xdt.device)
-    lib = _library()
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         err = lib.ssd_fwd(xdt.data_ptr(), dA.data_ptr(), B.data_ptr(),
@@ -256,14 +260,10 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
                           BH, S, P, N, chunk, r,
                           *kernel_strides(xdt), dA.stride(0),
                           *kernel_strides(B), *kernel_strides(C),
-                          t.p_slice, t.stages, t.units, stream)
+                          t.stages, t.units, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    ssd_scan_fwd.launches += 1
     return out
-
-
-ssd_scan_fwd.launches = 0
 
 
 class _SSDScan(torch.autograd.Function):

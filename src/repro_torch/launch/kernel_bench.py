@@ -12,9 +12,9 @@ there is one (a yardstick the port never calls):
   of ``ATTENTION_SWEEP`` around it instead);
 - the SSD chunk scan at mamba2-130m's serving prefill shape, with B and C
   one row a head (``SSD_SHAPE``) and in mamba2's own group form, one group
-  of 24 heads (``SSD_GROUP_SHAPE``); no library call computes it
-  (``--ssd-sweep``: every unit the source has, ``SSD_SWEEP_UNITS``, at both
-  forms instead);
+  of 24 heads, as views of the conv output (``SSD_GROUP_SHAPE``); no
+  library call computes it (``--ssd-sweep``: the SSD scan alone, at both
+  forms);
 - the fused GEMM epilogues (``ops.fused_gemm_softmax``,
   ``fused_gemm_layernorm``, ``fused_gemm_rmsnorm``) at the paper's shapes
   in bf16: the six cloud GEMMs of Table II and the two large shapes of the
@@ -68,7 +68,7 @@ from repro_torch.kernels.ref import (attention_ref, ssd_chunked_ref,
 
 __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
            "ATTENTION_SHAPE", "ATTENTION_SWEEP", "SSD_SHAPE", "SSD_GROUP_SHAPE",
-           "SSD_SHAPES", "SSD_SWEEP_UNITS", "STREAMED_GEMM_SHAPE", "cuda_ms",
+           "SSD_SHAPES", "STREAMED_GEMM_SHAPE", "cuda_ms",
            "device_ms",
            "bound", "nbytes", "visible_pairs", "attention_flops",
            "attention_l2_bytes", "ssd_flops", "gemm_flops", "gemm_l2_bytes",
@@ -100,15 +100,13 @@ ATTENTION_SWEEP: List[Tuple[int, int, int, int, int, int, bool]] = [
     (4, 32, 2, 1024, 4096, 128, False), (4, 32, 2, 4096, 4096, 128, True),
     (4, 32, 2, 1024, 1024, 64, True), (4, 32, 32, 1024, 1024, 128, True)]
 # mamba2-130m prefill scan at batch 8 x 24 heads, prompt 1024: B and C one
-# row a head (r 1, the JAX kernel's interface), and in the model's group
-# form (one group of 24 heads a batch row, r 24: B/C (8, 1024, 128))
+# row a head (r 1, the JAX kernel's interface), and as the model hands them
+# over: one group of 24 heads a batch row (r 24: B/C (8, 1024, 128)),
+# strided views of the conv output (8, 1024, conv_dim 1792)
 SSD_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128}
-SSD_GROUP_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128, "r": 24}
+SSD_GROUP_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128, "r": 24,
+                   "xbc": True}
 SSD_SHAPES = (SSD_SHAPE, SSD_GROUP_SHAPE)
-# the units of the SSD source's bf16 instances, as ``ssd.tiling`` options:
-# one head and all of P a CTA (the rule: one wave at the serving shape), and
-# 32 columns a CTA (twice the CTAs: two rounds at two an SM)
-SSD_SWEEP_UNITS = ({}, {"p_slice": 32})
 # (M, K, N, chunks): glm4-9b's MLP input projection x @ wi (d_model 4096,
 # d_ff 13696) at the serving prefill of batch 4 x 1024 tokens, the
 # activation sharded 4 ways along d_model as a 4-rank layer gathers it
@@ -341,25 +339,25 @@ def bench_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def bench_ssd(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
-              Cm: torch.Tensor, *, calls: Optional[Counter] = None,
-              unit: Optional[ssd.Tiling] = None) -> Dict:
-    """The SSD chunk scan on xdt (BH, S, P), dA (BH, S), B/C (BH/r, S, N),
-    with ``unit`` (default: ``ssd.tiling``'s rule).  The bound counts the
-    bytes this input form reads: B and C once a group row."""
+              Cm: torch.Tensor, *, calls: Optional[Counter] = None) -> Dict:
+    """The SSD chunk scan on xdt (BH, S, P), dA (BH, S), B/C (BH/r, S, N).
+    The bound counts the bytes this input form reads: B and C once a group
+    row."""
     calls = Counter() if calls is None else calls
     kernel = _counted(calls, "ssd_scan",
-                      lambda: ssd.ssd_scan_fwd(x, dA, Bm, Cm, unit=unit))
+                      lambda: ssd.ssd_scan_fwd(x, dA, Bm, Cm))
     chunk = min(ssd.CHUNK, x.shape[1])
     BH, S, P = x.shape
     r = BH // Bm.shape[0]
     Bh, Ch = ssd.expand_groups(Bm, r), ssd.expand_groups(Cm, r)
     plain = lambda: ssd_chunked_ref(x, dA, Bh, Ch, chunk=chunk)  # noqa: E731
-    t = unit or ssd.tiling(BH, r, S, P, Bm.shape[2], x.dtype)
+    t = ssd.tiling(BH, r, S, P, Bm.shape[2], x.dtype)
     rec = {"name": "ssd_scan", "shape": {
-        "xdt": [BH, S, P], "B": list(Bm.shape), "r": r,
-        "dtype": str(x.dtype)[6:], "chunk": chunk}, "tiling": t._asdict(),
-        "tile": f"chunk {ssd.CHUNK}, one head x P {t.p_slice} a CTA, "
-                f"{t.stages} stages, {t.units} CTAs",
+        "xdt": [BH, S, P], "B": list(Bm.shape), "B_stride": list(Bm.stride()),
+        "r": r, "dtype": str(x.dtype)[6:], "chunk": chunk},
+        "tiling": t._asdict(),
+        "tile": f"chunk {ssd.CHUNK}, one head a CTA, {t.stages} stages, "
+                f"{t.units} CTAs",
         "library": None}
     out, want = kernel(), plain()
     rec.update(_timed(kernel, plain, None, x.device, 50, 5,
@@ -369,13 +367,21 @@ def bench_ssd(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
 
 
 def ssd_inputs(gen: torch.Generator, shape: Dict, dtype: torch.dtype,
-               device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """xdt, dA (f32 < 0), B and C of ``shape`` ({"BH", "S", "P", "N"} and
-    optionally "r", default 1: B/C of BH / r rows) from ``gen``."""
+               device) -> Tuple[torch.Tensor, ...]:
+    """xdt, dA (f32 < 0), B and C of ``shape`` from ``gen``: {"BH", "S",
+    "P", "N"}, optionally "r" (default 1: B/C of BH / r rows) and "xbc"
+    (default False: B/C contiguous; True: strided views of one (BH / r, S,
+    r P + 2 N) tensor, the (x, B, C) columns of the conv output the model
+    hands over, x's r heads of P first)."""
     BH, S, P, N = (shape[k] for k in ("BH", "S", "P", "N"))
-    G = BH // shape.get("r", 1)
+    r = shape.get("r", 1)
+    G = BH // r
     x = torch.randn(BH, S, P, generator=gen, device=device).to(dtype)
     dA = -torch.rand(BH, S, generator=gen, device=device) * 0.2
+    if shape.get("xbc", False):
+        xbc = torch.randn(G, S, r * P + 2 * N, generator=gen,
+                          device=device).to(dtype)
+        return x, dA, xbc[..., r * P:r * P + N], xbc[..., r * P + N:]
     Bm, Cm = [torch.randn(G, S, N, generator=gen, device=device).to(dtype)
               for _ in range(2)]
     return x, dA, Bm, Cm
@@ -575,32 +581,11 @@ def attention_sweep(device: Optional[str] = None,
 
 
 def ssd_sweep(device: Optional[str] = None,
-              shapes: Sequence[Dict] = SSD_SHAPES,
-              units: Sequence[Dict] = SSD_SWEEP_UNITS) -> Dict:
-    """``bench_ssd`` in bf16 at each of ``shapes`` with each unit of
-    ``units`` (``ssd.tiling`` options) that the shape's head dim takes,
-    data from seed 0, printing a line each.  Returns {"device", "records",
-    "calls"} as ``run_all``."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    calls: Counter = Counter()
-    records = []
-    for s in shapes:
-        args = ssd_inputs(gen, s, torch.bfloat16, dev)
-        for opts in units:
-            try:
-                t = ssd.tiling(s["BH"], s.get("r", 1), s["S"], s["P"],
-                               s["N"], torch.bfloat16, **opts)
-            except ValueError:     # a unit this head dim cannot take
-                continue
-            rec = bench_ssd(*args, calls=calls, unit=t)
-            records.append(rec)
-            print(_line(rec), flush=True)
-        del args
-    return {"device": torch.cuda.get_device_name(dev)
-            if dev.type == "cuda" else "cpu",
-            "records": records, "calls": dict(calls)}
+              shapes: Sequence[Dict] = SSD_SHAPES) -> Dict:
+    """``run_all`` of the SSD scan alone at ``shapes`` (both input forms by
+    default)."""
+    return run_all(device, gemm_shapes=(), attention_shape=None,
+                   ssd_shapes=shapes, streamed_shape=None)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
@@ -614,8 +599,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                        help="time FlashAttention at ATTENTION_SWEEP's shapes "
                             "instead of every kernel")
     sweep.add_argument("--ssd-sweep", action="store_true",
-                       help="time the SSD scan's units (SSD_SWEEP_UNITS) at "
-                            "SSD_SHAPES instead of every kernel")
+                       help="time the SSD scan alone at SSD_SHAPES (both "
+                            "input forms) instead of every kernel")
     args = ap.parse_args(argv)
     out = (attention_sweep if args.attention_sweep else ssd_sweep
            if args.ssd_sweep else run_all)(args.device)

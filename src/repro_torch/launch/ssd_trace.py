@@ -6,7 +6,8 @@ with ``clock64()`` stamps that thread 0 of every 37th CTA takes after each
 phase of the chunk loop, runs it at mamba2-130m's serving shape in both
 input forms (``kernel_bench.SSD_SHAPES``), and prints the mean cycles of
 each phase over chunks 2..13, and of a whole chunk.  The stamped copy is
-written and built under ``build/torch_kernels/``; the kernel the port runs
+written and built under ``build/torch_kernels/`` (``_build.build``'s
+``edit``) and launched through ``ssd._launch``; the kernel the port runs
 is untouched.  A stamp costs a global store of thread 0, so the stamped
 kernel runs a little slower than the real one.
 
@@ -16,16 +17,14 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
-import subprocess
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels import _build, ssd
+from repro_torch.kernels import ssd
 from repro_torch.launch import kernel_bench as kb
 
 __all__ = ["PHASES", "stamped_source", "run", "main"]
@@ -81,28 +80,6 @@ def stamped_source(text: str) -> str:
             'sizeof(p));\n}\n')
 
 
-def _library() -> ctypes.CDLL:
-    text = stamped_source((_build.CSRC / "ssd_scan.cu").read_text())
-    text += "// hopper.cuh " + _build.source_digest("ssd_scan")
-    digest = hashlib.sha1(text.encode()).hexdigest()[:12]
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.BUILD_DIR / f"ssd_trace-{digest}.cu"
-    lib = src.with_suffix(".so")
-    if not lib.is_file():
-        src.write_text(text)
-        cmd = [str(_build.nvcc_path()), *_build.NVCC_FLAGS,
-               f"-I{_build.CSRC}", "-o", str(lib), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
-    out = ctypes.CDLL(str(lib))
-    out.ssd_fwd.argtypes = ssd._ARGTYPES
-    out.ssd_fwd.restype = ctypes.c_int
-    out.set_trace.argtypes = [ctypes.c_void_p]
-    out.set_trace.restype = ctypes.c_int
-    return out
-
-
 def run(device: Optional[str] = None) -> Dict:
     """Stamp, build and run the kernel at ``SSD_SHAPES``; returns
     {"device", "forms": {form: [per stamped CTA {"cta", "chunk_cycles",
@@ -110,44 +87,43 @@ def run(device: Optional[str] = None) -> Dict:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("the stamps are read on the card only")
-    lib = _library()
+    lib = ssd._library(stamped_source)
+    lib.set_trace.argtypes = [ctypes.c_void_p]
+    lib.set_trace.restype = ctypes.c_int
     buf = torch.zeros(_STRIDE * 16, dtype=torch.int64, device=dev)
     if lib.set_trace(buf.data_ptr()):
         raise RuntimeError("set_trace failed")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    real, forms = ssd._library, {}
-    ssd._library = lambda: lib
-    try:
-        for shape in kb.SSD_SHAPES:
-            form = f"r {shape.get('r', 1)}"
-            args = kb.ssd_inputs(gen, shape, torch.bfloat16, dev)
-            for _ in range(3):
-                ssd.ssd_scan_fwd(*args)
-            torch.cuda.synchronize()
-            buf.zero_()
-            ssd.ssd_scan_fwd(*args)
-            torch.cuda.synchronize()
-            stamps = buf.view(16, _CHUNKS, 16).cpu().numpy()
-            rows: List[Dict] = []
-            for i in range(16):
-                t = stamps[i, :, 1:len(PHASES) + 1]
-                if not t[:, 0].any():
-                    continue
-                steady = t[2:14]
-                phases = np.diff(steady, axis=1).mean(0)
-                rows.append({
-                    "cta": i * _EVERY,
-                    "chunk_cycles": float(np.diff(t[2:15, 0]).mean()),
-                    "phases": {name: float(v) for (_, name), v in
-                               zip(PHASES[1:], phases)}})
-                print(f"{form}  cta {i * _EVERY:3d}: a chunk "
-                      f"{rows[-1]['chunk_cycles']:.0f} cycles; " + ", ".join(
-                          f"{n} {v:.0f}"
-                          for n, v in rows[-1]["phases"].items()), flush=True)
-            forms[form] = rows
-    finally:
-        ssd._library = real
+    forms = {}
+    for shape in kb.SSD_SHAPES:
+        form = f"r {shape.get('r', 1)}"
+        args = kb.ssd_inputs(gen, shape, torch.bfloat16, dev)
+        r = ssd._check(*args, ssd.CHUNK)
+        for _ in range(3):
+            ssd._launch(lib, *args, ssd.CHUNK, r)
+        torch.cuda.synchronize()
+        buf.zero_()
+        ssd._launch(lib, *args, ssd.CHUNK, r)
+        torch.cuda.synchronize()
+        stamps = buf.view(16, _CHUNKS, 16).cpu().numpy()
+        rows: List[Dict] = []
+        for i in range(16):
+            t = stamps[i, :, 1:len(PHASES) + 1]
+            if not t[:, 0].any():
+                continue
+            steady = t[2:14]
+            phases = np.diff(steady, axis=1).mean(0)
+            rows.append({
+                "cta": i * _EVERY,
+                "chunk_cycles": float(np.diff(t[2:15, 0]).mean()),
+                "phases": {name: float(v) for (_, name), v in
+                           zip(PHASES[1:], phases)}})
+            print(f"{form}  cta {i * _EVERY:3d}: a chunk "
+                  f"{rows[-1]['chunk_cycles']:.0f} cycles; " + ", ".join(
+                      f"{n} {v:.0f}"
+                      for n, v in rows[-1]["phases"].items()), flush=True)
+        forms[form] = rows
     return {"device": torch.cuda.get_device_name(dev), "forms": forms}
 
 

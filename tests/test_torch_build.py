@@ -30,3 +30,27 @@ def test_editing_a_header_changes_the_digest_of_its_includers(tmp_path):
     after = {n: _build.source_digest(n, csrc) for n in SOURCES}
     changed = {n for n in SOURCES if after[n] != before[n]}
     assert changed == set(SOURCES)
+
+
+def test_an_edited_build_is_a_copy_named_by_its_text(tmp_path, monkeypatch):
+    """``build(name, edit)`` writes the edited text under ``BUILD_DIR``,
+    named by a hash of it and of the real source, and never touches the
+    real library's name; the compiler is stubbed out."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+
+    def no_nvcc():
+        raise LookupError("not compiled here")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    real = (_build.CSRC / "ssd_scan.cu").read_text()
+    for mark in ("// a", "// b"):
+        try:
+            _build.build("ssd_scan", lambda text, m=mark: text + m)
+        except LookupError:
+            pass
+    copies = sorted(tmp_path.glob("ssd_scan-edited-*.cu"))
+    assert len(copies) == 2
+    assert {c.read_text() for c in copies} == {real + "// a", real + "// b"}
+    assert all(_build.source_digest("ssd_scan") not in c.name
+               for c in copies)
+    assert not list(tmp_path.glob("libssd_scan-*"))

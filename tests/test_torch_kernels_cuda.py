@@ -38,6 +38,7 @@ from repro_torch.kernels.allgather_gemm import (CLUSTER, TILES,
 from repro_torch.kernels.gemm_layernorm import gemm_layernorm, gemm_rmsnorm
 from repro_torch.kernels.gemm_softmax import gemm_softmax
 from repro_torch.kernels.ref import attention_ref, ssd_chunked_ref
+from repro_torch.launch import kernel_bench as kb
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -148,19 +149,10 @@ def test_kernel_raises_instead_of_falling_back(hopper):
 
 
 def _ssd_inputs(gen, BH, S, P, N, dtype, r=1, xbc_view=False):
-    """xdt, dA (f32 < 0) and B/C in group form (BH / r rows): contiguous,
-    or with ``xbc_view`` strided views of one (BH / r, S, conv_dim)
-    tensor, as the model hands over its conv output."""
-    x = torch.randn(BH, S, P, generator=gen, device="cuda").to(dtype)
-    dA = -torch.rand(BH, S, generator=gen, device="cuda") * 0.2
-    G = BH // r
-    if xbc_view:
-        xbc = torch.randn(G, S, r * P + 2 * N, generator=gen,
-                          device="cuda").to(dtype)
-        return x, dA, xbc[..., r * P:r * P + N], xbc[..., r * P + N:]
-    B = torch.randn(G, S, N, generator=gen, device="cuda").to(dtype)
-    C = torch.randn(G, S, N, generator=gen, device="cuda").to(dtype)
-    return x, dA, B, C
+    """``kernel_bench.ssd_inputs`` on the card: B/C in group form (BH / r
+    rows), contiguous or (``xbc_view``) strided views of a conv output."""
+    return kb.ssd_inputs(gen, {"BH": BH, "S": S, "P": P, "N": N, "r": r,
+                               "xbc": xbc_view}, dtype, "cuda")
 
 
 def _ssd_check(gen, BH, r, S, P, N, chunk, dtype, xbc_view=False):
@@ -210,13 +202,27 @@ def test_ssd_kernel_at_every_edge_of_its_tiling(hopper, case, dtype):
     _ssd_check(hopper, BH, r, S, P, N, chunk, dtype, view)
 
 
+@pytest.mark.parametrize("shape", kb.SSD_SHAPES,
+                         ids=["per_head", "group_conv_view"])
+def test_ssd_kernel_at_the_serving_shape(hopper, shape):
+    """mamba2-130m's prefill scan in both input forms, the group form as
+    strided views of the conv output as the model hands it over."""
+    x, dA, B, C = kb.ssd_inputs(hopper, shape, torch.bfloat16, "cuda")
+    out = ssd.ssd_scan_fwd(x, dA, B, C)
+    r = shape.get("r", 1)
+    want = ssd_chunked_ref(x, dA, ssd.expand_groups(B, r),
+                           ssd.expand_groups(C, r), chunk=ssd.CHUNK)
+    err = (out.float() - want.float()).abs().max()
+    assert err <= 1e-2 * want.float().abs().max()
+
+
 def test_ssd_units_of_the_serving_shape_are_one_wave(hopper):
     """Every unit of mamba2's serving shape resident at once, in both
     forms; the source's stages and shared memory are the rule's."""
     for r in (1, 24):
         t = ssd.tiling(192, r, 1024, 64, 128, torch.bfloat16)
-        stages, smem, per_sm = ssd.bf16_tile(128, t.p_slice)
-        assert (stages, smem) == ssd.bf16_layout(128, t.p_slice)
+        stages, smem, per_sm = ssd.bf16_tile(128, 64)
+        assert (stages, smem) == ssd.bf16_layout(128, 64)
         assert per_sm == t.ctas_per_sm
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         assert t.units <= sms * per_sm

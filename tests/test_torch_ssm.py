@@ -42,7 +42,7 @@ from repro.models import Model as JModel
 from repro.models import ssm as jssm
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
-from repro_torch.configs.registry import get_smoke_config
+from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd as tssd
@@ -257,19 +257,18 @@ def test_rows_that_do_not_divide_bh_are_refused():
                  use_kernel=True)
 
 
-@pytest.mark.parametrize("N,p_slice,stage,want_stages,want_smem", [
+@pytest.mark.parametrize("N,P,stage,want_stages,want_smem", [
     (128, 64, 40960, 2, 108544),   # mamba2: two stages, two CTAs an SM
     (128, 32, 36864, 2, 88064),
     (64, 64, 24576, 3, 92160),     # a fourth stage would not fit a pair
     (32, 64, 16384, 4, 83968),     # the ring's cap of four stages
     (16, 16, 6144, 4, 30720),
 ])
-def test_bf16_layout_at_its_edges(N, p_slice, stage, want_stages,
-                                  want_smem):
+def test_bf16_layout_at_its_edges(N, P, stage, want_stages, want_smem):
     """The ring's stages and shared memory (the source's SsdCfg): as many
     stages of ``stage`` bytes as fit two CTAs an SM, at most 4; the card's
     SM has 233,472 B, 1 KB of it reserved for each CTA."""
-    stages, smem = tssd.bf16_layout(N, p_slice)
+    stages, smem = tssd.bf16_layout(N, P)
     assert (stages, smem) == (want_stages, want_smem)
     assert 2 * (smem + 1024) <= 233472
     assert stages == 4 or 2 * (smem + stage + 1024) > 233472
@@ -279,22 +278,16 @@ def test_tiling_at_its_edges():
     bf16, f32 = torch.bfloat16, torch.float32
     # mamba2's serving shape: 192 units of one head, two an SM: one wave
     t = tssd.tiling(192, 24, 1024, 64, 128, bf16)
-    assert (t.p_slice, t.stages, t.units, t.ctas_per_sm) == (64, 2, 192, 2)
+    assert (t.stages, t.units, t.ctas_per_sm) == (2, 192, 2)
     assert t.units <= tssd.SMS * t.ctas_per_sm
     assert tssd.tiling(192, 1, 1024, 64, 128, bf16) == t   # r does not matter
-    # the smaller units the sweep names: two rounds at the serving shape
-    t32 = tssd.tiling(192, 24, 1024, 64, 128, bf16, p_slice=32)
-    assert t32.units == 384 > tssd.SMS * t32.ctas_per_sm
-    assert tssd.tiling(4, 2, 64, 64, 16, bf16, p_slice=16).units == 16
-    for bad in (48, 64):     # not a head dim, or more than P
-        with pytest.raises(ValueError, match="does not divide"):
-            tssd.tiling(4, 2, 64, 32, 16, bf16, p_slice=bad)
-    # every P and N, f32 one CTA a head
+    # every P and N: one CTA a head, the bf16 ring as bf16_layout, f32 none
     for P in tssd.HEAD_DIMS:
         for N in tssd.STATE_DIMS:
-            assert tssd.tiling(3, 1, 1, P, N, bf16).p_slice == P
+            tb = tssd.tiling(3, 1, 1, P, N, bf16)
+            assert tb == (tssd.bf16_layout(N, P)[0], 3, 2)
             tf = tssd.tiling(3, 3, 70, P, N, f32)
-            assert (tf.p_slice, tf.stages, tf.units) == (P, 1, 3)
+            assert (tf.stages, tf.units) == (1, 3)
     for bad in ((2, 1, 64, 48, 16), (2, 1, 64, 16, 24), (3, 2, 64, 16, 16),
                 (0, 1, 64, 16, 16), (2, 1, 0, 16, 16)):
         with pytest.raises(ValueError):
@@ -348,24 +341,44 @@ def test_prefill_hands_the_scan_group_views(monkeypatch):
 
 def test_ssd_bench_and_sweep_run_untimed_on_the_cpu():
     """``kernel_bench.bench_ssd`` counts the bytes each input form reads
-    (B and C once a group row) in its bound; ``ssd_sweep`` runs every unit
-    the head dim takes at both forms, untimed on the CPU."""
+    (B and C once a group row, of a strided conv view only the B/C columns)
+    in its bound; ``ssd_sweep`` runs the SSD alone at both forms, untimed
+    on the CPU."""
     from repro_torch.launch import kernel_bench as kb
     shapes = [{"BH": 8, "S": 40, "P": 64, "N": 16},
-              {"BH": 8, "S": 40, "P": 64, "N": 16, "r": 4}]
+              {"BH": 8, "S": 40, "P": 64, "N": 16, "r": 4, "xbc": True}]
     out = kb.ssd_sweep("cpu", shapes=shapes)
     recs = out["records"]
-    assert out["device"] == "cpu" and out["calls"] == {"ssd_scan": 4}
-    assert [r["tiling"]["p_slice"] for r in recs] == [64, 32, 64, 32]
-    for rec, shape in zip(recs, [shapes[0]] * 2 + [shapes[1]] * 2):
-        G = 8 // shape.get("r", 1)
+    assert out["device"] == "cpu" and out["calls"] == {"ssd_scan": 2}
+    assert [r["name"] for r in recs] == ["ssd_scan"] * 2
+    for rec, G, row in zip(recs, (8, 2), (16, 4 * 64 + 2 * 16)):
         want = 2 * 8 * 40 * 64 * 2 + 8 * 40 * 4 + 2 * G * 40 * 16 * 2
         assert rec["bytes"] == want and rec["shape"]["B"] == [G, 40, 16]
+        assert rec["shape"]["B_stride"] == [40 * row, row, 1]
         assert rec["bound_ms"] == kb.bound(rec["flops"], want,
                                            torch.bfloat16)[0]
         assert rec["ms"] is None and rec["device_ms"] is None \
             and rec["max_abs_err"] == 0.0
-    assert kb.SSD_GROUP_SHAPE == dict(kb.SSD_SHAPE, r=24)
+    assert kb.SSD_GROUP_SHAPE == dict(kb.SSD_SHAPE, r=24, xbc=True)
+
+
+def test_ssd_inputs_conv_view_is_the_models_layout():
+    """``kernel_bench.ssd_inputs`` with "xbc" gives B/C as the model hands
+    them over at one group: views of a (B, S, conv_dim) tensor, B's columns
+    after the r heads of x, C's after B's; mamba2's conv_dim is 1792."""
+    from repro_torch.launch import kernel_bench as kb
+    cfg = get_config(ARCH)
+    gen = torch.Generator().manual_seed(0)
+    shape = dict(kb.SSD_GROUP_SHAPE, S=8)
+    x, dA, B, C = kb.ssd_inputs(gen, shape, torch.bfloat16, "cpu")
+    assert cfg.conv_dim == 1792 and cfg.ssm_ngroups == 1
+    assert B._base is C._base is not None
+    assert tuple(B.shape) == tuple(C.shape) == (8, 8, 128)
+    assert B.stride() == C.stride() == (8 * cfg.conv_dim, cfg.conv_dim, 1)
+    assert C.data_ptr() - B.data_ptr() == 128 * 2
+    assert B.data_ptr() - B._base.data_ptr() == 24 * 64 * 2
+    assert tuple(x.shape) == (192, 8, 64) and dA.dtype == torch.float32
+    assert bool((dA <= 0).all())
 
 
 def test_ssd_trace_stamps_every_phase_of_the_chunk_loop():

@@ -39,8 +39,15 @@ failure ends the run with a non-zero exit:
    device-only times of the kernel and of SDPA from ``torch.profiler``, the
    least time the card could take, and the Q, K/V and O bytes the tiling
    loads through L2 (``kernel_bench.attention_l2_bytes``: a count of the
-   tiling's loads, not a reading) over the device time;
-5. serving glm4-9b at full width and depth, bf16, random weights from seed
+   tiling's loads, not a reading) over the device time; beside them, the
+   COMET plan's modelled latency for that shape on ``h100()`` (logged
+   only, never a gate);
+5. the plan warmup, then serving glm4-9b: ``$REPRO_PLAN_CACHE`` on a
+   fresh directory, the engine built twice (batch 4, prompt 1024, cache
+   2048): the cold one solves every plan job of ``plan_shapes()`` and
+   hits none, the warm one (over the same store, its in-memory layer
+   dropped) hits every job and solves none, both warmup times logged; then
+   serving glm4-9b at full width and depth, bf16, random weights from seed
    0, with every layer's prefill attention through the kernel; every
    kernel's launches are counted over this run alone; then one prefill and
    one decode step of that batch, timed with CUDA events and profiled
@@ -63,12 +70,18 @@ failure ends the run with a non-zero exit:
    times of the kernel and the plain version, device-only times from
    ``torch.profiler``, and the least time the card could take for the
    bytes each form reads (no single PyTorch call computes the scan, so
-   there is no library time);
-9. serving mamba2-130m at full width and depth, bf16, random weights from
-   seed 0, with every layer's prefill SSD scan through the kernel, B and C
-   handed over in group form: launches == 24 x prefill calls over this run
-   alone; one prefill and one decode step timed and profiled as in phase 5,
-   with the SSD kernel's share of the prefill;
+   there is no library time); the chunk the COMET plan chooses there
+   (``autotune.ssd_chunk_len(1024, 64, 128)``), and the group form timed
+   at every chunk the plan ranked (16, 32 and 64: the plan's and the
+   kernel's own among them) beside each one's modelled latency (logged
+   only);
+9. the plan warmup as in phase 5 for mamba2-130m (batch 8, prompt 1024,
+   cache 2048), then serving it at full width and depth, bf16, random
+   weights from seed 0, with every layer's prefill SSD scan through the
+   kernel, B and C handed over in group form: launches == 24 x prefill
+   calls over this run alone, every one at the plan's chunk; one prefill
+   and one decode step timed and profiled as in phase 5, with the SSD
+   kernel's share of the prefill;
 10. continuous batching on the mamba2 smoke config (f32, kernel on), and
     its kernel-path logits against the plain path's (1e-2);
 11. the fused GEMM-Softmax, GEMM-LayerNorm and GEMM-RMSNorm kernel
@@ -88,7 +101,8 @@ failure ends the run with a non-zero exit:
     read just after: each kernel's launches equal the bench's calls to it
     (no fallback), and each output is within the bar of phase 11; beside
     the CUDA-event times, device-only times of the kernel and of the
-    library pair from ``torch.profiler``;
+    library pair from ``torch.profiler``; beside each shape, the COMET
+    plan's modelled latency on ``h100()`` (logged only);
 13. the streamed GEMM against its plain version ``streamed_gemm_ref`` on
     the card, both buffer modes, f32 (atol 2e-4, rtol 2e-5, the JAX test's
     bar, w scaled 0.2 as there) and bf16 (1e-2 of the output's largest
@@ -122,9 +136,11 @@ Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -286,11 +302,15 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
     eng, reqs = engine(), requests(n_requests, max_new)
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "chunks"):
+            fn.chunks = {}
     t_run = time.perf_counter()
     done = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     launches = {k: fn.launches for k, fn in counters.items()}
+    chunks = {k: dict(fn.chunks) for k, fn in counters.items()
+              if hasattr(fn, "chunks")}
     n_tok = sum(len(r.output) for r in done)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  requests {len(done)}  tokens {n_tok}  wall_s {wall:.3f}  "
@@ -342,7 +362,7 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
               "prefill_calls": eng.stats["prefill_calls"],
               "decode_steps": eng.stats["decode_steps"],
               "peak_mem_gb": peak_gb, "launches": launches,
-              "breakdown": breakdown}
+              "launch_chunks": chunks, "breakdown": breakdown}
     return record, launches
 
 
@@ -366,6 +386,52 @@ def batching_matches_serial(model, params, prompt_len, cache_len):
         if reqs[i].output != ref.output:
             raise AssertionError(f"request {i}: 3-slot {reqs[i].output} != "
                                  f"serial {ref.output}")
+
+
+def plan_warmup_check(name, model, params, plan_root, *, batch, prompt_len,
+                      cache_len):
+    """Point ``$REPRO_PLAN_CACHE`` at a fresh directory under ``plan_root``
+    and build the engine twice on it: the cold engine must solve every
+    plan job of its shapes and hit none, the warm one (over the same
+    store, the in-memory layer dropped as in a second process) hit every
+    job and solve none.  The directory stays the store for the rest of the
+    phase.  Returns the record."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels.autotune import plan_jobs
+    from repro_torch.serve.engine import ServeEngine
+    os.environ["REPRO_PLAN_CACHE"] = tempfile.mkdtemp(prefix=name,
+                                                      dir=plan_root)
+    rec = {}
+    for kind in ("cold", "warm"):
+        if kind == "warm":
+            with plan_mod._CACHES_LOCK:
+                plan_mod._CACHES.clear()
+        eng = ServeEngine(model, params, batch_size=batch,
+                          cache_len=cache_len, prompt_len=prompt_len)
+        n_jobs = len(plan_jobs(eng.plan_shapes()))
+        st = {k: eng.stats[f"plan_warmup_{k}"] for k in ("solved", "hits",
+                                                         "s")}
+        store = plan_mod.get_plan_cache().store_stats()["store"]
+        log(f"  plan warmup ({kind}): {n_jobs} jobs of {eng.plan_shapes()}: "
+            f"solved {st['solved']}, hits {st['hits']}, "
+            f"{1e3 * st['s']:.2f} ms; store {store.get('backend')} with "
+            f"{store.get('plans', 0)} plans")
+        want = (n_jobs, 0) if kind == "cold" else (0, n_jobs)
+        if n_jobs == 0 or (st["solved"], st["hits"]) != want:
+            raise AssertionError(f"{name}: the {kind} engine's warmup solved "
+                                 f"{st['solved']} and hit {st['hits']} of "
+                                 f"{n_jobs} jobs; want {want}")
+        rec[kind] = dict(st, jobs=n_jobs, store=store.get("backend"))
+    return rec
+
+
+def plan_ms(job, times=1):
+    """The COMET plan's modelled latency (ms) of a plan job (an autotune
+    ``*_plan_job`` tuple), times ``times``: information beside a measured
+    time, never a gate."""
+    from repro_torch.core.plan import get_plan_cache
+    co, arch, kw = job[:3]
+    return 1e3 * times * get_plan_cache().resolve(co, arch, **kw).latency_s
 
 
 def main() -> int:
@@ -394,6 +460,12 @@ def main() -> int:
                 "ssd_scan": ssd.ssd_scan_fwd, "gemm_softmax": gemm_softmax,
                 "gemm_layernorm": gemm_layernorm,
                 "gemm_rmsnorm": gemm_rmsnorm, "streamed_gemm": streamed_gemm}
+    from repro_torch.kernels import autotune
+    # every plan this run solves goes to a fresh directory, removed at exit
+    plan_dir = tempfile.TemporaryDirectory(prefix="repro-plans-")
+    plan_root = plan_dir.name
+    os.environ["REPRO_PLAN_CACHE"] = tempfile.mkdtemp(prefix="kernels",
+                                                      dir=plan_root)
     t_all = time.perf_counter()
     # ------------------------------------------------------------ 1. device
     t0 = phase("1. device")
@@ -567,6 +639,12 @@ def main() -> int:
         f" MB; {l2 / rec['device_ms'] / 1e9:.2f} TB/s over the device time")
     log(f"  kernel {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
         f"{100 * bound_ms / kernel_ms:.1f}% of bound")
+    fa_job = autotune.attention_plan_job(S, S, D)
+    log(f"  COMET plan on h100 (information only): blocks "
+        f"{autotune.attention_blocks(S, S, D)}, {plan_ms(fa_job):.4f} ms a "
+        f"({S}, {S}, {D}) head (not causal), x {B * Hq} heads "
+        f"{plan_ms(fa_job, B * Hq):.4f} ms against the kernel's "
+        f"{kernel_ms:.4f} ms")
     fa_shape = {"q": [B, Hq, S, D], "kv": [B, Hkv, S, D],
                 "dtype": "bfloat16", "causal": True}
     fa_rec = rec
@@ -582,6 +660,8 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  {model.n_params() / 1e9:.3f} B params initialised on the card "
         f"in {time.perf_counter() - t_init:.1f} s")
+    glm4_plans = plan_warmup_check("glm4", model, params, plan_root,
+                                   batch=4, prompt_len=1024, cache_len=2048)
     serve, glm4_launches = serve_and_profile(
         "glm4-9b", model, params, dev, batch=4, prompt_len=1024,
         cache_len=2048, n_requests=8, max_new=16, counters=counters)
@@ -590,6 +670,7 @@ def main() -> int:
         raise AssertionError(f"flash_attention launched {launches} times for "
                              f"{serve['prefill_calls']} prefills of "
                              f"{cfg.n_layers} layers")
+    serve["plan_warmup"] = glm4_plans
     del params, model
     torch.cuda.empty_cache()
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
@@ -692,6 +773,25 @@ def main() -> int:
             f"time)")
         ssd_recs[form] = rec
         del x, dA, Bm, Cm
+    # the plan's chunk, and the group form timed at every chunk the plan
+    # ranked (the plan's and the kernel's 64 among them) beside the
+    # modelled latency of each
+    plan_chunk = autotune.ssd_chunk_len(S, P, N)
+    log(f"  the plan's chunk: {plan_chunk} (the kernel's own: {ssd.CHUNK})")
+    x, dA, Bm, Cm = kb.ssd_inputs(gen, kb.SSD_GROUP_SHAPE, torch.bfloat16,
+                                  dev)
+    for job in autotune.ssd_plan_jobs(S, P, N):
+        c = job[3]
+        rec = kb.bench_ssd(x, dA, Bm, Cm, chunk=c)
+        if rec["max_abs_err"] > SSD_BF16_TOL * rec["max_abs_plain"]:
+            raise AssertionError(f"ssd_scan disagrees at chunk {c}: "
+                                 f"{rec['max_abs_err']}")
+        log(f"    group form at chunk {c}: kernel_ms {rec['ms']:.4f}  "
+            f"device_ms {rec['device_ms']:.4f}  max_abs_err "
+            f"{rec['max_abs_err']:.3e}; COMET plan on h100 (information "
+            f"only): {plan_ms(job, BH * -(-S // c)):.4f} ms for {BH} heads")
+        ssd_recs[f"group_chunk{c}"] = rec
+    del x, dA, Bm, Cm
     rec = ssd_recs["per_head"]
     ssd_err, ssd_ms, ssd_plain_ms = rec["max_abs_err"], rec["ms"], \
         rec["plain_ms"]
@@ -706,6 +806,9 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  {model.n_params() / 1e6:.1f} M params initialised on the card "
         f"in {time.perf_counter() - t_init:.1f} s")
+    mamba_plans = plan_warmup_check("mamba2", model, params, plan_root,
+                                    batch=m_batch, prompt_len=1024,
+                                    cache_len=2048)
     mserve, mamba_launches = serve_and_profile(
         "mamba2-130m", model, params, dev, batch=m_batch, prompt_len=1024,
         cache_len=2048, n_requests=16, max_new=16, counters=counters)
@@ -715,6 +818,14 @@ def main() -> int:
         raise AssertionError(f"ssd_scan launched {launches_ssd} times for "
                              f"{mserve['prefill_calls']} prefills of "
                              f"{mcfg.n_layers} layers")
+    served_chunks = mserve["launch_chunks"]["ssd_scan"]
+    if served_chunks != {plan_chunk: launches_ssd}:
+        raise AssertionError(f"ssd_scan launches by chunk {served_chunks}; "
+                             f"want all {launches_ssd} at the plan's chunk "
+                             f"{plan_chunk}")
+    log(f"  every ssd_scan launch at the plan's chunk {plan_chunk}: "
+        f"{served_chunks}")
+    mserve["plan_warmup"], mserve["plan_chunk"] = mamba_plans, plan_chunk
     pre = mserve["breakdown"]["prefill"]
     log(f"  ssd_scan launches {launches_ssd} == {mcfg.n_layers} layers x "
         f"{mserve['prefill_calls']} prefills; its share of one prefill: "
@@ -820,6 +931,17 @@ def main() -> int:
         if not rec["max_abs_err"] <= tol:
             raise AssertionError(f"bench: {name} {rec['shape']} error "
                                  f"{rec['max_abs_err']} > {tol}")
+    for shape in sorted({(r["shape"]["M"], r["shape"]["N"], r["shape"]["K"])
+                         for r in bench["records"]
+                         if r["name"] in GEMM_KERNELS}):
+        measured = ", ".join(
+            f"{r['name']} {r['ms']:.4f}" for r in bench["records"]
+            if r["name"] in GEMM_KERNELS
+            and (r["shape"]["M"], r["shape"]["N"], r["shape"]["K"]) == shape)
+        job = autotune.gemm_epilogue_plan_job(*shape)
+        log(f"  COMET plan on h100 (information only): (M, N, K) {shape}: "
+            f"blocks {autotune.gemm_epilogue_blocks(*shape)}, "
+            f"{plan_ms(job):.4f} ms; measured ms {measured}")
     gemm_main = {r["name"]: r for r in bench["records"]
                  if r["name"] in GEMM_KERNELS
                  and (r["shape"]["M"], r["shape"]["N"], r["shape"]["K"])
@@ -1047,6 +1169,7 @@ def main() -> int:
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))
+    plan_dir.cleanup()
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(smi)
     print(json.dumps({"ok": True, "device": {

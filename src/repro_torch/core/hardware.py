@@ -18,9 +18,10 @@ published-ballpark constants (documented inline); see DESIGN.md §8 —
 
 Port-local copy of ``repro/core/hardware.py`` (the port imports nothing of
 the JAX package); ``tests/test_torch_overlap.py`` holds it to the original
-field by field.  One difference: the calibration file loader
+field by field.  Two differences: the calibration file loader
 (``repro.calibrate.persist``) is not ported yet, so a ``calibrated=`` path
-raises ``NotImplementedError`` (see :func:`_coerce_calibrated_noc`).
+raises ``NotImplementedError`` (see :func:`_coerce_calibrated_noc`); and
+the port adds :func:`h100`, its card, to ``PRESETS``.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ __all__ = [
     "cloud",
     "tpu_v5e",
     "tileflow_like",
+    "h100",
     "PRESETS",
 ]
 
@@ -349,9 +351,59 @@ def tileflow_like(calibrated=None) -> Arch:
     return apply_calibration(arch, calibrated)
 
 
+def h100(calibrated=None) -> Arch:
+    """NVIDIA H100 SXM5 (Hopper, sm_90), the port's card, as one node: the
+    kernel arch for per-kernel tile selection, the whole card in aggregate.
+
+    Level mapping: DRAM -> HBM3 (80 GB, 3.35 TB/s); GB -> one CTA's shared
+    memory (227 KB, the most a block may take of an SM's 228 KB), the
+    capacity a kernel's tile must fit, at the card's aggregate shared-memory
+    rate; IB/WB/OB -> the register file (256 KB an SM: 64 KB each of
+    operand staging, 128 KB of accumulators); cluster NoC -> the DSMEM
+    network of a thread-block cluster; core NoC degenerates (1, 1).  With a
+    (1, 1) cluster mesh the whole card is one instance, so no collective is
+    charged; the 50 MB L2 is not a level (every DRAM byte is charged at
+    the HBM3 rate).
+
+    GEMM unit -> the 528 tensor cores (132 SMs x 4), each modelled as a
+    16 x 32 array (512 bf16 MACs a clock), clocked so the card's dense
+    bf16 peak is 989.4 TFLOP/s (spec sheet: 1.83 GHz); SIMD -> the 16,896
+    FP32 lanes (132 x 128) at the 1.98 GHz boost clock (67 TFLOP/s FP32
+    counting an FMA as two).  Shared-memory rate: 128 B a clock an SM
+    (32 banks x 4 B) x 132 x 1.98 GHz = 33.45 TB/s; the register file is
+    modelled at 4x that (an estimate, not from the spec sheet).
+
+    Energy: published-ballpark constants like the other presets', not
+    measured here: HBM3 ~3.5 pJ/bit (28 pJ/B); shared memory ~1.2 pJ/B;
+    registers ~0.3 pJ/B; a bf16 tensor-core MAC ~0.2 pJ; an FP32 lane op
+    ~0.1 pJ.  DSMEM: an SM-to-SM hop ~100 ns (~190 cycles, published
+    microbenchmarks), 128 B a clock a link (~253 GB/s), ~0.5 pJ/B a hop.
+    """
+    peak = 989.4e12                      # dense bf16 FLOP/s
+    arrays = (132, 4)                    # SMs x tensor cores an SM
+    freq = peak / (arrays[0] * arrays[1] * 16 * 32 * 2)
+    smem_gbs = 132 * 128 * 1.98          # GB/s over the card
+    arch = Arch(
+        name="h100",
+        dram=_mk_mem("DRAM", 80 << 30, 3350, 28.0, 28.0),        # HBM3
+        gb=_mk_mem("GB", 227 << 10, smem_gbs, 1.2, 1.2),          # smem
+        ib=_mk_mem("IB", 64 << 10, 4 * smem_gbs, 0.3, 0.3),       # regs
+        wb=_mk_mem("WB", 64 << 10, 4 * smem_gbs, 0.3, 0.3),
+        ob=_mk_mem("OB", 128 << 10, 4 * smem_gbs, 0.3, 0.3),
+        cluster_noc=NoCParams((1, 1), 128, 128 * 1.98 * GIGA, 1e-7,
+                              1 / (1.98 * GIGA), 0.5),            # DSMEM
+        core_noc=NoCParams((1, 1), 128, 4 * smem_gbs * GIGA, 1e-9, 1e-9,
+                           0.01),
+        gemm_unit=GemmUnit(16, 32, arrays, freq, 0.2),
+        simd_unit=SimdUnit(132 * 128, 1.98 * GIGA, 0.1),
+    )
+    return apply_calibration(arch, calibrated)
+
+
 PRESETS = {
     "edge": edge,
     "cloud": cloud,
     "tpu_v5e": tpu_v5e,
     "tileflow_like": tileflow_like,
+    "h100": h100,
 }

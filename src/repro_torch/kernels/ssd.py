@@ -228,8 +228,9 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     xdt.dtype.  ``chunk`` defaults to the kernel's 64 and is clipped to S
     (the JAX rule ``min(chunk, S)``).
 
-    On CUDA tensors this launches the kernel and adds one to
-    ``ssd_scan_fwd.launches``; on CPU tensors it returns the plain
+    On CUDA tensors this launches the kernel, adds one to
+    ``ssd_scan_fwd.launches`` and one to ``ssd_scan_fwd.chunks[chunk]``
+    (the launches at each chunk); on CPU tensors it returns the plain
     ``ssd_chunked_ref`` of B and C repeated to one row a head."""
     chunk = min(CHUNK if chunk is None else chunk, xdt.shape[1])
     r = _check(xdt, dA, B, C, chunk)
@@ -238,10 +239,12 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
                                expand_groups(C, r), chunk=chunk)
     out = _launch(_library(), xdt, dA, B, C, chunk, r)
     ssd_scan_fwd.launches += 1
+    ssd_scan_fwd.chunks[chunk] = ssd_scan_fwd.chunks.get(chunk, 0) + 1
     return out
 
 
 ssd_scan_fwd.launches = 0
+ssd_scan_fwd.chunks = {}
 
 
 def _launch(lib: ctypes.CDLL, xdt: torch.Tensor, dA: torch.Tensor,

@@ -339,14 +339,15 @@ def bench_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def bench_ssd(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
-              Cm: torch.Tensor, *, calls: Optional[Counter] = None) -> Dict:
-    """The SSD chunk scan on xdt (BH, S, P), dA (BH, S), B/C (BH/r, S, N).
-    The bound counts the bytes this input form reads: B and C once a group
-    row."""
+              Cm: torch.Tensor, *, calls: Optional[Counter] = None,
+              chunk: int = ssd.CHUNK) -> Dict:
+    """The SSD chunk scan on xdt (BH, S, P), dA (BH, S), B/C (BH/r, S, N)
+    at ``chunk`` (the kernel's 64 by default).  The bound counts the bytes
+    this input form reads: B and C once a group row."""
     calls = Counter() if calls is None else calls
+    chunk = min(chunk, x.shape[1])
     kernel = _counted(calls, "ssd_scan",
-                      lambda: ssd.ssd_scan_fwd(x, dA, Bm, Cm))
-    chunk = min(ssd.CHUNK, x.shape[1])
+                      lambda: ssd.ssd_scan_fwd(x, dA, Bm, Cm, chunk=chunk))
     BH, S, P = x.shape
     r = BH // Bm.shape[0]
     Bh, Ch = ssd.expand_groups(Bm, r), ssd.expand_groups(Cm, r)
@@ -356,7 +357,7 @@ def bench_ssd(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
         "xdt": [BH, S, P], "B": list(Bm.shape), "B_stride": list(Bm.stride()),
         "r": r, "dtype": str(x.dtype)[6:], "chunk": chunk},
         "tiling": t._asdict(),
-        "tile": f"chunk {ssd.CHUNK}, one head a CTA, {t.stages} stages, "
+        "tile": f"chunk {chunk}, one head a CTA, {t.stages} stages, "
                 f"{t.units} CTAs",
         "library": None}
     out, want = kernel(), plain()

@@ -11,11 +11,24 @@ path; no kernel).  Examples (full glm4-9b, full mamba2-130m on one H100):
 Reduced config on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --smoke --device cpu
+
+Plan-cache wiring (the MappingPlan subsystem, ``repro_torch.core.plan``):
+``--plan-cache DIR`` points the engine's plan store somewhere explicit
+(equivalent to ``REPRO_PLAN_CACHE=DIR``, which the JAX package reads too:
+its plans and the port's sit apart by the arch in their keys);
+``--plan-bundle PATH`` imports a bundle exported by
+``PlanCache.export_bundle`` before the engine starts, so startup warmup
+is pure cache hits; ``--no-plan-warmup`` skips the startup warmup sweep;
+``--plan-gc`` runs the store's garbage collection (age expiry + LRU
+eviction + vacuum) before startup.  The output JSON reports which store
+backend served the run (``plan_store``): ``sqlite`` on a healthy host,
+``json`` or ``memory`` after degradations (``repro_torch.core.planstore``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import List, Optional
 
@@ -39,7 +52,28 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no silent CPU fallback")
+    ap.add_argument("--plan-cache", default=None, metavar="DIR",
+                    help="mapping-plan store directory "
+                         "(default: $REPRO_PLAN_CACHE or ~/.cache/repro-plans)")
+    ap.add_argument("--plan-bundle", default=None, metavar="PATH",
+                    help="import a plan bundle (PlanCache.export_bundle) "
+                         "into the store before starting the engine")
+    ap.add_argument("--no-plan-warmup", action="store_true",
+                    help="skip the startup plan-warmup sweep")
+    ap.add_argument("--plan-gc", action="store_true",
+                    help="garbage-collect the plan store (age expiry + "
+                         "LRU eviction + vacuum) before starting")
     args = ap.parse_args(argv)
+
+    if args.plan_cache:
+        os.environ["REPRO_PLAN_CACHE"] = args.plan_cache
+    from repro_torch.core.plan import get_plan_cache
+    imported = 0
+    gc_out = None
+    if args.plan_gc:
+        gc_out = get_plan_cache().gc()
+    if args.plan_bundle:
+        imported = get_plan_cache().import_bundle(args.plan_bundle)
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -53,13 +87,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]
     eng = ServeEngine(model, params, batch_size=args.batch,
-                      cache_len=args.cache_len, prompt_len=args.prompt_len)
+                      cache_len=args.cache_len, prompt_len=args.prompt_len,
+                      plan_warmup=not args.no_plan_warmup)
     t0 = time.time()
     done = eng.run(reqs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     n_tok = sum(len(r.output) for r in done)
+    store = get_plan_cache().store_stats()["store"]
     out = {
         "requests": len(done),
         "completed": sum(r.done or len(r.output) > 0 for r in done),
@@ -68,6 +104,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "tok_per_s": round(n_tok / dt, 1),
         "decode_steps": eng.stats["decode_steps"],
         "prefill_calls": eng.stats["prefill_calls"],
+        "plan_bundle_imported": imported,
+        "plan_warmup_solved": eng.stats.get("plan_warmup_solved", 0),
+        "plan_warmup_hits": eng.stats.get("plan_warmup_hits", 0),
+        "plan_store": store.get("backend"),
+        "plan_store_plans": store.get("plans", 0),
+        "plan_gc": gc_out,
     }
     print(json.dumps(out))
     return out

@@ -3,7 +3,8 @@ gated norm -> out-proj, with a constant-size recurrent state for decode.
 
 Port of ``repro/models/ssm.py``.  Train/prefill route through the chunked
 algorithm (the SSD kernel with ``use_kernels``, else the chunked
-reference); decode is the O(1) recurrence h' = exp(dA) h + B ⊗ x·dt.
+reference) at the chunk the COMET plan chooses (:func:`plan_chunk`);
+decode is the O(1) recurrence h' = exp(dA) h + B ⊗ x·dt.
 """
 from __future__ import annotations
 
@@ -13,14 +14,14 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from ..kernels.ssd import CHUNK
+from ..kernels.autotune import ssd_chunk_len
 from .config import ModelConfig
 from .param import ParamSpec
 
 F32 = torch.float32
 
 __all__ = ["ssm_specs", "ssm_train", "ssm_prefill", "ssm_decode",
-           "init_ssm_cache"]
+           "init_ssm_cache", "plan_chunk"]
 
 
 def ssm_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:
@@ -99,14 +100,24 @@ def _group_heads(cfg: ModelConfig, Bm: torch.Tensor) -> torch.Tensor:
     return Bm.repeat_interleave(cfg.ssm_nheads // cfg.ssm_ngroups, dim=-2)
 
 
-def _ssd_scan(cfg: ModelConfig, xdt, dA, Bm, Cm) -> torch.Tensor:
+def plan_chunk(cfg: ModelConfig, S: int) -> int:
+    """The SSD chunk for a sequence of S rows: the COMET plan's choice
+    (``kernels/autotune.py::ssd_chunk_len`` on the card's preset), as the
+    JAX model asks its own plan.  A warm call still looks the plans up in
+    the plan cache, so the model resolves it once a forward or prefill
+    call and hands it to every layer."""
+    return ssd_chunk_len(S, cfg.ssm_headdim, cfg.ssm_state)
+
+
+def _ssd_scan(cfg: ModelConfig, xdt, dA, Bm, Cm, chunk: int
+              ) -> torch.Tensor:
     """(B,S,nh,hp) x (B,S,nh) x (B,S,ng,ns) -> y (B,S,nh,hp) in bf16.
 
     B and C go to the scan in group form, (B*ng, S, ns): at ng = 1 a view
-    of the conv output with no copy in a bf16 model.  The chunk is the
-    kernel's 64, clipped to S (the JAX package asks its TPU plan instead,
-    and cuts a ragged S's chunk to a divisor of S; here the kernel and the
-    chunked reference zero-pad the ragged tail)."""
+    of the conv output with no copy in a bf16 model.  ``chunk`` is the
+    plan's (:func:`plan_chunk`), clipped to S by the scan.  The JAX model
+    cuts a ragged S's chunk to a divisor of S; here the kernel and the
+    chunked reference zero-pad the ragged tail instead."""
     B_, S, nh, hp = xdt.shape
     ng, ns = Bm.shape[-2:]
     # flatten batch x heads (and batch x groups) for the kernel layout
@@ -114,14 +125,16 @@ def _ssd_scan(cfg: ModelConfig, xdt, dA, Bm, Cm) -> torch.Tensor:
     dk = dA.transpose(1, 2).reshape(B_ * nh, S)
     bk = Bm.transpose(1, 2).reshape(B_ * ng, S, ns)
     ck = Cm.transpose(1, 2).reshape(B_ * ng, S, ns)
-    chunk = min(CHUNK, S)
     bf16 = torch.bfloat16
     y = kops.ssd(xk.to(bf16).contiguous(), dk.contiguous(), bk.to(bf16),
                  ck.to(bf16), chunk=chunk, use_kernel=cfg.use_kernels)
     return y.reshape(B_, nh, S, hp).transpose(1, 2)
 
 
-def ssm_train(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def ssm_train(cfg: ModelConfig, p, x: torch.Tensor,
+              chunk: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence forward.  ``chunk``: the SSD chunk, resolved through
+    :func:`plan_chunk` when not given."""
     B_, S, _ = x.shape
     di = cfg.d_inner
     proj = x @ p["in_proj"]
@@ -129,7 +142,8 @@ def ssm_train(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     xbc = torch.cat([xin, Bm, Cm], dim=-1)
     xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc)
     xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw)
-    y = _ssd_scan(cfg, xdt, dA, Bm, Cm)
+    y = _ssd_scan(cfg, xdt, dA, Bm, Cm,
+                  plan_chunk(cfg, S) if chunk is None else chunk)
     y = y + xh.to(F32) * p["D"].to(F32)[None, None, :, None]
     y = y.reshape(B_, S, di).to(x.dtype)
     y = _gated_norm(cfg, p["norm_scale"], y, z)
@@ -146,9 +160,11 @@ def init_ssm_cache(cfg: ModelConfig, B: int, dtype: torch.dtype,
     }
 
 
-def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor
-                ) -> Tuple[torch.Tensor, Dict]:
-    """Full-seq forward + final recurrent state for decode continuation."""
+def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor,
+                chunk: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+    """Full-seq forward + final recurrent state for decode continuation.
+    ``chunk``: the SSD chunk, resolved through :func:`plan_chunk` when not
+    given."""
     B_, S, _ = x.shape
     di = cfg.d_inner
     proj = x @ p["in_proj"]
@@ -156,7 +172,8 @@ def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor
     xbc_raw = torch.cat([xin, Bm, Cm], dim=-1)
     xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc_raw)
     xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw)
-    y = _ssd_scan(cfg, xdt, dA, Bm, Cm)
+    y = _ssd_scan(cfg, xdt, dA, Bm, Cm,
+                  plan_chunk(cfg, S) if chunk is None else chunk)
     y = y + xh.to(F32) * p["D"].to(F32)[None, None, :, None]
     yo = _gated_norm(cfg, p["norm_scale"], y.reshape(B_, S, di).to(x.dtype),
                      z)

@@ -81,11 +81,17 @@ def _mlp_residual(cfg: ModelConfig, pl: Dict, x: torch.Tensor
     return x
 
 
-def _layer_train(cfg: ModelConfig, x: torch.Tensor, pl: Dict
-                 ) -> torch.Tensor:
+def _ssd_chunk(cfg: ModelConfig, S: int):
+    """The SSD chunk of a call over S positions, resolved once for all its
+    layers (None for a model with no SSD mixer)."""
+    return ssm_mod.plan_chunk(cfg, S) if cfg.has_ssm else None
+
+
+def _layer_train(cfg: ModelConfig, x: torch.Tensor, pl: Dict,
+                 chunk) -> torch.Tensor:
     h = apply_norm(cfg, pl["norm1"], x)
     if cfg.has_ssm:
-        x = x + ssm_mod.ssm_train(cfg, pl["ssm"], h)
+        x = x + ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk)
     else:
         x = x + attn.attn_train(cfg, pl["attn"], h)
     return _mlp_residual(cfg, pl, x)
@@ -99,8 +105,9 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
     """Full-sequence forward: tokens (B, S) -> logits (B, S, Vp)."""
     check_supported(cfg)
     x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
+    chunk = _ssd_chunk(cfg, tokens.shape[1])
     for l in range(_n_layers(params["layers"])):
-        x = _layer_train(cfg, x, _layer(params["layers"], l))
+        x = _layer_train(cfg, x, _layer(params["layers"], l), chunk)
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed_apply(cfg, params, x)
 
@@ -129,10 +136,10 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int,
 # ---------------------------------------------------------------- prefill
 
 
-def _layer_prefill(cfg, x, pl):
+def _layer_prefill(cfg, x, pl, chunk):
     h = apply_norm(cfg, pl["norm1"], x)
     if cfg.has_ssm:
-        mix, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h)
+        mix, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk)
         new_c = {"ssm": cs}
     else:
         mix, ca = attn.attn_prefill(cfg, pl["attn"], h)
@@ -157,9 +164,10 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     check_supported(cfg)
     B, S = tokens.shape
     x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
+    chunk = _ssd_chunk(cfg, S)
     per_layer = []
     for l in range(_n_layers(params["layers"])):
-        x, c = _layer_prefill(cfg, x, _layer(params["layers"], l))
+        x, c = _layer_prefill(cfg, x, _layer(params["layers"], l), chunk)
         per_layer.append(c)
     stacked = _stack(per_layer)
     cache: Dict[str, Any] = {

@@ -11,8 +11,9 @@ are per-row, so a freshly prefilled slot decodes exactly as it would in a
 batch of its own.  Every stacked cache leaf, the attention ``k``/``v``/
 ``kpos`` and the ssm ``conv``/``state`` alike, has its batch on axis 1.)
 
-The engine runs on the device its parameters live on.  Mapping-plan warmup
-(the JAX engine's ``warm_plans``) is not ported yet.
+The engine runs on the device its parameters live on.  At startup it warms
+the COMET mapping plans of its kernel shapes (``warm_plans``) through the
+port's plan cache, so no prefill solves a plan.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ class ServeEngine:
 
     def __init__(self, model: Model, params, *, batch_size: int,
                  cache_len: int, prompt_len: int,
+                 plan_warmup: bool = True,
                  max_new_cap: Optional[int] = None,
                  default_deadline_s: Optional[float] = None):
         self.model = model
@@ -68,6 +70,45 @@ class ServeEngine:
         self.default_deadline_s = default_deadline_s
         self.stats: Dict[str, float] = {"prefill_calls": 0, "decode_steps": 0,
                                         "tokens_out": 0, "timeouts": 0}
+        if plan_warmup:
+            self.warm_plans()
+
+    # ------------------------------------------------------------- plans
+    def plan_shapes(self) -> Dict[str, List]:
+        """The kernel shapes this engine's prefill/decode steps can ask
+        the autotuner for (``PAPER_KERNEL_SHAPES``-style table): the
+        prefill self-attention block (prompt_len x prompt_len), the
+        decode block over the full cache (1 x cache_len: decode runs
+        dense einsums, but a flash-decoding kernel would ask for exactly
+        this shape, so the plan is pre-solved either way), and, for SSD
+        families, the chunk sweep for the prompt length."""
+        cfg = self.model.cfg
+        shapes: Dict[str, List] = {}
+        if not cfg.has_ssm or cfg.family == "hybrid":
+            shapes["attention_blocks"] = [
+                (self.prompt_len, self.prompt_len, cfg.hd),   # prefill
+                (1, self.cache_len, cfg.hd),                  # decode
+            ]
+        if cfg.has_ssm:
+            shapes["ssd_chunk_len"] = [
+                (self.prompt_len, cfg.ssm_headdim, cfg.ssm_state)]
+        return shapes
+
+    def warm_plans(self) -> Dict[str, int]:
+        """Pre-solve the plans of this engine's kernel shapes in one
+        ``search_many`` sweep and persist them (the PlanCache's store), so
+        neither this process nor any later one solves them in a
+        prefill."""
+        from ..core.plan import get_plan_cache
+        from ..kernels.autotune import plan_jobs
+
+        t0 = time.time()
+        stats = get_plan_cache().warmup(plan_jobs(self.plan_shapes()),
+                                        sweep_id="serve-warmup")
+        self.stats["plan_warmup_hits"] = stats["hits"]
+        self.stats["plan_warmup_solved"] = stats["solved"]
+        self.stats["plan_warmup_s"] = time.time() - t0
+        return stats
 
     # ------------------------------------------------------------- serving
     def _pad_prompts(self, rows: Sequence[Optional[Request]]) -> np.ndarray:

@@ -256,6 +256,56 @@ def test_ssd_kernel_raises_instead_of_falling_back(hopper):
     assert ssd.ssd_scan_fwd.launches == before
 
 
+def test_mamba2_prefill_launches_ssd_at_the_plans_chunk(hopper, tmp_path,
+                                                        monkeypatch):
+    """A mamba2 smoke prefill on the card launches the SSD kernel once a
+    layer, every launch at the chunk ``ssd_chunk_len`` chose."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.kernels.autotune import ssd_chunk_len
+    from repro_torch.models.model import Model
+    monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans"))
+    cfg = get_smoke_config("mamba2-130m").with_(use_kernels=True)
+    model = Model(cfg)
+    params = model.init(0, device="cuda")
+    S = 96
+    toks = torch.arange(2 * S, device="cuda").reshape(2, S) % cfg.vocab_size
+    want = ssd_chunk_len(S, cfg.ssm_headdim, cfg.ssm_state)
+    ssd.ssd_scan_fwd.launches, ssd.ssd_scan_fwd.chunks = 0, {}
+    logits, _ = model.prefill(params, {"tokens": toks}, S + 8)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert ssd.ssd_scan_fwd.launches == cfg.n_layers
+    assert ssd.ssd_scan_fwd.chunks == {min(want, S): cfg.n_layers}
+
+
+def test_warm_plans_cold_then_warm_on_the_card(hopper, tmp_path,
+                                               monkeypatch):
+    """On a fresh store the engine solves every plan of its shapes; a
+    second engine over that store only hits."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels.autotune import plan_jobs
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans"))
+    model = Model(get_smoke_config("mamba2-130m").with_(use_kernels=True))
+    params = model.init(0, device="cuda")
+
+    def engine():
+        return ServeEngine(model, params, batch_size=2, cache_len=48,
+                           prompt_len=32)
+
+    cold = engine()
+    n = len(plan_jobs(cold.plan_shapes()))
+    assert (cold.stats["plan_warmup_solved"],
+            cold.stats["plan_warmup_hits"]) == (n, 0) and n > 0
+    with plan_mod._CACHES_LOCK:             # a second process
+        plan_mod._CACHES.clear()
+    warm = engine()
+    assert (warm.stats["plan_warmup_solved"],
+            warm.stats["plan_warmup_hits"]) == (0, n)
+
+
 GEMM_KERNELS = ("softmax", "layernorm", "rmsnorm")
 
 

@@ -127,9 +127,33 @@ failure ends the run with a non-zero exit:
     (``kernel_bench.streamed_l2_bytes``: a count, not a reading); the two
     modes within 1e-3 of each other; the hidden fraction degenerate (one rank); the synthetic overlap
     recovery within 0.01 and 0.10;
-15. a JSON line of the kernels (every number in it measured in this run,
-    but ``bound_ms``, computed from this run's inputs, and ``launches``,
-    counted), then ``{"ok": true, ...}`` as the last line.
+15. training mamba2-130m at full width and depth (``train_phase``: bf16,
+    batch 8 x seq 1024, remat "full", random weights and data from seed
+    0): at step 0 the kernel path against the plain path on the same
+    params and batch (loss within 1e-2 relative; every gradient leaf at
+    cosine >= 0.99 with a norm within 2%, or within 4 x the bf16 noise
+    floor where that is looser: the plain path against itself at chunk 32,
+    whose worst leaf was 0.985 and 3.2% apart), the kernel launched twice
+    a layer (forward and recompute) and the plain path not at all; the f32
+    smoke config's kernel path against its plain path within the CPU
+    parity bars of tests/test_torch_train.py (loss 1e-5 relative,
+    gradients 1e-2 of their largest magnitude for mamba2, whose SSD runs
+    in bf16 in every config); 6 steps of ``train_loop`` with the plans
+    warmed and an ``AsyncCheckpointer`` save at steps 3 and 6, counts set
+    to 0 just before: 6 x 24 x 2 SSD launches, every one at the plan's
+    chunk, finite losses (whether they fall is logged), the step-6
+    checkpoint restored bit for bit into a fresh TrainState; one step
+    without remat (24 launches); step ms (CUDA events, steps 2-6),
+    tokens/s, and one profiled step's idle share, top kernels and the
+    shares of the SSD kernel, the plain recompute backward and AdamW;
+16. the same for glm4-9b at full width and 4 of its 40 layers (the cut is
+    forced by memory and logged), batch 4 x seq 1024, FlashAttention
+    instead of the SSD scan, gradients of the f32 smoke step within 1e-4
+    of their largest magnitude, no checkpoint;
+17. a JSON line of the kernels (every number in it measured in this run,
+    but ``bound_ms``, computed from this run's inputs, and ``launches``
+    and ``train_launches``, counted over the serve or bench run and over
+    the training run), then ``{"ok": true, ...}`` as the last line.
 
 Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
 """
@@ -432,6 +456,306 @@ def plan_ms(job, times=1):
     from repro_torch.core.plan import get_plan_cache
     co, arch, kw = job[:3]
     return 1e3 * times * get_plan_cache().resolve(co, arch, **kw).latency_s
+
+
+# kernel path against plain path at step 0 of a bf16 training phase
+TRAIN_LOSS_RTOL, TRAIN_GRAD_COS, TRAIN_NORM_RTOL = 1e-2, 0.99, 0.02
+# mamba2's bf16 gradients at step 0 have a noise floor above those bars:
+# the plain path at chunk 32 against itself at chunk 64 (the same math
+# summed in another order) reached a worst leaf cosine of 0.9848 and a
+# norm 3.2% apart on the H100.  There the bars are FLOOR_FACTOR times the
+# floor measured in the same run, where that is looser than the above,
+# and never looser than cosine 0.9 and norms 20% apart.
+FLOOR_CHUNK, FLOOR_FACTOR = 32, 4
+# the f32 smoke step: the CPU parity bars of tests/test_torch_train.py
+SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL = 1e-5, {"glm4-9b": 1e-4,
+                                         "mamba2-130m": 1e-2}
+TRAIN_STEPS = 6
+
+
+def grad_agreement(gk, gp):
+    """Per leaf of two gradient trees: (name, cosine similarity, |norm
+    ratio - 1|) of the kernel path's gradient against the plain path's,
+    both summed in f32."""
+    from repro_torch.train.checkpoint import flatten_with_names
+    out = []
+    for (name, a), (_, b) in zip(flatten_with_names(gk),
+                                 flatten_with_names(gp)):
+        a, b = a.float().flatten(), b.float().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        cos = float(torch.dot(a, b)) / (na * nb) if na * nb else \
+            float(na == nb)
+        out.append((name, cos, abs(na / nb - 1) if nb else abs(na)))
+    return out
+
+
+def section_ms(fn):
+    """Run one train step ``fn`` with CUDA events around every call of the
+    autograd wrappers' recompute backward (``_FlashAttention.backward``,
+    ``_SSDScan.backward``) and of ``adamw_update``: the ms of each on the
+    card's stream, summed over the step."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.train import train_step as ts
+    spans = {"recompute_backward": [], "adamw_update": []}
+
+    def timed(key, f):
+        def wrapper(*args, **kwargs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = f(*args, **kwargs)
+            ev[1].record()
+            spans[key].append(ev)
+            return out
+        return wrapper
+
+    saved = (fa._FlashAttention.backward, ssd._SSDScan.backward,
+             ts.adamw_update)
+    fa._FlashAttention.backward = staticmethod(
+        timed("recompute_backward", saved[0]))
+    ssd._SSDScan.backward = staticmethod(timed("recompute_backward",
+                                               saved[1]))
+    ts.adamw_update = timed("adamw_update", saved[2])
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        fa._FlashAttention.backward = staticmethod(saved[0])
+        ssd._SSDScan.backward = staticmethod(saved[1])
+        ts.adamw_update = saved[2]
+    return {k: sum(a.elapsed_time(b) for a, b in v)
+            for k, v in spans.items()}
+
+
+def train_phase(arch, dev, counters, *, kernel, batch, seq, cut,
+                n_layers=None, ckpt_dir=None):
+    """The training path of ``arch`` (bf16, ``use_kernels=True``, remat
+    "full"; ``n_layers`` of its layers when given) on the card, every
+    check failing the run:
+
+    - step 0, kernel path against plain path on the same params and batch:
+      the loss within TRAIN_LOSS_RTOL, every gradient leaf at cosine >=
+      TRAIN_GRAD_COS with a norm within TRAIN_NORM_RTOL (for an SSD model,
+      or FLOOR_FACTOR x the plain path's disagreement with itself at
+      chunk FLOOR_CHUNK, where that is looser); the kernel launched twice
+      a layer (forward and remat recompute), the plain path not at all;
+    - the f32 smoke config, kernel path against plain path, within the CPU
+      parity bars (SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL);
+    - TRAIN_STEPS steps of ``train_loop`` (plans warmed; with an
+      ``AsyncCheckpointer`` save at step 3 and at the end when
+      ``ckpt_dir``), counts set to 0 just before and read just after:
+      ``kernel`` launched steps x 2 x layers times, every SSD launch at the
+      plan's chunk, finite losses; the checkpoint restores bit for bit
+      into a fresh TrainState;
+    - one step without remat: ``kernel`` launched once a layer;
+    - one step timed with CUDA events, one with CUDA events around the
+      recompute backward and AdamW (``section_ms``), and one profiled
+      (idle share, top kernels, the kernel's share).
+
+    Returns the record and the main run's launches."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import Model
+    from repro_torch.train.checkpoint import (flatten_with_names,
+                                              latest_step, restore_checkpoint)
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import (TrainState, make_loss_fn,
+                                              make_train_step, value_and_grad)
+    cfg = get_config(arch).with_(use_kernels=True)
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    name, fn, L = cfg.name, counters[kernel], cfg.n_layers
+
+    def to_dev(b):
+        return {k: torch.from_numpy(v).long().to(dev) for k, v in b.items()}
+
+    def zero_counts():
+        for f in counters.values():
+            f.launches = 0
+            if hasattr(f, "chunks"):
+                f.chunks = {}
+
+    rec = {"config": name, "layers": L, "batch": batch, "seq": seq,
+           "cut": cut}
+    log(f"  {name}: {cut}; {L} layers, d_model {cfg.d_model}, batch "
+        f"{batch} x seq {seq}, bf16, remat {cfg.remat_policy}")
+    # ---- step 0: kernel path against plain path, full size
+    model = Model(cfg)
+    params = model.init(0, device=dev)
+    log(f"  {model.n_params() / 1e9:.3f} B params")
+    b0 = to_dev(SyntheticLM(cfg.vocab_size, seq, batch, seed=0).batch(0))
+    zero_counts()
+    lk, gk = value_and_grad(make_loss_fn(model), params, b0)
+    torch.cuda.synchronize()
+    grad_launches = fn.launches
+    lp, gp = value_and_grad(
+        make_loss_fn(Model(cfg.with_(use_kernels=False))), params, b0)
+    torch.cuda.synchronize()
+    if (grad_launches, fn.launches) != (2 * L, 2 * L):
+        raise AssertionError(f"{name}: {kernel} launched {grad_launches} "
+                             f"times in the kernel path's gradient, "
+                             f"{fn.launches - grad_launches} in the plain "
+                             f"path's; want {2 * L} and 0")
+    agree = grad_agreement(gk, gp)
+    loss_err = abs(float(lk) / float(lp) - 1)
+    worst_cos = min(agree, key=lambda x: x[1])
+    worst_norm = max(agree, key=lambda x: x[2])
+    cos_bar, norm_bar = TRAIN_GRAD_COS, TRAIN_NORM_RTOL
+    rec["step0"] = {"loss_kernel": float(lk), "loss_plain": float(lp),
+                    "loss_rel_err": loss_err,
+                    "leaves": [list(x) for x in agree]}
+    if cfg.has_ssm:
+        # the floor: the plain path against itself at another chunk
+        from repro_torch.models import ssm
+        plan_chunk = ssm.plan_chunk
+        ssm.plan_chunk = lambda *_: FLOOR_CHUNK
+        try:
+            _, gf = value_and_grad(make_loss_fn(Model(cfg.with_(
+                use_kernels=False))), params, b0)
+        finally:
+            ssm.plan_chunk = plan_chunk
+        floor = grad_agreement(gf, gp)
+        f_cos = min(x[1] for x in floor)
+        f_norm = max(x[2] for x in floor)
+        cos_bar = min(cos_bar, max(0.9, 1 - FLOOR_FACTOR * (1 - f_cos)))
+        norm_bar = max(norm_bar, min(0.2, FLOOR_FACTOR * f_norm))
+        log(f"  step 0, the bf16 floor: the plain path at chunk "
+            f"{FLOOR_CHUNK} against itself at the plan's: worst cosine "
+            f"{f_cos:.6f}, worst norm ratio - 1 {f_norm:.2e}; bars "
+            f"{FLOOR_FACTOR} x the floor: cosine >= {cos_bar:.4f}, norm "
+            f"within {norm_bar:.4f}")
+        rec["step0"].update(floor_cos=f_cos, floor_norm=f_norm)
+        del gf
+    log(f"  step 0, kernel vs plain: loss {float(lk):.6f} vs "
+        f"{float(lp):.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_RTOL}); "
+        f"worst cosine {worst_cos[1]:.6f} ({worst_cos[0]}, tol >= "
+        f"{cos_bar:.4f}); worst norm ratio - 1 {worst_norm[2]:.2e} "
+        f"({worst_norm[0]}, tol {norm_bar:.4f})")
+    rec["step0"].update(cos_bar=cos_bar, norm_bar=norm_bar)
+    if not (loss_err <= TRAIN_LOSS_RTOL and worst_cos[1] >= cos_bar
+            and worst_norm[2] <= norm_bar):
+        raise AssertionError(f"{name}: the kernel path's step 0 disagrees "
+                             f"with the plain path's")
+    del gk, gp, params, model
+    torch.cuda.empty_cache()
+    # ---- the f32 smoke config: kernel path against plain path
+    scfg = get_smoke_config(arch).with_(dtype="float32", use_kernels=True)
+    sparams = Model(scfg).init(0, device=dev)
+    sb = to_dev(SyntheticLM(scfg.vocab_size, 64, 4, seed=0).batch(0))
+    l1, g1 = value_and_grad(make_loss_fn(Model(scfg)), sparams, sb)
+    l2, g2 = value_and_grad(make_loss_fn(Model(scfg.with_(
+        use_kernels=False))), sparams, sb)
+    s_loss = abs(float(l1) / float(l2) - 1)
+    s_grad = max(float((a - b).abs().max() / b.abs().max())
+                 for (_, a), (_, b) in zip(flatten_with_names(g1),
+                                           flatten_with_names(g2)))
+    gtol = SMOKE_GRAD_TOL[arch]
+    log(f"  f32 smoke step, kernel vs plain: loss rel {s_loss:.2e} (tol "
+        f"{SMOKE_LOSS_RTOL}), worst gradient leaf max|diff| / max|plain| "
+        f"{s_grad:.2e} (tol {gtol})")
+    rec["f32_smoke"] = {"loss_rel_err": s_loss, "grad_rel_err": s_grad}
+    if not (s_loss <= SMOKE_LOSS_RTOL and s_grad <= gtol):
+        raise AssertionError(f"{name}: the f32 smoke step's kernel path "
+                             f"disagrees with the plain path")
+    # ---- TRAIN_STEPS steps of train_loop, the counts of this run alone
+    model = Model(cfg)
+    opt_cfg = OptConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    zero_counts()
+    out = train_loop(model, steps=TRAIN_STEPS, batch=batch, seq=seq,
+                     opt_cfg=opt_cfg, ckpt_dir=ckpt_dir, ckpt_every=3,
+                     warmup_plans=True, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want = {k: 2 * L * TRAIN_STEPS if k == kernel else 0 for k in counters}
+    if launches != want or out["launches"][kernel] != want[kernel]:
+        raise AssertionError(f"{name}: launches {launches} over "
+                             f"{TRAIN_STEPS} steps; want {want}")
+    if kernel == "ssd_scan":
+        plan = autotune.ssd_chunk_len(seq, cfg.ssm_headdim, cfg.ssm_state)
+        if fn.chunks != {plan: want[kernel]}:
+            raise AssertionError(f"{name}: ssd_scan launches by chunk "
+                                 f"{fn.chunks}; want all at the plan's "
+                                 f"{plan}")
+        rec["plan_chunk"] = plan
+        log(f"  every ssd_scan launch at the plan's chunk {plan}: "
+            f"{fn.chunks}")
+    losses = out["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    timed = out["step_ms"][1:]           # steps 2-6
+    step_ms = sum(timed) / len(timed)
+    log(f"  launches {launches} == {TRAIN_STEPS} steps x {L} layers x 2")
+    log(f"  losses {[round(x, 4) for x in losses]}; falls: "
+        f"{losses[-1] < losses[0]} (logged, not gated)")
+    log(f"  step ms (CUDA events, steps 2-{TRAIN_STEPS}) "
+        f"{[round(x, 2) for x in timed]}: mean {step_ms:.2f} ms, "
+        f"{batch * seq / step_ms * 1e3:.0f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    rec.update(losses=losses, step_ms=out["step_ms"], mean_step_ms=step_ms,
+               tokens_per_s=batch * seq / step_ms * 1e3, launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    state = out["state"]
+    # ---- the checkpoint restores bit for bit
+    if ckpt_dir:
+        fresh = model.init(1, device=dev)
+        restored, step, _ = restore_checkpoint(
+            ckpt_dir, TrainState(fresh, init_opt_state(fresh)))
+        got, ref = flatten_with_names(restored), flatten_with_names(state)
+        same = len(got) == len(ref) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for (_, a), (_, b) in zip(got, ref))
+        _, step3, _ = restore_checkpoint(
+            ckpt_dir, TrainState(fresh, init_opt_state(fresh)), step=3)
+        if not (same and step == latest_step(ckpt_dir) == TRAIN_STEPS
+                and step3 == 3):
+            raise AssertionError(f"{name}: checkpoint of step {step} does "
+                                 f"not restore bit for bit")
+        log(f"  checkpoints at steps 3 and {TRAIN_STEPS} (AsyncCheckpointer,"
+            f" no errors); step {TRAIN_STEPS} restores bit for bit into a "
+            f"fresh TrainState ({len(got)} tensors, the step among them)")
+        del fresh, restored
+    # ---- one step without remat: the kernel once a layer
+    zero_counts()
+    state, _ = make_train_step(Model(cfg.with_(remat=False)), opt_cfg)(
+        state, b0)
+    torch.cuda.synchronize()
+    if fn.launches != L:
+        raise AssertionError(f"{name}: {fn.launches} launches in a step "
+                             f"without remat; want {L}")
+    log(f"  one step without remat: {kernel} launched {fn.launches} == "
+        f"{L} layers")
+    # ---- where the time of a step goes
+    step_fn = make_train_step(model, opt_cfg)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], b0)
+
+    ms = kb.cuda_ms(one_step, iters=1, warmup=1)
+    under = section_ms(one_step)
+    busy, ranked = device_profile(one_step)
+    own = sum(t for n, t in ranked if ("fa_fwd" in n or "ssd_fwd" in n))
+    rec["profile"] = {
+        "step_ms": ms, "kernel_ms": busy, "idle_share": 1 - busy / ms,
+        f"{kernel}_ms": own, "recompute_backward_ms":
+        under["recompute_backward"], "adamw_update_ms":
+        under["adamw_update"], "top_kernels": [[n[:80], t]
+                                               for n, t in ranked[:8]]}
+    log(f"  one step: {ms:.2f} ms (CUDA events), kernels {busy:.2f} ms "
+        f"(profiler), idle share {100 * (1 - busy / ms):.1f}%; {kernel} "
+        f"{own:.3f} ms ({100 * own / busy:.1f}% of the kernel time); by "
+        f"CUDA events, the plain recompute backward "
+        f"{under['recompute_backward']:.2f} ms "
+        f"({100 * under['recompute_backward'] / ms:.1f}% of the step), "
+        f"AdamW {under['adamw_update']:.2f} ms "
+        f"({100 * under['adamw_update'] / ms:.1f}%)")
+    for n, t in ranked[:8]:
+        log(f"    {t:9.3f} ms  {n[:100]}")
+    del holder, state, out, model, step_fn
+    torch.cuda.empty_cache()
+    return rec, launches
 
 
 def main() -> int:
@@ -1070,7 +1394,28 @@ def main() -> int:
         f"{sg_l2 / sg_main['device_ms'] / 1e9:.2f} TB/s over the device time")
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 15. the result
+    # ------------------------------------------- 15. train mamba2-130m
+    t0 = phase("15. train mamba2-130m (full config, bf16, use_kernels=True)")
+    ckpt = tempfile.TemporaryDirectory(prefix="train-ckpt-")
+    train_mamba, train_ssd = train_phase(
+        "mamba2-130m", dev, counters, kernel="ssd_scan", batch=m_batch,
+        seq=1024, cut="nothing cut", ckpt_dir=ckpt.name)
+    ckpt.cleanup()
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------- 16. train glm4-9b, 4 layers
+    t0 = phase("16. train glm4-9b (full width, 4 of 40 layers, bf16, "
+               "use_kernels=True)")
+    train_glm4, train_fa = train_phase(
+        "glm4-9b", dev, counters, kernel="flash_attention", batch=4,
+        seq=1024, n_layers=4,
+        cut="depth cut to 4 of 40 layers by memory: at 40 layers bf16 "
+            "params and grads and f32 AdamW moments take 9.4 B x 12 B = 113 "
+            "GB, more than the card's 80 GB; at 4 layers 2.06 B x 12 B = 25 "
+            "GB")
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 17. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1078,6 +1423,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:35",
         "tpu_kernel": "repro/kernels/flash_attention.py::_fa_kernel",
         "launches": launches,
+        "train_launches": train_fa["flash_attention"],
         "max_abs_err": main_err,
         "max_err": main_err,
         "ms": kernel_ms,
@@ -1100,6 +1446,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd.py:31",
         "tpu_kernel": "repro/kernels/ssd.py::_ssd_kernel",
         "launches": launches_ssd,
+        "train_launches": train_ssd["ssd_scan"],
         "max_abs_err": ssd_err,
         "max_err": ssd_err,
         "ms": ssd_ms,
@@ -1166,6 +1513,8 @@ def main() -> int:
     }]
     log(json.dumps({"card": smi, "serve_glm4_9b": serve,
                     "serve_mamba2_130m": mserve,
+                    "train_mamba2_130m": train_mamba,
+                    "train_glm4_9b_4_layers": train_glm4,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))

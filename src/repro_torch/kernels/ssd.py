@@ -225,14 +225,18 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
                  C: torch.Tensor, *, chunk: Optional[int] = None
                  ) -> torch.Tensor:
     """xdt (BH, S, P), dA (BH, S) f32, B/C (BH/r, S, N) -> y (BH, S, P) in
-    xdt.dtype.  ``chunk`` defaults to the kernel's 64 and is clipped to S
-    (the JAX rule ``min(chunk, S)``).
+    xdt.dtype.  ``chunk`` defaults to the COMET plan's
+    (``autotune.ssd_chunk_len(S, P, N)``) and is clipped to S, as the JAX
+    wrapper's ``min(chunk or ssd_chunk_len(S, P, N), S)``.
 
     On CUDA tensors this launches the kernel, adds one to
     ``ssd_scan_fwd.launches`` and one to ``ssd_scan_fwd.chunks[chunk]``
     (the launches at each chunk); on CPU tensors it returns the plain
     ``ssd_chunked_ref`` of B and C repeated to one row a head."""
-    chunk = min(CHUNK if chunk is None else chunk, xdt.shape[1])
+    if chunk is None:
+        from .autotune import ssd_chunk_len   # autotune imports this module
+        chunk = ssd_chunk_len(xdt.shape[1], xdt.shape[-1], B.shape[-1])
+    chunk = min(chunk, xdt.shape[1])
     r = _check(xdt, dA, B, C, chunk)
     if xdt.device.type == "cpu":
         return ssd_chunked_ref(xdt, dA, expand_groups(B, r),

@@ -1,4 +1,4 @@
-"""Shared model layers: norms, RoPE, MLP, embeddings."""
+"""Shared model layers: norms, RoPE, MLP, embeddings, the LM loss."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -12,6 +12,7 @@ from .param import ParamSpec
 __all__ = [
     "norm_specs", "apply_norm", "rope_cos_sin", "apply_rope",
     "mlp_specs", "mlp_apply", "embed_specs", "embed_apply", "unembed_apply",
+    "cross_entropy_loss",
 ]
 
 F32 = torch.float32
@@ -112,3 +113,20 @@ def unembed_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     if cfg.tie_embeddings:
         return h @ p["embedding"].T
     return h @ p["unembed"]
+
+
+# -------------------------------------------------------------------- loss
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       real_vocab: int) -> torch.Tensor:
+    """Mean token NLL in f32.  logits (B, S, Vp): padded vocab entries are
+    masked with -1e30; labels (B, S) int in [0, real_vocab)."""
+    lf = logits.to(F32)
+    Vp = lf.shape[-1]
+    if Vp > real_vocab:
+        pad_mask = torch.arange(Vp, device=lf.device) >= real_vocab
+        lf = lf.masked_fill(pad_mask, -1e30)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)

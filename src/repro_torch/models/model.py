@@ -1,5 +1,5 @@
 """Model facade: one object tying config -> specs -> init params ->
-logits/prefill/decode callables."""
+logits/loss/prefill/decode callables."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,6 +10,7 @@ import torch
 from .. import resolve_device
 from . import transformer
 from .config import ModelConfig
+from .layers import cross_entropy_loss
 from .param import count_params, init_tree
 
 __all__ = ["Model"]
@@ -39,6 +40,13 @@ class Model:
     # ------------------------------------------------------------ forward
     def logits(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return transformer.forward(self.cfg, params, batch["tokens"])
+
+    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean token NLL of ``batch["labels"]`` under the logits of
+        ``batch["tokens"]`` (f32 scalar)."""
+        logits = self.logits(params, batch)
+        return cross_entropy_loss(logits, batch["labels"],
+                                  self.cfg.vocab_size)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int,

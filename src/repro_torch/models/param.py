@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["ParamSpec", "init_tree", "count_params", "torch_dtype",
-           "tree_map", "tree_leaves"]
+           "tree_map", "tree_leaves", "tree_zip"]
 
 
 @dataclass(frozen=True)
@@ -48,6 +48,15 @@ def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_zip(*trees):
+    """Tuples of the leaves at the same place in nested dicts of one
+    nesting, keys matched by name (their insertion orders may differ)."""
+    if isinstance(trees[0], dict):
+        return [x for k in trees[0]
+                for x in tree_zip(*(t[k] for t in trees))]
+    return [trees]
 
 
 def _init_one(spec: ParamSpec, gen: torch.Generator,

@@ -1,7 +1,9 @@
 """Decoder-LM engine: dense GQA/MQA decoders and attention-free Mamba-2
 (ssm) decoders.  Layer parameters are stacked ``(L, ...)`` leaves as in
 the JAX package; where JAX scans over the stack, the port loops over layer
-slices.
+slices.  Under autograd, ``forward`` checkpoints each layer as the
+config's ``remat``/``remat_policy`` say (``torch.utils.checkpoint``, the
+counterpart of the JAX package's ``jax.checkpoint``).
 
 Paths: ``forward`` (full-seq causal logits), ``prefill`` (builds the
 cache), ``decode`` (one token, fixed shapes).  The moe, mla, hybrid and
@@ -9,10 +11,13 @@ encdec families are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from . import ssm as ssm_mod
@@ -46,6 +51,36 @@ def _layer(params: Dict, l: int) -> Dict:
 
 def _n_layers(stacked: Dict) -> int:
     return tree_leaves(stacked)[0].shape[0]
+
+
+def _unbind_layers(stacked: Dict) -> List[Dict]:
+    """Every layer's slice of the stacked leaves, from one ``unbind`` a
+    leaf: under autograd each leaf's gradient is then one stack of the
+    layers' gradients, where a separate index view a layer would add L
+    full-size zero tensors."""
+    cols = tree_map(lambda a: a.unbind(0), stacked)
+    return [tree_map(lambda t: t[l], cols)
+            for l in range(_n_layers(stacked))]
+
+
+# 2-D matmuls (``x @ w`` reaches ``aten.mm``): the outputs that remat policy
+# "dots" keeps, as ``dots_with_no_batch_dims_saveable`` does in JAX; batched
+# products (``bmm``) and everything else are recomputed
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(cfg: ModelConfig, body):
+    """``body`` checkpointed while grad is enabled: ``remat_policy`` "full"
+    saves nothing of it and recomputes it in the backward pass, "dots"
+    saves its 2-D matmuls' outputs; "none" or ``remat=False``, and any call
+    without grad (prefill, decode), run it as it is."""
+    if not cfg.remat or cfg.remat_policy == "none" \
+            or not torch.is_grad_enabled():
+        return body
+    kw = {} if cfg.remat_policy == "full" else {
+        "context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                        _DOTS)}
+    return functools.partial(checkpoint, body, use_reentrant=False, **kw)
 
 
 # ------------------------------------------------------------------ specs
@@ -106,8 +141,9 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
     check_supported(cfg)
     x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
     chunk = _ssd_chunk(cfg, tokens.shape[1])
-    for l in range(_n_layers(params["layers"])):
-        x = _layer_train(cfg, x, _layer(params["layers"], l), chunk)
+    layer = _remat(cfg, functools.partial(_layer_train, cfg))
+    for pl in _unbind_layers(params["layers"]):
+        x = layer(x, pl, chunk)
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed_apply(cfg, params, x)
 

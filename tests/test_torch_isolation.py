@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-``chip_smoke`` loads neither JAX nor the JAX package, and no source line
-of the port imports them."""
+``chip_smoke`` loads neither JAX, nor the JAX package, nor ``ml_dtypes``
+(which the card's machine does not have), and no source line of the port
+imports them."""
 import json
 import re
 import subprocess
@@ -21,7 +22,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+             if m in ("jax", "repro", "ml_dtypes")
+             or m.startswith(("jax.", "repro.", "ml_dtypes.")))
 print(json.dumps({{"modules": names, "bad": bad}}))
 """
 
@@ -34,13 +36,17 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert "repro_torch.launch.serve" in out["modules"]
+    for name in ("repro_torch.launch.serve", "repro_torch.launch.train",
+                 "repro_torch.train", "repro_torch.parallel",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.parallel.compression"):
+        assert name in out["modules"], name
     assert len(out["modules"]) >= 25
 
 
 def test_no_source_line_imports_jax_or_repro():
-    pat = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)|"
-                     r"import_module\(\s*[\"'](jax|repro)[.\"']")
+    pat = re.compile(r"^\s*(from|import)\s+(jax|repro|ml_dtypes)(\.|\s|$)|"
+                     r"import_module\(\s*[\"'](jax|repro|ml_dtypes)[.\"']")
     hits = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
             for p in PORT_SOURCES
             for i, line in enumerate(p.read_text().splitlines(), 1)

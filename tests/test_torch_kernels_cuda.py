@@ -278,6 +278,87 @@ def test_mamba2_prefill_launches_ssd_at_the_plans_chunk(hopper, tmp_path,
     assert ssd.ssd_scan_fwd.chunks == {min(want, S): cfg.n_layers}
 
 
+# ------------------------------------------------------- under autograd
+
+
+def _grads_match(got, want, tol):
+    """Each gradient within ``tol`` of its largest magnitude."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max()
+        assert err <= tol * b.float().abs().max(), (err, b.abs().max())
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window", [
+    (1, 4, 4, 128, 64, None),       # causal
+    (2, 8, 2, 96, 64, None),        # GQA, a ragged key tile
+    (1, 4, 2, 160, 32, 48),         # sliding window
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradient_through_its_wrapper(hopper, B, Hq, Hkv, S,
+                                                      D, window, dtype):
+    """The gradient through ``_FlashAttention`` (the kernel forward, the
+    plain recompute backward) equals the plain version's, within the
+    forward bars of its largest magnitude."""
+    q, k, v = [t.requires_grad_(True)
+               for t in _qkv(hopper, B, Hq, Hkv, S, S, D, dtype)]
+    before = fa.flash_attention_fwd.launches
+    out = ops.mha(q, k, v, causal=True, window=window, use_kernel=True)
+    assert fa.flash_attention_fwd.launches == before + 1
+    want = attention_ref(q, k, v, causal=True, window=window)
+    g = torch.randn(out.shape, generator=hopper, device="cuda", dtype=dtype)
+    _grads_match(torch.autograd.grad(out, (q, k, v), g),
+                 torch.autograd.grad(want, (q, k, v), g), TOL[dtype])
+
+
+@pytest.mark.parametrize("r", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gradient_through_its_wrapper(hopper, r, dtype):
+    """The gradient through ``_SSDScan`` with B/C in group form equals the
+    plain version's on B/C repeated to one row a head (their gradients
+    summed over each group's heads), within the forward bars of its
+    largest magnitude."""
+    xs = [t.detach().requires_grad_(True)
+          for t in _ssd_inputs(hopper, 8, 100, 32, 64, dtype, r)]
+    before = ssd.ssd_scan_fwd.launches
+    out = ops.ssd(*xs, chunk=64, use_kernel=True)
+    assert ssd.ssd_scan_fwd.launches == before + 1
+    x, dA, B, C = xs
+    want = ssd_chunked_ref(x, dA, ssd.expand_groups(B, r),
+                           ssd.expand_groups(C, r), chunk=64)
+    g = torch.randn(out.shape, generator=hopper, device="cuda", dtype=dtype)
+    _grads_match(torch.autograd.grad(out, xs, g),
+                 torch.autograd.grad(want, xs, g),
+                 2e-3 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "mamba2-130m"])
+def test_train_step_launches_each_kernel_twice_a_layer_under_remat(
+        hopper, arch, tmp_path, monkeypatch):
+    """One train step of the smoke config on the card: the kernel once a
+    layer in the forward pass and once in its recompute (remat "full"),
+    once a layer without remat; finite losses."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainState, make_train_step
+    monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans"))
+    cfg = get_smoke_config(arch).with_(use_kernels=True)
+    counter = ssd.ssd_scan_fwd if cfg.has_ssm else fa.flash_attention_fwd
+    toks = torch.arange(2 * 65, device="cuda").reshape(2, 65) \
+        % cfg.vocab_size
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for remat, per_layer in ((True, 2), (False, 1)):
+        model = Model(cfg.with_(remat=remat))
+        params = model.init(0, device="cuda")
+        state = TrainState(params, init_opt_state(params))
+        before = counter.launches
+        state, metrics = make_train_step(model, OptConfig())(state, batch)
+        torch.cuda.synchronize()
+        assert counter.launches - before == per_layer * cfg.n_layers
+        assert bool(torch.isfinite(metrics["loss"]))
+
+
 def test_warm_plans_cold_then_warm_on_the_card(hopper, tmp_path,
                                                monkeypatch):
     """On a fresh store the engine solves every plan of its shapes; a

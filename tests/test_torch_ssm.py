@@ -158,6 +158,24 @@ def test_ssd_scan_backward_matches_jax():
         _close_scaled(a, b, 1e-5)
 
 
+@pytest.mark.parametrize("S", [40, 1024])
+def test_default_chunk_is_the_plans(S):
+    """``ssd_scan_fwd(chunk=None)`` runs the COMET plan's chunk
+    (``autotune.ssd_chunk_len(S, P, N)``), as the JAX wrapper does: bit
+    for bit the chunked reference at that chunk, at mamba2's head (P 64,
+    N 128).  At S = 40 the plan picks 32, where the wrapper once ran its
+    64 clipped to 40."""
+    from repro_torch.kernels.autotune import ssd_chunk_len
+    _, (x, dA, B, C) = _ssd_inputs(11, 2, S, 64, 128)
+    chunk = ssd_chunk_len(S, 64, 128)
+    assert chunk == {40: 32, 1024: 64}[S]
+    out = tssd.ssd_scan_fwd(x, dA, B, C)
+    assert torch.equal(out, tref.ssd_chunked_ref(x, dA, B, C, chunk=chunk))
+    if S == 40:
+        assert not torch.equal(out, tref.ssd_chunked_ref(x, dA, B, C,
+                                                         chunk=40))
+
+
 def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take():
     _, (x, dA, B, C) = _ssd_inputs(5, 2, 128, 16, 32)
     with pytest.raises(TypeError, match="dtype"):

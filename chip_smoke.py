@@ -150,10 +150,45 @@ failure ends the run with a non-zero exit:
     forced by memory and logged), batch 4 x seq 1024, FlashAttention
     instead of the SSD scan, gradients of the f32 smoke step within 1e-4
     of their largest magnitude, no checkpoint;
-17. a JSON line of the kernels (every number in it measured in this run,
+17. serving hymba-1.5b (the hybrid family: attention and SSD heads in
+    every layer) at full width and depth, bf16, random weights from seed
+    0, batch 4, prompt 1536 (so the window of 1024 masks inside the
+    FlashAttention kernel and the prefill builds its ring: 1536 < 2 x 1024
+    keeps it off the banded path), cache 2048: FlashAttention at hymba's
+    shape (4, 25, 5, 1536, 1536, 64, window 1024; a GQA group of 5, one
+    head a work item) against ``attention_ref`` (3e-2) and the SSD scan at
+    hymba's (BH 200, r 50, S 1536, P 64, N 16, the conv output's views) at
+    the plan's chunk against ``ssd_chunked_ref`` (1e-2 of the largest
+    |y|), each timed beside its bound, plain version and SDPA (a boolean
+    window mask); then the serve run, counts set to 0 just before:
+    32 FlashAttention and 32 SSD launches per prefill, every SSD launch at
+    the plan's chunk; one prefill and one decode step timed and profiled
+    as in phase 5; the phase's peak memory;
+18. the same for qwen3-moe-30b-a3b (MoE: 128 experts top-8), full config,
+    all 48 layers, batch 4, prompt 1024, cache 2048: FlashAttention at
+    (4, 32, 4, 1024, 1024, 128), 48 launches per prefill;
+19. deepseek-v3-671b (MLA + the sigmoid-routed MoE with a shared expert)
+    at full width and 4 of its 61 layers (3 dense + 1 MoE; the cut is
+    forced by memory and logged): no kernel launches at all (MLA's q and v
+    head dims differ, so it takes the blocked loop, as in JAX);
+20. seamless-m4t-medium (enc-dec) full config, batch 4, prompt 1024
+    (128 encoder frames), cache 2048: FlashAttention at the cross shape
+    (4, 16, 16, 1024, 128, 64, not causal) as above; 36 launches per
+    prefill (12 encoder, 12 decoder self, 12 cross); the engine feeds zero
+    frames, the timed prefill seeded ones, so the cross-attention sees
+    real keys;
+21. for each of the four families' smoke configs (f32, kernels on): a
+    3-slot engine equals serial decoding (the MoE configs at capacity
+    factor E / k: a batched prefill's rows share each expert's capacity,
+    so batching equals serial decoding only where nothing drops), and the
+    kernel path's logits equal the plain path's (1e-4; hymba 1e-2, its
+    SSD in bf16);
+22. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
-    the training run), then ``{"ok": true, ...}`` as the last line.
+    the training run; the FlashAttention and SSD rows also carry each
+    family's serve launches and its shape's record), then
+    ``{"ok": true, ...}`` as the last line.
 
 Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
 """
@@ -193,6 +228,10 @@ MAMBA_PATH_TOL = 1e-2
 KERNEL_SOURCES = ("flash_attention", "ssd_scan", "gemm_epilogue",
                   "streamed_gemm")
 GEMM_KERNELS = ("gemm_softmax", "gemm_layernorm", "gemm_rmsnorm")
+# what the kernels line keeps of a kernel's record at a family's shape
+FAMILY_KEYS = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms", "library_device_ms",
+               "tile")
 
 
 def log(msg: str) -> None:
@@ -346,7 +385,14 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
         raise AssertionError("a request did not get all its tokens")
     toks = torch.from_numpy(np.stack([r.prompt for r in done[:batch]])) \
         .long().to(dev)
-    logits, cache = model.prefill(params, {"tokens": toks}, cache_len)
+    inputs = {"tokens": toks}
+    if cfg.is_encdec:   # seeded frames: the cross-attention sees real keys
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        inputs["src_embeds"] = torch.randn(
+            batch, max(1, prompt_len // cfg.enc_ratio), cfg.d_model,
+            generator=gen, device=dev)
+    logits, cache = model.prefill(params, inputs, cache_len)
     step, _ = model.decode(params, cache, logits[:, -1].argmax(-1)[:, None])
     if not (torch.isfinite(logits).all() and torch.isfinite(step).all()):
         raise AssertionError(f"{name} logits are not finite")
@@ -357,7 +403,7 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
     tok = logits[:, -1].argmax(-1)[:, None]
 
     def run_prefill():
-        return model.prefill(params, {"tokens": toks}, cache_len)
+        return model.prefill(params, inputs, cache_len)
 
     def run_decode():
         return model.decode(params, cache, tok)
@@ -756,6 +802,245 @@ def train_phase(arch, dev, counters, *, kernel, batch, seq, cut,
     del holder, state, out, model, step_fn
     torch.cuda.empty_cache()
     return rec, launches
+
+
+def family_attention_check(gen, arch):
+    """FlashAttention at the shape where ``arch``'s serving prefill reaches
+    it (``kernel_bench.FAMILY_ATTENTION_SHAPES``, model layout, bf16)
+    against ``attention_ref`` elementwise within BF16_TOL, then timed by
+    ``kernel_bench.bench_attention`` (CUDA events and device time of the
+    kernel, the plain version and SDPA, and the bound).  Returns the
+    record."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+    B, Hq, Hkv, Sq, Skv, D, causal, window = \
+        kb.FAMILY_ATTENTION_SHAPES[arch]
+    q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).transpose(1, 2)
+    k, v = [torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda",
+                        dtype=torch.bfloat16).transpose(1, 2)
+            for _ in range(2)]
+    out = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    diff = (out.float() - want.float()).abs()
+    err = float(diff.max())
+    if not bool((diff <= BF16_TOL + BF16_TOL * want.float().abs()).all()):
+        raise AssertionError(f"flash_attention disagrees at {arch}'s shape: "
+                             f"{err}")
+    del out, want, diff
+    rec = kb.bench_attention(q, k, v, causal=causal, window=window)
+    t = fa.tiling(B, Hq, Hkv, Sq, Skv, D, torch.bfloat16)
+    log(f"  flash_attention at {arch}'s shape q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} causal {causal} window {window}: tiling "
+        f"{t.heads} head(s) a work item, {t.items} items; max_abs_err "
+        f"{err:.3e} (tol {BF16_TOL}); kernel_ms {rec['ms']:.4f} device_ms "
+        f"{rec['device_ms']:.4f}  plain_ms {rec['plain_ms']:.4f}  "
+        f"library_ms {rec['library_ms']:.4f} (device "
+        f"{rec['library_device_ms']:.4f}; {rec['library']})  bound_ms "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']}, "
+        f"{rec['flops'] / 1e9:.2f} GFLOP of the visible pairs)")
+    return rec
+
+
+def family_serve(arch, dev, counters, plan_root, *, batch, prompt_len,
+                 cache_len, n_requests, max_new, n_layers=None,
+                 cut="nothing cut"):
+    """Serve ``arch`` at full width (``n_layers`` of its layers when given),
+    bf16, ``use_kernels=True``, random weights from seed 0, on a fresh plan
+    store, through ``serve_and_profile``; the model is freed before
+    returning.  Returns the record and the serve run's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).with_(use_kernels=True)
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    model = Model(cfg)
+    t_init = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  {arch}: {cut}; {cfg.n_layers} layers, d_model {cfg.d_model}; "
+        f"{model.n_params() / 1e9:.3f} B params initialised on the card in "
+        f"{time.perf_counter() - t_init:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    os.environ["REPRO_PLAN_CACHE"] = tempfile.mkdtemp(prefix=arch,
+                                                      dir=plan_root)
+    rec, launches = serve_and_profile(
+        arch, model, params, dev, batch=batch, prompt_len=prompt_len,
+        cache_len=cache_len, n_requests=n_requests, max_new=max_new,
+        counters=counters)
+    rec.update(config=cfg.name, layers=cfg.n_layers, cut=cut, batch=batch,
+               prompt_len=prompt_len, cache_len=cache_len,
+               params_b=model.n_params() / 1e9)
+    del params, model
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def expect_launches(arch, launches, want):
+    """Every kernel's launches over a serve run equal ``want`` (a kernel
+    not named there: 0), and each kernel named there launched at least
+    once."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full or 0 in want.values():
+        raise AssertionError(f"{arch}: launches {launches}; want {full}")
+    log(f"  {arch}: launches {launches} as expected")
+
+
+def family_batching(arch):
+    """The smoke config of ``arch`` in f32 with the kernels on: a 3-slot
+    engine equals serial decoding (``batching_matches_serial``), and the
+    kernel path's logits the plain path's.  A MoE model's capacity is
+    shared by every row of a batched prefill, so batching equals serial
+    decoding only where no expert drops: its config runs at capacity
+    factor E / k (every expert takes every token)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.model import Model
+    cfg = get_smoke_config(arch).with_(dtype="float32", use_kernels=True)
+    if cfg.is_moe:
+        cfg = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+    model = Model(cfg)
+    params = model.init(0, device="cuda")
+    batching_matches_serial(model, params, prompt_len=16, cache_len=48)
+    batch = {"tokens": torch.arange(256, device="cuda").reshape(2, 128)
+             % cfg.vocab_size}
+    if cfg.is_encdec:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        batch["src_embeds"] = torch.randn(2, 128 // cfg.enc_ratio,
+                                          cfg.d_model, generator=gen,
+                                          device="cuda")
+    lk = model.logits(params, batch)
+    lp = Model(cfg.with_(use_kernels=False)).logits(params, batch)
+    tol = MAMBA_PATH_TOL if cfg.has_ssm else 1e-4
+    err = float((lk - lp).abs().max())
+    if not torch.allclose(lk, lp, atol=tol, rtol=tol):
+        raise AssertionError(f"{arch} kernel path logits differ: {err}")
+    log(f"  {arch} smoke: 7 requests through 3 slots == serial decoding"
+        f"{' (capacity factor E / k)' if cfg.is_moe else ''}; kernel-path "
+        f"logits vs plain path max_abs_err {err:.3e} (tol {tol})")
+    return err
+
+
+def serve_families(dev, gen, counters, plan_root):
+    """Phases 17-21: the hybrid, MoE, MLA and enc-dec families served on
+    the card, their kernels checked and timed at the shapes their prefills
+    give them, and their smoke configs' batching.  Returns the serve
+    records, FlashAttention's records at each family's shape, the SSD's at
+    hymba's, and the smoke kernel-path errors."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import autotune
+    # ------------------------------------- 17. serve hymba-1.5b (hybrid)
+    t0 = phase("17. serve hymba-1.5b (full config, bf16, use_kernels=True)")
+    torch.cuda.reset_peak_memory_stats()
+    family = {}
+    hcfg = get_config("hymba-1.5b")
+    fam_fa = {"hymba-1.5b": family_attention_check(gen, "hymba-1.5b")}
+    os.environ["REPRO_PLAN_CACHE"] = tempfile.mkdtemp(prefix="hymba-ssd",
+                                                      dir=plan_root)
+    shape = kb.HYMBA_SSD_SHAPE
+    h_chunk = autotune.ssd_chunk_len(shape["S"], shape["P"], shape["N"])
+    x, dA, Bm, Cm = kb.ssd_inputs(gen, shape, torch.bfloat16, dev)
+    if Bm.stride(1) != hcfg.conv_dim \
+            or shape["BH"] != 4 * hcfg.ssm_nheads \
+            or shape["r"] != hcfg.ssm_nheads // hcfg.ssm_ngroups:
+        raise AssertionError(f"HYMBA_SSD_SHAPE {shape} is not hymba's "
+                             f"serving scan")
+    h_ssd = kb.bench_ssd(x, dA, Bm, Cm, chunk=h_chunk)
+    if h_ssd["max_abs_err"] > SSD_BF16_TOL * h_ssd["max_abs_plain"]:
+        raise AssertionError(f"ssd_scan disagrees at hymba's shape: "
+                             f"{h_ssd['max_abs_err']}")
+    log(f"  ssd_scan at hymba's shape xdt {tuple(x.shape)} B/C "
+        f"{tuple(Bm.shape)} (strides {Bm.stride()}), the plan's chunk "
+        f"{h_chunk}: max_abs_err {h_ssd['max_abs_err']:.3e} (max |plain| "
+        f"{h_ssd['max_abs_plain']:.2f}, tol {SSD_BF16_TOL} of it); "
+        f"kernel_ms {h_ssd['ms']:.4f} device_ms {h_ssd['device_ms']:.4f}  "
+        f"plain_ms {h_ssd['plain_ms']:.4f}  library_ms null  bound_ms "
+        f"{h_ssd['bound_ms']:.4f} ({h_ssd['bound_by']}); {h_ssd['tile']}")
+    del x, dA, Bm, Cm
+    rec, got = family_serve("hymba-1.5b", dev, counters, plan_root, batch=4,
+                            prompt_len=1536, cache_len=2048, n_requests=8,
+                            max_new=8)
+    n_pre = rec["prefill_calls"]
+    expect_launches("hymba-1.5b", got, {
+        "flash_attention": hcfg.n_layers * n_pre,
+        "ssd_scan": hcfg.n_layers * n_pre})
+    plan = autotune.ssd_chunk_len(1536, hcfg.ssm_headdim, hcfg.ssm_state)
+    if rec["launch_chunks"]["ssd_scan"] != {plan: got["ssd_scan"]} \
+            or plan != h_chunk:
+        raise AssertionError(f"hymba ssd_scan launches by chunk "
+                             f"{rec['launch_chunks']['ssd_scan']}; want all "
+                             f"at the plan's {plan}")
+    log(f"  every ssd_scan launch at the plan's chunk {plan}: "
+        f"{rec['launch_chunks']['ssd_scan']}")
+    rec["plan_chunk"] = plan
+    family["hymba-1.5b"] = rec
+    log(f"  phase peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------ 18. serve qwen3-moe-30b-a3b (MoE)
+    t0 = phase("18. serve qwen3-moe-30b-a3b (full config, all 48 layers, "
+               "bf16, use_kernels=True)")
+    torch.cuda.reset_peak_memory_stats()
+    fam_fa["qwen3-moe-30b-a3b"] = family_attention_check(
+        gen, "qwen3-moe-30b-a3b")
+    rec, got = family_serve("qwen3-moe-30b-a3b", dev, counters, plan_root,
+                            batch=4, prompt_len=1024, cache_len=2048,
+                            n_requests=8, max_new=8)
+    expect_launches("qwen3-moe-30b-a3b", got, {
+        "flash_attention": 48 * rec["prefill_calls"]})
+    family["qwen3-moe-30b-a3b"] = rec
+    log(f"  phase peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------- 19. serve deepseek-v3-671b (MLA + MoE), 4 layers
+    t0 = phase("19. serve deepseek-v3-671b (full width, 4 of 61 layers, "
+               "bf16, use_kernels=True)")
+    torch.cuda.reset_peak_memory_stats()
+    rec, got = family_serve(
+        "deepseek-v3-671b", dev, counters, plan_root, batch=4,
+        prompt_len=1024, cache_len=2048, n_requests=8, max_new=8,
+        n_layers=4,
+        cut="depth cut to 4 of 61 layers (3 dense + 1 MoE) by memory: 61 "
+            "layers are 671 B parameters, 1.3 TB in bf16; 4 are about 15 B, "
+            "30 GB")
+    expect_launches("deepseek-v3-671b", got, {})
+    log("  MLA's q and v head dims differ (192, 128): its attention takes "
+        "the blocked loop and launches no kernel, as in the JAX package")
+    family["deepseek-v3-671b"] = rec
+    log(f"  phase peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------- 20. serve seamless-m4t-medium (enc-dec)
+    t0 = phase("20. serve seamless-m4t-medium (full config, bf16, "
+               "use_kernels=True)")
+    torch.cuda.reset_peak_memory_stats()
+    fam_fa["seamless-m4t-medium"] = family_attention_check(
+        gen, "seamless-m4t-medium")
+    scfg_full = get_config("seamless-m4t-medium")
+    rec, got = family_serve("seamless-m4t-medium", dev, counters, plan_root,
+                            batch=4, prompt_len=1024, cache_len=2048,
+                            n_requests=8, max_new=8)
+    expect_launches("seamless-m4t-medium", got, {
+        "flash_attention": (scfg_full.n_enc_layers + 2 * scfg_full.n_layers)
+        * rec["prefill_calls"]})
+    family["seamless-m4t-medium"] = rec
+    log(f"  phase peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+
+    # ------------- 21. continuous batching of the four families' smoke configs
+    t0 = phase("21. continuous batching (hybrid, MoE, MLA, enc-dec smoke "
+               "configs, f32, use_kernels=True)")
+    family_paths = {arch: family_batching(arch) for arch in (
+        "hymba-1.5b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
+        "seamless-m4t-medium")}
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
+    return family, fam_fa, h_ssd, family_paths
 
 
 def main() -> int:
@@ -1415,7 +1700,10 @@ def main() -> int:
             "GB")
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 17. the result
+    family, fam_fa, h_ssd, family_paths = serve_families(
+        dev, gen, counters, plan_root)
+
+    # -------------------------------------------------------- 22. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1439,6 +1727,10 @@ def main() -> int:
         "shape": fa_shape,
         "build_s": build_s["flash_attention"],
         "cases": cases,
+        "family_launches": {a: family[a]["launches"]["flash_attention"]
+                            for a in family},
+        "family_shapes": {a: {k: r[k] for k in FAMILY_KEYS}
+                          for a, r in fam_fa.items()},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -1463,6 +1755,9 @@ def main() -> int:
             "bound_ms", "bound_by", "tile")},
         "build_s": build_s["ssd_scan"],
         "cases": ssd_cases,
+        "family_launches": {"hymba-1.5b":
+                            family["hymba-1.5b"]["launches"]["ssd_scan"]},
+        "family_shapes": {"hymba-1.5b": {k: h_ssd[k] for k in FAMILY_KEYS}},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -1515,6 +1810,8 @@ def main() -> int:
                     "serve_mamba2_130m": mserve,
                     "train_mamba2_130m": train_mamba,
                     "train_glm4_9b_4_layers": train_glm4,
+                    "serve_families": family,
+                    "family_kernel_vs_plain_logits": family_paths,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))

@@ -53,7 +53,6 @@ import json
 from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -67,10 +66,11 @@ from repro_torch.kernels.ref import (attention_ref, ssd_chunked_ref,
                                      streamed_gemm_ref)
 
 __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
-           "ATTENTION_SHAPE", "ATTENTION_SWEEP", "SSD_SHAPE", "SSD_GROUP_SHAPE",
+           "ATTENTION_SHAPE", "ATTENTION_SWEEP", "FAMILY_ATTENTION_SHAPES",
+           "HYMBA_SSD_SHAPE", "SSD_SHAPE", "SSD_GROUP_SHAPE",
            "SSD_SHAPES", "STREAMED_GEMM_SHAPE", "cuda_ms",
            "device_ms",
-           "bound", "nbytes", "visible_pairs", "attention_flops",
+           "bound", "nbytes", "visible_pairs", "window_mask", "attention_flops",
            "attention_l2_bytes", "ssd_flops", "gemm_flops", "gemm_l2_bytes",
            "streamed_l2_bytes", "bench_attention",
            "bench_ssd", "ssd_inputs",
@@ -99,6 +99,23 @@ ATTENTION_SWEEP: List[Tuple[int, int, int, int, int, int, bool]] = [
     (4, 32, 2, 1024, 1024, 128, True), (4, 32, 2, 1024, 1024, 128, False),
     (4, 32, 2, 1024, 4096, 128, False), (4, 32, 2, 4096, 4096, 128, True),
     (4, 32, 2, 1024, 1024, 64, True), (4, 32, 32, 1024, 1024, 128, True)]
+# FlashAttention where the hybrid, MoE and enc-dec families' serving
+# prefills reach it at full width, (B, Hq, Hkv, Sq, Skv, D, causal, window),
+# model layout, bf16: hymba-1.5b at batch 4, prompt 1536 (a GQA group of 5,
+# one q head a work item; the window of 1024 masks inside the kernel, as
+# 1536 < 2 x 1024 keeps the prefill off the banded path); qwen3-moe-30b-a3b
+# at batch 4, prompt 1024 (a group of 8); seamless-m4t-medium's
+# cross-attention at batch 4, prompt 1024, over 1024 / 8 encoder frames
+FAMILY_ATTENTION_SHAPES = {
+    "hymba-1.5b": (4, 25, 5, 1536, 1536, 64, True, 1024),
+    "qwen3-moe-30b-a3b": (4, 32, 4, 1024, 1024, 128, True, None),
+    "seamless-m4t-medium": (4, 16, 16, 1024, 128, 64, False, None),
+}
+# hymba-1.5b's prefill scan at batch 4 x 50 heads, prompt 1536, N 16: one
+# group of 50 heads a batch row (r 50), strided views of the conv output
+# (4, 1536, conv_dim 3232), as the model hands them over
+HYMBA_SSD_SHAPE = {"BH": 200, "S": 1536, "P": 64, "N": 16, "r": 50,
+                   "xbc": True}
 # mamba2-130m prefill scan at batch 8 x 24 heads, prompt 1024: B and C one
 # row a head (r 1, the JAX kernel's interface), and as the model hands them
 # over: one group of 24 heads a batch row (r 24: B/C (8, 1024, 128)),
@@ -152,17 +169,24 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def visible_pairs(Sq: int, Skv: int, causal: bool,
-                  window: Optional[int]) -> int:
-    """(q, k) pairs the masks leave visible: the work this input needs."""
-    q_pos = np.arange(Sq)[:, None] + (Skv - Sq)
-    k_pos = np.arange(Skv)[None, :]
-    mask = np.ones((Sq, Skv), bool)
+def window_mask(Sq: int, Skv: int, causal: bool, window: Optional[int],
+                device) -> torch.Tensor:
+    """(Sq, Skv) bool: the keys each query sees, q aligned to the end of
+    kv, as the kernel and ``attention_ref`` mask them."""
+    q_pos = torch.arange(Sq, device=device)[:, None] + (Skv - Sq)
+    k_pos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=device)
     if causal:
         mask &= q_pos >= k_pos
     if window is not None:
         mask &= (q_pos - k_pos) < window
-    return int(mask.sum())
+    return mask
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """(q, k) pairs the masks leave visible: the work this input needs."""
+    return int(window_mask(Sq, Skv, causal, window, "cpu").sum())
 
 
 def attention_flops(B: int, Hq: int, D: int, Sq: int, Skv: int,
@@ -304,37 +328,45 @@ def _counted(calls: Counter, name: str, fn: Callable) -> Callable:
 
 
 def bench_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
+                    causal: bool = True, window: Optional[int] = None,
                     calls: Optional[Counter] = None) -> Dict:
     """FlashAttention on q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D).  SDPA's
     causal mask aligns q to the start of kv, the port's to its end, so a
-    causal call with Sq != Skv has no library time."""
+    causal call with Sq != Skv has no library time; a window goes to SDPA
+    as a boolean mask (built outside the timed call)."""
     calls = Counter() if calls is None else calls
     kernel = _counted(calls, "flash_attention",
-                      lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
-    plain = lambda: attention_ref(q, k, v, causal=causal)  # noqa: E731
+                      lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
+                                                     window=window))
+    plain = lambda: attention_ref(q, k, v, causal=causal,  # noqa: E731
+                                  window=window)
     library = None
     B, Hq, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    if not causal or S == Skv:
+    if window is not None:
+        mask = window_mask(S, Skv, causal, window, q.device)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    elif not causal or S == Skv:
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=causal, enable_gqa=True)
     t = fa.tiling(B, Hq, Hkv, S, Skv, D, q.dtype)
     rec = {"name": "flash_attention", "shape": {
         "q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype)[6:],
-        "causal": causal}, "tiling": t._asdict(),
+        "causal": causal, "window": window}, "tiling": t._asdict(),
         "tile": f"{t.q_rows} q rows x {t.keys} keys a consumer, {t.heads} "
                 f"head{'s' if t.heads > 1 else ''} a work item, "
                 f"{t.stages} stages, {t.items} items on {t.grid[0]} CTAs",
-        "library": "torch.nn.functional.scaled_dot_product_attention"
-        if library else None}
+        "library": ("torch.nn.functional.scaled_dot_product_attention"
+                    + (" (boolean window mask)" if window is not None
+                       else "")) if library else None}
     rec["l2_bytes_q"], rec["l2_bytes_kv"], rec["l2_bytes_o"] = \
-        attention_l2_bytes(B, Hq, Hkv, S, Skv, D, causal, None, q.dtype)
+        attention_l2_bytes(B, Hq, Hkv, S, Skv, D, causal, window, q.dtype)
     out, want = kernel(), plain()
     rec.update(_timed(kernel, plain, library, q.device, 50, 5,
                       kernel_match=ATTENTION_KERNEL_NAMES))
     return _finish(rec, out, want,
-                   attention_flops(B, Hq, D, S, Skv, causal),
+                   attention_flops(B, Hq, D, S, Skv, causal, window),
                    nbytes(q, k, v) + nbytes(q), q.dtype)
 
 

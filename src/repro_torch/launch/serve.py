@@ -2,12 +2,19 @@
 kernels on (``use_kernels=True``): attention through the FlashAttention
 kernel, the Mamba-2 SSD scan through the SSD chunk-scan kernel.
 
-Runs on the CUDA card unless ``--device cpu`` is passed (the plain PyTorch
-path; no kernel).  Examples (full glm4-9b, full mamba2-130m on one H100):
+``--arch`` takes every arch of ``repro_torch.configs.registry``: the dense
+GQA decoders, mamba2-130m (ssm), hymba-1.5b (hybrid: both kernels in every
+layer), qwen3-moe-30b-a3b and deepseek-v3-671b (MoE; DeepSeek's MLA takes
+no kernel, its q and v head dims differ) and seamless-m4t-medium (enc-dec,
+fed zero frame embeddings).  Runs on the CUDA card unless ``--device cpu``
+is passed (the plain PyTorch path; no kernel).  Examples (full configs on
+one H100; deepseek-v3-671b does not fit one card at its 61 layers):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --requests 8 --batch 4 --prompt-len 1024 --cache-len 2048
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --requests 16 --batch 8 --prompt-len 1024 --cache-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --requests 8 --batch 4 --prompt-len 1536 --cache-len 2048
 Reduced config on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --smoke --device cpu

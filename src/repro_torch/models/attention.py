@@ -1,11 +1,13 @@
-"""Attention, GQA/MQA paths (optionally sliding-window, qk-norm): train
-(full-seq), prefill (cache-building) and decode (cached, fixed-shape).
+"""Attention: GQA/MQA (optionally sliding-window, qk-norm), MLA (DeepSeek)
+and cross-attention, with train (full-seq), prefill (cache-building) and
+decode (cached, fixed-shape) paths.
 
 Training/prefill uses a *blocked* online-softmax implementation (a loop
 over KV blocks, so the S×S score matrix is never materialized);
-``use_kernels=True`` routes through the FlashAttention kernel instead.
-Decode uses dense einsums over the cache.  MLA and cross-attention are not
-ported yet (``transformer.check_supported`` refuses those models).
+``use_kernels=True`` routes through the FlashAttention kernel instead
+where q and v share a head dim (MLA's do not: it takes the blocked loop,
+as in the JAX package).  Decode uses dense einsums over the cache; MLA's
+runs absorbed, in the latent space of its compressed cache.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ F32 = torch.float32
 NEG = -1e30
 
 __all__ = [
-    "gqa_specs", "attn_train", "attn_prefill", "attn_decode",
+    "gqa_specs", "mla_specs", "cross_specs",
+    "attn_train", "attn_prefill", "attn_decode",
+    "cross_train", "cross_decode", "make_cross_cache",
     "init_attn_cache", "blocked_attention", "banded_window_attention",
 ]
 
@@ -156,6 +160,26 @@ def gqa_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:
     return s
 
 
+def mla_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.hd, cfg.rope_head_dim, cfg.v_head_dim
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "wdq": ParamSpec((L, d, qr), ("layer", "embed", None), dtype=cfg.dtype),
+        "q_norm": ParamSpec((L, qr), ("layer", None), init="ones", dtype=cfg.dtype),
+        "wuq": ParamSpec((L, qr, H * (dn + dr)), ("layer", None, "heads"), dtype=cfg.dtype),
+        "wdkv": ParamSpec((L, d, kvr + dr), ("layer", "embed", None), dtype=cfg.dtype),
+        "kv_norm": ParamSpec((L, kvr), ("layer", None), init="ones", dtype=cfg.dtype),
+        "wuk": ParamSpec((L, kvr, H * dn), ("layer", None, "heads"), dtype=cfg.dtype),
+        "wuv": ParamSpec((L, kvr, H * dv), ("layer", None, "heads"), dtype=cfg.dtype),
+        "wo": ParamSpec((L, H * dv, d), ("layer", "heads", "embed"), dtype=cfg.dtype),
+    }
+
+
+def cross_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:
+    return gqa_specs(cfg, L)
+
+
 # =============================================================== GQA paths
 
 
@@ -181,6 +205,8 @@ def _qkv(cfg: ModelConfig, p, x, positions):
 
 def attn_train(cfg: ModelConfig, p, x, *, causal: bool = True
                ) -> torch.Tensor:
+    if cfg.attn_type == "mla":
+        return _mla_train(cfg, p, x)
     B, S, d = x.shape
     q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device))
     scale = 1.0 / math.sqrt(cfg.hd)
@@ -195,7 +221,15 @@ def init_attn_cache(cfg: ModelConfig, B: int, cache_len: int,
     """Fixed-shape cache.  Windowed layers use a ring buffer of width
     min(window, cache_len); global layers use the full length.  ``kpos``
     is per-row (B, W): decode positions are per-slot so a serving engine
-    can re-prefill one slot while the others keep decoding."""
+    can re-prefill one slot while the others keep decoding.  MLA caches
+    its compressed latent ``ckv`` and the shared RoPE key ``kr``."""
+    if cfg.attn_type == "mla":
+        return {
+            "ckv": torch.zeros((B, cache_len, cfg.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros((B, cache_len, cfg.rope_head_dim), dtype=dtype,
+                              device=device),
+        }
     W = min(cfg.window, cache_len) if cfg.window else cache_len
     return {
         "k": torch.zeros((B, W, cfg.n_kv_heads, cfg.hd), dtype=dtype, device=device),
@@ -208,6 +242,9 @@ def attn_prefill(cfg: ModelConfig, p, x) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward that also returns the populated cache."""
     B, S, d = x.shape
     dev = x.device
+    if cfg.attn_type == "mla":
+        o, ckv, kr = _mla_train(cfg, p, x, return_cache=True)
+        return o, {"ckv": ckv, "kr": kr}
     q, k, v = _qkv(cfg, p, x, torch.arange(S, device=dev))
     scale = 1.0 / math.sqrt(cfg.hd)
     # (B, H, S, hd) views of the (B, S, H, hd) projections: the kernel reads
@@ -244,6 +281,8 @@ def attn_decode(cfg: ModelConfig, p, x, cache: Dict, pos: torch.Tensor
     The cache's tensors are updated in place (the JAX engine donates its
     cache to the decode step, so nothing reads the old values) and are
     returned in a new dict."""
+    if cfg.attn_type == "mla":
+        return _mla_decode(cfg, p, x, cache, pos)
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pos = pos.to(torch.int32).expand(B)
@@ -268,3 +307,120 @@ def attn_decode(cfg: ModelConfig, p, x, cache: Dict, pos: torch.Tensor
     o = torch.einsum("bhgs,bshd->bhgd", pr, v.to(F32)).to(x.dtype)
     o = o.reshape(B, 1, H * hd)
     return o @ p["wo"], {"k": k, "v": v, "kpos": kpos}
+
+
+# =============================================================== MLA paths
+
+
+def _mla_q(cfg, p, x, positions):
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.hd, cfg.rope_head_dim
+    cq = x @ p["wdq"]
+    cq = apply_norm(cfg.with_(norm_type="rmsnorm"), {"scale": p["q_norm"]}, cq)
+    q = (cq @ p["wuq"]).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_kv_compress(cfg, p, x, positions):
+    kvr, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+    ckv_full = x @ p["wdkv"]                                   # (B,S,kvr+dr)
+    ckv, kr = ckv_full[..., :kvr], ckv_full[..., kvr:]
+    ckv = apply_norm(cfg.with_(norm_type="rmsnorm"), {"scale": p["kv_norm"]},
+                     ckv)
+    cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta)
+    kr = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0, :]   # shared by heads
+    return ckv, kr
+
+
+def _mla_train(cfg, p, x, *, return_cache: bool = False):
+    B, S, _ = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_head_dim
+    positions = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    ckv, kr = _mla_kv_compress(cfg, p, x, positions)
+    k_nope = (ckv @ p["wuk"]).reshape(B, S, H, dn)
+    v = (ckv @ p["wuv"]).reshape(B, S, H, dv)
+    q = torch.cat([q_nope, q_rope], -1)                        # (B,S,H,dn+dr)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, dr)], -1)
+    scale = 1.0 / math.sqrt(dn + dr)
+    o = _attend(cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True, window=None, scale=scale)
+    out = o.transpose(1, 2).reshape(B, S, H * dv) @ p["wo"]
+    if return_cache:
+        return out, ckv, kr
+    return out
+
+
+def _mla_decode(cfg, p, x, cache, pos):
+    """Absorbed MLA decode: attention runs in the latent (kv_lora) space,
+    the compressed cache is never decompressed.  ``pos``: per-row (B,).
+    The cache's tensors are updated in place; a row at or past the cache's
+    length writes nothing, as JAX drops an out-of-bounds scatter."""
+    B = x.shape[0]
+    H, dn, dr, dv = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    pos = pos.to(torch.int32).expand(B)
+    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])          # (B,1,H,*)
+    ckv1, kr1 = _mla_kv_compress(cfg, p, x, pos[:, None])     # (B,1,kvr),(B,1,dr)
+    ckv, kr = cache["ckv"], cache["kr"]
+    S = ckv.shape[1]
+    rows = torch.arange(B, device=x.device)
+    slot = pos.clamp(max=S - 1).long()
+    keep = (pos < S)[:, None]
+    ckv[rows, slot] = torch.where(keep, ckv1[:, 0], ckv[rows, slot])
+    kr[rows, slot] = torch.where(keep, kr1[:, 0], kr[rows, slot])
+    wuk = p["wuk"].reshape(kvr, H, dn)
+    # absorb: q_lat[b,h,:] = W_uk[:,h,:] @ q_nope[b,h,:]
+    q_lat = torch.einsum("bhd,khd->bhk", q_nope[:, 0].to(F32), wuk.to(F32))
+    s = torch.einsum("bhk,bsk->bhs", q_lat, ckv.to(F32))
+    s = s + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].to(F32), kr.to(F32))
+    s = s * (1.0 / math.sqrt(dn + dr))
+    mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]  # (B,S)
+    s = torch.where(mask[:, None, :], s,
+                    torch.tensor(NEG, dtype=F32, device=x.device))
+    pr = torch.softmax(s, dim=-1)
+    ctx_lat = torch.einsum("bhs,bsk->bhk", pr, ckv.to(F32))   # (B,H,kvr)
+    wuv = p["wuv"].reshape(kvr, H, dv)
+    o = torch.einsum("bhk,khd->bhd", ctx_lat, wuv.to(F32)).to(x.dtype)
+    return o.reshape(B, 1, H * dv) @ p["wo"], {"ckv": ckv, "kr": kr}
+
+
+# ============================================================ cross-attn
+
+
+def cross_train(cfg: ModelConfig, p, x, enc: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over encoder output ``enc`` (B, Se, d):
+    non-causal, no RoPE."""
+    B, S, d = x.shape
+    Se = enc.shape[1]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (enc @ p["wk"]).reshape(B, Se, Hkv, hd)
+    v = (enc @ p["wv"]).reshape(B, Se, Hkv, hd)
+    o = _attend(cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=False, window=None, scale=1.0 / math.sqrt(hd))
+    return o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+
+
+def make_cross_cache(cfg: ModelConfig, p, enc: torch.Tensor) -> Dict:
+    B, Se, _ = enc.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    return {"k": (enc @ p["wk"]).reshape(B, Se, Hkv, hd),
+            "v": (enc @ p["wv"]).reshape(B, Se, Hkv, hd)}
+
+
+def cross_decode(cfg: ModelConfig, p, x, cross_cache: Dict) -> torch.Tensor:
+    B = x.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    group = H // Hkv
+    q = (x @ p["wq"]).reshape(B, H, hd)
+    kf, vf = cross_cache["k"].to(F32), cross_cache["v"].to(F32)
+    if group > 1:
+        kf = kf.repeat_interleave(group, dim=2)
+        vf = vf.repeat_interleave(group, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q.to(F32), kf) / math.sqrt(hd)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhs,bshd->bhd", pr, vf).to(x.dtype).reshape(B, 1, H * hd)
+    return o @ p["wo"]

@@ -1,5 +1,6 @@
 """Model facade: one object tying config -> specs -> init params ->
-logits/loss/prefill/decode callables."""
+logits/loss/prefill/decode callables, uniform across all families (the
+enc-dec family's batches carry ``src_embeds`` beside ``tokens``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -8,7 +9,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from .. import resolve_device
-from . import transformer
+from . import encdec, transformer
 from .config import ModelConfig
 from .layers import cross_entropy_loss
 from .param import count_params, init_tree
@@ -23,6 +24,8 @@ class Model:
     # ------------------------------------------------------------- params
     @property
     def specs(self):
+        if self.cfg.is_encdec:
+            return encdec.encdec_specs(self.cfg)
         return transformer.decoder_specs(self.cfg)
 
     def init(self, seed: int = 0,
@@ -39,6 +42,9 @@ class Model:
 
     # ------------------------------------------------------------ forward
     def logits(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.cfg.is_encdec:
+            return encdec.encdec_forward(self.cfg, params,
+                                         batch["src_embeds"], batch["tokens"])
         return transformer.forward(self.cfg, params, batch["tokens"])
 
     def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -51,14 +57,21 @@ class Model:
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int,
                    device: Optional[Union[str, torch.device]] = None):
-        return transformer.init_cache(self.cfg, batch, cache_len,
-                                      resolve_device(device))
+        init = (encdec.encdec_init_cache if self.cfg.is_encdec
+                else transformer.init_cache)
+        return init(self.cfg, batch, cache_len, resolve_device(device))
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 cache_len: int):
+        if self.cfg.is_encdec:
+            return encdec.encdec_prefill(self.cfg, params,
+                                         batch["src_embeds"], batch["tokens"],
+                                         cache_len)
         return transformer.prefill(self.cfg, params, batch["tokens"],
                                    cache_len)
 
     def decode(self, params, cache, tokens: torch.Tensor):
         """One decode step; updates ``cache``'s tensors in place."""
+        if self.cfg.is_encdec:
+            return encdec.encdec_decode(self.cfg, params, cache, tokens)
         return transformer.decode(self.cfg, params, cache, tokens)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
+from ..kernels import ssd
 from ..kernels.autotune import ssd_chunk_len
 from .config import ModelConfig
 from .param import ParamSpec
@@ -114,7 +115,8 @@ def _ssd_scan(cfg: ModelConfig, xdt, dA, Bm, Cm, chunk: int
     """(B,S,nh,hp) x (B,S,nh) x (B,S,ng,ns) -> y (B,S,nh,hp) in bf16.
 
     B and C go to the scan in group form, (B*ng, S, ns): at ng = 1 a view
-    of the conv output with no copy in a bf16 model.  ``chunk`` is the
+    of the conv output with no copy in a bf16 model (a state dim below
+    the kernel's least is zero-padded to it).  ``chunk`` is the
     plan's (:func:`plan_chunk`), clipped to S by the scan.  The JAX model
     cuts a ragged S's chunk to a divisor of S; here the kernel and the
     chunked reference zero-pad the ragged tail instead."""
@@ -125,6 +127,12 @@ def _ssd_scan(cfg: ModelConfig, xdt, dA, Bm, Cm, chunk: int
     dk = dA.transpose(1, 2).reshape(B_ * nh, S)
     bk = Bm.transpose(1, 2).reshape(B_ * ng, S, ns)
     ck = Cm.transpose(1, 2).reshape(B_ * ng, S, ns)
+    pad = ssd.STATE_DIMS[0] - ns
+    if cfg.use_kernels and pad > 0:
+        # below the kernel's least state dim (hymba's smoke config, N 8):
+        # zero columns of B and C add nothing to C B^T, to the state or to
+        # C h, so y is the scan's at N
+        bk, ck = F.pad(bk, (0, pad)), F.pad(ck, (0, pad))
     bf16 = torch.bfloat16
     y = kops.ssd(xk.to(bf16).contiguous(), dk.contiguous(), bk.to(bf16),
                  ck.to(bf16), chunk=chunk, use_kernel=cfg.use_kernels)

@@ -1,13 +1,15 @@
-"""Decoder-LM engine: dense GQA/MQA decoders and attention-free Mamba-2
-(ssm) decoders.  Layer parameters are stacked ``(L, ...)`` leaves as in
+"""Decoder-LM engine: every non-enc-dec architecture (dense GQA/MQA,
+MLA + MoE, softmax MoE, Mamba-2 SSD, the Hymba hybrid) is a configuration
+of this module.  Layer parameters are stacked ``(L, ...)`` leaves as in
 the JAX package; where JAX scans over the stack, the port loops over layer
-slices.  Under autograd, ``forward`` checkpoints each layer as the
-config's ``remat``/``remat_policy`` say (``torch.utils.checkpoint``, the
-counterpart of the JAX package's ``jax.checkpoint``).
+slices, and DeepSeek's leading dense layers are a second, small stack
+(``dense_layers``; its cache is ``dense``).  Under autograd, ``forward``
+checkpoints each layer as the config's ``remat``/``remat_policy`` say
+(``torch.utils.checkpoint``, the counterpart of the JAX package's
+``jax.checkpoint``).
 
 Paths: ``forward`` (full-seq causal logits), ``prefill`` (builds the
-cache), ``decode`` (one token, fixed shapes).  The moe, mla, hybrid and
-encdec families are not ported yet and raise ``NotImplementedError``.
+cache), ``decode`` (one token, fixed shapes).
 """
 from __future__ import annotations
 
@@ -20,28 +22,14 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (apply_norm, embed_apply, embed_specs, mlp_apply,
                      mlp_specs, norm_specs, unembed_apply)
-from .param import torch_dtype, tree_leaves, tree_map
+from .param import ParamSpec, torch_dtype, tree_leaves, tree_map
 
-__all__ = ["decoder_specs", "forward", "prefill", "decode", "init_cache",
-           "check_supported"]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the family for a model this
-    port does not run yet."""
-    family = ("encdec" if cfg.is_encdec else "moe" if cfg.is_moe
-              else "mla" if cfg.attn_type == "mla"
-              else "hybrid" if cfg.family == "hybrid"
-              or (cfg.has_ssm and cfg.has_attention) else None)
-    if family is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {family} family (config family "
-            f"{cfg.family!r}) is not ported yet; only dense GQA decoders "
-            f"and ssm (Mamba-2) decoders are")
+__all__ = ["decoder_specs", "forward", "prefill", "decode", "init_cache"]
 
 
 def _layer(params: Dict, l: int) -> Dict:
@@ -86,22 +74,48 @@ def _remat(cfg: ModelConfig, body):
 # ------------------------------------------------------------------ specs
 
 
-def _layer_specs(cfg: ModelConfig, L: int) -> Dict[str, Any]:
-    s: Dict[str, Any] = {"norm1": norm_specs(cfg, L)}
+def _mixer_specs(cfg: ModelConfig, L: int) -> Dict[str, Any]:
+    s: Dict[str, Any] = {}
+    if cfg.has_attention:
+        s["attn"] = (attn.mla_specs(cfg, L) if cfg.attn_type == "mla"
+                     else attn.gqa_specs(cfg, L))
     if cfg.has_ssm:
         s["ssm"] = ssm_mod.ssm_specs(cfg, L)
-    else:
-        s["attn"] = attn.gqa_specs(cfg, L)
-    if cfg.d_ff > 0:
+    if cfg.family == "hybrid":
+        s["alpha_attn"] = ParamSpec((L, cfg.d_model), ("layer", "embed"),
+                                    init="ones", dtype=cfg.dtype)
+        s["alpha_ssm"] = ParamSpec((L, cfg.d_model), ("layer", "embed"),
+                                   init="ones", dtype=cfg.dtype)
+    return s
+
+
+def _layer_specs(cfg: ModelConfig, L: int) -> Dict[str, Any]:
+    s: Dict[str, Any] = {"norm1": norm_specs(cfg, L)}
+    s.update(_mixer_specs(cfg, L))
+    if cfg.is_moe:
+        s["norm2"] = norm_specs(cfg, L)
+        s["moe"] = moe_mod.moe_specs(cfg, L)
+    elif cfg.d_ff > 0:
         s["norm2"] = norm_specs(cfg, L)
         s["mlp"] = mlp_specs(cfg, L)
     return s
 
 
+def _stacks(cfg: ModelConfig) -> List[Tuple[str, str, ModelConfig, int]]:
+    """(params key, cache key, config, layers) of each layer stack, in
+    order: DeepSeek's leading dense stack first (its config has no
+    experts), then the main one."""
+    n_dense = cfg.first_dense_layers
+    if n_dense > 0:
+        return [("dense_layers", "dense", cfg.with_(n_experts=0), n_dense),
+                ("layers", "layers", cfg, cfg.n_layers - n_dense)]
+    return [("layers", "layers", cfg, cfg.n_layers)]
+
+
 def decoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    check_supported(cfg)
     s: Dict[str, Any] = dict(embed_specs(cfg))
-    s["layers"] = _layer_specs(cfg, cfg.n_layers)
+    for key, _, c, n in _stacks(cfg):
+        s[key] = _layer_specs(c, n)
     s["final_norm"] = norm_specs(cfg)
     return s
 
@@ -109,11 +123,20 @@ def decoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # ------------------------------------------------------------------ layer
 
 
-def _mlp_residual(cfg: ModelConfig, pl: Dict, x: torch.Tensor
+def _ffn_residual(cfg: ModelConfig, pl: Dict, x: torch.Tensor
                   ) -> torch.Tensor:
-    if cfg.d_ff > 0:
+    if cfg.is_moe:
+        x = x + moe_mod.moe_apply(cfg, pl["moe"],
+                                  apply_norm(cfg, pl["norm2"], x))
+    elif cfg.d_ff > 0:
         x = x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x))
     return x
+
+
+def _hybrid_mix(pl: Dict, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Hymba's parallel heads: 0.5 * (a * alpha_attn + s * alpha_ssm), each
+    product and sum rounded in the model dtype, in the JAX order."""
+    return 0.5 * (a * pl["alpha_attn"] + s * pl["alpha_ssm"])
 
 
 def _ssd_chunk(cfg: ModelConfig, S: int):
@@ -125,11 +148,14 @@ def _ssd_chunk(cfg: ModelConfig, S: int):
 def _layer_train(cfg: ModelConfig, x: torch.Tensor, pl: Dict,
                  chunk) -> torch.Tensor:
     h = apply_norm(cfg, pl["norm1"], x)
-    if cfg.has_ssm:
-        x = x + ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk)
+    if cfg.family == "hybrid":
+        mix = _hybrid_mix(pl, attn.attn_train(cfg, pl["attn"], h),
+                          ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk))
+    elif cfg.has_ssm:
+        mix = ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk)
     else:
-        x = x + attn.attn_train(cfg, pl["attn"], h)
-    return _mlp_residual(cfg, pl, x)
+        mix = attn.attn_train(cfg, pl["attn"], h)
+    return _ffn_residual(cfg, pl, x + mix)
 
 
 # ---------------------------------------------------------------- forward
@@ -138,12 +164,12 @@ def _layer_train(cfg: ModelConfig, x: torch.Tensor, pl: Dict,
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
             ) -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) -> logits (B, S, Vp)."""
-    check_supported(cfg)
     x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
     chunk = _ssd_chunk(cfg, tokens.shape[1])
-    layer = _remat(cfg, functools.partial(_layer_train, cfg))
-    for pl in _unbind_layers(params["layers"]):
-        x = layer(x, pl, chunk)
+    for key, _, c, _ in _stacks(cfg):
+        layer = _remat(c, functools.partial(_layer_train, c))
+        for pl in _unbind_layers(params[key]):
+            x = layer(x, pl, chunk)
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed_apply(cfg, params, x)
 
@@ -154,19 +180,23 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
 def _layer_cache(cfg: ModelConfig, B: int, cache_len: int,
                  device: torch.device) -> Dict:
     dt = torch_dtype(cfg.dtype)
+    c: Dict[str, Any] = {}
+    if cfg.has_attention:
+        c["attn"] = attn.init_attn_cache(cfg, B, cache_len, dt, device)
     if cfg.has_ssm:
-        return {"ssm": ssm_mod.init_ssm_cache(cfg, B, dt, device)}
-    return {"attn": attn.init_attn_cache(cfg, B, cache_len, dt, device)}
+        c["ssm"] = ssm_mod.init_ssm_cache(cfg, B, dt, device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int,
                device: torch.device) -> Dict:
-    check_supported(cfg)
-    one = _layer_cache(cfg, B, cache_len, device)
     # per-row positions from the start (see decode)
-    return {"pos": torch.zeros((B,), dtype=torch.int32, device=device),
-            "layers": tree_map(lambda a: a.expand((cfg.n_layers,) + a.shape)
-                               .clone(), one)}
+    out: Dict[str, Any] = {"pos": torch.zeros((B,), dtype=torch.int32,
+                                              device=device)}
+    for _, ckey, c, n in _stacks(cfg):
+        one = _layer_cache(c, B, cache_len, device)
+        out[ckey] = tree_map(lambda a: a.expand((n,) + a.shape).clone(), one)
+    return out
 
 
 # ---------------------------------------------------------------- prefill
@@ -174,13 +204,17 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int,
 
 def _layer_prefill(cfg, x, pl, chunk):
     h = apply_norm(cfg, pl["norm1"], x)
-    if cfg.has_ssm:
+    if cfg.family == "hybrid":
+        a, ca = attn.attn_prefill(cfg, pl["attn"], h)
+        s, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk)
+        mix, new_c = _hybrid_mix(pl, a, s), {"attn": ca, "ssm": cs}
+    elif cfg.has_ssm:
         mix, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk)
         new_c = {"ssm": cs}
     else:
         mix, ca = attn.attn_prefill(cfg, pl["attn"], h)
         new_c = {"attn": ca}
-    return _mlp_residual(cfg, pl, x + mix), new_c
+    return _ffn_residual(cfg, pl, x + mix), new_c
 
 
 def _stack(trees):
@@ -197,26 +231,26 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
     The cache is padded/relaid to ``cache_len`` slots.
     """
-    check_supported(cfg)
     B, S = tokens.shape
     x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
     chunk = _ssd_chunk(cfg, S)
-    per_layer = []
-    for l in range(_n_layers(params["layers"])):
-        x, c = _layer_prefill(cfg, x, _layer(params["layers"], l), chunk)
-        per_layer.append(c)
-    stacked = _stack(per_layer)
     cache: Dict[str, Any] = {
-        "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
-        "layers": _pad_cache(cfg, stacked, cache_len)}
+        "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device)}
+    for key, ckey, c, _ in _stacks(cfg):
+        per_layer = []
+        for l in range(_n_layers(params[key])):
+            x, lc = _layer_prefill(c, x, _layer(params[key], l), chunk)
+            per_layer.append(lc)
+        cache[ckey] = _pad_cache(c, _stack(per_layer), cache_len)
     x = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
     return unembed_apply(cfg, params, x), cache
 
 
 def _pad_cache(cfg: ModelConfig, c: Dict, cache_len: int) -> Dict:
     """Grow stacked attention caches (seq dim S or ring W, axis 2 of
-    (L, B, S, ...)) to the serving cache_len; ``kpos`` pads with -1.  The
-    ssm cache has no sequence axis and passes through unchanged."""
+    (L, B, S, ...)) to the serving cache_len; ``kpos`` pads with -1.  MLA's
+    ``ckv``/``kr`` (no window) grow to cache_len.  The ssm cache has no
+    sequence axis and passes through unchanged."""
     W = min(cfg.window, cache_len) if cfg.window else cache_len
 
     def pad_leaf(a):
@@ -237,11 +271,15 @@ def _pad_cache(cfg: ModelConfig, c: Dict, cache_len: int) -> Dict:
 
 def _layer_decode(cfg, x, pl, cl, pos):
     h = apply_norm(cfg, pl["norm1"], x)
-    if cfg.has_ssm:
+    if cfg.family == "hybrid":
+        a, _ = attn.attn_decode(cfg, pl["attn"], h, cl["attn"], pos)
+        s, _ = ssm_mod.ssm_decode(cfg, pl["ssm"], h, cl["ssm"])
+        mix = _hybrid_mix(pl, a, s)
+    elif cfg.has_ssm:
         mix, _ = ssm_mod.ssm_decode(cfg, pl["ssm"], h, cl["ssm"])
     else:
         mix, _ = attn.attn_decode(cfg, pl["attn"], h, cl["attn"], pos)
-    return _mlp_residual(cfg, pl, x + mix)
+    return _ffn_residual(cfg, pl, x + mix)
 
 
 def decode(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tensor
@@ -255,14 +293,15 @@ def decode(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tensor
     The stacked cache tensors are updated in place, layer slice by layer
     slice (the JAX engine donates the cache to this step); the returned
     dict holds the same tensors and the advanced positions."""
-    check_supported(cfg)
     B = tokens.shape[0]
     pos = torch.as_tensor(cache["pos"], dtype=torch.int32,
                           device=tokens.device).expand(B)
     x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
-    for l in range(_n_layers(params["layers"])):
-        x = _layer_decode(cfg, x, _layer(params["layers"], l),
-                          _layer(cache["layers"], l), pos)
+    out: Dict[str, Any] = {"pos": pos + 1}
+    for key, ckey, c, _ in _stacks(cfg):
+        for l in range(_n_layers(params[key])):
+            x = _layer_decode(c, x, _layer(params[key], l),
+                              _layer(cache[ckey], l), pos)
+        out[ckey] = cache[ckey]
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = unembed_apply(cfg, params, x)
-    return logits, {"pos": pos + 1, "layers": cache["layers"]}
+    return unembed_apply(cfg, params, x), out

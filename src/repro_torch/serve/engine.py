@@ -8,8 +8,11 @@ prefill call, and their rows of the KV cache, per-slot position vector and
 last-token vector are spliced in while the other slots keep decoding
 undisturbed.  (``cache['pos']`` is a (B,) vector and attention masks/RoPE
 are per-row, so a freshly prefilled slot decodes exactly as it would in a
-batch of its own.  Every stacked cache leaf, the attention ``k``/``v``/
-``kpos`` and the ssm ``conv``/``state`` alike, has its batch on axis 1.)
+batch of its own.  Every stacked cache leaf of every stack, the attention
+``k``/``v``/``kpos``, MLA's ``ckv``/``kr``, the ssm ``conv``/``state``,
+DeepSeek's ``dense`` stack and the enc-dec ``self``/``cross`` caches
+alike, has its batch on axis 1.)  An enc-dec model's prefill gets zero
+frame embeddings (``src_embeds``), as the JAX engine feeds it.
 
 The engine runs on the device its parameters live on.  At startup it warms
 the COMET mapping plans of its kernel shapes (``warm_plans``) through the
@@ -125,11 +128,16 @@ class ServeEngine:
     def _prefill_batch(self, rows: Sequence[Optional[Request]]):
         """One batched prefill over ``rows`` (None rows carry zeros).
         Returns (last-token vector, cache with per-slot positions)."""
-        tokens = torch.from_numpy(self._pad_prompts(rows)).long().to(self.device)
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens},
-                                           self.cache_len)
+        cfg = self.model.cfg
+        batch = {"tokens": torch.from_numpy(self._pad_prompts(rows)).long()
+                 .to(self.device)}
+        if cfg.is_encdec:     # the stub frontend: zero frame embeddings
+            Se = max(1, self.prompt_len // cfg.enc_ratio)
+            batch["src_embeds"] = torch.zeros((self.B, Se, cfg.d_model),
+                                              device=self.device)
+        logits, cache = self.model.prefill(self.params, batch, self.cache_len)
         self.stats["prefill_calls"] += 1
-        last = logits[:, -1, :self.model.cfg.vocab_size].argmax(-1)
+        last = logits[:, -1, :cfg.vocab_size].argmax(-1)
         return last, cache
 
     def _refill_prefill(self, active: Sequence[Optional[Request]],
@@ -145,9 +153,12 @@ class ServeEngine:
         sel[idxs] = True
         # spliced in place: the live cache belongs to this engine alone
         cache["pos"][sel] = fresh["pos"][sel]
-        for old, new in zip(tree_leaves(cache["layers"]),
-                            tree_leaves(fresh["layers"])):
-            old[:, sel] = new[:, sel]      # stacked leaves: batch axis 1
+        for key in cache:
+            if key == "pos":
+                continue
+            for old, new in zip(tree_leaves(cache[key]),
+                                tree_leaves(fresh[key])):
+                old[:, sel] = new[:, sel]  # stacked leaves: batch axis 1
         return torch.where(sel, fresh_last, last), cache
 
     def _token_budget(self, r: Request) -> int:

@@ -39,7 +39,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     for name in ("repro_torch.launch.serve", "repro_torch.launch.train",
                  "repro_torch.train", "repro_torch.parallel",
                  "repro_torch.train.checkpoint",
-                 "repro_torch.parallel.compression"):
+                 "repro_torch.parallel.compression",
+                 "repro_torch.models.moe", "repro_torch.models.encdec"):
         assert name in out["modules"], name
     assert len(out["modules"]) >= 25
 

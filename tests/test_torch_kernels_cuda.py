@@ -278,6 +278,92 @@ def test_mamba2_prefill_launches_ssd_at_the_plans_chunk(hopper, tmp_path,
     assert ssd.ssd_scan_fwd.chunks == {min(want, S): cfg.n_layers}
 
 
+# ------------------------------- the hybrid, MoE and enc-dec families
+
+
+@pytest.mark.parametrize("arch", sorted(kb.FAMILY_ATTENTION_SHAPES))
+def test_kernel_at_the_families_serving_shapes(hopper, arch):
+    """FlashAttention where hymba-1.5b (group 5, window 1024), qwen3-moe
+    (group 8) and seamless's cross-attention (Sq 1024, Skv 128, not
+    causal) reach it at full width, in the model's layout, bf16."""
+    B, Hq, Hkv, Sq, Skv, D, causal, window = kb.FAMILY_ATTENTION_SHAPES[arch]
+    q, k, v = [torch.randn(B, S, H, D, generator=hopper, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv))]
+    before = fa.flash_attention_fwd.launches
+    out = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_ssd_kernel_at_hymbas_serving_shape(hopper):
+    """hymba-1.5b's prefill scan: N 16, P 64, 50 heads to a B/C group,
+    strided views of the conv output, at the plan's chunk."""
+    from repro_torch.kernels.autotune import ssd_chunk_len
+    shape = kb.HYMBA_SSD_SHAPE
+    x, dA, B, C = kb.ssd_inputs(hopper, shape, torch.bfloat16, "cuda")
+    chunk = ssd_chunk_len(shape["S"], shape["P"], shape["N"])
+    out = ssd.ssd_scan_fwd(x, dA, B, C, chunk=chunk)
+    r = shape["r"]
+    want = ssd_chunked_ref(x, dA, ssd.expand_groups(B, r),
+                           ssd.expand_groups(C, r), chunk=chunk)
+    err = (out.float() - want.float()).abs().max()
+    assert err <= 1e-2 * want.float().abs().max()
+
+
+def test_hybrid_prefill_launches_both_kernels_once_a_layer(hopper, tmp_path,
+                                                           monkeypatch):
+    """A hymba smoke prefill on the card (f32; its state dim 8 zero-padded
+    to the SSD kernel's 16) launches FlashAttention and the SSD scan once
+    a layer each, and its logits match the plain path's."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.model import Model
+    monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans"))
+    cfg = get_smoke_config("hymba-1.5b").with_(dtype="float32",
+                                               use_kernels=True)
+    model = Model(cfg)
+    params = model.init(0, device="cuda")
+    toks = torch.arange(2 * 48, device="cuda").reshape(2, 48) \
+        % cfg.vocab_size
+    fa.flash_attention_fwd.launches = ssd.ssd_scan_fwd.launches = 0
+    logits, _ = model.prefill(params, {"tokens": toks}, 64)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == cfg.n_layers
+    assert ssd.ssd_scan_fwd.launches == cfg.n_layers
+    plain, _ = Model(cfg.with_(use_kernels=False)).prefill(
+        params, {"tokens": toks}, 64)
+    torch.testing.assert_close(logits, plain, atol=1e-2, rtol=1e-2)
+
+
+def test_moe_layer_stays_on_the_card(hopper):
+    """qwen3-moe's smoke MoE layer on CUDA tensors: routing, dispatch,
+    expert products and combine all on the card with no host sync (CUDA's
+    sync debug mode raises on one), equal to the same layer on the CPU."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import tree_map
+    cfg = get_smoke_config("qwen3-moe-30b-a3b").with_(dtype="float32")
+    params = Model(cfg).init(0, device="cpu")
+    layer = tree_map(lambda a: a[0], params["layers"]["moe"])
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    want = moe.moe_apply(cfg, layer, x)
+    layer_cuda = tree_map(lambda a: a.cuda(), layer)
+    x_cuda = x.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe.moe_apply(cfg, layer_cuda, x_cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.device.type == "cuda"
+    torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
 # ------------------------------------------------------- under autograd
 
 

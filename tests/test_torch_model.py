@@ -1,8 +1,10 @@
 """Port model against the JAX package on the CPU, on the glm4 smoke config
 with the JAX package's parameters carried over by ``params_from_jax``:
 full-sequence logits, prefill logits and every cache leaf, one decode
-step; the kernel path on both sides; a bf16 case.  Also the config copies,
-bit-exact weight conversion and the families not ported yet.
+step; the kernel path on both sides; a bf16 case.  Also the config copies
+and bit-exact weight conversion.  The other families' parity tests are
+tests/test_torch_hybrid.py, test_torch_moe.py, test_torch_mla.py and
+test_torch_encdec.py.
 
 Tolerances: 1e-4 in f32 (two layers of f32 matmuls summed in another
 order), 3e-2 in bf16 (activations rounded to bf16 at every layer, as in
@@ -181,11 +183,3 @@ def test_torch_init_shapes_dtypes_and_determinism():
     wq = a["layers"]["attn"]["wq"]
     assert not torch.equal(wq[0], wq[1])
     assert abs(float(wq.float().std()) * cfg.d_model ** 0.5 - 1.0) < 0.1
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen3-moe-30b-a3b",
-                                  "hymba-1.5b", "seamless-m4t-medium"])
-def test_unported_families_raise_naming_the_family(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="family"):
-        Model(cfg).init(0, device="cpu")

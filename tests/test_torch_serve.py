@@ -1,7 +1,7 @@
 """Port serving engine on the CPU: continuous-batching stats, refill equal
 to serial decoding, greedy outputs token-identical to the JAX engine on
 the same f32 parameters, and the serve entry point's refusal to run on the
-CPU unless asked."""
+CPU unless asked, for every arch of the registry."""
 import jax
 import numpy as np
 import pytest
@@ -12,6 +12,7 @@ from repro.models import Model as JModel
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch import resolve_device
+from repro_torch.configs.registry import ARCH_IDS as T_ARCH_IDS
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.convert import params_from_jax
@@ -114,3 +115,16 @@ def test_resolve_device_refuses_a_card_that_is_not_hopper(monkeypatch):
     with pytest.raises(RuntimeError, match="sm_90a"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("arch", T_ARCH_IDS)
+def test_serve_cli_takes_every_arch(arch, monkeypatch):
+    """Every arch of the registry serves its smoke config on the CPU when
+    asked, and refuses to run there unless asked."""
+    argv = ["--arch", arch, "--smoke", "--requests", "3", "--batch", "2",
+            "--prompt-len", "8", "--cache-len", "16", "--max-new", "2"]
+    out = serve_cli.main(argv + ["--device", "cpu"])
+    assert out["tokens"] == 6 and out["prefill_calls"] == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(argv)

@@ -183,7 +183,28 @@ failure ends the run with a non-zero exit:
     so batching equals serial decoding only where nothing drops), and the
     kernel path's logits equal the plain path's (1e-4; hymba 1e-2, its
     SSD in bf16);
-22. a JSON line of the kernels (every number in it measured in this run,
+22. the planner loss (``parallel/collective_planner.sharded_softmax_xent``)
+    at glm4-9b's full width: h (4, 1024, 4096) bf16, unembed (4096,
+    151552) bf16 (1.24 GB), labels under the real vocab, on
+    ``launch/mesh.make_host_mesh()`` ((1, 1) over NCCL, checked), each
+    strategy forced: the loss within 1e-4 relative and the gradients of h
+    and the unembed within 1e-2 of their largest magnitude of the plain
+    ``cross_entropy_loss(h @ W)`` under autograd; forward + backward timed
+    (CUDA events) beside the plain loss's; the collectives each emits,
+    counted over NCCL, against ``softmax_collective_schedule`` (one
+    shard: none declared; the emitted ones all run in one-rank groups);
+23. the train CLI with ``--mesh host --planner-loss`` on glm4-9b (full
+    width, ``--layers 4`` of 40 as phase 16, kernels on, 3 steps), counts
+    set to 0 just before and read just after: FlashAttention launched 4 x
+    2 times a step; the step-0 loss within 1e-3 relative of the plain-loss
+    CLI's at the same seed and batch; the step times beside phase 16's;
+24. the front ends: ``repro_torch.examples.serve_lm`` (8 requests, 4
+    slots, glm4's smoke config in bf16) and ``train_lm`` (lm-100m, 3
+    steps of batch 4 x seq 256) with ``--device cuda``, counts set to 0
+    just before each: FlashAttention launches > 0 and equal to what each
+    reports; ``examples.comet_attention`` to its end, its planner lines
+    the expected strings;
+25. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
     the training run; the FlashAttention and SSD rows also carry each
@@ -1043,6 +1064,232 @@ def serve_families(dev, gen, counters, plan_root):
     return family, fam_fa, h_ssd, family_paths
 
 
+# the planner loss on the card (phase 22): loss within 1e-4 relative of the
+# plain loss; each gradient within 1e-2 of its largest |g| (bf16 h and
+# unembed: both sides round the logits' cotangent to bf16 for the two
+# matmuls of the backward pass, one step of which is 2^-8 of a value)
+PLANNER_LOSS_RTOL = 1e-4
+PLANNER_GRAD_TOL = 1e-2
+# phase 23: the planner-loss train step's step-0 loss against the plain
+# loss's at the same seed and batch
+MESH_STEP0_RTOL = 1e-3
+MESH_STEPS = 3
+# the collective planner's lines of examples/comet_attention.py
+PLANNER_LINES = ["  rows= 65536 vocab=151552 x16 shards -> dist",
+                 "  rows=   128 vocab=129280 x16 shards -> dist",
+                 "  rows=     1 vocab=  4096 x16 shards -> gather"]
+
+
+def _counted(records):
+    """Collectives recorded by ``record_collectives``, by (label, type,
+    bytes, participants)."""
+    out = {}
+    for label, col_type, dv, p in records:
+        key = f"{label} {col_type} {int(dv)} B x{p}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def planner_loss_phase(dev):
+    """Phase 22: ``sharded_softmax_xent`` at glm4-9b's full width on
+    ``make_host_mesh()`` (one card: (1, 1) over NCCL), both strategies
+    forced, held to the plain ``cross_entropy_loss(h @ W)`` under autograd
+    (loss and the gradients of h and the unembed) and timed (forward and
+    backward, CUDA events); the collectives each emits, counted, against
+    ``softmax_collective_schedule``'s declaration (participants > 1)."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import destroy, make_host_mesh
+    from repro_torch.models.layers import cross_entropy_loss
+    from repro_torch.parallel.collective_planner import (
+        plan_softmax_strategy, record_collectives, sharded_softmax_xent,
+        softmax_collective_schedule)
+    cfg = get_config("glm4-9b")
+    B, S, D, Vp, V = 4, 1024, cfg.d_model, cfg.padded_vocab, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    h = torch.randn(B, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.empty(D, Vp, dtype=torch.bfloat16, device=dev)
+    for i in range(0, D, 512):            # in slices: no 2.5 GB f32 draw
+        w[i:i + 512] = (torch.randn(min(512, D - i), Vp, generator=gen,
+                                    device=dev) * D ** -0.5).to(w.dtype)
+    y = torch.randint(0, V, (B, S), generator=gen, device=dev)
+    mesh = make_host_mesh(device=dev)
+    backend = dist.get_backend(mesh.get_group("model"))
+    if backend != "nccl" or tuple(mesh.shape) != (1, 1):
+        raise AssertionError(f"host mesh {tuple(mesh.shape)} over {backend}; "
+                             f"want (1, 1) over nccl")
+    log(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} over {backend}; "
+        f"h {tuple(h.shape)} bf16, unembed {tuple(w.shape)} bf16 "
+        f"({w.numel() * 2 / 1e9:.2f} GB), labels < {V}; the planner picks "
+        f"{plan_softmax_strategy(B * S, Vp, 1)!r} at one shard")
+
+    def run(loss_fn):
+        hh = h.detach().requires_grad_(True)
+        ww = w.detach().requires_grad_(True)
+        loss = loss_fn(hh, ww)
+        loss.backward()
+        return loss.detach(), hh.grad, ww.grad
+
+    def plain(hh, ww):
+        return cross_entropy_loss(hh @ ww, y, V)
+
+    lp, ghp, gwp = run(plain)
+    plain_ms = kb.cuda_ms(lambda: run(plain), iters=3, warmup=1)
+    rec = {"shape": [B, S, D, Vp], "mesh": list(mesh.shape),
+           "backend": backend, "plain_ms": plain_ms, "strategies": {}}
+    try:
+        for strategy in ("dist", "gather"):
+            def xent(hh, ww, strategy=strategy):
+                return sharded_softmax_xent(hh, ww, y, mesh, real_vocab=V,
+                                            strategy=strategy)
+            with record_collectives() as fwd:
+                hh = h.detach().requires_grad_(True)
+                ww = w.detach().requires_grad_(True)
+                loss = xent(hh, ww)
+            with record_collectives() as bwd:
+                loss.backward()
+            torch.cuda.synchronize()
+            loss = loss.detach()
+            loss_err = abs(float(loss) / float(lp) - 1)
+            gh_err = float((hh.grad.float() - ghp.float()).abs().max()
+                           / ghp.float().abs().max())
+            gw_err = float((ww.grad.float() - gwp.float()).abs().max()
+                           / gwp.float().abs().max())
+            ms = kb.cuda_ms(lambda: run(xent), iters=3, warmup=1)
+            declared = softmax_collective_schedule(strategy, B * S, Vp, 1)
+            emitted = [r for r in fwd if r[3] > 1]
+            r = {"loss": float(loss), "loss_plain": float(lp),
+                 "loss_rel_err": loss_err, "grad_h_err": gh_err,
+                 "grad_unembed_err": gw_err, "ms": ms,
+                 "fwd_collectives": _counted(fwd),
+                 "bwd_collectives": _counted(bwd), "declared": declared}
+            rec["strategies"][strategy] = r
+            log(f"  {strategy}: loss {float(loss):.6f} vs plain "
+                f"{float(lp):.6f} (rel {loss_err:.2e}, tol "
+                f"{PLANNER_LOSS_RTOL}); grad h max err / max|g| "
+                f"{gh_err:.2e}, grad unembed {gw_err:.2e} (tol "
+                f"{PLANNER_GRAD_TOL}); forward + backward {ms:.2f} ms "
+                f"(CUDA events) vs the plain loss {plain_ms:.2f} ms")
+            log(f"    collectives over NCCL, forward {_counted(fwd)}, "
+                f"backward {_counted(bwd)}; declared (participants > 1) "
+                f"{declared}, emitted with participants > 1 {emitted}")
+            if not (loss_err <= PLANNER_LOSS_RTOL
+                    and gh_err <= PLANNER_GRAD_TOL
+                    and gw_err <= PLANNER_GRAD_TOL):
+                raise AssertionError(f"planner loss ({strategy}) disagrees "
+                                     f"with the plain loss")
+            if emitted != [] or declared != [] or not fwd or not bwd:
+                raise AssertionError(f"{strategy}: collectives {fwd} {bwd} "
+                                     f"against the declared {declared}")
+    finally:
+        destroy()
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  phase peak memory {rec['peak_mem_gb']:.2f} GB")
+    return rec
+
+
+def mesh_train_phase(dev, counters, train_glm4):
+    """Phase 23: the train CLI with ``--mesh host --planner-loss`` on
+    glm4-9b (full width, 4 of 40 layers, the kernels on, 3 steps), counts
+    set to 0 just before and read just after: FlashAttention launched
+    layers x 2 a step; the step-0 loss the plain-loss CLI's at the same
+    seed and batch; the step times beside phase 16's."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.parallel.collective_planner import record_collectives
+    L = 4
+    argv = ["--arch", "glm4-9b", "--layers", str(L), "--batch", "4",
+            "--seq", "1024"]
+    torch.cuda.reset_peak_memory_stats()
+    plain = train_cli.main(argv + ["--steps", "1"])
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    with record_collectives() as rec_c:
+        out = train_cli.main(argv + ["--steps", str(MESH_STEPS), "--mesh",
+                                     "host", "--planner-loss"])
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want = {k: 2 * L * MESH_STEPS if k == "flash_attention" else 0
+            for k in counters}
+    err = abs(out["losses"][0] / plain["losses"][0] - 1)
+    labels = sorted({r[0] for r in rec_c})
+    timed = out["step_ms"][1:]
+    rec = {"layers": L, "steps": MESH_STEPS, "losses": out["losses"],
+           "plain_step0_loss": plain["losses"][0], "step0_rel_err": err,
+           "step_ms": out["step_ms"], "launches": launches,
+           "collectives": _counted(rec_c),
+           "phase16_mean_step_ms": train_glm4["mean_step_ms"],
+           "mean_step_ms": sum(timed) / len(timed),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  --mesh host --planner-loss: losses "
+        f"{[round(x, 4) for x in out['losses']]}; step 0 {out['losses'][0]:.6f}"
+        f" vs the plain loss's {plain['losses'][0]:.6f} (rel {err:.2e}, tol "
+        f"{MESH_STEP0_RTOL})")
+    log(f"  step ms (CUDA events) {[round(x, 2) for x in out['step_ms']]}; "
+        f"mean of steps 2-{MESH_STEPS} {rec['mean_step_ms']:.2f} ms beside "
+        f"phase 16's plain-loss step {train_glm4['mean_step_ms']:.2f} ms")
+    log(f"  launches {launches}; want {want}; collectives (one-rank NCCL "
+        f"groups) {len(rec_c)} of {len(labels)} labels: {rec['collectives']}")
+    log(f"  phase peak memory {rec['peak_mem_gb']:.2f} GB")
+    if launches != want or out["launches"]["flash_attention"] != \
+            want["flash_attention"]:
+        raise AssertionError(f"mesh train step launches {launches}; want "
+                             f"{want}")
+    if err > MESH_STEP0_RTOL or not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"mesh train step's step 0 loss off by {err}")
+    if "xent/hidden-cotangent" not in labels or not any(
+            x.startswith("grads/") for x in labels):
+        raise AssertionError(f"the planner loss emitted {labels}")
+    return rec, launches
+
+
+def front_ends_phase(counters):
+    """Phase 24: ``repro_torch.examples.serve_lm`` and ``train_lm`` on the
+    card (a few requests and steps each, ``--device cuda``), counts set to
+    0 just before each and read just after (> 0); ``comet_attention`` to
+    its end, its planner lines the expected strings."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import comet_attention, serve_lm, train_lm
+    rec = {}
+    for name, run in (
+            ("serve_lm", lambda: serve_lm.main(
+                ["--device", "cuda", "--requests", "8", "--batch", "4",
+                 "--max-new", "8"])),
+            ("train_lm", lambda: train_lm.main(
+                ["--device", "cuda", "--steps", "3", "--batch", "4",
+                 "--seq", "256"]))):
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+        rec[name] = {"launches": launches, "s": time.perf_counter() - t0,
+                     "wrapper_launches": out["launches"]}
+        log(f"  {name}: launches {launches} in "
+            f"{rec[name]['s']:.1f} s")
+        if launches["flash_attention"] <= 0 or \
+                out["launches"]["flash_attention"] != \
+                launches["flash_attention"]:
+            raise AssertionError(f"{name} launched {launches}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        comet_attention.main()
+    lines = buf.getvalue().splitlines()
+    rec["comet_attention"] = {"lines": lines,
+                              "s": time.perf_counter() - t0}
+    for ln in lines:
+        log(f"  | {ln}")
+    if lines[-3:] != PLANNER_LINES:
+        raise AssertionError(f"comet_attention's planner lines {lines[-3:]}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1703,7 +1950,27 @@ def main() -> int:
     family, fam_fa, h_ssd, family_paths = serve_families(
         dev, gen, counters, plan_root)
 
-    # -------------------------------------------------------- 22. the result
+    # ---------------------- 22. the planner loss at glm4-9b's full width
+    t0 = phase("22. the planner loss (sharded_softmax_xent) at glm4-9b's "
+               "width on the host mesh")
+    planner = planner_loss_phase(dev)
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+
+    # ----------------- 23. the train CLI on the host mesh, planner loss on
+    t0 = phase("23. train CLI --mesh host --planner-loss (glm4-9b, full "
+               "width, 4 of 40 layers, use_kernels=True)")
+    mesh_train, mesh_train_fa = mesh_train_phase(dev, counters, train_glm4)
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------ 24. the front ends on the card
+    t0 = phase("24. front ends (examples.serve_lm, train_lm, comet_attention)")
+    torch.cuda.reset_peak_memory_stats()
+    front = front_ends_phase(counters)
+    log(f"  phase peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 25. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1729,6 +1996,9 @@ def main() -> int:
         "cases": cases,
         "family_launches": {a: family[a]["launches"]["flash_attention"]
                             for a in family},
+        "planner_train_launches": mesh_train_fa["flash_attention"],
+        "front_end_launches": {n: front[n]["launches"]["flash_attention"]
+                               for n in ("serve_lm", "train_lm")},
         "family_shapes": {a: {k: r[k] for k in FAMILY_KEYS}
                           for a, r in fam_fa.items()},
     }, {
@@ -1812,6 +2082,9 @@ def main() -> int:
                     "train_glm4_9b_4_layers": train_glm4,
                     "serve_families": family,
                     "family_kernel_vs_plain_logits": family_paths,
+                    "planner_loss": planner,
+                    "train_glm4_9b_mesh_planner_loss": mesh_train,
+                    "front_ends": front,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))

@@ -1,10 +1,10 @@
 """The port's copy of the COMET core — the paper's primary contribution:
 explicit-collective mapping representation + compound-operation cost model
-+ map-space search, with the plan store the serve engine warms.  The same
-exports as ``repro/core/__init__.py`` but ``yamlio`` (its YAML front end
-is not ported), plus the port's card, :func:`~.hardware.h100`."""
++ map-space search, with the plan store the serve engine warms, and the
+YAML front end.  The same exports as ``repro/core/__init__.py``, plus the
+port's card, :func:`~.hardware.h100`."""
 from . import (batcheval, collectives, cost, hardware, ir, mapping, plan,
-               search, validate, workload)
+               search, validate, workload, yamlio)
 from .batcheval import (BatchResult, ParetoArchive, Topology,
                         evaluate_specs_batch, evaluate_topology_grid,
                         pareto_merge, pareto_merge3)

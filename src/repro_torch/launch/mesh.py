@@ -1,9 +1,14 @@
-"""The process group a single host runs on.
+"""The process group a single host runs on, and the meshes built on it.
 
-Counterpart of ``repro/launch/mesh.py::make_host_mesh``: where the JAX
-package builds a mesh over the devices present, the port needs a
-``torch.distributed`` process group to gather over.  Functions, so that
-importing this module initialises nothing.
+Port of ``repro/launch/mesh.py``.  Where the JAX package builds a mesh
+over the devices present, the port builds a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the world
+group, with the JAX package's axis names (``("data", "model")``), so
+that every collective of a mesh axis runs in that axis's process group.
+:func:`host_group` makes the world group when nothing is initialised: a
+one-rank group, NCCL on ``cuda`` and gloo on ``cpu``; under ``torchrun``
+(or any caller that initialised ``torch.distributed``) the mesh spans its
+ranks.  Functions, so that importing this module initialises nothing.
 """
 from __future__ import annotations
 
@@ -11,14 +16,17 @@ import os
 import shutil
 import tempfile
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
 
-__all__ = ["host_group", "destroy"]
+__all__ = ["host_group", "destroy", "make_auto_mesh", "make_host_mesh",
+           "make_production_mesh", "POD_SHAPE"]
+
+POD_SHAPE = (16, 16)
 
 
 def _store_dir() -> Path:
@@ -54,3 +62,49 @@ def destroy() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     shutil.rmtree(d, ignore_errors=True)
+
+
+def make_auto_mesh(shape: Sequence[int], axes: Sequence[str],
+                   device: Optional[Union[str, torch.device]] = None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the world group
+    (:func:`host_group` makes it if nothing is initialised): the ranks in
+    row-major order, so rank r sits at the coordinate ``np.unravel_index(r,
+    shape)``.  The mesh's size must be the world's."""
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    host_group(dev)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    world = dist.get_world_size()
+    if n != world:
+        raise ValueError(f"a mesh of shape {tuple(shape)} needs {n} ranks; "
+                         f"the world has {world}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return init_device_mesh(dev.type, tuple(int(s) for s in shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The JAX package's production mesh names 256 chips (512 with
+    ``multi_pod``); the port's card run has one."""
+    raise NotImplementedError(
+        f"the production mesh ({'2x16x16' if multi_pod else '16x16'} "
+        f"devices) is not ported: ROADMAP A.5, slice 13")
+
+
+def make_host_mesh(model_parallel: Optional[int] = None,
+                   device: Optional[Union[str, torch.device]] = None):
+    """Largest ``(data, model)`` mesh on the world's ranks: ``model`` the
+    largest divisor of the world size not above ``model_parallel``
+    (default 1).  On one card it is ``(1, 1)`` over NCCL."""
+    dev = resolve_device(device)
+    host_group(dev)
+    n = dist.get_world_size()
+    mp = model_parallel or 1
+    while n % mp:
+        mp -= 1
+    return make_auto_mesh((n // mp, mp), ("data", "model"), dev)

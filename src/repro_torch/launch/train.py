@@ -8,8 +8,12 @@ monitoring.  Port of ``repro/launch/train.py`` with the same flags, and
 ``--device`` (``cuda`` unless ``cpu`` is passed; no fallback).  The model
 runs with ``use_kernels=True``: on the card every layer's attention goes
 through the FlashAttention kernel and every SSD scan through the SSD
-kernel, each under autograd with its plain recompute backward.  A mesh is
-not ported: ``--mesh`` takes only ``none``.
+kernel, each under autograd with its plain recompute backward.
+``--mesh host`` trains on ``launch/mesh.make_host_mesh()`` (every rank of
+the world group; one card: a ``(1, 1)`` NCCL mesh), where
+``--planner-loss`` takes the COMET-planned explicit-collective loss over
+a vocab-sharded unembed (``train/train_step.py``); ``--mesh production``
+and checkpoints on a mesh wait for ROADMAP A.5's next slice (13).
 
 Example (CPU, reduced config):
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
@@ -17,6 +21,10 @@ Example (CPU, reduced config):
 On one H100 (full mamba2-130m):
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --steps 6 --batch 8 --seq 1024
+With the planner loss on the host mesh (one card: a one-rank NCCL mesh;
+glm4-9b's full width fits at 4 of its 40 layers):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
+        --layers 4 --steps 3 --batch 4 --seq 1024 --mesh host --planner-loss
 
 The last line printed is a JSON object: the final loss, the wall seconds,
 the steps run, tokens per second and each kernel's launches over the run.
@@ -35,13 +43,15 @@ from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ssd import ssd_scan_fwd
+from repro_torch.launch.mesh import destroy, make_host_mesh
 from repro_torch.models.model import Model
 from repro_torch.train.checkpoint import (AsyncCheckpointer, latest_step,
                                           restore_checkpoint)
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.elastic import StragglerMonitor
 from repro_torch.train.optimizer import OptConfig, init_opt_state
-from repro_torch.train.train_step import TrainState, make_train_step
+from repro_torch.train.train_step import (TrainState, make_train_step,
+                                          shard_params)
 
 __all__ = ["warmup_kernel_plans", "train_loop", "main"]
 
@@ -103,9 +113,14 @@ def train_loop(model: Model, *, steps: int, batch: int, seq: int,
                        encdec=cfg.is_encdec, d_model=cfg.d_model,
                        enc_ratio=cfg.enc_ratio)
 
+    if mesh is not None and ckpt_dir:
+        raise NotImplementedError("checkpoints on a mesh are not ported: "
+                                  "ROADMAP A.5, slice 13")
     step_fn = make_train_step(model, opt_cfg, mesh, microbatches=microbatches,
                               use_planner_loss=use_planner_loss)
     params = model.init(seed, device=dev)
+    if mesh is not None:
+        params = shard_params(model, params, mesh, use_planner_loss)
     opt = init_opt_state(params, compression=opt_cfg.grad_compression)
     state = TrainState(params, opt)
 
@@ -169,6 +184,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep this many layers of the config (a depth cut "
+                         "at full width, e.g. to fit one card)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -189,22 +207,31 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     help="cuda (default) or cpu; no silent CPU fallback")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
+    if args.mesh.startswith("production"):
         raise NotImplementedError(f"--mesh {args.mesh} is not ported yet: "
-                                  f"ROADMAP A.5")
+                                  f"ROADMAP A.5, slice 13")
     if args.plan_cache:
         os.environ["REPRO_PLAN_CACHE"] = args.plan_cache
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = cfg.with_(n_layers=args.layers)
     model = Model(cfg.with_(use_kernels=True))
-    out = train_loop(
-        model, steps=args.steps, batch=args.batch, seq=args.seq,
-        opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps,
-                          warmup_steps=max(1, args.steps // 10),
-                          grad_compression=args.grad_compression),
-        microbatches=args.microbatches, use_planner_loss=args.planner_loss,
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        warmup_plans=args.warmup_plans, device=device)
+    mesh = make_host_mesh(device=device) if args.mesh == "host" else None
+    try:
+        out = train_loop(
+            model, steps=args.steps, batch=args.batch, seq=args.seq,
+            mesh=mesh,
+            opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps,
+                              warmup_steps=max(1, args.steps // 10),
+                              grad_compression=args.grad_compression),
+            microbatches=args.microbatches,
+            use_planner_loss=args.planner_loss,
+            ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+            warmup_plans=args.warmup_plans, device=device)
+    finally:
+        if mesh is not None:
+            destroy()
     print(json.dumps({"final_loss": out["final_loss"],
                       "wall_s": round(out["wall_s"], 1),
                       "steps": out["steps_done"],

@@ -4,7 +4,8 @@ and the gate-weighted combine.
 
 Port of ``repro/models/moe.py`` on one device: every expert is local.
 Expert parallelism over a mesh (the JAX package's ``shard_map`` with one
-``psum``) is not ported yet; ``moe_apply(mesh=...)`` raises.
+``psum``) is not ported yet (ROADMAP A.5, slice 13);
+``moe_apply(mesh=...)`` raises.
 
 Routing: softmax top-k over the selected logits (Qwen3-style, renormalized)
 or sigmoid + bias (DeepSeek-V3 aux-free: the bias picks the experts, the
@@ -130,7 +131,7 @@ def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     """MoE FFN.  x: (B, S, d); every expert on x's device."""
     if mesh is not None:
         raise NotImplementedError("expert parallelism over a mesh is not "
-                                  "ported yet: ROADMAP A.5")
+                                  "ported yet: ROADMAP A.5, slice 13")
     B, S, d = x.shape
     E = cfg.n_experts
     x2d = x.reshape(B * S, d)

@@ -8,8 +8,9 @@ checkpoints each layer as the config's ``remat``/``remat_policy`` say
 (``torch.utils.checkpoint``, the counterpart of the JAX package's
 ``jax.checkpoint``).
 
-Paths: ``forward`` (full-seq causal logits), ``prefill`` (builds the
-cache), ``decode`` (one token, fixed shapes).
+Paths: ``forward`` (full-seq causal logits; ``hidden`` stops before the
+unembed, for the planner loss), ``prefill`` (builds the cache),
+``decode`` (one token, fixed shapes).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from .layers import (apply_norm, embed_apply, embed_specs, mlp_apply,
                      mlp_specs, norm_specs, unembed_apply)
 from .param import ParamSpec, torch_dtype, tree_leaves, tree_map
 
-__all__ = ["decoder_specs", "forward", "prefill", "decode", "init_cache"]
+__all__ = ["decoder_specs", "hidden", "forward", "prefill", "decode",
+           "init_cache"]
 
 
 def _layer(params: Dict, l: int) -> Dict:
@@ -161,17 +163,23 @@ def _layer_train(cfg: ModelConfig, x: torch.Tensor, pl: Dict,
 # ---------------------------------------------------------------- forward
 
 
-def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, Vp)."""
+def hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    """Full-sequence forward up to the unembed: tokens (B, S) -> the final
+    norm's output (B, S, d)."""
     x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
     chunk = _ssd_chunk(cfg, tokens.shape[1])
     for key, _, c, _ in _stacks(cfg):
         layer = _remat(c, functools.partial(_layer_train, c))
         for pl in _unbind_layers(params[key]):
             x = layer(x, pl, chunk)
-    x = apply_norm(cfg, params["final_norm"], x)
-    return unembed_apply(cfg, params, x)
+    return apply_norm(cfg, params["final_norm"], x)
+
+
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, Vp)."""
+    return unembed_apply(cfg, params, hidden(cfg, params, tokens))
 
 
 # ------------------------------------------------------------------ cache

@@ -1,6 +1,7 @@
-"""Parallelism pieces of the port.  ``compression`` only: the sharding
-rules, the collective planner and the int8 all-reduce need a process group
-and a mesh, which the port does not have yet."""
-from . import compression
+"""Parallelism pieces of the port: the logical-axis sharding rules as
+``DeviceMesh`` placements, the COMET collective planner with the
+explicit-collective softmax loss, and int8 gradient compression with its
+all-reduce."""
+from . import collective_planner, compression, sharding
 
-__all__ = ["compression"]
+__all__ = ["collective_planner", "compression", "sharding"]

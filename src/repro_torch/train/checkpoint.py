@@ -14,7 +14,7 @@ them (``.params['layers']['mlp']['wi']``).  A bf16 leaf is written as the
 JAX package writes it, 2-byte words under the npy descr ``'<V2'`` with
 ``"dtype": "bfloat16"`` in the manifest, and read back as those words
 viewed as ``torch.bfloat16``.  Restoring onto a mesh (``shardings=``)
-needs a mesh and is not ported.
+is not ported yet (ROADMAP A.5, slice 13).
 """
 from __future__ import annotations
 
@@ -150,7 +150,7 @@ def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
     (tree, step, extra)."""
     if shardings is not None:
         raise NotImplementedError("restoring onto a mesh (elastic restore) "
-                                  "is not ported yet: ROADMAP A.5")
+                                  "is not ported yet: ROADMAP A.5, slice 13")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:

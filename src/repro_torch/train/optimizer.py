@@ -6,14 +6,14 @@ moments over bf16 params (master-less mixed-precision AdamW: the update
 is computed in f32 and cast back).  Where the JAX update builds new
 arrays, this one updates the params and the moments in place, under
 ``torch.no_grad()``: at glm4-9b's width a second copy of them would not
-fit beside the first.  ZeRO-1 sharding of the moments needs a mesh and
-is not ported.
+fit beside the first.  ZeRO-1 sharding of the moments is not ported
+(ROADMAP A.5, slice 13).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,14 +73,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, params, grads, state: OptState
+def adamw_update(cfg: OptConfig, params, grads, state: OptState, *,
+                 grad_norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step; returns (params, new state, metrics).
 
     The params' tensors and the state's moments (and error feedback) are
     updated in place, one leaf at a time, and returned; ``grads`` is left
-    as it is."""
-    gnorm = global_norm(grads)
+    as it is.  ``grad_norm`` is the global norm when ``grads`` holds only
+    this rank's shard of a leaf (the mesh step); otherwise it is computed
+    from ``grads``."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     compress = cfg.grad_compression and state.err is not None
 

@@ -40,7 +40,16 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "repro_torch.train", "repro_torch.parallel",
                  "repro_torch.train.checkpoint",
                  "repro_torch.parallel.compression",
-                 "repro_torch.models.moe", "repro_torch.models.encdec"):
+                 "repro_torch.models.moe", "repro_torch.models.encdec",
+                 "repro_torch.core.yamlio",
+                 "repro_torch.parallel.sharding",
+                 "repro_torch.parallel.collective_planner",
+                 "repro_torch.launch.mesh", "repro_torch.launch.paper_tables",
+                 "repro_torch.launch.moe_dispatch",
+                 "repro_torch.examples.quickstart",
+                 "repro_torch.examples.comet_attention",
+                 "repro_torch.examples.serve_lm",
+                 "repro_torch.examples.train_lm"):
         assert name in out["modules"], name
     assert len(out["modules"]) >= 25
 

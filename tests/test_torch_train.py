@@ -546,17 +546,28 @@ def test_port_checkpoint_restores_bit_exact_in_jax(tmp_path):
         np.testing.assert_array_equal(_np(t), _np(j), err_msg=name)
 
 
-def test_mesh_and_shardings_wait_for_a_mesh(tmp_path):
-    model = Model(get_smoke_config("glm4-9b"))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        make_train_step(model, OptConfig(), mesh=object())
+def test_mesh_and_shardings_wait_for_a_mesh(tmp_path, capsys):
+    """The host mesh trains (a one-rank gloo mesh here; its step-0 loss is
+    the plain step's within 1e-5); restoring onto shardings, the
+    production mesh and checkpoints on a mesh still raise, naming A.5."""
     state = _port_like()
     save_checkpoint(str(tmp_path), 0, state)
     with pytest.raises(NotImplementedError, match="A.5"):
         restore_checkpoint(str(tmp_path), state, shardings=object())
+    argv = ["--arch", "glm4-9b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--batch", "2", "--seq", "16"]
+    for mesh in ("production", "production-multi"):
+        with pytest.raises(NotImplementedError, match="A.5"):
+            train_cli.main(argv + ["--mesh", mesh])
     with pytest.raises(NotImplementedError, match="A.5"):
-        train_cli.main(["--arch", "glm4-9b", "--smoke", "--device", "cpu",
-                        "--mesh", "host"])
+        train_cli.main(argv + ["--mesh", "host", "--ckpt-dir",
+                               str(tmp_path / "m")])
+    plain = train_cli.main(argv)
+    for planner in ([], ["--planner-loss"]):
+        out = train_cli.main(argv + ["--mesh", "host"] + planner)
+        assert abs(out["losses"][0] / plain["losses"][0] - 1) <= LOSS_RTOL
+    assert not torch.distributed.is_initialized()     # the CLI's group ended
+    capsys.readouterr()
 
 
 # ---------------------------------------------------------------- the CLI

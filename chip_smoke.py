@@ -195,16 +195,32 @@ failure ends the run with a non-zero exit:
     shard: none declared; the emitted ones all run in one-rank groups);
 23. the train CLI with ``--mesh host --planner-loss`` on glm4-9b (full
     width, ``--layers 4`` of 40 as phase 16, kernels on, 3 steps), counts
-    set to 0 just before and read just after: FlashAttention launched 4 x
-    2 times a step; the step-0 loss within 1e-3 relative of the plain-loss
-    CLI's at the same seed and batch; the step times beside phase 16's;
+    set to 0 just before and read just after: the params placed by
+    ``shard_tree``, ZeRO-1 moments, the tensor-parallel embedding,
+    attention (FlashAttention at the rank's heads) and MLP on the (1, 1)
+    NCCL mesh; FlashAttention launched 4 x 2 times a step; the step-0 loss
+    within 1e-3 relative of the plain-loss CLI's at the same seed and
+    batch; the step times beside phase 16's; the collectives' labels, the
+    remat recompute's share of them, the peak memory;
 24. the front ends: ``repro_torch.examples.serve_lm`` (8 requests, 4
     slots, glm4's smoke config in bf16) and ``train_lm`` (lm-100m, 3
     steps of batch 4 x seq 256) with ``--device cuda``, counts set to 0
     just before each: FlashAttention launches > 0 and equal to what each
     reports; ``examples.comet_attention`` to its end, its planner lines
     the expected strings;
-25. a JSON line of the kernels (every number in it measured in this run,
+25. the train CLI with ``--mesh host --planner-loss`` on
+    qwen3-moe-30b-a3b (full width, ``--layers 4`` of 48: 3.1 B parameters
+    at 12 B each (bf16 params and grads, f32 moments) are 37 GB, all 48
+    layers 366 GB), batch 4 x seq 1024, bf16, kernels on, 3 steps, counts
+    set to 0 just before and read just after: tensor-parallel attention
+    and expert-parallel MoE layers on the (1, 1) NCCL mesh, the first MoE
+    training run on the card; FlashAttention launched 4 x 2 x 3 = 24
+    times; the step-0 loss within 1e-3 relative of the same CLI's without
+    a mesh; finite losses; ``moe/combine`` and ``moe/router-grad`` among
+    the collectives; the trained params saved on the mesh and restored
+    with ``shardings=`` bit for bit; the step times beside the step
+    without a mesh, the peak memory;
+26. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
     the training run; the FlashAttention and SSD rows also carry each
@@ -1220,9 +1236,13 @@ def mesh_train_phase(dev, counters, train_glm4):
            "plain_step0_loss": plain["losses"][0], "step0_rel_err": err,
            "step_ms": out["step_ms"], "launches": launches,
            "collectives": _counted(rec_c),
+           "recompute_collectives": _counted(rec_c.recompute),
            "phase16_mean_step_ms": train_glm4["mean_step_ms"],
            "mean_step_ms": sum(timed) / len(timed),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  labels {labels}; the remat recompute issued "
+        f"{len(rec_c.recompute)} of {len(rec_c) + len(rec_c.recompute)} "
+        f"collectives: {rec['recompute_collectives']}")
     log(f"  --mesh host --planner-loss: losses "
         f"{[round(x, 4) for x in out['losses']]}; step 0 {out['losses'][0]:.6f}"
         f" vs the plain loss's {plain['losses'][0]:.6f} (rel {err:.2e}, tol "
@@ -1239,9 +1259,121 @@ def mesh_train_phase(dev, counters, train_glm4):
                              f"{want}")
     if err > MESH_STEP0_RTOL or not all(np.isfinite(out["losses"])):
         raise AssertionError(f"mesh train step's step 0 loss off by {err}")
-    if "xent/hidden-cotangent" not in labels or not any(
+    if not {"xent/hidden-cotangent", "tp/attn-out", "tp/ffn-out",
+            "tp/embed", "grads/norm"} <= set(labels) or not any(
             x.startswith("grads/") for x in labels):
-        raise AssertionError(f"the planner loss emitted {labels}")
+        raise AssertionError(f"the mesh step emitted {labels}")
+    return rec, launches
+
+
+# phase 25: qwen3-moe-30b-a3b at full width, cut in depth by memory
+MOE_LAYERS = 4
+MOE_CUT = ("depth cut to 4 of 48 layers by memory: 3.1 B parameters at 12 B "
+           "each (bf16 params and grads, f32 AdamW moments) take 37 GB; all "
+           "48 layers would take 366 GB, more than the card's 80 GB")
+
+
+def moe_mesh_train_phase(counters):
+    """Phase 25: the train CLI with ``--mesh host --planner-loss`` on
+    qwen3-moe-30b-a3b (full width, 4 of 48 layers, the kernels on, 3
+    steps), counts set to 0 just before and read just after: FlashAttention
+    launched layers x 2 a step; the step-0 loss the CLI's without a mesh
+    (1e-3 relative); finite losses; the MoE collectives recorded; the
+    trained params saved on the mesh and restored with ``shardings=`` bit
+    for bit; the step times beside those without a mesh."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import destroy, make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.collective_planner import record_collectives
+    from repro_torch.parallel.sharding import param_shardings
+    from repro_torch.train.checkpoint import (flatten_with_names,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+    L = MOE_LAYERS
+    argv = ["--arch", "qwen3-moe-30b-a3b", "--layers", str(L), "--batch",
+            "4", "--seq", "1024"]
+    log(f"  {MOE_CUT}")
+    torch.cuda.reset_peak_memory_stats()
+    plain = train_cli.main(argv + ["--steps", "2"])
+    plain_state = plain.pop("state")
+    del plain_state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    plain_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    with record_collectives() as rec_c:
+        out = train_cli.main(argv + ["--steps", str(MESH_STEPS), "--mesh",
+                                     "host", "--planner-loss"])
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want = {k: 2 * L * MESH_STEPS if k == "flash_attention" else 0
+            for k in counters}
+    err = abs(out["losses"][0] / plain["losses"][0] - 1)
+    labels = sorted({r[0] for r in rec_c})
+    timed = out["step_ms"][1:]
+    rec = {"layers": L, "steps": MESH_STEPS, "cut": MOE_CUT,
+           "losses": out["losses"], "plain_losses": plain["losses"],
+           "step0_rel_err": err, "step_ms": out["step_ms"],
+           "plain_step_ms": plain["step_ms"], "launches": launches,
+           "collectives": _counted(rec_c),
+           "recompute_collectives": _counted(rec_c.recompute),
+           "mean_step_ms": sum(timed) / len(timed),
+           "plain_peak_mem_gb": plain_peak,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  --mesh host --planner-loss: losses "
+        f"{[round(x, 4) for x in out['losses']]}; step 0 "
+        f"{out['losses'][0]:.6f} vs the CLI's without a mesh "
+        f"{plain['losses'][0]:.6f} (rel {err:.2e}, tol {MESH_STEP0_RTOL})")
+    log(f"  step ms (CUDA events) {[round(x, 2) for x in out['step_ms']]}, "
+        f"mean of steps 2-{MESH_STEPS} {rec['mean_step_ms']:.2f} ms; "
+        f"without a mesh {[round(x, 2) for x in plain['step_ms']]}")
+    log(f"  launches {launches}; want {want}; labels {labels}; the remat "
+        f"recompute issued {len(rec_c.recompute)} of "
+        f"{len(rec_c) + len(rec_c.recompute)} collectives")
+    log(f"  peak memory {rec['peak_mem_gb']:.2f} GB on the mesh, "
+        f"{plain_peak:.2f} GB without")
+    if launches != want or out["launches"]["flash_attention"] != \
+            want["flash_attention"]:
+        raise AssertionError(f"MoE mesh train step launches {launches}; "
+                             f"want {want}")
+    if err > MESH_STEP0_RTOL or not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"MoE mesh step's losses {out['losses']} "
+                             f"(step 0 off by {err})")
+    if not {"moe/combine", "moe/router-grad", "moe/expert-grad",
+            "tp/attn-out", "xent/hidden-cotangent"} <= set(labels):
+        raise AssertionError(f"the MoE mesh step emitted {labels}")
+
+    # the trained params saved on the mesh, restored with shardings=
+    params = out.pop("state").params
+    model = Model(get_config("qwen3-moe-30b-a3b").with_(n_layers=L))
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(device="cuda")
+    try:
+        placed = param_shardings(model.specs, mesh)
+        with tempfile.TemporaryDirectory(prefix="moe-ckpt-") as d:
+            save_checkpoint(d, MESH_STEPS, params, placements=placed,
+                            mesh=mesh)
+            got, step, _ = restore_checkpoint(d, params, shardings=placed,
+                                              mesh=mesh)
+    finally:
+        destroy()
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_with_names(params), flatten_with_names(got)))
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (x for _, x in flatten_with_names(params)))
+    rec["checkpoint"] = {"bytes": nbytes, "step": step, "bit_equal": same,
+                         "s": time.perf_counter() - t0}
+    log(f"  params checkpoint on the mesh ({nbytes / 1e9:.2f} GB) saved and "
+        f"restored with shardings= in {rec['checkpoint']['s']:.1f} s: "
+        f"{'bit for bit' if same else 'DIFFERENT'}")
+    del got, params
+    torch.cuda.empty_cache()
+    if not same or step != MESH_STEPS:
+        raise AssertionError("the MoE checkpoint did not restore bit for "
+                             "bit")
     return rec, launches
 
 
@@ -1970,7 +2102,13 @@ def main() -> int:
         f" GB")
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 25. the result
+    # --------------- 25. qwen3-moe-30b-a3b on the host mesh, 4 of 48 layers
+    t0 = phase("25. train CLI --mesh host --planner-loss (qwen3-moe-30b-a3b, "
+               "full width, 4 of 48 layers, use_kernels=True)")
+    moe_train, moe_train_fa = moe_mesh_train_phase(counters)
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 26. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1997,6 +2135,7 @@ def main() -> int:
         "family_launches": {a: family[a]["launches"]["flash_attention"]
                             for a in family},
         "planner_train_launches": mesh_train_fa["flash_attention"],
+        "moe_mesh_train_launches": moe_train_fa["flash_attention"],
         "front_end_launches": {n: front[n]["launches"]["flash_attention"]
                                for n in ("serve_lm", "train_lm")},
         "family_shapes": {a: {k: r[k] for k in FAMILY_KEYS}
@@ -2084,6 +2223,7 @@ def main() -> int:
                     "family_kernel_vs_plain_logits": family_paths,
                     "planner_loss": planner,
                     "train_glm4_9b_mesh_planner_loss": mesh_train,
+                    "train_qwen3_moe_mesh_4_layers": moe_train,
                     "front_ends": front,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))

@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.parallel.collective_planner import forget_mesh_groups
 
 __all__ = ["host_group", "destroy", "make_auto_mesh", "make_host_mesh",
            "make_production_mesh", "POD_SHAPE"]
@@ -55,12 +56,14 @@ def host_group(device: Optional[Union[str, torch.device]] = None
 
 def destroy() -> None:
     """End the group :func:`host_group` made in this process and remove its
-    store; a group it did not make (``torchrun``'s) is left alone."""
+    store, and forget the meshes' all-ranks groups made on it; a group it
+    did not make (``torchrun``'s) is left alone."""
     d = _store_dir()
     if not d.exists():
         return
     if dist.is_initialized():
         dist.destroy_process_group()
+    forget_mesh_groups()
     shutil.rmtree(d, ignore_errors=True)
 
 
@@ -88,12 +91,16 @@ def make_auto_mesh(shape: Sequence[int], axes: Sequence[str],
                             mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The JAX package's production mesh names 256 chips (512 with
-    ``multi_pod``); the port's card run has one."""
-    raise NotImplementedError(
-        f"the production mesh ({'2x16x16' if multi_pod else '16x16'} "
-        f"devices) is not ported: ROADMAP A.5, slice 13")
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Optional[Union[str, torch.device]] = None):
+    """The production mesh: ``(16, 16)`` ``("data", "model")`` over 256
+    ranks, or ``(2, 16, 16)`` ``("pod", "data", "model")`` over 512 with
+    ``multi_pod``, through :func:`make_auto_mesh` (which raises its
+    ``ValueError`` on a world of another size, as ``jax.make_mesh`` does).
+    The train step takes no ``pod`` axis yet (ROADMAP A.5, slice 14)."""
+    shape = (2,) + POD_SHAPE if multi_pod else POD_SHAPE
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_auto_mesh(shape, axes, device)
 
 
 def make_host_mesh(model_parallel: Optional[int] = None,

@@ -9,11 +9,14 @@ monitoring.  Port of ``repro/launch/train.py`` with the same flags, and
 runs with ``use_kernels=True``: on the card every layer's attention goes
 through the FlashAttention kernel and every SSD scan through the SSD
 kernel, each under autograd with its plain recompute backward.
-``--mesh host`` trains on ``launch/mesh.make_host_mesh()`` (every rank of
-the world group; one card: a ``(1, 1)`` NCCL mesh), where
-``--planner-loss`` takes the COMET-planned explicit-collective loss over
-a vocab-sharded unembed (``train/train_step.py``); ``--mesh production``
-and checkpoints on a mesh wait for ROADMAP A.5's next slice (13).
+``--mesh host`` trains on ``launch/mesh.make_host_mesh(--model-parallel)``
+(every rank of the world group; one card: a ``(1, 1)`` NCCL mesh) and
+``--mesh production``/``production-multi`` on ``make_production_mesh``
+(256 or 512 ranks): the params placed by ``param_shardings``, the moments
+by ``zero1_shardings``, tensor and expert parallelism over ``model``
+(``train/train_step.py``), checkpoints gathered and written by rank 0 and
+restored onto the mesh's placements; ``--planner-loss`` takes the
+COMET-planned explicit-collective loss over the vocab-sharded unembed.
 
 Example (CPU, reduced config):
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
@@ -43,15 +46,16 @@ from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ssd import ssd_scan_fwd
-from repro_torch.launch.mesh import destroy, make_host_mesh
+from repro_torch.launch.mesh import (destroy, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.models.model import Model
 from repro_torch.train.checkpoint import (AsyncCheckpointer, latest_step,
                                           restore_checkpoint)
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.elastic import StragglerMonitor
-from repro_torch.train.optimizer import OptConfig, init_opt_state
-from repro_torch.train.train_step import (TrainState, make_train_step,
-                                          shard_params)
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.train_step import (init_train_state,
+                                          make_train_step, state_placements)
 
 __all__ = ["warmup_kernel_plans", "train_loop", "main"]
 
@@ -113,23 +117,24 @@ def train_loop(model: Model, *, steps: int, batch: int, seq: int,
                        encdec=cfg.is_encdec, d_model=cfg.d_model,
                        enc_ratio=cfg.enc_ratio)
 
-    if mesh is not None and ckpt_dir:
-        raise NotImplementedError("checkpoints on a mesh are not ported: "
-                                  "ROADMAP A.5, slice 13")
     step_fn = make_train_step(model, opt_cfg, mesh, microbatches=microbatches,
                               use_planner_loss=use_planner_loss)
-    params = model.init(seed, device=dev)
-    if mesh is not None:
-        params = shard_params(model, params, mesh, use_planner_loss)
-    opt = init_opt_state(params, compression=opt_cfg.grad_compression)
-    state = TrainState(params, opt)
+    # on a mesh: the params by param_shardings, the moments by
+    # zero1_shardings, as the JAX loop's device_put places them
+    state = init_train_state(model, model.init(seed, device=dev), mesh,
+                             compression=opt_cfg.grad_compression)
+    placed = (state_placements(model, mesh,
+                               compression=opt_cfg.grad_compression)
+              if mesh is not None else None)
 
     start_step = 0
     ckptr = None
     if ckpt_dir:
-        ckptr = AsyncCheckpointer(ckpt_dir, keep=keep)
+        ckptr = AsyncCheckpointer(ckpt_dir, keep=keep, placements=placed,
+                                  mesh=mesh)
         if latest_step(ckpt_dir) is not None:
-            state, start_step, extra = restore_checkpoint(ckpt_dir, state)
+            state, start_step, extra = restore_checkpoint(
+                ckpt_dir, state, shardings=placed, mesh=mesh)
             print(f"[train] restored step {start_step} from {ckpt_dir}")
 
     mon = StragglerMonitor()
@@ -198,6 +203,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh", choices=["none", "host", "production",
                                        "production-multi"], default="none")
+    ap.add_argument("--model-parallel", type=int, default=None,
+                    help="--mesh host: the model axis's width (the largest "
+                         "divisor of the world size not above it)")
     ap.add_argument("--plan-cache", default=None, metavar="DIR",
                     help="mapping-plan store directory "
                          "(default: $REPRO_PLAN_CACHE or ~/.cache/repro-plans)")
@@ -207,9 +215,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     help="cuda (default) or cpu; no silent CPU fallback")
     args = ap.parse_args(argv)
 
-    if args.mesh.startswith("production"):
-        raise NotImplementedError(f"--mesh {args.mesh} is not ported yet: "
-                                  f"ROADMAP A.5, slice 13")
     if args.plan_cache:
         os.environ["REPRO_PLAN_CACHE"] = args.plan_cache
     device = resolve_device(args.device)
@@ -217,8 +222,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if args.layers:
         cfg = cfg.with_(n_layers=args.layers)
     model = Model(cfg.with_(use_kernels=True))
-    mesh = make_host_mesh(device=device) if args.mesh == "host" else None
+    mesh = None
     try:
+        if args.mesh == "host":
+            mesh = make_host_mesh(args.model_parallel, device=device)
+        elif args.mesh.startswith("production"):
+            mesh = make_production_mesh(
+                multi_pod=args.mesh == "production-multi", device=device)
         out = train_loop(
             model, steps=args.steps, batch=args.batch, seq=args.seq,
             mesh=mesh,
@@ -230,7 +240,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
             warmup_plans=args.warmup_plans, device=device)
     finally:
-        if mesh is not None:
+        if args.mesh != "none":
             destroy()
     print(json.dumps({"final_loss": out["final_loss"],
                       "wall_s": round(out["wall_s"], 1),

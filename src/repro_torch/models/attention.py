@@ -19,6 +19,9 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from ..kernels.ref import attention_ref
+from ..parallel.collective_planner import (enter_parallel, gather_shards,
+                                           leave_parallel, model_axis,
+                                           sum_cotangent)
 from .config import ModelConfig
 from .layers import apply_norm, apply_rope, rope_cos_sin
 from .param import ParamSpec
@@ -183,12 +186,15 @@ def cross_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:
 # =============================================================== GQA paths
 
 
-def _qkv(cfg: ModelConfig, p, x, positions):
+def _qkv(cfg: ModelConfig, p, x, positions, mesh=None):
     B, S, d = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    hd = cfg.hd
+    if mesh is None:
+        q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+        k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+        v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    else:
+        q, k, v, p = _qkv_local(cfg, p, x, mesh)
     if cfg.qk_norm:
         qn = {"scale": p["q_norm"]}
         kn = {"scale": p["k_norm"]}
@@ -203,17 +209,85 @@ def _qkv(cfg: ModelConfig, p, x, positions):
     return q, k, v
 
 
-def attn_train(cfg: ModelConfig, p, x, *, causal: bool = True
+def _kv_heads(H: int, Hkv: int, h0: int, n: int):
+    """The kv heads that q heads [h0, h0 + n) read, as a slice of the kv
+    heads when the local GQA group is uniform, else an index a q head."""
+    g = H // Hkv
+    if n % g == 0:
+        return slice(h0 // g, (h0 + n) // g)
+    if g % n == 0:
+        return slice(h0 // g, h0 // g + 1)
+    return torch.arange(h0, h0 + n) // g
+
+
+def _qkv_local(cfg: ModelConfig, p, x, mesh):
+    """This rank's q heads and the kv heads they read, for the
+    tensor-parallel layer (``x`` already through *f*).  ``wq`` holds the
+    rank's ``H / m`` whole q heads.  ``wk``/``wv`` are split by columns,
+    which ``spec_for`` does whenever ``Hkv * hd`` divides, mid-head too:
+    when ``Hkv`` itself divides, the rank's columns are exactly the kv
+    heads its q heads read; otherwise the k and v projections are
+    All-Gathered over ``model`` (``tp/kv-gather``, a Reduce-Scatter
+    backward) and the needed heads picked.  q/k-norm scales act on the
+    rank's heads only, so their cotangents are SUM-All-Reduced over
+    ``model`` (``tp/qk-norm-grad``).  Returns q, k, v and ``p`` with the
+    norm scales so wrapped."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    m, r, group = model_axis(mesh)
+    if H % m or p["wq"].shape[-1] * m != H * hd:
+        raise NotImplementedError(
+            f"{H} q heads over {m} model ranks split a q head: ROADMAP "
+            f"A.5, slice 14")
+    if p["wk"].shape[-1] * m != Hkv * hd:
+        raise NotImplementedError(
+            f"kv columns {Hkv * hd} that do not split over {m} model ranks "
+            f"(whole kv weights under tensor parallelism): ROADMAP A.5, "
+            f"slice 14")
+    n = H // m
+    q = (x @ p["wq"]).reshape(B, S, n, hd)
+    kp, vp = x @ p["wk"], x @ p["wv"]
+    if Hkv % m == 0:
+        nk = Hkv // m
+        k, v = kp.reshape(B, S, nk, hd), vp.reshape(B, S, nk, hd)
+    else:
+        sel = _kv_heads(H, Hkv, r * n, n)
+        k = gather_shards(kp, group, "tp/kv-gather", "tp/kv-gather").reshape(
+            B, S, Hkv, hd)[:, :, sel]
+        v = gather_shards(vp, group, "tp/kv-gather", "tp/kv-gather").reshape(
+            B, S, Hkv, hd)[:, :, sel]
+    if cfg.qk_norm:
+        p = dict(p, q_norm=sum_cotangent(p["q_norm"], group,
+                                         "tp/qk-norm-grad"),
+                 k_norm=sum_cotangent(p["k_norm"], group,
+                                      "tp/qk-norm-grad"))
+    return q, k, v, p
+
+
+def attn_train(cfg: ModelConfig, p, x, *, causal: bool = True, mesh=None
                ) -> torch.Tensor:
+    """Full-sequence self-attention.  On a mesh (GQA only) it is
+    tensor-parallel over ``model``: *f* before the q/k/v projections, this
+    rank's heads through the attention (the FlashAttention kernel with
+    ``use_kernels``), its rows of ``wo``, and *g* after (both
+    ``tp/attn-out``)."""
     if cfg.attn_type == "mla":
+        if mesh is not None and model_axis(mesh)[0] > 1:
+            raise NotImplementedError(
+                "tensor-parallel MLA is not ported: ROADMAP A.5, slice 14")
         return _mla_train(cfg, p, x)
     B, S, d = x.shape
-    q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device))
+    if mesh is not None:
+        group = model_axis(mesh)[2]
+        x = enter_parallel(x, group, "tp/attn-out")
+    q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device), mesh)
     scale = 1.0 / math.sqrt(cfg.hd)
     o = _attend(cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=causal, window=cfg.window, scale=scale)
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
-    return o @ p["wo"]
+    o = o.transpose(1, 2).reshape(B, S, q.shape[2] * cfg.hd)
+    if mesh is None:
+        return o @ p["wo"]
+    return leave_parallel(o @ p["wo"], group, "tp/attn-out")
 
 
 def init_attn_cache(cfg: ModelConfig, B: int, cache_len: int,

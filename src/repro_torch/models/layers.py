@@ -1,4 +1,13 @@
-"""Shared model layers: norms, RoPE, MLP, embeddings, the LM loss."""
+"""Shared model layers: norms, RoPE, MLP, embeddings, the LM loss.
+
+On a ``(data, model)`` mesh (``mesh=``) the MLP, the embedding and the
+unembed take this rank's shards of their weights (``spec_for``'s
+placements) and the Megatron collectives of ``parallel/collective_planner``:
+the MLP is column-parallel over ``ff`` into its product and row-parallel
+out of it (*f* before, *g* after, both ``tp/ffn-out``); the embedding
+looks up the rank's block of the vocab and SUM-All-Reduces (``tp/embed``);
+the unembed gathers its vocab columns (``tp/unembed-gather``).
+"""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -6,6 +15,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collective_planner import (enter_parallel,
+                                           gather_replicated,
+                                           leave_parallel, model_axis)
 from .config import ModelConfig
 from .param import ParamSpec
 
@@ -85,10 +97,22 @@ def mlp_specs(cfg: ModelConfig, stacked: Optional[int] = None,
 
 
 def mlp_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-              x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: silu(x@wg) * (x@wi) @ wo."""
+              x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """SwiGLU MLP: silu(x@wg) * (x@wi) @ wo.  On a mesh ``wi``/``wg`` are
+    this rank's ``ff`` columns and ``wo`` its rows: the product is partial
+    and SUM-All-Reduced over ``model``."""
+    if mesh is None:
+        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+        return h @ p["wo"]
+    m, _, group = model_axis(mesh)
+    if p["wi"].shape[-1] * m != cfg.d_ff:
+        raise NotImplementedError(
+            f"d_ff {cfg.d_ff} does not split over {m} model ranks (its "
+            f"weights stay whole): an MLP over whole weights on a mesh "
+            f"waits for ROADMAP A.5, slice 14")
+    x = enter_parallel(x, group, "tp/ffn-out")
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+    return leave_parallel(h @ p["wo"], group, "tp/ffn-out")
 
 
 # -------------------------------------------------------------- embeddings
@@ -103,16 +127,35 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return out
 
 
-def embed_apply(p: Dict[str, torch.Tensor], tokens: torch.Tensor
-                ) -> torch.Tensor:
-    return p["embedding"][tokens]
+def embed_apply(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """Token embeddings.  On a mesh the table is this rank's block of the
+    padded vocab: each rank looks up the tokens that fall in it (zeros
+    elsewhere) and the rows are SUM-All-Reduced over ``model``, exact (one
+    nonzero term a row)."""
+    table = p["embedding"]
+    if mesh is None:
+        return table[tokens]
+    _, r, group = model_axis(mesh)
+    v = table.shape[0]
+    idx = tokens - r * v
+    mine = (idx >= 0) & (idx < v)
+    rows = torch.where(mine[..., None], table[idx.clamp(0, v - 1)], 0)
+    return leave_parallel(rows, group, "tp/embed")
 
 
 def unembed_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                  h: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return h @ p["embedding"].T
-    return h @ p["unembed"]
+                  h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Logits over the padded vocab.  On a mesh the vocab-sharded weight is
+    gathered whole first (``tp/unembed-gather``): every model rank then
+    computes the same logits and holds their whole cotangent, so the
+    gather's transpose is the rank's block, with no collective."""
+    w = p["embedding"] if cfg.tie_embeddings else p["unembed"]
+    if mesh is not None:
+        _, _, group = model_axis(mesh)
+        w = gather_replicated(w, group, "tp/unembed-gather",
+                              dim=0 if cfg.tie_embeddings else 1)
+    return h @ w.T if cfg.tie_embeddings else h @ w
 
 
 # -------------------------------------------------------------------- loss

@@ -41,16 +41,23 @@ class Model:
         return count_params(self.specs)
 
     # ------------------------------------------------------------ forward
-    def logits(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def logits(self, params, batch: Dict[str, torch.Tensor],
+               mesh=None) -> torch.Tensor:
+        """Full-sequence logits.  On a ``(data, model)`` mesh ``batch`` is
+        this rank's rows and ``params`` its shards (``transformer.forward``);
+        the enc-dec family runs there only with ``model == 1``, as it does
+        with no mesh."""
         if self.cfg.is_encdec:
+            transformer.check_mesh(self.cfg, mesh)
             return encdec.encdec_forward(self.cfg, params,
                                          batch["src_embeds"], batch["tokens"])
-        return transformer.forward(self.cfg, params, batch["tokens"])
+        return transformer.forward(self.cfg, params, batch["tokens"], mesh)
 
-    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def loss(self, params, batch: Dict[str, torch.Tensor],
+             mesh=None) -> torch.Tensor:
         """Mean token NLL of ``batch["labels"]`` under the logits of
         ``batch["tokens"]`` (f32 scalar)."""
-        logits = self.logits(params, batch)
+        logits = self.logits(params, batch, mesh)
         return cross_entropy_loss(logits, batch["labels"],
                                   self.cfg.vocab_size)
 

@@ -2,10 +2,13 @@
 order (GShard-style dropping), the expert SwiGLU FFNs as batched products,
 and the gate-weighted combine.
 
-Port of ``repro/models/moe.py`` on one device: every expert is local.
-Expert parallelism over a mesh (the JAX package's ``shard_map`` with one
-``psum``) is not ported yet (ROADMAP A.5, slice 13);
-``moe_apply(mesh=...)`` raises.
+Port of ``repro/models/moe.py``.  Without a mesh every expert is local.
+On a ``(data, model)`` mesh the experts are split over ``model`` (the JAX
+package's ``shard_map``): each rank routes its rows of tokens with the
+replicated router, runs its ``E / m`` experts at the capacity of its own
+token count, and the partial outputs are SUM-All-Reduced over ``model``
+(``moe/combine``), with ``shard_map``'s transpose rules for the
+gradients (see :func:`moe_apply`).
 
 Routing: softmax top-k over the selected logits (Qwen3-style, renormalized)
 or sigmoid + bias (DeepSeek-V3 aux-free: the bias picks the experts, the
@@ -20,13 +23,21 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collective_planner import (mesh_group, model_axis,
+                                           split_cotangent, sum_cotangent,
+                                           sum_over)
+from ..parallel.sharding import dp_axes
 from .config import ModelConfig
 from .param import ParamSpec
 
 F32 = torch.float32
 
 __all__ = ["moe_specs", "moe_apply", "moe_local", "router_weights",
-           "capacity"]
+           "capacity", "slot_positions", "MESH_REDUCED"]
+
+# the leaves whose gradients moe_apply reduces itself on a mesh
+# (moe/expert-grad, moe/router-grad, moe/router-bias-grad)
+MESH_REDUCED = ("router", "router_bias", "wi", "wg", "wo")
 
 
 def moe_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:
@@ -73,6 +84,21 @@ def capacity(cfg: ModelConfig, T: int) -> int:
                min(T, 32))
 
 
+def slot_positions(cfg: ModelConfig, idx: torch.Tensor) -> torch.Tensor:
+    """(T * k,) position of each (token, choice) assignment within its
+    expert's slots, in token order (a stable sort by expert); an
+    assignment at ``capacity`` or beyond is dropped."""
+    flat_e = idx.reshape(-1)
+    dev = idx.device
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(cfg.n_experts, device=dev, dtype=flat_e.dtype))
+    pos_sorted = torch.arange(flat_e.numel(), device=dev) \
+        - seg_start[sorted_e]
+    return torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+
+
 def moe_local(cfg: ModelConfig, x2d: torch.Tensor, gates: torch.Tensor,
               idx: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
               wo: torch.Tensor, e_offset: int, e_local: int,
@@ -93,14 +119,7 @@ def moe_local(cfg: ModelConfig, x2d: torch.Tensor, gates: torch.Tensor,
     flat_e = idx.reshape(-1)                              # (T*k,)
     flat_g = gates.reshape(-1)
     flat_t = torch.arange(T, device=dev).repeat_interleave(k)
-
-    # position of each assignment within its expert (stable by token order)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    seg_start = torch.searchsorted(
-        sorted_e, torch.arange(cfg.n_experts, device=dev, dtype=flat_e.dtype))
-    pos_sorted = torch.arange(T * k, device=dev) - seg_start[sorted_e]
-    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    pos = slot_positions(cfg, idx)
 
     local = (flat_e >= e_offset) & (flat_e < e_offset + e_local) \
         & (pos < capacity)
@@ -128,16 +147,51 @@ def _shared_ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
               mesh: Optional[object] = None) -> torch.Tensor:
-    """MoE FFN.  x: (B, S, d); every expert on x's device."""
-    if mesh is not None:
-        raise NotImplementedError("expert parallelism over a mesh is not "
-                                  "ported yet: ROADMAP A.5, slice 13")
+    """MoE FFN.  x: (B, S, d).  Without a mesh every expert is on x's
+    device.  On a mesh, x is this rank's rows (replicated over ``model``)
+    and ``wi``/``wg``/``wo`` its ``E / m`` experts, from expert ``r * E /
+    m``; the capacity is that of the rank's ``B * S`` tokens, as the JAX
+    package's ``_cap(t_local)``.  The collectives follow ``shard_map``'s
+    transpose rules, as ``train_collective_schedule`` declares them:
+    ``moe/combine`` three times a layer (the forward SUM, its transpose,
+    and x's cotangent, since x enters replicated over ``model``);
+    ``moe/expert-grad`` over ``data`` for each expert weight (replicated
+    there); ``moe/router-grad`` (and ``moe/router-bias-grad``) over every
+    axis of the mesh."""
     B, S, d = x.shape
     E = cfg.n_experts
     x2d = x.reshape(B * S, d)
-    gates, idx = router_weights(cfg, p, x2d)
-    out = moe_local(cfg, x2d, gates, idx, p["wi"], p["wg"], p["wo"], 0, E,
-                    capacity(cfg, B * S))
+    if mesh is None:
+        gates, idx = router_weights(cfg, p, x2d)
+        out = moe_local(cfg, x2d, gates, idx, p["wi"], p["wg"], p["wo"], 0,
+                        E, capacity(cfg, B * S))
+        if cfg.n_shared_experts:
+            out = out + _shared_ffn(p, x2d)
+        return out.reshape(B, S, d)
+
+    m, r, g_model = model_axis(mesh)
+    if E % m:
+        raise ValueError(f"{E} experts do not split over {m} model ranks")
+    if cfg.n_shared_experts and m > 1:
+        raise NotImplementedError(
+            "tensor-parallel shared experts are not ported: ROADMAP A.5, "
+            "slice 14")
+    e_local = E // m
+    dp = dp_axes(mesh)
+    g_data = mesh.get_group(dp[0]) if dp else None
+    g_all = mesh_group(mesh)
+    pp = {"router": sum_cotangent(p["router"], g_all, "moe/router-grad")}
+    if cfg.router_type == "sigmoid":
+        pp["router_bias"] = sum_cotangent(p["router_bias"], g_all,
+                                          "moe/router-bias-grad")
+    w = {k: p[k] if g_data is None
+         else sum_cotangent(p[k], g_data, "moe/expert-grad")
+         for k in ("wi", "wg", "wo")}
+    x_l = sum_cotangent(x2d, g_model, "moe/combine")
+    gates, idx = router_weights(cfg, pp, x_l)
+    y = moe_local(cfg, x_l, gates, idx, w["wi"], w["wg"], w["wo"],
+                  r * e_local, e_local, capacity(cfg, B * S))
+    out = split_cotangent(sum_over(y, g_model, "moe/combine"), m)
     if cfg.n_shared_experts:
         out = out + _shared_ffn(p, x2d)
     return out.reshape(B, S, d)

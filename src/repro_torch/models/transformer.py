@@ -11,9 +11,19 @@ checkpoints each layer as the config's ``remat``/``remat_policy`` say
 Paths: ``forward`` (full-seq causal logits; ``hidden`` stops before the
 unembed, for the planner loss), ``prefill`` (builds the cache),
 ``decode`` (one token, fixed shapes).
+
+``hidden``/``forward`` take a ``(data, model)`` mesh (``mesh=``; the
+tokens are this rank's rows, the params its shards): the embedding, the
+GQA attention, the dense MLP and the unembed are tensor-parallel and the
+MoE FFN expert-parallel over ``model`` (``layers``, ``attention``,
+``moe``).  The recompute of a checkpointed layer runs in
+``collective_planner.recompute_region``, so that its repeated forward
+collectives are recorded apart.  MLA, SSM, hybrid and enc-dec layers and
+DeepSeek's dense stack run on a mesh only with ``model == 1``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, List, Tuple
 
@@ -21,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from ..parallel.collective_planner import model_axis, recompute_region
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -31,7 +43,7 @@ from .layers import (apply_norm, embed_apply, embed_specs, mlp_apply,
 from .param import ParamSpec, torch_dtype, tree_leaves, tree_map
 
 __all__ = ["decoder_specs", "hidden", "forward", "prefill", "decode",
-           "init_cache"]
+           "init_cache", "check_mesh"]
 
 
 def _layer(params: Dict, l: int) -> Dict:
@@ -59,6 +71,21 @@ def _unbind_layers(stacked: Dict) -> List[Dict]:
 _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
+def _remat_contexts(policy: str):
+    """(forward, recompute) contexts of a checkpointed layer: the policy's,
+    the recompute's inside ``recompute_region``."""
+    if policy == "full":
+        fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+    else:
+        fwd, rec = create_selective_checkpoint_contexts(_DOTS)
+
+    @contextlib.contextmanager
+    def recompute():
+        with rec, recompute_region():
+            yield
+    return fwd, recompute()
+
+
 def _remat(cfg: ModelConfig, body):
     """``body`` checkpointed while grad is enabled: ``remat_policy`` "full"
     saves nothing of it and recomputes it in the backward pass, "dots"
@@ -67,10 +94,9 @@ def _remat(cfg: ModelConfig, body):
     if not cfg.remat or cfg.remat_policy == "none" \
             or not torch.is_grad_enabled():
         return body
-    kw = {} if cfg.remat_policy == "full" else {
-        "context_fn": functools.partial(create_selective_checkpoint_contexts,
-                                        _DOTS)}
-    return functools.partial(checkpoint, body, use_reentrant=False, **kw)
+    return functools.partial(
+        checkpoint, body, use_reentrant=False,
+        context_fn=functools.partial(_remat_contexts, cfg.remat_policy))
 
 
 # ------------------------------------------------------------------ specs
@@ -125,13 +151,14 @@ def decoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # ------------------------------------------------------------------ layer
 
 
-def _ffn_residual(cfg: ModelConfig, pl: Dict, x: torch.Tensor
-                  ) -> torch.Tensor:
+def _ffn_residual(cfg: ModelConfig, pl: Dict, x: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
     if cfg.is_moe:
         x = x + moe_mod.moe_apply(cfg, pl["moe"],
-                                  apply_norm(cfg, pl["norm2"], x))
+                                  apply_norm(cfg, pl["norm2"], x), mesh)
     elif cfg.d_ff > 0:
-        x = x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x))
+        x = x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x),
+                          mesh)
     return x
 
 
@@ -147,7 +174,7 @@ def _ssd_chunk(cfg: ModelConfig, S: int):
     return ssm_mod.plan_chunk(cfg, S) if cfg.has_ssm else None
 
 
-def _layer_train(cfg: ModelConfig, x: torch.Tensor, pl: Dict,
+def _layer_train(cfg: ModelConfig, mesh, x: torch.Tensor, pl: Dict,
                  chunk) -> torch.Tensor:
     h = apply_norm(cfg, pl["norm1"], x)
     if cfg.family == "hybrid":
@@ -156,30 +183,47 @@ def _layer_train(cfg: ModelConfig, x: torch.Tensor, pl: Dict,
     elif cfg.has_ssm:
         mix = ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk)
     else:
-        mix = attn.attn_train(cfg, pl["attn"], h)
-    return _ffn_residual(cfg, pl, x + mix)
+        mix = attn.attn_train(cfg, pl["attn"], h, mesh=mesh)
+    return _ffn_residual(cfg, pl, x + mix, mesh)
+
+
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise for the layers that are not tensor-parallel yet on a mesh
+    with a ``model`` axis wider than one."""
+    if mesh is None or model_axis(mesh)[0] == 1:
+        return
+    if cfg.has_ssm or cfg.first_dense_layers or cfg.is_encdec \
+            or cfg.seq_shard or not cfg.tensor_parallel:
+        raise NotImplementedError(
+            f"{cfg.name} on a model axis of {model_axis(mesh)[0]}: tensor "
+            f"parallelism of SSM, hybrid, enc-dec and DeepSeek's dense "
+            f"layers (and the seq_shard and tensor_parallel=False knobs) "
+            f"waits for ROADMAP A.5, slice 14")
 
 
 # ---------------------------------------------------------------- forward
 
 
-def hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
-           ) -> torch.Tensor:
+def hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+           mesh=None) -> torch.Tensor:
     """Full-sequence forward up to the unembed: tokens (B, S) -> the final
-    norm's output (B, S, d)."""
-    x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
+    norm's output (B, S, d).  On a mesh, tokens are this rank's rows and
+    ``params`` its shards; the output is replicated over ``model``."""
+    check_mesh(cfg, mesh)
+    x = embed_apply(params, tokens, mesh).to(torch_dtype(cfg.dtype))
     chunk = _ssd_chunk(cfg, tokens.shape[1])
     for key, _, c, _ in _stacks(cfg):
-        layer = _remat(c, functools.partial(_layer_train, c))
+        layer = _remat(c, functools.partial(_layer_train, c, mesh))
         for pl in _unbind_layers(params[key]):
             x = layer(x, pl, chunk)
     return apply_norm(cfg, params["final_norm"], x)
 
 
-def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
-            ) -> torch.Tensor:
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+            mesh=None) -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) -> logits (B, S, Vp)."""
-    return unembed_apply(cfg, params, hidden(cfg, params, tokens))
+    return unembed_apply(cfg, params, hidden(cfg, params, tokens, mesh),
+                         mesh)
 
 
 # ------------------------------------------------------------------ cache

@@ -18,6 +18,10 @@ attention merges.  Port of ``repro/parallel/collective_planner.py``:
 3. ``softmax_collective_schedule`` / ``train_collective_schedule`` /
    ``price_collective_schedule``: the declared schedules, copies of the
    JAX package's.
+4. The tensor-parallel operators of the mesh train step: Megatron's *f*
+   and *g* (:func:`enter_parallel`, :func:`leave_parallel`),
+   :func:`gather_shards` and :func:`gather_replicated`, which the model
+   layers call where GSPMD partitions the JAX package's step.
 
 Every collective goes through :func:`collective`, which
 :func:`record_collectives` can count.
@@ -27,12 +31,13 @@ from __future__ import annotations
 import contextlib
 import functools
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import resolve_device
 from ..core.collectives import collective_cost, noc_latency
 from ..core.hardware import tpu_v5e
 from ..models.param import torch_dtype
@@ -43,8 +48,11 @@ F32 = torch.float32
 __all__ = ["softmax_collective_schedule", "plan_softmax_strategy",
            "sharded_softmax_xent", "DeclaredCollective",
            "train_collective_schedule", "price_collective_schedule",
-           "collective", "record_collectives", "sum_over", "sum_cotangent",
-           "split_cotangent"]
+           "collective", "record_collectives", "recompute_region",
+           "CollectiveRecord", "sum_over", "sum_cotangent", "split_cotangent",
+           "model_axis", "make_submesh", "mesh_group", "forget_mesh_groups",
+           "enter_parallel", "leave_parallel",
+           "gather_shards", "gather_replicated"]
 
 
 def softmax_collective_schedule(strategy: str, rows: int, cols: int,
@@ -117,34 +125,61 @@ def plan_softmax_strategy(rows: int, cols: int, participants: int,
 # Explicit collectives over a mesh's process groups.
 # ---------------------------------------------------------------------------
 
-_RECORDS: Optional[List[Tuple[str, str, float, int]]] = None
+class CollectiveRecord(list):
+    """The collectives of a :func:`record_collectives` block, each
+    ``(label, col_type, dv_bytes, participants)``; those issued while a
+    checkpointed layer is recomputed in the backward pass (remat) are kept
+    apart, in ``.recompute``."""
+
+    def __init__(self):
+        super().__init__()
+        self.recompute: List[Tuple[str, str, float, int]] = []
+
+
+_RECORDS: Optional[CollectiveRecord] = None
+_IN_RECOMPUTE = False
 
 
 @contextlib.contextmanager
 def record_collectives():
     """Within the block, every collective emitted through :func:`collective`
     (in this process, forward or backward) appends ``(label, col_type,
-    dv_bytes, participants)`` to the list this yields.  Participants-1
-    collectives are recorded too: they run (a copy in a one-rank group),
-    but a declared schedule leaves them out."""
+    dv_bytes, participants)`` to the :class:`CollectiveRecord` this
+    yields, or to its ``.recompute`` inside :func:`recompute_region`.
+    Participants-1 collectives are recorded too: they run (a copy in a
+    one-rank group), but a declared schedule leaves them out."""
     global _RECORDS
-    prev, _RECORDS = _RECORDS, []
+    prev, _RECORDS = _RECORDS, CollectiveRecord()
     try:
         yield _RECORDS
     finally:
         _RECORDS = prev
 
 
+@contextlib.contextmanager
+def recompute_region():
+    """Marks the collectives of the block as a remat recompute's: they
+    repeat forward collectives that the declared schedules count once
+    (the JAX package counts them on the traced program, where
+    ``jax.checkpoint`` adds none)."""
+    global _IN_RECOMPUTE
+    prev, _IN_RECOMPUTE = _IN_RECOMPUTE, True
+    try:
+        yield
+    finally:
+        _IN_RECOMPUTE = prev
+
+
 def collective(col_type: str, label: str, x: torch.Tensor, group, *,
-               op=dist.ReduceOp.SUM) -> torch.Tensor:
+               op=dist.ReduceOp.SUM, dim: int = -1) -> torch.Tensor:
     """The one place this package emits a collective, over ``group``; the
     result is a new tensor.  ``AllReduce``: ``op`` over the whole tensor.
-    ``AllGather``: the participants' tensors concatenated along the last
-    dim, in group-rank order.  ``ReduceScatter``: the last dim split into
-    one block a participant, summed, this rank's block kept.  DV is
-    recorded in the cost model's convention: the full tensor of an
-    All-Reduce, the gathered result of an All-Gather, the full input of a
-    Reduce-Scatter.  A failed collective raises."""
+    ``AllGather``: the participants' tensors concatenated along ``dim``, in
+    group-rank order.  ``ReduceScatter``: ``dim`` split into one block a
+    participant, summed, this rank's block kept.  DV is recorded in the
+    cost model's convention: the full tensor of an All-Reduce, the
+    gathered result of an All-Gather, the full input of a Reduce-Scatter.
+    A failed collective raises."""
     P = dist.get_world_size(group)
     x = x.contiguous()
     if col_type == "AllReduce":
@@ -154,20 +189,20 @@ def collective(col_type: str, label: str, x: torch.Tensor, group, *,
     elif col_type == "AllGather":
         parts = [torch.empty_like(x) for _ in range(P)]
         dist.all_gather(parts, x, group=group)
-        out = dv = torch.cat(parts, dim=-1)
+        out = dv = torch.cat(parts, dim=dim)
     elif col_type == "ReduceScatter":
-        if x.shape[-1] % P:
-            raise ValueError(f"last dim of {tuple(x.shape)} does not split "
+        if x.shape[dim] % P:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                              f"into {P} blocks")
-        parts = [p.contiguous() for p in x.chunk(P, dim=-1)]
+        parts = [p.contiguous() for p in x.chunk(P, dim=dim)]
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, group=group)
         dv = x
     else:
         raise ValueError(f"unknown collective {col_type!r}")
     if _RECORDS is not None:
-        _RECORDS.append((label, col_type,
-                         float(dv.numel() * dv.element_size()), P))
+        (_RECORDS.recompute if _IN_RECOMPUTE else _RECORDS).append(
+            (label, col_type, float(dv.numel() * dv.element_size()), P))
     return out
 
 
@@ -200,18 +235,61 @@ class _SumCotangent(torch.autograd.Function):
 
 
 class _GatherColumns(torch.autograd.Function):
-    """All-Gather along the last dim; its transpose is a Reduce-Scatter of
-    the gathered cotangent."""
+    """All-Gather along ``dim``; its transpose is a Reduce-Scatter of the
+    gathered cotangent, which the ranks hold as partial sums."""
+
+    @staticmethod
+    def forward(ctx, x, group, label, grad_label, dim):
+        ctx.group, ctx.label, ctx.dim = group, grad_label, dim
+        return collective("AllGather", label, x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (collective("ReduceScatter", ctx.label, g, ctx.group,
+                           dim=ctx.dim), None, None, None, None)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """All-Gather along ``dim`` of a value whose every use is replicated
+    over the group (the whole cotangent on every rank, Megatron's
+    convention): its transpose is this rank's block of the cotangent, with
+    no collective."""
+
+    @staticmethod
+    def forward(ctx, x, group, label, dim):
+        ctx.rank, ctx.n, ctx.dim = dist.get_rank(group), x.shape[dim], dim
+        return collective("AllGather", label, x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
+
+
+class _EnterParallel(torch.autograd.Function):
+    """Megatron's *f*: identity forward into a tensor-parallel region; the
+    ranks' partial cotangents SUM-All-Reduced backward."""
 
     @staticmethod
     def forward(ctx, x, group, label):
         ctx.group, ctx.label = group, label
-        return collective("AllGather", label, x, group)
+        return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return (collective("ReduceScatter", ctx.label + "-grad", g,
-                           ctx.group), None, None)
+        return collective("AllReduce", ctx.label, g, ctx.group), None, None
+
+
+class _LeaveParallel(torch.autograd.Function):
+    """Megatron's *g*: the ranks' partial outputs SUM-All-Reduced forward;
+    the cotangent, whole on every rank, passes through backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, label):
+        return collective("AllReduce", label, x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
 
 
 class _SplitCotangent(torch.autograd.Function):
@@ -242,6 +320,82 @@ def sum_cotangent(x: torch.Tensor, group, label: str) -> torch.Tensor:
 def split_cotangent(x: torch.Tensor, n: int) -> torch.Tensor:
     """``x`` as it is; its gradient divided by ``n`` (its replicas)."""
     return _SplitCotangent.apply(x, n)
+
+
+def model_axis(mesh) -> Tuple[int, int, object]:
+    """(size, this rank's index, process group) of ``mesh``'s ``model``
+    axis."""
+    return (mesh_axes(mesh)["model"], mesh.get_local_rank("model"),
+            mesh.get_group("model"))
+
+
+# the all-ranks groups of meshes over part of the world, by their ranks
+_SUBMESH_GROUPS: Dict[Tuple[int, ...], dist.ProcessGroup] = {}
+
+
+def make_submesh(ranks: Sequence[int], shape: Sequence[int],
+                 axes: Sequence[str],
+                 device: Optional[Union[str, torch.device]] = None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over ``ranks`` of the
+    world (row-major), with its all-ranks group for :func:`mesh_group`.
+    Every rank of the world calls it, in the same order, kept or not
+    (``torch.distributed.new_group``'s rule); a rank outside ``ranks``
+    gets the mesh with no coordinate."""
+    from torch.distributed.device_mesh import DeviceMesh
+    dev = resolve_device(device)
+    ranks = tuple(int(r) for r in ranks)
+    mesh = DeviceMesh(dev.type, torch.tensor(ranks).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
+    _SUBMESH_GROUPS[ranks] = dist.new_group(list(ranks))
+    return mesh
+
+
+def mesh_group(mesh) -> dist.ProcessGroup:
+    """The process group of all of ``mesh``'s ranks (every axis at once,
+    such as the MoE router's gradient): the world's for a mesh over the
+    whole world, else the one :func:`make_submesh` made."""
+    ranks = tuple(int(r) for r in mesh.mesh.flatten().tolist())
+    if len(ranks) == dist.get_world_size():
+        return dist.group.WORLD
+    if ranks not in _SUBMESH_GROUPS:
+        raise ValueError(f"no all-ranks group for the mesh over {ranks}: "
+                         f"build it with make_submesh")
+    return _SUBMESH_GROUPS[ranks]
+
+
+def forget_mesh_groups() -> None:
+    """Drop :func:`make_submesh`'s groups, once the world that made them is
+    destroyed."""
+    _SUBMESH_GROUPS.clear()
+
+
+def enter_parallel(x: torch.Tensor, group, label: str) -> torch.Tensor:
+    """Megatron's *f* over ``group``: ``x`` as it is, its cotangent
+    SUM-All-Reduced (one collective, backward)."""
+    return _EnterParallel.apply(x, group, label)
+
+
+def leave_parallel(x: torch.Tensor, group, label: str) -> torch.Tensor:
+    """Megatron's *g* over ``group``: the partial ``x`` SUM-All-Reduced (one
+    collective, forward); the cotangent passes through."""
+    return _LeaveParallel.apply(x, group, label)
+
+
+def gather_shards(x: torch.Tensor, group, label: str, grad_label: str, *,
+                  dim: int = -1) -> torch.Tensor:
+    """All-Gather of ``x``'s shards along ``dim`` under autograd; its
+    transpose is a Reduce-Scatter of the cotangent, labelled
+    ``grad_label``."""
+    return _GatherColumns.apply(x, group, label, grad_label, dim)
+
+
+def gather_replicated(x: torch.Tensor, group, label: str, *,
+                      dim: int = -1) -> torch.Tensor:
+    """All-Gather of ``x``'s shards along ``dim`` under autograd, for a
+    result that every rank uses the same way (each holds the whole
+    cotangent): its transpose is this rank's block of the cotangent, with
+    no collective."""
+    return _GatherReplicated.apply(x, group, label, dim)
 
 
 def _mask_pad(lg: torch.Tensor, v0: int, real_vocab: int) -> torch.Tensor:
@@ -281,7 +435,7 @@ def sharded_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
     if len(dp) > 1:
         raise NotImplementedError(
             "sharded_softmax_xent over two data axes (pod, data) is not "
-            "ported: ROADMAP A.5, slice 13")
+            "ported: it waits for the pod axis of ROADMAP A.5, slice 14")
     P_model = mesh_axes(mesh)["model"]
     Vp = v_local * P_model
     if strategy == "auto":
@@ -312,7 +466,8 @@ def sharded_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
                                0.0)
         ll = sum_over(ll_local, g_model, "xent/stats")
     else:
-        lg_full = _GatherColumns.apply(lg, g_model, "xent/logit-gather")
+        lg_full = gather_shards(lg, g_model, "xent/logit-gather",
+                                "xent/logit-gather-grad")
         lg_full = _mask_pad(lg_full, 0, real_vocab)
         m = lg_full.max(-1).values
         s = torch.exp(lg_full - m[:, None]).sum(-1)

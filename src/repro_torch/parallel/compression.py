@@ -12,7 +12,7 @@ Two pieces, ports of ``repro/parallel/compression.py``:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -23,10 +23,14 @@ __all__ = ["quantize_int8", "dequantize_int8", "compress_with_feedback",
            "compressed_psum"]
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x -> (int8 q, f32 scale) with x ~ q * scale; ``torch.round`` rounds
-    half to even, as ``jnp.round`` does."""
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    half to even, as ``jnp.round`` does.  ``amax`` is the largest |x| of
+    the whole tensor when ``x`` is one shard of it (default: x's own)."""
+    if amax is None:
+        amax = x.abs().max()
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(F32)
 
@@ -35,11 +39,13 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(F32) * scale
 
 
-def compress_with_feedback(g: torch.Tensor, err: torch.Tensor
+def compress_with_feedback(g: torch.Tensor, err: torch.Tensor, *,
+                           amax: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (compressed-then-decompressed gradient, new error feedback)."""
+    """Returns (compressed-then-decompressed gradient, new error feedback);
+    ``amax`` as in :func:`quantize_int8`."""
     x = g.to(F32) + err
-    q, s = quantize_int8(x)
+    q, s = quantize_int8(x, amax)
     dq = dequantize_int8(q, s)
     return dq.to(g.dtype), x - dq
 

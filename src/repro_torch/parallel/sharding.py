@@ -15,10 +15,11 @@ dim), the port returns DTensor placements (one a mesh dim: ``Shard(d)``
 or ``Replicate()``); :func:`partition_spec` turns placements back into
 the JAX form.  Every rule is a pure function of the mesh's axis names and
 sizes (``mesh.mesh_dim_names``, ``mesh.shape``): a ``DeviceMesh`` or a
-:class:`MeshShape` with no process group behind it.  The train step
-applies two of them, the batch split over ``data`` (:func:`batch_spec`)
-and the unembed's vocab shard over ``model`` (:func:`spec_for`), through
-:func:`local_shard`; the others are used by the mesh paths still to port.
+:class:`MeshShape` with no process group behind it.  The mesh train step
+applies them through :func:`shard_tree` (each rank's shard of every leaf,
+``jax.device_put`` onto a sharding's counterpart) and :func:`local_shard`;
+:func:`gather_leaf` and :func:`gather_tree` put the full leaves back
+together (checkpoints, elastic resharding, tests).
 """
 from __future__ import annotations
 
@@ -26,12 +27,13 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 from torch.distributed.tensor import Replicate, Shard
 
-from ..models.param import tree_map
+from ..models.param import tree_map, tree_zip
 
 __all__ = ["LOGICAL_RULES", "MeshShape", "mesh_axes", "dp_axes", "dp_size",
            "spec_for", "param_shardings", "zero1_spec", "zero1_shardings",
            "batch_spec", "cache_shardings",
-           "partition_spec", "local_shard"]
+           "partition_spec", "local_shard", "shard_leaf", "shard_tree",
+           "gather_leaf", "gather_tree"]
 
 # logical axis -> mesh axis (None = replicate)
 LOGICAL_RULES: Dict[Optional[str], Optional[str]] = {
@@ -218,12 +220,18 @@ def cache_shardings(cache, mesh, batch: int):
     return walk(cache, ())
 
 
-def local_shard(t, placements: Sequence, mesh):
+def local_shard(t, placements: Sequence, mesh,
+                axes: Optional[Sequence[str]] = None):
     """This rank's shard of the global tensor ``t`` under ``placements``
     (a view; no collective): each mesh dim that shards tensor dim d keeps
-    the block of d at this rank's coordinate, outer mesh dims first."""
+    the block of d at this rank's coordinate, outer mesh dims first.
+    ``axes`` keeps only those mesh axes' shards (e.g. the data axes, to
+    take a ZeRO-1 moment's slice of a parameter's shard)."""
     coord = mesh.get_coordinate()
-    for size, c, p in zip(mesh.shape, coord, placements):
+    for name, size, c, p in zip(mesh.mesh_dim_names, mesh.shape, coord,
+                                placements):
+        if axes is not None and name not in axes:
+            continue
         if isinstance(p, Shard) and size > 1:
             n = t.shape[p.dim]
             if n % size:
@@ -231,3 +239,40 @@ def local_shard(t, placements: Sequence, mesh):
                                  f"split into {size} shards")
             t = t.narrow(p.dim, c * (n // size), n // size)
     return t
+
+
+def shard_leaf(t, placement, mesh):
+    """This rank's shard of the full tensor ``t`` under ``placement``: a
+    copy where it is split, ``t`` itself where it is whole (replicated, or
+    on a one-rank mesh)."""
+    s = local_shard(t, placement, mesh)
+    return s.clone() if s.shape != t.shape else s
+
+
+def shard_tree(tree, placements, mesh):
+    """:func:`shard_leaf` of every leaf of ``tree`` under the matching tree
+    of ``placements``."""
+    pairs = iter(tree_zip(tree, placements))
+    return tree_map(lambda _: shard_leaf(*next(pairs), mesh), tree)
+
+
+def gather_leaf(t, placement, mesh):
+    """The full tensor of this rank's shard ``t`` under ``placement``:
+    every sharded mesh dim's All-Gather over its axis's group (inner mesh
+    dims first), called on every rank of ``mesh``; a leaf that is whole
+    comes back as it is.  The collectives go through
+    ``collective_planner.collective`` (``tree/gather``)."""
+    from .collective_planner import collective
+    for name, size, p in reversed(list(zip(mesh.mesh_dim_names, mesh.shape,
+                                           placement))):
+        if isinstance(p, Shard) and size > 1:
+            t = collective("AllGather", "tree/gather", t,
+                           mesh.get_group(name), dim=p.dim)
+    return t
+
+
+def gather_tree(tree, placements, mesh):
+    """The full leaves of a tree of this rank's shards (:func:`gather_leaf`
+    of each), called on every rank of ``mesh``."""
+    pairs = iter(tree_zip(tree, placements))
+    return tree_map(lambda _: gather_leaf(*next(pairs), mesh), tree)

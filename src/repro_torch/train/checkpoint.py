@@ -13,11 +13,21 @@ order, ``None`` no leaf) and are named as ``jax.tree_util.keystr`` names
 them (``.params['layers']['mlp']['wi']``).  A bf16 leaf is written as the
 JAX package writes it, 2-byte words under the npy descr ``'<V2'`` with
 ``"dtype": "bfloat16"`` in the manifest, and read back as those words
-viewed as ``torch.bfloat16``.  Restoring onto a mesh (``shardings=``)
-is not ported yet (ROADMAP A.5, slice 13).
+viewed as ``torch.bfloat16``.
+
+On a mesh (``placements=`` a tree of placements like the state's, from
+``train_step.state_placements``, and ``mesh=``) every rank gathers the
+leaves whole one at a time (``sharding.gather_leaf``; rank 0 copies each
+to the host and frees it before the next, so that a card holds its shards
+and one whole leaf, not the whole state), rank 0 writes the same layout
+and every rank waits on a barrier; ``restore_checkpoint(..., shardings=,
+mesh=)`` reads the whole leaves and gives each rank its shard under the
+new mesh's placements, so that a checkpoint written on one mesh restores
+on another, or on none, bit for bit (elastic restore).
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import queue
@@ -27,6 +37,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.collective_planner import mesh_group
+from ..parallel.sharding import gather_leaf, local_shard
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "AsyncCheckpointer", "flatten_with_names"]
@@ -89,9 +103,68 @@ def _save_leaf(path: str, leaf) -> Tuple[List[int], str]:
     return list(arr.shape), _BF16
 
 
+def _snapshot(leaf):
+    """A copy of a leaf in host memory."""
+    if torch.is_tensor(leaf):
+        return leaf.detach().to("cpu", copy=True)
+    return np.array(leaf)
+
+
+def _host_leaves(tree, placements, mesh, keep: bool):
+    """(name, host copy of the leaf) of ``tree`` in flatten order, made as
+    it is drawn; None for the copy where not ``keep`` (a rank that does
+    not write).  On a mesh each leaf is first gathered whole, and freed
+    before the next one is gathered; every rank of the mesh draws every
+    leaf (the gathers are collectives)."""
+    named = flatten_with_names(tree)
+    where = ([p for _, p in flatten_with_names(placements)]
+             if mesh is not None else [None] * len(named))
+    if len(where) != len(named):
+        raise ValueError(f"{len(where)} placements for {len(named)} leaves")
+    for (name, leaf), p in zip(named, where):
+        whole = leaf if mesh is None else gather_leaf(leaf, p, mesh)
+        host = _snapshot(whole) if keep else None
+        del whole
+        yield name, host
+
+
+def _is_writer(mesh) -> bool:
+    """Whether this rank writes a mesh's checkpoint: rank 0 of the mesh."""
+    return tuple(mesh.get_coordinate() or (1,)) == (0,) * mesh.ndim
+
+
+def _barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for the others (on NCCL, on this
+    rank's card)."""
+    group = mesh_group(mesh)
+    kw = ({"device_ids": [torch.cuda.current_device()]}
+          if dist.get_backend(group) == "nccl" else {})
+    dist.barrier(group=group, **kw)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree, *,
-                    extra: Optional[Dict] = None, keep: int = 3) -> str:
-    """Synchronous atomic save; returns the checkpoint path."""
+                    extra: Optional[Dict] = None, keep: int = 3,
+                    placements=None, mesh=None) -> str:
+    """Synchronous atomic save; returns the checkpoint path.  On a mesh
+    (``placements`` and ``mesh``, every rank calls it) the leaves are
+    gathered whole one at a time, rank 0 of the mesh writes each, and
+    every rank waits for it."""
+    if mesh is None:
+        return _write(ckpt_dir, step, flatten_with_names(tree), extra, keep)
+    writer = _is_writer(mesh)
+    leaves = _host_leaves(tree, placements, mesh, writer)
+    try:
+        if writer:
+            _write(ckpt_dir, step, leaves, extra, keep)
+    finally:
+        collections.deque(leaves, maxlen=0)   # every rank gathers them all
+    _barrier(mesh)
+    return os.path.join(ckpt_dir, f"step_{step:09d}")
+
+
+def _write(ckpt_dir: str, step: int, leaves, extra: Optional[Dict],
+           keep: int) -> str:
+    """Write the (name, leaf) pairs ``leaves``, drawn one at a time."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     tmp = final + ".tmp"
@@ -99,9 +172,10 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "extra": extra or {}, "leaves": []}
-    for i, (name, leaf) in enumerate(flatten_with_names(tree)):
+    for i, (name, leaf) in enumerate(leaves):
         fname = f"leaf_{i:05d}.npy"
         shape, dtype = _save_leaf(os.path.join(tmp, fname), leaf)
+        del leaf
         manifest["leaves"].append({"name": name, "file": fname,
                                    "shape": shape, "dtype": dtype})
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
@@ -144,13 +218,15 @@ def _load_leaf(path: str, dtype: str) -> torch.Tensor:
 
 
 def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
-                       shardings=None) -> Tuple[Any, int, Dict]:
+                       shardings=None, mesh=None) -> Tuple[Any, int, Dict]:
     """Restore into the structure of ``tree_like``: each leaf as the file
-    holds it, on the device of ``tree_like``'s leaf in its place.  Returns
-    (tree, step, extra)."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto a mesh (elastic restore) "
-                                  "is not ported yet: ROADMAP A.5, slice 13")
+    holds it, on the device of ``tree_like``'s leaf in its place.  With
+    ``shardings`` (a tree of placements like ``tree_like``, for ``mesh``)
+    each leaf is this rank's shard of the whole one: a checkpoint written
+    on any mesh, or none, restores onto any other (elastic restore).
+    Returns (tree, step, extra)."""
+    if (shardings is None) != (mesh is None):
+        raise ValueError("shardings= and mesh= go together")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -162,9 +238,15 @@ def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
     if len(like) != len(manifest["leaves"]):
         raise ValueError(f"{path} holds {len(manifest['leaves'])} leaves, "
                          f"the tree to restore into {len(like)}")
+    placed = ([p for _, p in flatten_with_names(shardings)]
+              if shardings is not None else [None] * len(like))
+    if len(placed) != len(like):
+        raise ValueError(f"{len(placed)} placements for {len(like)} leaves")
     leaves = []
-    for entry, ref in zip(manifest["leaves"], like):
+    for entry, ref, pl in zip(manifest["leaves"], like, placed):
         t = _load_leaf(os.path.join(path, entry["file"]), entry["dtype"])
+        if pl is not None:
+            t = local_shard(t, pl, mesh).clone()
         leaves.append(t.to(ref.device) if torch.is_tensor(ref) else t)
     return (_unflatten(tree_like, iter(leaves)), step,
             manifest.get("extra", {}))
@@ -174,11 +256,18 @@ class AsyncCheckpointer:
     """Background writer thread: training never blocks on I/O.  ``save``
     snapshots to host memory synchronously (a copy, since the train step
     updates its tensors in place) and enqueues the disk write; ``wait``
-    drains the queue and joins the thread (call before exit)."""
+    drains the queue and joins the thread (call before exit).  On a mesh
+    (``placements``, ``mesh``; every rank makes one and calls ``save`` and
+    ``wait`` in step) ``save`` gathers the leaves whole one at a time in
+    the calling thread, rank 0 of the mesh alone copies and writes them,
+    and ``wait`` ends on a barrier of every rank."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, *, placements=None,
+                 mesh=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.placements, self.mesh = placements, mesh
+        self.writer = mesh is None or _is_writer(mesh)
         self._q: "queue.Queue" = queue.Queue()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
@@ -189,18 +278,20 @@ class AsyncCheckpointer:
             item = self._q.get()
             if item is None:
                 return
-            step, host_tree, extra = item
+            step, leaves, extra = item
             try:
-                save_checkpoint(self.ckpt_dir, step, host_tree, extra=extra,
-                                keep=self.keep)
+                _write(self.ckpt_dir, step, leaves, extra, self.keep)
             except Exception as e:  # noqa: BLE001 — surfaced via .errors
                 self.errors.append(f"step {step}: {e}")
 
     def save(self, step: int, tree, extra: Optional[Dict] = None) -> None:
-        snap = [leaf.detach().to("cpu", copy=True) if torch.is_tensor(leaf)
-                else np.array(leaf) for _, leaf in flatten_with_names(tree)]
-        self._q.put((step, _unflatten(tree, iter(snap)), extra))
+        snap = list(_host_leaves(tree, self.placements, self.mesh,
+                                 self.writer))
+        if self.writer:
+            self._q.put((step, snap, extra))
 
     def wait(self) -> None:
         self._q.put(None)
         self._worker.join()
+        if self.mesh is not None:
+            _barrier(self.mesh)

@@ -6,8 +6,16 @@ moments over bf16 params (master-less mixed-precision AdamW: the update
 is computed in f32 and cast back).  Where the JAX update builds new
 arrays, this one updates the params and the moments in place, under
 ``torch.no_grad()``: at glm4-9b's width a second copy of them would not
-fit beside the first.  ZeRO-1 sharding of the moments is not ported
-(ROADMAP A.5, slice 13).
+fit beside the first.
+
+ZeRO-1 on a mesh (``zero1=`` the moments' placements, ``zero1_shardings``,
+and ``mesh=``): each moment (and the error feedback) holds this rank's
+data-axis slice of its parameter's shard, ``1 / dp`` of it where the rule
+splits the leaf; :func:`adamw_update` updates the matching slice of the
+parameter from the whole reduced gradient, with the norm of the whole
+gradients, and All-Gathers the updated slices over ``data``
+(``zero1/params``: GSPMD's gather in the JAX package, where it is not
+declared).
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..models.param import tree_leaves, tree_map, tree_zip
+from ..parallel import sharding
+from ..parallel.collective_planner import collective, mesh_group
 from ..parallel.compression import compress_with_feedback
 
 F32 = torch.float32
@@ -46,14 +56,34 @@ class OptState(NamedTuple):
     err: Any                 # error-feedback tree (or None)
 
 
-def init_opt_state(params, *, compression: bool = False) -> OptState:
-    """Zero moments (and error feedback) in f32 beside each param."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=F32, device=p.device)
+def _zero1_slice(t: torch.Tensor, placements, mesh) -> torch.Tensor:
+    """The view of a parameter's shard ``t`` that this rank's ZeRO-1
+    moment covers: the data-axis shards of its ``zero1_spec``
+    placements."""
+    if placements is None:
+        return t
+    return sharding.local_shard(t, placements, mesh,
+                                axes=sharding.dp_axes(mesh))
+
+
+def init_opt_state(params, *, compression: bool = False, zero1=None,
+                   mesh=None) -> OptState:
+    """Zero moments (and error feedback) in f32 beside each param; with
+    ``zero1`` (a tree of placements like ``params``) and ``mesh``, each the
+    size of this rank's ZeRO-1 slice of the param."""
+    def zeros_tree():
+        pairs = iter(tree_zip(params, zero1) if zero1 is not None
+                     else [(p, None) for p in tree_leaves(params)])
+
+        def zeros(_):
+            p, z = next(pairs)
+            return torch.zeros(_zero1_slice(p, z, mesh).shape, dtype=F32,
+                               device=p.device)
+        return tree_map(zeros, params)
     device = tree_leaves(params)[0].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
-                    m=tree_map(zeros, params), v=tree_map(zeros, params),
-                    err=tree_map(zeros, params) if compression else None)
+                    m=zeros_tree(), v=zeros_tree(),
+                    err=zeros_tree() if compression else None)
 
 
 def cosine_lr(cfg: OptConfig, step) -> torch.Tensor:
@@ -72,37 +102,66 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _compress_scales(leaves, scale, mesh):
+    """Each leaf's int8 scale input on a mesh, in the order of ``leaves``
+    (``adamw_update``'s (param, grad, m, v, err, zero1) tuples): the
+    largest |g * clip + err| over the whole leaf (as the JAX package's
+    GSPMD step takes it), from one MAX All-Reduce of this rank's maxima
+    over the mesh (``grads/compress-scale``)."""
+    local = torch.stack([
+        (_zero1_slice(g, z, mesh).to(F32) * scale + e).abs().max()
+        for _, g, _, _, e, z in leaves])
+    return collective("AllReduce", "grads/compress-scale", local,
+                      mesh_group(mesh), op=torch.distributed.ReduceOp.MAX)
+
+
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, params, grads, state: OptState, *,
-                 grad_norm: Optional[torch.Tensor] = None
-                 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+                 grad_norm: Optional[torch.Tensor] = None, zero1=None,
+                 mesh=None) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step; returns (params, new state, metrics).
 
     The params' tensors and the state's moments (and error feedback) are
     updated in place, one leaf at a time, and returned; ``grads`` is left
     as it is.  ``grad_norm`` is the global norm when ``grads`` holds only
     this rank's shard of a leaf (the mesh step); otherwise it is computed
-    from ``grads``."""
+    from ``grads``.  With ``zero1`` and ``mesh`` the moments are ZeRO-1
+    slices (:func:`init_opt_state`): each rank updates its slice of the
+    param and the slices are All-Gathered over ``data``."""
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     compress = cfg.grad_compression and state.err is not None
+    if zero1 is None:
+        zero1 = tree_map(lambda _: None, params)
+    leaves = tree_zip(params, grads, state.m, state.v,
+                      state.err if compress else params, zero1)
+    amax = iter(_compress_scales(leaves, scale, mesh)
+                if compress and mesh is not None else [])
+    dp = sharding.dp_axes(mesh) if mesh is not None else ()
 
     step = state.step + 1
     lr = cosine_lr(cfg, state.step)
     b1, b2 = cfg.betas
     bc1 = 1.0 - b1 ** step.to(F32)
     bc2 = 1.0 - b2 ** step.to(F32)
-    for p, g, m, v, err in tree_zip(params, grads, state.m, state.v,
-                                    state.err if compress else params):
+    for p, g, m, v, err, z in leaves:
+        ps, g = _zero1_slice(p, z, mesh), _zero1_slice(g, z, mesh)
         g = g.to(F32, copy=True).mul_(scale)
         if compress:
-            g, new_err = compress_with_feedback(g, err)
+            g, new_err = compress_with_feedback(g, err,
+                                                amax=next(amax, None))
             err.copy_(new_err)
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
         delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
-        pf = p.to(F32)
+        pf = ps.to(F32)
         delta.add_(pf, alpha=cfg.weight_decay)
-        p.copy_(pf - lr * delta)
+        new = pf - lr * delta
+        if ps.shape != p.shape:
+            d = next(pl.dim for a, pl in zip(mesh.mesh_dim_names, z)
+                     if a in dp and isinstance(pl, sharding.Shard))
+            new = collective("AllGather", "zero1/params", new.to(p.dtype),
+                             mesh.get_group(dp[0]), dim=d)
+        p.copy_(new)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, OptState(step, state.m, state.v, state.err), metrics

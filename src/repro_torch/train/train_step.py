@@ -7,20 +7,23 @@ are summed into f32 zeros and divided by their count, as the JAX step's
 ``lax.scan`` does.
 
 On a mesh (a ``DeviceMesh`` from ``launch/mesh.py``, called on every
-rank) the batch is split over ``data``.  With ``use_planner_loss`` an
-untied, non-enc-dec model takes the COMET-planned explicit-collective
-loss (``cfg.softmax_strategy``: 'dist'/'gather'/'auto' via the planner;
-'gspmd' reads as 'auto'): the stack's output goes through
-``sharded_softmax_xent`` with the unembed vocab-sharded over ``model``
-(:func:`shard_params`).  Every other parameter is replicated, and its
-gradient is SUM-all-reduced over ``data`` before AdamW (the unembed's is
-reduced inside the loss); the global gradient norm adds the unembed
-shards' squares over ``model``.  That is numerically the step GSPMD
-computes for the JAX package's mesh step with replicated parameters.
-Tensor-parallel shardings of the stack, ZeRO-1 moments and int8
-compression on a mesh wait for ROADMAP A.5's next slice (13).  With
-``mesh=None`` ``use_planner_loss`` is the plain loss, as in the JAX
-package.
+rank with the same global batch) each rank holds the shards that
+``param_shardings`` gives it (:func:`init_train_state`) and ZeRO-1
+moments (``zero1_shardings``); the batch is split over ``data``.  The
+GQA attention, the dense MLP, the embedding and the unembed are
+tensor-parallel and MoE layers expert-parallel over ``model``
+(``models/``).  With ``use_planner_loss`` an untied, non-enc-dec model
+takes the COMET-planned explicit-collective loss (``cfg.softmax_strategy``:
+'dist'/'gather'/'auto' via the planner; 'gspmd' reads as 'auto') on the
+vocab-sharded unembed; the plain loss gathers the unembed's columns
+(``tp/unembed-gather``).  Every gradient that the loss or the MoE layers
+did not reduce is SUM-All-Reduced over ``data`` (``grads/...``, this
+rank's shard of the leaf); the global norm adds the model-sharded leaves'
+squares over ``model`` (``grads/norm``); with ``grad_compression`` the
+reduced gradients are int8-compressed on each rank's slices with the
+scale of the whole leaf.  That is numerically the step GSPMD computes for
+the JAX package's mesh step.  With ``mesh=None`` ``use_planner_loss`` is
+the plain loss, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,15 +33,17 @@ import torch
 
 from ..models import transformer
 from ..models.model import Model
+from ..models.moe import MESH_REDUCED
 from ..models.param import tree_leaves, tree_map
 from ..parallel import sharding
 from ..parallel.collective_planner import (_flatten_sorted, collective,
                                            sharded_softmax_xent,
                                            split_cotangent, sum_over)
-from .optimizer import F32, OptConfig, OptState, adamw_update
+from .optimizer import F32, OptConfig, OptState, adamw_update, init_opt_state
 
 __all__ = ["TrainState", "make_train_step", "make_loss_fn",
-           "value_and_grad", "shard_params", "uses_planner_loss"]
+           "value_and_grad", "shard_params", "init_train_state",
+           "state_placements", "uses_planner_loss"]
 
 
 class TrainState(NamedTuple):
@@ -58,7 +63,7 @@ def _data_axis(mesh) -> str:
     if len(dp) != 1:
         raise NotImplementedError(
             f"a train step over data axes {dp} is not ported (one 'data' "
-            f"axis only): ROADMAP A.5, slice 13")
+            f"axis only): the pod axis waits for ROADMAP A.5, slice 14")
     return dp[0]
 
 
@@ -73,20 +78,37 @@ def _local_rows(batch: Dict[str, torch.Tensor], mesh
     return {k: sharding.local_shard(v, spec, mesh) for k, v in batch.items()}
 
 
-def shard_params(model: Model, params, mesh, use_planner_loss: bool):
-    """This rank's parameters for the mesh step: with the planner loss,
-    the unembed's block of vocab columns (``spec_for``'s ``model`` shard),
-    a copy; every other leaf as it is (replicated)."""
-    cfg = model.cfg
-    if not uses_planner_loss(cfg, mesh, use_planner_loss):
-        return params
-    w = params["unembed"]
-    spec = sharding.spec_for(("embed", "vocab"), tuple(w.shape), mesh)
-    if sharding.partition_spec(spec, mesh) != (None, "model") \
-            and sharding.mesh_axes(mesh)["model"] > 1:
-        raise ValueError(f"padded vocab {w.shape[1]} does not split over "
-                         f"the model axis")
-    return dict(params, unembed=sharding.local_shard(w, spec, mesh).clone())
+def state_placements(model: Model, mesh, *, compression: bool = False
+                     ) -> TrainState:
+    """The placements of a mesh step's state, a tree like
+    :class:`TrainState`: the params' ``param_shardings``, the moments' (and
+    error feedback's) ``zero1_shardings``, the step replicated (``()``)."""
+    specs = model.specs
+    z = sharding.zero1_shardings(specs, mesh)
+    return TrainState(sharding.param_shardings(specs, mesh),
+                      OptState(step=(), m=z, v=z,
+                               err=z if compression else None))
+
+
+def shard_params(model: Model, params, mesh):
+    """This rank's shards of the full ``params`` under ``param_shardings``
+    (copies where a leaf is split)."""
+    return sharding.shard_tree(
+        params, sharding.param_shardings(model.specs, mesh), mesh)
+
+
+def init_train_state(model: Model, params, mesh=None, *,
+                     compression: bool = False) -> TrainState:
+    """The state a step starts from, given the full ``params``: on a mesh,
+    this rank's parameter shards and its ZeRO-1 moments, as the JAX
+    package's ``train_loop`` places them."""
+    if mesh is None:
+        return TrainState(params, init_opt_state(params,
+                                                 compression=compression))
+    params = shard_params(model, params, mesh)
+    return TrainState(params, init_opt_state(
+        params, compression=compression,
+        zero1=sharding.zero1_shardings(model.specs, mesh), mesh=mesh))
 
 
 def make_loss_fn(model: Model, mesh=None, use_planner_loss: bool = False):
@@ -104,12 +126,18 @@ def make_loss_fn(model: Model, mesh=None, use_planner_loss: bool = False):
     if uses_planner_loss(cfg, mesh, use_planner_loss):
         strategy = cfg.softmax_strategy if cfg.softmax_strategy != "gspmd" \
             else "auto"
+        spec = sharding.spec_for(("embed", "vocab"),
+                                 (cfg.d_model, cfg.padded_vocab), mesh)
+        if sharding.mesh_axes(mesh)["model"] > 1 and \
+                sharding.partition_spec(spec, mesh) != (None, "model"):
+            raise ValueError(f"padded vocab {cfg.padded_vocab} does not "
+                             f"split over the model axis")
 
         def loss_fn(params, batch):
             # explicit-collective loss: forward to hidden states, then the
             # COMET-planned sharded softmax-xent (dist vs gather)
             b = _local_rows(batch, mesh)
-            x = transformer.hidden(cfg, params, b["tokens"])
+            x = transformer.hidden(cfg, params, b["tokens"], mesh)
             return sharded_softmax_xent(
                 x, params["unembed"], b["labels"], mesh,
                 real_vocab=cfg.vocab_size, strategy=strategy)
@@ -121,7 +149,7 @@ def make_loss_fn(model: Model, mesh=None, use_planner_loss: bool = False):
     def loss_fn(params, batch):
         # this rank's share of the mean, summed over data: the global mean,
         # its cotangent split over the data replicas
-        share = model.loss(params, _local_rows(batch, mesh)) / n
+        share = model.loss(params, _local_rows(batch, mesh), mesh) / n
         return split_cotangent(sum_over(share, group, "loss/mean"), n)
     return loss_fn
 
@@ -139,30 +167,44 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
-def _reduce_grads(grads, mesh, sharded_unembed: bool):
+def _reduced_in_step(keys, cfg, sharded_unembed: bool) -> bool:
+    """Whether the loss or an MoE layer reduced this leaf's gradient over
+    ``data`` already (``xent/unembed-grad``, ``moe/...``)."""
+    if sharded_unembed and "unembed" in keys:
+        return True
+    return cfg.is_moe and len(keys) >= 2 and keys[-2] == "moe" \
+        and keys[-1] in MESH_REDUCED
+
+
+def _reduce_grads(grads, mesh, placements, cfg, sharded_unembed: bool):
     """SUM-all-reduce every gradient leaf over ``data`` (one collective a
-    leaf, labelled as ``train_collective_schedule``'s ``grads/...``), but
-    the unembed's when the loss reduced it; returns the reduced tree (in
-    sorted key order; ``adamw_update`` matches leaves by name) and the
-    global norm (the unembed shards' squares summed over ``model``)."""
+    leaf, labelled as ``train_collective_schedule``'s ``grads/...``, of
+    this rank's shard) but those the step reduced already; returns the
+    reduced tree (in sorted key order; ``adamw_update`` matches leaves by
+    name) and the global norm: the squares of the leaves that ``model``
+    splits summed over ``model`` (``grads/norm``), those of the others
+    added."""
     group = mesh.get_group(_data_axis(mesh))
+    model_dim = mesh.mesh_dim_names.index("model")
+    where = dict(_flatten_sorted(placements))
     out = {}
-    sq = torch.zeros((), dtype=F32, device=tree_leaves(grads)[0].device)
-    unembed_sq = None
+    dev = tree_leaves(grads)[0].device
+    sq_whole = torch.zeros((), dtype=F32, device=dev)
+    sq_split = torch.zeros((), dtype=F32, device=dev)
     for keys, g in _flatten_sorted(grads):
-        if sharded_unembed and "unembed" in keys:
-            r = g
-            unembed_sq = torch.sum(torch.square(g.to(F32)))
+        r = g if _reduced_in_step(keys, cfg, sharded_unembed) else \
+            collective("AllReduce", "grads/" + ".".join(keys), g, group)
+        s = torch.sum(torch.square(r.to(F32)))
+        if isinstance(where[keys][model_dim], sharding.Shard):
+            sq_split = sq_split + s
         else:
-            r = collective("AllReduce", "grads/" + ".".join(keys), g, group)
-            sq = sq + torch.sum(torch.square(r.to(F32)))
+            sq_whole = sq_whole + s
         node = out
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = r
-    if unembed_sq is not None:
-        sq = sq + collective("AllReduce", "grads/norm", unembed_sq,
-                             mesh.get_group("model"))
+    sq = sq_whole + collective("AllReduce", "grads/norm", sq_split,
+                               mesh.get_group("model"))
     return out, torch.sqrt(sq)
 
 
@@ -171,13 +213,10 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
     """Returns train_step(state, batch) -> (state, metrics).  The step
     updates ``state``'s tensors in place (the JAX step donates its state).
     On a mesh every rank calls it with the same global batch and its own
-    state (``shard_params``' params)."""
-    if mesh is not None and opt_cfg.grad_compression:
-        raise NotImplementedError(
-            "int8 gradient compression on a mesh is not ported: ROADMAP "
-            "A.5, slice 13")
+    state (:func:`init_train_state`)."""
     loss_fn = make_loss_fn(model, mesh, use_planner_loss)
     sharded = uses_planner_loss(model.cfg, mesh, use_planner_loss)
+    placed = state_placements(model, mesh) if mesh is not None else None
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if microbatches > 1:
@@ -200,9 +239,11 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
 
         gnorm = None
         if mesh is not None:
-            grads, gnorm = _reduce_grads(grads, mesh, sharded)
+            grads, gnorm = _reduce_grads(grads, mesh, placed.params,
+                                         model.cfg, sharded)
         new_params, new_opt, metrics = adamw_update(
-            opt_cfg, state.params, grads, state.opt, grad_norm=gnorm)
+            opt_cfg, state.params, grads, state.opt, grad_norm=gnorm,
+            zero1=placed.opt.m if placed else None, mesh=mesh)
         metrics = dict(metrics, loss=loss)
         return TrainState(new_params, new_opt), metrics
 

@@ -16,23 +16,20 @@ against the JAX package on the CPU.
   exactly the loss's entries of ``train_collective_schedule``.
 - ``compressed_psum``: within 2.5 x absmax / 127 of the exact sum, the bar
   of tests/test_distributed.py (int8 rounding: half a step a replica).
-- Two steps of the mesh train step on a (2, 2) gloo mesh (glm4's smoke
-  config, f32), the planner loss under both strategies and the plain
-  loss: losses within 1e-5 relative and every parameter within 1e-5 of
-  the JAX package's mesh-free ``make_train_step`` on the same global
-  batch (f32 sums over four ranks in another order, and AdamW's update of
-  a few 1e-4 a step); its explicit collectives and data-axis gradient
-  all-reduces equal ``train_collective_schedule``'s.
+- Two steps of the tensor-parallel, ZeRO-1 mesh train step on a (2, 2)
+  gloo mesh (glm4's smoke config, f32), the planner loss under both
+  strategies and the plain loss: ``torch_mesh_checks``' checks, the
+  losses and the gathered parameters and moments within 1e-5 of the JAX
+  package's mesh-free ``make_train_step``, each rank's shards placed as
+  the JAX ``PartitionSpec``s say, and its collectives outside the remat
+  recompute ``train_collective_schedule``'s, ``tp/`` entries included,
+  beside the port's own (tests/test_torch_tensor_parallel.py runs the
+  other meshes and qwen3-moe).
 
 The ranks run in ``tests/torch_mesh_ranks.py``, started with ``spawn`` in
 two subprocesses with a timeout; nothing here forks or starts a pool.
 """
 import collections
-import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -44,22 +41,14 @@ from repro.configs import get_smoke_config as jget_smoke
 from repro.models import Model as JModel
 from repro.models.layers import cross_entropy_loss as jcross_entropy_loss
 from repro.parallel import collective_planner as jcp
-from repro.train.optimizer import OptConfig as JOptConfig
-from repro.train.optimizer import init_opt_state as jinit_opt_state
-from repro.train.train_step import TrainState as JTrainState
-from repro.train.train_step import make_train_step as jmake_train_step
 from repro_torch.configs.registry import get_smoke_config
-from repro_torch.models.model import Model
 from repro_torch.parallel import collective_planner as cp
 from repro_torch.parallel.sharding import MeshShape
 
+import torch_mesh_checks as checks
 import torch_mesh_ranks as ranks
 
-ROOT = Path(__file__).resolve().parents[1]
-
 XENT_TOL = 1e-5
-STEP_TOL = 1e-5
-RANKS_TIMEOUT = 240
 
 
 # ------------------------------------------------------------ the schedules
@@ -133,34 +122,10 @@ def test_train_collective_schedule_matches_jax(arch, shape, strategy):
 def ranks_out(tmp_path_factory):
     """Run the gloo ranks of torch_mesh_ranks.py (2 and 4 of them, side by
     side); the directory of each world's output."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    dirs, procs = {}, {}
-    for world in (2, 4):
-        d = tmp_path_factory.mktemp(f"ranks{world}")
-        dirs[world] = d
-        procs[world] = subprocess.Popen(
-            [sys.executable, str(ROOT / "tests" / "torch_mesh_ranks.py"),
-             str(world), str(d)], cwd=d, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-    errors = {}
-    for world, p in procs.items():
-        try:
-            _, err = p.communicate(timeout=RANKS_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            _, err = p.communicate()
-            errors[world] = "timed out\n" + err[-3000:]
-            continue
-        if p.returncode:
-            errors[world] = err[-3000:]
-    assert not errors, errors
-    return dirs
+    return ranks.run_worlds(tmp_path_factory, (2, 4), "planner")
 
 
-def _load(d, name, world):
-    return [(dict(np.load(d / f"{name}.r{r}.npz")),
-             json.loads((d / f"{name}.r{r}.json").read_text()))
-            for r in range(world)]
+_load = ranks.load
 
 
 XENT_CASES = [((1, 2), "dist"), ((1, 2), "gather"), ((2, 2), "dist"),
@@ -258,75 +223,14 @@ def test_compressed_psum(ranks_out, tag, axes):
                 <= 0.5 * n * amax / 127.0 * (1 + 1e-6)
 
 
-@pytest.fixture(scope="module")
-def jax_steps():
-    """Two steps of the JAX package's mesh-free make_train_step from the
-    port's initial parameters, on the same global batches."""
-    from repro.train.data import SyntheticLM as JSyntheticLM
-    cfg = get_smoke_config("glm4-9b").with_(dtype="float32")
-    p0 = Model(cfg).init(0, device="cpu")
-
-    def to_jax(t):
-        return {k: to_jax(v) for k, v in t.items()} if isinstance(t, dict) \
-            else jnp.asarray(t.numpy())
-    params = to_jax(p0)
-    jcfg = jget_smoke("glm4-9b").with_(dtype="float32")
-    step = jax.jit(jmake_train_step(
-        JModel(jcfg), JOptConfig(warmup_steps=1, total_steps=ranks.STEPS)))
-    state = JTrainState(params, jinit_opt_state(params))
-    data = JSyntheticLM(cfg.vocab_size, ranks.STEP_SEQ, ranks.STEP_BATCH,
-                        seed=0)
-    out = []
-    for i in range(ranks.STEPS):
-        state, metrics = step(state, {k: jnp.asarray(v)
-                                      for k, v in data.batch(i).items()})
-        flat = {jax.tree_util.keystr(p): np.asarray(v) for p, v in
-                jax.tree_util.tree_flatten_with_path(state.params)[0]}
-        out.append((float(metrics["loss"]), flat))
-    return out
-
-
 @pytest.mark.parametrize("variant", ["dist", "gather", "plain"])
-def test_mesh_train_step_matches_jax(ranks_out, jax_steps, variant):
-    res = _load(ranks_out[4], f"train_{variant}", 4)
-    by = {tuple(meta["coord"]): (arr, meta) for arr, meta in res}
-    for i, (want_loss, want) in enumerate(jax_steps):
-        for arr, meta in res:
-            assert abs(meta["losses"][i] / want_loss - 1) <= STEP_TOL
-        for name, w in want.items():
-            if name == "['unembed']" and variant != "plain":
-                got = np.concatenate([by[(0, m)][0][f"step{i}{name}"]
-                                      for m in range(2)], axis=1)
-            else:
-                got = by[(0, 0)][0][f"step{i}{name}"]
-            assert np.abs(got - w).max() <= STEP_TOL, (variant, i, name)
-        # replicas agree bit for bit
-        for (d, m), (arr, _) in by.items():
-            for name in want:
-                src = (0, m) if name == "['unembed']" else (0, 0)
-                np.testing.assert_array_equal(
-                    arr[f"step{i}{name}"], by[src][0][f"step{i}{name}"])
+def test_mesh_train_step_matches_jax(ranks_out, variant):
+    checks.check_train_matches_jax(_load(ranks_out[4], f"train_{variant}", 4),
+                                   "glm4-9b", (2, 2))
 
 
 @pytest.mark.parametrize("variant", ["dist", "gather", "plain"])
 def test_mesh_train_step_collectives_equal_the_declared(ranks_out, variant):
-    res = _load(ranks_out[4], f"train_{variant}", 4)
-    planner = variant != "plain"
-    jcfg = jget_smoke("glm4-9b").with_(
-        dtype="float32", softmax_strategy=variant if planner else "auto")
-    want = {(d.label, d.col_type, d.dv_bytes, d.participants): d.count
-            for d in jcp.train_collective_schedule(
-                jcfg, AbstractMesh((2, 2), ("data", "model")),
-                ranks.STEP_BATCH, ranks.STEP_SEQ, planner_loss=planner,
-                params=JModel(jcfg).abstract_params())
-            if d.participants > 1 and not d.label.startswith("tp/")}
-    for _, meta in res:
-        for rec in meta["records"]:
-            got = collections.Counter(
-                tuple(r) for r in rec if r[3] > 1
-                and r[0] not in ("grads/norm", "loss/mean"))
-            assert dict(got) == want
-            # the port's own: the unembed shards' norm (planner loss), the
-            # plain loss's mean over data
-            extra = {r[0] for r in rec if r[3] > 1} - {k[0] for k in want}
-            assert extra == ({"grads/norm"} if planner else {"loss/mean"})
+    # tp/ and moe/ included: the step is tensor-parallel on (2, 2)
+    checks.check_collectives(_load(ranks_out[4], f"train_{variant}", 4),
+                             "glm4-9b", (2, 2), variant)

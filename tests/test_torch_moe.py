@@ -136,11 +136,27 @@ def test_combine_sums_each_tokens_choices_in_a_fixed_order():
     assert torch.equal(all_rows[0, :8], first[0])
 
 
+class _TwoWideMesh:
+    """The mesh attributes ``moe_apply`` reads, of rank 0 on a (1, 2)
+    ``(data, model)`` mesh; no process group."""
+    mesh_dim_names, shape = ("data", "model"), (1, 2)
+
+    def get_local_rank(self, axis):
+        return 0
+
+    def get_group(self, axis):
+        return None
+
+
 def test_mesh_is_refused_naming_the_roadmap_item():
+    """Expert parallelism runs on a mesh (tests/test_torch_tensor_parallel
+    .py); shared experts split over a model axis are refused, naming the
+    roadmap's slice 14."""
     _, _, cfg, tp = _layer0(ARCH)
-    with pytest.raises(NotImplementedError, match="A.5"):
+    cfg = cfg.with_(n_shared_experts=1)
+    with pytest.raises(NotImplementedError, match="A.5, slice 14"):
         tmoe.moe_apply(cfg, tp, torch.zeros(1, 2, cfg.d_model),
-                       mesh=object())
+                       mesh=_TwoWideMesh())
 
 
 def test_logits_match_jax():

@@ -1,0 +1,213 @@
+"""The port's tensor- and expert-parallel mesh train step with ZeRO-1
+moments against the JAX package on the CPU.
+
+Two steps of ``make_train_step`` on gloo meshes (the ranks run in
+``tests/torch_mesh_ranks.py``'s ``tp`` suite, by spawn, world 2 and world
+4 side by side in two subprocesses with a timeout; nothing here forks or
+starts a pool), f32 smoke configs, the batches of ``SyntheticLM`` seed 0,
+under the planner loss's two strategies and the plain loss:
+
+- glm4-9b (GQA, 4 q heads over 2 kv heads of 16) on (1, 2) and (1, 4):
+  on (1, 4) a rank's kv columns are half a kv head, so the k and v
+  projections are gathered (``tp/kv-gather``);
+- qwen3-moe-30b-a3b (q/k-norm, 8 experts top-2) on (2, 2) and (1, 4):
+  tensor-parallel attention, expert-parallel MoE layers.  Its config runs
+  at capacity factor E / k (``torch_mesh_ranks.overrides``): the mesh
+  step's capacity is each data rank's (32 tokens), the JAX mesh-free
+  step's that of the whole batch (64 tokens, where the smoke capacity of
+  32 drops 3 to 7 assignments a layer), and the two steps agree only
+  where nothing drops; the ranks count the drops and the check asserts
+  none.
+- one qwen3-moe layer on (2, 2) at the smoke capacity factor, whose
+  capacity binds: each data rank's 64 tokens (x in one direction, so
+  that the router sends most to the same experts) get 32 slots an expert
+  where the whole batch's 128 would get 40.  Forward and backward, each
+  data rank's output and x cotangent are the JAX package's mesh-free
+  ``moe_apply`` on its rows (whose capacity is then that of the rank's
+  tokens, as ``shard_map``'s ``_cap(t_local)``), and the router and
+  expert gradients the sums of the JAX ones over the data ranks, within
+  1e-5 of the largest; tokens drop, and the whole batch's capacity would
+  give another output.
+
+``torch_mesh_checks`` holds the checks: losses and the gathered parameters
+and moments within 1e-5 of the JAX package's mesh-free step (f32 sums in
+another order over the ranks), every shard placed as the JAX
+``PartitionSpec`` says and the replicas bit-equal, and every collective
+outside the remat recompute either one of ``train_collective_schedule``'s
+``participants > 1`` entries (``tp/`` and ``moe/`` included) or one of
+the port's own, which the test names and counts.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_mesh_checks as checks
+import torch_mesh_ranks as ranks
+from repro.configs import get_smoke_config as jget_smoke
+from repro.models import moe as jmoe
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.launch import mesh as tmesh
+from repro_torch.models import attention, transformer
+from repro_torch.parallel import collective_planner as cp
+
+CASES = [(world, arch, shape, variant)
+         for world, cases in ranks.TP_CASES.items()
+         for arch, shape in cases for variant, _, _ in ranks.VARIANTS]
+IDS = [f"{arch}-{ranks.tag_of(shape)}-{v}" for _, arch, shape, v in CASES]
+
+
+@pytest.fixture(scope="module")
+def tp_out(tmp_path_factory):
+    return ranks.run_worlds(tmp_path_factory, tuple(ranks.TP_CASES), "tp")
+
+
+def _results(tp_out, world, arch, shape, variant):
+    return ranks.load(tp_out[world],
+                      f"tp_{arch}_{ranks.tag_of(shape)}_{variant}", world)
+
+
+@pytest.mark.parametrize("world,arch,shape,variant", CASES, ids=IDS)
+def test_tp_train_step_matches_jax(tp_out, world, arch, shape, variant):
+    checks.check_train_matches_jax(
+        _results(tp_out, world, arch, shape, variant), arch, shape)
+
+
+@pytest.mark.parametrize("world,arch,shape,variant", CASES, ids=IDS)
+def test_tp_collectives_equal_the_declared(tp_out, world, arch, shape,
+                                           variant):
+    res = _results(tp_out, world, arch, shape, variant)
+    checks.check_collectives(res, arch, shape, variant)
+    labels = {r[0] for _, meta in res for rec in meta["records"]
+              for r in rec}
+    # the split kv head's gather, only where a rank holds part of one
+    assert ("tp/kv-gather" in labels) == (
+        get_smoke_config(arch).n_kv_heads % shape[1] != 0)
+    if get_smoke_config(arch).is_moe:
+        assert {"moe/combine", "moe/router-grad"} <= labels
+    # the remat recompute repeats the attention's forward reduction
+    assert all("tp/attn-out" in {r[0] for r in again}
+               for _, meta in res for again in meta["recompute"])
+
+
+def test_moe_capacity_is_each_data_ranks(tp_out):
+    res = ranks.load(tp_out[4], "moe_capacity", 4)
+    _, p, x, cot = ranks.moe_layer_inputs()
+    jcfg = jget_smoke(ranks.MOE_ARCH).with_(dtype="float32")
+    jp = {k: jnp.asarray(v[0]) for k, v in p.items()}
+    ndata, m = 2, 2
+    rows = ranks.MOE_B // ndata
+    outs, gxs, gps = [], [], []
+    for d in range(ndata):
+        xs = jnp.asarray(x[d * rows:(d + 1) * rows])
+        out, vjp = jax.vjp(lambda q, v: jmoe.moe_apply(jcfg, q, v), jp, xs)
+        gp, gx = vjp(jnp.asarray(cot[d * rows:(d + 1) * rows]))
+        outs.append(np.asarray(out))
+        gxs.append(np.asarray(gx))
+        gps.append({k: np.asarray(v) for k, v in gp.items()})
+    gp_sum = {k: sum(g[k] for g in gps) for k in gps[0]}
+
+    def close(got, want, what):
+        tol = checks.STEP_TOL * max(1.0, np.abs(want).max())
+        assert np.abs(got - want).max() <= tol, what
+
+    e_local = jcfg.n_experts // m
+    for arr, meta in res:
+        d, r = meta["coord"]
+        assert meta["capacity"] == 32 and sum(meta["drops"]) > 0
+        close(arr["out"], outs[d], "out")
+        close(arr["gx"], gxs[d], "gx")
+        close(arr["g_router"], gp_sum["router"], "router")
+        for k in ("wi", "wg", "wo"):
+            close(arr[f"g_{k}"], gp_sum[k][r * e_local:(r + 1) * e_local], k)
+        labels = {rec[0] for rec in meta["records"]}
+        assert {"moe/combine", "moe/router-grad", "moe/expert-grad"} <= labels
+    # the whole batch's capacity (40) gives another output
+    whole = np.asarray(jmoe.moe_apply(jcfg, jp, jnp.asarray(x)))
+    assert np.abs(whole - np.concatenate(outs)).max() > 1e-3
+
+
+@pytest.mark.parametrize("H,Hkv,h0,n,want", [
+    (4, 2, 0, 2, slice(0, 1)), (4, 2, 2, 2, slice(1, 2)),
+    (8, 2, 0, 8, slice(0, 2)), (4, 2, 3, 1, slice(1, 2)),
+    (32, 2, 16, 8, slice(1, 2)), (32, 4, 8, 16, slice(1, 3))])
+def test_kv_heads_of_a_ranks_q_heads(H, Hkv, h0, n, want):
+    assert attention._kv_heads(H, Hkv, h0, n) == want
+
+
+def test_kv_heads_of_an_uneven_group():
+    # 12 q heads over 4 kv heads on 3 ranks: rank 1's q heads 4..7 read
+    # kv heads 1, 1, 2, 2
+    got = attention._kv_heads(12, 4, 4, 4)
+    assert got.tolist() == [1, 1, 2, 2]
+
+
+class _Mesh:
+    """The mesh attributes the model layers read, of rank 0 on a (1, m)
+    ``(data, model)`` mesh; no process group."""
+
+    def __init__(self, m):
+        self.mesh_dim_names, self.shape = ("data", "model"), (1, m)
+
+    def get_local_rank(self, axis):
+        return 0
+
+    def get_group(self, axis):
+        return None
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b",
+                                  "seamless-m4t-medium", "deepseek-v3-671b"])
+def test_layers_not_yet_parallel_name_slice_14(arch):
+    cfg = get_smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="A.5, slice 14"):
+        transformer.check_mesh(cfg, _Mesh(2))
+    transformer.check_mesh(cfg, _Mesh(1))          # model == 1 runs as today
+
+
+def test_mla_refuses_a_model_axis():
+    cfg = get_smoke_config("deepseek-v3-671b")
+    with pytest.raises(NotImplementedError, match="MLA.*slice 14"):
+        attention.attn_train(cfg, {}, torch.zeros(1, 2, cfg.d_model),
+                             mesh=_Mesh(2))
+
+
+def test_recompute_is_recorded_apart():
+    """On a one-rank gloo mesh: a checkpointed layer's recompute issues its
+    forward collectives again, into ``.recompute``; without remat there is
+    none."""
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    batch = {"tokens": torch.zeros(2, 8, dtype=torch.long),
+             "labels": torch.ones(2, 8, dtype=torch.long)}
+    mesh = tmesh.make_host_mesh(device="cpu")
+    try:
+        for remat in (True, False):
+            cfg = get_smoke_config("glm4-9b").with_(dtype="float32",
+                                                    remat=remat)
+            model = Model(cfg)
+            state = init_train_state(model, model.init(0, device="cpu"),
+                                     mesh)
+            step = make_train_step(model, OptConfig(), mesh)
+            with cp.record_collectives() as rec:
+                step(state, batch)
+            assert {r[0] for r in rec} >= {"tp/attn-out", "tp/ffn-out",
+                                           "tp/embed", "tp/unembed-gather",
+                                           "grads/norm", "loss/mean"}
+            again = [r[0] for r in rec.recompute]
+            assert again == (["tp/attn-out"] * cfg.n_layers if remat
+                             else [])
+    finally:
+        tmesh.destroy()
+
+
+def test_production_mesh_needs_its_world():
+    try:
+        for multi, n in ((False, 256), (True, 512)):
+            with pytest.raises(ValueError, match=f"needs {n} ranks"):
+                tmesh.make_production_mesh(multi_pod=multi, device="cpu")
+    finally:
+        tmesh.destroy()

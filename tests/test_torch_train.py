@@ -32,6 +32,7 @@ Tolerances, each with its reason:
 import functools
 import json
 import os
+import shutil
 import threading
 
 import jax
@@ -548,24 +549,37 @@ def test_port_checkpoint_restores_bit_exact_in_jax(tmp_path):
 
 def test_mesh_and_shardings_wait_for_a_mesh(tmp_path, capsys):
     """The host mesh trains (a one-rank gloo mesh here; its step-0 loss is
-    the plain step's within 1e-5); restoring onto shardings, the
-    production mesh and checkpoints on a mesh still raise, naming A.5."""
+    the plain step's within 1e-5) and checkpoints: a run stopped at step 2
+    resumes from its checkpoint to the losses of a straight run.
+    Shardings come with their mesh; the production meshes need 256 and 512
+    ranks, and on a one-rank world fail as ``jax.make_mesh`` does."""
     state = _port_like()
     save_checkpoint(str(tmp_path), 0, state)
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(ValueError, match="mesh= go together"):
         restore_checkpoint(str(tmp_path), state, shardings=object())
     argv = ["--arch", "glm4-9b", "--smoke", "--device", "cpu", "--steps",
             "2", "--batch", "2", "--seq", "16"]
     for mesh in ("production", "production-multi"):
-        with pytest.raises(NotImplementedError, match="A.5"):
+        with pytest.raises(ValueError, match="ranks; the world has 1"):
             train_cli.main(argv + ["--mesh", mesh])
-    with pytest.raises(NotImplementedError, match="A.5"):
-        train_cli.main(argv + ["--mesh", "host", "--ckpt-dir",
-                               str(tmp_path / "m")])
+    assert not torch.distributed.is_initialized()
     plain = train_cli.main(argv)
     for planner in ([], ["--planner-loss"]):
         out = train_cli.main(argv + ["--mesh", "host"] + planner)
         assert abs(out["losses"][0] / plain["losses"][0] - 1) <= LOSS_RTOL
+    d = str(tmp_path / "m")
+    mesh_argv = ["--arch", "glm4-9b", "--smoke", "--device", "cpu",
+                 "--batch", "2", "--seq", "16", "--steps", "4", "--mesh",
+                 "host", "--model-parallel", "1", "--ckpt-dir", d]
+    half = train_cli.main(mesh_argv + ["--ckpt-every", "2"])
+    assert latest_step(d) == 4
+    shutil.rmtree(os.path.join(d, "step_000000004"))
+    with open(os.path.join(d, "LATEST"), "w") as f:
+        f.write("step_000000002")
+    resumed = train_cli.main(mesh_argv)
+    assert resumed["steps_done"] == 2
+    np.testing.assert_allclose(resumed["losses"], half["losses"][2:],
+                               rtol=1e-6)
     assert not torch.distributed.is_initialized()     # the CLI's group ended
     capsys.readouterr()
 

@@ -1,28 +1,74 @@
-"""The port's mesh paths over gloo ranks on the CPU, for
-tests/test_torch_collective_planner.py (a helper script, not a test file).
+"""The port's mesh paths over gloo ranks on the CPU, for the mesh tests
+(tests/test_torch_collective_planner.py, test_torch_tensor_parallel.py,
+test_torch_zero1_elastic.py); a helper script, not a test file.
 
-    python tests/torch_mesh_ranks.py WORLD OUT_DIR
+    python tests/torch_mesh_ranks.py WORLD OUT_DIR [SUITE]
 
 starts WORLD ranks with ``spawn``; they meet through a ``FileStore`` in
 OUT_DIR and write what they computed there, one ``.npz`` and one ``.json``
-a rank and case; the test compares it with the JAX package.  World 2 runs
-``sharded_softmax_xent`` on a (1, 2) mesh; world 4 runs it on (2, 2) and
-(1, 4), ``compressed_psum`` on both, and two steps of the mesh train step
-on (2, 2) under both planner strategies and the plain loss.  Nothing here
-imports JAX.
+a rank and case; the tests compare it with the JAX package.  Suites:
+
+- ``planner`` (the default): world 2 runs ``sharded_softmax_xent`` on a
+  (1, 2) mesh; world 4 runs it on (2, 2) and (1, 4), ``compressed_psum``
+  on both, and two steps of the mesh train step (glm4's smoke config) on
+  (2, 2) under both planner strategies and the plain loss;
+- ``tp``: two steps of the tensor-, expert- and ZeRO-1-parallel train
+  step under the three losses: glm4 on (1, 2) (world 2) and on (1, 4),
+  qwen3-moe on (2, 2) and (1, 4) (world 4); one qwen3-moe layer on (2, 2)
+  at the smoke capacity, where each data rank's capacity drops tokens;
+- ``elastic`` (world 4): a checkpoint of two glm4 steps written on (2, 2)
+  (the whole leaves its gathers hold at once metered) and restored on
+  (1, 4), (4, 1) and with no mesh; ``remesh`` and ``shrink_mesh``; the
+  int8-compressed mesh step.
+
+:func:`run_worlds` starts the worlds of a suite side by side for a test
+module.  Nothing here imports JAX.
 """
 import json
+import os
+import subprocess
 import sys
+import weakref
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+ROOT = Path(__file__).resolve().parents[1]
+
 # the loss inputs: glm4's smoke width, a real vocab that is not a multiple
 # of any shard width (500 of a padded 512)
 B, S, D, VOCAB = 4, 8, 64, 500
 STEP_BATCH, STEP_SEQ, STEPS = 4, 16, 2
+# (name, softmax strategy, planner loss) of the train step's variants
+VARIANTS = (("dist", "dist", True), ("gather", "gather", True),
+            ("plain", "auto", False))
+# the tp suite's cases: (arch, mesh shape), by world
+TP_CASES = {2: (("glm4-9b", (1, 2)),),
+            4: (("glm4-9b", (1, 4)), ("qwen3-moe-30b-a3b", (2, 2)),
+                ("qwen3-moe-30b-a3b", (1, 4)))}
+RESTORE_SHAPES = ((1, 4), (4, 1))
+# the MoE layer at the smoke capacity: 64 tokens a data rank on (2, 2),
+# where the capacity is 32 (the whole batch's would be 40)
+MOE_ARCH, MOE_B, MOE_S = "qwen3-moe-30b-a3b", 8, 16
+RANKS_TIMEOUT = 240
+
+
+def overrides(arch) -> dict:
+    """The smoke config's changes for the mesh steps, the same for both
+    packages: f32; a MoE config at capacity factor E / k, where every
+    expert takes all the tokens: the mesh step's capacity is that of each
+    data rank's tokens (the JAX package's ``_cap(t_local)``), the
+    mesh-free step's that of the whole batch, and the two agree only where
+    nothing drops (the ranks count the drops)."""
+    from repro_torch.configs.registry import get_smoke_config
+    cfg = get_smoke_config(arch)
+    out = {"dtype": "float32"}
+    if cfg.is_moe:
+        out["capacity_factor"] = cfg.n_experts / cfg.top_k
+    return out
 
 
 def xent_inputs(Vp):
@@ -32,6 +78,28 @@ def xent_inputs(Vp):
     w = (rng.standard_normal((D, Vp)) * 0.2).astype(np.float32)
     y = rng.integers(0, VOCAB, size=(B, S)).astype(np.int64)
     return h, w, y
+
+
+def moe_layer_inputs():
+    """The smoke config (f32, its own capacity factor), one MoE layer's
+    params (L = 1), x (MOE_B, MOE_S, d) and the output's cotangent, from
+    numpy seed 0.  x's tokens share one direction, so that the router
+    sends most of them to the same experts and the capacity binds."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.moe import moe_specs
+    cfg = get_smoke_config(MOE_ARCH).with_(dtype="float32")
+    rng = np.random.default_rng(0)
+    p = {k: (rng.standard_normal(s.shape) / np.sqrt(s.shape[-2])
+             ).astype(np.float32) for k, s in moe_specs(cfg, 1).items()}
+    d = cfg.d_model
+    x = (rng.standard_normal(d)
+         + 0.3 * rng.standard_normal((MOE_B, MOE_S, d))).astype(np.float32)
+    cot = rng.standard_normal((MOE_B, MOE_S, d)).astype(np.float32)
+    return cfg, p, x, cot
+
+
+def tag_of(shape) -> str:
+    return "x".join(str(s) for s in shape)
 
 
 def _save(out_dir, name, rank, arrays, meta):
@@ -81,66 +149,293 @@ def run_compressed(mesh, rank, out_dir, tag):
           {"coord": list(mesh.get_coordinate())})
 
 
-def run_train_steps(mesh, rank, out_dir):
+def _batches(cfg):
+    from repro_torch.train.data import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, STEP_SEQ, STEP_BATCH, seed=0)
+    return [{k: torch.from_numpy(v).long() for k, v in data.batch(i).items()}
+            for i in range(STEPS)]
+
+
+class _DropCounter:
+    """Counts the (token, choice) assignments that ``moe_local`` drops
+    (slot at or past the capacity), over every expert, per call."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.drops = moe, moe.moe_local, []
+
+        def counted(cfg, x2d, gates, idx, *args):
+            capacity = args[-1]
+            self.drops.append(int((moe.slot_positions(cfg, idx)
+                                   >= capacity).sum()))
+            return self.orig(cfg, x2d, gates, idx, *args)
+        moe.moe_local = counted
+
+    def close(self):
+        self.moe.moe_local = self.orig
+
+
+def run_moe_capacity(mesh, rank, out_dir):
+    """:func:`moe_layer_inputs`' layer through ``moe_apply(mesh=)``, forward
+    and backward, with the params placed by ``param_shardings`` and x by
+    ``batch_spec``; the drops counted."""
+    from repro_torch.models.moe import capacity, moe_apply, moe_specs
+    from repro_torch.parallel.collective_planner import record_collectives
+    from repro_torch.parallel.sharding import (batch_spec, local_shard,
+                                               param_shardings, shard_tree)
+    cfg, p, x, cot = moe_layer_inputs()
+    local = shard_tree({k: torch.from_numpy(v) for k, v in p.items()},
+                       param_shardings(moe_specs(cfg, 1), mesh), mesh)
+    local = {k: v[0].clone().requires_grad_(True) for k, v in local.items()}
+    rows = batch_spec(mesh, MOE_B)
+    xl = local_shard(torch.from_numpy(x), rows, mesh).clone() \
+        .requires_grad_(True)
+    cl = local_shard(torch.from_numpy(cot), rows, mesh)
+    counter = _DropCounter()
+    try:
+        with record_collectives() as rec:
+            out = moe_apply(cfg, local, xl, mesh)
+            (out * cl).sum().backward()
+    finally:
+        counter.close()
+    _save(out_dir, "moe_capacity", rank,
+          dict({f"g_{k}": v.grad.numpy() for k, v in local.items()},
+               out=out.detach().numpy(), gx=xl.grad.numpy()),
+          {"coord": list(mesh.get_coordinate()), "drops": counter.drops,
+           "capacity": capacity(cfg, MOE_B // mesh.shape[0] * MOE_S),
+           "records": list(rec)})
+
+
+class _GatherMeter:
+    """The most bytes of whole leaves that ``train.checkpoint``'s gathers
+    hold at once (a leaf counted from its gather until it is freed), and
+    the largest and the sum of the leaves it gathered."""
+
+    def __init__(self):
+        from repro_torch.train import checkpoint
+        self.mod, self.orig = checkpoint, checkpoint.gather_leaf
+        self.alive, self.peak, self.largest, self.total = {}, 0, 0, 0
+
+        def metered(t, placement, mesh):
+            whole = self.orig(t, placement, mesh)
+            if whole is not t:
+                n = whole.numel() * whole.element_size()
+                self.alive[id(whole)] = n
+                weakref.finalize(whole, self.alive.pop, id(whole), None)
+                self.largest, self.total = max(self.largest, n), \
+                    self.total + n
+                self.peak = max(self.peak, sum(self.alive.values()))
+            return whole
+        checkpoint.gather_leaf = metered
+
+    def close(self) -> dict:
+        self.mod.gather_leaf = self.orig
+        return {"peak": self.peak, "largest": self.largest,
+                "total": self.total}
+
+
+def train_case(arch, mesh, strategy, planner, *, compression=False):
+    """Two steps of the mesh train step from ``Model.init(0)``: the state,
+    each step's loss, its collectives (outside and inside the remat
+    recompute), the MoE drops, each step's local params."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models.model import Model
     from repro_torch.parallel.collective_planner import record_collectives
     from repro_torch.train.checkpoint import flatten_with_names
-    from repro_torch.train.data import SyntheticLM
-    from repro_torch.train.optimizer import OptConfig, init_opt_state
-    from repro_torch.train.train_step import (TrainState, make_train_step,
-                                              shard_params)
-    opt_cfg = OptConfig(warmup_steps=1, total_steps=STEPS)
-    for name, strategy, planner in (("dist", "dist", True),
-                                    ("gather", "gather", True),
-                                    ("plain", "auto", False)):
-        cfg = get_smoke_config("glm4-9b").with_(dtype="float32",
-                                                softmax_strategy=strategy)
-        model = Model(cfg)
-        params = shard_params(model, model.init(0, device="cpu"), mesh,
-                              planner)
-        state = TrainState(params, init_opt_state(params))
-        step = make_train_step(model, opt_cfg, mesh,
-                               use_planner_loss=planner)
-        data = SyntheticLM(cfg.vocab_size, STEP_SEQ, STEP_BATCH, seed=0)
-        arrays, losses, records = {}, [], []
-        for i in range(STEPS):
-            batch = {k: torch.from_numpy(v).long()
-                     for k, v in data.batch(i).items()}
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cfg = get_smoke_config(arch).with_(softmax_strategy=strategy,
+                                       **overrides(arch))
+    model = Model(cfg)
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=STEPS,
+                        grad_compression=compression)
+    state = init_train_state(model, model.init(0, device="cpu"), mesh,
+                             compression=compression)
+    step = make_train_step(model, opt_cfg, mesh, use_planner_loss=planner)
+    arrays, losses, records, recompute = {}, [], [], []
+    counter = _DropCounter()
+    try:
+        for i, batch in enumerate(_batches(cfg)):
             with record_collectives() as rec:
                 state, metrics = step(state, batch)
-            records.append(rec)
+            records.append(list(rec))
+            recompute.append(list(rec.recompute))
             losses.append(float(metrics["loss"]))
             for n, t in flatten_with_names(state.params):
                 arrays[f"step{i}{n}"] = t.detach().numpy().copy()
-        _save(out_dir, f"train_{name}", rank, arrays,
-              {"coord": list(mesh.get_coordinate()), "losses": losses,
-               "records": records})
+    finally:
+        counter.close()
+    for n, t in flatten_with_names(state.opt.m):
+        arrays[f"m{n}"] = t.numpy().copy()
+    meta = {"coord": list(mesh.get_coordinate()), "losses": losses,
+            "records": records, "recompute": recompute,
+            "drops": counter.drops}
+    return model, state, arrays, meta
 
 
-def _rank(rank, world, out_dir):
+def run_train_steps(mesh, rank, out_dir, arch="glm4-9b", name=None):
+    for variant, strategy, planner in VARIANTS:
+        _, _, arrays, meta = train_case(arch, mesh, strategy, planner)
+        _save(out_dir, name.format(variant=variant) if name
+              else f"train_{variant}", rank, arrays, meta)
+
+
+def _whole(tree, placements, mesh):
+    """Every leaf of a tree of shards gathered whole, by JAX name."""
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.train.checkpoint import flatten_with_names
+    names, leaves = zip(*flatten_with_names(tree))
+    where = [p for _, p in flatten_with_names(placements)]
+    whole = gather_tree(dict(enumerate(leaves)), dict(enumerate(where)),
+                        mesh)
+    return {n: whole[i].numpy().copy() for i, n in enumerate(names)}
+
+
+def run_elastic(rank, out_dir, meshes):
+    """A checkpoint written on (2, 2), restored on (1, 4), (4, 1) and with
+    no mesh; the async writer on a mesh; ``remesh`` from (2, 2) to (1, 4)
+    and onto ``shrink_mesh``'s mesh; the int8-compressed step."""
+    from repro_torch.parallel.sharding import param_shardings
+    from repro_torch.train.checkpoint import (AsyncCheckpointer,
+                                              flatten_with_names,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.elastic import remesh, shrink_mesh
+    from repro_torch.train.train_step import state_placements
+    m22 = meshes[(2, 2)]
+    model, state, _, meta = train_case("glm4-9b", m22, "auto", False)
+    ckpt = f"{out_dir}/ckpt"
+    meter = _GatherMeter()
+    try:
+        save_checkpoint(ckpt, STEPS, state, extra={"mesh": [2, 2]},
+                        placements=state_placements(model, m22), mesh=m22)
+    finally:
+        gathered = meter.close()
+    saved = _whole(state, state_placements(model, m22), m22)
+    _save(out_dir, "ckpt_saved", rank, saved, dict(meta, gathered=gathered))
+    for shape in RESTORE_SHAPES:
+        mesh = meshes[shape]
+        placed = state_placements(model, mesh)
+        got, step, extra = restore_checkpoint(ckpt, state, shardings=placed,
+                                              mesh=mesh)
+        local = {f"local{n}": t.numpy().copy()
+                 for n, t in flatten_with_names(got)}
+        _save(out_dir, f"ckpt_restored_{tag_of(shape)}", rank,
+              dict(_whole(got, placed, mesh), **local),
+              {"coord": list(mesh.get_coordinate()), "step": step,
+               "extra": extra})
+    whole, step, _ = restore_checkpoint(ckpt, state)
+    _save(out_dir, "ckpt_restored_none", rank,
+          {n: t.numpy() for n, t in flatten_with_names(whole)},
+          {"step": step})
+    # the async writer on a mesh: rank 0 writes, every rank waits
+    ckptr = AsyncCheckpointer(f"{out_dir}/ckpt_async", keep=2,
+                              placements=state_placements(model, m22),
+                              mesh=m22)
+    meter = _GatherMeter()
+    try:
+        ckptr.save(STEPS, state)
+    finally:
+        gathered = meter.close()
+    ckptr.wait()
+    _save(out_dir, "ckpt_async", rank, {},
+          {"errors": ckptr.errors, "gathered": gathered})
+
+    def placements(m):
+        return param_shardings(model.specs, m)
+    moved = remesh(state.params, placements, m22, meshes[(1, 4)])
+    _save(out_dir, "remesh_1x4", rank,
+          {n: t.numpy() for n, t in flatten_with_names(moved)},
+          {"coord": list(meshes[(1, 4)].get_coordinate())})
+    small = shrink_mesh(1, model_parallel=2, device="cpu")
+    shrunk = remesh(state.params, placements, m22, small)
+    coord = small.get_coordinate()
+    _save(out_dir, "shrink", rank,
+          {} if shrunk is None else
+          {n: t.numpy() for n, t in flatten_with_names(shrunk)},
+          {"coord": None if coord is None else list(coord),
+           "ranks": small.mesh.tolist(), "shape": list(small.shape),
+           "names": list(small.mesh_dim_names)})
+    # the int8-compressed step on (2, 2): error feedback by zero1_spec
+    _, cstate, arrays, cmeta = train_case("glm4-9b", m22, "auto", False,
+                                          compression=True)
+    for n, t in flatten_with_names(cstate.opt.err):
+        arrays[f"err{n}"] = t.numpy().copy()
+    _save(out_dir, "train_int8", rank, arrays, cmeta)
+
+
+def _rank(rank, world, out_dir, suite):
     from repro_torch.launch.mesh import make_auto_mesh
     torch.set_num_threads(1)
     store = dist.FileStore(out_dir + "/store", world)
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=world)
+
+    def mesh(shape):
+        return make_auto_mesh(shape, ("data", "model"), "cpu")
     try:
-        if world == 2:
-            run_xent(make_auto_mesh((1, 2), ("data", "model"), "cpu"), rank,
-                     out_dir, "1x2")
-        else:
-            m22 = make_auto_mesh((2, 2), ("data", "model"), "cpu")
-            m14 = make_auto_mesh((1, 4), ("data", "model"), "cpu")
+        if suite == "planner" and world == 2:
+            run_xent(mesh((1, 2)), rank, out_dir, "1x2")
+        elif suite == "planner":
+            m22, m14 = mesh((2, 2)), mesh((1, 4))
             run_xent(m22, rank, out_dir, "2x2")
             run_xent(m14, rank, out_dir, "1x4")
             run_compressed(m22, rank, out_dir, "2x2")
             run_compressed(m14, rank, out_dir, "1x4")
             run_train_steps(m22, rank, out_dir)
+        elif suite == "tp":
+            for arch, shape in TP_CASES[world]:
+                run_train_steps(mesh(shape), rank, out_dir, arch,
+                                f"tp_{arch}_{tag_of(shape)}_{{variant}}")
+            if world == 4:
+                run_moe_capacity(mesh((2, 2)), rank, out_dir)
+        elif suite == "elastic":
+            meshes = {s: mesh(s) for s in ((2, 2),) + RESTORE_SHAPES}
+            run_elastic(rank, out_dir, meshes)
+        else:
+            raise ValueError(f"unknown suite {suite!r} at world {world}")
     finally:
         dist.destroy_process_group()
 
 
+def run_worlds(tmp_path_factory, worlds, suite):
+    """Run this script's ``suite`` for each world size in ``worlds`` side by
+    side, each in its own subprocess with a timeout; returns the directory
+    of each world's output.  Fails with the ranks' errors."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dirs, procs = {}, {}
+    for world in worlds:
+        d = tmp_path_factory.mktemp(f"{suite}{world}")
+        dirs[world] = d
+        procs[world] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), str(world),
+             str(d), suite], cwd=d, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    errors = {}
+    for world, p in procs.items():
+        try:
+            _, err = p.communicate(timeout=RANKS_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+            errors[world] = "timed out\n" + err[-3000:]
+            continue
+        if p.returncode:
+            errors[world] = err[-3000:]
+    assert not errors, errors
+    return dirs
+
+
+def load(d, name, world):
+    """Every rank's (arrays, meta) of case ``name``."""
+    return [(dict(np.load(d / f"{name}.r{r}.npz")),
+             json.loads((d / f"{name}.r{r}.json").read_text()))
+            for r in range(world)]
+
+
 if __name__ == "__main__":
     world, out = int(sys.argv[1]), sys.argv[2]
-    mp.start_processes(_rank, args=(world, out), nprocs=world,
+    suite = sys.argv[3] if len(sys.argv) > 3 else "planner"
+    mp.start_processes(_rank, args=(world, out, suite), nprocs=world,
                        start_method="spawn")

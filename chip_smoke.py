@@ -32,7 +32,12 @@ failure ends the run with a non-zero exit:
    tiling (``flash_attention.BOUNDARY_CASES``: both sides of the q and key
    tiles, a single key tile, groups of 1, 3 and 16, windows inside one key
    tile and across several, Sq > Skv, Sq = 1, every head dim); rows that
-   see no key must be exactly 0;
+   see no key must be exactly 0; then, in bf16, at the shapes one rank of
+   a model axis of 2 or 4 hands it when serving on a mesh
+   (``kernel_bench.RANK_ATTENTION_SHAPES``: glm4-9b's 16 q heads over its
+   kv head and 8 over one of two gathered kv heads, hymba-1.5b's 25 heads
+   cut mid-head), each checked and timed (CUDA events and device time of
+   the kernel, the plain version and SDPA, the bound);
 4. FlashAttention at glm4-9b's serving prefill shape: error against the
    plain version, CUDA-event times of the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
@@ -62,7 +67,11 @@ failure ends the run with a non-zero exit:
    a ragged S, a chunk below 64, the mamba2 smoke head (P 16, N 16), the
    full head (P 64, N 128), and every edge of the tiling
    (``ssd.BOUNDARY_CASES``: chunks of 8 and 40, ragged S, P 16/32/64, N
-   16-128, groups of 1-24, B/C as strided views of a conv output);
+   16-128, groups of 1-24, B/C as strided views of a conv output); then,
+   in bf16 at the plan's chunk, at a rank's heads of a model axis of 2 or
+   4 (``kernel_bench.RANK_SSD_SHAPES``: mamba2-130m's 12 and 6 of 24,
+   hymba-1.5b's 25 of 50, B/C views of the gathered conv output), each
+   checked and timed;
 8. the SSD kernel at mamba2-130m's serving prefill shape (BH 192, S 1024,
    P 64, N 128, bf16), B/C one row a head (``kernel_bench.SSD_SHAPE``) and
    as the model hands them over (``SSD_GROUP_SHAPE``: r 24, strided views
@@ -220,11 +229,23 @@ failure ends the run with a non-zero exit:
     the collectives; the trained params saved on the mesh and restored
     with ``shardings=`` bit for bit; the step times beside the step
     without a mesh, the peak memory;
-26. a JSON line of the kernels (every number in it measured in this run,
+26. serving glm4-9b at full width and depth through
+    ``ServeEngine(mesh=make_host_mesh())`` (the one-card (1, 1) NCCL mesh:
+    params placed by ``param_shardings``, the tensor-parallel serving
+    layers, every collective a one-rank copy) with phase 5's requests,
+    counts set to 0 just before and read just after: the greedy tokens
+    equal phase 5's, FlashAttention launched 40 times a prefill; one
+    prefill and one decode step timed and profiled, each named
+    collective's count logged; then ``python -m repro_torch.launch.serve
+    --arch glm4-9b --mesh host`` once (exit 0, every token out);
+27. the same for hymba-1.5b (phase 17's requests and tokens; 32
+    FlashAttention and 32 SSD launches a prefill);
+28. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
     the training run; the FlashAttention and SSD rows also carry each
-    family's serve launches and its shape's record), then
+    family's serve launches and its shape's record, the mesh phases'
+    launches and the rank shapes' records), then
     ``{"ok": true, ...}`` as the last line.
 
 Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
@@ -378,11 +399,16 @@ def gemm_check(name, a, b, gamma, beta):
 
 
 def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
-                      cache_len, n_requests, max_new, counters, seed=0):
+                      cache_len, n_requests, max_new, counters, seed=0,
+                      mesh=None):
     """Serve ``n_requests`` random prompts through a ``batch``-slot engine
     after a warm-up run, with every kernel's count set to 0 just before and
     read just after; then time and profile one prefill and one decode step
-    of that batch.  Returns the record and the launch counts."""
+    of that batch.  With ``mesh``, the engine and the model serve on it
+    (``params`` this rank's shards) and the run's collectives are counted
+    by label.  Returns the record (the requests' tokens in it) and the
+    launch counts."""
+    from repro_torch.parallel.collective_planner import record_collectives
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = model.cfg
     rng = np.random.default_rng(seed)
@@ -394,7 +420,8 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
 
     def engine():
         return ServeEngine(model, params, batch_size=batch,
-                           cache_len=cache_len, prompt_len=prompt_len)
+                           cache_len=cache_len, prompt_len=prompt_len,
+                           mesh=mesh)
 
     engine().run(requests(batch, 2))      # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
@@ -405,7 +432,8 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
         if hasattr(fn, "chunks"):
             fn.chunks = {}
     t_run = time.perf_counter()
-    done = eng.run(reqs)
+    with record_collectives() as rec_run:
+        done = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -429,8 +457,9 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
         inputs["src_embeds"] = torch.randn(
             batch, max(1, prompt_len // cfg.enc_ratio), cfg.d_model,
             generator=gen, device=dev)
-    logits, cache = model.prefill(params, inputs, cache_len)
-    step, _ = model.decode(params, cache, logits[:, -1].argmax(-1)[:, None])
+    logits, cache = model.prefill(params, inputs, cache_len, mesh)
+    step, _ = model.decode(params, cache, logits[:, -1].argmax(-1)[:, None],
+                           mesh, cache_len)
     if not (torch.isfinite(logits).all() and torch.isfinite(step).all()):
         raise AssertionError(f"{name} logits are not finite")
     if logits.shape != (batch, 1, cfg.padded_vocab):
@@ -440,10 +469,10 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
     tok = logits[:, -1].argmax(-1)[:, None]
 
     def run_prefill():
-        return model.prefill(params, inputs, cache_len)
+        return model.prefill(params, inputs, cache_len, mesh)
 
     def run_decode():
-        return model.decode(params, cache, tok)
+        return model.decode(params, cache, tok, mesh, cache_len)
 
     prefill_ms = kb.cuda_ms(run_prefill, iters=3, warmup=1)
     decode_ms = kb.cuda_ms(run_decode, iters=10)
@@ -469,7 +498,12 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
               "prefill_calls": eng.stats["prefill_calls"],
               "decode_steps": eng.stats["decode_steps"],
               "peak_mem_gb": peak_gb, "launches": launches,
-              "launch_chunks": chunks, "breakdown": breakdown}
+              "launch_chunks": chunks, "breakdown": breakdown,
+              "outputs": [r.output for r in done]}
+    if mesh is not None:
+        record["collectives"] = _counted(rec_run)
+        log(f"  collectives of the run (label: count, MB): "
+            f"{record['collectives']}")
     return record, launches
 
 
@@ -841,21 +875,29 @@ def train_phase(arch, dev, counters, *, kernel, batch, seq, cut,
     return rec, launches
 
 
-def family_attention_check(gen, arch):
+def family_attention_check(gen, arch, m=None):
     """FlashAttention at the shape where ``arch``'s serving prefill reaches
-    it (``kernel_bench.FAMILY_ATTENTION_SHAPES``, model layout, bf16)
-    against ``attention_ref`` elementwise within BF16_TOL, then timed by
+    it (``kernel_bench.FAMILY_ATTENTION_SHAPES``; with ``m``, where one rank
+    of a model axis of m reaches it, ``RANK_ATTENTION_SHAPES``: k/v views
+    of the rank's projection of kv heads), model layout, bf16, against
+    ``attention_ref`` elementwise within BF16_TOL, then timed by
     ``kernel_bench.bench_attention`` (CUDA events and device time of the
     kernel, the plain version and SDPA, and the bound).  Returns the
     record."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import attention_ref
-    B, Hq, Hkv, Sq, Skv, D, causal, window = \
-        kb.FAMILY_ATTENTION_SHAPES[arch]
+    if m is None:
+        shape = kb.FAMILY_ATTENTION_SHAPES[arch]
+        B, Hq, Hkv, Sq, Skv, D, causal, window = shape
+        kv_of, where = Hkv, f"{arch}'s shape"
+    else:
+        B, Hq, Hkv, Sq, Skv, D, causal, window, kv_of = \
+            kb.RANK_ATTENTION_SHAPES[(arch, m)]
+        where = f"{arch}'s rank shape at m = {m}"
     q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda",
                     dtype=torch.bfloat16).transpose(1, 2)
-    k, v = [torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda",
-                        dtype=torch.bfloat16).transpose(1, 2)
+    k, v = [torch.randn(B, Skv, kv_of, D, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)[:, :, :Hkv].transpose(1, 2)
             for _ in range(2)]
     out = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
     want = attention_ref(q, k, v, causal=causal, window=window)
@@ -863,12 +905,12 @@ def family_attention_check(gen, arch):
     diff = (out.float() - want.float()).abs()
     err = float(diff.max())
     if not bool((diff <= BF16_TOL + BF16_TOL * want.float().abs()).all()):
-        raise AssertionError(f"flash_attention disagrees at {arch}'s shape: "
+        raise AssertionError(f"flash_attention disagrees at {where}: "
                              f"{err}")
     del out, want, diff
     rec = kb.bench_attention(q, k, v, causal=causal, window=window)
     t = fa.tiling(B, Hq, Hkv, Sq, Skv, D, torch.bfloat16)
-    log(f"  flash_attention at {arch}'s shape q {tuple(q.shape)} k/v "
+    log(f"  flash_attention at {where} q {tuple(q.shape)} k/v "
         f"{tuple(k.shape)} causal {causal} window {window}: tiling "
         f"{t.heads} head(s) a work item, {t.items} items; max_abs_err "
         f"{err:.3e} (tol {BF16_TOL}); kernel_ms {rec['ms']:.4f} device_ms "
@@ -877,6 +919,105 @@ def family_attention_check(gen, arch):
         f"{rec['library_device_ms']:.4f}; {rec['library']})  bound_ms "
         f"{rec['bound_ms']:.4f} ({rec['bound_by']}, "
         f"{rec['flops'] / 1e9:.2f} GFLOP of the visible pairs)")
+    return rec
+
+
+def rank_ssd_check(gen, arch, m):
+    """The SSD scan at one rank's heads of a model axis of m
+    (``kernel_bench.RANK_SSD_SHAPES``, bf16, B/C views of the gathered conv
+    output) at the plan's chunk, against ``ssd_chunked_ref`` within
+    SSD_BF16_TOL of the largest |y|, then timed by ``bench_ssd``.  Returns
+    the record."""
+    from repro_torch.kernels import autotune
+    shape = kb.RANK_SSD_SHAPES[(arch, m)]
+    chunk = autotune.ssd_chunk_len(shape["S"], shape["P"], shape["N"])
+    x, dA, Bm, Cm = kb.ssd_inputs(gen, shape, torch.bfloat16, "cuda")
+    rec = kb.bench_ssd(x, dA, Bm, Cm, chunk=chunk)
+    if rec["max_abs_err"] > SSD_BF16_TOL * rec["max_abs_plain"]:
+        raise AssertionError(f"ssd_scan disagrees at {arch}'s rank shape at "
+                             f"m = {m}: {rec['max_abs_err']}")
+    log(f"  ssd_scan at {arch}'s rank shape at m = {m}: xdt "
+        f"{tuple(x.shape)} B/C {tuple(Bm.shape)} (strides {Bm.stride()}), "
+        f"chunk {chunk}: max_abs_err {rec['max_abs_err']:.3e} (max |plain| "
+        f"{rec['max_abs_plain']:.2f}, tol {SSD_BF16_TOL} of it); kernel_ms "
+        f"{rec['ms']:.4f} device_ms {rec['device_ms']:.4f}  plain_ms "
+        f"{rec['plain_ms']:.4f}  library_ms null  bound_ms "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']}); {rec['tile']}")
+    return rec
+
+
+def collective_probe(mesh, cfg, calls=100):
+    """Host milliseconds a call, synchronised, of a one-rank NCCL
+    All-Reduce (through ``collective_planner.collective``, unrecorded) of a
+    decode step's (4, 1, d_model) residual and of a prefill's (4, 1024,
+    d_model), beside a ``clone`` of each: what each one-rank collective of
+    the mesh path adds to a step."""
+    from repro_torch.parallel.collective_planner import collective, model_axis
+    group = model_axis(mesh)[2]
+    out = {}
+    for name, rows in (("decode", 1), ("prefill", 1024)):
+        x = torch.randn(4, rows, cfg.d_model, device="cuda",
+                        dtype=torch.bfloat16)
+        for what, fn in (("all_reduce", lambda: collective(
+                "AllReduce", "probe", x, group)), ("clone", x.clone)):
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            out[f"{name}_{what}"] = (time.perf_counter() - t) * 1e3 / calls
+    log(f"  one-rank collective probe (host ms a call, synchronised, "
+        f"{calls} calls): " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in out.items()))
+    return out
+
+
+def mesh_serve(arch, dev, counters, plan_root, plain, *, batch, prompt_len,
+               cache_len, n_requests, max_new, want):
+    """Serve ``arch`` at full size through ``ServeEngine(mesh=
+    make_host_mesh())`` (the one-card (1, 1) NCCL mesh, params placed by
+    ``param_shardings``) with the requests of ``plain`` (its serve record
+    without a mesh): the same greedy tokens, the launches ``want``.
+    Returns the record."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import param_shardings, shard_tree
+    cfg = get_config(arch).with_(use_kernels=True)
+    model = Model(cfg)
+    mesh = tmesh.make_host_mesh(device=dev)
+    try:
+        params = shard_tree(model.init(0, device=dev),
+                            param_shardings(model.specs, mesh), mesh)
+        os.environ["REPRO_PLAN_CACHE"] = tempfile.mkdtemp(
+            prefix=f"{arch}-mesh", dir=plan_root)
+        rec, got = serve_and_profile(
+            f"{arch} on the (1, 1) mesh", model, params, dev, batch=batch,
+            prompt_len=prompt_len, cache_len=cache_len,
+            n_requests=n_requests, max_new=max_new, counters=counters,
+            mesh=mesh)
+        rec["one_rank_collective_ms"] = collective_probe(mesh, cfg)
+    finally:
+        tmesh.destroy()
+    expect_launches(f"{arch} on the mesh", got, want)
+    if rec["outputs"] != plain["outputs"]:
+        raise AssertionError(f"{arch}: the mesh engine's tokens "
+                             f"{rec['outputs']} != without a mesh "
+                             f"{plain['outputs']}")
+    labels = {k.split()[0] for k in rec["collectives"]}
+    if not {"tp/embed", "tp/attn-out", "serve/argmax"} <= labels:
+        raise AssertionError(f"{arch}: collectives {rec['collectives']}")
+    for step in ("prefill", "decode_step"):
+        ms = rec["breakdown"][f"{step}_ms"]
+        base = plain["breakdown"][f"{step}_ms"]
+        log(f"  {step}: {ms:.2f} ms on the mesh, {base:.2f} ms without one "
+            f"({100 * (ms / base - 1):+.1f}%)")
+    log(f"  the greedy tokens of {len(rec['outputs'])} requests equal the "
+        f"engine's without a mesh")
+    del params, model
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1592,6 +1733,10 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with "
                                      f"attention_ref in {label}: {err}")
+    # the shapes a rank of a 2- or 4-rank model axis gives it (serving on a
+    # mesh; the card runs the (1, 1) mesh, which gives it phase 5's)
+    rank_fa = {f"{arch} m={m}": family_attention_check(gen, arch, m)
+               for arch, m in kb.RANK_ATTENTION_SHAPES}
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------ 4. kernel at the serve shape
@@ -1721,6 +1866,8 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"ssd_scan disagrees with "
                                      f"ssd_chunked_ref in {label}: {err}")
+    rank_ssd = {f"{arch} m={m}": rank_ssd_check(gen, arch, m)
+                for arch, m in kb.RANK_SSD_SHAPES}
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------- 8. SSD at the mamba2 serve shape
@@ -2108,7 +2255,50 @@ def main() -> int:
     moe_train, moe_train_fa = moe_mesh_train_phase(counters)
     log(f"phase 25: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 26. the result
+    # ----------------------------------------- 26. serve glm4-9b on a mesh
+    t0 = phase("26. serve glm4-9b on the (1, 1) NCCL mesh (full config, "
+               "bf16, use_kernels=True)")
+    torch.cuda.reset_peak_memory_stats()
+    mesh_glm4 = mesh_serve(
+        "glm4-9b", dev, counters, plan_root, serve, batch=4, prompt_len=1024,
+        cache_len=2048, n_requests=8, max_new=16,
+        want={"flash_attention": get_config("glm4-9b").n_layers
+              * serve["prefill_calls"]})
+    cli_env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_PLAN_CACHE=tempfile.mkdtemp(prefix="cli",
+                                                     dir=plan_root))
+    t_cli = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "glm4-9b", "--mesh", "host"], env=cli_env, cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    if cli.returncode:
+        raise AssertionError(f"serve --mesh host exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    cli_out = json.loads(cli.stdout.strip().splitlines()[-1])
+    if cli_out["tokens"] != 8 * 16 or cli_out["completed"] != 8:
+        raise AssertionError(f"serve --mesh host: {cli_out}")
+    log(f"  python -m repro_torch.launch.serve --arch glm4-9b --mesh host "
+        f"({time.perf_counter() - t_cli:.1f} s): {cli.stdout.strip()}")
+    mesh_glm4["cli"] = cli_out
+    log(f"  phase peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------ 27. serve hymba-1.5b on a mesh
+    t0 = phase("27. serve hymba-1.5b on the (1, 1) NCCL mesh (full config, "
+               "bf16, use_kernels=True)")
+    torch.cuda.reset_peak_memory_stats()
+    n_pre = family["hymba-1.5b"]["prefill_calls"]
+    mesh_hymba = mesh_serve(
+        "hymba-1.5b", dev, counters, plan_root, family["hymba-1.5b"],
+        batch=4, prompt_len=1536, cache_len=2048, n_requests=8, max_new=8,
+        want={"flash_attention": 32 * n_pre, "ssd_scan": 32 * n_pre})
+    log(f"  phase peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 28. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2140,6 +2330,11 @@ def main() -> int:
                                for n in ("serve_lm", "train_lm")},
         "family_shapes": {a: {k: r[k] for k in FAMILY_KEYS}
                           for a, r in fam_fa.items()},
+        "rank_shapes": {a: {k: r[k] for k in FAMILY_KEYS}
+                        for a, r in rank_fa.items()},
+        "mesh_serve_launches": {
+            "glm4-9b": mesh_glm4["launches"]["flash_attention"],
+            "hymba-1.5b": mesh_hymba["launches"]["flash_attention"]},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -2167,6 +2362,10 @@ def main() -> int:
         "family_launches": {"hymba-1.5b":
                             family["hymba-1.5b"]["launches"]["ssd_scan"]},
         "family_shapes": {"hymba-1.5b": {k: h_ssd[k] for k in FAMILY_KEYS}},
+        "rank_shapes": {a: {k: r[k] for k in FAMILY_KEYS}
+                        for a, r in rank_ssd.items()},
+        "mesh_serve_launches": {
+            "hymba-1.5b": mesh_hymba["launches"]["ssd_scan"]},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2225,6 +2424,8 @@ def main() -> int:
                     "train_glm4_9b_mesh_planner_loss": mesh_train,
                     "train_qwen3_moe_mesh_4_layers": moe_train,
                     "front_ends": front,
+                    "serve_glm4_9b_mesh": mesh_glm4,
+                    "serve_hymba_1_5b_mesh": mesh_hymba,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))

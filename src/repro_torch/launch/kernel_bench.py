@@ -67,7 +67,8 @@ from repro_torch.kernels.ref import (attention_ref, ssd_chunked_ref,
 
 __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
            "ATTENTION_SHAPE", "ATTENTION_SWEEP", "FAMILY_ATTENTION_SHAPES",
-           "HYMBA_SSD_SHAPE", "SSD_SHAPE", "SSD_GROUP_SHAPE",
+           "HYMBA_SSD_SHAPE", "RANK_ATTENTION_SHAPES", "RANK_SSD_SHAPES",
+           "SSD_SHAPE", "SSD_GROUP_SHAPE",
            "SSD_SHAPES", "STREAMED_GEMM_SHAPE", "cuda_ms",
            "device_ms",
            "bound", "nbytes", "visible_pairs", "window_mask", "attention_flops",
@@ -120,6 +121,29 @@ HYMBA_SSD_SHAPE = {"BH": 200, "S": 1536, "P": 64, "N": 16, "r": 50,
 # row a head (r 1, the JAX kernel's interface), and as the model hands them
 # over: one group of 24 heads a batch row (r 24: B/C (8, 1024, 128)),
 # strided views of the conv output (8, 1024, conv_dim 1792)
+# FlashAttention and the SSD scan at the shapes one rank of a model axis
+# of m hands them in a serving prefill on a mesh (``ServeEngine(mesh=)``),
+# by (arch, m).  Attention: (B, Hq, Hkv, Sq, Skv, D, causal, window, kv
+# heads of the projection the rank's k/v are a view of): glm4-9b's 32 q
+# heads over 2 kv heads are 16 a rank over its own kv head at m = 2, and 8
+# over one of the 2 gathered kv heads at m = 4; hymba-1.5b's 25 heads are
+# cut mid-head at m = 2, so every rank attends all 25 over all 5 kv heads.
+# SSD: the rank's heads (mamba2-130m 12 and 6 of 24, hymba-1.5b 25 of 50),
+# B/C in group form (one group of them a batch row), strided views of the
+# gathered conv output (``width`` its columns, B and C its last 2 N)
+RANK_ATTENTION_SHAPES = {
+    ("glm4-9b", 2): (4, 16, 1, 1024, 1024, 128, True, None, 1),
+    ("glm4-9b", 4): (4, 8, 1, 1024, 1024, 128, True, None, 2),
+    ("hymba-1.5b", 2): (4, 25, 5, 1536, 1536, 64, True, 1024, 5),
+}
+RANK_SSD_SHAPES = {
+    ("mamba2-130m", 2): {"BH": 96, "S": 1024, "P": 64, "N": 128, "r": 12,
+                         "xbc": True, "width": 1792},
+    ("mamba2-130m", 4): {"BH": 48, "S": 1024, "P": 64, "N": 128, "r": 6,
+                         "xbc": True, "width": 1792},
+    ("hymba-1.5b", 2): {"BH": 100, "S": 1536, "P": 64, "N": 16, "r": 25,
+                        "xbc": True, "width": 3232},
+}
 SSD_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128}
 SSD_GROUP_SHAPE = {"BH": 192, "S": 1024, "P": 64, "N": 128, "r": 24,
                    "xbc": True}
@@ -404,17 +428,18 @@ def ssd_inputs(gen: torch.Generator, shape: Dict, dtype: torch.dtype,
     """xdt, dA (f32 < 0), B and C of ``shape`` from ``gen``: {"BH", "S",
     "P", "N"}, optionally "r" (default 1: B/C of BH / r rows) and "xbc"
     (default False: B/C contiguous; True: strided views of one (BH / r, S,
-    r P + 2 N) tensor, the (x, B, C) columns of the conv output the model
-    hands over, x's r heads of P first)."""
+    width) tensor, the (x, B, C) columns of the conv output the model
+    hands over, B and C its last 2 N; "width" defaults to r P + 2 N, x's
+    r heads of P first)."""
     BH, S, P, N = (shape[k] for k in ("BH", "S", "P", "N"))
     r = shape.get("r", 1)
     G = BH // r
     x = torch.randn(BH, S, P, generator=gen, device=device).to(dtype)
     dA = -torch.rand(BH, S, generator=gen, device=device) * 0.2
     if shape.get("xbc", False):
-        xbc = torch.randn(G, S, r * P + 2 * N, generator=gen,
-                          device=device).to(dtype)
-        return x, dA, xbc[..., r * P:r * P + N], xbc[..., r * P + N:]
+        w = shape.get("width", r * P + 2 * N)
+        xbc = torch.randn(G, S, w, generator=gen, device=device).to(dtype)
+        return x, dA, xbc[..., w - 2 * N:w - N], xbc[..., w - N:]
     Bm, Cm = [torch.randn(G, S, N, generator=gen, device=device).to(dtype)
               for _ in range(2)]
     return x, dA, Bm, Cm

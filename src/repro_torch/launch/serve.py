@@ -19,6 +19,12 @@ Reduced config on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --smoke --device cpu
 
+``--mesh host`` serves on ``launch/mesh.make_host_mesh()`` (the world's
+ranks as ``(data, model)``; one card alone: the one-rank NCCL mesh), the
+params placed by ``param_shardings``, every rank running the same engine
+(``ServeEngine(mesh=)``; under ``torchrun`` rank 0 prints), as the JAX
+CLI's ``--mesh host`` does.
+
 Plan-cache wiring (the MappingPlan subsystem, ``repro_torch.core.plan``):
 ``--plan-cache DIR`` points the engine's plan store somewhere explicit
 (equivalent to ``REPRO_PLAN_CACHE=DIR``, which the JAX package reads too:
@@ -44,7 +50,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.launch import mesh as tmesh
 from repro_torch.models.model import Model
+from repro_torch.parallel.sharding import param_shardings, shard_tree
 from repro_torch.serve.engine import Request, ServeEngine
 
 
@@ -57,6 +65,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--mesh", choices=["none", "host"], default="none")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no silent CPU fallback")
     ap.add_argument("--plan-cache", default=None, metavar="DIR",
@@ -86,6 +95,20 @@ def main(argv: Optional[List[str]] = None) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg.with_(use_kernels=True))
     params = model.init(0, device=device)
+    mesh = None
+    if args.mesh == "host":
+        mesh = tmesh.make_host_mesh(device=device)
+        params = shard_tree(params, param_shardings(model.specs, mesh), mesh)
+    try:
+        return _serve(args, model, params, device, mesh, imported, gc_out)
+    finally:
+        if mesh is not None:
+            tmesh.destroy()
+
+
+def _serve(args, model, params, device, mesh, imported, gc_out) -> dict:
+    from repro_torch.core.plan import get_plan_cache
+    cfg = model.cfg
 
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i,
@@ -95,7 +118,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             for i in range(args.requests)]
     eng = ServeEngine(model, params, batch_size=args.batch,
                       cache_len=args.cache_len, prompt_len=args.prompt_len,
-                      plan_warmup=not args.no_plan_warmup)
+                      mesh=mesh, plan_warmup=not args.no_plan_warmup)
     t0 = time.time()
     done = eng.run(reqs)
     if device.type == "cuda":
@@ -118,7 +141,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "plan_store_plans": store.get("plans", 0),
         "plan_gc": gc_out,
     }
-    print(json.dumps(out))
+    if mesh is None or torch.distributed.get_rank() == 0:
+        print(json.dumps(out))
     return out
 
 

@@ -12,16 +12,18 @@ runs absorbed, in the latent space of its compressed cache.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from ..kernels.ref import attention_ref
-from ..parallel.collective_planner import (enter_parallel, gather_shards,
-                                           leave_parallel, model_axis,
-                                           sum_cotangent)
+from ..parallel.collective_planner import (collective, enter_parallel,
+                                           gather_shards, leave_parallel,
+                                           model_axis, sum_cotangent)
+from ..parallel.sharding import cache_block, split_over
 from .config import ModelConfig
 from .layers import apply_norm, apply_rope, rope_cos_sin
 from .param import ParamSpec
@@ -186,27 +188,80 @@ def cross_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:
 # =============================================================== GQA paths
 
 
-def _qkv(cfg: ModelConfig, p, x, positions, mesh=None):
-    B, S, d = x.shape
-    hd = cfg.hd
-    if mesh is None:
-        q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-        k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-        v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
-    else:
-        q, k, v, p = _qkv_local(cfg, p, x, mesh)
+class _Heads(NamedTuple):
+    """q of the heads [h0, h0 + n), (B, S, n, hd), and k/v of the kv heads
+    [kv0, kv0 + nk), (B, Skv, nk, hd)."""
+    q: torch.Tensor
+    h0: int
+    k: torch.Tensor
+    v: torch.Tensor
+    kv0: int
+
+
+def _q_proj(cfg: ModelConfig, p, x, mesh=None, *, all_heads: bool = False):
+    """(q (B, S, n, hd), h0): every head without a mesh.  On a mesh ``wq``
+    holds this rank's ``H / m`` whole heads where H splits; where its
+    columns cut a head, or with ``all_heads``, the q projection is
+    All-Gathered over ``model`` (``tp/q-gather``) and q holds every head.
+    Weights kept whole give every head."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    qp, h0 = x @ p["wq"], 0
+    if mesh is not None:
+        m, r, group = model_axis(mesh)
+        if split_over(qp.shape[-1], H * hd, m):
+            if H % m or (all_heads and m > 1):
+                qp = gather_shards(qp, group, "tp/q-gather", "tp/q-gather")
+            else:
+                h0 = r * (H // m)
+    return qp.reshape(B, S, -1, hd), h0
+
+
+def _kv_proj(cfg: ModelConfig, p, src, mesh=None):
+    """(k, v (B, Skv, nk, hd), kv0) of ``src``: every kv head without a
+    mesh.  On a mesh ``wk``/``wv`` hold this rank's whole kv heads where
+    Hkv splits; otherwise their projections are All-Gathered over
+    ``model`` (``tp/kv-gather``) and every kv head kept.  Weights kept
+    whole give every kv head."""
+    B, Skv, _ = src.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    kp, vp, kv0 = src @ p["wk"], src @ p["wv"], 0
+    if mesh is not None:
+        m, r, group = model_axis(mesh)
+        if split_over(kp.shape[-1], Hkv * hd, m):
+            if Hkv % m:
+                kp = gather_shards(kp, group, "tp/kv-gather", "tp/kv-gather")
+                vp = gather_shards(vp, group, "tp/kv-gather", "tp/kv-gather")
+            else:
+                kv0 = r * (Hkv // m)
+    return kp.reshape(B, Skv, -1, hd), vp.reshape(B, Skv, -1, hd), kv0
+
+
+def _heads(cfg: ModelConfig, p, x, positions, mesh=None, *,
+           all_heads: bool = False) -> _Heads:
+    """The q heads this rank attends and the kv heads it holds
+    (:func:`_q_proj`, :func:`_kv_proj`; each gather's transpose is a
+    Reduce-Scatter of its cotangent), q/k-normed and roped at
+    ``positions``.  On a mesh the norm scales act on the rank's heads, so
+    their cotangents are SUM-All-Reduced over ``model``
+    (``tp/qk-norm-grad``)."""
+    q, h0 = _q_proj(cfg, p, x, mesh, all_heads=all_heads)
+    k, v, kv0 = _kv_proj(cfg, p, x, mesh)
     if cfg.qk_norm:
-        qn = {"scale": p["q_norm"]}
-        kn = {"scale": p["k_norm"]}
+        qs, ks = p["q_norm"], p["k_norm"]
+        if mesh is not None:
+            group = model_axis(mesh)[2]
+            qs = sum_cotangent(qs, group, "tp/qk-norm-grad")
+            ks = sum_cotangent(ks, group, "tp/qk-norm-grad")
+        qn, kn = {"scale": qs}, {"scale": ks}
         if cfg.norm_type == "layernorm":
-            qn["bias"] = torch.zeros_like(p["q_norm"])
-            kn["bias"] = torch.zeros_like(p["k_norm"])
+            qn["bias"] = torch.zeros_like(qs)
+            kn["bias"] = torch.zeros_like(ks)
         q = apply_norm(cfg, qn, q)
         k = apply_norm(cfg, kn, k)
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    return q, k, v
+    cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    return _Heads(apply_rope(q, cos, sin), h0, apply_rope(k, cos, sin), v,
+                  kv0)
 
 
 def _kv_heads(H: int, Hkv: int, h0: int, n: int):
@@ -220,74 +275,59 @@ def _kv_heads(H: int, Hkv: int, h0: int, n: int):
     return torch.arange(h0, h0 + n) // g
 
 
-def _qkv_local(cfg: ModelConfig, p, x, mesh):
-    """This rank's q heads and the kv heads they read, for the
-    tensor-parallel layer (``x`` already through *f*).  ``wq`` holds the
-    rank's ``H / m`` whole q heads.  ``wk``/``wv`` are split by columns,
-    which ``spec_for`` does whenever ``Hkv * hd`` divides, mid-head too:
-    when ``Hkv`` itself divides, the rank's columns are exactly the kv
-    heads its q heads read; otherwise the k and v projections are
-    All-Gathered over ``model`` (``tp/kv-gather``, a Reduce-Scatter
-    backward) and the needed heads picked.  q/k-norm scales act on the
-    rank's heads only, so their cotangents are SUM-All-Reduced over
-    ``model`` (``tp/qk-norm-grad``).  Returns q, k, v and ``p`` with the
-    norm scales so wrapped."""
-    B, S, _ = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+def _attend_heads(cfg: ModelConfig, hs: _Heads, *, causal: bool,
+                  window: Optional[int]) -> torch.Tensor:
+    """``hs``'s q heads over the kv heads they read (the FlashAttention
+    kernel with ``use_kernels``): (B, S, n * hd).  Where the rank holds its
+    own kv heads they are exactly those its q heads read."""
+    B, S, n = hs.q.shape[:3]
+    sel = (slice(None) if hs.k.shape[2] < cfg.n_kv_heads
+           else _kv_heads(cfg.n_heads, cfg.n_kv_heads, hs.h0, n))
+    # (B, H, S, hd) views of the (B, S, H, hd) projections: the kernel
+    # reads them through their strides, no copy
+    o = _attend(cfg, hs.q.transpose(1, 2), hs.k[:, :, sel].transpose(1, 2),
+                hs.v[:, :, sel].transpose(1, 2), causal=causal,
+                window=window, scale=1.0 / math.sqrt(cfg.hd))
+    return o.transpose(1, 2).reshape(B, S, n * cfg.hd)
+
+
+def _heads_out(o: torch.Tensor, c0: int, wo: torch.Tensor, full: int,
+               mesh=None) -> torch.Tensor:
+    """The output projection of heads' outputs ``o`` (..., columns from
+    global column ``c0`` on).  On a mesh where ``wo``'s ``full`` rows are
+    split, this rank's rows take their columns of ``o`` and the partial
+    products are SUM-All-Reduced over ``model`` (Megatron's *g*,
+    ``tp/attn-out``); ``wo`` kept whole takes all of ``o`` (every head),
+    with no collective."""
+    if mesh is None:
+        return o @ wo
     m, r, group = model_axis(mesh)
-    if H % m or p["wq"].shape[-1] * m != H * hd:
-        raise NotImplementedError(
-            f"{H} q heads over {m} model ranks split a q head: ROADMAP "
-            f"A.5, slice 14")
-    if p["wk"].shape[-1] * m != Hkv * hd:
-        raise NotImplementedError(
-            f"kv columns {Hkv * hd} that do not split over {m} model ranks "
-            f"(whole kv weights under tensor parallelism): ROADMAP A.5, "
-            f"slice 14")
-    n = H // m
-    q = (x @ p["wq"]).reshape(B, S, n, hd)
-    kp, vp = x @ p["wk"], x @ p["wv"]
-    if Hkv % m == 0:
-        nk = Hkv // m
-        k, v = kp.reshape(B, S, nk, hd), vp.reshape(B, S, nk, hd)
-    else:
-        sel = _kv_heads(H, Hkv, r * n, n)
-        k = gather_shards(kp, group, "tp/kv-gather", "tp/kv-gather").reshape(
-            B, S, Hkv, hd)[:, :, sel]
-        v = gather_shards(vp, group, "tp/kv-gather", "tp/kv-gather").reshape(
-            B, S, Hkv, hd)[:, :, sel]
-    if cfg.qk_norm:
-        p = dict(p, q_norm=sum_cotangent(p["q_norm"], group,
-                                         "tp/qk-norm-grad"),
-                 k_norm=sum_cotangent(p["k_norm"], group,
-                                      "tp/qk-norm-grad"))
-    return q, k, v, p
+    rows = wo.shape[0]
+    if not split_over(rows, full, m):
+        return o @ wo
+    c = r * rows - c0
+    return leave_parallel(o[..., c:c + rows] @ wo, group, "tp/attn-out")
 
 
 def attn_train(cfg: ModelConfig, p, x, *, causal: bool = True, mesh=None
                ) -> torch.Tensor:
-    """Full-sequence self-attention.  On a mesh (GQA only) it is
-    tensor-parallel over ``model``: *f* before the q/k/v projections, this
-    rank's heads through the attention (the FlashAttention kernel with
-    ``use_kernels``), its rows of ``wo``, and *g* after (both
-    ``tp/attn-out``)."""
+    """Full-sequence self-attention.  On a mesh (GQA; MLA serves there,
+    :func:`attn_prefill`) it is tensor-parallel over ``model``: *f* before
+    the q/k/v projections, this rank's heads (:func:`_heads`) through the
+    attention (the FlashAttention kernel with ``use_kernels``), its rows of
+    ``wo``, and *g* after (both ``tp/attn-out``)."""
     if cfg.attn_type == "mla":
         if mesh is not None and model_axis(mesh)[0] > 1:
             raise NotImplementedError(
-                "tensor-parallel MLA is not ported: ROADMAP A.5, slice 14")
+                "training tensor-parallel MLA waits for ROADMAP A.5, slice "
+                "15 (its prefill and decode run on a mesh)")
         return _mla_train(cfg, p, x)
-    B, S, d = x.shape
+    S = x.shape[1]
     if mesh is not None:
-        group = model_axis(mesh)[2]
-        x = enter_parallel(x, group, "tp/attn-out")
-    q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device), mesh)
-    scale = 1.0 / math.sqrt(cfg.hd)
-    o = _attend(cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=causal, window=cfg.window, scale=scale)
-    o = o.transpose(1, 2).reshape(B, S, q.shape[2] * cfg.hd)
-    if mesh is None:
-        return o @ p["wo"]
-    return leave_parallel(o @ p["wo"], group, "tp/attn-out")
+        x = enter_parallel(x, model_axis(mesh)[2], "tp/attn-out")
+    hs = _heads(cfg, p, x, torch.arange(S, device=x.device), mesh)
+    o = _attend_heads(cfg, hs, causal=causal, window=cfg.window)
+    return _heads_out(o, hs.h0 * cfg.hd, p["wo"], cfg.n_heads * cfg.hd, mesh)
 
 
 def init_attn_cache(cfg: ModelConfig, B: int, cache_len: int,
@@ -312,41 +352,83 @@ def init_attn_cache(cfg: ModelConfig, B: int, cache_len: int,
     }
 
 
-def attn_prefill(cfg: ModelConfig, p, x) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence forward that also returns the populated cache."""
+def _slot_positions(S: int, W: int, s0: int, s1: int, device
+                    ) -> torch.Tensor:
+    """The position that each of the slots [s0, s1) of a W-slot cache holds
+    after a prefill of S positions: the latest with ``pos % W == slot``
+    (a ring when W < S), -1 for an empty slot."""
+    s = torch.arange(s0, s1, device=device)
+    return torch.where(s < S, s + W * ((S - 1 - s).clamp(min=0) // W), -1)
+
+
+def _cache_rows(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The positions ``src`` of t (B, S, ...), zeros where ``src`` is -1."""
+    keep = (src >= 0).view((1, -1) + (1,) * (t.ndim - 2))
+    return torch.where(keep, t[:, src.clamp(min=0)], 0)
+
+
+def _kv_cache(cfg: ModelConfig, k, v, kv0: int, W: int, mesh=None, *,
+              kpos: bool = True) -> Dict:
+    """The W-slot cache of a prefill's k/v (B, S, nk, hd): without a mesh
+    the whole cache; on a mesh this rank's block of it
+    (``sharding.cache_block``: its kv heads, or its slots of a
+    sequence-sharded cache).  ``kpos`` (B, W) is whole on every rank."""
+    B, S, nk, hd = k.shape
+    (s0, s1), (a, b) = ((0, W), (kv0, kv0 + nk)) if mesh is None else \
+        cache_block("k", (B, W, cfg.n_kv_heads, hd), mesh)[1:3]
+    src = _slot_positions(S, W, 0, W, k.device)
+    heads = slice(a - kv0, b - kv0)
+    out = {"k": _cache_rows(k[:, :, heads], src[s0:s1]),
+           "v": _cache_rows(v[:, :, heads], src[s0:s1])}
+    if kpos:
+        out["kpos"] = src.to(torch.int32).expand(B, W).contiguous()
+    return out
+
+
+def attn_prefill(cfg: ModelConfig, p, x, cache_len: Optional[int] = None,
+                 mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward that also returns the populated cache, of
+    ``cache_len`` slots (default the prompt's S; a window's ring holds
+    min(window, cache_len)).  On a mesh the heads are tensor-parallel as in
+    :func:`attn_train` and the cache is this rank's shard of it."""
     B, S, d = x.shape
-    dev = x.device
+    L = cache_len or S
     if cfg.attn_type == "mla":
-        o, ckv, kr = _mla_train(cfg, p, x, return_cache=True)
-        return o, {"ckv": ckv, "kr": kr}
-    q, k, v = _qkv(cfg, p, x, torch.arange(S, device=dev))
-    scale = 1.0 / math.sqrt(cfg.hd)
-    # (B, H, S, hd) views of the (B, S, H, hd) projections: the kernel reads
-    # them through their strides, no copy
-    o = _attend(cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True, window=cfg.window, scale=scale)
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
-    if cfg.window and cfg.window < S:
-        W = cfg.window
-        # last W positions land at ring slots (pos % W)
-        pos = torch.arange(S - W, S, device=dev)
-        slots = pos % W
-        k_ring = torch.zeros((B, W) + tuple(k.shape[2:]), dtype=k.dtype, device=dev)
-        v_ring = torch.zeros((B, W) + tuple(v.shape[2:]), dtype=v.dtype, device=dev)
-        k_ring[:, slots] = k[:, S - W:]
-        v_ring[:, slots] = v[:, S - W:]
-        kpos = torch.full((W,), -1, dtype=torch.int32, device=dev)
-        kpos[slots] = pos.to(torch.int32)
-        cache = {"k": k_ring, "v": v_ring,
-                 "kpos": kpos.expand(B, W).contiguous()}
-    else:
-        cache = {"k": k, "v": v,
-                 "kpos": torch.arange(S, dtype=torch.int32, device=dev)
-                 .expand(B, S).contiguous()}
-    return o @ p["wo"], cache
+        return _mla_prefill(cfg, p, x, L, mesh)
+    hs = _heads(cfg, p, x, torch.arange(S, device=x.device), mesh)
+    o = _attend_heads(cfg, hs, causal=True, window=cfg.window)
+    W = min(cfg.window, L) if cfg.window else L
+    return (_heads_out(o, hs.h0 * cfg.hd, p["wo"], cfg.n_heads * cfg.hd,
+                       mesh),
+            _kv_cache(cfg, hs.k, hs.v, hs.kv0, W, mesh))
 
 
-def attn_decode(cfg: ModelConfig, p, x, cache: Dict, pos: torch.Tensor
+def _softmax_apply(s: torch.Tensor, valid: torch.Tensor, apply,
+                   group=None) -> torch.Tensor:
+    """``apply(softmax(s))``, the softmax over the last dim of the scores
+    ``s`` where ``valid``, and ``apply`` the product of the probabilities
+    with the values (..., D).  With ``group``, ``s`` holds this rank's
+    shard of the keys and the partials merge over ``group`` in f32 with
+    explicit collectives (the paper's distSM): a MAX All-Reduce of the
+    rows' maxima (``serve/attn-max``), then one SUM All-Reduce of the
+    exp-sums and the outputs at that max, in one buffer
+    (``serve/attn-sum``).  A masked slot adds exactly zero, and a row no
+    rank sees gives zeros, not NaN."""
+    s = torch.where(valid, s, NEG)
+    if group is None:
+        return apply(torch.softmax(s, dim=-1))
+    mx = collective("AllReduce", "serve/attn-max", s.amax(-1), group,
+                    op=dist.ReduceOp.MAX)
+    pr = torch.where(valid, torch.exp(s - mx[..., None]), 0.0)
+    both = collective("AllReduce", "serve/attn-sum",
+                      torch.cat([apply(pr), pr.sum(-1)[..., None]], -1),
+                      group)
+    l = both[..., -1:]
+    return both[..., :-1] / torch.where(l == 0, 1.0, l)
+
+
+def attn_decode(cfg: ModelConfig, p, x, cache: Dict, pos: torch.Tensor,
+                mesh=None, cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  x: (B, 1, d); pos: per-row (B,) int positions
     (continuous-batching engines re-prefill individual slots, so rows may
@@ -354,44 +436,83 @@ def attn_decode(cfg: ModelConfig, p, x, cache: Dict, pos: torch.Tensor
 
     The cache's tensors are updated in place (the JAX engine donates its
     cache to the decode step, so nothing reads the old values) and are
-    returned in a new dict."""
+    returned in a new dict.  On a mesh the cache is this rank's shard:
+    where it holds the rank's kv heads, its q heads attend them; where it
+    holds the rank's slots of every kv head (a sequence-sharded cache),
+    every q head is gathered, attends the rank's slots, and the partials
+    merge by distSM (:func:`_softmax_apply`); only the rank that holds the
+    new token's slot writes it.  ``cache_len``: MLA's cache length on a
+    mesh (its shard does not show whether it was split)."""
     if cfg.attn_type == "mla":
-        return _mla_decode(cfg, p, x, cache, pos)
+        return _mla_decode(cfg, p, x, cache, pos, mesh, cache_len)
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pos = pos.to(torch.int32).expand(B)
-    q, k1, v1 = _qkv(cfg, p, x, pos[:, None])      # per-row RoPE positions
     k, v, kpos = cache["k"], cache["v"], cache["kpos"]
-    W = k.shape[1]
+    W, Wl = kpos.shape[1], k.shape[1]
+    # per-row RoPE positions
+    hs = _heads(cfg, p, x, pos[:, None], mesh,
+                all_heads=k.shape[2] == Hkv)
     slot = (pos % W).long()
     rows = torch.arange(B, device=x.device)
-    k[rows, slot] = k1[:, 0]
-    v[rows, slot] = v1[:, 0]
     kpos[rows, slot] = pos
-    scale = 1.0 / math.sqrt(hd)
-    group = H // Hkv
-    qg = q.to(F32).reshape(B, Hkv, group, hd)     # grouped layout
-    s = torch.einsum("bhgd,bshd->bhgs", qg, k.to(F32)) * scale
-    valid = (kpos >= 0) & (kpos <= pos[:, None])
+    s0, group = 0, None
+    if Wl < W:                     # this rank's slots of every kv head
+        _, r, group = model_axis(mesh)
+        s0 = r * Wl
+        mine = ((slot >= s0) & (slot < s0 + Wl))[:, None, None]
+        ls = (slot - s0).clamp(0, Wl - 1)
+        k[rows, ls] = torch.where(mine, hs.k[:, 0], k[rows, ls])
+        v[rows, ls] = torch.where(mine, hs.v[:, 0], v[rows, ls])
+    else:
+        k[rows, slot] = hs.k[:, 0]
+        v[rows, slot] = hs.v[:, 0]
+    kp = kpos[:, s0:s0 + Wl]
+    valid = (kp >= 0) & (kp <= pos[:, None])
     if cfg.window:
-        valid = valid & (kpos > (pos - cfg.window)[:, None])
-    s = torch.where(valid[:, None, None, :], s,
-                    torch.tensor(NEG, dtype=F32, device=x.device))
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", pr, v.to(F32)).to(x.dtype)
-    o = o.reshape(B, 1, H * hd)
-    return o @ p["wo"], {"k": k, "v": v, "kpos": kpos}
+        valid = valid & (kp > (pos - cfg.window)[:, None])
+    qg = hs.q.to(F32).reshape(B, k.shape[2], -1, hd)   # grouped layout
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.to(F32)) * (1.0 / math.sqrt(hd))
+    vf = v.to(F32)
+    o = _softmax_apply(s, valid[:, None, None, :],
+                       lambda pr: torch.einsum("bhgs,bshd->bhgd", pr, vf),
+                       group)
+    o = o.to(x.dtype).reshape(B, 1, -1)
+    return (_heads_out(o, hs.h0 * hd, p["wo"], H * hd, mesh),
+            {"k": k, "v": v, "kpos": kpos})
 
 
 # =============================================================== MLA paths
 
 
+def _mla_heads(cfg: ModelConfig, p, mesh=None):
+    """(weights, h0): the MLA weights this rank runs and its first head.
+    Without a mesh, or where H splits over ``model``, the weights as they
+    are (``wuq``/``wuk``/``wuv``'s columns and ``wo``'s rows this rank's
+    whole heads); otherwise each split one is All-Gathered whole
+    (``tp/mla-gather``) and every rank runs every head."""
+    if mesh is None:
+        return p, 0
+    m, r, group = model_axis(mesh)
+    H = cfg.n_heads
+    if H % m == 0:
+        return p, r * (H // m)
+    dn, dr, dv = cfg.hd, cfg.rope_head_dim, cfg.v_head_dim
+    p = dict(p)
+    for key, cols, dim in (("wuq", H * (dn + dr), -1), ("wuk", H * dn, -1),
+                           ("wuv", H * dv, -1), ("wo", H * dv, 0)):
+        if split_over(p[key].shape[dim], cols, m):
+            p[key] = collective("AllGather", "tp/mla-gather", p[key], group,
+                                dim=dim)
+    return p, 0
+
+
 def _mla_q(cfg, p, x, positions):
     B, S, _ = x.shape
-    H, dn, dr = cfg.n_heads, cfg.hd, cfg.rope_head_dim
+    dn, dr = cfg.hd, cfg.rope_head_dim
     cq = x @ p["wdq"]
     cq = apply_norm(cfg.with_(norm_type="rmsnorm"), {"scale": p["q_norm"]}, cq)
-    q = (cq @ p["wuq"]).reshape(B, S, H, dn + dr)
+    q = (cq @ p["wuq"]).reshape(B, S, -1, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta)
     return q_nope, apply_rope(q_rope, cos, sin)
@@ -408,93 +529,152 @@ def _mla_kv_compress(cfg, p, x, positions):
     return ckv, kr
 
 
-def _mla_train(cfg, p, x, *, return_cache: bool = False):
+def _mla_train(cfg, p, x, *, return_cache: bool = False, mesh=None):
+    """MLA over the full sequence; on a mesh its heads are this rank's
+    (:func:`_mla_heads`), the output reduced by :func:`_heads_out`."""
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_head_dim
+    p, h0 = _mla_heads(cfg, p, mesh)
     positions = torch.arange(S, device=x.device)
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    n = q_nope.shape[2]
     ckv, kr = _mla_kv_compress(cfg, p, x, positions)
-    k_nope = (ckv @ p["wuk"]).reshape(B, S, H, dn)
-    v = (ckv @ p["wuv"]).reshape(B, S, H, dv)
-    q = torch.cat([q_nope, q_rope], -1)                        # (B,S,H,dn+dr)
-    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, dr)], -1)
+    k_nope = (ckv @ p["wuk"]).reshape(B, S, n, dn)
+    v = (ckv @ p["wuv"]).reshape(B, S, n, dv)
+    q = torch.cat([q_nope, q_rope], -1)                        # (B,S,n,dn+dr)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, n, dr)], -1)
     scale = 1.0 / math.sqrt(dn + dr)
     o = _attend(cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=True, window=None, scale=scale)
-    out = o.transpose(1, 2).reshape(B, S, H * dv) @ p["wo"]
+    out = _heads_out(o.transpose(1, 2).reshape(B, S, n * dv), h0 * dv,
+                     p["wo"], H * dv, mesh)
     if return_cache:
         return out, ckv, kr
     return out
 
 
-def _mla_decode(cfg, p, x, cache, pos):
+def _mla_prefill(cfg, p, x, cache_len: int, mesh=None):
+    """MLA's prefill: the output and its latent cache of ``cache_len``
+    slots, on a mesh this rank's slots (``sharding.cache_block``)."""
+    B, S, _ = x.shape
+    out, ckv, kr = _mla_train(cfg, p, x, return_cache=True, mesh=mesh)
+    s0, s1 = (0, cache_len) if mesh is None else cache_block(
+        "ckv", (B, cache_len, cfg.kv_lora_rank), mesh)[1]
+    src = _slot_positions(S, cache_len, s0, s1, x.device)
+    return out, {"ckv": _cache_rows(ckv, src), "kr": _cache_rows(kr, src)}
+
+
+def _mla_decode(cfg, p, x, cache, pos, mesh=None, cache_len=None):
     """Absorbed MLA decode: attention runs in the latent (kv_lora) space,
     the compressed cache is never decompressed.  ``pos``: per-row (B,).
     The cache's tensors are updated in place; a row at or past the cache's
-    length writes nothing, as JAX drops an out-of-bounds scatter."""
+    length writes nothing, as JAX drops an out-of-bounds scatter.  On a
+    mesh the heads are this rank's (:func:`_mla_heads`) and the cache its
+    shard of ``cache_len`` slots: on its slots of a sequence-sharded cache
+    every head's latent query is gathered (``tp/q-gather``) and the
+    partials merge by distSM."""
     B = x.shape[0]
     H, dn, dr, dv = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
     pos = pos.to(torch.int32).expand(B)
-    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])          # (B,1,H,*)
-    ckv1, kr1 = _mla_kv_compress(cfg, p, x, pos[:, None])     # (B,1,kvr),(B,1,dr)
     ckv, kr = cache["ckv"], cache["kr"]
-    S = ckv.shape[1]
+    Sl = ckv.shape[1]
+    S, s0, group = Sl, 0, None
+    if mesh is not None:
+        if cache_len is None:
+            raise ValueError("MLA's decode on a mesh needs the cache's "
+                             "length (cache_len)")
+        S = cache_len
+        s0 = cache_block("ckv", (B, S, kvr), mesh)[1][0]
+        if Sl < S:
+            group = model_axis(mesh)[2]
+    p, h0 = _mla_heads(cfg, p, mesh)
+    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])          # (B,1,n,*)
+    n = q_nope.shape[2]
+    ckv1, kr1 = _mla_kv_compress(cfg, p, x, pos[:, None])     # (B,1,kvr),(B,1,dr)
     rows = torch.arange(B, device=x.device)
-    slot = pos.clamp(max=S - 1).long()
-    keep = (pos < S)[:, None]
+    slot = (pos - s0).clamp(0, Sl - 1).long()
+    keep = ((pos < S) & (pos >= s0) & (pos < s0 + Sl))[:, None]
     ckv[rows, slot] = torch.where(keep, ckv1[:, 0], ckv[rows, slot])
     kr[rows, slot] = torch.where(keep, kr1[:, 0], kr[rows, slot])
-    wuk = p["wuk"].reshape(kvr, H, dn)
+    wuk = p["wuk"].reshape(kvr, n, dn)
     # absorb: q_lat[b,h,:] = W_uk[:,h,:] @ q_nope[b,h,:]
     q_lat = torch.einsum("bhd,khd->bhk", q_nope[:, 0].to(F32), wuk.to(F32))
-    s = torch.einsum("bhk,bsk->bhs", q_lat, ckv.to(F32))
-    s = s + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].to(F32), kr.to(F32))
+    q_r = q_rope[:, 0].to(F32)
+    if group is not None:          # every head over this rank's slots
+        both = collective("AllGather", "tp/q-gather",
+                          torch.cat([q_lat, q_r], -1), group, dim=1)
+        q_lat, q_r = both[..., :kvr], both[..., kvr:]
+    ckvf = ckv.to(F32)
+    s = torch.einsum("bhk,bsk->bhs", q_lat, ckvf)
+    s = s + torch.einsum("bhr,bsr->bhs", q_r, kr.to(F32))
     s = s * (1.0 / math.sqrt(dn + dr))
-    mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]  # (B,S)
-    s = torch.where(mask[:, None, :], s,
-                    torch.tensor(NEG, dtype=F32, device=x.device))
-    pr = torch.softmax(s, dim=-1)
-    ctx_lat = torch.einsum("bhs,bsk->bhk", pr, ckv.to(F32))   # (B,H,kvr)
-    wuv = p["wuv"].reshape(kvr, H, dv)
+    mask = (s0 + torch.arange(Sl, device=x.device))[None, :] <= pos[:, None]
+    ctx_lat = _softmax_apply(s, mask[:, None, :],
+                             lambda pr: torch.einsum("bhs,bsk->bhk", pr,
+                                                     ckvf), group)
+    if group is not None:
+        ctx_lat = ctx_lat[:, h0:h0 + n]                        # (B,n,kvr)
+    wuv = p["wuv"].reshape(kvr, n, dv)
     o = torch.einsum("bhk,khd->bhd", ctx_lat, wuv.to(F32)).to(x.dtype)
-    return o.reshape(B, 1, H * dv) @ p["wo"], {"ckv": ckv, "kr": kr}
+    return (_heads_out(o.reshape(B, 1, n * dv), h0 * dv, p["wo"], H * dv,
+                       mesh), {"ckv": ckv, "kr": kr})
 
 
 # ============================================================ cross-attn
 
 
-def cross_train(cfg: ModelConfig, p, x, enc: torch.Tensor) -> torch.Tensor:
+def cross_train(cfg: ModelConfig, p, x, enc: torch.Tensor, mesh=None
+                ) -> torch.Tensor:
     """Decoder cross-attention over encoder output ``enc`` (B, Se, d):
-    non-causal, no RoPE."""
-    B, S, d = x.shape
-    Se = enc.shape[1]
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (enc @ p["wk"]).reshape(B, Se, Hkv, hd)
-    v = (enc @ p["wv"]).reshape(B, Se, Hkv, hd)
-    o = _attend(cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=False, window=None, scale=1.0 / math.sqrt(hd))
-    return o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+    non-causal, no RoPE; on a mesh heads-parallel as :func:`attn_train`."""
+    q, h0 = _q_proj(cfg, p, x, mesh)
+    k, v, kv0 = _kv_proj(cfg, p, enc, mesh)
+    o = _attend_heads(cfg, _Heads(q, h0, k, v, kv0), causal=False,
+                      window=None)
+    return _heads_out(o, h0 * cfg.hd, p["wo"], cfg.n_heads * cfg.hd, mesh)
 
 
-def make_cross_cache(cfg: ModelConfig, p, enc: torch.Tensor) -> Dict:
-    B, Se, _ = enc.shape
-    Hkv, hd = cfg.n_kv_heads, cfg.hd
-    return {"k": (enc @ p["wk"]).reshape(B, Se, Hkv, hd),
-            "v": (enc @ p["wv"]).reshape(B, Se, Hkv, hd)}
+def make_cross_cache(cfg: ModelConfig, p, enc: torch.Tensor, mesh=None
+                     ) -> Dict:
+    """The encoder output's k/v, on a mesh this rank's block of them."""
+    k, v, kv0 = _kv_proj(cfg, p, enc, mesh)
+    if mesh is None:
+        return {"k": k, "v": v}
+    return _kv_cache(cfg, k, v, kv0, enc.shape[1], mesh, kpos=False)
 
 
-def cross_decode(cfg: ModelConfig, p, x, cross_cache: Dict) -> torch.Tensor:
+def cross_decode(cfg: ModelConfig, p, x, cross_cache: Dict, mesh=None
+                 ) -> torch.Tensor:
+    """One token's cross-attention over the cached encoder k/v.  On a mesh
+    the cache is this rank's block: its kv heads, attended by its q heads;
+    or else every kv head over its share of the frames, attended by every
+    q head, merged by distSM over ``model``.  The block does not show
+    whether the frames were split or kept whole on every rank; the merge
+    is right for both (m equal partials scale both sums by m)."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    group = H // Hkv
-    q = (x @ p["wq"]).reshape(B, H, hd)
-    kf, vf = cross_cache["k"].to(F32), cross_cache["v"].to(F32)
-    if group > 1:
-        kf = kf.repeat_interleave(group, dim=2)
-        vf = vf.repeat_interleave(group, dim=2)
-    s = torch.einsum("bhd,bshd->bhs", q.to(F32), kf) / math.sqrt(hd)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhs,bshd->bhd", pr, vf).to(x.dtype).reshape(B, 1, H * hd)
-    return o @ p["wo"]
+    if mesh is None:
+        group = H // Hkv
+        q = (x @ p["wq"]).reshape(B, H, hd)
+        kf, vf = cross_cache["k"].to(F32), cross_cache["v"].to(F32)
+        if group > 1:
+            kf = kf.repeat_interleave(group, dim=2)
+            vf = vf.repeat_interleave(group, dim=2)
+        s = torch.einsum("bhd,bshd->bhs", q.to(F32), kf) / math.sqrt(hd)
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhs,bshd->bhd", pr, vf).to(x.dtype).reshape(
+            B, 1, H * hd)
+        return o @ p["wo"]
+    kc, vc = cross_cache["k"], cross_cache["v"]
+    m, _, g_model = model_axis(mesh)
+    whole_heads = kc.shape[2] == Hkv
+    q, h0 = _q_proj(cfg, p, x, mesh, all_heads=whole_heads)
+    qg = q[:, 0].to(F32).reshape(B, kc.shape[2], -1, hd)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, kc.to(F32)) / math.sqrt(hd)
+    vf = vc.to(F32)
+    o = _softmax_apply(s, torch.ones_like(s, dtype=torch.bool),
+                       lambda pr: torch.einsum("bhgs,bshd->bhgd", pr, vf),
+                       g_model if whole_heads and m > 1 else None)
+    return _heads_out(o.to(x.dtype).reshape(B, 1, -1), h0 * hd, p["wo"],
+                      H * hd, mesh)

@@ -5,6 +5,12 @@ precomputed frame embeddings (B, S_enc, d) go straight into the encoder.
 Encoder layers are bidirectional; decoder layers add causal self-attention
 and cross-attention over the encoder output.  Layer parameters are stacked
 ``(L, ...)`` leaves; the port loops over layer slices where JAX scans.
+
+Prefill and decode take a ``(data, model)`` mesh as
+``transformer.prefill``/``decode`` do: the encoder pass, the decoder's
+self- and cross-attention and the MLPs are tensor-parallel over
+``model``, the ``src_embeds`` frames are this rank's rows, and the
+caches (self and cross) this rank's shards.
 """
 from __future__ import annotations
 
@@ -12,14 +18,15 @@ import functools
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from . import attention as attn
 from .config import ModelConfig
-from .layers import (apply_norm, embed_apply, embed_specs, mlp_apply,
-                     mlp_specs, norm_specs, unembed_apply)
+from .layers import (apply_norm, embed_specs, mlp_apply, mlp_specs,
+                     norm_specs, unembed_apply)
 from .param import torch_dtype, tree_map
-from .transformer import _layer, _n_layers, _remat, _stack, _unbind_layers
+from ..parallel.sharding import local_cache
+from .transformer import (_embed, _layer, _n_layers, _remat, _stack,
+                          _unbind_layers)
 
 __all__ = ["encdec_specs", "encdec_forward", "encdec_prefill",
            "encdec_decode", "encdec_init_cache"]
@@ -48,16 +55,18 @@ def encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------- encoder
 
 
-def _enc_layer(cfg: ModelConfig, x: torch.Tensor, pl: Dict) -> torch.Tensor:
+def _enc_layer(cfg: ModelConfig, mesh, x: torch.Tensor, pl: Dict
+               ) -> torch.Tensor:
     x = x + attn.attn_train(cfg, pl["attn"], apply_norm(cfg, pl["norm1"], x),
-                            causal=False)
-    return x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x))
+                            causal=False, mesh=mesh)
+    return x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x),
+                         mesh)
 
 
-def _encode(cfg: ModelConfig, params: Dict, src: torch.Tensor
+def _encode(cfg: ModelConfig, params: Dict, src: torch.Tensor, mesh=None
             ) -> torch.Tensor:
     x = src.to(torch_dtype(cfg.dtype))
-    layer = _remat(cfg, functools.partial(_enc_layer, cfg))
+    layer = _remat(cfg, functools.partial(_enc_layer, cfg, mesh))
     for pl in _unbind_layers(params["enc_layers"]):
         x = layer(x, pl)
     return apply_norm(cfg, params["enc_final_norm"], x)
@@ -78,7 +87,7 @@ def encdec_forward(cfg: ModelConfig, params: Dict, src_embeds: torch.Tensor,
                    tokens: torch.Tensor) -> torch.Tensor:
     """src_embeds (B, Se, d), tokens (B, S) -> logits (B, S, Vp)."""
     enc = _encode(cfg, params, src_embeds)
-    x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
+    x = _embed(cfg, params, tokens)
     layer = _remat(cfg, functools.partial(_dec_layer, cfg))
     for pl in _unbind_layers(params["dec_layers"]):
         x = layer(x, pl, enc)
@@ -90,7 +99,12 @@ def encdec_forward(cfg: ModelConfig, params: Dict, src_embeds: torch.Tensor,
 
 
 def encdec_init_cache(cfg: ModelConfig, B: int, cache_len: int,
-                      device: torch.device) -> Dict:
+                      device: torch.device, mesh=None) -> Dict:
+    """The empty cache; on a mesh this rank's shards of it, each made at
+    its own size."""
+    if mesh is not None:
+        return local_cache(encdec_init_cache(cfg, B, cache_len, "meta"),
+                           mesh, B, device)
     dt = torch_dtype(cfg.dtype)
     Se = max(1, cache_len // cfg.enc_ratio)
     self_c = attn.init_attn_cache(cfg, B, cache_len, dt, device)
@@ -106,59 +120,54 @@ def encdec_init_cache(cfg: ModelConfig, B: int, cache_len: int,
 
 
 def encdec_prefill(cfg: ModelConfig, params: Dict, src_embeds: torch.Tensor,
-                   tokens: torch.Tensor, cache_len: int
+                   tokens: torch.Tensor, cache_len: int, mesh=None
                    ) -> Tuple[torch.Tensor, Dict]:
     """Encode, run the decoder over the prompt; returns (logits for the last
-    position, cache): the self-attention cache grown to ``cache_len``, and
+    position, cache): the self-attention cache of ``cache_len`` slots, and
     each layer's cross-attention K/V of the encoder output."""
-    enc = _encode(cfg, params, src_embeds)
-    x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
+    enc = _encode(cfg, params, src_embeds, mesh)
+    x = _embed(cfg, params, tokens, mesh)
     B, S = tokens.shape
     caches = []
     for l in range(_n_layers(params["dec_layers"])):
         pl = _layer(params["dec_layers"], l)
         h, ca = attn.attn_prefill(cfg, pl["attn"],
-                                  apply_norm(cfg, pl["norm1"], x))
+                                  apply_norm(cfg, pl["norm1"], x), cache_len,
+                                  mesh)
         x = x + h
         x = x + attn.cross_train(cfg, pl["cross"],
-                                 apply_norm(cfg, pl["norm_x"], x), enc)
-        x = x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x))
-        caches.append({"self": ca,
-                       "cross": attn.make_cross_cache(cfg, pl["cross"], enc)})
+                                 apply_norm(cfg, pl["norm_x"], x), enc, mesh)
+        x = x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x),
+                          mesh)
+        caches.append({"self": ca, "cross": attn.make_cross_cache(
+            cfg, pl["cross"], enc, mesh)})
     caches = _stack(caches)
-    pad = cache_len - S
-
-    def grow(a):
-        # stacked self-attention leaves: k/v (L, B, S, H, hd) and the
-        # per-row kpos (L, B, S) pad the sequence axis 2; kpos with -1
-        # (an empty slot)
-        return F.pad(a, [0, 0] * (a.ndim - 3) + [0, pad],
-                     value=-1 if a.dtype == torch.int32 else 0)
-
     x = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
     return unembed_apply(cfg, params, x), {
         "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
-        "self": tree_map(grow, caches["self"]), "cross": caches["cross"]}
+        "self": caches["self"], "cross": caches["cross"]}
 
 
 def encdec_decode(cfg: ModelConfig, params: Dict, cache: Dict,
-                  tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                  tokens: torch.Tensor, mesh=None
+                  ) -> Tuple[torch.Tensor, Dict]:
     """One decode step; the self-attention cache is updated in place (see
     ``transformer.decode``), the cross cache only read."""
     B = tokens.shape[0]
     pos = torch.as_tensor(cache["pos"], dtype=torch.int32,
                           device=tokens.device).expand(B)
-    x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
+    x = _embed(cfg, params, tokens, mesh)
     for l in range(_n_layers(params["dec_layers"])):
         pl = _layer(params["dec_layers"], l)
         h, _ = attn.attn_decode(cfg, pl["attn"],
                                 apply_norm(cfg, pl["norm1"], x),
-                                _layer(cache["self"], l), pos)
+                                _layer(cache["self"], l), pos, mesh)
         x = x + h
         x = x + attn.cross_decode(cfg, pl["cross"],
                                   apply_norm(cfg, pl["norm_x"], x),
-                                  _layer(cache["cross"], l))
-        x = x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x))
+                                  _layer(cache["cross"], l), mesh)
+        x = x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x),
+                          mesh)
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed_apply(cfg, params, x), {
         "pos": pos + 1, "self": cache["self"], "cross": cache["cross"]}

@@ -6,7 +6,11 @@ placements) and the Megatron collectives of ``parallel/collective_planner``:
 the MLP is column-parallel over ``ff`` into its product and row-parallel
 out of it (*f* before, *g* after, both ``tp/ffn-out``); the embedding
 looks up the rank's block of the vocab and SUM-All-Reduces (``tp/embed``);
-the unembed gathers its vocab columns (``tp/unembed-gather``).
+the unembed gathers its vocab columns (``tp/unembed-gather``).  A weight
+that ``spec_for`` keeps whole (``d_ff`` or the vocab does not split) is
+used whole on every rank, with no collective.  Serving takes each rank's
+block of the vocab-sharded logits and :func:`greedy_token` picks the
+token over all of them (``serve/argmax``).
 """
 from __future__ import annotations
 
@@ -15,16 +19,17 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collective_planner import (enter_parallel,
+from ..parallel.collective_planner import (collective, enter_parallel,
                                            gather_replicated,
                                            leave_parallel, model_axis)
+from ..parallel.sharding import split_over
 from .config import ModelConfig
 from .param import ParamSpec
 
 __all__ = [
     "norm_specs", "apply_norm", "rope_cos_sin", "apply_rope",
     "mlp_specs", "mlp_apply", "embed_specs", "embed_apply", "unembed_apply",
-    "cross_entropy_loss",
+    "greedy_token", "cross_entropy_loss",
 ]
 
 F32 = torch.float32
@@ -100,16 +105,13 @@ def mlp_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor],
               x: torch.Tensor, mesh=None) -> torch.Tensor:
     """SwiGLU MLP: silu(x@wg) * (x@wi) @ wo.  On a mesh ``wi``/``wg`` are
     this rank's ``ff`` columns and ``wo`` its rows: the product is partial
-    and SUM-All-Reduced over ``model``."""
-    if mesh is None:
+    and SUM-All-Reduced over ``model``; where ``d_ff`` does not split, the
+    weights are whole and every rank computes the whole product."""
+    if mesh is None or not split_over(p["wi"].shape[-1], cfg.d_ff,
+                                      model_axis(mesh)[0]):
         h = F.silu(x @ p["wg"]) * (x @ p["wi"])
         return h @ p["wo"]
-    m, _, group = model_axis(mesh)
-    if p["wi"].shape[-1] * m != cfg.d_ff:
-        raise NotImplementedError(
-            f"d_ff {cfg.d_ff} does not split over {m} model ranks (its "
-            f"weights stay whole): an MLP over whole weights on a mesh "
-            f"waits for ROADMAP A.5, slice 14")
+    group = model_axis(mesh)[2]
     x = enter_parallel(x, group, "tp/ffn-out")
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     return leave_parallel(h @ p["wo"], group, "tp/ffn-out")
@@ -128,16 +130,19 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_apply(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                mesh=None) -> torch.Tensor:
+                mesh=None, vocab: Optional[int] = None) -> torch.Tensor:
     """Token embeddings.  On a mesh the table is this rank's block of the
     padded vocab: each rank looks up the tokens that fall in it (zeros
     elsewhere) and the rows are SUM-All-Reduced over ``model``, exact (one
-    nonzero term a row)."""
+    nonzero term a row).  Given the padded ``vocab``, a table kept whole
+    (``vocab`` does not split) is looked up whole, with no collective."""
     table = p["embedding"]
     if mesh is None:
         return table[tokens]
-    _, r, group = model_axis(mesh)
+    m, r, group = model_axis(mesh)
     v = table.shape[0]
+    if vocab is not None and not split_over(v, vocab, m):
+        return table[tokens]
     idx = tokens - r * v
     mine = (idx >= 0) & (idx < v)
     rows = torch.where(mine[..., None], table[idx.clamp(0, v - 1)], 0)
@@ -156,6 +161,31 @@ def unembed_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         w = gather_replicated(w, group, "tp/unembed-gather",
                               dim=0 if cfg.tie_embeddings else 1)
     return h @ w.T if cfg.tie_embeddings else h @ w
+
+
+def greedy_token(cfg: ModelConfig, logits: torch.Tensor, mesh=None
+                 ) -> torch.Tensor:
+    """The greedy token of each row of ``logits`` (..., V): the argmax over
+    the real vocab, ties to the lowest index (``jnp.argmax`` over the
+    padded logits cut to ``vocab_size``).  On a mesh ``logits`` are this
+    rank's block of the padded vocab; each rank's best (value, index)
+    pair is All-Gathered over ``model`` (``serve/argmax``, 8 bytes a row
+    and rank, where gathering the logits would move 4 V) and the largest
+    value wins, the lowest rank's on a tie, so the lowest index."""
+    cols = logits.shape[-1]
+    if mesh is None or not split_over(cols, cfg.padded_vocab,
+                                      model_axis(mesh)[0]):
+        return logits[..., :cfg.vocab_size].argmax(-1)
+    m, r, group = model_axis(mesh)
+    real = torch.arange(r * cols, (r + 1) * cols,
+                        device=logits.device) < cfg.vocab_size
+    lf = logits.float().masked_fill(~real, float("-inf"))
+    best, idx = lf.max(-1)
+    pairs = collective("AllGather", "serve/argmax",
+                       torch.stack([best, (idx + r * cols).float()]), group,
+                       dim=0).unflatten(0, (m, 2))
+    win = pairs[:, 0].argmax(0, keepdim=True)
+    return pairs[:, 1].gather(0, win)[0].long()
 
 
 # -------------------------------------------------------------------- loss

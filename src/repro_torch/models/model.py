@@ -63,22 +63,32 @@ class Model:
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int,
-                   device: Optional[Union[str, torch.device]] = None):
+                   device: Optional[Union[str, torch.device]] = None,
+                   mesh=None):
+        """The empty cache; on a ``(data, model)`` mesh this rank's shards
+        of it (``cache_shardings``), each made at its own size."""
         init = (encdec.encdec_init_cache if self.cfg.is_encdec
                 else transformer.init_cache)
-        return init(self.cfg, batch, cache_len, resolve_device(device))
+        return init(self.cfg, batch, cache_len, resolve_device(device), mesh)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
-                cache_len: int):
+                cache_len: int, mesh=None):
+        """(last position's logits, cache of ``cache_len`` slots).  On a
+        mesh ``batch`` is this rank's rows and ``params`` its shards; the
+        logits are its block of the vocab, the cache its shards."""
         if self.cfg.is_encdec:
             return encdec.encdec_prefill(self.cfg, params,
                                          batch["src_embeds"], batch["tokens"],
-                                         cache_len)
+                                         cache_len, mesh)
         return transformer.prefill(self.cfg, params, batch["tokens"],
-                                   cache_len)
+                                   cache_len, mesh)
 
-    def decode(self, params, cache, tokens: torch.Tensor):
-        """One decode step; updates ``cache``'s tensors in place."""
+    def decode(self, params, cache, tokens: torch.Tensor, mesh=None,
+               cache_len: Optional[int] = None):
+        """One decode step; updates ``cache``'s tensors in place.  On a
+        mesh as :meth:`prefill`; ``cache_len`` (the cache's slots) is read
+        by MLA's layers, whose shard does not show it."""
         if self.cfg.is_encdec:
-            return encdec.encdec_decode(self.cfg, params, cache, tokens)
-        return transformer.decode(self.cfg, params, cache, tokens)
+            return encdec.encdec_decode(self.cfg, params, cache, tokens, mesh)
+        return transformer.decode(self.cfg, params, cache, tokens, mesh,
+                                  cache_len)

@@ -8,7 +8,9 @@ package's ``shard_map``): each rank routes its rows of tokens with the
 replicated router, runs its ``E / m`` experts at the capacity of its own
 token count, and the partial outputs are SUM-All-Reduced over ``model``
 (``moe/combine``), with ``shard_map``'s transpose rules for the
-gradients (see :func:`moe_apply`).
+gradients (see :func:`moe_apply`).  Shared experts are tensor-parallel
+over ``ff`` (Megatron's *f* and *g*, ``moe/shared-out``), or whole where
+``ff`` does not split.
 
 Routing: softmax top-k over the selected logits (Qwen3-style, renormalized)
 or sigmoid + bias (DeepSeek-V3 aux-free: the bias picks the experts, the
@@ -23,10 +25,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collective_planner import (mesh_group, model_axis,
+from ..parallel.collective_planner import (enter_parallel, leave_parallel,
+                                           mesh_group, model_axis,
                                            split_cotangent, sum_cotangent,
                                            sum_over)
-from ..parallel.sharding import dp_axes
+from ..parallel.sharding import dp_axes, split_over
 from .config import ModelConfig
 from .param import ParamSpec
 
@@ -141,8 +144,22 @@ def moe_local(cfg: ModelConfig, x2d: torch.Tensor, gates: torch.Tensor,
     return contrib.view(T, k, d).sum(1)
 
 
-def _shared_ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["shared_wg"]) * (x @ p["shared_wi"])) @ p["shared_wo"]
+def _shared_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """The shared experts' SwiGLU.  On a mesh where their ``ff`` splits,
+    this rank's columns and rows give a partial product, SUM-All-Reduced
+    over ``model`` (*f* before, *g* after, both ``moe/shared-out``);
+    otherwise the weights are whole and so is the product."""
+    def ffn(v):
+        return (F.silu(v @ p["shared_wg"]) * (v @ p["shared_wi"])) \
+            @ p["shared_wo"]
+    fs = cfg.moe_d_ff * cfg.n_shared_experts
+    if mesh is None or not split_over(p["shared_wi"].shape[-1], fs,
+                                      model_axis(mesh)[0]):
+        return ffn(x)
+    group = model_axis(mesh)[2]
+    return leave_parallel(ffn(enter_parallel(x, group, "moe/shared-out")),
+                          group, "moe/shared-out")
 
 
 def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -166,16 +183,12 @@ def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         out = moe_local(cfg, x2d, gates, idx, p["wi"], p["wg"], p["wo"], 0,
                         E, capacity(cfg, B * S))
         if cfg.n_shared_experts:
-            out = out + _shared_ffn(p, x2d)
+            out = out + _shared_ffn(cfg, p, x2d)
         return out.reshape(B, S, d)
 
     m, r, g_model = model_axis(mesh)
     if E % m:
         raise ValueError(f"{E} experts do not split over {m} model ranks")
-    if cfg.n_shared_experts and m > 1:
-        raise NotImplementedError(
-            "tensor-parallel shared experts are not ported: ROADMAP A.5, "
-            "slice 14")
     e_local = E // m
     dp = dp_axes(mesh)
     g_data = mesh.get_group(dp[0]) if dp else None
@@ -193,5 +206,5 @@ def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                   r * e_local, e_local, capacity(cfg, B * S))
     out = split_cotangent(sum_over(y, g_model, "moe/combine"), m)
     if cfg.n_shared_experts:
-        out = out + _shared_ffn(p, x2d)
+        out = out + _shared_ffn(cfg, p, x2d, mesh)
     return out.reshape(B, S, d)

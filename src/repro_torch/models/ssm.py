@@ -5,6 +5,18 @@ Port of ``repro/models/ssm.py``.  Train/prefill route through the chunked
 algorithm (the SSD kernel with ``use_kernels``, else the chunked
 reference) at the chunk the COMET plan chooses (:func:`plan_chunk`);
 decode is the O(1) recurrence h' = exp(dA) h + B ⊗ x·dt.
+
+Prefill and decode take a ``(data, model)`` mesh (``mesh=``; x is this
+rank's rows, the params its shards).  ``in_proj`` packs z|x|B|C|dt and
+``conv_w`` x|B|C, so a rank's column blocks mix the parts: the in_proj
+output is All-Gathered over ``model``, the depthwise conv runs on the
+rank's own channel block (its shard of the conv cache), and the conv
+output is All-Gathered (both ``tp/ssm-gather``).  The rank's SSM heads
+(its shard of the state cache) run through the scan, B/C in group form;
+the gated norm's partial sums of squares are SUM-All-Reduced over
+``model`` (``tp/ssm-norm``: the distributed-norm epilogue of the paper's
+GEMM-LayerNorm) and ``out_proj``'s rows give a partial product reduced
+the same way (``tp/ssm-out``).  Weights kept whole run whole.
 """
 from __future__ import annotations
 
@@ -16,6 +28,8 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 from ..kernels import ssd
 from ..kernels.autotune import ssd_chunk_len
+from ..parallel.collective_planner import collective, model_axis
+from ..parallel.sharding import cache_block, split_over
 from .config import ModelConfig
 from .param import ParamSpec
 
@@ -75,30 +89,46 @@ def _conv1d(cfg: ModelConfig, w: torch.Tensor, b: torch.Tensor,
 
 
 def _ssd_inputs(cfg: ModelConfig, p, xbc_conv: torch.Tensor,
-                dt_raw: torch.Tensor):
-    """Split conv output & build (xh, xdt, dA, B, C) for the SSD scan.  B
-    and C stay in group form, (B, S, ngroups, ns) views of ``xbc_conv``:
-    the scan reads each group once for its heads (the JAX package repeats
-    them to every head, ``jnp.repeat``, which ``_group_heads`` does for
-    the one-token decode step)."""
+                dt_raw: torch.Tensor, h0: int = 0, n: Optional[int] = None):
+    """Split conv output & build (xh, xdt, dA, B, C) for the SSD scan of
+    heads [h0, h0 + n) (default all).  B and C stay in group form, (B, S,
+    groups, ns) views of ``xbc_conv``: the scan reads each group once for
+    its heads (the JAX package repeats them to every head, ``jnp.repeat``,
+    which ``_per_head`` does for the one-token decode step)."""
     di, ng, ns, nh, hp = (cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state,
                           cfg.ssm_nheads, cfg.ssm_headdim)
+    n = nh if n is None else n
     B_, S = dt_raw.shape[0], dt_raw.shape[1]
-    xin = xbc_conv[..., :di]
+    xin = xbc_conv[..., h0 * hp:(h0 + n) * hp]
     Bm = xbc_conv[..., di:di + ng * ns].unflatten(-1, (ng, ns))
     Cm = xbc_conv[..., di + ng * ns:].unflatten(-1, (ng, ns))
-    dt = F.softplus(dt_raw.to(F32) + p["dt_bias"].to(F32))       # (B,S,nh)
-    A = -torch.exp(p["A_log"].to(F32))                            # (nh,)
-    dA = dt * A                                                   # (B,S,nh)
-    xh = xin.reshape(B_, S, nh, hp)
+    if n < nh:
+        Bm, Cm = _head_groups(cfg, Bm, h0, n), _head_groups(cfg, Cm, h0, n)
+    heads = slice(h0, h0 + n)
+    dt = F.softplus(dt_raw[..., heads].to(F32)
+                    + p["dt_bias"][heads].to(F32))                # (B,S,n)
+    A = -torch.exp(p["A_log"][heads].to(F32))                     # (n,)
+    dA = dt * A                                                   # (B,S,n)
+    xh = xin.reshape(B_, S, n, hp)
     xdt = xh.to(F32) * dt[..., None]
     return xh, xdt, dA, Bm, Cm
 
 
-def _group_heads(cfg: ModelConfig, Bm: torch.Tensor) -> torch.Tensor:
-    """(..., ngroups, ns) -> (..., nheads, ns), each group's heads adjacent
+def _head_groups(cfg: ModelConfig, Bm: torch.Tensor, h0: int, n: int
+                 ) -> torch.Tensor:
+    """B or C (..., ngroups, ns) in group form for heads [h0, h0 + n): the
+    groups they read, or, where their heads do not tile whole groups or
+    one group, one row a head."""
+    r = cfg.ssm_nheads // cfg.ssm_ngroups
+    if n % r == 0 or r % n == 0:
+        return Bm[..., h0 // r:h0 // r + max(1, n // r), :]
+    return _per_head(Bm, cfg.ssm_nheads)[..., h0:h0 + n, :]
+
+
+def _per_head(Bm: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., groups, ns) -> (..., n heads, ns), each group's heads adjacent
     (``jnp.repeat``)."""
-    return Bm.repeat_interleave(cfg.ssm_nheads // cfg.ssm_ngroups, dim=-2)
+    return Bm.repeat_interleave(n // Bm.shape[-2], dim=-2)
 
 
 def plan_chunk(cfg: ModelConfig, S: int) -> int:
@@ -168,30 +198,87 @@ def init_ssm_cache(cfg: ModelConfig, B: int, dtype: torch.dtype,
     }
 
 
+def _mesh_conv(cfg: ModelConfig, p, proj: torch.Tensor, mesh,
+               prev: Optional[torch.Tensor] = None):
+    """On a mesh: (the whole in_proj output, this rank's block of the conv
+    input channels x|B|C, the whole conv output).  ``proj`` holds this
+    rank's in_proj columns and is All-Gathered where they are split; the
+    depthwise conv runs on the rank's channel block (``prev``: its rows of
+    the conv cache), and its output is All-Gathered where the channels
+    are split (both ``tp/ssm-gather``)."""
+    m, r, group = model_axis(mesh)
+    di, cd = cfg.d_inner, cfg.conv_dim
+    if split_over(proj.shape[-1], di + cd + cfg.ssm_nheads, m):
+        proj = collective("AllGather", "tp/ssm-gather", proj, group)
+    c = p["conv_w"].shape[-1]
+    split = split_over(c, cd, m)
+    c0 = r * c if split else 0
+    raw = proj[..., di + c0:di + c0 + c]
+    xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], raw, prev=prev)
+    if split:
+        xbc = collective("AllGather", "tp/ssm-gather", xbc, group)
+    return proj, raw, xbc
+
+
+def _mixer_out(cfg: ModelConfig, p, y: torch.Tensor, z: torch.Tensor,
+               h0: int, mesh=None) -> torch.Tensor:
+    """The gated RMS norm (over all of d_inner) and ``out_proj`` of heads
+    [h0, h0 + n)'s y (B, S, n hp) in the model dtype, gated by their
+    columns of the whole z.  On a mesh the rank's partial sums of squares
+    are SUM-All-Reduced (``tp/ssm-norm``) where it holds part of the
+    heads, and its rows of ``out_proj`` give a partial product,
+    SUM-All-Reduced (``tp/ssm-out``); weights kept whole run whole."""
+    di, rows = cfg.d_inner, p["out_proj"].shape[0]
+    c0, cols = h0 * cfg.ssm_headdim, y.shape[-1]
+    zl = z[..., c0:c0 + cols]
+    # whole out_proj rows: d_inner does not split, nor do the heads
+    if mesh is None or not split_over(rows, di, model_axis(mesh)[0]):
+        return _gated_norm(cfg, p["norm_scale"], y, zl) @ p["out_proj"]
+    m, r, group = model_axis(mesh)
+    yf = (y * F.silu(zl)).to(F32)
+    if cols < di:
+        ms = collective("AllReduce", "tp/ssm-norm",
+                        (yf * yf).sum(-1, keepdim=True), group) / di
+    else:
+        ms = (yf * yf).mean(-1, keepdim=True)
+    yn = yf * torch.rsqrt(ms + cfg.norm_eps)
+    c = r * rows - c0
+    yo = (yn[..., c:c + rows] * p["norm_scale"].to(F32)).to(y.dtype)
+    return collective("AllReduce", "tp/ssm-out", yo @ p["out_proj"], group)
+
+
 def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor,
-                chunk: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+                chunk: Optional[int] = None, mesh=None
+                ) -> Tuple[torch.Tensor, Dict]:
     """Full-seq forward + final recurrent state for decode continuation.
     ``chunk``: the SSD chunk, resolved through :func:`plan_chunk` when not
-    given."""
+    given.  On a mesh the cache is this rank's shard (its conv channels,
+    its heads' state)."""
     B_, S, _ = x.shape
-    di = cfg.d_inner
+    nh, ns, hp = cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_headdim
     proj = x @ p["in_proj"]
-    z, xin, Bm, Cm, dt_raw = _split_proj(cfg, proj)
-    xbc_raw = torch.cat([xin, Bm, Cm], dim=-1)
-    xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc_raw)
-    xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw)
+    h0, n = 0, nh
+    if mesh is None:
+        z, xin, Bm, Cm, dt_raw = _split_proj(cfg, proj)
+        xbc_raw = torch.cat([xin, Bm, Cm], dim=-1)
+        xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc_raw)
+    else:
+        proj, xbc_raw, xbc = _mesh_conv(cfg, p, proj, mesh)
+        z, _, _, _, dt_raw = _split_proj(cfg, proj)
+        h0, h1 = cache_block("state", (B_, nh, ns, hp), mesh)[1]
+        n = h1 - h0
+    xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw, h0, n)
     y = _ssd_scan(cfg, xdt, dA, Bm, Cm,
                   plan_chunk(cfg, S) if chunk is None else chunk)
-    y = y + xh.to(F32) * p["D"].to(F32)[None, None, :, None]
-    yo = _gated_norm(cfg, p["norm_scale"], y.reshape(B_, S, di).to(x.dtype),
-                     z)
-    out = yo @ p["out_proj"]
+    y = y + xh.to(F32) * p["D"][h0:h0 + n].to(F32)[None, None, :, None]
+    out = _mixer_out(cfg, p, y.reshape(B_, S, n * hp).to(x.dtype), z, h0,
+                     mesh)
     # final state: h_S = sum_t exp(sum_{u>t} dA_u) B_t xdt_t^T  (per head),
     # one f32 einsum over the whole sequence as in the JAX package, with
     # each group's B shared by its heads: (B,S,ng,r,hp) against (B,S,ng,ns).
     # The cumsum runs along the contiguous dim (a scan across the middle
     # dim of (B,S,nh) is the card's slowest pass of the prefill)
-    ng, ns = Bm.shape[-2:]
+    ng = Bm.shape[-2]
     cs = torch.cumsum(dA.transpose(1, 2).contiguous(), dim=-1)  # (B,nh,S)
     decay = torch.exp(cs[..., -1:] - cs).transpose(1, 2)      # (B,S,nh)
     xd = (decay[..., None] * xdt).unflatten(2, (ng, -1))      # (B,S,ng,r,hp)
@@ -201,30 +288,39 @@ def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor,
     return out, {"conv": conv_state, "state": state}
 
 
-def ssm_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: Dict
-               ) -> Tuple[torch.Tensor, Dict]:
+def ssm_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: Dict,
+               mesh=None) -> Tuple[torch.Tensor, Dict]:
     """One-token step.  x: (B, 1, d).
 
     The cache's tensors are updated in place (the JAX engine donates its
     cache to the decode step), after every read of their old values, and
-    are returned in a new dict."""
+    are returned in a new dict.  On a mesh the cache is this rank's shard
+    (its conv channels, its heads' state)."""
     B_ = x.shape[0]
-    di = cfg.d_inner
+    nh, hp = cfg.ssm_nheads, cfg.ssm_headdim
     proj = x @ p["in_proj"]
-    z, xin, Bm, Cm, dt_raw = _split_proj(cfg, proj)
-    xbc1 = torch.cat([xin, Bm, Cm], dim=-1)                   # (B,1,cd)
     conv_prev = cache["conv"]
-    xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc1, prev=conv_prev)
+    n = cache["state"].shape[1]
+    h0 = 0
+    if mesh is None:
+        z, xin, Bm, Cm, dt_raw = _split_proj(cfg, proj)
+        xbc1 = torch.cat([xin, Bm, Cm], dim=-1)               # (B,1,cd)
+        xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc1, prev=conv_prev)
+    else:
+        proj, xbc1, xbc = _mesh_conv(cfg, p, proj, mesh, conv_prev)
+        z, _, _, _, dt_raw = _split_proj(cfg, proj)
+        if n < nh:
+            h0 = model_axis(mesh)[1] * n
     new_conv = torch.cat([conv_prev, xbc1], dim=1)[:, 1:, :]  # a new tensor
-    xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw)
-    Bh, Ch = _group_heads(cfg, Bm[:, 0]), _group_heads(cfg, Cm[:, 0])
+    xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw, h0, n)
+    Bh, Ch = _per_head(Bm[:, 0], n), _per_head(Cm[:, 0], n)
     # recurrence: h' = exp(dA) h + B ⊗ xdt
     h = torch.exp(dA[:, 0, :, None, None]) * cache["state"] \
         + torch.einsum("bhn,bhp->bhnp", Bh.to(F32), xdt[:, 0])
-    y = torch.einsum("bhn,bhnp->bhp", Ch.to(F32), h)          # (B,nh,hp)
-    y = y + xh[:, 0].to(F32) * p["D"].to(F32)[None, :, None]
-    y = y.reshape(B_, 1, di).to(x.dtype)
-    y = _gated_norm(cfg, p["norm_scale"], y, z)
+    y = torch.einsum("bhn,bhnp->bhp", Ch.to(F32), h)          # (B,n,hp)
+    y = y + xh[:, 0].to(F32) * p["D"][h0:h0 + n].to(F32)[None, :, None]
+    y = y.reshape(B_, 1, n * hp).to(x.dtype)
     cache["conv"].copy_(new_conv)
     cache["state"].copy_(h)
-    return y @ p["out_proj"], {"conv": cache["conv"], "state": cache["state"]}
+    return (_mixer_out(cfg, p, y, z, h0, mesh),
+            {"conv": cache["conv"], "state": cache["state"]})

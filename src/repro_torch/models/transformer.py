@@ -18,8 +18,15 @@ GQA attention, the dense MLP and the unembed are tensor-parallel and the
 MoE FFN expert-parallel over ``model`` (``layers``, ``attention``,
 ``moe``).  The recompute of a checkpointed layer runs in
 ``collective_planner.recompute_region``, so that its repeated forward
-collectives are recorded apart.  MLA, SSM, hybrid and enc-dec layers and
-DeepSeek's dense stack run on a mesh only with ``model == 1``.
+collectives are recorded apart.  Training MLA, SSM, hybrid and enc-dec
+layers, shared experts and DeepSeek's dense stack on a model axis wider
+than one waits for ROADMAP A.5, slice 15 (:func:`check_mesh`).
+
+``prefill``/``decode`` serve every family on a mesh: each rank runs its
+rows (``batch_spec``) and its shards of the params (``param_shardings``)
+and of the cache (``cache_shardings``; ``init_cache(mesh=)`` makes the
+shards at their own size), and returns its block of the vocab-sharded
+logits (``layers.greedy_token`` picks the token across them).
 """
 from __future__ import annotations
 
@@ -28,7 +35,6 @@ import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -38,6 +44,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
+from ..parallel.sharding import local_cache
 from .layers import (apply_norm, embed_apply, embed_specs, mlp_apply,
                      mlp_specs, norm_specs, unembed_apply)
 from .param import ParamSpec, torch_dtype, tree_leaves, tree_map
@@ -162,6 +169,12 @@ def _ffn_residual(cfg: ModelConfig, pl: Dict, x: torch.Tensor,
     return x
 
 
+def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, mesh=None
+           ) -> torch.Tensor:
+    return embed_apply(params, tokens, mesh, cfg.padded_vocab).to(
+        torch_dtype(cfg.dtype))
+
+
 def _hybrid_mix(pl: Dict, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Hymba's parallel heads: 0.5 * (a * alpha_attn + s * alpha_ssm), each
     product and sum rounded in the model dtype, in the JAX order."""
@@ -188,17 +201,19 @@ def _layer_train(cfg: ModelConfig, mesh, x: torch.Tensor, pl: Dict,
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise for the layers that are not tensor-parallel yet on a mesh
-    with a ``model`` axis wider than one."""
+    """Raise for the layers whose training forward is not tensor-parallel
+    yet on a mesh with a ``model`` axis wider than one (they serve there:
+    :func:`prefill`, :func:`decode`)."""
     if mesh is None or model_axis(mesh)[0] == 1:
         return
     if cfg.has_ssm or cfg.first_dense_layers or cfg.is_encdec \
-            or cfg.seq_shard or not cfg.tensor_parallel:
+            or cfg.n_shared_experts or cfg.seq_shard \
+            or not cfg.tensor_parallel:
         raise NotImplementedError(
-            f"{cfg.name} on a model axis of {model_axis(mesh)[0]}: tensor "
-            f"parallelism of SSM, hybrid, enc-dec and DeepSeek's dense "
-            f"layers (and the seq_shard and tensor_parallel=False knobs) "
-            f"waits for ROADMAP A.5, slice 14")
+            f"{cfg.name} on a model axis of {model_axis(mesh)[0]}: training "
+            f"SSM, hybrid, enc-dec layers, shared experts and DeepSeek's "
+            f"dense layers tensor-parallel (and the seq_shard and "
+            f"tensor_parallel=False knobs) waits for ROADMAP A.5, slice 15")
 
 
 # ---------------------------------------------------------------- forward
@@ -210,7 +225,7 @@ def hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     norm's output (B, S, d).  On a mesh, tokens are this rank's rows and
     ``params`` its shards; the output is replicated over ``model``."""
     check_mesh(cfg, mesh)
-    x = embed_apply(params, tokens, mesh).to(torch_dtype(cfg.dtype))
+    x = _embed(cfg, params, tokens, mesh)
     chunk = _ssd_chunk(cfg, tokens.shape[1])
     for key, _, c, _ in _stacks(cfg):
         layer = _remat(c, functools.partial(_layer_train, c, mesh))
@@ -241,7 +256,13 @@ def _layer_cache(cfg: ModelConfig, B: int, cache_len: int,
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int,
-               device: torch.device) -> Dict:
+               device: torch.device, mesh=None) -> Dict:
+    """The empty cache of B rows and ``cache_len`` slots; on a mesh this
+    rank's shards of it (``cache_shardings``), each made at its own
+    size."""
+    if mesh is not None:
+        return local_cache(init_cache(cfg, B, cache_len, "meta"), mesh, B,
+                           device)
     # per-row positions from the start (see decode)
     out: Dict[str, Any] = {"pos": torch.zeros((B,), dtype=torch.int32,
                                               device=device)}
@@ -254,19 +275,19 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int,
 # ---------------------------------------------------------------- prefill
 
 
-def _layer_prefill(cfg, x, pl, chunk):
+def _layer_prefill(cfg, x, pl, chunk, cache_len=None, mesh=None):
     h = apply_norm(cfg, pl["norm1"], x)
     if cfg.family == "hybrid":
-        a, ca = attn.attn_prefill(cfg, pl["attn"], h)
-        s, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk)
+        a, ca = attn.attn_prefill(cfg, pl["attn"], h, cache_len, mesh)
+        s, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk, mesh)
         mix, new_c = _hybrid_mix(pl, a, s), {"attn": ca, "ssm": cs}
     elif cfg.has_ssm:
-        mix, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk)
+        mix, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk, mesh)
         new_c = {"ssm": cs}
     else:
-        mix, ca = attn.attn_prefill(cfg, pl["attn"], h)
+        mix, ca = attn.attn_prefill(cfg, pl["attn"], h, cache_len, mesh)
         new_c = {"attn": ca}
-    return _ffn_residual(cfg, pl, x + mix), new_c
+    return _ffn_residual(cfg, pl, x + mix, mesh), new_c
 
 
 def _stack(trees):
@@ -278,64 +299,45 @@ def _stack(trees):
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            cache_len: int) -> Tuple[torch.Tensor, Dict]:
-    """Process the prompt; returns (logits for last position, cache).
-
-    The cache is padded/relaid to ``cache_len`` slots.
-    """
+            cache_len: int, mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """Process the prompt; returns (logits for last position, cache of
+    ``cache_len`` slots).  On a mesh: this rank's rows of tokens, its
+    block of the logits and its shard of the cache."""
     B, S = tokens.shape
-    x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
+    x = _embed(cfg, params, tokens, mesh)
     chunk = _ssd_chunk(cfg, S)
     cache: Dict[str, Any] = {
         "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device)}
     for key, ckey, c, _ in _stacks(cfg):
         per_layer = []
         for l in range(_n_layers(params[key])):
-            x, lc = _layer_prefill(c, x, _layer(params[key], l), chunk)
+            x, lc = _layer_prefill(c, x, _layer(params[key], l), chunk,
+                                   cache_len, mesh)
             per_layer.append(lc)
-        cache[ckey] = _pad_cache(c, _stack(per_layer), cache_len)
+        cache[ckey] = _stack(per_layer)
     x = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
     return unembed_apply(cfg, params, x), cache
-
-
-def _pad_cache(cfg: ModelConfig, c: Dict, cache_len: int) -> Dict:
-    """Grow stacked attention caches (seq dim S or ring W, axis 2 of
-    (L, B, S, ...)) to the serving cache_len; ``kpos`` pads with -1.  MLA's
-    ``ckv``/``kr`` (no window) grow to cache_len.  The ssm cache has no
-    sequence axis and passes through unchanged."""
-    W = min(cfg.window, cache_len) if cfg.window else cache_len
-
-    def pad_leaf(a):
-        pad = W - a.shape[2]
-        if pad <= 0:
-            return a
-        return F.pad(a, [0, 0] * (a.ndim - 3) + [0, pad],
-                     value=-1 if a.dtype == torch.int32 else 0)
-
-    out = dict(c)
-    if "attn" in c:
-        out["attn"] = {k: pad_leaf(a) for k, a in c["attn"].items()}
-    return out
 
 
 # ----------------------------------------------------------------- decode
 
 
-def _layer_decode(cfg, x, pl, cl, pos):
+def _layer_decode(cfg, x, pl, cl, pos, mesh=None, cache_len=None):
     h = apply_norm(cfg, pl["norm1"], x)
     if cfg.family == "hybrid":
-        a, _ = attn.attn_decode(cfg, pl["attn"], h, cl["attn"], pos)
-        s, _ = ssm_mod.ssm_decode(cfg, pl["ssm"], h, cl["ssm"])
+        a, _ = attn.attn_decode(cfg, pl["attn"], h, cl["attn"], pos, mesh)
+        s, _ = ssm_mod.ssm_decode(cfg, pl["ssm"], h, cl["ssm"], mesh)
         mix = _hybrid_mix(pl, a, s)
     elif cfg.has_ssm:
-        mix, _ = ssm_mod.ssm_decode(cfg, pl["ssm"], h, cl["ssm"])
+        mix, _ = ssm_mod.ssm_decode(cfg, pl["ssm"], h, cl["ssm"], mesh)
     else:
-        mix, _ = attn.attn_decode(cfg, pl["attn"], h, cl["attn"], pos)
-    return _ffn_residual(cfg, pl, x + mix)
+        mix, _ = attn.attn_decode(cfg, pl["attn"], h, cl["attn"], pos, mesh,
+                                  cache_len)
+    return _ffn_residual(cfg, pl, x + mix, mesh)
 
 
-def decode(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tensor
-           ) -> Tuple[torch.Tensor, Dict]:
+def decode(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tensor,
+           mesh=None, cache_len=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: (B, 1) -> (logits (B, 1, Vp), new cache).
 
     ``cache['pos']`` may be a scalar (every row at the same depth) or a
@@ -344,16 +346,18 @@ def decode(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tensor
 
     The stacked cache tensors are updated in place, layer slice by layer
     slice (the JAX engine donates the cache to this step); the returned
-    dict holds the same tensors and the advanced positions."""
+    dict holds the same tensors and the advanced positions.  On a mesh:
+    this rank's rows, its block of the logits and its shard of the cache
+    (``cache_len``, the cache's slots, is read by MLA's layers only)."""
     B = tokens.shape[0]
     pos = torch.as_tensor(cache["pos"], dtype=torch.int32,
                           device=tokens.device).expand(B)
-    x = embed_apply(params, tokens).to(torch_dtype(cfg.dtype))
+    x = _embed(cfg, params, tokens, mesh)
     out: Dict[str, Any] = {"pos": pos + 1}
     for key, ckey, c, _ in _stacks(cfg):
         for l in range(_n_layers(params[key])):
             x = _layer_decode(c, x, _layer(params[key], l),
-                              _layer(cache[ckey], l), pos)
+                              _layer(cache[ckey], l), pos, mesh, cache_len)
         out[ckey] = cache[ckey]
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed_apply(cfg, params, x), out

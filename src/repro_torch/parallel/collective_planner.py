@@ -435,7 +435,7 @@ def sharded_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
     if len(dp) > 1:
         raise NotImplementedError(
             "sharded_softmax_xent over two data axes (pod, data) is not "
-            "ported: it waits for the pod axis of ROADMAP A.5, slice 14")
+            "ported: it waits for the pod axis of ROADMAP A.5, slice 15")
     P_model = mesh_axes(mesh)["model"]
     Vp = v_local * P_model
     if strategy == "auto":

@@ -19,20 +19,27 @@ sizes (``mesh.mesh_dim_names``, ``mesh.shape``): a ``DeviceMesh`` or a
 applies them through :func:`shard_tree` (each rank's shard of every leaf,
 ``jax.device_put`` onto a sharding's counterpart) and :func:`local_shard`;
 :func:`gather_leaf` and :func:`gather_tree` put the full leaves back
-together (checkpoints, elastic resharding, tests).
+together (checkpoints, elastic resharding, tests).  For serving on a
+mesh, :func:`shard_bounds` gives a rank's block of a placed tensor,
+:func:`cache_block` the block of one layer's cache leaf (sequence or ring
+slots, kv heads, SSM heads, conv channels) by :func:`cache_shardings`'
+rule, and :func:`local_cache` makes a rank's cache shards at their own
+size.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import torch
 from torch.distributed.tensor import Replicate, Shard
 
 from ..models.param import tree_map, tree_zip
 
 __all__ = ["LOGICAL_RULES", "MeshShape", "mesh_axes", "dp_axes", "dp_size",
            "spec_for", "param_shardings", "zero1_spec", "zero1_shardings",
-           "batch_spec", "cache_shardings",
-           "partition_spec", "local_shard", "shard_leaf", "shard_tree",
+           "batch_spec", "cache_shardings", "split_over", "shard_bounds",
+           "cache_block", "local_cache", "partition_spec", "local_shard", "shard_leaf", "shard_tree",
            "gather_leaf", "gather_tree"]
 
 # logical axis -> mesh axis (None = replicate)
@@ -220,6 +227,61 @@ def cache_shardings(cache, mesh, batch: int):
     return walk(cache, ())
 
 
+def split_over(local: int, full: int, m: int) -> bool:
+    """Whether a dim of ``full`` with ``local`` of it on this rank is split
+    over ``m`` ranks (``spec_for`` split it), not kept whole on each; on a
+    one-rank axis a dim is split into one block."""
+    return local * m == full
+
+
+def shard_bounds(shape: Sequence[int], placements: Sequence, mesh
+                 ) -> Tuple[Tuple[int, int], ...]:
+    """This rank's (start, stop) on every dim of a tensor of ``shape``
+    under ``placements``: the block :func:`local_shard` takes, outer mesh
+    dims first."""
+    bounds = [(0, int(n)) for n in shape]
+    for name, size, p in zip(mesh.mesh_dim_names, mesh.shape, placements):
+        if isinstance(p, Shard) and size > 1:
+            a, b = bounds[p.dim]
+            if (b - a) % size:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"split into {size} shards")
+            n = (b - a) // size
+            c = mesh.get_local_rank(name)
+            bounds[p.dim] = (a + c * n, a + (c + 1) * n)
+    return tuple(bounds)
+
+
+def cache_block(name: str, shape: Sequence[int], mesh
+                ) -> Tuple[Tuple[int, int], ...]:
+    """This rank's (start, stop) on each dim of one layer's cache leaf
+    ``name`` (``"k"``, ``"v"``, ``"ckv"``, ``"kr"``, ``"conv"``,
+    ``"state"``) of shape ``shape`` (batch first), by
+    :func:`cache_shardings`' rule over ``model``; the batch is left whole
+    (the caller holds its own rows).  A ring cache is split by slot
+    index, as any other sequence."""
+    stacked = (1,) + tuple(int(n) for n in shape)
+    placed = cache_shardings({name: SimpleNamespace(shape=stacked)}, mesh,
+                             batch=0)[name]
+    return shard_bounds(stacked, placed, mesh)[1:]
+
+
+def local_cache(cache, mesh, batch: int, device):
+    """This rank's shards of ``cache`` (a tree of tensors on the ``meta``
+    device: the whole cache's shapes and dtypes) under
+    :func:`cache_shardings`, each made at its shard's size and never
+    whole: zeros, ``kpos`` -1 (an empty slot)."""
+    placed = cache_shardings(cache, mesh, batch)
+
+    def make(t, p, key):
+        if isinstance(t, dict):
+            return {k: make(t[k], p[k], k) for k in t}
+        shape = [b - a for a, b in shard_bounds(t.shape, p, mesh)]
+        return torch.full(shape, -1 if key == "kpos" else 0, dtype=t.dtype,
+                          device=device)
+    return make(cache, placed, None)
+
+
 def local_shard(t, placements: Sequence, mesh,
                 axes: Optional[Sequence[str]] = None):
     """This rank's shard of the global tensor ``t`` under ``placements``
@@ -256,18 +318,18 @@ def shard_tree(tree, placements, mesh):
     return tree_map(lambda _: shard_leaf(*next(pairs), mesh), tree)
 
 
-def gather_leaf(t, placement, mesh):
+def gather_leaf(t, placement, mesh, label: str = "tree/gather"):
     """The full tensor of this rank's shard ``t`` under ``placement``:
     every sharded mesh dim's All-Gather over its axis's group (inner mesh
     dims first), called on every rank of ``mesh``; a leaf that is whole
     comes back as it is.  The collectives go through
-    ``collective_planner.collective`` (``tree/gather``)."""
+    ``collective_planner.collective`` (``label``)."""
     from .collective_planner import collective
     for name, size, p in reversed(list(zip(mesh.mesh_dim_names, mesh.shape,
                                            placement))):
         if isinstance(p, Shard) and size > 1:
-            t = collective("AllGather", "tree/gather", t,
-                           mesh.get_group(name), dim=p.dim)
+            t = collective("AllGather", label, t, mesh.get_group(name),
+                           dim=p.dim)
     return t
 
 

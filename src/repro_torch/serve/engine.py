@@ -17,6 +17,19 @@ frame embeddings (``src_embeds``), as the JAX engine feeds it.
 The engine runs on the device its parameters live on.  At startup it warms
 the COMET mapping plans of its kernel shapes (``warm_plans``) through the
 port's plan cache, so no prefill solves a plan.
+
+On a ``(data, model)`` mesh (``mesh=``; ``params`` this rank's shards, by
+``param_shardings``) the engine is SPMD: every rank runs the same
+``run(requests)``.  The slots are split over the data axes
+(``batch_spec``; replicated where B does not divide them), each rank
+prefills and decodes its rows through ``Model.prefill``/``decode(mesh=)``,
+and each step's greedy tokens are All-Gathered over the data axes
+(``serve/tokens``), so that every rank holds the same B tokens and makes
+the same refill decisions.  A decision taken from a clock (a request's
+deadline) is agreed by a MAX All-Reduce of the flags over the whole mesh
+(``serve/deadline``).  ``plan_shapes`` and the warmup are the global
+shapes', as in the JAX engine; the returned requests are the same on
+every rank.
 """
 from __future__ import annotations
 
@@ -26,9 +39,13 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..models.layers import greedy_token
 from ..models.model import Model
 from ..models.param import tree_leaves
+from ..parallel.collective_planner import collective, mesh_group
+from ..parallel.sharding import batch_spec, gather_leaf, shard_bounds
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -60,6 +77,7 @@ class ServeEngine:
 
     def __init__(self, model: Model, params, *, batch_size: int,
                  cache_len: int, prompt_len: int,
+                 mesh=None,
                  plan_warmup: bool = True,
                  max_new_cap: Optional[int] = None,
                  default_deadline_s: Optional[float] = None):
@@ -69,6 +87,11 @@ class ServeEngine:
         self.B = batch_size
         self.cache_len = cache_len
         self.prompt_len = prompt_len
+        self.mesh = mesh
+        # this rank's slots [r0, r1) and their placement over the data axes
+        self.rows = None if mesh is None else batch_spec(mesh, batch_size)
+        self.r0, self.r1 = (0, batch_size) if mesh is None else \
+            shard_bounds((batch_size,), self.rows, mesh)[0]
         self.max_new_cap = max_new_cap
         self.default_deadline_s = default_deadline_s
         self.stats: Dict[str, float] = {"prefill_calls": 0, "decode_steps": 0,
@@ -125,20 +148,28 @@ class ServeEngine:
             toks[i, -len(t):] = t          # right-aligned
         return toks
 
+    def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The (B,) greedy tokens of every slot from this rank's rows of the
+        last position's logits (on a mesh: gathered over the data axes)."""
+        last = greedy_token(self.model.cfg, logits[:, -1], self.mesh)
+        if self.mesh is None:
+            return last
+        return gather_leaf(last, self.rows, self.mesh, "serve/tokens")
+
     def _prefill_batch(self, rows: Sequence[Optional[Request]]):
         """One batched prefill over ``rows`` (None rows carry zeros).
         Returns (last-token vector, cache with per-slot positions)."""
         cfg = self.model.cfg
-        batch = {"tokens": torch.from_numpy(self._pad_prompts(rows)).long()
-                 .to(self.device)}
+        toks = self._pad_prompts(rows)[self.r0:self.r1]
+        batch = {"tokens": torch.from_numpy(toks).long().to(self.device)}
         if cfg.is_encdec:     # the stub frontend: zero frame embeddings
             Se = max(1, self.prompt_len // cfg.enc_ratio)
-            batch["src_embeds"] = torch.zeros((self.B, Se, cfg.d_model),
+            batch["src_embeds"] = torch.zeros((len(toks), Se, cfg.d_model),
                                               device=self.device)
-        logits, cache = self.model.prefill(self.params, batch, self.cache_len)
+        logits, cache = self.model.prefill(self.params, batch, self.cache_len,
+                                           self.mesh)
         self.stats["prefill_calls"] += 1
-        last = logits[:, -1, :cfg.vocab_size].argmax(-1)
-        return last, cache
+        return self._greedy(logits), cache
 
     def _refill_prefill(self, active: Sequence[Optional[Request]],
                         idxs: List[int], cache, last):
@@ -151,15 +182,40 @@ class ServeEngine:
             return fresh_last, fresh
         sel = torch.zeros(self.B, dtype=torch.bool, device=self.device)
         sel[idxs] = True
+        mine = sel[self.r0:self.r1]        # this rank's rows of the cache
         # spliced in place: the live cache belongs to this engine alone
-        cache["pos"][sel] = fresh["pos"][sel]
+        cache["pos"][mine] = fresh["pos"][mine]
         for key in cache:
             if key == "pos":
                 continue
             for old, new in zip(tree_leaves(cache[key]),
                                 tree_leaves(fresh[key])):
-                old[:, sel] = new[:, sel]  # stacked leaves: batch axis 1
+                old[:, mine] = new[:, mine]  # stacked leaves: batch axis 1
         return torch.where(sel, fresh_last, last), cache
+
+    def _late(self, active: Sequence[Optional[Request]],
+              admitted: List[float]) -> List[bool]:
+        """Each slot's request past its deadline.  On a mesh the flags are
+        agreed by a MAX All-Reduce over every rank (``serve/deadline``)
+        whenever a live request has a deadline, so that no rank finishes a
+        request another keeps."""
+        now = time.monotonic()
+        late, timed = [False] * self.B, False
+        for i, r in enumerate(active):
+            if r is None or r.done:
+                continue
+            deadline = (r.deadline_s if r.deadline_s is not None
+                        else self.default_deadline_s)
+            if deadline is not None:
+                timed = True
+                late[i] = now - admitted[i] >= deadline
+        if self.mesh is None or not timed:
+            return late
+        flags = collective("AllReduce", "serve/deadline",
+                           torch.tensor(late, dtype=torch.int32,
+                                        device=self.device),
+                           mesh_group(self.mesh), op=dist.ReduceOp.MAX)
+        return [bool(f) for f in flags.tolist()]
 
     def _token_budget(self, r: Request) -> int:
         return (r.max_new_tokens if self.max_new_cap is None
@@ -189,19 +245,19 @@ class ServeEngine:
                 break
             # the decode step updates the cache's tensors in place (the JAX
             # engine donates the cache to its jitted step)
-            logits, cache = self.model.decode(self.params, cache, last[:, None])
+            logits, cache = self.model.decode(
+                self.params, cache, last[self.r0:self.r1, None], self.mesh,
+                self.cache_len)
             self.stats["decode_steps"] += 1
-            last = logits[:, -1, :self.model.cfg.vocab_size].argmax(-1)
+            last = self._greedy(logits)
             host = last.cpu().numpy()
-            now = time.monotonic()
+            late = self._late(active, admitted)
             for i, r in enumerate(active):
                 if r is None or r.done:
                     continue
                 r.output.append(int(host[i]))
                 self.stats["tokens_out"] += 1
-                deadline = (r.deadline_s if r.deadline_s is not None
-                            else self.default_deadline_s)
-                if deadline is not None and now - admitted[i] >= deadline:
+                if late[i]:
                     # runaway guard: force-finish instead of pinning the
                     # slot until the engine-global max_steps
                     r.timed_out = True

@@ -63,7 +63,7 @@ def _data_axis(mesh) -> str:
     if len(dp) != 1:
         raise NotImplementedError(
             f"a train step over data axes {dp} is not ported (one 'data' "
-            f"axis only): the pod axis waits for ROADMAP A.5, slice 14")
+            f"axis only): the pod axis waits for ROADMAP A.5, slice 15")
     return dp[0]
 
 

@@ -20,6 +20,7 @@ import torch_family as fam
 from repro.models import moe as jmoe
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.models import moe as tmoe
+from repro_torch.models import transformer as ttransformer
 from repro_torch.models.model import Model
 
 ARCH = "qwen3-moe-30b-a3b"
@@ -150,13 +151,13 @@ class _TwoWideMesh:
 
 def test_mesh_is_refused_naming_the_roadmap_item():
     """Expert parallelism runs on a mesh (tests/test_torch_tensor_parallel
-    .py); shared experts split over a model axis are refused, naming the
-    roadmap's slice 14."""
-    _, _, cfg, tp = _layer0(ARCH)
+    .py) and shared experts serve there (tests/test_torch_serve_mesh.py);
+    training shared experts on a model axis is refused, naming the
+    roadmap's slice 15."""
+    _, _, cfg, _ = _layer0(ARCH)
     cfg = cfg.with_(n_shared_experts=1)
-    with pytest.raises(NotImplementedError, match="A.5, slice 14"):
-        tmoe.moe_apply(cfg, tp, torch.zeros(1, 2, cfg.d_model),
-                       mesh=_TwoWideMesh())
+    with pytest.raises(NotImplementedError, match="A.5, slice 15"):
+        ttransformer.check_mesh(cfg, _TwoWideMesh())
 
 
 def test_logits_match_jax():

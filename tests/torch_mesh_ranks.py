@@ -19,7 +19,11 @@ a rank and case; the tests compare it with the JAX package.  Suites:
 - ``elastic`` (world 4): a checkpoint of two glm4 steps written on (2, 2)
   (the whole leaves its gathers hold at once metered) and restored on
   (1, 4), (4, 1) and with no mesh; ``remesh`` and ``shrink_mesh``; the
-  int8-compressed mesh step.
+  int8-compressed mesh step;
+- ``serve``: ``Model.prefill``/``decode(mesh=)`` on fixed inputs (the
+  logits, every cache shard, the collectives) and ``ServeEngine(mesh=)``
+  through continuous-batching refills (the tokens, the collectives, the
+  MoE drops), for each of ``SERVE_CASES``.
 
 :func:`run_worlds` starts the worlds of a suite side by side for a test
 module.  Nothing here imports JAX.
@@ -54,6 +58,22 @@ RESTORE_SHAPES = ((1, 4), (4, 1))
 # where the capacity is 32 (the whole batch's would be 40)
 MOE_ARCH, MOE_B, MOE_S = "qwen3-moe-30b-a3b", 8, 16
 RANKS_TIMEOUT = 240
+# the serve suite's cases: (arch, mesh shape), by world; "hymba-1.5b-h5" is
+# hymba's smoke config with 5 q and 5 kv heads of 12, whose wq and wk
+# columns a 2-rank model axis splits mid-head, as hymba-1.5b's at full size
+SERVE_CASES = {2: (("glm4-9b", (2, 1)), ("glm4-9b", (1, 2)),
+                   ("mamba2-130m", (1, 2)), ("hymba-1.5b", (1, 2)),
+                   ("hymba-1.5b-h5", (1, 2)), ("deepseek-v3-671b", (1, 2)),
+                   ("seamless-m4t-medium", (1, 2))),
+               4: (("glm4-9b", (1, 4)), ("mamba2-130m", (1, 4)),
+                   ("hymba-1.5b", (1, 4)), ("qwen3-moe-30b-a3b", (2, 2)))}
+# (slots, prompt length, cache length): hymba's prompt is longer than its
+# smoke window of 32, so that its ring cache wraps
+SERVE_SIZES = {"hymba-1.5b": (4, 40, 48), "hymba-1.5b-h5": (4, 40, 48)}
+SERVE_DEFAULT_SIZES = (4, 8, 32)
+# the engine's requests: more than its slots, finishing at different
+# steps, so that slots are refilled mid-decode
+SERVE_NEW_TOKENS = (3, 2, 4, 3, 2, 3)
 
 
 def overrides(arch) -> dict:
@@ -69,6 +89,42 @@ def overrides(arch) -> dict:
     if cfg.is_moe:
         out["capacity_factor"] = cfg.n_experts / cfg.top_k
     return out
+
+
+def serve_base(arch) -> str:
+    return arch[:-3] if arch.endswith("-h5") else arch
+
+
+def serve_overrides(arch) -> dict:
+    """:func:`overrides`, and the 5-head variant's heads."""
+    out = overrides(serve_base(arch))
+    if arch.endswith("-h5"):
+        out.update(n_heads=5, n_kv_heads=5)
+    return out
+
+
+def serve_config(arch):
+    from repro_torch.configs.registry import get_smoke_config
+    return get_smoke_config(serve_base(arch)).with_(**serve_overrides(arch))
+
+
+def serve_sizes(arch):
+    return SERVE_SIZES.get(arch, SERVE_DEFAULT_SIZES)
+
+
+def serve_inputs(cfg, arch):
+    """Numpy seed 0: the prefill's tokens (B, prompt) and, for an enc-dec
+    model, frames (B, prompt // enc_ratio, d); the decode step's tokens (B,
+    1); the engine's prompts, one for each of ``SERVE_NEW_TOKENS``."""
+    B, P, _ = serve_sizes(arch)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(B, P))
+    src = (rng.standard_normal((B, max(1, P // cfg.enc_ratio), cfg.d_model))
+           .astype(np.float32) if cfg.is_encdec else None)
+    nxt = rng.integers(0, cfg.vocab_size, size=(B, 1))
+    prompts = [rng.integers(0, cfg.vocab_size, size=P).astype(np.int32)
+               for _ in SERVE_NEW_TOKENS]
+    return toks, src, nxt, prompts
 
 
 def xent_inputs(Vp):
@@ -365,6 +421,77 @@ def run_elastic(rank, out_dir, meshes):
     _save(out_dir, "train_int8", rank, arrays, cmeta)
 
 
+def run_serve(mesh, rank, out_dir, arch):
+    """One serve case on ``mesh``: prefill and one decode step of
+    :func:`serve_inputs` through ``Model(mesh=)`` (with the greedy token),
+    then the engine over the requests; the glm4 (1, 2) case also runs an
+    engine whose deadline every request blows at its first token."""
+    from repro_torch.models.layers import greedy_token
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.collective_planner import record_collectives
+    from repro_torch.parallel.sharding import (batch_spec, param_shardings,
+                                               shard_bounds, shard_tree)
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.checkpoint import flatten_with_names
+    cfg = serve_config(arch)
+    model = Model(cfg)
+    params = shard_tree(model.init(0, device="cpu"),
+                        param_shardings(model.specs, mesh), mesh)
+    B, P, C = serve_sizes(arch)
+    r0, r1 = shard_bounds((B,), batch_spec(mesh, B), mesh)[0]
+    toks, src, nxt, prompts = serve_inputs(cfg, arch)
+    batch = {"tokens": torch.from_numpy(toks[r0:r1]).long()}
+    if cfg.is_encdec:
+        batch["src_embeds"] = torch.from_numpy(src[r0:r1])
+    arrays = {}
+    counter = _DropCounter()
+    try:
+        with torch.no_grad():
+            with record_collectives() as pre:
+                logits, cache = model.prefill(params, batch, C, mesh)
+                greedy_token(cfg, logits[:, -1], mesh)
+            arrays["prefill_logits"] = logits.numpy().copy()
+            arrays.update({f"prefill{n}": t.numpy().copy()
+                           for n, t in flatten_with_names(cache)})
+            with record_collectives() as dec:
+                logits, cache = model.decode(
+                    params, cache, torch.from_numpy(nxt[r0:r1]).long(), mesh,
+                    C)
+                greedy_token(cfg, logits[:, -1], mesh)
+            arrays["decode_logits"] = logits.numpy().copy()
+            arrays.update({f"decode{n}": t.numpy().copy()
+                           for n, t in flatten_with_names(cache)})
+        drops = list(counter.drops)
+        reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, SERVE_NEW_TOKENS))]
+        eng = ServeEngine(model, params, batch_size=B, cache_len=C,
+                          prompt_len=P, mesh=mesh, plan_warmup=False)
+        with record_collectives() as run:
+            eng.run(reqs)
+        empty = model.init_cache(B, C, "cpu", mesh)
+        meta = {"coord": list(mesh.get_coordinate()), "rows": [r0, r1],
+                "init_cache": {n: [list(t.shape), float(t.float().sum())]
+                               for n, t in flatten_with_names(empty)},
+                "prefill": list(pre), "decode": list(dec),
+                "engine": list(run), "stats": eng.stats,
+                "outputs": [r.output for r in reqs], "drops": drops,
+                "engine_drops": counter.drops[len(drops):]}
+        if arch == "glm4-9b" and tuple(mesh.shape) == (1, 2):
+            late = [Request(rid=i, prompt=p.copy(), max_new_tokens=4)
+                    for i, p in enumerate(prompts)]
+            eng = ServeEngine(model, params, batch_size=B, cache_len=C,
+                              prompt_len=P, mesh=mesh, plan_warmup=False,
+                              default_deadline_s=0.0)
+            with record_collectives() as run:
+                eng.run(late)
+            meta["late"] = {"outputs": [r.output for r in late],
+                            "timed_out": [r.timed_out for r in late],
+                            "stats": eng.stats, "records": list(run)}
+    finally:
+        counter.close()
+    _save(out_dir, f"serve_{arch}_{tag_of(mesh.shape)}", rank, arrays, meta)
+
+
 def _rank(rank, world, out_dir, suite):
     from repro_torch.launch.mesh import make_auto_mesh
     torch.set_num_threads(1)
@@ -393,6 +520,9 @@ def _rank(rank, world, out_dir, suite):
         elif suite == "elastic":
             meshes = {s: mesh(s) for s in ((2, 2),) + RESTORE_SHAPES}
             run_elastic(rank, out_dir, meshes)
+        elif suite == "serve":
+            for arch, shape in SERVE_CASES[world]:
+                run_serve(mesh(shape), rank, out_dir, arch)
         else:
             raise ValueError(f"unknown suite {suite!r} at world {world}")
     finally:

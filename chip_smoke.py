@@ -228,7 +228,9 @@ failure ends the run with a non-zero exit:
     a mesh; finite losses; ``moe/combine`` and ``moe/router-grad`` among
     the collectives; the trained params saved on the mesh and restored
     with ``shardings=`` bit for bit; the step times beside the step
-    without a mesh, the peak memory;
+    without a mesh, the peak memory; one step without a mesh timed and
+    profiled as in phase 15 (idle share, top kernels, FlashAttention's
+    share, the recompute backward and AdamW by CUDA events);
 26. serving glm4-9b at full width and depth through
     ``ServeEngine(mesh=make_host_mesh())`` (the one-card (1, 1) NCCL mesh:
     params placed by ``param_shardings``, the tensor-parallel serving
@@ -236,16 +238,33 @@ failure ends the run with a non-zero exit:
     counts set to 0 just before and read just after: the greedy tokens
     equal phase 5's, FlashAttention launched 40 times a prefill; one
     prefill and one decode step timed and profiled, each named
-    collective's count logged; then ``python -m repro_torch.launch.serve
-    --arch glm4-9b --mesh host`` once (exit 0, every token out);
+    collective's count logged, and the decode step's top host ops by self
+    CPU time (``torch.profiler``; a one-rank group's collective is a copy
+    with no NCCL call); then ``python -m repro_torch.launch.serve --arch
+    glm4-9b --mesh host`` once (exit 0, every token out);
 27. the same for hymba-1.5b (phase 17's requests and tokens; 32
     FlashAttention and 32 SSD launches a prefill);
-28. a JSON line of the kernels (every number in it measured in this run,
+28. training hymba-1.5b at full width and depth as phase 15
+    (``train_phase``), batch 4 x seq 1536 (the window masks inside the
+    kernel), 4 steps: step 0's kernel path against the plain path at
+    mamba2's bars (the SSD floor), both kernels launched 2 x 32 times a
+    step, every SSD launch at the plan's chunk, the f32 smoke step within
+    the CPU bars (1e-2: its SSD), one step without remat, step ms over
+    steps 2-4 and the profiled step;
+29. the same for seamless-m4t-medium (12 encoder, 12 decoder layers),
+    batch 4 x seq 1024 (128 frames): FlashAttention 2 x 36 times a step
+    (encoder, decoder self and cross attention);
+30. the same for deepseek-v3-671b at full width and 3 of its 61 layers
+    (the dense stack: one MoE layer holds 11.3 B expert parameters, 135
+    GB with their moments; the cut is logged), batch 4 x seq 1024: no
+    kernel launch (MLA reaches none), so no kernel path to hold against
+    the plain one;
+31. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
     the training run; the FlashAttention and SSD rows also carry each
-    family's serve launches and its shape's record, the mesh phases'
-    launches and the rank shapes' records), then
+    family's serve and training launches and its shape's record, the
+    mesh phases' launches and the rank shapes' records), then
     ``{"ok": true, ...}`` as the last line.
 
 Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
@@ -318,6 +337,19 @@ def device_profile(fn):
                 + e.time_range.elapsed_us() / 1e3
     return sum(per_name.values()), sorted(per_name.items(),
                                           key=lambda kv: -kv[1])
+
+
+def host_profile(fn, top=12):
+    """Run ``fn`` once under ``torch.profiler`` (CPU activity): its host
+    ops by self CPU time, largest first, as (name, calls, self ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return [[e.key[:80], e.count, e.self_cpu_time_total / 1e3]
+            for e in rows[:top]]
 
 
 def ptxas_summary(log_text: str):
@@ -504,6 +536,13 @@ def serve_and_profile(name, model, params, dev, *, batch, prompt_len,
         record["collectives"] = _counted(rec_run)
         log(f"  collectives of the run (label: count, MB): "
             f"{record['collectives']}")
+        # the host's share of a mesh decode step, op by op
+        ops = host_profile(run_decode)
+        record["decode_host_ops"] = ops
+        log(f"  decode step's top host ops by self CPU time (profiler, "
+            f"one step): name, calls, ms")
+        for n, c, t in ops:
+            log(f"    {t:9.3f} ms  {c:5d}  {n}")
     return record, launches
 
 
@@ -585,9 +624,37 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_COS, TRAIN_NORM_RTOL = 1e-2, 0.99, 0.02
 # and never looser than cosine 0.9 and norms 20% apart.
 FLOOR_CHUNK, FLOOR_FACTOR = 32, 4
 # the f32 smoke step: the CPU parity bars of tests/test_torch_train.py
-SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL = 1e-5, {"glm4-9b": 1e-4,
-                                         "mamba2-130m": 1e-2}
+# (GRAD_TOL: "ssd" for a family with an SSD mixer, else "f32")
+SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL = 1e-5, {"f32": 1e-4, "ssd": 1e-2}
 TRAIN_STEPS = 6
+
+
+def kernel_layers(cfg):
+    """{kernel: how many times one forward pass of ``cfg`` launches it}:
+    FlashAttention once an attention layer (MLA reaches no kernel; an
+    enc-dec model's encoder layers once, its decoder layers twice, self
+    and cross), the SSD scan once an SSD layer."""
+    fa = 0
+    if cfg.has_attention and cfg.attn_type != "mla":
+        fa = cfg.n_enc_layers + 2 * cfg.n_layers if cfg.is_encdec \
+            else cfg.n_layers
+    return {"flash_attention": fa,
+            "ssd_scan": cfg.n_layers if cfg.has_ssm else 0}
+
+
+def train_data(cfg, seq, batch):
+    """``SyntheticLM`` at seed 0, with an enc-dec model's frames."""
+    from repro_torch.train.data import SyntheticLM
+    return SyntheticLM(cfg.vocab_size, seq, batch, seed=0,
+                       encdec=cfg.is_encdec, d_model=cfg.d_model,
+                       enc_ratio=cfg.enc_ratio)
+
+
+def to_dev(batch, dev):
+    """A numpy batch on ``dev``: token ids as int64, frames as they are."""
+    return {k: torch.from_numpy(v).to(dev, torch.long if v.dtype.kind in
+                                       "iu" else None)
+            for k, v in batch.items()}
 
 
 def grad_agreement(gk, gp):
@@ -644,30 +711,61 @@ def section_ms(fn):
             for k, v in spans.items()}
 
 
-def train_phase(arch, dev, counters, *, kernel, batch, seq, cut,
-                n_layers=None, ckpt_dir=None):
+def profile_step(one_step, name):
+    """Where the time of a train step goes: one call of ``one_step`` timed
+    with CUDA events, one with CUDA events around the recompute backward
+    and AdamW (``section_ms``), one under ``torch.profiler`` (kernel time,
+    idle share, the hand-written kernels' time, the top kernels).  Returns
+    the record."""
+    ms = kb.cuda_ms(one_step, iters=1, warmup=1)
+    under = section_ms(one_step)
+    busy, ranked = device_profile(one_step)
+    own = {k: sum(t for n, t in ranked if sym in n)
+           for k, sym in (("flash_attention", "fa_fwd"),
+                          ("ssd_scan", "ssd_fwd"))}
+    rec = {"step_ms": ms, "kernel_ms": busy, "idle_share": 1 - busy / ms,
+           **{f"{k}_ms": v for k, v in own.items()},
+           "recompute_backward_ms": under["recompute_backward"],
+           "adamw_update_ms": under["adamw_update"],
+           "top_kernels": [[n[:80], t] for n, t in ranked[:8]]}
+    log(f"  {name}, one step: {ms:.2f} ms (CUDA events), kernels "
+        f"{busy:.2f} ms (profiler), idle share {100 * (1 - busy / ms):.1f}%;"
+        f" " + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}% of the "
+                         f"kernel time)" for k, v in own.items())
+        + f"; by CUDA events, the plain recompute backward "
+        f"{under['recompute_backward']:.2f} ms "
+        f"({100 * under['recompute_backward'] / ms:.1f}% of the step), "
+        f"AdamW {under['adamw_update']:.2f} ms "
+        f"({100 * under['adamw_update'] / ms:.1f}%)")
+    for n, t in ranked[:8]:
+        log(f"    {t:9.3f} ms  {n[:100]}")
+    return rec
+
+
+def train_phase(arch, dev, counters, *, batch, seq, cut, n_layers=None,
+                ckpt_dir=None, steps=TRAIN_STEPS):
     """The training path of ``arch`` (bf16, ``use_kernels=True``, remat
     "full"; ``n_layers`` of its layers when given) on the card, every
-    check failing the run:
+    check failing the run; each kernel the model reaches
+    (:func:`kernel_layers`) launches that many times a forward pass:
 
     - step 0, kernel path against plain path on the same params and batch:
       the loss within TRAIN_LOSS_RTOL, every gradient leaf at cosine >=
       TRAIN_GRAD_COS with a norm within TRAIN_NORM_RTOL (for an SSD model,
       or FLOOR_FACTOR x the plain path's disagreement with itself at
-      chunk FLOOR_CHUNK, where that is looser); the kernel launched twice
-      a layer (forward and remat recompute), the plain path not at all;
+      chunk FLOOR_CHUNK, where that is looser); each kernel launched
+      twice its layers (forward and remat recompute), the plain path not
+      at all; a model that reaches no kernel skips this and the next;
     - the f32 smoke config, kernel path against plain path, within the CPU
       parity bars (SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL);
-    - TRAIN_STEPS steps of ``train_loop`` (plans warmed; with an
+    - ``steps`` steps of ``train_loop`` (plans warmed; with an
       ``AsyncCheckpointer`` save at step 3 and at the end when
       ``ckpt_dir``), counts set to 0 just before and read just after:
-      ``kernel`` launched steps x 2 x layers times, every SSD launch at the
-      plan's chunk, finite losses; the checkpoint restores bit for bit
-      into a fresh TrainState;
-    - one step without remat: ``kernel`` launched once a layer;
-    - one step timed with CUDA events, one with CUDA events around the
-      recompute backward and AdamW (``section_ms``), and one profiled
-      (idle share, top kernels, the kernel's share).
+      each kernel launched steps x 2 x its layers times, every SSD launch
+      at the plan's chunk, finite losses; the checkpoint restores bit for
+      bit into a fresh TrainState;
+    - one step without remat: each kernel launched once its layers;
+    - where the time of a step goes (:func:`profile_step`).
 
     Returns the record and the main run's launches."""
     from repro_torch.configs.registry import get_config, get_smoke_config
@@ -676,17 +774,14 @@ def train_phase(arch, dev, counters, *, kernel, batch, seq, cut,
     from repro_torch.models.model import Model
     from repro_torch.train.checkpoint import (flatten_with_names,
                                               latest_step, restore_checkpoint)
-    from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.train_step import (TrainState, make_loss_fn,
                                               make_train_step, value_and_grad)
     cfg = get_config(arch).with_(use_kernels=True)
     if n_layers:
         cfg = cfg.with_(n_layers=n_layers)
-    name, fn, L = cfg.name, counters[kernel], cfg.n_layers
-
-    def to_dev(b):
-        return {k: torch.from_numpy(v).long().to(dev) for k, v in b.items()}
+    name, L = cfg.name, cfg.n_layers
+    per_pass = kernel_layers(cfg)
 
     def zero_counts():
         for f in counters.values():
@@ -694,104 +789,127 @@ def train_phase(arch, dev, counters, *, kernel, batch, seq, cut,
             if hasattr(f, "chunks"):
                 f.chunks = {}
 
+    def counts():
+        return {k: f.launches for k, f in counters.items()}
+
+    def want(times):
+        return {k: times * per_pass.get(k, 0) for k in counters}
+
     rec = {"config": name, "layers": L, "batch": batch, "seq": seq,
-           "cut": cut}
+           "cut": cut, "launches_per_pass": per_pass}
     log(f"  {name}: {cut}; {L} layers, d_model {cfg.d_model}, batch "
-        f"{batch} x seq {seq}, bf16, remat {cfg.remat_policy}")
+        f"{batch} x seq {seq}, bf16, remat {cfg.remat_policy}; kernel "
+        f"launches a forward pass {per_pass}")
     # ---- step 0: kernel path against plain path, full size
     model = Model(cfg)
     params = model.init(0, device=dev)
-    log(f"  {model.n_params() / 1e9:.3f} B params")
-    b0 = to_dev(SyntheticLM(cfg.vocab_size, seq, batch, seed=0).batch(0))
-    zero_counts()
-    lk, gk = value_and_grad(make_loss_fn(model), params, b0)
-    torch.cuda.synchronize()
-    grad_launches = fn.launches
-    lp, gp = value_and_grad(
-        make_loss_fn(Model(cfg.with_(use_kernels=False))), params, b0)
-    torch.cuda.synchronize()
-    if (grad_launches, fn.launches) != (2 * L, 2 * L):
-        raise AssertionError(f"{name}: {kernel} launched {grad_launches} "
-                             f"times in the kernel path's gradient, "
-                             f"{fn.launches - grad_launches} in the plain "
-                             f"path's; want {2 * L} and 0")
-    agree = grad_agreement(gk, gp)
-    loss_err = abs(float(lk) / float(lp) - 1)
-    worst_cos = min(agree, key=lambda x: x[1])
-    worst_norm = max(agree, key=lambda x: x[2])
-    cos_bar, norm_bar = TRAIN_GRAD_COS, TRAIN_NORM_RTOL
-    rec["step0"] = {"loss_kernel": float(lk), "loss_plain": float(lp),
-                    "loss_rel_err": loss_err,
-                    "leaves": [list(x) for x in agree]}
-    if cfg.has_ssm:
-        # the floor: the plain path against itself at another chunk
-        from repro_torch.models import ssm
-        plan_chunk = ssm.plan_chunk
-        ssm.plan_chunk = lambda *_: FLOOR_CHUNK
-        try:
-            _, gf = value_and_grad(make_loss_fn(Model(cfg.with_(
-                use_kernels=False))), params, b0)
-        finally:
-            ssm.plan_chunk = plan_chunk
-        floor = grad_agreement(gf, gp)
-        f_cos = min(x[1] for x in floor)
-        f_norm = max(x[2] for x in floor)
-        cos_bar = min(cos_bar, max(0.9, 1 - FLOOR_FACTOR * (1 - f_cos)))
-        norm_bar = max(norm_bar, min(0.2, FLOOR_FACTOR * f_norm))
-        log(f"  step 0, the bf16 floor: the plain path at chunk "
-            f"{FLOOR_CHUNK} against itself at the plan's: worst cosine "
-            f"{f_cos:.6f}, worst norm ratio - 1 {f_norm:.2e}; bars "
-            f"{FLOOR_FACTOR} x the floor: cosine >= {cos_bar:.4f}, norm "
-            f"within {norm_bar:.4f}")
-        rec["step0"].update(floor_cos=f_cos, floor_norm=f_norm)
-        del gf
-    log(f"  step 0, kernel vs plain: loss {float(lk):.6f} vs "
-        f"{float(lp):.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_RTOL}); "
-        f"worst cosine {worst_cos[1]:.6f} ({worst_cos[0]}, tol >= "
-        f"{cos_bar:.4f}); worst norm ratio - 1 {worst_norm[2]:.2e} "
-        f"({worst_norm[0]}, tol {norm_bar:.4f})")
-    rec["step0"].update(cos_bar=cos_bar, norm_bar=norm_bar)
-    if not (loss_err <= TRAIN_LOSS_RTOL and worst_cos[1] >= cos_bar
-            and worst_norm[2] <= norm_bar):
-        raise AssertionError(f"{name}: the kernel path's step 0 disagrees "
-                             f"with the plain path's")
-    del gk, gp, params, model
+    n_params = model.n_params()
+    rec["params_b"] = n_params / 1e9
+    log(f"  {n_params / 1e9:.3f} B params: bf16 params and grads and f32 "
+        f"AdamW moments {12 * n_params / 1e9:.1f} GB")
+    b0 = to_dev(train_data(cfg, seq, batch).batch(0), dev)
+    if any(per_pass.values()):
+        zero_counts()
+        lk, gk = value_and_grad(make_loss_fn(model), params, b0)
+        torch.cuda.synchronize()
+        grad_launches = counts()
+        lp, gp = value_and_grad(
+            make_loss_fn(Model(cfg.with_(use_kernels=False))), params, b0)
+        torch.cuda.synchronize()
+        if (grad_launches, counts()) != (want(2), want(2)):
+            raise AssertionError(f"{name}: launches {grad_launches} in the "
+                                 f"kernel path's gradient, {counts()} after "
+                                 f"the plain path's; want {want(2)} for "
+                                 f"both")
+        agree = grad_agreement(gk, gp)
+        loss_err = abs(float(lk) / float(lp) - 1)
+        worst_cos = min(agree, key=lambda x: x[1])
+        worst_norm = max(agree, key=lambda x: x[2])
+        cos_bar, norm_bar = TRAIN_GRAD_COS, TRAIN_NORM_RTOL
+        rec["step0"] = {"loss_kernel": float(lk), "loss_plain": float(lp),
+                        "loss_rel_err": loss_err,
+                        "leaves": [list(x) for x in agree]}
+        if cfg.has_ssm:
+            # the floor: the plain path against itself at another chunk
+            from repro_torch.models import ssm
+            plan_chunk = ssm.plan_chunk
+            ssm.plan_chunk = lambda *_: FLOOR_CHUNK
+            try:
+                _, gf = value_and_grad(make_loss_fn(Model(cfg.with_(
+                    use_kernels=False))), params, b0)
+            finally:
+                ssm.plan_chunk = plan_chunk
+            floor = grad_agreement(gf, gp)
+            f_cos = min(x[1] for x in floor)
+            f_norm = max(x[2] for x in floor)
+            cos_bar = min(cos_bar, max(0.9, 1 - FLOOR_FACTOR * (1 - f_cos)))
+            norm_bar = max(norm_bar, min(0.2, FLOOR_FACTOR * f_norm))
+            log(f"  step 0, the bf16 floor: the plain path at chunk "
+                f"{FLOOR_CHUNK} against itself at the plan's: worst cosine "
+                f"{f_cos:.6f}, worst norm ratio - 1 {f_norm:.2e}; bars "
+                f"{FLOOR_FACTOR} x the floor: cosine >= {cos_bar:.4f}, norm "
+                f"within {norm_bar:.4f}")
+            rec["step0"].update(floor_cos=f_cos, floor_norm=f_norm)
+            del gf
+        log(f"  step 0, kernel vs plain: loss {float(lk):.6f} vs "
+            f"{float(lp):.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_RTOL}); "
+            f"worst cosine {worst_cos[1]:.6f} ({worst_cos[0]}, tol >= "
+            f"{cos_bar:.4f}); worst norm ratio - 1 {worst_norm[2]:.2e} "
+            f"({worst_norm[0]}, tol {norm_bar:.4f})")
+        rec["step0"].update(cos_bar=cos_bar, norm_bar=norm_bar)
+        if not (loss_err <= TRAIN_LOSS_RTOL and worst_cos[1] >= cos_bar
+                and worst_norm[2] <= norm_bar):
+            raise AssertionError(f"{name}: the kernel path's step 0 "
+                                 f"disagrees with the plain path's")
+        del gk, gp
+    else:
+        log("  no kernel on this model's path (MLA takes the blocked "
+            "loop): no kernel path to hold against the plain one")
+    del params, model
     torch.cuda.empty_cache()
     # ---- the f32 smoke config: kernel path against plain path
     scfg = get_smoke_config(arch).with_(dtype="float32", use_kernels=True)
-    sparams = Model(scfg).init(0, device=dev)
-    sb = to_dev(SyntheticLM(scfg.vocab_size, 64, 4, seed=0).batch(0))
-    l1, g1 = value_and_grad(make_loss_fn(Model(scfg)), sparams, sb)
-    l2, g2 = value_and_grad(make_loss_fn(Model(scfg.with_(
-        use_kernels=False))), sparams, sb)
-    s_loss = abs(float(l1) / float(l2) - 1)
-    s_grad = max(float((a - b).abs().max() / b.abs().max())
-                 for (_, a), (_, b) in zip(flatten_with_names(g1),
-                                           flatten_with_names(g2)))
-    gtol = SMOKE_GRAD_TOL[arch]
-    log(f"  f32 smoke step, kernel vs plain: loss rel {s_loss:.2e} (tol "
-        f"{SMOKE_LOSS_RTOL}), worst gradient leaf max|diff| / max|plain| "
-        f"{s_grad:.2e} (tol {gtol})")
-    rec["f32_smoke"] = {"loss_rel_err": s_loss, "grad_rel_err": s_grad}
-    if not (s_loss <= SMOKE_LOSS_RTOL and s_grad <= gtol):
-        raise AssertionError(f"{name}: the f32 smoke step's kernel path "
-                             f"disagrees with the plain path")
-    # ---- TRAIN_STEPS steps of train_loop, the counts of this run alone
+    if any(kernel_layers(scfg).values()):
+        sparams = Model(scfg).init(0, device=dev)
+        # a windowed smoke model at up to 2 windows, where the attention
+        # takes the kernel (from 2 on it takes the banded path)
+        sseq = 64 if not scfg.window or 64 < 2 * scfg.window \
+            else 3 * scfg.window // 2
+        sb = to_dev(train_data(scfg, sseq, 4).batch(0), dev)
+        l1, g1 = value_and_grad(make_loss_fn(Model(scfg)), sparams, sb)
+        l2, g2 = value_and_grad(make_loss_fn(Model(scfg.with_(
+            use_kernels=False))), sparams, sb)
+        s_loss = abs(float(l1) / float(l2) - 1)
+        s_grad = max(float((a - b).abs().max() / b.abs().max())
+                     for (_, a), (_, b) in zip(flatten_with_names(g1),
+                                               flatten_with_names(g2)))
+        gtol = SMOKE_GRAD_TOL["ssd" if scfg.has_ssm else "f32"]
+        log(f"  f32 smoke step (seq {sseq}), kernel vs plain: loss rel "
+            f"{s_loss:.2e} (tol {SMOKE_LOSS_RTOL}), worst gradient leaf "
+            f"max|diff| / max|plain| {s_grad:.2e} (tol {gtol})")
+        rec["f32_smoke"] = {"loss_rel_err": s_loss, "grad_rel_err": s_grad}
+        if not (s_loss <= SMOKE_LOSS_RTOL and s_grad <= gtol):
+            raise AssertionError(f"{name}: the f32 smoke step's kernel "
+                                 f"path disagrees with the plain path")
+        del sparams, g1, g2
+    # ---- ``steps`` steps of train_loop, the counts of this run alone
     model = Model(cfg)
-    opt_cfg = OptConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    opt_cfg = OptConfig(total_steps=steps, warmup_steps=1)
+    torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    out = train_loop(model, steps=TRAIN_STEPS, batch=batch, seq=seq,
+    out = train_loop(model, steps=steps, batch=batch, seq=seq,
                      opt_cfg=opt_cfg, ckpt_dir=ckpt_dir, ckpt_every=3,
                      warmup_plans=True, log_every=1, device=dev)
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counters.items()}
-    want = {k: 2 * L * TRAIN_STEPS if k == kernel else 0 for k in counters}
-    if launches != want or out["launches"][kernel] != want[kernel]:
-        raise AssertionError(f"{name}: launches {launches} over "
-                             f"{TRAIN_STEPS} steps; want {want}")
-    if kernel == "ssd_scan":
+    launches = counts()
+    if launches != want(2 * steps) or any(
+            out["launches"][k] != want(2 * steps)[k] for k in out["launches"]):
+        raise AssertionError(f"{name}: launches {launches} over {steps} "
+                             f"steps; want {want(2 * steps)}")
+    if per_pass["ssd_scan"]:
+        fn = counters["ssd_scan"]
         plan = autotune.ssd_chunk_len(seq, cfg.ssm_headdim, cfg.ssm_state)
-        if fn.chunks != {plan: want[kernel]}:
+        if fn.chunks != {plan: launches["ssd_scan"]}:
             raise AssertionError(f"{name}: ssd_scan launches by chunk "
                                  f"{fn.chunks}; want all at the plan's "
                                  f"{plan}")
@@ -801,18 +919,19 @@ def train_phase(arch, dev, counters, *, kernel, batch, seq, cut,
     losses = out["losses"]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{name}: losses {losses}")
-    timed = out["step_ms"][1:]           # steps 2-6
+    timed = out["step_ms"][1:]           # steps 2 on
     step_ms = sum(timed) / len(timed)
-    log(f"  launches {launches} == {TRAIN_STEPS} steps x {L} layers x 2")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches {launches} == {steps} steps x 2 x {per_pass}")
     log(f"  losses {[round(x, 4) for x in losses]}; falls: "
         f"{losses[-1] < losses[0]} (logged, not gated)")
-    log(f"  step ms (CUDA events, steps 2-{TRAIN_STEPS}) "
+    log(f"  step ms (CUDA events, steps 2-{steps}) "
         f"{[round(x, 2) for x in timed]}: mean {step_ms:.2f} ms, "
         f"{batch * seq / step_ms * 1e3:.0f} tokens/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"{peak:.2f} GB")
     rec.update(losses=losses, step_ms=out["step_ms"], mean_step_ms=step_ms,
                tokens_per_s=batch * seq / step_ms * 1e3, launches=launches,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_mem_gb=peak)
     state = out["state"]
     # ---- the checkpoint restores bit for bit
     if ckpt_dir:
@@ -825,24 +944,23 @@ def train_phase(arch, dev, counters, *, kernel, batch, seq, cut,
             for (_, a), (_, b) in zip(got, ref))
         _, step3, _ = restore_checkpoint(
             ckpt_dir, TrainState(fresh, init_opt_state(fresh)), step=3)
-        if not (same and step == latest_step(ckpt_dir) == TRAIN_STEPS
+        if not (same and step == latest_step(ckpt_dir) == steps
                 and step3 == 3):
             raise AssertionError(f"{name}: checkpoint of step {step} does "
                                  f"not restore bit for bit")
-        log(f"  checkpoints at steps 3 and {TRAIN_STEPS} (AsyncCheckpointer,"
-            f" no errors); step {TRAIN_STEPS} restores bit for bit into a "
+        log(f"  checkpoints at steps 3 and {steps} (AsyncCheckpointer,"
+            f" no errors); step {steps} restores bit for bit into a "
             f"fresh TrainState ({len(got)} tensors, the step among them)")
         del fresh, restored
-    # ---- one step without remat: the kernel once a layer
+    # ---- one step without remat: each kernel once its layers
     zero_counts()
     state, _ = make_train_step(Model(cfg.with_(remat=False)), opt_cfg)(
         state, b0)
     torch.cuda.synchronize()
-    if fn.launches != L:
-        raise AssertionError(f"{name}: {fn.launches} launches in a step "
-                             f"without remat; want {L}")
-    log(f"  one step without remat: {kernel} launched {fn.launches} == "
-        f"{L} layers")
+    if counts() != want(1):
+        raise AssertionError(f"{name}: launches {counts()} in a step "
+                             f"without remat; want {want(1)}")
+    log(f"  one step without remat: launches {counts()} == once a layer")
     # ---- where the time of a step goes
     step_fn = make_train_step(model, opt_cfg)
     holder = [state]
@@ -850,26 +968,7 @@ def train_phase(arch, dev, counters, *, kernel, batch, seq, cut,
     def one_step():
         holder[0], _ = step_fn(holder[0], b0)
 
-    ms = kb.cuda_ms(one_step, iters=1, warmup=1)
-    under = section_ms(one_step)
-    busy, ranked = device_profile(one_step)
-    own = sum(t for n, t in ranked if ("fa_fwd" in n or "ssd_fwd" in n))
-    rec["profile"] = {
-        "step_ms": ms, "kernel_ms": busy, "idle_share": 1 - busy / ms,
-        f"{kernel}_ms": own, "recompute_backward_ms":
-        under["recompute_backward"], "adamw_update_ms":
-        under["adamw_update"], "top_kernels": [[n[:80], t]
-                                               for n, t in ranked[:8]]}
-    log(f"  one step: {ms:.2f} ms (CUDA events), kernels {busy:.2f} ms "
-        f"(profiler), idle share {100 * (1 - busy / ms):.1f}%; {kernel} "
-        f"{own:.3f} ms ({100 * own / busy:.1f}% of the kernel time); by "
-        f"CUDA events, the plain recompute backward "
-        f"{under['recompute_backward']:.2f} ms "
-        f"({100 * under['recompute_backward'] / ms:.1f}% of the step), "
-        f"AdamW {under['adamw_update']:.2f} ms "
-        f"({100 * under['adamw_update'] / ms:.1f}%)")
-    for n, t in ranked[:8]:
-        log(f"    {t:9.3f} ms  {n[:100]}")
+    rec["profile"] = profile_step(one_step, name)
     del holder, state, out, model, step_fn
     torch.cuda.empty_cache()
     return rec, launches
@@ -1407,6 +1506,17 @@ def mesh_train_phase(dev, counters, train_glm4):
     return rec, launches
 
 
+# phases 28-30: steps of train_loop (steps 2-4 timed)
+FAMILY_STEPS = 4
+# phase 30: deepseek-v3-671b at full width, cut in depth by memory
+DEEPSEEK_LAYERS = 3
+DEEPSEEK_CUT = ("depth cut to 3 of 61 layers, the dense stack (no MoE layer) "
+                "by memory: 3.6 B parameters at 12 B each (bf16 params and "
+                "grads, f32 AdamW moments) take 43 GB; one MoE layer alone "
+                "holds 256 x 3 x 7168 x 2048 = 11.3 B expert parameters, 135 "
+                "GB, more than the card's 80 GB.  Its MoE training is held "
+                "on the CPU against the JAX step and by phase 25")
+
 # phase 25: qwen3-moe-30b-a3b at full width, cut in depth by memory
 MOE_LAYERS = 4
 MOE_CUT = ("depth cut to 4 of 48 layers by memory: 3.1 B parameters at 12 B "
@@ -1438,7 +1548,22 @@ def moe_mesh_train_phase(counters):
     torch.cuda.reset_peak_memory_stats()
     plain = train_cli.main(argv + ["--steps", "2"])
     plain_state = plain.pop("state")
-    del plain_state
+    torch.cuda.synchronize()
+    # where the time of a step without a mesh goes, on the CLI's state
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config("qwen3-moe-30b-a3b").with_(n_layers=L,
+                                                 use_kernels=True)
+    step_fn = make_train_step(Model(cfg), OptConfig(total_steps=2,
+                                                    warmup_steps=1))
+    b0 = to_dev(train_data(cfg, 1024, 4).batch(0), "cuda")
+    holder = [plain_state]
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], b0)
+
+    profile = profile_step(one_step, "qwen3-moe-30b-a3b (4 layers, no mesh)")
+    del holder, plain_state, step_fn
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     plain_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1456,6 +1581,7 @@ def moe_mesh_train_phase(counters):
     labels = sorted({r[0] for r in rec_c})
     timed = out["step_ms"][1:]
     rec = {"layers": L, "steps": MESH_STEPS, "cut": MOE_CUT,
+           "plain_profile": profile,
            "losses": out["losses"], "plain_losses": plain["losses"],
            "step0_rel_err": err, "step_ms": out["step_ms"],
            "plain_step_ms": plain["step_ms"], "launches": launches,
@@ -2209,7 +2335,7 @@ def main() -> int:
     t0 = phase("15. train mamba2-130m (full config, bf16, use_kernels=True)")
     ckpt = tempfile.TemporaryDirectory(prefix="train-ckpt-")
     train_mamba, train_ssd = train_phase(
-        "mamba2-130m", dev, counters, kernel="ssd_scan", batch=m_batch,
+        "mamba2-130m", dev, counters, batch=m_batch,
         seq=1024, cut="nothing cut", ckpt_dir=ckpt.name)
     ckpt.cleanup()
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
@@ -2218,7 +2344,7 @@ def main() -> int:
     t0 = phase("16. train glm4-9b (full width, 4 of 40 layers, bf16, "
                "use_kernels=True)")
     train_glm4, train_fa = train_phase(
-        "glm4-9b", dev, counters, kernel="flash_attention", batch=4,
+        "glm4-9b", dev, counters, batch=4,
         seq=1024, n_layers=4,
         cut="depth cut to 4 of 40 layers by memory: at 40 layers bf16 "
             "params and grads and f32 AdamW moments take 9.4 B x 12 B = 113 "
@@ -2298,7 +2424,33 @@ def main() -> int:
         f" GB")
     log(f"phase 27: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 28. the result
+    # ---------------------------------------- 28-30. train the other families
+    t0 = phase("28. train hymba-1.5b (full config, bf16, use_kernels=True)")
+    train_hymba, train_hymba_k = train_phase(
+        "hymba-1.5b", dev, counters, batch=4, seq=1536, steps=FAMILY_STEPS,
+        cut="nothing cut: 1.5 B parameters at 12 B each take 18 GB; seq "
+            "1536 < 2 x the window of 1024 keeps the attention off the "
+            "banded path, so the window masks inside the kernel")
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("29. train seamless-m4t-medium (full config, bf16, "
+               "use_kernels=True)")
+    train_seamless, train_seamless_k = train_phase(
+        "seamless-m4t-medium", dev, counters, batch=4, seq=1024,
+        steps=FAMILY_STEPS,
+        cut="nothing cut: 12 encoder and 12 decoder layers, 128 frames a "
+            "row; the f32 logits of 4 x 1024 rows over the 256206-token "
+            "vocab take 4.2 GB")
+    log(f"phase 29: {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("30. train deepseek-v3-671b (full width, 3 of 61 layers: "
+               "the dense stack, bf16)")
+    train_deepseek, _ = train_phase(
+        "deepseek-v3-671b", dev, counters, batch=4, seq=1024,
+        n_layers=DEEPSEEK_LAYERS, steps=FAMILY_STEPS, cut=DEEPSEEK_CUT)
+    log(f"phase 30: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 31. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2307,6 +2459,9 @@ def main() -> int:
         "tpu_kernel": "repro/kernels/flash_attention.py::_fa_kernel",
         "launches": launches,
         "train_launches": train_fa["flash_attention"],
+        "family_train_launches": {
+            "hymba-1.5b": train_hymba_k["flash_attention"],
+            "seamless-m4t-medium": train_seamless_k["flash_attention"]},
         "max_abs_err": main_err,
         "max_err": main_err,
         "ms": kernel_ms,
@@ -2343,6 +2498,7 @@ def main() -> int:
         "tpu_kernel": "repro/kernels/ssd.py::_ssd_kernel",
         "launches": launches_ssd,
         "train_launches": train_ssd["ssd_scan"],
+        "family_train_launches": {"hymba-1.5b": train_hymba_k["ssd_scan"]},
         "max_abs_err": ssd_err,
         "max_err": ssd_err,
         "ms": ssd_ms,
@@ -2426,6 +2582,9 @@ def main() -> int:
                     "front_ends": front,
                     "serve_glm4_9b_mesh": mesh_glm4,
                     "serve_hymba_1_5b_mesh": mesh_hymba,
+                    "train_hymba_1_5b": train_hymba,
+                    "train_seamless_m4t_medium": train_seamless,
+                    "train_deepseek_v3_3_layers": train_deepseek,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))

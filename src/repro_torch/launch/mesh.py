@@ -97,7 +97,7 @@ def make_production_mesh(*, multi_pod: bool = False,
     ranks, or ``(2, 16, 16)`` ``("pod", "data", "model")`` over 512 with
     ``multi_pod``, through :func:`make_auto_mesh` (which raises its
     ``ValueError`` on a world of another size, as ``jax.make_mesh`` does).
-    The train step takes no ``pod`` axis yet (ROADMAP A.5, slice 15)."""
+    The train step takes no ``pod`` axis yet (ROADMAP A.5, slice 16)."""
     shape = (2,) + POD_SHAPE if multi_pod else POD_SHAPE
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_auto_mesh(shape, axes, device)

@@ -9,12 +9,13 @@ monitoring.  Port of ``repro/launch/train.py`` with the same flags, and
 runs with ``use_kernels=True``: on the card every layer's attention goes
 through the FlashAttention kernel and every SSD scan through the SSD
 kernel, each under autograd with its plain recompute backward.
-``--mesh host`` trains on ``launch/mesh.make_host_mesh(--model-parallel)``
-(every rank of the world group; one card: a ``(1, 1)`` NCCL mesh) and
+``--mesh host`` trains any arch on
+``launch/mesh.make_host_mesh(--model-parallel)`` (every rank of the world
+group; one card: a ``(1, 1)`` NCCL mesh) and
 ``--mesh production``/``production-multi`` on ``make_production_mesh``
 (256 or 512 ranks): the params placed by ``param_shardings``, the moments
-by ``zero1_shardings``, tensor and expert parallelism over ``model``
-(``train/train_step.py``), checkpoints gathered and written by rank 0 and
+by ``zero1_shardings``, every family tensor-parallel and the MoE layers
+expert-parallel over ``model`` (``train/train_step.py``), checkpoints gathered and written by rank 0 and
 restored onto the mesh's placements; ``--planner-loss`` takes the
 COMET-planned explicit-collective loss over the vocab-sharded unembed.
 

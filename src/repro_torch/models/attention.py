@@ -21,8 +21,9 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 from ..kernels.ref import attention_ref
 from ..parallel.collective_planner import (collective, enter_parallel,
-                                           gather_shards, leave_parallel,
-                                           model_axis, sum_cotangent)
+                                           gather_replicated, gather_shards,
+                                           leave_parallel, model_axis,
+                                           sum_cotangent)
 from ..parallel.sharding import cache_block, split_over
 from .config import ModelConfig
 from .layers import apply_norm, apply_rope, rope_cos_sin
@@ -311,17 +312,13 @@ def _heads_out(o: torch.Tensor, c0: int, wo: torch.Tensor, full: int,
 
 def attn_train(cfg: ModelConfig, p, x, *, causal: bool = True, mesh=None
                ) -> torch.Tensor:
-    """Full-sequence self-attention.  On a mesh (GQA; MLA serves there,
-    :func:`attn_prefill`) it is tensor-parallel over ``model``: *f* before
-    the q/k/v projections, this rank's heads (:func:`_heads`) through the
-    attention (the FlashAttention kernel with ``use_kernels``), its rows of
-    ``wo``, and *g* after (both ``tp/attn-out``)."""
+    """Full-sequence self-attention.  On a mesh it is tensor-parallel over
+    ``model``: GQA's *f* before the q/k/v projections, this rank's heads
+    (:func:`_heads`) through the attention (the FlashAttention kernel with
+    ``use_kernels``), its rows of ``wo``, and *g* after (both
+    ``tp/attn-out``); MLA's as :func:`_mla_train` says."""
     if cfg.attn_type == "mla":
-        if mesh is not None and model_axis(mesh)[0] > 1:
-            raise NotImplementedError(
-                "training tensor-parallel MLA waits for ROADMAP A.5, slice "
-                "15 (its prefill and decode run on a mesh)")
-        return _mla_train(cfg, p, x)
+        return _mla_train(cfg, p, x, mesh=mesh)
     S = x.shape[1]
     if mesh is not None:
         x = enter_parallel(x, model_axis(mesh)[2], "tp/attn-out")
@@ -490,7 +487,8 @@ def _mla_heads(cfg: ModelConfig, p, mesh=None):
     Without a mesh, or where H splits over ``model``, the weights as they
     are (``wuq``/``wuk``/``wuv``'s columns and ``wo``'s rows this rank's
     whole heads); otherwise each split one is All-Gathered whole
-    (``tp/mla-gather``) and every rank runs every head."""
+    (``tp/mla-gather``; every rank uses it whole, so its transpose is the
+    rank's block) and every rank runs every head."""
     if mesh is None:
         return p, 0
     m, r, group = model_axis(mesh)
@@ -502,16 +500,38 @@ def _mla_heads(cfg: ModelConfig, p, mesh=None):
     for key, cols, dim in (("wuq", H * (dn + dr), -1), ("wuk", H * dn, -1),
                            ("wuv", H * dv, -1), ("wo", H * dv, 0)):
         if split_over(p[key].shape[dim], cols, m):
-            p[key] = collective("AllGather", "tp/mla-gather", p[key], group,
-                                dim=dim)
+            p[key] = gather_replicated(p[key], group, "tp/mla-gather",
+                                       dim=dim)
     return p, 0
 
 
-def _mla_q(cfg, p, x, positions):
-    B, S, _ = x.shape
+def _mla_latents(cfg, p, x, positions, mesh=None):
+    """(the normed q latent, the normed kv latent, the roped shared key) of
+    x, which every rank computes whole from the replicated down
+    projections.  Where the heads split over ``model`` each rank reads
+    them for its heads only: their cotangents are partial, SUM-All-Reduced
+    in one buffer (*f* at the latents, ``tp/mla-latent``), so that the
+    down projections' and norms' gradients are whole on every rank."""
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    cq = _mla_q_latent(cfg, p, x)
+    ckv, kr = _mla_kv_compress(cfg, p, x, positions)
+    if mesh is not None and cfg.n_heads % model_axis(mesh)[0] == 0:
+        both = enter_parallel(torch.cat([cq, ckv, kr], -1),
+                              model_axis(mesh)[2], "tp/mla-latent")
+        cq, ckv, kr = both.split([qr, kvr, kr.shape[-1]], -1)
+    return cq, ckv, kr
+
+
+def _mla_q_latent(cfg, p, x):
+    """x's normed q latent (..., q_lora_rank)."""
+    return apply_norm(cfg.with_(norm_type="rmsnorm"), {"scale": p["q_norm"]},
+                      x @ p["wdq"])
+
+
+def _mla_q(cfg, p, cq, positions):
+    """(q_nope, roped q_rope) of the heads, from the q latent ``cq``."""
+    B, S, _ = cq.shape
     dn, dr = cfg.hd, cfg.rope_head_dim
-    cq = x @ p["wdq"]
-    cq = apply_norm(cfg.with_(norm_type="rmsnorm"), {"scale": p["q_norm"]}, cq)
     q = (cq @ p["wuq"]).reshape(B, S, -1, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta)
@@ -531,14 +551,16 @@ def _mla_kv_compress(cfg, p, x, positions):
 
 def _mla_train(cfg, p, x, *, return_cache: bool = False, mesh=None):
     """MLA over the full sequence; on a mesh its heads are this rank's
-    (:func:`_mla_heads`), the output reduced by :func:`_heads_out`."""
+    (:func:`_mla_heads`), the output reduced by :func:`_heads_out` (*g*,
+    ``tp/attn-out``) and the latents' cotangents by
+    :func:`_mla_latents`."""
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_head_dim
     p, h0 = _mla_heads(cfg, p, mesh)
     positions = torch.arange(S, device=x.device)
-    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    cq, ckv, kr = _mla_latents(cfg, p, x, positions, mesh)
+    q_nope, q_rope = _mla_q(cfg, p, cq, positions)
     n = q_nope.shape[2]
-    ckv, kr = _mla_kv_compress(cfg, p, x, positions)
     k_nope = (ckv @ p["wuk"]).reshape(B, S, n, dn)
     v = (ckv @ p["wuv"]).reshape(B, S, n, dv)
     q = torch.cat([q_nope, q_rope], -1)                        # (B,S,n,dn+dr)
@@ -589,7 +611,8 @@ def _mla_decode(cfg, p, x, cache, pos, mesh=None, cache_len=None):
         if Sl < S:
             group = model_axis(mesh)[2]
     p, h0 = _mla_heads(cfg, p, mesh)
-    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])          # (B,1,n,*)
+    q_nope, q_rope = _mla_q(cfg, p, _mla_q_latent(cfg, p, x),
+                            pos[:, None])                     # (B,1,n,*)
     n = q_nope.shape[2]
     ckv1, kr1 = _mla_kv_compress(cfg, p, x, pos[:, None])     # (B,1,kvr),(B,1,dr)
     rows = torch.arange(B, device=x.device)
@@ -627,7 +650,12 @@ def _mla_decode(cfg, p, x, cache, pos, mesh=None, cache_len=None):
 def cross_train(cfg: ModelConfig, p, x, enc: torch.Tensor, mesh=None
                 ) -> torch.Tensor:
     """Decoder cross-attention over encoder output ``enc`` (B, Se, d):
-    non-causal, no RoPE; on a mesh heads-parallel as :func:`attn_train`."""
+    non-causal, no RoPE; on a mesh heads-parallel as :func:`attn_train`
+    (*f* on x).  ``enc`` is replicated over ``model`` and read for the
+    rank's heads: under autograd its cotangent is partial, and the caller
+    reduces it (``encdec.encdec_forward``, once for every layer)."""
+    if mesh is not None:
+        x = enter_parallel(x, model_axis(mesh)[2], "tp/attn-out")
     q, h0 = _q_proj(cfg, p, x, mesh)
     k, v, kv0 = _kv_proj(cfg, p, enc, mesh)
     o = _attend_heads(cfg, _Heads(q, h0, k, v, kv0), causal=False,

@@ -6,11 +6,14 @@ Encoder layers are bidirectional; decoder layers add causal self-attention
 and cross-attention over the encoder output.  Layer parameters are stacked
 ``(L, ...)`` leaves; the port loops over layer slices where JAX scans.
 
-Prefill and decode take a ``(data, model)`` mesh as
-``transformer.prefill``/``decode`` do: the encoder pass, the decoder's
-self- and cross-attention and the MLPs are tensor-parallel over
-``model``, the ``src_embeds`` frames are this rank's rows, and the
-caches (self and cross) this rank's shards.
+The forward, prefill and decode take a ``(data, model)`` mesh as
+``transformer``'s do: the encoder pass, the decoder's self- and
+cross-attention and the MLPs are tensor-parallel over ``model``, the
+``src_embeds`` frames are this rank's rows, and the caches (self and
+cross) this rank's shards.  Under autograd every decoder layer's
+cross-attention reads the encoder output, replicated over ``model``, on
+the rank's heads: its cotangent is the sum of the layers' partial ones
+over the ranks, one *f* for all of them (``tp/cross-kv``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from . import attention as attn
+from ..parallel.collective_planner import enter_parallel, model_axis
 from .config import ModelConfig
 from .layers import (apply_norm, embed_specs, mlp_apply, mlp_specs,
                      norm_specs, unembed_apply)
@@ -75,24 +79,29 @@ def _encode(cfg: ModelConfig, params: Dict, src: torch.Tensor, mesh=None
 # ---------------------------------------------------------------- forward
 
 
-def _dec_layer(cfg: ModelConfig, x: torch.Tensor, pl: Dict,
+def _dec_layer(cfg: ModelConfig, mesh, x: torch.Tensor, pl: Dict,
                enc: torch.Tensor) -> torch.Tensor:
-    x = x + attn.attn_train(cfg, pl["attn"], apply_norm(cfg, pl["norm1"], x))
+    x = x + attn.attn_train(cfg, pl["attn"], apply_norm(cfg, pl["norm1"], x),
+                            mesh=mesh)
     x = x + attn.cross_train(cfg, pl["cross"],
-                             apply_norm(cfg, pl["norm_x"], x), enc)
-    return x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x))
+                             apply_norm(cfg, pl["norm_x"], x), enc, mesh)
+    return x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x),
+                         mesh)
 
 
 def encdec_forward(cfg: ModelConfig, params: Dict, src_embeds: torch.Tensor,
-                   tokens: torch.Tensor) -> torch.Tensor:
-    """src_embeds (B, Se, d), tokens (B, S) -> logits (B, S, Vp)."""
-    enc = _encode(cfg, params, src_embeds)
-    x = _embed(cfg, params, tokens)
-    layer = _remat(cfg, functools.partial(_dec_layer, cfg))
+                   tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """src_embeds (B, Se, d), tokens (B, S) -> logits (B, S, Vp); on a mesh
+    this rank's rows, its shards of the params."""
+    enc = _encode(cfg, params, src_embeds, mesh)
+    if mesh is not None:
+        enc = enter_parallel(enc, model_axis(mesh)[2], "tp/cross-kv")
+    x = _embed(cfg, params, tokens, mesh)
+    layer = _remat(cfg, functools.partial(_dec_layer, cfg, mesh))
     for pl in _unbind_layers(params["dec_layers"]):
         x = layer(x, pl, enc)
     x = apply_norm(cfg, params["final_norm"], x)
-    return unembed_apply(cfg, params, x)
+    return unembed_apply(cfg, params, x, mesh)
 
 
 # ------------------------------------------------------------------ cache

@@ -44,19 +44,18 @@ class Model:
     def logits(self, params, batch: Dict[str, torch.Tensor],
                mesh=None) -> torch.Tensor:
         """Full-sequence logits.  On a ``(data, model)`` mesh ``batch`` is
-        this rank's rows and ``params`` its shards (``transformer.forward``);
-        the enc-dec family runs there only with ``model == 1``, as it does
-        with no mesh."""
+        this rank's rows and ``params`` its shards (``transformer.forward``,
+        ``encdec.encdec_forward``)."""
         if self.cfg.is_encdec:
-            transformer.check_mesh(self.cfg, mesh)
             return encdec.encdec_forward(self.cfg, params,
-                                         batch["src_embeds"], batch["tokens"])
+                                         batch["src_embeds"], batch["tokens"],
+                                         mesh)
         return transformer.forward(self.cfg, params, batch["tokens"], mesh)
 
     def loss(self, params, batch: Dict[str, torch.Tensor],
              mesh=None) -> torch.Tensor:
         """Mean token NLL of ``batch["labels"]`` under the logits of
-        ``batch["tokens"]`` (f32 scalar)."""
+        ``batch["tokens"]`` (f32 scalar); on a mesh, of this rank's rows."""
         logits = self.logits(params, batch, mesh)
         return cross_entropy_loss(logits, batch["labels"],
                                   self.cfg.vocab_size)

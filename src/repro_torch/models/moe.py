@@ -62,13 +62,32 @@ def moe_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:
     return s
 
 
+class _PicksOnly(torch.autograd.Function):
+    """``scores`` as they are, with the router's bias carried along: the
+    bias only picks experts, so its cotangent is zero, as in the JAX
+    package; keeping it on the differentiation path lets that zero
+    cotangent reach the bias's All-Reduce on a mesh
+    (``moe/router-bias-grad``), as the JAX transpose of a replicated
+    ``shard_map`` input issues it."""
+
+    @staticmethod
+    def forward(ctx, scores, bias):
+        ctx.bias = (bias.shape, bias.dtype)
+        return scores.view_as(scores)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype = ctx.bias
+        return g, g.new_zeros(shape, dtype=dtype)
+
+
 def router_weights(cfg: ModelConfig, p: Dict, x2d: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gates (T, k) f32, idx (T, k) int64), experts in descending score
     order as ``jax.lax.top_k`` gives them."""
     logits = x2d.to(F32) @ p["router"].to(F32)
     if cfg.router_type == "sigmoid":
-        scores = torch.sigmoid(logits)
+        scores = _PicksOnly.apply(torch.sigmoid(logits), p["router_bias"])
         sel = scores + p["router_bias"].to(F32)       # bias only for routing
         idx = torch.topk(sel, cfg.top_k, dim=-1).indices
         gates = torch.gather(scores, -1, idx)

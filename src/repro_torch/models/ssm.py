@@ -6,17 +6,25 @@ algorithm (the SSD kernel with ``use_kernels``, else the chunked
 reference) at the chunk the COMET plan chooses (:func:`plan_chunk`);
 decode is the O(1) recurrence h' = exp(dA) h + B ⊗ x·dt.
 
-Prefill and decode take a ``(data, model)`` mesh (``mesh=``; x is this
-rank's rows, the params its shards).  ``in_proj`` packs z|x|B|C|dt and
-``conv_w`` x|B|C, so a rank's column blocks mix the parts: the in_proj
-output is All-Gathered over ``model``, the depthwise conv runs on the
-rank's own channel block (its shard of the conv cache), and the conv
-output is All-Gathered (both ``tp/ssm-gather``).  The rank's SSM heads
-(its shard of the state cache) run through the scan, B/C in group form;
-the gated norm's partial sums of squares are SUM-All-Reduced over
+Training, prefill and decode take a ``(data, model)`` mesh (``mesh=``; x
+is this rank's rows, the params its shards).  ``in_proj`` packs
+z|x|B|C|dt and ``conv_w`` x|B|C, so a rank's column blocks mix the parts:
+the in_proj output is All-Gathered over ``model``, the depthwise conv runs
+on the rank's own channel block (its shard of the conv cache), and the
+conv output is All-Gathered (both ``tp/ssm-gather``).  The rank's SSM
+heads (its shard of the state cache) run through the scan, B/C in group
+form; the gated norm's partial sums of squares are SUM-All-Reduced over
 ``model`` (``tp/ssm-norm``: the distributed-norm epilogue of the paper's
 GEMM-LayerNorm) and ``out_proj``'s rows give a partial product reduced
-the same way (``tp/ssm-out``).  Weights kept whole run whole.
+the same way (``tp/ssm-out``).  Weights kept whole run whole.  Under
+autograd the mixer is a Megatron region (:func:`_enter`): *f* before it
+(``tp/ssm-out``), each gather's transpose a Reduce-Scatter of the ranks'
+partial cotangents, the norm's sum transposed to a sum, and the
+cotangents of the weights every rank uses whole (the per-head
+``A_log``/``dt_bias``/``D``, and ``in_proj`` or the conv where they do
+not split) SUM-All-Reduced (``tp/ssm-param-grad``).  Where ``out_proj``'s
+rows do not split, every rank computes the whole output: no *f* or *g*,
+and a gather's transpose is the rank's block.
 """
 from __future__ import annotations
 
@@ -28,7 +36,10 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 from ..kernels import ssd
 from ..kernels.autotune import ssd_chunk_len
-from ..parallel.collective_planner import collective, model_axis
+from ..parallel.collective_planner import (enter_parallel, gather_replicated,
+                                           gather_shards, leave_parallel,
+                                           model_axis, sum_cotangent,
+                                           sum_over)
 from ..parallel.sharding import cache_block, split_over
 from .config import ModelConfig
 from .param import ParamSpec
@@ -170,22 +181,12 @@ def _ssd_scan(cfg: ModelConfig, xdt, dA, Bm, Cm, chunk: int
 
 
 def ssm_train(cfg: ModelConfig, p, x: torch.Tensor,
-              chunk: Optional[int] = None) -> torch.Tensor:
+              chunk: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Full-sequence forward.  ``chunk``: the SSD chunk, resolved through
-    :func:`plan_chunk` when not given."""
-    B_, S, _ = x.shape
-    di = cfg.d_inner
-    proj = x @ p["in_proj"]
-    z, xin, Bm, Cm, dt_raw = _split_proj(cfg, proj)
-    xbc = torch.cat([xin, Bm, Cm], dim=-1)
-    xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], xbc)
-    xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw)
-    y = _ssd_scan(cfg, xdt, dA, Bm, Cm,
-                  plan_chunk(cfg, S) if chunk is None else chunk)
-    y = y + xh.to(F32) * p["D"].to(F32)[None, None, :, None]
-    y = y.reshape(B_, S, di).to(x.dtype)
-    y = _gated_norm(cfg, p["norm_scale"], y, z)
-    return y @ p["out_proj"]
+    :func:`plan_chunk` when not given.  On a mesh, tensor-parallel over
+    ``model`` on the rank's heads (:func:`_enter`, :func:`_mix`)."""
+    p, x = _enter(cfg, p, x, mesh)
+    return _mix(cfg, p, x, chunk, mesh)[0]
 
 
 def init_ssm_cache(cfg: ModelConfig, B: int, dtype: torch.dtype,
@@ -198,6 +199,37 @@ def init_ssm_cache(cfg: ModelConfig, B: int, dtype: torch.dtype,
     }
 
 
+def _partial(cfg: ModelConfig, p, mesh) -> bool:
+    """Whether the mixer's output on a mesh is a partial sum over
+    ``model`` (``out_proj``'s rows split), not whole on every rank."""
+    return split_over(p["out_proj"].shape[0], cfg.d_inner,
+                      model_axis(mesh)[0])
+
+
+def _enter(cfg: ModelConfig, p, x: torch.Tensor, mesh):
+    """(params, x) of the mixer's tensor-parallel region: where its output
+    is partial, *f* on x (``tp/ssm-out``) and a SUM-All-Reduced cotangent
+    for the weights that every rank uses whole (``tp/ssm-param-grad``: one
+    collective for the three per-head leaves, one for each whole weight);
+    as they are without a mesh or where the output is whole."""
+    if mesh is None or not _partial(cfg, p, mesh):
+        return p, x
+    m, _, group = model_axis(mesh)
+    p = dict(p)
+    heads = ("A_log", "dt_bias", "D")
+    per_head = sum_cotangent(torch.stack([p[k] for k in heads]), group,
+                             "tp/ssm-param-grad")
+    p.update(zip(heads, per_head.unbind(0)))
+    di, cd = cfg.d_inner, cfg.conv_dim
+    whole = [] if split_over(p["in_proj"].shape[-1],
+                             di + cd + cfg.ssm_nheads, m) else ["in_proj"]
+    if not split_over(p["conv_w"].shape[-1], cd, m):
+        whole += ["conv_w", "conv_b"]
+    for k in whole:
+        p[k] = sum_cotangent(p[k], group, "tp/ssm-param-grad")
+    return p, enter_parallel(x, group, "tp/ssm-out")
+
+
 def _mesh_conv(cfg: ModelConfig, p, proj: torch.Tensor, mesh,
                prev: Optional[torch.Tensor] = None):
     """On a mesh: (the whole in_proj output, this rank's block of the conv
@@ -205,18 +237,25 @@ def _mesh_conv(cfg: ModelConfig, p, proj: torch.Tensor, mesh,
     rank's in_proj columns and is All-Gathered where they are split; the
     depthwise conv runs on the rank's channel block (``prev``: its rows of
     the conv cache), and its output is All-Gathered where the channels
-    are split (both ``tp/ssm-gather``)."""
+    are split (both ``tp/ssm-gather``; under autograd each transposes to
+    a Reduce-Scatter where the mixer's output is partial, else to the
+    rank's block)."""
     m, r, group = model_axis(mesh)
     di, cd = cfg.d_inner, cfg.conv_dim
+
+    def gather(t):
+        if _partial(cfg, p, mesh):
+            return gather_shards(t, group, "tp/ssm-gather", "tp/ssm-gather")
+        return gather_replicated(t, group, "tp/ssm-gather")
     if split_over(proj.shape[-1], di + cd + cfg.ssm_nheads, m):
-        proj = collective("AllGather", "tp/ssm-gather", proj, group)
+        proj = gather(proj)
     c = p["conv_w"].shape[-1]
     split = split_over(c, cd, m)
     c0 = r * c if split else 0
     raw = proj[..., di + c0:di + c0 + c]
     xbc = _conv1d(cfg, p["conv_w"], p["conv_b"], raw, prev=prev)
     if split:
-        xbc = collective("AllGather", "tp/ssm-gather", xbc, group)
+        xbc = gather(xbc)
     return proj, raw, xbc
 
 
@@ -232,28 +271,26 @@ def _mixer_out(cfg: ModelConfig, p, y: torch.Tensor, z: torch.Tensor,
     c0, cols = h0 * cfg.ssm_headdim, y.shape[-1]
     zl = z[..., c0:c0 + cols]
     # whole out_proj rows: d_inner does not split, nor do the heads
-    if mesh is None or not split_over(rows, di, model_axis(mesh)[0]):
+    if mesh is None or not _partial(cfg, p, mesh):
         return _gated_norm(cfg, p["norm_scale"], y, zl) @ p["out_proj"]
     m, r, group = model_axis(mesh)
     yf = (y * F.silu(zl)).to(F32)
     if cols < di:
-        ms = collective("AllReduce", "tp/ssm-norm",
-                        (yf * yf).sum(-1, keepdim=True), group) / di
+        ms = sum_over((yf * yf).sum(-1, keepdim=True), group,
+                      "tp/ssm-norm") / di
     else:
         ms = (yf * yf).mean(-1, keepdim=True)
     yn = yf * torch.rsqrt(ms + cfg.norm_eps)
     c = r * rows - c0
     yo = (yn[..., c:c + rows] * p["norm_scale"].to(F32)).to(y.dtype)
-    return collective("AllReduce", "tp/ssm-out", yo @ p["out_proj"], group)
+    return leave_parallel(yo @ p["out_proj"], group, "tp/ssm-out")
 
 
-def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor,
-                chunk: Optional[int] = None, mesh=None
-                ) -> Tuple[torch.Tensor, Dict]:
-    """Full-seq forward + final recurrent state for decode continuation.
-    ``chunk``: the SSD chunk, resolved through :func:`plan_chunk` when not
-    given.  On a mesh the cache is this rank's shard (its conv channels,
-    its heads' state)."""
+def _mix(cfg: ModelConfig, p, x: torch.Tensor, chunk: Optional[int],
+         mesh=None):
+    """(the mixer's output, the conv input block of the cache, and the
+    scan's xdt, dA and B for the final state) of the full sequence x; on
+    a mesh over this rank's heads and channel block."""
     B_, S, _ = x.shape
     nh, ns, hp = cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_headdim
     proj = x @ p["in_proj"]
@@ -273,6 +310,19 @@ def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor,
     y = y + xh.to(F32) * p["D"][h0:h0 + n].to(F32)[None, None, :, None]
     out = _mixer_out(cfg, p, y.reshape(B_, S, n * hp).to(x.dtype), z, h0,
                      mesh)
+    return out, xbc_raw, xdt, dA, Bm
+
+
+def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor,
+                chunk: Optional[int] = None, mesh=None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """Full-seq forward + final recurrent state for decode continuation.
+    ``chunk``: the SSD chunk, resolved through :func:`plan_chunk` when not
+    given.  On a mesh the cache is this rank's shard (its conv channels,
+    its heads' state)."""
+    B_ = x.shape[0]
+    ns = cfg.ssm_state
+    out, xbc_raw, xdt, dA, Bm = _mix(cfg, p, x, chunk, mesh)
     # final state: h_S = sum_t exp(sum_{u>t} dA_u) B_t xdt_t^T  (per head),
     # one f32 einsum over the whole sequence as in the JAX package, with
     # each group's B shared by its heads: (B,S,ng,r,hp) against (B,S,ng,ns).

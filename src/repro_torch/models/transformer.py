@@ -14,13 +14,13 @@ unembed, for the planner loss), ``prefill`` (builds the cache),
 
 ``hidden``/``forward`` take a ``(data, model)`` mesh (``mesh=``; the
 tokens are this rank's rows, the params its shards): the embedding, the
-GQA attention, the dense MLP and the unembed are tensor-parallel and the
-MoE FFN expert-parallel over ``model`` (``layers``, ``attention``,
-``moe``).  The recompute of a checkpointed layer runs in
-``collective_planner.recompute_region``, so that its repeated forward
-collectives are recorded apart.  Training MLA, SSM, hybrid and enc-dec
-layers, shared experts and DeepSeek's dense stack on a model axis wider
-than one waits for ROADMAP A.5, slice 15 (:func:`check_mesh`).
+attention (GQA and MLA), the SSM mixer, the dense MLP, the shared experts
+and the unembed are tensor-parallel and the MoE FFN expert-parallel over
+``model`` (``layers``, ``attention``, ``ssm``, ``moe``), in every family
+and in both of DeepSeek's stacks.  The recompute of a checkpointed layer
+runs in ``collective_planner.recompute_region``, so that its repeated
+forward collectives are recorded apart.  The ``seq_shard`` and
+``tensor_parallel=False`` knobs are not ported (:func:`check_mesh`).
 
 ``prefill``/``decode`` serve every family on a mesh: each rank runs its
 rows (``batch_spec``) and its shards of the params (``param_shardings``)
@@ -139,12 +139,14 @@ def _layer_specs(cfg: ModelConfig, L: int) -> Dict[str, Any]:
 def _stacks(cfg: ModelConfig) -> List[Tuple[str, str, ModelConfig, int]]:
     """(params key, cache key, config, layers) of each layer stack, in
     order: DeepSeek's leading dense stack first (its config has no
-    experts), then the main one."""
-    n_dense = cfg.first_dense_layers
+    experts), then the main one.  A stack of no layers is left out (a
+    depth cut to the dense layers has no main stack)."""
+    n_dense = min(cfg.first_dense_layers, cfg.n_layers)
+    stacks = [("layers", "layers", cfg, cfg.n_layers - n_dense)]
     if n_dense > 0:
-        return [("dense_layers", "dense", cfg.with_(n_experts=0), n_dense),
-                ("layers", "layers", cfg, cfg.n_layers - n_dense)]
-    return [("layers", "layers", cfg, cfg.n_layers)]
+        stacks.insert(0, ("dense_layers", "dense", cfg.with_(n_experts=0),
+                          n_dense))
+    return [s for s in stacks if s[3] > 0]
 
 
 def decoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -191,29 +193,27 @@ def _layer_train(cfg: ModelConfig, mesh, x: torch.Tensor, pl: Dict,
                  chunk) -> torch.Tensor:
     h = apply_norm(cfg, pl["norm1"], x)
     if cfg.family == "hybrid":
-        mix = _hybrid_mix(pl, attn.attn_train(cfg, pl["attn"], h),
-                          ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk))
+        mix = _hybrid_mix(pl, attn.attn_train(cfg, pl["attn"], h, mesh=mesh),
+                          ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk, mesh))
     elif cfg.has_ssm:
-        mix = ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk)
+        mix = ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk, mesh)
     else:
         mix = attn.attn_train(cfg, pl["attn"], h, mesh=mesh)
     return _ffn_residual(cfg, pl, x + mix, mesh)
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise for the layers whose training forward is not tensor-parallel
-    yet on a mesh with a ``model`` axis wider than one (they serve there:
-    :func:`prefill`, :func:`decode`)."""
+    """Raise for the config knobs whose training forward is not ported on
+    a mesh with a ``model`` axis wider than one: ``seq_shard`` (the
+    residual's sequence over ``model``) and ``tensor_parallel=False`` (the
+    params replicated); ROADMAP A.5, slice 16."""
     if mesh is None or model_axis(mesh)[0] == 1:
         return
-    if cfg.has_ssm or cfg.first_dense_layers or cfg.is_encdec \
-            or cfg.n_shared_experts or cfg.seq_shard \
-            or not cfg.tensor_parallel:
+    if cfg.seq_shard or not cfg.tensor_parallel:
         raise NotImplementedError(
-            f"{cfg.name} on a model axis of {model_axis(mesh)[0]}: training "
-            f"SSM, hybrid, enc-dec layers, shared experts and DeepSeek's "
-            f"dense layers tensor-parallel (and the seq_shard and "
-            f"tensor_parallel=False knobs) waits for ROADMAP A.5, slice 15")
+            f"{cfg.name} on a model axis of {model_axis(mesh)[0]}: the "
+            f"seq_shard and tensor_parallel=False knobs are not ported "
+            f"(ROADMAP A.5, slice 16)")
 
 
 # ---------------------------------------------------------------- forward

@@ -179,10 +179,16 @@ def collective(col_type: str, label: str, x: torch.Tensor, group, *,
     participant, summed, this rank's block kept.  DV is recorded in the
     cost model's convention: the full tensor of an All-Reduce, the
     gathered result of an All-Gather, the full input of a Reduce-Scatter.
-    A failed collective raises."""
+    A one-rank group's collective is the identity (the JAX package's
+    one-participant ``psum``): it returns a copy, issues no call to the
+    backend, and is recorded all the same.  A failed collective raises."""
     P = dist.get_world_size(group)
     x = x.contiguous()
-    if col_type == "AllReduce":
+    if col_type not in ("AllReduce", "AllGather", "ReduceScatter"):
+        raise ValueError(f"unknown collective {col_type!r}")
+    if P == 1:
+        out = dv = x.clone()
+    elif col_type == "AllReduce":
         out = x.clone()
         dist.all_reduce(out, op=op, group=group)
         dv = out
@@ -190,7 +196,7 @@ def collective(col_type: str, label: str, x: torch.Tensor, group, *,
         parts = [torch.empty_like(x) for _ in range(P)]
         dist.all_gather(parts, x, group=group)
         out = dv = torch.cat(parts, dim=dim)
-    elif col_type == "ReduceScatter":
+    else:
         if x.shape[dim] % P:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                              f"into {P} blocks")
@@ -198,8 +204,6 @@ def collective(col_type: str, label: str, x: torch.Tensor, group, *,
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, group=group)
         dv = x
-    else:
-        raise ValueError(f"unknown collective {col_type!r}")
     if _RECORDS is not None:
         (_RECORDS.recompute if _IN_RECOMPUTE else _RECORDS).append(
             (label, col_type, float(dv.numel() * dv.element_size()), P))
@@ -435,7 +439,7 @@ def sharded_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
     if len(dp) > 1:
         raise NotImplementedError(
             "sharded_softmax_xent over two data axes (pod, data) is not "
-            "ported: it waits for the pod axis of ROADMAP A.5, slice 15")
+            "ported: it waits for the pod axis of ROADMAP A.5, slice 16")
     P_model = mesh_axes(mesh)["model"]
     Vp = v_local * P_model
     if strategy == "auto":

@@ -9,10 +9,11 @@ are summed into f32 zeros and divided by their count, as the JAX step's
 On a mesh (a ``DeviceMesh`` from ``launch/mesh.py``, called on every
 rank with the same global batch) each rank holds the shards that
 ``param_shardings`` gives it (:func:`init_train_state`) and ZeRO-1
-moments (``zero1_shardings``); the batch is split over ``data``.  The
-GQA attention, the dense MLP, the embedding and the unembed are
-tensor-parallel and MoE layers expert-parallel over ``model``
-(``models/``).  With ``use_planner_loss`` an untied, non-enc-dec model
+moments (``zero1_shardings``); the batch is split over ``data`` (an
+enc-dec model's ``src_embeds`` frames with its tokens).  Every family's
+layers are tensor-parallel (GQA and MLA attention, cross-attention, the
+SSM mixer, the dense MLP, the shared experts, the embedding and the
+unembed) and MoE layers expert-parallel over ``model`` (``models/``).  With ``use_planner_loss`` an untied, non-enc-dec model
 takes the COMET-planned explicit-collective loss (``cfg.softmax_strategy``:
 'dist'/'gather'/'auto' via the planner; 'gspmd' reads as 'auto') on the
 vocab-sharded unembed; the plain loss gathers the unembed's columns
@@ -63,13 +64,14 @@ def _data_axis(mesh) -> str:
     if len(dp) != 1:
         raise NotImplementedError(
             f"a train step over data axes {dp} is not ported (one 'data' "
-            f"axis only): the pod axis waits for ROADMAP A.5, slice 15")
+            f"axis only): the pod axis waits for ROADMAP A.5, slice 16")
     return dp[0]
 
 
 def _local_rows(batch: Dict[str, torch.Tensor], mesh
                 ) -> Dict[str, torch.Tensor]:
-    """This rank's rows of the global batch: dim 0 split over ``data``."""
+    """This rank's rows of the global batch: dim 0 of every leaf (the
+    tokens, the labels, an enc-dec model's frames) split over ``data``."""
     B = next(iter(batch.values())).shape[0]
     n = sharding.dp_size(mesh)
     if B % n:

@@ -234,3 +234,31 @@ def test_mesh_train_step_collectives_equal_the_declared(ranks_out, variant):
     # tp/ and moe/ included: the step is tensor-parallel on (2, 2)
     checks.check_collectives(_load(ranks_out[4], f"train_{variant}", 4),
                              "glm4-9b", (2, 2), variant)
+
+
+def test_one_rank_group_issues_no_call_and_records(monkeypatch):
+    """On a one-rank gloo group every collective is the identity: a copy,
+    no call to the backend (each call raises here), and its record all the
+    same, so that the audits count what they counted."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+
+    def refuse(*_, **__):
+        raise AssertionError("a one-rank group called the backend")
+    mesh = tmesh.make_host_mesh(device="cpu")
+    try:
+        for fn in ("all_reduce", "all_gather", "reduce_scatter"):
+            monkeypatch.setattr(dist, fn, refuse)
+        group = mesh.get_group("model")
+        x = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+        with cp.record_collectives() as rec:
+            outs = [cp.collective(t, t.lower(), x, group, dim=0)
+                    for t in ("AllReduce", "AllGather", "ReduceScatter")]
+        for out in outs:
+            assert torch.equal(out, x) and out.data_ptr() != x.data_ptr()
+        assert list(rec) == [(t.lower(), t, 24.0, 1)
+                             for t in ("AllReduce", "AllGather",
+                                       "ReduceScatter")]
+    finally:
+        tmesh.destroy()

@@ -150,14 +150,16 @@ class _TwoWideMesh:
 
 
 def test_mesh_is_refused_naming_the_roadmap_item():
-    """Expert parallelism runs on a mesh (tests/test_torch_tensor_parallel
-    .py) and shared experts serve there (tests/test_torch_serve_mesh.py);
-    training shared experts on a model axis is refused, naming the
-    roadmap's slice 15."""
+    """Shared experts train on a model axis (tests/test_torch_tensor_
+    parallel_families.py); what is refused there are the knobs not yet
+    ported, ``seq_shard`` and ``tensor_parallel=False``, naming the
+    roadmap's item."""
     _, _, cfg, _ = _layer0(ARCH)
     cfg = cfg.with_(n_shared_experts=1)
-    with pytest.raises(NotImplementedError, match="A.5, slice 15"):
-        ttransformer.check_mesh(cfg, _TwoWideMesh())
+    ttransformer.check_mesh(cfg, _TwoWideMesh())
+    for knob in ({"seq_shard": True}, {"tensor_parallel": False}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+            ttransformer.check_mesh(cfg.with_(**knob), _TwoWideMesh())
 
 
 def test_logits_match_jax():

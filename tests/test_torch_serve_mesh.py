@@ -5,7 +5,7 @@ Every case of ``torch_mesh_ranks.SERVE_CASES`` runs in the ``serve`` suite
 (gloo ranks by spawn, world 2 and world 4 side by side in two
 subprocesses with a timeout; nothing here forks or starts a pool), f32
 smoke configs (MoE at capacity factor E / k, ``torch_mesh_ranks.
-overrides``, so that each data rank's capacity drops nothing): glm4-9b on
+case_overrides``, so that each data rank's capacity drops nothing): glm4-9b on
 (2, 1), (1, 2) and (1, 4) (on (1, 4) its 2 kv heads do not divide, so the
 decode cache is sequence-sharded: distSM), mamba2-130m and hymba-1.5b on
 (1, 2) and (1, 4) (hymba's prompt wraps its ring cache), hymba with 5 q
@@ -126,9 +126,9 @@ def jax_reference(arch):
     """The JAX package without a mesh, from the port's initial params:
     the prefill's and decode step's logits and caches on
     ``serve_inputs``, and the engine's outputs and stats."""
-    cfg = ranks.serve_config(arch)
-    jcfg = jget_smoke(ranks.serve_base(arch)).with_(
-        **ranks.serve_overrides(arch))
+    cfg = ranks.case_config(arch)
+    jcfg = jget_smoke(ranks.case_base(arch)).with_(
+        **ranks.case_overrides(arch))
     jm, jp = JModel(jcfg), _to_jax(Model(cfg).init(0, device="cpu"))
     B, P, C = ranks.serve_sizes(arch)
     toks, src, nxt, prompts = ranks.serve_inputs(cfg, arch)
@@ -154,7 +154,7 @@ def port_caches(arch):
     """The port's own caches without a mesh after the prefill and after
     the decode step of ``serve_inputs``, by name."""
     from repro_torch.train.checkpoint import flatten_with_names
-    cfg = ranks.serve_config(arch)
+    cfg = ranks.case_config(arch)
     model = Model(cfg)
     params = model.init(0, device="cpu")
     toks, src, nxt, _ = ranks.serve_inputs(cfg, arch)
@@ -187,14 +187,14 @@ def test_engine_tokens_equal_the_jax_engine(serve_out, world, arch, shape):
             assert meta["stats"][key] == ref["stats"][key]
         assert ref["stats"]["prefill_calls"] > 1       # slots were refilled
         assert not any(meta["drops"]) and not any(meta["engine_drops"])
-        if ranks.serve_config(arch).is_moe:
+        if ranks.case_config(arch).is_moe:
             assert meta["drops"] and meta["engine_drops"]    # counted
 
 
 @pytest.mark.parametrize("world,arch,shape", CASES, ids=IDS)
 def test_logits_match_jax(serve_out, world, arch, shape):
     ref = jax_reference(arch)
-    cfg = ranks.serve_config(arch)
+    cfg = ranks.case_config(arch)
     m = shape[1]
     for arr, meta in _results(serve_out, world, arch, shape):
         r0, r1 = meta["rows"]
@@ -212,7 +212,7 @@ def test_cache_shards_are_placed_as_cache_shardings(serve_out, world, arch,
     ref = jax_reference(arch)
     B = ranks.serve_sizes(arch)[0]
     res = _results(serve_out, world, arch, shape)
-    jax_tol = SSD_JAX_TOL if ranks.serve_config(arch).has_ssm else TOL
+    jax_tol = SSD_JAX_TOL if ranks.case_config(arch).has_ssm else TOL
     for step in ("prefill", "decode"):
         port = ref["port"][step]
         cache, flat = ref[step]
@@ -245,9 +245,9 @@ def test_init_cache_makes_each_shard_at_its_size(serve_out, world, arch,
     """``init_cache(mesh=)``: each leaf at the size of its block of the JAX
     package's empty cache under its ``cache_shardings``, empty (zeros;
     ``kpos`` -1 a slot)."""
-    cfg = ranks.serve_config(arch)
-    jcfg = jget_smoke(ranks.serve_base(arch)).with_(
-        **ranks.serve_overrides(arch))
+    cfg = ranks.case_config(arch)
+    jcfg = jget_smoke(ranks.case_base(arch)).with_(
+        **ranks.case_overrides(arch))
     B, _, C = ranks.serve_sizes(arch)
     jcache = jax.eval_shape(lambda: JModel(jcfg).init_cache(B, C))
     placed = jsh.cache_shardings(jcache, AbstractMesh(shape, checks.AXES), B)
@@ -403,7 +403,7 @@ def test_sharded_greedy_token_ties_to_the_lowest_index(monkeypatch, m):
     """Each rank's block of the padded vocab: the token is the argmax of
     the whole logits cut to the real vocab, and on a tie the lowest index,
     across ranks and within one; the padding never wins."""
-    cfg = ranks.serve_config("glm4-9b").with_(vocab_size=500)   # Vp 512
+    cfg = ranks.case_config("glm4-9b").with_(vocab_size=500)   # Vp 512
     Vp = cfg.padded_vocab
     logits = torch.zeros(4, Vp)
     logits[0, [7, 300]] = 3.0            # a tie across ranks

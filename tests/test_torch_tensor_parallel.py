@@ -12,7 +12,7 @@ under the planner loss's two strategies and the plain loss:
   projections are gathered (``tp/kv-gather``);
 - qwen3-moe-30b-a3b (q/k-norm, 8 experts top-2) on (2, 2) and (1, 4):
   tensor-parallel attention, expert-parallel MoE layers.  Its config runs
-  at capacity factor E / k (``torch_mesh_ranks.overrides``): the mesh
+  at capacity factor E / k (``torch_mesh_ranks.case_overrides``): the mesh
   step's capacity is each data rank's (32 tokens), the JAX mesh-free
   step's that of the whole batch (64 tokens, where the smoke capacity of
   32 drops 3 to 7 assignments a layer), and the two steps agree only
@@ -157,22 +157,19 @@ class _Mesh:
         return None
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b",
-                                  "seamless-m4t-medium", "deepseek-v3-671b"])
-def test_layers_not_yet_parallel_name_slice_14(arch):
-    cfg = get_smoke_config(arch)
-    # training them on a model axis waits for slice 15 (they serve there:
-    # tests/test_torch_serve_mesh.py)
-    with pytest.raises(NotImplementedError, match="A.5, slice 15"):
+@pytest.mark.parametrize("knob", [{"seq_shard": True},
+                                  {"tensor_parallel": False}])
+def test_check_mesh_refuses_the_knobs_not_ported(knob):
+    """Every family trains on a model axis
+    (tests/test_torch_tensor_parallel_families.py); the seq_shard and
+    tensor_parallel=False knobs are refused there, naming the roadmap's
+    item, and run as they do on a one-rank model axis."""
+    cfg = get_smoke_config("glm4-9b").with_(**knob)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         transformer.check_mesh(cfg, _Mesh(2))
-    transformer.check_mesh(cfg, _Mesh(1))          # model == 1 runs as today
-
-
-def test_mla_refuses_a_model_axis():
-    cfg = get_smoke_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="MLA.*slice 15"):
-        attention.attn_train(cfg, {}, torch.zeros(1, 2, cfg.d_model),
-                             mesh=_Mesh(2))
+    transformer.check_mesh(cfg, _Mesh(1))
+    transformer.check_mesh(cfg.with_(seq_shard=False, tensor_parallel=True),
+                           _Mesh(2))
 
 
 def test_recompute_is_recorded_apart():

@@ -1,8 +1,9 @@
 """Port training path against the JAX package on the CPU: the LM loss, one
-train step's loss and gradients on the glm4 and mamba2 smoke configs in
-f32 (the port on both kernel settings: on CPU tensors ``use_kernels=True``
-goes through ``_FlashAttention``/``_SSDScan`` and their recompute
-backward), ``adamw_update`` and ``cosine_lr`` on identical inputs, the
+train step's loss and gradients on the smoke configs of every family in
+f32 (glm4, mamba2, hymba, deepseek-v3, seamless, qwen3-moe at capacity
+factor E / k; the port on both kernel settings: on CPU tensors
+``use_kernels=True`` goes through ``_FlashAttention``/``_SSDScan`` and
+their recompute backward), ``adamw_update`` and ``cosine_lr`` on identical inputs, the
 synthetic data, checkpoints written by either package and restored by the
 other, the remat policies, microbatching, and the train CLI with its
 restart; plus ports of tests/test_train_infra.py.
@@ -13,8 +14,9 @@ parameters reach the port through ``params_from_jax``.
 Tolerances, each with its reason:
 - 1e-6 relative for the loss of given logits: the same f32 reductions.
 - 1e-5 relative for one step's loss: f32 matmuls summed in another order.
-- Gradient leaves, max |port - JAX| <= 1e-4 x max |JAX|: glm4 (f32
-  throughout).  mamba2: 1e-2 x max |JAX|, the repo's bf16 SSD bar.  Both
+- Gradient leaves, max |port - JAX| <= 1e-4 x max |JAX| (``GRAD_TOL``
+  "f32"): the families without an SSD mixer (f32 throughout).  mamba2
+  and hymba ("ssd"): 1e-2 x max |JAX|, the repo's bf16 SSD bar.  Both
   packages round the scan's inputs, and so the cotangents of its output
   and inputs, to bf16 even in an f32 config
   (``repro/models/ssm.py:106-107``); an f32 difference in the order of a
@@ -41,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mesh_ranks as ranks
 from repro.configs import get_smoke_config as jget_smoke
 from repro.models import Model as JModel
 from repro.models.layers import cross_entropy_loss as jcross_entropy_loss
@@ -52,7 +55,7 @@ from repro.train.optimizer import adamw_update as jadamw_update
 from repro.train.optimizer import cosine_lr as jcosine_lr
 from repro.train.optimizer import init_opt_state as jinit_opt_state
 from repro.train.train_step import TrainState as JTrainState
-from repro_torch.configs.registry import get_smoke_config
+from repro_torch.configs.registry import ARCH_IDS, get_smoke_config
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ssd as tssd
 from repro_torch.launch import train as train_cli
@@ -73,7 +76,7 @@ from repro_torch.train.train_step import (TrainState, make_loss_fn,
                                           make_train_step, value_and_grad)
 
 LOSS_RTOL = 1e-5
-GRAD_TOL = {"glm4-9b": 1e-4, "mamba2-130m": 1e-2}
+GRAD_TOL = {"f32": 1e-4, "ssd": 1e-2}
 ADAMW_ATOL = 1e-6
 
 
@@ -102,7 +105,9 @@ def _batch(vocab, S, B, seed=0, step=0):
 
 
 def _tbatch(b):
-    return {k: torch.from_numpy(v).long() for k, v in b.items()}
+    """numpy batch -> tensors: token ids as int64, frames as they are."""
+    return {k: torch.from_numpy(v).long() if v.dtype.kind in "iu"
+            else torch.from_numpy(v) for k, v in b.items()}
 
 
 def _get(tree, path):
@@ -133,42 +138,73 @@ def test_cross_entropy_loss_matches_jax_with_padded_vocab():
 # ------------------------------------------------------- one train step
 
 
+# hymba's smoke window is 32: at 48 positions the window cuts the causal
+# span and the attention takes the kernel path, as at full size (1536
+# positions, window 1024); from 2 windows on both packages take the
+# banded path instead (``_attend``)
+STEP_SEQ = {"hymba-1.5b": 48}
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_step(arch):
     """The JAX package's loss and gradients on the f32 smoke config at
-    batch 4, seq 64, with its params as numpy (computed once an arch)."""
-    cfg = jget_smoke(arch).with_(dtype="float32")
+    batch 4, seq 64 (``STEP_SEQ``; an enc-dec model's frames from the same
+    generator), with its params as numpy (computed once an arch)."""
+    cfg = jget_smoke(arch).with_(**ranks.case_overrides(arch))
     model = JModel(cfg)
     params = model.init(jax.random.PRNGKey(0))
-    b = _batch(cfg.vocab_size, 64, 4)
+    b = JSyntheticLM(cfg.vocab_size, STEP_SEQ.get(arch, 64), 4, seed=0,
+                     encdec=cfg.is_encdec,
+                     d_model=cfg.d_model, enc_ratio=cfg.enc_ratio).batch(0)
     loss, grads = jax.jit(jax.value_and_grad(model.loss))(
         params, {k: jnp.asarray(v) for k, v in b.items()})
     return (float(loss), jax.tree_util.tree_flatten_with_path(grads)[0],
             jax.tree.map(np.asarray, params), b)
 
 
+def _attention_layers(cfg) -> int:
+    """The layers whose attention goes through FlashAttention (MLA's
+    reaches no kernel); an enc-dec decoder layer attends twice."""
+    if cfg.attn_type == "mla" or not cfg.has_attention:
+        return 0
+    if cfg.is_encdec:
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+STEP_ARCHS = ["glm4-9b", "mamba2-130m", "hymba-1.5b", "deepseek-v3-671b",
+              "seamless-m4t-medium", "qwen3-moe-30b-a3b"]
+
+
 @pytest.mark.parametrize("use_kernels", [False, True])
-@pytest.mark.parametrize("arch", ["glm4-9b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_one_step_loss_and_grads_match_jax(arch, use_kernels, monkeypatch):
     jloss, jgrads, jparams, b = _jax_step(arch)
-    model = Model(get_smoke_config(arch).with_(dtype="float32",
-                                               use_kernels=use_kernels))
+    cfg = get_smoke_config(arch).with_(use_kernels=use_kernels,
+                                       **ranks.case_overrides(arch))
+    model = Model(cfg)
     params = params_from_jax(jparams, device="cpu")
     # on the kernel path every layer's mixer goes through its autograd
     # wrapper (on CPU tensors: the plain forward, the recompute backward)
-    applied = []
+    applied = {}
     for fn in (tfa._FlashAttention, tssd._SSDScan):
         monkeypatch.setattr(fn, "apply", functools.partial(
-            lambda orig, *a: applied.append(1) or orig(*a), fn.apply))
+            lambda orig, name, *a: applied.update(
+                {name: applied.get(name, 0) + 1}) or orig(*a),
+            fn.apply, fn.__name__))
     loss, tgrads = value_and_grad(make_loss_fn(model), params, _tbatch(b))
     assert float(loss) == pytest.approx(jloss, rel=LOSS_RTOL)
-    # forward and remat recompute: two applications a layer
-    assert len(applied) == (2 * model.cfg.n_layers if use_kernels else 0)
+    # forward and remat recompute: two applications a layer and kernel
+    want = {"_FlashAttention": 2 * _attention_layers(cfg),
+            "_SSDScan": 2 * cfg.n_layers * cfg.has_ssm}
+    assert applied == ({k: n for k, n in want.items() if n}
+                       if use_kernels else {})
+    tol = GRAD_TOL["ssd" if cfg.has_ssm else "f32"]
     for path, jg in jgrads:
         tg = _get(tgrads, path).numpy()
         jg = np.asarray(jg)
         err = np.abs(tg - jg).max()
-        assert err <= GRAD_TOL[arch] * np.abs(jg).max(), \
+        assert err <= tol * np.abs(jg).max(), \
             (jax.tree_util.keystr(path), err, np.abs(jg).max())
 
 
@@ -188,7 +224,28 @@ def test_mamba2_gradients_move_past_1e_4_with_the_chunk(monkeypatch):
             value_and_grad(make_loss_fn(model), params, b)[1])
     worst = max(float((a - g).abs().max() / g.abs().max())
                 for a, g in zip(grads[32], grads[64]))
-    assert 1e-4 < worst < GRAD_TOL["mamba2-130m"]
+    assert 1e-4 < worst < GRAD_TOL["ssd"]
+
+
+def test_depth_cut_to_the_dense_stack_trains():
+    """deepseek-v3 cut to its leading dense layers (the card's phase 30):
+    the main stack of no layers is left out of the params, and a step's
+    loss and gradients equal those of the same layers as a model without
+    experts, whose one stack holds them."""
+    cfg = get_smoke_config("deepseek-v3-671b").with_(
+        dtype="float32", n_layers=1)
+    params = Model(cfg).init(0, device="cpu")
+    assert "layers" not in params and "dense_layers" in params
+    dense = Model(cfg.with_(n_experts=0, first_dense_layers=0))
+    moved = {k: v for k, v in params.items() if k != "dense_layers"}
+    moved["layers"] = params["dense_layers"]
+    b = _tbatch(_batch(cfg.vocab_size, 16, 2))
+    loss, grads = value_and_grad(make_loss_fn(Model(cfg)), params, b)
+    want, wgrads = value_and_grad(make_loss_fn(dense), moved, b)
+    assert torch.isfinite(loss) and float(loss) == float(want)
+    for a, w in zip(tree_leaves(grads["dense_layers"]),
+                    tree_leaves(wgrads["layers"])):
+        assert torch.equal(a, w)
 
 
 # -------------------------------------------------------------- AdamW
@@ -580,6 +637,21 @@ def test_mesh_and_shardings_wait_for_a_mesh(tmp_path, capsys):
     assert resumed["steps_done"] == 2
     np.testing.assert_allclose(resumed["losses"], half["losses"][2:],
                                rtol=1e-6)
+    assert not torch.distributed.is_initialized()     # the CLI's group ended
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_cli_mesh_host_takes_every_arch(arch, capsys):
+    """``--mesh host --model-parallel 2`` trains every arch (a one-rank
+    gloo world here, so the model axis is 1): a step of the smoke config,
+    its loss the CLI's without a mesh within 1e-5."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1",
+            "--batch", "2", "--seq", "16"]
+    plain = train_cli.main(argv)
+    out = train_cli.main(argv + ["--mesh", "host", "--model-parallel", "2"])
+    assert abs(out["losses"][0] / plain["losses"][0] - 1) <= LOSS_RTOL
+    assert np.isfinite(out["losses"]).all()
     assert not torch.distributed.is_initialized()     # the CLI's group ended
     capsys.readouterr()
 

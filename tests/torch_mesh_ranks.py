@@ -16,6 +16,10 @@ a rank and case; the tests compare it with the JAX package.  Suites:
   step under the three losses: glm4 on (1, 2) (world 2) and on (1, 4),
   qwen3-moe on (2, 2) and (1, 4) (world 4); one qwen3-moe layer on (2, 2)
   at the smoke capacity, where each data rank's capacity drops tokens;
+- ``tp_families``: two steps of the same train step for the other
+  families, ``FAMILY_CASES`` (mamba2, hymba and its 5-head variant,
+  seamless on world 2; deepseek-v3 on (2, 2) and mamba2 on (1, 4) on
+  world 4), under the losses each case lists;
 - ``elastic`` (world 4): a checkpoint of two glm4 steps written on (2, 2)
   (the whole leaves its gathers hold at once metered) and restored on
   (1, 4), (4, 1) and with no mesh; ``remesh`` and ``shrink_mesh``; the
@@ -53,6 +57,13 @@ VARIANTS = (("dist", "dist", True), ("gather", "gather", True),
 TP_CASES = {2: (("glm4-9b", (1, 2)),),
             4: (("glm4-9b", (1, 4)), ("qwen3-moe-30b-a3b", (2, 2)),
                 ("qwen3-moe-30b-a3b", (1, 4)))}
+# the tp_families suite's cases: (arch, mesh shape, variants), by world
+FAMILY_CASES = {2: (("mamba2-130m", (1, 2), ("plain",)),
+                    ("hymba-1.5b", (1, 2), ("dist", "gather", "plain")),
+                    ("hymba-1.5b-h5", (1, 2), ("plain",)),
+                    ("seamless-m4t-medium", (1, 2), ("plain",))),
+                4: (("deepseek-v3-671b", (2, 2), ("dist", "plain")),
+                    ("mamba2-130m", (1, 4), ("plain",)))}
 RESTORE_SHAPES = ((1, 4), (4, 1))
 # the MoE layer at the smoke capacity: 64 tokens a data rank on (2, 2),
 # where the capacity is 32 (the whole batch's would be 40)
@@ -76,36 +87,33 @@ SERVE_DEFAULT_SIZES = (4, 8, 32)
 SERVE_NEW_TOKENS = (3, 2, 4, 3, 2, 3)
 
 
-def overrides(arch) -> dict:
-    """The smoke config's changes for the mesh steps, the same for both
+def case_base(arch) -> str:
+    """The registry arch of a mesh case's arch ("hymba-1.5b-h5" is
+    hymba-1.5b's)."""
+    return arch[:-3] if arch.endswith("-h5") else arch
+
+
+def case_overrides(arch) -> dict:
+    """The smoke config's changes for the mesh cases, the same for both
     packages: f32; a MoE config at capacity factor E / k, where every
     expert takes all the tokens: the mesh step's capacity is that of each
     data rank's tokens (the JAX package's ``_cap(t_local)``), the
     mesh-free step's that of the whole batch, and the two agree only where
-    nothing drops (the ranks count the drops)."""
+    nothing drops (the ranks count the drops); the 5-head variant's
+    heads."""
     from repro_torch.configs.registry import get_smoke_config
-    cfg = get_smoke_config(arch)
+    cfg = get_smoke_config(case_base(arch))
     out = {"dtype": "float32"}
     if cfg.is_moe:
         out["capacity_factor"] = cfg.n_experts / cfg.top_k
-    return out
-
-
-def serve_base(arch) -> str:
-    return arch[:-3] if arch.endswith("-h5") else arch
-
-
-def serve_overrides(arch) -> dict:
-    """:func:`overrides`, and the 5-head variant's heads."""
-    out = overrides(serve_base(arch))
     if arch.endswith("-h5"):
         out.update(n_heads=5, n_kv_heads=5)
     return out
 
 
-def serve_config(arch):
+def case_config(arch):
     from repro_torch.configs.registry import get_smoke_config
-    return get_smoke_config(serve_base(arch)).with_(**serve_overrides(arch))
+    return get_smoke_config(case_base(arch)).with_(**case_overrides(arch))
 
 
 def serve_sizes(arch):
@@ -205,10 +213,19 @@ def run_compressed(mesh, rank, out_dir, tag):
           {"coord": list(mesh.get_coordinate())})
 
 
+def step_data(cfg, synthetic):
+    """The mesh steps' data: ``synthetic`` (either package's
+    ``SyntheticLM``) at seed 0, with an enc-dec model's frames."""
+    return synthetic(cfg.vocab_size, STEP_SEQ, STEP_BATCH, seed=0,
+                     encdec=cfg.is_encdec, d_model=cfg.d_model,
+                     enc_ratio=cfg.enc_ratio)
+
+
 def _batches(cfg):
     from repro_torch.train.data import SyntheticLM
-    data = SyntheticLM(cfg.vocab_size, STEP_SEQ, STEP_BATCH, seed=0)
-    return [{k: torch.from_numpy(v).long() for k, v in data.batch(i).items()}
+    data = step_data(cfg, SyntheticLM)
+    return [{k: torch.from_numpy(v).long() if v.dtype.kind in "iu"
+             else torch.from_numpy(v) for k, v in data.batch(i).items()}
             for i in range(STEPS)]
 
 
@@ -294,15 +311,13 @@ def train_case(arch, mesh, strategy, planner, *, compression=False):
     """Two steps of the mesh train step from ``Model.init(0)``: the state,
     each step's loss, its collectives (outside and inside the remat
     recompute), the MoE drops, each step's local params."""
-    from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models.model import Model
     from repro_torch.parallel.collective_planner import record_collectives
     from repro_torch.train.checkpoint import flatten_with_names
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step)
-    cfg = get_smoke_config(arch).with_(softmax_strategy=strategy,
-                                       **overrides(arch))
+    cfg = case_config(arch).with_(softmax_strategy=strategy)
     model = Model(cfg)
     opt_cfg = OptConfig(warmup_steps=1, total_steps=STEPS,
                         grad_compression=compression)
@@ -320,6 +335,8 @@ def train_case(arch, mesh, strategy, planner, *, compression=False):
             losses.append(float(metrics["loss"]))
             for n, t in flatten_with_names(state.params):
                 arrays[f"step{i}{n}"] = t.detach().numpy().copy()
+            for n, t in flatten_with_names(state.opt.m):
+                arrays[f"step{i}m{n}"] = t.numpy().copy()
     finally:
         counter.close()
     for n, t in flatten_with_names(state.opt.m):
@@ -330,8 +347,11 @@ def train_case(arch, mesh, strategy, planner, *, compression=False):
     return model, state, arrays, meta
 
 
-def run_train_steps(mesh, rank, out_dir, arch="glm4-9b", name=None):
+def run_train_steps(mesh, rank, out_dir, arch="glm4-9b", name=None,
+                    variants=None):
     for variant, strategy, planner in VARIANTS:
+        if variants is not None and variant not in variants:
+            continue
         _, _, arrays, meta = train_case(arch, mesh, strategy, planner)
         _save(out_dir, name.format(variant=variant) if name
               else f"train_{variant}", rank, arrays, meta)
@@ -433,7 +453,7 @@ def run_serve(mesh, rank, out_dir, arch):
                                                shard_bounds, shard_tree)
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.train.checkpoint import flatten_with_names
-    cfg = serve_config(arch)
+    cfg = case_config(arch)
     model = Model(cfg)
     params = shard_tree(model.init(0, device="cpu"),
                         param_shardings(model.specs, mesh), mesh)
@@ -517,6 +537,11 @@ def _rank(rank, world, out_dir, suite):
                                 f"tp_{arch}_{tag_of(shape)}_{{variant}}")
             if world == 4:
                 run_moe_capacity(mesh((2, 2)), rank, out_dir)
+        elif suite == "tp_families":
+            for arch, shape, variants in FAMILY_CASES[world]:
+                run_train_steps(mesh(shape), rank, out_dir, arch,
+                                f"tp_{arch}_{tag_of(shape)}_{{variant}}",
+                                variants)
         elif suite == "elastic":
             meshes = {s: mesh(s) for s in ((2, 2),) + RESTORE_SHAPES}
             run_elastic(rank, out_dir, meshes)

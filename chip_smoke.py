@@ -259,12 +259,36 @@ failure ends the run with a non-zero exit:
     GB with their moments; the cut is logged), batch 4 x seq 1024: no
     kernel launch (MLA reaches none), so no kernel path to hold against
     the plain one;
-31. a JSON line of the kernels (every number in it measured in this run,
+31. the pod axis: ``train_loop`` of glm4-9b at full width, 4 of its 40
+    layers (phase 16's cut), bf16, kernels on, the planner loss, batch 4
+    x seq 1024, 3 steps, on a one-rank ``("pod", "data", "model")`` NCCL
+    mesh of shape (1, 1, 1) (``launch/mesh.make_auto_mesh``), counts set
+    to 0 just before and read just after: FlashAttention launched 4 x 2 x
+    3 times; the step-0 loss within 1e-3 relative of phase 16's (no
+    mesh); every collective a one-rank copy, the labels logged; the step
+    times beside phase 23's on the (1, 1) mesh;
+32. ``seq_shard=True`` on the (1, 1) NCCL mesh (the residual's sequence
+    over ``model``: every block gathers the rows in and Reduce-Scatters
+    them out): the same glm4-9b training as phase 23 (3 steps, the planner
+    loss), its step-0 loss equal to phase 23's (1e-6 relative) and every
+    step's within 1e-3, FlashAttention 24 launches, the rows' gathers and
+    scatters among the collectives; 2 steps of mamba2-130m at full config
+    (batch 8 x seq 1024): 24 x 2 x 2 SSD launches, every one at the plan's
+    chunk, the step-0 loss within 1e-3 of phase 15's; glm4-9b served with
+    phase 5's requests through ``ServeEngine(mesh=)``: its greedy tokens
+    equal phase 5's, FlashAttention 40 launches a prefill, the prefill's
+    gathers and scatters among the collectives;
+33. ``tensor_parallel=False`` on the (1, 1) NCCL mesh: one glm4-9b step as
+    phase 23's first (4 layers, the planner loss), its loss within 1e-6
+    relative of phase 23's step 0, FlashAttention 4 x 2 launches, no
+    ``tp/`` collective (the dense layers run on whole weights);
+34. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
     the training run; the FlashAttention and SSD rows also carry each
     family's serve and training launches and its shape's record, the
-    mesh phases' launches and the rank shapes' records), then
+    mesh phases' launches (phases 23, 25-27 and 31-33) and the rank shapes'
+    records), then
     ``{"ok": true, ...}`` as the last line.
 
 Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
@@ -1074,17 +1098,17 @@ def collective_probe(mesh, cfg, calls=100):
 
 
 def mesh_serve(arch, dev, counters, plan_root, plain, *, batch, prompt_len,
-               cache_len, n_requests, max_new, want):
-    """Serve ``arch`` at full size through ``ServeEngine(mesh=
-    make_host_mesh())`` (the one-card (1, 1) NCCL mesh, params placed by
-    ``param_shardings``) with the requests of ``plain`` (its serve record
-    without a mesh): the same greedy tokens, the launches ``want``.
-    Returns the record."""
+               cache_len, n_requests, max_new, want, knob=None):
+    """Serve ``arch`` at full size (the config ``knob`` set) through
+    ``ServeEngine(mesh=make_host_mesh())`` (the one-card (1, 1) NCCL mesh,
+    params placed by ``param_shardings``) with the requests of ``plain``
+    (its serve record without a mesh): the same greedy tokens, the
+    launches ``want``.  Returns the record."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models.model import Model
     from repro_torch.parallel.sharding import param_shardings, shard_tree
-    cfg = get_config(arch).with_(use_kernels=True)
+    cfg = get_config(arch).with_(use_kernels=True, **(knob or {}))
     model = Model(cfg)
     mesh = tmesh.make_host_mesh(device=dev)
     try:
@@ -1522,6 +1546,193 @@ MOE_LAYERS = 4
 MOE_CUT = ("depth cut to 4 of 48 layers by memory: 3.1 B parameters at 12 B "
            "each (bf16 params and grads, f32 AdamW moments) take 37 GB; all "
            "48 layers would take 366 GB, more than the card's 80 GB")
+
+
+# phases 31-33: the pod axis and the config knobs on a one-rank NCCL mesh
+KNOB_STEPS = 3
+SEQ_SSM_STEPS = 2
+# a knob that changes no arithmetic on a one-rank axis (phase 32's glm4
+# step 0, phase 33's step) gives the loss of the step without it
+KNOB_LOSS_RTOL = 1e-6
+POD_AXES = ("pod", "data", "model")
+
+
+def knob_train(arch, dev, counters, *, shape, axes, knob, steps, batch,
+               seq, n_layers=None, planner=False):
+    """``steps`` steps of ``launch.train.train_loop`` for ``arch`` (bf16,
+    kernels on, the config ``knob`` set; ``n_layers`` of its layers) on a
+    one-rank NCCL mesh of ``shape`` named ``axes``
+    (``launch/mesh.make_auto_mesh``), with the counts set to 0 just before
+    and read just after and every collective recorded: each must run in a
+    one-rank group (a copy).  Returns the record."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.collective_planner import record_collectives
+    from repro_torch.train.optimizer import OptConfig
+    cfg = get_config(arch).with_(use_kernels=True, **knob)
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    mesh = tmesh.make_auto_mesh(shape, axes, device=dev)
+    try:
+        for f in counters.values():
+            f.launches = 0
+            if hasattr(f, "chunks"):
+                f.chunks = {}
+        torch.cuda.reset_peak_memory_stats()
+        with record_collectives() as coll:
+            out = train_loop(Model(cfg), steps=steps, batch=batch, seq=seq,
+                             mesh=mesh, opt_cfg=OptConfig(
+                                 total_steps=steps, warmup_steps=1),
+                             use_planner_loss=planner, warmup_plans=True,
+                             log_every=1, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        tmesh.destroy()
+    launches = {k: f.launches for k, f in counters.items()}
+    wide = {r[3] for r in list(coll) + coll.recompute} - {1}
+    if wide or not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"{cfg.name} {knob} on {shape}: collectives "
+                             f"over {wide} ranks, losses {out['losses']}")
+    timed = out["step_ms"][1:] or out["step_ms"]
+    rec = {"config": cfg.name, "layers": cfg.n_layers, "knob": knob,
+           "mesh": dict(zip(axes, shape)), "batch": batch, "seq": seq,
+           "steps": steps, "losses": out["losses"], "step_ms": out["step_ms"],
+           "mean_step_ms": sum(timed) / len(timed), "launches": launches,
+           "ssd_chunks": dict(getattr(counters["ssd_scan"], "chunks", {})),
+           "labels": sorted({f"{r[0]} {r[1]}" for r in coll}),
+           "collectives": _counted(coll),
+           "recompute_collectives": _counted(coll.recompute),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del out
+    torch.cuda.empty_cache()
+    log(f"  {cfg.name} {knob or 'no knob'} on {rec['mesh']}: losses "
+        f"{[round(x, 6) for x in rec['losses']]}; step ms (CUDA events) "
+        f"{[round(x, 2) for x in rec['step_ms']]}; launches {launches}; "
+        f"peak memory {rec['peak_mem_gb']:.2f} GB")
+    log(f"  {len(rec['labels'])} labels (one-rank copies): {rec['labels']}")
+    return rec
+
+
+def _rel(a, b):
+    return abs(a / b - 1)
+
+
+def pod_phase(dev, counters, train_glm4, mesh_train):
+    """Phase 31: glm4-9b (4 layers, the planner loss) on the (1, 1, 1)
+    ``(pod, data, model)`` mesh."""
+    L = 4
+    rec = knob_train("glm4-9b", dev, counters, shape=(1, 1, 1),
+                     axes=POD_AXES, knob={}, steps=KNOB_STEPS, batch=4,
+                     seq=1024, n_layers=L, planner=True)
+    want = {k: 2 * L * KNOB_STEPS if k == "flash_attention" else 0
+            for k in counters}
+    err = _rel(rec["losses"][0], train_glm4["losses"][0])
+    rec.update(step0_rel_err_vs_phase16=err,
+               phase23_mean_step_ms=mesh_train["mean_step_ms"])
+    log(f"  step 0 {rec['losses'][0]:.6f} vs phase 16's "
+        f"{train_glm4['losses'][0]:.6f} (rel {err:.2e}, tol "
+        f"{MESH_STEP0_RTOL}); mean step {rec['mean_step_ms']:.2f} ms beside "
+        f"phase 23's {mesh_train['mean_step_ms']:.2f} ms on (1, 1)")
+    if rec["launches"] != want:
+        raise AssertionError(f"pod mesh launches {rec['launches']}; want "
+                             f"{want}")
+    if err > MESH_STEP0_RTOL:
+        raise AssertionError(f"pod mesh step 0 loss off by {err}")
+    need = {"xent/hidden-cotangent AllReduce", "xent/unembed-grad AllReduce",
+            "tp/attn-out AllReduce", "tp/embed AllReduce",
+            "grads/norm AllReduce"}
+    if not need <= set(rec["labels"]):
+        raise AssertionError(f"pod mesh labels {rec['labels']}")
+    return rec
+
+
+def seq_shard_phase(dev, counters, plan_root, mesh_train, train_mamba,
+                    serve, m_batch):
+    """Phase 32: ``seq_shard=True`` on the (1, 1) mesh: glm4-9b's training
+    as phase 23, mamba2-130m's (2 steps), glm4-9b served."""
+    from repro_torch.kernels import autotune
+    L = 4
+    seq_kw = {"seq_shard": True}
+    glm4 = knob_train("glm4-9b", dev, counters, shape=(1, 1),
+                      axes=("data", "model"), knob=seq_kw, steps=KNOB_STEPS,
+                      batch=4, seq=1024, n_layers=L, planner=True)
+    errs = [_rel(a, b) for a, b in zip(glm4["losses"], mesh_train["losses"])]
+    glm4["rel_err_vs_phase23"] = errs
+    ref = [round(x, 6) for x in mesh_train["losses"]]
+    log(f"  losses against phase 23's {ref}: rel "
+        f"{[f'{e:.2e}' for e in errs]} (step 0 "
+        f"tol {KNOB_LOSS_RTOL}, the rest {MESH_STEP0_RTOL}); mean step "
+        f"{glm4['mean_step_ms']:.2f} ms beside phase 23's "
+        f"{mesh_train['mean_step_ms']:.2f} ms")
+    fa = {k: 2 * L * KNOB_STEPS if k == "flash_attention" else 0
+          for k in counters}
+    if glm4["launches"] != fa:
+        raise AssertionError(f"seq_shard glm4 launches {glm4['launches']}")
+    if errs[0] > KNOB_LOSS_RTOL or max(errs) > MESH_STEP0_RTOL:
+        raise AssertionError(f"seq_shard glm4 losses off by {errs}")
+    need = {"tp/seq-gather AllGather", "tp/seq-gather ReduceScatter",
+            "tp/attn-out ReduceScatter", "tp/ffn-out ReduceScatter",
+            "tp/embed ReduceScatter"}
+    if not need <= set(glm4["labels"]) or "tp/attn-out AllReduce" in \
+            glm4["labels"]:
+        raise AssertionError(f"seq_shard glm4 labels {glm4['labels']}")
+
+    mamba = knob_train("mamba2-130m", dev, counters, shape=(1, 1),
+                       axes=("data", "model"), knob=seq_kw,
+                       steps=SEQ_SSM_STEPS, batch=m_batch, seq=1024)
+    n = 24 * 2 * SEQ_SSM_STEPS
+    plan = autotune.ssd_chunk_len(1024, 64, 128)
+    err = _rel(mamba["losses"][0], train_mamba["losses"][0])
+    mamba["step0_rel_err_vs_phase15"] = err
+    log(f"  mamba2 ssd_scan launches by chunk {mamba['ssd_chunks']} (want "
+        f"{n}, all at the plan's {plan}); step 0 {mamba['losses'][0]:.6f} vs "
+        f"phase 15's {train_mamba['losses'][0]:.6f} (rel {err:.2e}); mean "
+        f"step {mamba['mean_step_ms']:.2f} ms beside phase 15's "
+        f"{train_mamba['mean_step_ms']:.2f} ms")
+    if mamba["launches"]["ssd_scan"] != n or mamba["ssd_chunks"] != {plan: n}:
+        raise AssertionError(f"seq_shard mamba2 launches {mamba['launches']}"
+                             f", chunks {mamba['ssd_chunks']}")
+    if err > MESH_STEP0_RTOL or "tp/ssm-out ReduceScatter" not in \
+            mamba["labels"]:
+        raise AssertionError(f"seq_shard mamba2: step 0 off by {err}, "
+                             f"labels {mamba['labels']}")
+
+    from repro_torch.configs.registry import get_config
+    served = mesh_serve(
+        "glm4-9b", dev, counters, plan_root, serve, batch=4,
+        prompt_len=1024, cache_len=2048, n_requests=8, max_new=16,
+        want={"flash_attention": get_config("glm4-9b").n_layers
+              * serve["prefill_calls"]}, knob=seq_kw)
+    kinds = {" ".join(k.split()[:2]) for k in served["collectives"]}
+    if not {"tp/seq-gather AllGather", "tp/attn-out ReduceScatter"} <= kinds:
+        raise AssertionError(f"seq_shard serve collectives "
+                             f"{served['collectives']}")
+    return {"glm4_train": glm4, "mamba2_train": mamba, "glm4_serve": served}
+
+
+def tp_off_phase(dev, counters, mesh_train):
+    """Phase 33: one glm4-9b step with ``tensor_parallel=False`` on the
+    (1, 1) mesh."""
+    L = 4
+    rec = knob_train("glm4-9b", dev, counters, shape=(1, 1),
+                     axes=("data", "model"),
+                     knob={"tensor_parallel": False}, steps=1, batch=4,
+                     seq=1024, n_layers=L, planner=True)
+    err = _rel(rec["losses"][0], mesh_train["losses"][0])
+    rec["step0_rel_err_vs_phase23"] = err
+    log(f"  loss {rec['losses'][0]:.6f} vs phase 23's step 0 "
+        f"{mesh_train['losses'][0]:.6f} (rel {err:.2e}, tol "
+        f"{KNOB_LOSS_RTOL}); step {rec['step_ms'][0]:.2f} ms")
+    want = {k: 2 * L if k == "flash_attention" else 0 for k in counters}
+    if rec["launches"] != want or err > KNOB_LOSS_RTOL:
+        raise AssertionError(f"tensor_parallel=False: launches "
+                             f"{rec['launches']}, loss off by {err}")
+    if any(x.startswith(("tp/", "grads/norm")) for x in rec["labels"]) or \
+            "xent/hidden-cotangent AllReduce" not in rec["labels"]:
+        raise AssertionError(f"tensor_parallel=False labels {rec['labels']}")
+    return rec
 
 
 def moe_mesh_train_phase(counters):
@@ -2450,7 +2661,26 @@ def main() -> int:
         n_layers=DEEPSEEK_LAYERS, steps=FAMILY_STEPS, cut=DEEPSEEK_CUT)
     log(f"phase 30: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 31. the result
+    # ------------------------------------- 31. the pod axis, (1, 1, 1) mesh
+    t0 = phase("31. train glm4-9b on a (pod, data, model) mesh of (1, 1, 1) "
+               "(full width, 4 of 40 layers, planner loss, use_kernels=True)")
+    pod = pod_phase(dev, counters, train_glm4, mesh_train)
+    log(f"phase 31: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------- 32. seq_shard on (1, 1)
+    t0 = phase("32. seq_shard=True on the (1, 1) NCCL mesh (glm4-9b and "
+               "mamba2-130m training, glm4-9b serving)")
+    seq_shard = seq_shard_phase(dev, counters, plan_root, mesh_train,
+                                train_mamba, serve, m_batch)
+    log(f"phase 32: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------ 33. tensor_parallel=False on (1, 1)
+    t0 = phase("33. tensor_parallel=False on the (1, 1) NCCL mesh (one "
+               "glm4-9b step, 4 of 40 layers)")
+    tp_off = tp_off_phase(dev, counters, mesh_train)
+    log(f"phase 33: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 34. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2489,7 +2719,14 @@ def main() -> int:
                         for a, r in rank_fa.items()},
         "mesh_serve_launches": {
             "glm4-9b": mesh_glm4["launches"]["flash_attention"],
-            "hymba-1.5b": mesh_hymba["launches"]["flash_attention"]},
+            "hymba-1.5b": mesh_hymba["launches"]["flash_attention"],
+            "glm4-9b seq_shard": seq_shard["glm4_serve"]["launches"][
+                "flash_attention"]},
+        "knob_train_launches": {
+            "pod (1, 1, 1)": pod["launches"]["flash_attention"],
+            "seq_shard": seq_shard["glm4_train"]["launches"][
+                "flash_attention"],
+            "tensor_parallel=False": tp_off["launches"]["flash_attention"]},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -2522,6 +2759,8 @@ def main() -> int:
                         for a, r in rank_ssd.items()},
         "mesh_serve_launches": {
             "hymba-1.5b": mesh_hymba["launches"]["ssd_scan"]},
+        "knob_train_launches": {
+            "seq_shard": seq_shard["mamba2_train"]["launches"]["ssd_scan"]},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2585,6 +2824,9 @@ def main() -> int:
                     "train_hymba_1_5b": train_hymba,
                     "train_seamless_m4t_medium": train_seamless,
                     "train_deepseek_v3_3_layers": train_deepseek,
+                    "train_glm4_9b_pod_mesh": pod,
+                    "seq_shard": seq_shard,
+                    "train_glm4_9b_tensor_parallel_off": tp_off,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))

@@ -3,9 +3,9 @@
 Port of ``repro/launch/mesh.py``.  Where the JAX package builds a mesh
 over the devices present, the port builds a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the world
-group, with the JAX package's axis names (``("data", "model")``), so
-that every collective of a mesh axis runs in that axis's process group.
-:func:`host_group` makes the world group when nothing is initialised: a
+group, with the JAX package's axis names (``("data", "model")`` or
+``("pod", "data", "model")``), so that every collective of a mesh axis
+runs in that axis's process group.  :func:`host_group` makes the world group when nothing is initialised: a
 one-rank group, NCCL on ``cuda`` and gloo on ``cpu``; under ``torchrun``
 (or any caller that initialised ``torch.distributed``) the mesh spans its
 ranks.  Functions, so that importing this module initialises nothing.
@@ -97,7 +97,8 @@ def make_production_mesh(*, multi_pod: bool = False,
     ranks, or ``(2, 16, 16)`` ``("pod", "data", "model")`` over 512 with
     ``multi_pod``, through :func:`make_auto_mesh` (which raises its
     ``ValueError`` on a world of another size, as ``jax.make_mesh`` does).
-    The train step takes no ``pod`` axis yet (ROADMAP A.5, slice 16)."""
+    The train step and the engine reduce over ``(pod, data)`` as one
+    group (``collective_planner.data_group``)."""
     shape = (2,) + POD_SHAPE if multi_pod else POD_SHAPE
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_auto_mesh(shape, axes, device)

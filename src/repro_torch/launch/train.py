@@ -13,7 +13,8 @@ kernel, each under autograd with its plain recompute backward.
 ``launch/mesh.make_host_mesh(--model-parallel)`` (every rank of the world
 group; one card: a ``(1, 1)`` NCCL mesh) and
 ``--mesh production``/``production-multi`` on ``make_production_mesh``
-(256 or 512 ranks): the params placed by ``param_shardings``, the moments
+(256 ranks, or 512 over ``(pod, data, model)``, the gradients reduced
+over ``(pod, data)`` as one group): the params placed by ``param_shardings``, the moments
 by ``zero1_shardings``, every family tensor-parallel and the MoE layers
 expert-parallel over ``model`` (``train/train_step.py``), checkpoints gathered and written by rank 0 and
 restored onto the mesh's placements; ``--planner-loss`` takes the

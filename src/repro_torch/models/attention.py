@@ -21,8 +21,9 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 from ..kernels.ref import attention_ref
 from ..parallel.collective_planner import (collective, enter_parallel,
-                                           gather_replicated, gather_shards,
-                                           leave_parallel, model_axis,
+                                           enter_region, gather_replicated,
+                                           gather_shards, leave_parallel,
+                                           leave_region, model_axis,
                                            sum_cotangent)
 from ..parallel.sharding import cache_block, split_over
 from .config import ModelConfig
@@ -245,12 +246,12 @@ def _heads(cfg: ModelConfig, p, x, positions, mesh=None, *,
     Reduce-Scatter of its cotangent), q/k-normed and roped at
     ``positions``.  On a mesh the norm scales act on the rank's heads, so
     their cotangents are SUM-All-Reduced over ``model``
-    (``tp/qk-norm-grad``)."""
+    (``tp/qk-norm-grad``) where the block's output is partial."""
     q, h0 = _q_proj(cfg, p, x, mesh, all_heads=all_heads)
     k, v, kv0 = _kv_proj(cfg, p, x, mesh)
     if cfg.qk_norm:
         qs, ks = p["q_norm"], p["k_norm"]
-        if mesh is not None:
+        if mesh is not None and _partial(cfg, p, mesh):
             group = model_axis(mesh)[2]
             qs = sum_cotangent(qs, group, "tp/qk-norm-grad")
             ks = sum_cotangent(ks, group, "tp/qk-norm-grad")
@@ -292,39 +293,56 @@ def _attend_heads(cfg: ModelConfig, hs: _Heads, *, causal: bool,
     return o.transpose(1, 2).reshape(B, S, n * cfg.hd)
 
 
+def _partial(cfg: ModelConfig, p, mesh) -> bool:
+    """Whether the attention's output on a mesh is a partial sum over
+    ``model`` (``wo``'s rows split), not whole on every rank."""
+    dv = cfg.v_head_dim if cfg.attn_type == "mla" else cfg.hd
+    return split_over(p["wo"].shape[0], cfg.n_heads * dv,
+                      model_axis(mesh)[0])
+
+
 def _heads_out(o: torch.Tensor, c0: int, wo: torch.Tensor, full: int,
-               mesh=None) -> torch.Tensor:
+               mesh=None, seq=None) -> torch.Tensor:
     """The output projection of heads' outputs ``o`` (..., columns from
     global column ``c0`` on).  On a mesh where ``wo``'s ``full`` rows are
     split, this rank's rows take their columns of ``o`` and the partial
     products are SUM-All-Reduced over ``model`` (Megatron's *g*,
-    ``tp/attn-out``); ``wo`` kept whole takes all of ``o`` (every head),
-    with no collective."""
+    ``tp/attn-out``), or Reduce-Scattered over the sequence with ``seq``;
+    ``wo`` kept whole takes all of ``o`` (every head), with no collective
+    (with ``seq``, the rank's rows of it)."""
     if mesh is None:
         return o @ wo
     m, r, group = model_axis(mesh)
     rows = wo.shape[0]
-    if not split_over(rows, full, m):
-        return o @ wo
+    partial = split_over(rows, full, m)
     c = r * rows - c0
-    return leave_parallel(o[..., c:c + rows] @ wo, group, "tp/attn-out")
+    y = o[..., c:c + rows] @ wo if partial else o @ wo
+    if seq:
+        return leave_region(y, group, "tp/attn-out", partial=partial,
+                            seq=seq)
+    return leave_parallel(y, group, "tp/attn-out") if partial else y
 
 
-def attn_train(cfg: ModelConfig, p, x, *, causal: bool = True, mesh=None
-               ) -> torch.Tensor:
+def attn_train(cfg: ModelConfig, p, x, *, causal: bool = True, mesh=None,
+               seq=None) -> torch.Tensor:
     """Full-sequence self-attention.  On a mesh it is tensor-parallel over
     ``model``: GQA's *f* before the q/k/v projections, this rank's heads
     (:func:`_heads`) through the attention (the FlashAttention kernel with
     ``use_kernels``), its rows of ``wo``, and *g* after (both
-    ``tp/attn-out``); MLA's as :func:`_mla_train` says."""
+    ``tp/attn-out``); MLA's as :func:`_mla_train` says.  With ``seq``
+    ("rows": x is this rank's block of the sequence; "gathered": the
+    caller gathered it) the rows are gathered in (``tp/seq-gather``) and
+    the output's rows Reduce-Scattered out (``tp/attn-out``)."""
     if cfg.attn_type == "mla":
-        return _mla_train(cfg, p, x, mesh=mesh)
-    S = x.shape[1]
+        return _mla_train(cfg, p, x, mesh=mesh, seq=seq)
     if mesh is not None:
-        x = enter_parallel(x, model_axis(mesh)[2], "tp/attn-out")
+        x = enter_region(x, model_axis(mesh)[2], "tp/attn-out",
+                         partial=_partial(cfg, p, mesh), seq=seq)
+    S = x.shape[1]
     hs = _heads(cfg, p, x, torch.arange(S, device=x.device), mesh)
     o = _attend_heads(cfg, hs, causal=causal, window=cfg.window)
-    return _heads_out(o, hs.h0 * cfg.hd, p["wo"], cfg.n_heads * cfg.hd, mesh)
+    return _heads_out(o, hs.h0 * cfg.hd, p["wo"], cfg.n_heads * cfg.hd, mesh,
+                      seq)
 
 
 def init_attn_cache(cfg: ModelConfig, B: int, cache_len: int,
@@ -383,20 +401,24 @@ def _kv_cache(cfg: ModelConfig, k, v, kv0: int, W: int, mesh=None, *,
 
 
 def attn_prefill(cfg: ModelConfig, p, x, cache_len: Optional[int] = None,
-                 mesh=None) -> Tuple[torch.Tensor, Dict]:
+                 mesh=None, seq=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward that also returns the populated cache, of
     ``cache_len`` slots (default the prompt's S; a window's ring holds
     min(window, cache_len)).  On a mesh the heads are tensor-parallel as in
-    :func:`attn_train` and the cache is this rank's shard of it."""
+    :func:`attn_train` (``seq`` as there) and the cache is this rank's
+    shard of it, built from the whole sequence's k/v."""
+    if cfg.attn_type == "mla":
+        return _mla_prefill(cfg, p, x, cache_len, mesh, seq)
+    if mesh is not None and seq:
+        x = enter_region(x, model_axis(mesh)[2], "tp/attn-out",
+                         partial=_partial(cfg, p, mesh), seq=seq)
     B, S, d = x.shape
     L = cache_len or S
-    if cfg.attn_type == "mla":
-        return _mla_prefill(cfg, p, x, L, mesh)
     hs = _heads(cfg, p, x, torch.arange(S, device=x.device), mesh)
     o = _attend_heads(cfg, hs, causal=True, window=cfg.window)
     W = min(cfg.window, L) if cfg.window else L
     return (_heads_out(o, hs.h0 * cfg.hd, p["wo"], cfg.n_heads * cfg.hd,
-                       mesh),
+                       mesh, seq),
             _kv_cache(cfg, hs.k, hs.v, hs.kv0, W, mesh))
 
 
@@ -482,18 +504,26 @@ def attn_decode(cfg: ModelConfig, p, x, cache: Dict, pos: torch.Tensor,
 # =============================================================== MLA paths
 
 
+def _mla_split(cfg: ModelConfig, p, mesh) -> bool:
+    """Whether this rank holds whole heads of MLA's up projections and
+    ``wo``: H splits over ``model`` and so do the weights (not kept whole,
+    as ``tensor_parallel=False`` keeps them)."""
+    m = model_axis(mesh)[0]
+    return cfg.n_heads % m == 0 and _partial(cfg, p, mesh)
+
+
 def _mla_heads(cfg: ModelConfig, p, mesh=None):
     """(weights, h0): the MLA weights this rank runs and its first head.
-    Without a mesh, or where H splits over ``model``, the weights as they
-    are (``wuq``/``wuk``/``wuv``'s columns and ``wo``'s rows this rank's
-    whole heads); otherwise each split one is All-Gathered whole
-    (``tp/mla-gather``; every rank uses it whole, so its transpose is the
-    rank's block) and every rank runs every head."""
+    Without a mesh, or where H and the weights split over ``model``, the
+    weights as they are (``wuq``/``wuk``/``wuv``'s columns and ``wo``'s
+    rows this rank's whole heads); otherwise each split one is
+    All-Gathered whole (``tp/mla-gather``; every rank uses it whole, so its
+    transpose is the rank's block) and every rank runs every head."""
     if mesh is None:
         return p, 0
     m, r, group = model_axis(mesh)
     H = cfg.n_heads
-    if H % m == 0:
+    if _mla_split(cfg, p, mesh):
         return p, r * (H // m)
     dn, dr, dv = cfg.hd, cfg.rope_head_dim, cfg.v_head_dim
     p = dict(p)
@@ -515,7 +545,7 @@ def _mla_latents(cfg, p, x, positions, mesh=None):
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     cq = _mla_q_latent(cfg, p, x)
     ckv, kr = _mla_kv_compress(cfg, p, x, positions)
-    if mesh is not None and cfg.n_heads % model_axis(mesh)[0] == 0:
+    if mesh is not None and _mla_split(cfg, p, mesh):
         both = enter_parallel(torch.cat([cq, ckv, kr], -1),
                               model_axis(mesh)[2], "tp/mla-latent")
         cq, ckv, kr = both.split([qr, kvr, kr.shape[-1]], -1)
@@ -549,11 +579,18 @@ def _mla_kv_compress(cfg, p, x, positions):
     return ckv, kr
 
 
-def _mla_train(cfg, p, x, *, return_cache: bool = False, mesh=None):
+def _mla_train(cfg, p, x, *, return_cache: bool = False, mesh=None,
+               seq=None):
     """MLA over the full sequence; on a mesh its heads are this rank's
     (:func:`_mla_heads`), the output reduced by :func:`_heads_out` (*g*,
     ``tp/attn-out``) and the latents' cotangents by
-    :func:`_mla_latents`."""
+    :func:`_mla_latents`.  With ``seq`` ("rows") x's rows are gathered in
+    (``tp/seq-gather``; the latents' *f* makes its cotangent whole, so the
+    gather transposes to the rank's block) and the output's rows
+    Reduce-Scattered out."""
+    if mesh is not None and seq:
+        x = enter_region(x, model_axis(mesh)[2], "tp/attn-out",
+                         partial=False, seq=seq)
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_head_dim
     p, h0 = _mla_heads(cfg, p, mesh)
@@ -569,17 +606,20 @@ def _mla_train(cfg, p, x, *, return_cache: bool = False, mesh=None):
     o = _attend(cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=True, window=None, scale=scale)
     out = _heads_out(o.transpose(1, 2).reshape(B, S, n * dv), h0 * dv,
-                     p["wo"], H * dv, mesh)
+                     p["wo"], H * dv, mesh, seq)
     if return_cache:
         return out, ckv, kr
     return out
 
 
-def _mla_prefill(cfg, p, x, cache_len: int, mesh=None):
+def _mla_prefill(cfg, p, x, cache_len: Optional[int], mesh=None, seq=None):
     """MLA's prefill: the output and its latent cache of ``cache_len``
-    slots, on a mesh this rank's slots (``sharding.cache_block``)."""
-    B, S, _ = x.shape
-    out, ckv, kr = _mla_train(cfg, p, x, return_cache=True, mesh=mesh)
+    slots (default the prompt's), on a mesh this rank's slots
+    (``sharding.cache_block``)."""
+    out, ckv, kr = _mla_train(cfg, p, x, return_cache=True, mesh=mesh,
+                              seq=seq)
+    B, S, _ = ckv.shape
+    cache_len = cache_len or S
     s0, s1 = (0, cache_len) if mesh is None else cache_block(
         "ckv", (B, cache_len, cfg.kv_lora_rank), mesh)[1]
     src = _slot_positions(S, cache_len, s0, s1, x.device)
@@ -654,7 +694,7 @@ def cross_train(cfg: ModelConfig, p, x, enc: torch.Tensor, mesh=None
     (*f* on x).  ``enc`` is replicated over ``model`` and read for the
     rank's heads: under autograd its cotangent is partial, and the caller
     reduces it (``encdec.encdec_forward``, once for every layer)."""
-    if mesh is not None:
+    if mesh is not None and _partial(cfg, p, mesh):
         x = enter_parallel(x, model_axis(mesh)[2], "tp/attn-out")
     q, h0 = _q_proj(cfg, p, x, mesh)
     k, v, kv0 = _kv_proj(cfg, p, enc, mesh)

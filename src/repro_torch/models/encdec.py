@@ -13,7 +13,9 @@ cross-attention and the MLPs are tensor-parallel over ``model``, the
 cross) this rank's shards.  Under autograd every decoder layer's
 cross-attention reads the encoder output, replicated over ``model``, on
 the rank's heads: its cotangent is the sum of the layers' partial ones
-over the ranks, one *f* for all of them (``tp/cross-kv``).
+over the ranks, one *f* for all of them (``tp/cross-kv``).  The
+``seq_shard`` knob leaves an enc-dec model as it is: the JAX package
+keeps its residual at ``P(dp, None, None)`` and never reads the knob.
 """
 from __future__ import annotations
 
@@ -94,7 +96,7 @@ def encdec_forward(cfg: ModelConfig, params: Dict, src_embeds: torch.Tensor,
     """src_embeds (B, Se, d), tokens (B, S) -> logits (B, S, Vp); on a mesh
     this rank's rows, its shards of the params."""
     enc = _encode(cfg, params, src_embeds, mesh)
-    if mesh is not None:
+    if mesh is not None and cfg.tensor_parallel:
         enc = enter_parallel(enc, model_axis(mesh)[2], "tp/cross-kv")
     x = _embed(cfg, params, tokens, mesh)
     layer = _remat(cfg, functools.partial(_dec_layer, cfg, mesh))

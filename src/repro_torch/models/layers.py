@@ -8,9 +8,13 @@ out of it (*f* before, *g* after, both ``tp/ffn-out``); the embedding
 looks up the rank's block of the vocab and SUM-All-Reduces (``tp/embed``);
 the unembed gathers its vocab columns (``tp/unembed-gather``).  A weight
 that ``spec_for`` keeps whole (``d_ff`` or the vocab does not split) is
-used whole on every rank, with no collective.  Serving takes each rank's
-block of the vocab-sharded logits and :func:`greedy_token` picks the
-token over all of them (``serve/argmax``).
+used whole on every rank, with no collective.  Under ``seq_shard``
+(``seq=``) the residual is this rank's block of the sequence: the MLP
+All-Gathers its rows in and Reduce-Scatters its partial product out
+(``collective_planner.enter_region``/``leave_region``), and the
+embedding Reduce-Scatters its partial rows (``tp/embed``).  Serving takes
+each rank's block of the vocab-sharded logits and :func:`greedy_token`
+picks the token over all of them (``serve/argmax``).
 """
 from __future__ import annotations
 
@@ -19,9 +23,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collective_planner import (collective, enter_parallel,
-                                           gather_replicated,
-                                           leave_parallel, model_axis)
+from ..parallel.collective_planner import (collective, enter_region,
+                                           gather_replicated, leave_parallel,
+                                           leave_region, model_axis,
+                                           scatter_shards, take_block)
 from ..parallel.sharding import split_over
 from .config import ModelConfig
 from .param import ParamSpec
@@ -102,19 +107,22 @@ def mlp_specs(cfg: ModelConfig, stacked: Optional[int] = None,
 
 
 def mlp_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-              x: torch.Tensor, mesh=None) -> torch.Tensor:
+              x: torch.Tensor, mesh=None, seq=None) -> torch.Tensor:
     """SwiGLU MLP: silu(x@wg) * (x@wi) @ wo.  On a mesh ``wi``/``wg`` are
     this rank's ``ff`` columns and ``wo`` its rows: the product is partial
     and SUM-All-Reduced over ``model``; where ``d_ff`` does not split, the
-    weights are whole and every rank computes the whole product."""
-    if mesh is None or not split_over(p["wi"].shape[-1], cfg.d_ff,
-                                      model_axis(mesh)[0]):
+    weights are whole and every rank computes the whole product.  With
+    ``seq`` ("rows": x is this rank's rows of the sequence) the rows are
+    gathered in and the product's rows scattered out."""
+    if mesh is None:
         h = F.silu(x @ p["wg"]) * (x @ p["wi"])
         return h @ p["wo"]
-    group = model_axis(mesh)[2]
-    x = enter_parallel(x, group, "tp/ffn-out")
+    m, _, group = model_axis(mesh)
+    partial = split_over(p["wi"].shape[-1], cfg.d_ff, m)
+    x = enter_region(x, group, "tp/ffn-out", partial=partial, seq=seq)
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return leave_parallel(h @ p["wo"], group, "tp/ffn-out")
+    return leave_region(h @ p["wo"], group, "tp/ffn-out", partial=partial,
+                        seq=seq)
 
 
 # -------------------------------------------------------------- embeddings
@@ -130,22 +138,30 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_apply(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                mesh=None, vocab: Optional[int] = None) -> torch.Tensor:
+                mesh=None, vocab: Optional[int] = None,
+                seq: bool = False) -> torch.Tensor:
     """Token embeddings.  On a mesh the table is this rank's block of the
     padded vocab: each rank looks up the tokens that fall in it (zeros
     elsewhere) and the rows are SUM-All-Reduced over ``model``, exact (one
     nonzero term a row).  Given the padded ``vocab``, a table kept whole
-    (``vocab`` does not split) is looked up whole, with no collective."""
+    (``vocab`` does not split) is looked up whole, with no collective.
+    With ``seq`` (``seq_shard``) each rank keeps its block of the sequence
+    (dim 1): the partial rows Reduce-Scattered (``tp/embed``), a whole
+    table's rows cut to the rank's block; both transpose to an
+    All-Gather."""
     table = p["embedding"]
     if mesh is None:
         return table[tokens]
     m, r, group = model_axis(mesh)
     v = table.shape[0]
     if vocab is not None and not split_over(v, vocab, m):
-        return table[tokens]
+        return take_block(table[tokens], group, "tp/embed", dim=1) if seq \
+            else table[tokens]
     idx = tokens - r * v
     mine = (idx >= 0) & (idx < v)
     rows = torch.where(mine[..., None], table[idx.clamp(0, v - 1)], 0)
+    if seq:
+        return scatter_shards(rows, group, "tp/embed", dim=1)
     return leave_parallel(rows, group, "tp/embed")
 
 
@@ -154,9 +170,12 @@ def unembed_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     """Logits over the padded vocab.  On a mesh the vocab-sharded weight is
     gathered whole first (``tp/unembed-gather``): every model rank then
     computes the same logits and holds their whole cotangent, so the
-    gather's transpose is the rank's block, with no collective."""
+    gather's transpose is the rank's block, with no collective.  A weight
+    kept whole is used as it is."""
     w = p["embedding"] if cfg.tie_embeddings else p["unembed"]
-    if mesh is not None:
+    if mesh is not None and split_over(
+            w.shape[0 if cfg.tie_embeddings else 1], cfg.padded_vocab,
+            model_axis(mesh)[0]):
         _, _, group = model_axis(mesh)
         w = gather_replicated(w, group, "tp/unembed-gather",
                               dim=0 if cfg.tie_embeddings else 1)

@@ -10,7 +10,12 @@ token count, and the partial outputs are SUM-All-Reduced over ``model``
 (``moe/combine``), with ``shard_map``'s transpose rules for the
 gradients (see :func:`moe_apply`).  Shared experts are tensor-parallel
 over ``ff`` (Megatron's *f* and *g*, ``moe/shared-out``), or whole where
-``ff`` does not split.
+``ff`` does not split.  The data axes, ``data`` or ``(pod, data)``, are
+one group (``collective_planner.data_group``).  With
+``tensor_parallel=False`` the expert stack is whole on every rank and
+each rank cuts its ``E / m`` experts from it, as the JAX ``shard_map``
+slices a replicated input.  Under ``seq_shard`` (``seq=``) the layer
+gathers the rows of the sequence in and Reduce-Scatters them out.
 
 Routing: softmax top-k over the selected logits (Qwen3-style, renormalized)
 or sigmoid + bias (DeepSeek-V3 aux-free: the bias picks the experts, the
@@ -25,11 +30,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collective_planner import (enter_parallel, leave_parallel,
-                                           mesh_group, model_axis,
-                                           split_cotangent, sum_cotangent,
-                                           sum_over)
-from ..parallel.sharding import dp_axes, split_over
+from ..parallel.collective_planner import (data_group, enter_region,
+                                           leave_region, mesh_group,
+                                           model_axis, split_cotangent,
+                                           sum_cotangent, sum_over,
+                                           take_block)
+from ..parallel.sharding import split_over
 from .config import ModelConfig
 from .param import ParamSpec
 
@@ -164,66 +170,87 @@ def moe_local(cfg: ModelConfig, x2d: torch.Tensor, gates: torch.Tensor,
 
 
 def _shared_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                mesh=None) -> torch.Tensor:
-    """The shared experts' SwiGLU.  On a mesh where their ``ff`` splits,
-    this rank's columns and rows give a partial product, SUM-All-Reduced
-    over ``model`` (*f* before, *g* after, both ``moe/shared-out``);
-    otherwise the weights are whole and so is the product."""
+                mesh=None, seq=None) -> torch.Tensor:
+    """The shared experts' SwiGLU of x (B, S, d).  On a mesh where their
+    ``ff`` splits, this rank's columns and rows give a partial product,
+    SUM-All-Reduced over ``model`` (*f* before, *g* after, both
+    ``moe/shared-out``; with ``seq`` the rows gathered in and
+    Reduce-Scattered out); otherwise the weights are whole and so is the
+    product."""
     def ffn(v):
         return (F.silu(v @ p["shared_wg"]) * (v @ p["shared_wi"])) \
             @ p["shared_wo"]
-    fs = cfg.moe_d_ff * cfg.n_shared_experts
-    if mesh is None or not split_over(p["shared_wi"].shape[-1], fs,
-                                      model_axis(mesh)[0]):
+    if mesh is None:
         return ffn(x)
-    group = model_axis(mesh)[2]
-    return leave_parallel(ffn(enter_parallel(x, group, "moe/shared-out")),
-                          group, "moe/shared-out")
+    m, _, group = model_axis(mesh)
+    partial = split_over(p["shared_wi"].shape[-1],
+                         cfg.moe_d_ff * cfg.n_shared_experts, m)
+    x = enter_region(x, group, "moe/shared-out", partial=partial, seq=seq)
+    return leave_region(ffn(x), group, "moe/shared-out", partial=partial,
+                        seq=seq)
 
 
 def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-              mesh: Optional[object] = None) -> torch.Tensor:
+              mesh: Optional[object] = None, seq=None) -> torch.Tensor:
     """MoE FFN.  x: (B, S, d).  Without a mesh every expert is on x's
     device.  On a mesh, x is this rank's rows (replicated over ``model``)
     and ``wi``/``wg``/``wo`` its ``E / m`` experts, from expert ``r * E /
-    m``; the capacity is that of the rank's ``B * S`` tokens, as the JAX
-    package's ``_cap(t_local)``.  The collectives follow ``shard_map``'s
-    transpose rules, as ``train_collective_schedule`` declares them:
+    m`` (cut here from the whole stack where it is not split); the
+    capacity is that of the rank's ``B * S`` tokens, as the JAX package's
+    ``_cap(t_local)``.  The collectives follow ``shard_map``'s transpose
+    rules, as ``train_collective_schedule`` declares them:
     ``moe/combine`` three times a layer (the forward SUM, its transpose,
     and x's cotangent, since x enters replicated over ``model``);
-    ``moe/expert-grad`` over ``data`` for each expert weight (replicated
-    there); ``moe/router-grad`` (and ``moe/router-bias-grad``) over every
-    axis of the mesh."""
-    B, S, d = x.shape
+    ``moe/expert-grad`` over the data axes for each expert weight
+    (replicated there); ``moe/router-grad`` (and
+    ``moe/router-bias-grad``) over every axis of the mesh.  With ``seq``
+    ("rows": x is this rank's block of the sequence) the rows are
+    gathered in (``tp/seq-gather``, its transpose a Reduce-Scatter of x's
+    partial cotangent) and the output's Reduce-Scattered out
+    (``moe/combine``, its transpose an All-Gather); the shared experts
+    gather and scatter their own (:func:`_shared_ffn`)."""
     E = cfg.n_experts
-    x2d = x.reshape(B * S, d)
     if mesh is None:
+        B, S, d = x.shape
+        x2d = x.reshape(B * S, d)
         gates, idx = router_weights(cfg, p, x2d)
         out = moe_local(cfg, x2d, gates, idx, p["wi"], p["wg"], p["wo"], 0,
-                        E, capacity(cfg, B * S))
+                        E, capacity(cfg, B * S)).reshape(B, S, d)
         if cfg.n_shared_experts:
-            out = out + _shared_ffn(cfg, p, x2d)
-        return out.reshape(B, S, d)
+            out = out + _shared_ffn(cfg, p, x)
+        return out
 
     m, r, g_model = model_axis(mesh)
     if E % m:
         raise ValueError(f"{E} experts do not split over {m} model ranks")
     e_local = E // m
-    dp = dp_axes(mesh)
-    g_data = mesh.get_group(dp[0]) if dp else None
+    g_data = data_group(mesh)
     g_all = mesh_group(mesh)
     pp = {"router": sum_cotangent(p["router"], g_all, "moe/router-grad")}
     if cfg.router_type == "sigmoid":
         pp["router_bias"] = sum_cotangent(p["router_bias"], g_all,
                                           "moe/router-bias-grad")
-    w = {k: p[k] if g_data is None
-         else sum_cotangent(p[k], g_data, "moe/expert-grad")
-         for k in ("wi", "wg", "wo")}
-    x_l = sum_cotangent(x2d, g_model, "moe/combine")
+    w = {k: p[k] for k in ("wi", "wg", "wo")}
+    if not split_over(w["wi"].shape[0], E, m):
+        w = {k: take_block(v, g_model, "moe/expert-block", dim=0)
+             for k, v in w.items()}
+    if g_data is not None:
+        w = {k: sum_cotangent(v, g_data, "moe/expert-grad")
+             for k, v in w.items()}
+    if seq:
+        x_l = enter_region(x, g_model, "moe/combine", partial=True, seq=seq)
+        B, S, d = x_l.shape
+        x_l = x_l.reshape(B * S, d)
+    else:
+        B, S, d = x.shape
+        x_l = sum_cotangent(x.reshape(B * S, d), g_model, "moe/combine")
     gates, idx = router_weights(cfg, pp, x_l)
     y = moe_local(cfg, x_l, gates, idx, w["wi"], w["wg"], w["wo"],
-                  r * e_local, e_local, capacity(cfg, B * S))
-    out = split_cotangent(sum_over(y, g_model, "moe/combine"), m)
+                  r * e_local, e_local, capacity(cfg, B * S)).reshape(B, S, d)
+    if seq:
+        out = leave_region(y, g_model, "moe/combine", partial=True, seq=seq)
+    else:
+        out = split_cotangent(sum_over(y, g_model, "moe/combine"), m)
     if cfg.n_shared_experts:
-        out = out + _shared_ffn(cfg, p, x2d, mesh)
-    return out.reshape(B, S, d)
+        out = out + _shared_ffn(cfg, p, x, mesh, seq)
+    return out

@@ -24,7 +24,11 @@ cotangents of the weights every rank uses whole (the per-head
 ``A_log``/``dt_bias``/``D``, and ``in_proj`` or the conv where they do
 not split) SUM-All-Reduced (``tp/ssm-param-grad``).  Where ``out_proj``'s
 rows do not split, every rank computes the whole output: no *f* or *g*,
-and a gather's transpose is the rank's block.
+and a gather's transpose is the rank's block.  Under ``seq_shard``
+(``seq=``) x is this rank's block of the sequence: the mixer gathers the
+rows in (``tp/seq-gather``, in place of *f*) and Reduce-Scatters its
+output's rows out (``tp/ssm-out``, in place of *g*); between the two it
+runs on the whole sequence as above.
 """
 from __future__ import annotations
 
@@ -36,8 +40,8 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 from ..kernels import ssd
 from ..kernels.autotune import ssd_chunk_len
-from ..parallel.collective_planner import (enter_parallel, gather_replicated,
-                                           gather_shards, leave_parallel,
+from ..parallel.collective_planner import (enter_region, gather_replicated,
+                                           gather_shards, leave_region,
                                            model_axis, sum_cotangent,
                                            sum_over)
 from ..parallel.sharding import cache_block, split_over
@@ -181,12 +185,14 @@ def _ssd_scan(cfg: ModelConfig, xdt, dA, Bm, Cm, chunk: int
 
 
 def ssm_train(cfg: ModelConfig, p, x: torch.Tensor,
-              chunk: Optional[int] = None, mesh=None) -> torch.Tensor:
+              chunk: Optional[int] = None, mesh=None, seq=None
+              ) -> torch.Tensor:
     """Full-sequence forward.  ``chunk``: the SSD chunk, resolved through
     :func:`plan_chunk` when not given.  On a mesh, tensor-parallel over
-    ``model`` on the rank's heads (:func:`_enter`, :func:`_mix`)."""
-    p, x = _enter(cfg, p, x, mesh)
-    return _mix(cfg, p, x, chunk, mesh)[0]
+    ``model`` on the rank's heads (:func:`_enter`, :func:`_mix`); ``seq``
+    as ``collective_planner.enter_region`` takes it."""
+    p, x = _enter(cfg, p, x, mesh, seq)
+    return _mix(cfg, p, x, chunk, mesh, seq)[0]
 
 
 def init_ssm_cache(cfg: ModelConfig, B: int, dtype: torch.dtype,
@@ -206,15 +212,19 @@ def _partial(cfg: ModelConfig, p, mesh) -> bool:
                       model_axis(mesh)[0])
 
 
-def _enter(cfg: ModelConfig, p, x: torch.Tensor, mesh):
+def _enter(cfg: ModelConfig, p, x: torch.Tensor, mesh, seq=None):
     """(params, x) of the mixer's tensor-parallel region: where its output
-    is partial, *f* on x (``tp/ssm-out``) and a SUM-All-Reduced cotangent
-    for the weights that every rank uses whole (``tp/ssm-param-grad``: one
-    collective for the three per-head leaves, one for each whole weight);
-    as they are without a mesh or where the output is whole."""
-    if mesh is None or not _partial(cfg, p, mesh):
+    is partial, *f* on x (``tp/ssm-out``; with ``seq``, the rows'
+    gather) and a SUM-All-Reduced cotangent for the weights that every
+    rank uses whole (``tp/ssm-param-grad``: one collective for the three
+    per-head leaves, one for each whole weight); as they are without a
+    mesh, and where the output is whole but for a gather of the rows."""
+    if mesh is None:
         return p, x
     m, _, group = model_axis(mesh)
+    if not _partial(cfg, p, mesh):
+        return p, enter_region(x, group, "tp/ssm-out", partial=False,
+                               seq=seq)
     p = dict(p)
     heads = ("A_log", "dt_bias", "D")
     per_head = sum_cotangent(torch.stack([p[k] for k in heads]), group,
@@ -227,7 +237,7 @@ def _enter(cfg: ModelConfig, p, x: torch.Tensor, mesh):
         whole += ["conv_w", "conv_b"]
     for k in whole:
         p[k] = sum_cotangent(p[k], group, "tp/ssm-param-grad")
-    return p, enter_parallel(x, group, "tp/ssm-out")
+    return p, enter_region(x, group, "tp/ssm-out", partial=True, seq=seq)
 
 
 def _mesh_conv(cfg: ModelConfig, p, proj: torch.Tensor, mesh,
@@ -260,20 +270,25 @@ def _mesh_conv(cfg: ModelConfig, p, proj: torch.Tensor, mesh,
 
 
 def _mixer_out(cfg: ModelConfig, p, y: torch.Tensor, z: torch.Tensor,
-               h0: int, mesh=None) -> torch.Tensor:
+               h0: int, mesh=None, seq=None) -> torch.Tensor:
     """The gated RMS norm (over all of d_inner) and ``out_proj`` of heads
     [h0, h0 + n)'s y (B, S, n hp) in the model dtype, gated by their
     columns of the whole z.  On a mesh the rank's partial sums of squares
     are SUM-All-Reduced (``tp/ssm-norm``) where it holds part of the
     heads, and its rows of ``out_proj`` give a partial product,
-    SUM-All-Reduced (``tp/ssm-out``); weights kept whole run whole."""
+    SUM-All-Reduced (``tp/ssm-out``; with ``seq`` Reduce-Scattered over
+    the sequence); weights kept whole run whole."""
     di, rows = cfg.d_inner, p["out_proj"].shape[0]
     c0, cols = h0 * cfg.ssm_headdim, y.shape[-1]
     zl = z[..., c0:c0 + cols]
-    # whole out_proj rows: d_inner does not split, nor do the heads
-    if mesh is None or not _partial(cfg, p, mesh):
+    if mesh is None:
         return _gated_norm(cfg, p["norm_scale"], y, zl) @ p["out_proj"]
     m, r, group = model_axis(mesh)
+    # whole out_proj rows: d_inner does not split, nor do the heads
+    if not _partial(cfg, p, mesh):
+        return leave_region(
+            _gated_norm(cfg, p["norm_scale"], y, zl) @ p["out_proj"], group,
+            "tp/ssm-out", partial=False, seq=seq)
     yf = (y * F.silu(zl)).to(F32)
     if cols < di:
         ms = sum_over((yf * yf).sum(-1, keepdim=True), group,
@@ -283,14 +298,16 @@ def _mixer_out(cfg: ModelConfig, p, y: torch.Tensor, z: torch.Tensor,
     yn = yf * torch.rsqrt(ms + cfg.norm_eps)
     c = r * rows - c0
     yo = (yn[..., c:c + rows] * p["norm_scale"].to(F32)).to(y.dtype)
-    return leave_parallel(yo @ p["out_proj"], group, "tp/ssm-out")
+    return leave_region(yo @ p["out_proj"], group, "tp/ssm-out",
+                        partial=True, seq=seq)
 
 
 def _mix(cfg: ModelConfig, p, x: torch.Tensor, chunk: Optional[int],
-         mesh=None):
+         mesh=None, seq=None):
     """(the mixer's output, the conv input block of the cache, and the
     scan's xdt, dA and B for the final state) of the full sequence x; on
-    a mesh over this rank's heads and channel block."""
+    a mesh over this rank's heads and channel block (every head where the
+    weights are whole), the output's rows this rank's with ``seq``."""
     B_, S, _ = x.shape
     nh, ns, hp = cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_headdim
     proj = x @ p["in_proj"]
@@ -302,27 +319,32 @@ def _mix(cfg: ModelConfig, p, x: torch.Tensor, chunk: Optional[int],
     else:
         proj, xbc_raw, xbc = _mesh_conv(cfg, p, proj, mesh)
         z, _, _, _, dt_raw = _split_proj(cfg, proj)
-        h0, h1 = cache_block("state", (B_, nh, ns, hp), mesh)[1]
-        n = h1 - h0
+        if _partial(cfg, p, mesh):
+            h0, h1 = cache_block("state", (B_, nh, ns, hp), mesh)[1]
+            n = h1 - h0
     xh, xdt, dA, Bm, Cm = _ssd_inputs(cfg, p, xbc, dt_raw, h0, n)
     y = _ssd_scan(cfg, xdt, dA, Bm, Cm,
                   plan_chunk(cfg, S) if chunk is None else chunk)
     y = y + xh.to(F32) * p["D"][h0:h0 + n].to(F32)[None, None, :, None]
     out = _mixer_out(cfg, p, y.reshape(B_, S, n * hp).to(x.dtype), z, h0,
-                     mesh)
+                     mesh, seq)
     return out, xbc_raw, xdt, dA, Bm
 
 
 def ssm_prefill(cfg: ModelConfig, p, x: torch.Tensor,
-                chunk: Optional[int] = None, mesh=None
+                chunk: Optional[int] = None, mesh=None, seq=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """Full-seq forward + final recurrent state for decode continuation.
     ``chunk``: the SSD chunk, resolved through :func:`plan_chunk` when not
     given.  On a mesh the cache is this rank's shard (its conv channels,
-    its heads' state)."""
+    its heads' state), built from the whole sequence (with ``seq``,
+    gathered first)."""
+    if mesh is not None and seq:
+        x = enter_region(x, model_axis(mesh)[2], "tp/ssm-out",
+                         partial=_partial(cfg, p, mesh), seq=seq)
     B_ = x.shape[0]
     ns = cfg.ssm_state
-    out, xbc_raw, xdt, dA, Bm = _mix(cfg, p, x, chunk, mesh)
+    out, xbc_raw, xdt, dA, Bm = _mix(cfg, p, x, chunk, mesh, seq)
     # final state: h_S = sum_t exp(sum_{u>t} dA_u) B_t xdt_t^T  (per head),
     # one f32 einsum over the whole sequence as in the JAX package, with
     # each group's B shared by its heads: (B,S,ng,r,hp) against (B,S,ng,ns).

@@ -12,21 +12,30 @@ Paths: ``forward`` (full-seq causal logits; ``hidden`` stops before the
 unembed, for the planner loss), ``prefill`` (builds the cache),
 ``decode`` (one token, fixed shapes).
 
-``hidden``/``forward`` take a ``(data, model)`` mesh (``mesh=``; the
-tokens are this rank's rows, the params its shards): the embedding, the
-attention (GQA and MLA), the SSM mixer, the dense MLP, the shared experts
-and the unembed are tensor-parallel and the MoE FFN expert-parallel over
-``model`` (``layers``, ``attention``, ``ssm``, ``moe``), in every family
-and in both of DeepSeek's stacks.  The recompute of a checkpointed layer
-runs in ``collective_planner.recompute_region``, so that its repeated
-forward collectives are recorded apart.  The ``seq_shard`` and
-``tensor_parallel=False`` knobs are not ported (:func:`check_mesh`).
+``hidden``/``forward`` take a ``(data, model)`` or ``(pod, data,
+model)`` mesh (``mesh=``; the tokens are this rank's rows, the params its
+shards): the embedding, the attention (GQA and MLA), the SSM mixer, the
+dense MLP, the shared experts and the unembed are tensor-parallel and
+the MoE FFN expert-parallel over ``model`` (``layers``, ``attention``,
+``ssm``, ``moe``), in every family and in both of DeepSeek's stacks.  A
+weight kept whole (``tensor_parallel=False`` keeps every one whole) runs
+whole, with no ``tp/`` collective.  With ``seq_shard`` the residual is
+this rank's block of the sequence wherever the JAX package constrains it
+to ``P(dp, "model", None)`` (:func:`splits_sequence`): the embedding
+Reduce-Scatters its rows, the norms run on the local rows, each mixer and
+FFN gathers the rows in and Reduce-Scatters its output's rows out (a
+hybrid layer's two mixers share one gather), and the final hidden state
+is gathered whole before the loss or the logits.  The recompute of a
+checkpointed layer runs in ``collective_planner.recompute_region``, so
+that its repeated forward collectives are recorded apart.
 
 ``prefill``/``decode`` serve every family on a mesh: each rank runs its
 rows (``batch_spec``) and its shards of the params (``param_shardings``)
 and of the cache (``cache_shardings``; ``init_cache(mesh=)`` makes the
 shards at their own size), and returns its block of the vocab-sharded
-logits (``layers.greedy_token`` picks the token across them).
+logits (``layers.greedy_token`` picks the token across them).  The
+prefill splits the sequence under ``seq_shard`` as the training forward
+does; decode's one token is never split.
 """
 from __future__ import annotations
 
@@ -38,19 +47,21 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..parallel.collective_planner import model_axis, recompute_region
+from ..parallel.collective_planner import (SEQ_GATHER, enter_region,
+                                           gather_replicated, model_axis,
+                                           recompute_region)
 
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from ..parallel.sharding import local_cache
+from ..parallel.sharding import local_cache, mesh_axes
 from .layers import (apply_norm, embed_apply, embed_specs, mlp_apply,
                      mlp_specs, norm_specs, unembed_apply)
 from .param import ParamSpec, torch_dtype, tree_leaves, tree_map
 
 __all__ = ["decoder_specs", "hidden", "forward", "prefill", "decode",
-           "init_cache", "check_mesh"]
+           "init_cache", "splits_sequence", "acts_on_rows"]
 
 
 def _layer(params: Dict, l: int) -> Dict:
@@ -161,20 +172,50 @@ def decoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _ffn_residual(cfg: ModelConfig, pl: Dict, x: torch.Tensor,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, seq=None) -> torch.Tensor:
     if cfg.is_moe:
         x = x + moe_mod.moe_apply(cfg, pl["moe"],
-                                  apply_norm(cfg, pl["norm2"], x), mesh)
+                                  apply_norm(cfg, pl["norm2"], x), mesh, seq)
     elif cfg.d_ff > 0:
         x = x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x),
-                          mesh)
+                          mesh, seq)
     return x
 
 
-def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, mesh=None
-           ) -> torch.Tensor:
-    return embed_apply(params, tokens, mesh, cfg.padded_vocab).to(
-        torch_dtype(cfg.dtype))
+def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, mesh=None,
+           seq=None) -> torch.Tensor:
+    return embed_apply(params, tokens, mesh, cfg.padded_vocab,
+                       bool(seq)).to(torch_dtype(cfg.dtype))
+
+
+def splits_sequence(cfg: ModelConfig, mesh, S: int) -> bool:
+    """Whether the residual of a forward over S positions is split over
+    ``model`` (``seq_shard``): on a mesh with a ``model`` axis that divides
+    S, in a decoder (the JAX package's enc-dec model never reads the
+    knob).  GSPMD replicates a dim the axis does not divide, as decode's
+    one token."""
+    return bool(cfg.seq_shard and not cfg.is_encdec and mesh is not None
+                and S % mesh_axes(mesh).get("model", S + 1) == 0)
+
+
+# the leaves that act on the residual's rows: under seq_shard each rank's
+# gradient of them is a partial sum over its rows
+_ROW_NORMS = ("norm1", "norm2", "final_norm")
+_ROW_WEIGHTS = ("alpha_attn", "alpha_ssm")
+
+
+def acts_on_rows(keys) -> bool:
+    """Whether the parameter at key path ``keys`` acts on the residual's
+    rows: a layer norm or the final norm, hymba's mixing weights."""
+    return (len(keys) >= 2 and keys[-2] in _ROW_NORMS) \
+        or keys[-1] in _ROW_WEIGHTS
+
+
+def _gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole sequence of the residual's rows, which every rank then
+    uses the same way (``tp/seq-gather``; its transpose is the rank's
+    block)."""
+    return gather_replicated(x, model_axis(mesh)[2], SEQ_GATHER, dim=1)
 
 
 def _hybrid_mix(pl: Dict, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -189,31 +230,47 @@ def _ssd_chunk(cfg: ModelConfig, S: int):
     return ssm_mod.plan_chunk(cfg, S) if cfg.has_ssm else None
 
 
+def _hybrid_seq(cfg: ModelConfig, pl: Dict, h: torch.Tensor, mesh, seq):
+    """(h, seq) for a hybrid layer's two mixers: with ``seq`` "rows" and
+    both mixers' outputs partial sums (or both whole), h's rows gathered
+    once for both ("gathered": each mixer Reduce-Scatters its own output);
+    otherwise as they are, each mixer gathering its own."""
+    if seq != "rows":
+        return h, seq
+    a = attn._partial(cfg, pl["attn"], mesh)
+    if a != ssm_mod._partial(cfg, pl["ssm"], mesh):
+        return h, seq
+    return enter_region(h, model_axis(mesh)[2], "tp/attn-out", partial=a,
+                        seq=seq), "gathered"
+
+
+def _dense_mesh(cfg: ModelConfig, mesh, seq):
+    """The mesh the training forward's dense layers (all but the MoE FFN)
+    take: none with ``tensor_parallel=False`` and the sequence whole, so
+    that they run on their whole weights with no ``tp/`` collective, as
+    the JAX package runs them, a one-rank model axis included."""
+    return mesh if cfg.tensor_parallel or seq else None
+
+
 def _layer_train(cfg: ModelConfig, mesh, x: torch.Tensor, pl: Dict,
-                 chunk) -> torch.Tensor:
+                 chunk, seq=None) -> torch.Tensor:
+    dm = _dense_mesh(cfg, mesh, seq)
     h = apply_norm(cfg, pl["norm1"], x)
     if cfg.family == "hybrid":
-        mix = _hybrid_mix(pl, attn.attn_train(cfg, pl["attn"], h, mesh=mesh),
-                          ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk, mesh))
+        h, s = _hybrid_seq(cfg, pl, h, dm, seq)
+        mix = _hybrid_mix(pl, attn.attn_train(cfg, pl["attn"], h, mesh=dm,
+                                              seq=s),
+                          ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk, dm, s))
     elif cfg.has_ssm:
-        mix = ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk, mesh)
+        mix = ssm_mod.ssm_train(cfg, pl["ssm"], h, chunk, dm, seq)
     else:
-        mix = attn.attn_train(cfg, pl["attn"], h, mesh=mesh)
-    return _ffn_residual(cfg, pl, x + mix, mesh)
-
-
-def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise for the config knobs whose training forward is not ported on
-    a mesh with a ``model`` axis wider than one: ``seq_shard`` (the
-    residual's sequence over ``model``) and ``tensor_parallel=False`` (the
-    params replicated); ROADMAP A.5, slice 16."""
-    if mesh is None or model_axis(mesh)[0] == 1:
-        return
-    if cfg.seq_shard or not cfg.tensor_parallel:
-        raise NotImplementedError(
-            f"{cfg.name} on a model axis of {model_axis(mesh)[0]}: the "
-            f"seq_shard and tensor_parallel=False knobs are not ported "
-            f"(ROADMAP A.5, slice 16)")
+        mix = attn.attn_train(cfg, pl["attn"], h, mesh=dm, seq=seq)
+    x = x + mix
+    if cfg.is_moe:
+        return x + moe_mod.moe_apply(cfg, pl["moe"],
+                                     apply_norm(cfg, pl["norm2"], x), mesh,
+                                     seq)
+    return _ffn_residual(cfg, pl, x, dm, seq)
 
 
 # ---------------------------------------------------------------- forward
@@ -223,22 +280,25 @@ def hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
            mesh=None) -> torch.Tensor:
     """Full-sequence forward up to the unembed: tokens (B, S) -> the final
     norm's output (B, S, d).  On a mesh, tokens are this rank's rows and
-    ``params`` its shards; the output is replicated over ``model``."""
-    check_mesh(cfg, mesh)
-    x = _embed(cfg, params, tokens, mesh)
+    ``params`` its shards; the output is replicated over ``model`` (under
+    ``seq_shard`` the final norm runs on the rank's rows, then they are
+    gathered)."""
+    seq = "rows" if splits_sequence(cfg, mesh, tokens.shape[1]) else None
+    x = _embed(cfg, params, tokens, _dense_mesh(cfg, mesh, seq), seq)
     chunk = _ssd_chunk(cfg, tokens.shape[1])
     for key, _, c, _ in _stacks(cfg):
         layer = _remat(c, functools.partial(_layer_train, c, mesh))
         for pl in _unbind_layers(params[key]):
-            x = layer(x, pl, chunk)
-    return apply_norm(cfg, params["final_norm"], x)
+            x = layer(x, pl, chunk, seq)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return _gather_rows(x, mesh) if seq else x
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             mesh=None) -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) -> logits (B, S, Vp)."""
     return unembed_apply(cfg, params, hidden(cfg, params, tokens, mesh),
-                         mesh)
+                         _dense_mesh(cfg, mesh, False))
 
 
 # ------------------------------------------------------------------ cache
@@ -275,19 +335,20 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int,
 # ---------------------------------------------------------------- prefill
 
 
-def _layer_prefill(cfg, x, pl, chunk, cache_len=None, mesh=None):
+def _layer_prefill(cfg, x, pl, chunk, cache_len=None, mesh=None, seq=None):
     h = apply_norm(cfg, pl["norm1"], x)
     if cfg.family == "hybrid":
-        a, ca = attn.attn_prefill(cfg, pl["attn"], h, cache_len, mesh)
-        s, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk, mesh)
+        h, sq = _hybrid_seq(cfg, pl, h, mesh, seq)
+        a, ca = attn.attn_prefill(cfg, pl["attn"], h, cache_len, mesh, sq)
+        s, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk, mesh, sq)
         mix, new_c = _hybrid_mix(pl, a, s), {"attn": ca, "ssm": cs}
     elif cfg.has_ssm:
-        mix, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk, mesh)
+        mix, cs = ssm_mod.ssm_prefill(cfg, pl["ssm"], h, chunk, mesh, seq)
         new_c = {"ssm": cs}
     else:
-        mix, ca = attn.attn_prefill(cfg, pl["attn"], h, cache_len, mesh)
+        mix, ca = attn.attn_prefill(cfg, pl["attn"], h, cache_len, mesh, seq)
         new_c = {"attn": ca}
-    return _ffn_residual(cfg, pl, x + mix, mesh), new_c
+    return _ffn_residual(cfg, pl, x + mix, mesh, seq), new_c
 
 
 def _stack(trees):
@@ -304,7 +365,8 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     ``cache_len`` slots).  On a mesh: this rank's rows of tokens, its
     block of the logits and its shard of the cache."""
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens, mesh)
+    seq = "rows" if splits_sequence(cfg, mesh, S) else None
+    x = _embed(cfg, params, tokens, mesh, seq)
     chunk = _ssd_chunk(cfg, S)
     cache: Dict[str, Any] = {
         "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device)}
@@ -312,10 +374,14 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         per_layer = []
         for l in range(_n_layers(params[key])):
             x, lc = _layer_prefill(c, x, _layer(params[key], l), chunk,
-                                   cache_len, mesh)
+                                   cache_len, mesh, seq)
             per_layer.append(lc)
         cache[ckey] = _stack(per_layer)
-    x = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
+    x = x[:, -1:, :]
+    if seq:
+        # the last position is the last model rank's last row
+        x = _gather_rows(x, mesh)[:, -1:, :]
+    x = apply_norm(cfg, params["final_norm"], x)
     return unembed_apply(cfg, params, x), cache
 
 

@@ -20,8 +20,12 @@ attention merges.  Port of ``repro/parallel/collective_planner.py``:
    JAX package's.
 4. The tensor-parallel operators of the mesh train step: Megatron's *f*
    and *g* (:func:`enter_parallel`, :func:`leave_parallel`),
-   :func:`gather_shards` and :func:`gather_replicated`, which the model
-   layers call where GSPMD partitions the JAX package's step.
+   :func:`gather_shards`, :func:`gather_replicated`, :func:`scatter_shards`
+   and :func:`take_block`, and the two ends of a tensor-parallel block
+   (:func:`enter_region`, :func:`leave_region`) with the residual whole
+   or split over the sequence (``seq_shard``), which the model layers
+   call where GSPMD partitions the JAX package's step; the process group
+   over the data axes, ``(pod, data)`` as one group (:func:`data_group`).
 
 Every collective goes through :func:`collective`, which
 :func:`record_collectives` can count.
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -50,9 +55,10 @@ __all__ = ["softmax_collective_schedule", "plan_softmax_strategy",
            "train_collective_schedule", "price_collective_schedule",
            "collective", "record_collectives", "recompute_region",
            "CollectiveRecord", "sum_over", "sum_cotangent", "split_cotangent",
-           "model_axis", "make_submesh", "mesh_group", "forget_mesh_groups",
-           "enter_parallel", "leave_parallel",
-           "gather_shards", "gather_replicated"]
+           "model_axis", "make_submesh", "mesh_group", "data_group",
+           "forget_mesh_groups", "enter_parallel", "leave_parallel",
+           "gather_shards", "gather_replicated", "scatter_shards",
+           "take_block", "enter_region", "leave_region", "SEQ_GATHER"]
 
 
 def softmax_collective_schedule(strategy: str, rows: int, cols: int,
@@ -129,11 +135,25 @@ class CollectiveRecord(list):
     """The collectives of a :func:`record_collectives` block, each
     ``(label, col_type, dv_bytes, participants)``; those issued while a
     checkpointed layer is recomputed in the backward pass (remat) are kept
-    apart, in ``.recompute``."""
+    apart, in ``.recompute``.  A block recorded with ``timed`` also keeps
+    each collective's time (:meth:`times`)."""
 
-    def __init__(self):
+    def __init__(self, timed: bool = False):
         super().__init__()
         self.recompute: List[Tuple[str, str, float, int]] = []
+        self.timed = timed
+        self._spans: List[Tuple[Tuple[str, str, float, int], object,
+                                object]] = []
+
+    def times(self) -> List[Tuple[Tuple[str, str, float, int], float]]:
+        """(record, ms) of every collective of a ``timed`` block, the
+        recompute's among them, in issue order: on the card CUDA events
+        around the backend call on the current stream (which waits for
+        NCCL's), synchronised here; on the CPU the host clock."""
+        if any(isinstance(a, torch.cuda.Event) for _, a, _ in self._spans):
+            torch.cuda.synchronize()
+        return [(r, a.elapsed_time(b) if isinstance(a, torch.cuda.Event)
+                 else 1e3 * (b - a)) for r, a, b in self._spans]
 
 
 _RECORDS: Optional[CollectiveRecord] = None
@@ -141,15 +161,17 @@ _IN_RECOMPUTE = False
 
 
 @contextlib.contextmanager
-def record_collectives():
+def record_collectives(timed: bool = False):
     """Within the block, every collective emitted through :func:`collective`
     (in this process, forward or backward) appends ``(label, col_type,
     dv_bytes, participants)`` to the :class:`CollectiveRecord` this
     yields, or to its ``.recompute`` inside :func:`recompute_region`.
     Participants-1 collectives are recorded too: they run (a copy in a
-    one-rank group), but a declared schedule leaves them out."""
+    one-rank group), but a declared schedule leaves them out.  With
+    ``timed`` each collective is also timed (``CollectiveRecord.times``:
+    two CUDA events a call on the card)."""
     global _RECORDS
-    prev, _RECORDS = _RECORDS, CollectiveRecord()
+    prev, _RECORDS = _RECORDS, CollectiveRecord(timed)
     try:
         yield _RECORDS
     finally:
@@ -186,6 +208,9 @@ def collective(col_type: str, label: str, x: torch.Tensor, group, *,
     x = x.contiguous()
     if col_type not in ("AllReduce", "AllGather", "ReduceScatter"):
         raise ValueError(f"unknown collective {col_type!r}")
+    span = _RECORDS is not None and _RECORDS.timed
+    if span:
+        t0 = _now(x)
     if P == 1:
         out = dv = x.clone()
     elif col_type == "AllReduce":
@@ -205,9 +230,21 @@ def collective(col_type: str, label: str, x: torch.Tensor, group, *,
         dist.reduce_scatter(out, parts, group=group)
         dv = x
     if _RECORDS is not None:
-        (_RECORDS.recompute if _IN_RECOMPUTE else _RECORDS).append(
-            (label, col_type, float(dv.numel() * dv.element_size()), P))
+        rec = (label, col_type, float(dv.numel() * dv.element_size()), P)
+        (_RECORDS.recompute if _IN_RECOMPUTE else _RECORDS).append(rec)
+        if span:
+            _RECORDS._spans.append((rec, t0, _now(x)))
     return out
+
+
+def _now(x: torch.Tensor):
+    """A point in time on ``x``'s device: a recorded CUDA event on the
+    card, the host clock elsewhere."""
+    if x.is_cuda:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
 
 
 class _SumOver(torch.autograd.Function):
@@ -267,6 +304,39 @@ class _GatherReplicated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
+
+
+class _ScatterShards(torch.autograd.Function):
+    """Reduce-Scatter along ``dim`` of the ranks' partial sums; its
+    transpose is an All-Gather of the cotangent's blocks, whole on every
+    rank after it."""
+
+    @staticmethod
+    def forward(ctx, x, group, label, dim):
+        ctx.group, ctx.label, ctx.dim = group, label, dim
+        return collective("ReduceScatter", label, x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (collective("AllGather", ctx.label, g, ctx.group,
+                           dim=ctx.dim), None, None, None)
+
+
+class _TakeBlock(torch.autograd.Function):
+    """This rank's block along ``dim`` of a value replicated over the
+    group, with no collective; its transpose is an All-Gather of the
+    ranks' blocks of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, label, dim):
+        ctx.group, ctx.label, ctx.dim = group, label, dim
+        n = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (collective("AllGather", ctx.label, g, ctx.group,
+                           dim=ctx.dim), None, None, None)
 
 
 class _EnterParallel(torch.autograd.Function):
@@ -335,6 +405,9 @@ def model_axis(mesh) -> Tuple[int, int, object]:
 
 # the all-ranks groups of meshes over part of the world, by their ranks
 _SUBMESH_GROUPS: Dict[Tuple[int, ...], dist.ProcessGroup] = {}
+# each mesh's group over two data axes at this rank's coordinate, by the
+# mesh's ranks, shape and names and the axes
+_DATA_GROUPS: Dict[tuple, Optional[dist.ProcessGroup]] = {}
 
 
 def make_submesh(ranks: Sequence[int], shape: Sequence[int],
@@ -351,6 +424,8 @@ def make_submesh(ranks: Sequence[int], shape: Sequence[int],
     mesh = DeviceMesh(dev.type, torch.tensor(ranks).reshape(tuple(shape)),
                       mesh_dim_names=tuple(axes))
     _SUBMESH_GROUPS[ranks] = dist.new_group(list(ranks))
+    if len(dp_axes(mesh)) > 1:
+        _new_data_groups(mesh, dp_axes(mesh))
     return mesh
 
 
@@ -367,10 +442,60 @@ def mesh_group(mesh) -> dist.ProcessGroup:
     return _SUBMESH_GROUPS[ranks]
 
 
+def _data_key(mesh, axes) -> tuple:
+    return (tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+            tuple(mesh.mesh.shape), tuple(mesh.mesh_dim_names), axes)
+
+
+def _new_data_groups(mesh, axes: Tuple[str, ...]) -> None:
+    """Make the groups over ``axes`` of ``mesh``, one at each coordinate of
+    the other axes, in row-major order (every rank of the world makes
+    each, ``new_group``'s rule), and keep this rank's."""
+    names = list(mesh.mesh_dim_names)
+    keep = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in keep]
+    n = int(np.prod([mesh.mesh.shape[i] for i in keep]))
+    me, mine = dist.get_rank(), None
+    for row in mesh.mesh.permute(rest + keep).reshape(-1, n).tolist():
+        if row != sorted(row):
+            # a group's ranks are in the order of their world ranks; the
+            # blocks of a tensor split over the axes are in the mesh's
+            raise ValueError(f"ranks {row} of the axes {axes} are not in "
+                             f"the order of the world's")
+        group = dist.new_group(row)
+        if me in row:
+            mine = group
+    _DATA_GROUPS[_data_key(mesh, axes)] = mine
+
+
+def data_group(mesh, axes: Optional[Sequence[str]] = None):
+    """The process group over ``axes`` (default: the data axes,
+    ``dp_axes``) at this rank's coordinate on the others: the axis's own
+    group for one axis, None for none.  Two axes, ``(pod, data)``, are one
+    group of ``pod x data`` ranks in row-major order, so that a tensor
+    split over both (the batch, a ZeRO-1 moment) is gathered and reduced
+    in one collective; it is made on first use, by every rank of a mesh
+    over the whole world at once (as the SPMD step reaches it), or by
+    :func:`make_submesh`, and kept until :func:`forget_mesh_groups`."""
+    axes = dp_axes(mesh) if axes is None else tuple(axes)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = _data_key(mesh, axes)
+    if key not in _DATA_GROUPS:
+        if len(key[0]) != dist.get_world_size():
+            raise ValueError(f"no group over {axes} for the mesh over "
+                             f"{key[0]}: build it with make_submesh")
+        _new_data_groups(mesh, axes)
+    return _DATA_GROUPS[key]
+
+
 def forget_mesh_groups() -> None:
-    """Drop :func:`make_submesh`'s groups, once the world that made them is
-    destroyed."""
+    """Drop :func:`make_submesh`'s and :func:`data_group`'s groups, once
+    the world that made them is destroyed."""
     _SUBMESH_GROUPS.clear()
+    _DATA_GROUPS.clear()
 
 
 def enter_parallel(x: torch.Tensor, group, label: str) -> torch.Tensor:
@@ -402,6 +527,62 @@ def gather_replicated(x: torch.Tensor, group, label: str, *,
     return _GatherReplicated.apply(x, group, label, dim)
 
 
+def scatter_shards(x: torch.Tensor, group, label: str, *,
+                   dim: int = -1) -> torch.Tensor:
+    """Reduce-Scatter of the ranks' partial ``x`` along ``dim`` under
+    autograd (this rank's block of the sum); its transpose is an
+    All-Gather of the cotangent, labelled ``label`` too."""
+    return _ScatterShards.apply(x, group, label, dim)
+
+
+def take_block(x: torch.Tensor, group, label: str, *,
+               dim: int = -1) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, which every rank of
+    ``group`` holds whole, with no collective; its transpose is an
+    All-Gather of the cotangent's blocks (``label``)."""
+    return _TakeBlock.apply(x, group, label, dim)
+
+
+# the All-Gather of the residual's rows at a block's entry under seq_shard
+SEQ_GATHER = "tp/seq-gather"
+
+
+def enter_region(x: torch.Tensor, group, label: str, *, partial: bool,
+                 seq: Optional[str] = None) -> torch.Tensor:
+    """``x`` on its way into a tensor-parallel block over ``group`` (the
+    ``model`` axis).  ``partial``: the block's output is a partial sum over
+    the ranks (its weights split), so the cotangent of its input is one
+    too; otherwise every rank computes the whole output.  ``seq``: None,
+    the residual is whole on every rank (Megatron's *f*, ``label``, where
+    the block is partial, else ``x`` as it is); "rows", ``x`` is this
+    rank's block of the sequence (dim 1, ``seq_shard``): the rows are
+    All-Gathered (``tp/seq-gather``), transposed to a Reduce-Scatter of
+    the partial cotangent, or to this rank's block of a whole one;
+    "gathered", the caller gathered them already."""
+    if seq == "gathered":
+        return x
+    if seq == "rows":
+        if partial:
+            return gather_shards(x, group, SEQ_GATHER, SEQ_GATHER, dim=1)
+        return gather_replicated(x, group, SEQ_GATHER, dim=1)
+    return enter_parallel(x, group, label) if partial else x
+
+
+def leave_region(y: torch.Tensor, group, label: str, *, partial: bool,
+                 seq: Optional[str] = None) -> torch.Tensor:
+    """A tensor-parallel block's output ``y`` (B, S, d) on its way back to
+    the residual: with ``seq`` None, Megatron's *g* (``label``) where it is
+    partial, else as it is; with ``seq`` (the residual split over the
+    sequence), this rank's rows: a Reduce-Scatter of the partial sums
+    (``label``; transposed to an All-Gather), or the rank's block of a
+    whole output (transposed to an All-Gather)."""
+    if seq:
+        if partial:
+            return scatter_shards(y, group, label, dim=1)
+        return take_block(y, group, label, dim=1)
+    return leave_parallel(y, group, label) if partial else y
+
+
 def _mask_pad(lg: torch.Tensor, v0: int, real_vocab: int) -> torch.Tensor:
     idx = v0 + torch.arange(lg.shape[-1], device=lg.device)
     return lg.masked_fill(idx[None, :] >= real_vocab, -1e30)
@@ -409,45 +590,49 @@ def _mask_pad(lg: torch.Tensor, v0: int, real_vocab: int) -> torch.Tensor:
 
 def sharded_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
                          labels: torch.Tensor, mesh, *, real_vocab: int,
-                         strategy: str = "auto") -> torch.Tensor:
+                         strategy: str = "auto",
+                         vocab: Optional[int] = None) -> torch.Tensor:
     """Cross-entropy over vocab-sharded logits with explicit collectives,
     called on every rank of ``mesh`` (a ``DeviceMesh`` with a ``model``
-    axis and at most one data axis).
+    axis and the data axes, ``data`` or ``(pod, data)``, or none).
 
     This rank's shards: h (B_l, S, D), its rows of the batch, replicated
     over ``model``; unembed (D, Vp / P), its block of the padded vocab
-    (P = the ``model`` axis's size), replicated over the data axis; labels
-    (B_l, S).  Returns the scalar mean NLL over the whole batch, the same
-    on every rank.  'dist' computes the global max/logsumexp via
+    (P = the ``model`` axis's size), replicated over the data axes; labels
+    (B_l, S).  Given the padded ``vocab``, an unembed that is whole on
+    every rank (``tensor_parallel=False``) is cut to the rank's block here,
+    with no collective (its transpose All-Gathers the blocks of the
+    cotangent, ``xent/unembed-block``), as the JAX ``shard_map`` slices a
+    replicated input.  Returns the scalar mean NLL over the whole batch,
+    the same on every rank.  'dist' computes the global max/logsumexp via
     All-Reduces of per-shard statistics (the paper's distSM); 'gather'
     All-Gathers the f32 logit shards and computes locally (the paper's
-    SM).  'auto' asks the COMET planner.
+    SM).  'auto' asks the COMET planner with this rank's rows.
 
     Gradients follow ``shard_map``'s transpose rules, so the backward
     pass emits the loss's collectives that ``train_collective_schedule``
     declares: each SUM All-Reduce transposes to a SUM All-Reduce, the
     All-Gather to a Reduce-Scatter; h's cotangent is SUM-All-Reduced over
-    ``model`` and the unembed's over the data axis (each enters
-    replicated there); the row max is gradient-free (its MAX All-Reduce
-    has no transpose); the loss's cotangent is split over its replicas.
-    The forward pass emits exactly ``softmax_collective_schedule``'s
-    collectives, and the participants-1 ones that it leaves out.
+    ``model`` and the unembed's over the data axes (each enters
+    replicated there; the data axes as one group, :func:`data_group`);
+    the row max is gradient-free (its MAX All-Reduce has no transpose);
+    the loss's cotangent is split over its replicas.  The forward pass
+    emits exactly ``softmax_collective_schedule``'s collectives, and the
+    participants-1 ones that it leaves out.
     """
     B, S, D = h.shape
-    v_local = unembed.shape[1]
     dp = dp_axes(mesh)
-    if len(dp) > 1:
-        raise NotImplementedError(
-            "sharded_softmax_xent over two data axes (pod, data) is not "
-            "ported: it waits for the pod axis of ROADMAP A.5, slice 16")
     P_model = mesh_axes(mesh)["model"]
+    g_model = mesh.get_group("model")
+    if vocab is not None and P_model > 1 and unembed.shape[1] == vocab:
+        unembed = take_block(unembed, g_model, "xent/unembed-block")
+    v_local = unembed.shape[1]
     Vp = v_local * P_model
     if strategy == "auto":
         strategy = plan_softmax_strategy(B * S, Vp, P_model)
     if strategy not in ("dist", "gather"):
         raise ValueError(f"unknown softmax strategy {strategy!r}")
-    g_model = mesh.get_group("model")
-    g_dp = mesh.get_group(dp[0]) if dp else None
+    g_dp = data_group(mesh)
     v0 = mesh.get_local_rank("model") * v_local
 
     h = sum_cotangent(h, g_model, "xent/hidden-cotangent")

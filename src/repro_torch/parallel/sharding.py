@@ -8,7 +8,10 @@ falls back to replication (e.g. MQA's single KV head, Hymba's 25 heads),
 so that parameter shards divide evenly.
 
 ZeRO-1: optimizer moments additionally shard over the data axes on the
-largest divisible dimension not already sharded.
+largest divisible dimension not already sharded.  With
+``tensor_parallel=False`` no logical axis maps onto ``model``: every
+parameter is replicated and its moments split over the data axes only,
+as the JAX package's ``launch/specs.py::state_specs`` places them.
 
 Where the JAX package returns a ``PartitionSpec`` (one entry a tensor
 dim), the port returns DTensor placements (one a mesh dim: ``Shard(d)``
@@ -107,11 +110,11 @@ def partition_spec(placements: Sequence, mesh) -> Tuple:
                  for i in range(max(by_dim) + 1))
 
 
-def _spec_entries(axes, shape, mesh) -> list:
+def _spec_entries(axes, shape, mesh, tensor_parallel: bool = True) -> list:
     sizes = mesh_axes(mesh)
     entries = []
     for ax, dim in zip(axes, shape):
-        mesh_ax = LOGICAL_RULES.get(ax)
+        mesh_ax = LOGICAL_RULES.get(ax) if tensor_parallel else None
         if mesh_ax is not None and mesh_ax in sizes \
                 and dim % sizes[mesh_ax] == 0:
             entries.append(mesh_ax)
@@ -127,16 +130,18 @@ def spec_for(axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
     return _placements(_spec_entries(axes, shape, mesh), mesh)
 
 
-def param_shardings(specs, mesh):
-    """Placements for every leaf of a ``ParamSpec`` tree."""
-    return tree_map(lambda s: spec_for(s.axes, s.shape, mesh), specs)
+def param_shardings(specs, mesh, tensor_parallel: bool = True):
+    """Placements for every leaf of a ``ParamSpec`` tree (all replicated
+    without ``tensor_parallel``)."""
+    return tree_map(lambda s: _placements(_spec_entries(
+        s.axes, s.shape, mesh, tensor_parallel), mesh), specs)
 
 
 def zero1_spec(axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
-               mesh) -> Tuple:
+               mesh, tensor_parallel: bool = True) -> Tuple:
     """Param placements + data-axis sharding on the largest free divisible
     dim."""
-    base = _spec_entries(axes, shape, mesh)
+    base = _spec_entries(axes, shape, mesh, tensor_parallel)
     dp = dp_axes(mesh)
     if dp:
         n = dp_size(mesh)
@@ -149,8 +154,9 @@ def zero1_spec(axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
     return _placements(base, mesh)
 
 
-def zero1_shardings(specs, mesh):
-    return tree_map(lambda s: zero1_spec(s.axes, s.shape, mesh), specs)
+def zero1_shardings(specs, mesh, tensor_parallel: bool = True):
+    return tree_map(lambda s: zero1_spec(s.axes, s.shape, mesh,
+                                         tensor_parallel), specs)
 
 
 def _batch_axes(mesh, batch: int) -> Tuple[str, ...]:

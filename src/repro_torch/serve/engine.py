@@ -18,12 +18,13 @@ The engine runs on the device its parameters live on.  At startup it warms
 the COMET mapping plans of its kernel shapes (``warm_plans``) through the
 port's plan cache, so no prefill solves a plan.
 
-On a ``(data, model)`` mesh (``mesh=``; ``params`` this rank's shards, by
-``param_shardings``) the engine is SPMD: every rank runs the same
-``run(requests)``.  The slots are split over the data axes
-(``batch_spec``; replicated where B does not divide them), each rank
-prefills and decodes its rows through ``Model.prefill``/``decode(mesh=)``,
-and each step's greedy tokens are All-Gathered over the data axes
+On a ``(data, model)`` or ``(pod, data, model)`` mesh (``mesh=``;
+``params`` this rank's shards, by ``param_shardings``) the engine is
+SPMD: every rank runs the same ``run(requests)``.  The slots are split
+over the data axes (``batch_spec``: ``(pod, data)`` in row-major order;
+replicated over an axis B does not divide), each rank prefills and
+decodes its rows through ``Model.prefill``/``decode(mesh=)``, and each
+step's greedy tokens are All-Gathered over those axes in one collective
 (``serve/tokens``), so that every rank holds the same B tokens and makes
 the same refill decisions.  A decision taken from a clock (a request's
 deadline) is agreed by a MAX All-Reduce of the flags over the whole mesh
@@ -44,8 +45,10 @@ import torch.distributed as dist
 from ..models.layers import greedy_token
 from ..models.model import Model
 from ..models.param import tree_leaves
-from ..parallel.collective_planner import collective, mesh_group
-from ..parallel.sharding import batch_spec, gather_leaf, shard_bounds
+from torch.distributed.tensor import Shard
+
+from ..parallel.collective_planner import collective, data_group, mesh_group
+from ..parallel.sharding import batch_spec, shard_bounds
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -154,7 +157,13 @@ class ServeEngine:
         last = greedy_token(self.model.cfg, logits[:, -1], self.mesh)
         if self.mesh is None:
             return last
-        return gather_leaf(last, self.rows, self.mesh, "serve/tokens")
+        axes = [a for a, n, p in zip(self.mesh.mesh_dim_names,
+                                     self.mesh.shape, self.rows)
+                if isinstance(p, Shard) and n > 1]
+        if not axes:
+            return last
+        return collective("AllGather", "serve/tokens", last,
+                          data_group(self.mesh, axes), dim=0)
 
     def _prefill_batch(self, rows: Sequence[Optional[Request]]):
         """One batched prefill over ``rows`` (None rows carry zeros).

@@ -11,11 +11,14 @@ fit beside the first.
 ZeRO-1 on a mesh (``zero1=`` the moments' placements, ``zero1_shardings``,
 and ``mesh=``): each moment (and the error feedback) holds this rank's
 data-axis slice of its parameter's shard, ``1 / dp`` of it where the rule
-splits the leaf; :func:`adamw_update` updates the matching slice of the
-parameter from the whole reduced gradient, with the norm of the whole
-gradients, and All-Gathers the updated slices over ``data``
+splits the leaf (over ``(pod, data)`` in row-major order on a pod mesh);
+:func:`adamw_update` updates the matching slice of the parameter from the
+whole reduced gradient, with the norm of the whole gradients, and
+All-Gathers the updated slices over the data axes, one group
 (``zero1/params``: GSPMD's gather in the JAX package, where it is not
-declared).
+declared).  With ``grad_compression`` the int8 error feedback is kept
+the same way and compressed in the update, not in a collective, as in
+the JAX step.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 
 from ..models.param import tree_leaves, tree_map, tree_zip
 from ..parallel import sharding
-from ..parallel.collective_planner import collective, mesh_group
+from ..parallel.collective_planner import collective, data_group, mesh_group
 from ..parallel.compression import compress_with_feedback
 
 F32 = torch.float32
@@ -161,7 +164,7 @@ def adamw_update(cfg: OptConfig, params, grads, state: OptState, *,
             d = next(pl.dim for a, pl in zip(mesh.mesh_dim_names, z)
                      if a in dp and isinstance(pl, sharding.Shard))
             new = collective("AllGather", "zero1/params", new.to(p.dtype),
-                             mesh.get_group(dp[0]), dim=d)
+                             data_group(mesh), dim=d)
         p.copy_(new)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, OptState(step, state.m, state.v, state.err), metrics

@@ -1,5 +1,5 @@
 """Train-step factory: loss, gradients and the AdamW update, on one device
-or on a ``(data, model)`` mesh.
+or on a ``(data, model)`` or ``(pod, data, model)`` mesh.
 
 Port of ``repro/train/train_step.py``.  Gradients come from
 ``torch.autograd.grad`` over the parameter leaves; microbatch gradients
@@ -9,8 +9,10 @@ are summed into f32 zeros and divided by their count, as the JAX step's
 On a mesh (a ``DeviceMesh`` from ``launch/mesh.py``, called on every
 rank with the same global batch) each rank holds the shards that
 ``param_shardings`` gives it (:func:`init_train_state`) and ZeRO-1
-moments (``zero1_shardings``); the batch is split over ``data`` (an
-enc-dec model's ``src_embeds`` frames with its tokens).  Every family's
+moments (``zero1_shardings``); the batch is split over the data axes,
+``(pod, data)`` in row-major order (an enc-dec model's ``src_embeds``
+frames with its tokens; replicated over an axis it does not divide, as
+``batch_spec`` falls back).  Every family's
 layers are tensor-parallel (GQA and MLA attention, cross-attention, the
 SSM mixer, the dense MLP, the shared experts, the embedding and the
 unembed) and MoE layers expert-parallel over ``model`` (``models/``).  With ``use_planner_loss`` an untied, non-enc-dec model
@@ -18,9 +20,14 @@ takes the COMET-planned explicit-collective loss (``cfg.softmax_strategy``:
 'dist'/'gather'/'auto' via the planner; 'gspmd' reads as 'auto') on the
 vocab-sharded unembed; the plain loss gathers the unembed's columns
 (``tp/unembed-gather``).  Every gradient that the loss or the MoE layers
-did not reduce is SUM-All-Reduced over ``data`` (``grads/...``, this
-rank's shard of the leaf); the global norm adds the model-sharded leaves'
-squares over ``model`` (``grads/norm``); with ``grad_compression`` the
+did not reduce is SUM-All-Reduced over the data axes, one group of ``pod
+x data`` ranks (``grads/...``, this rank's shard of the leaf), as the JAX
+declaration prices one collective of ``P_dp`` participants; under
+``seq_shard`` the leaves that act on the residual's rows (the norms,
+hymba's mixing weights) hold a partial sum over ``model`` too and are
+All-Reduced over every axis at once.  The global norm adds the
+model-sharded leaves' squares over ``model`` (``grads/norm``, where a
+leaf is model-sharded); with ``grad_compression`` the
 reduced gradients are int8-compressed on each rank's slices with the
 scale of the whole leaf.  That is numerically the step GSPMD computes for
 the JAX package's mesh step.  With ``mesh=None`` ``use_planner_loss`` is
@@ -38,6 +45,7 @@ from ..models.moe import MESH_REDUCED
 from ..models.param import tree_leaves, tree_map
 from ..parallel import sharding
 from ..parallel.collective_planner import (_flatten_sorted, collective,
+                                           data_group, mesh_group,
                                            sharded_softmax_xent,
                                            split_cotangent, sum_over)
 from .optimizer import F32, OptConfig, OptState, adamw_update, init_opt_state
@@ -59,23 +67,13 @@ def uses_planner_loss(cfg, mesh, use_planner_loss: bool) -> bool:
                 and not cfg.tie_embeddings and not cfg.is_encdec)
 
 
-def _data_axis(mesh) -> str:
-    dp = sharding.dp_axes(mesh)
-    if len(dp) != 1:
-        raise NotImplementedError(
-            f"a train step over data axes {dp} is not ported (one 'data' "
-            f"axis only): the pod axis waits for ROADMAP A.5, slice 16")
-    return dp[0]
-
-
 def _local_rows(batch: Dict[str, torch.Tensor], mesh
                 ) -> Dict[str, torch.Tensor]:
     """This rank's rows of the global batch: dim 0 of every leaf (the
-    tokens, the labels, an enc-dec model's frames) split over ``data``."""
+    tokens, the labels, an enc-dec model's frames) split over the data
+    axes that divide it (``batch_spec``), ``pod`` outer: the rows the JAX
+    ``batch_sharding`` gives the rank."""
     B = next(iter(batch.values())).shape[0]
-    n = sharding.dp_size(mesh)
-    if B % n:
-        raise ValueError(f"batch {B} does not split over {n} data ranks")
     spec = sharding.batch_spec(mesh, B)
     return {k: sharding.local_shard(v, spec, mesh) for k, v in batch.items()}
 
@@ -85,9 +83,9 @@ def state_placements(model: Model, mesh, *, compression: bool = False
     """The placements of a mesh step's state, a tree like
     :class:`TrainState`: the params' ``param_shardings``, the moments' (and
     error feedback's) ``zero1_shardings``, the step replicated (``()``)."""
-    specs = model.specs
-    z = sharding.zero1_shardings(specs, mesh)
-    return TrainState(sharding.param_shardings(specs, mesh),
+    specs, tp = model.specs, model.cfg.tensor_parallel
+    z = sharding.zero1_shardings(specs, mesh, tp)
+    return TrainState(sharding.param_shardings(specs, mesh, tp),
                       OptState(step=(), m=z, v=z,
                                err=z if compression else None))
 
@@ -95,8 +93,8 @@ def state_placements(model: Model, mesh, *, compression: bool = False
 def shard_params(model: Model, params, mesh):
     """This rank's shards of the full ``params`` under ``param_shardings``
     (copies where a leaf is split)."""
-    return sharding.shard_tree(
-        params, sharding.param_shardings(model.specs, mesh), mesh)
+    return sharding.shard_tree(params, sharding.param_shardings(
+        model.specs, mesh, model.cfg.tensor_parallel), mesh)
 
 
 def init_train_state(model: Model, params, mesh=None, *,
@@ -110,7 +108,9 @@ def init_train_state(model: Model, params, mesh=None, *,
     params = shard_params(model, params, mesh)
     return TrainState(params, init_opt_state(
         params, compression=compression,
-        zero1=sharding.zero1_shardings(model.specs, mesh), mesh=mesh))
+        zero1=sharding.zero1_shardings(model.specs, mesh,
+                                       model.cfg.tensor_parallel),
+        mesh=mesh))
 
 
 def make_loss_fn(model: Model, mesh=None, use_planner_loss: bool = False):
@@ -124,7 +124,6 @@ def make_loss_fn(model: Model, mesh=None, use_planner_loss: bool = False):
             return model.loss(params, batch)
         return loss_fn
 
-    axis = _data_axis(mesh)
     if uses_planner_loss(cfg, mesh, use_planner_loss):
         strategy = cfg.softmax_strategy if cfg.softmax_strategy != "gspmd" \
             else "auto"
@@ -142,11 +141,12 @@ def make_loss_fn(model: Model, mesh=None, use_planner_loss: bool = False):
             x = transformer.hidden(cfg, params, b["tokens"], mesh)
             return sharded_softmax_xent(
                 x, params["unembed"], b["labels"], mesh,
-                real_vocab=cfg.vocab_size, strategy=strategy)
+                real_vocab=cfg.vocab_size, strategy=strategy,
+                vocab=cfg.padded_vocab)
         return loss_fn
 
     n = sharding.dp_size(mesh)
-    group = mesh.get_group(axis)
+    group = data_group(mesh)
 
     def loss_fn(params, batch):
         # this rank's share of the mean, summed over data: the global mean,
@@ -178,15 +178,19 @@ def _reduced_in_step(keys, cfg, sharded_unembed: bool) -> bool:
         and keys[-1] in MESH_REDUCED
 
 
-def _reduce_grads(grads, mesh, placements, cfg, sharded_unembed: bool):
-    """SUM-all-reduce every gradient leaf over ``data`` (one collective a
-    leaf, labelled as ``train_collective_schedule``'s ``grads/...``, of
-    this rank's shard) but those the step reduced already; returns the
-    reduced tree (in sorted key order; ``adamw_update`` matches leaves by
-    name) and the global norm: the squares of the leaves that ``model``
-    splits summed over ``model`` (``grads/norm``), those of the others
-    added."""
-    group = mesh.get_group(_data_axis(mesh))
+def _reduce_grads(grads, mesh, placements, cfg, sharded_unembed: bool,
+                  seq: bool = False):
+    """SUM-all-reduce every gradient leaf over the data axes (one
+    collective a leaf, labelled as ``train_collective_schedule``'s
+    ``grads/...``, of this rank's shard; ``pod`` and ``data`` as one
+    group) but those the step reduced already; with ``seq`` (the
+    residual's sequence split over ``model``) a leaf that acts on the
+    residual's rows over every axis of the mesh.  Returns the reduced tree
+    (in sorted key order; ``adamw_update`` matches leaves by name) and the
+    global norm: the squares of the leaves that ``model`` splits summed
+    over ``model`` (``grads/norm``, issued where one is split), those of
+    the others added."""
+    group = data_group(mesh)
     model_dim = mesh.mesh_dim_names.index("model")
     where = dict(_flatten_sorted(placements))
     out = {}
@@ -194,8 +198,12 @@ def _reduce_grads(grads, mesh, placements, cfg, sharded_unembed: bool):
     sq_whole = torch.zeros((), dtype=F32, device=dev)
     sq_split = torch.zeros((), dtype=F32, device=dev)
     for keys, g in _flatten_sorted(grads):
-        r = g if _reduced_in_step(keys, cfg, sharded_unembed) else \
-            collective("AllReduce", "grads/" + ".".join(keys), g, group)
+        if _reduced_in_step(keys, cfg, sharded_unembed):
+            r = g
+        else:
+            r = collective("AllReduce", "grads/" + ".".join(keys), g,
+                           mesh_group(mesh) if seq and
+                           transformer.acts_on_rows(keys) else group)
         s = torch.sum(torch.square(r.to(F32)))
         if isinstance(where[keys][model_dim], sharding.Shard):
             sq_split = sq_split + s
@@ -205,9 +213,10 @@ def _reduce_grads(grads, mesh, placements, cfg, sharded_unembed: bool):
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = r
-    sq = sq_whole + collective("AllReduce", "grads/norm", sq_split,
-                               mesh.get_group("model"))
-    return out, torch.sqrt(sq)
+    if any(isinstance(p[model_dim], sharding.Shard) for p in where.values()):
+        sq_whole = sq_whole + collective("AllReduce", "grads/norm", sq_split,
+                                         mesh.get_group("model"))
+    return out, torch.sqrt(sq_whole)
 
 
 def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
@@ -241,8 +250,10 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
 
         gnorm = None
         if mesh is not None:
+            seq = transformer.splits_sequence(model.cfg, mesh,
+                                              batch["tokens"].shape[1])
             grads, gnorm = _reduce_grads(grads, mesh, placed.params,
-                                         model.cfg, sharded)
+                                         model.cfg, sharded, seq)
         new_params, new_opt, metrics = adamw_update(
             opt_cfg, state.params, grads, state.opt, grad_norm=gnorm,
             zero1=placed.opt.m if placed else None, mesh=mesh)

@@ -20,7 +20,6 @@ import torch_family as fam
 from repro.models import moe as jmoe
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.models import moe as tmoe
-from repro_torch.models import transformer as ttransformer
 from repro_torch.models.model import Model
 
 ARCH = "qwen3-moe-30b-a3b"
@@ -137,29 +136,42 @@ def test_combine_sums_each_tokens_choices_in_a_fixed_order():
     assert torch.equal(all_rows[0, :8], first[0])
 
 
-class _TwoWideMesh:
-    """The mesh attributes ``moe_apply`` reads, of rank 0 on a (1, 2)
-    ``(data, model)`` mesh; no process group."""
-    mesh_dim_names, shape = ("data", "model"), (1, 2)
-
-    def get_local_rank(self, axis):
-        return 0
-
-    def get_group(self, axis):
-        return None
-
-
 def test_mesh_is_refused_naming_the_roadmap_item():
-    """Shared experts train on a model axis (tests/test_torch_tensor_
-    parallel_families.py); what is refused there are the knobs not yet
-    ported, ``seq_shard`` and ``tensor_parallel=False``, naming the
-    roadmap's item."""
-    _, _, cfg, _ = _layer0(ARCH)
-    cfg = cfg.with_(n_shared_experts=1)
-    ttransformer.check_mesh(cfg, _TwoWideMesh())
-    for knob in ({"seq_shard": True}, {"tensor_parallel": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-            ttransformer.check_mesh(cfg.with_(**knob), _TwoWideMesh())
+    """Shared experts train on a model axis under both knobs, which
+    nothing refuses any more (the 2-rank cases: deepseek-v3 in
+    tests/test_torch_seq_shard.py, qwen3-moe in test_torch_tp_off.py):
+    on the one-rank gloo mesh the layer with ``seq_shard`` (the rows
+    gathered in, the shared experts' product in the routed experts'
+    Reduce-Scatter) and with ``tensor_parallel=False`` gives the mesh-free
+    layer's output and gradients."""
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.parallel.collective_planner import record_collectives
+    _, _, cfg, tp = _layer0("deepseek-v3-671b")
+    assert cfg.n_shared_experts
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+
+    def run(c, mesh, seq):
+        p = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+        xx = x.clone().requires_grad_(True)
+        with record_collectives() as rec:
+            out = tmoe.moe_apply(c, p, xx, mesh, seq)
+            out.square().sum().backward()
+        return ([out.detach(), xx.grad] + [p[k].grad for k in sorted(p)],
+                {(r[0], r[1]) for r in rec})
+    want, _ = run(cfg, None, None)
+    mesh = tmesh.make_host_mesh(device="cpu")
+    try:
+        for knob, seq in (({"seq_shard": True}, "rows"),
+                          ({"tensor_parallel": False}, None)):
+            got, labels = run(cfg.with_(**knob), mesh, seq)
+            for g, w in zip(got, want):
+                fam.close(g, w.numpy(), 1e-6)
+            assert (("tp/seq-gather", "AllGather") in labels) == bool(seq)
+            assert (("moe/combine", "ReduceScatter") in labels) == bool(seq)
+            assert ("moe/shared-out", "AllReduce") not in labels or not seq
+    finally:
+        tmesh.destroy()
 
 
 def test_logits_match_jax():

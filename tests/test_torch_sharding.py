@@ -128,3 +128,30 @@ def test_local_shard_is_the_ranks_block(coord):
     with pytest.raises(ValueError, match="split"):
         sh.local_shard(torch.zeros(3, 4), (Shard(0), Replicate(),
                                            Replicate()), mesh)
+
+
+@pytest.mark.parametrize("batch", [8, 2, 1])
+@pytest.mark.parametrize("coord", [(0, 1, 0), (1, 0, 1), (1, 1, 0)])
+def test_train_steps_rows_are_the_jax_batch_block(batch, coord):
+    """The mesh train step's rows on a (pod, data, model) mesh: the block
+    of the JAX ``batch_sharding`` at the rank's coordinate, ``pod``
+    outer; a batch that does not divide over both axes splits over those
+    that divide it and is replicated over the rest (batch 2: ``pod``
+    only; batch 1: none)."""
+    from repro_torch.train.train_step import _local_rows
+    shape, axes = (2, 2, 2), ("pod", "data", "model")
+    mesh = _Coord(shape, axes)
+    mesh.coord = coord
+    toks = torch.arange(batch * 3).reshape(batch, 3)
+    got = _local_rows({"tokens": toks, "labels": toks + 1}, mesh)
+    spec = jsh.batch_sharding(AbstractMesh(shape, axes), batch, 2).spec
+    entry = spec[0] if len(spec) else None
+    names = () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+    at, size = dict(zip(axes, coord)), dict(zip(axes, shape))
+    i, n = 0, 1
+    for a in names:
+        i, n = i * size[a] + at[a], n * size[a]
+    rows = toks.numpy()[i * batch // n:(i + 1) * batch // n]
+    np.testing.assert_array_equal(got["tokens"].numpy(), rows)
+    np.testing.assert_array_equal(got["labels"].numpy(), rows + 1)

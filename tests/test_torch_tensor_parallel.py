@@ -160,16 +160,64 @@ class _Mesh:
 @pytest.mark.parametrize("knob", [{"seq_shard": True},
                                   {"tensor_parallel": False}])
 def test_check_mesh_refuses_the_knobs_not_ported(knob):
-    """Every family trains on a model axis
-    (tests/test_torch_tensor_parallel_families.py); the seq_shard and
-    tensor_parallel=False knobs are refused there, naming the roadmap's
-    item, and run as they do on a one-rank model axis."""
-    cfg = get_smoke_config("glm4-9b").with_(**knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        transformer.check_mesh(cfg, _Mesh(2))
-    transformer.check_mesh(cfg, _Mesh(1))
-    transformer.check_mesh(cfg.with_(seq_shard=False, tensor_parallel=True),
-                           _Mesh(2))
+    """No knob is refused on a model axis any more (the 2- and 4-rank
+    cases: tests/test_torch_seq_shard.py, test_torch_tp_off.py).  On the
+    one-rank gloo mesh each knob's step gives the loss and the parameters
+    of the step without it, ``seq_shard`` through the rows' gathers and
+    scatters; on a (2, 2) mesh the state is placed as the JAX package
+    places it with the knob; and the sequence splits where the JAX
+    residual spec splits it."""
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.checkpoint import flatten_with_names
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              state_placements)
+    base = get_smoke_config("glm4-9b").with_(dtype="float32")
+    cfg = base.with_(**knob)
+    batch = ranks._batches(base)[0]
+    mesh = tmesh.make_host_mesh(device="cpu")
+    try:
+        out = {}
+        for c in (base, cfg):
+            model = Model(c)
+            state = init_train_state(model, model.init(0, device="cpu"),
+                                     mesh)
+            step = make_train_step(model, OptConfig(), mesh,
+                                   use_planner_loss=True)
+            with cp.record_collectives() as rec:
+                state, metrics = step(state, batch)
+            out[c.seq_shard, c.tensor_parallel] = (
+                float(metrics["loss"]), dict(flatten_with_names(
+                    state.params)), {(r[0], r[1]) for r in rec})
+    finally:
+        tmesh.destroy()
+    (loss0, p0, rec0), (loss1, p1, rec1) = out.values()
+    assert loss1 == loss0
+    for name, t in p0.items():
+        torch.testing.assert_close(p1[name], t, rtol=0, atol=1e-7,
+                                   msg=name)
+    seq_labels = {("tp/seq-gather", "AllGather"),
+                  ("tp/seq-gather", "ReduceScatter"),
+                  ("tp/attn-out", "ReduceScatter"),
+                  ("tp/embed", "ReduceScatter")}
+    assert (seq_labels <= rec1) == cfg.seq_shard
+    assert not seq_labels & rec0
+    arch = "glm4-9b" + ("+seq" if cfg.seq_shard else "+tpoff")
+    mesh22 = sh.MeshShape((2, 2), checks.AXES)
+    placed = state_placements(Model(cfg), mesh22)
+    for tree, zero1 in ((placed.params, False), (placed.opt.m, True)):
+        got = {k: sh.partition_spec(v, mesh22)
+               for k, v in flatten_with_names(tree)}
+        assert got == checks.jax_specs(arch, (2, 2), zero1)
+    split = {(shape, S): transformer.splits_sequence(cfg, sh.MeshShape(
+        shape, ranks.mesh_axes_of(shape)), S)
+        for shape in ((1, 2), (2, 2, 4)) for S in (16, 1)}
+    assert split == {(s, S): cfg.seq_shard and S == 16 for s, S in split}
+    assert not transformer.splits_sequence(
+        get_smoke_config("seamless-m4t-medium").with_(**knob),
+        sh.MeshShape((1, 2), checks.AXES), 16)
 
 
 def test_recompute_is_recorded_apart():

@@ -37,11 +37,8 @@ import pytest
 
 import torch_mesh_checks as checks
 import torch_mesh_ranks as ranks
-from repro.configs import get_smoke_config as jget_smoke
-from repro.models import Model as JModel
 from repro.train import checkpoint as jck
 from repro.train import elastic as jelastic
-from repro.train.optimizer import OptConfig as JOptConfig
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.models.model import Model
 from repro_torch.parallel import sharding as sh
@@ -57,28 +54,8 @@ def out(tmp_path_factory):
     return ranks.run_worlds(tmp_path_factory, (WORLD,), "elastic")[WORLD]
 
 
-# the share of a leaf's elements whose int8 rounding may flip
-FLIP_SHARE = 1e-3
-
-
-def _within_but_flips(got, want, outlier_bound, what):
-    """``got`` within ``STEP_TOL`` of ``want`` but at most ``FLIP_SHARE``
-    of the elements, each of those within ``outlier_bound``."""
-    off = np.abs(got - want)
-    flips = off > checks.STEP_TOL
-    assert np.count_nonzero(flips) <= FLIP_SHARE * want.size, \
-        (what, np.count_nonzero(flips), want.size)
-    assert off.max() <= outlier_bound, (what, off.max(), outlier_bound)
-
-
 def _spec(name, shape):
-    """The JAX ``PartitionSpec`` of a state leaf by its name."""
-    if name.startswith(".params"):
-        return checks.jax_specs(ARCH, shape)[name[len(".params"):]]
-    if name.startswith((".opt.m", ".opt.v")):
-        return checks.jax_specs(ARCH, shape, True)[name[len(".opt.m"):]]
-    assert name == ".opt.step", name
-    return ()
+    return checks.state_spec(ARCH, name, shape)
 
 
 def test_checkpoint_is_the_gathered_state(out):
@@ -182,47 +159,5 @@ def test_shrink_mesh_keeps_model_and_the_first_replicas(out):
 
 
 def test_int8_compressed_mesh_step(out):
-    import jax.numpy as jnp
-    from repro.train.data import SyntheticLM as JSyntheticLM
-    from repro.train.optimizer import init_opt_state as jinit_opt_state
-    from repro.train.train_step import TrainState as JTrainState
-    from repro.train.train_step import make_train_step as jmake_train_step
-    res = ranks.load(out, "train_int8", WORLD)
-    shape = (2, 2)
-    zspecs = checks.jax_specs(ARCH, shape, True)
-    pspecs = checks.jax_specs(ARCH, shape)
-    cfg = get_smoke_config(ARCH).with_(dtype="float32")
-    p0 = Model(cfg).init(0, device="cpu")
-    params = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), p0)
-    opt = JOptConfig(warmup_steps=1, total_steps=ranks.STEPS,
-                     grad_compression=True)
-    step = jax.jit(jmake_train_step(
-        JModel(jget_smoke(ARCH).with_(dtype="float32")), opt))
-    state = JTrainState(params, jinit_opt_state(params, compression=True))
-    data = JSyntheticLM(cfg.vocab_size, ranks.STEP_SEQ, ranks.STEP_BATCH,
-                        seed=0)
-    n_leaves = len(jax.tree_util.tree_leaves(params))
-    for i in range(ranks.STEPS):
-        state, metrics = step(state, {k: jnp.asarray(v)
-                                      for k, v in data.batch(i).items()})
-        for _, meta in res:
-            assert abs(meta["losses"][i] / float(metrics["loss"]) - 1) \
-                <= checks.STEP_TOL, i
-        for path, w in jax.tree_util.tree_flatten_with_path(
-                state.params)[0]:
-            name = jax.tree_util.keystr(path)
-            got = checks.assemble(res, f"step{i}{name}", pspecs[name],
-                                  shape, w.shape)
-            _within_but_flips(got, np.asarray(w), opt.lr, (i, name))
-    for path, w in jax.tree_util.tree_flatten_with_path(state.opt.err)[0]:
-        name = jax.tree_util.keystr(path)
-        w = np.asarray(w)
-        got = checks.assemble(res, f"err{name}", zspecs[name], shape,
-                              w.shape)
-        _within_but_flips(got, w, 4 * np.abs(w).max() + checks.STEP_TOL,
-                          name)
-    for _, meta in res:
-        for rec in meta["records"]:
-            scale = [r for r in rec if r[0] == "grads/compress-scale"]
-            assert scale == [["grads/compress-scale", "AllReduce",
-                              4.0 * n_leaves, WORLD]]
+    checks.check_int8_step(ranks.load(out, "train_int8", WORLD), ARCH,
+                           (2, 2))

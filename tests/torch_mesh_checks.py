@@ -17,8 +17,15 @@ not a test file.
 - :func:`check_collectives`: the collectives each rank issues outside the
   remat recompute are ``train_collective_schedule``'s entries with
   ``participants > 1``, corrected where the declaration miscounts a
-  family's layers (:func:`declaration_corrections`, ROADMAP C.11-C.14),
-  and the port's own (:func:`port_own_schedule`), nothing else.
+  family's layers or a knob's layout (:func:`declaration_corrections`,
+  ROADMAP C.11-C.16), and the port's own (:func:`port_own_schedule`),
+  nothing else.
+
+A mesh shape of two dims is ``(data, model)``, of three ``(pod, data,
+model)``; the data axes' size ``P_dp`` is the product of all but the
+last.  A case's arch may end in a knob (``torch_mesh_ranks.KNOBS``):
+``+seq`` (``seq_shard``) or ``+tpoff`` (``tensor_parallel=False``); its
+reference is the JAX mesh-free step of the arch without it.
 """
 import collections
 import functools
@@ -37,6 +44,7 @@ from repro.train.optimizer import init_opt_state as jinit_opt_state
 from repro.train.train_step import TrainState as JTrainState
 from repro.train.train_step import make_train_step as jmake_train_step
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import acts_on_rows
 
 import torch_mesh_ranks as ranks
 
@@ -52,7 +60,8 @@ AXES = ("data", "model")
 # the forward collectives a remat recompute may repeat
 RECOMPUTED = {"tp/attn-out", "tp/ffn-out", "tp/q-gather", "tp/kv-gather",
               "tp/ssm-gather", "tp/ssm-norm", "tp/ssm-out", "moe/combine",
-              "moe/shared-out"}
+              "moe/shared-out", "tp/seq-gather"}
+SEQ = "tp/seq-gather"
 
 
 def _flat(tree):
@@ -92,6 +101,11 @@ def jax_steps(arch):
     return out, state
 
 
+def _sizes(shape):
+    """(P_dp, m) of a mesh shape."""
+    return int(np.prod(shape[:-1])), shape[-1]
+
+
 def _trimmed(spec) -> tuple:
     """A ``PartitionSpec`` as a tuple, trailing Nones dropped (the form of
     the port's ``partition_spec``)."""
@@ -103,11 +117,20 @@ def _trimmed(spec) -> tuple:
 
 def jax_specs(arch, shape, zero1=False):
     """Each parameter's JAX ``PartitionSpec`` on the mesh, by name, as a
-    tuple without trailing Nones."""
-    jm = JModel(jax_config(arch))
+    tuple without trailing Nones; with ``tensor_parallel=False`` from axes
+    that are all None, as the JAX package's ``launch/specs.py::
+    state_specs`` places them."""
+    cfg = jax_config(arch)
+    jm = JModel(cfg)
     rule = jsh.zero1_shardings if zero1 else jsh.param_shardings
-    tree = rule(jm.param_axes(), jm.abstract_params(),
-                AbstractMesh(shape, AXES))
+    axes = jm.param_axes()
+    if not cfg.tensor_parallel:
+        axes = jax.tree.map(lambda t: tuple(None for _ in t), axes,
+                            is_leaf=lambda x: isinstance(x, tuple) and all(
+                                isinstance(e, (str, type(None)))
+                                for e in x))
+    tree = rule(axes, jm.abstract_params(),
+                AbstractMesh(shape, ranks.mesh_axes_of(shape)))
     return {jax.tree_util.keystr(p): _trimmed(v.spec) for p, v in
             jax.tree_util.tree_flatten_with_path(
                 tree, is_leaf=lambda x: isinstance(
@@ -117,8 +140,8 @@ def jax_specs(arch, shape, zero1=False):
 def block_index(spec, coord, shape, full_shape):
     """The slices of the block of a tensor of ``full_shape`` that the rank
     at ``coord`` holds under a JAX ``PartitionSpec``."""
-    sizes = dict(zip(AXES, shape))
-    at = dict(zip(AXES, coord))
+    sizes = dict(zip(ranks.mesh_axes_of(shape), shape))
+    at = dict(zip(ranks.mesh_axes_of(shape), coord))
     out = []
     for d, n in enumerate(full_shape):
         e = spec[d] if d < len(spec) else None
@@ -151,7 +174,7 @@ def check_train_matches_jax(res, arch, shape, *, adam=False):
     losses after the first step at ``SSD_TOL`` relative.  With ``adam`` a parameter
     element is held to ``STEP_TOL`` plus what the gradients' own bar
     moves it through AdamW (:func:`adam_bar`)."""
-    steps, _ = jax_steps(arch)
+    steps, _ = jax_steps(ranks.reference_arch(arch))
     for _, meta in res:
         assert not any(meta["drops"])       # nothing drops: see overrides
     ssd = ranks.case_config(arch).has_ssm
@@ -206,25 +229,56 @@ def _model_shards(spec):
     return [e for e in spec if e is not None]
 
 
+def _layer_counts(cfg):
+    """(GQA attention, MLA, dense FFN, MoE layers) of a decoder."""
+    L = cfg.n_layers
+    n_moe = L - cfg.first_dense_layers if cfg.is_moe else 0
+    n_attn = L if cfg.has_attention else 0
+    n_mla = n_attn if cfg.attn_type == "mla" else 0
+    return n_attn - n_mla, n_mla, (L - n_moe) * (cfg.d_ff > 0), n_moe
+
+
+def _splits_sequence(cfg, shape):
+    return cfg.seq_shard and not cfg.is_encdec \
+        and ranks.STEP_SEQ % shape[-1] == 0
+
+
+def _dp_entry(entry) -> bool:
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    return any(a in ("pod", "data") for a in axes)
+
+
 def port_own_schedule(arch, shape, planner):
     """The port's own collectives of one step, {(label, type, dv_bytes,
     participants): count}, participants > 1 only: the embedding's
-    All-Reduce, the q and kv projections' All-Gathers and their
-    Reduce-Scatters where a head is split, the q/k-norm scales'
+    All-Reduce (under ``seq_shard`` its Reduce-Scatter and the
+    transpose's All-Gather), the q and kv projections' All-Gathers and
+    their Reduce-Scatters where a head is split, the q/k-norm scales'
     cotangents, the SSM mixer's (its in_proj and conv outputs' gathers and
-    their transposes, the norm's sum and its transpose, *f* and *g*, the
-    per-head leaves' cotangents), MLA's latents' cotangent, the shared
-    experts' *f* and *g*, the encoder output's cotangent under the
-    cross-attention, the plain loss's unembed gather and mean, the norm's
-    model-axis sum, and ZeRO-1's All-Gather of each data-sliced
-    parameter."""
+    their transposes, the norm's sum and its transpose, *f* and *g* or,
+    under ``seq_shard``, the rows' gather and scatter, the per-head
+    leaves' cotangents), MLA's latents' cotangent, the shared experts' *f*
+    and *g* (under ``seq_shard`` their rows' gather and scatter), the
+    encoder output's cotangent under the cross-attention, the final hidden
+    state's gather under ``seq_shard``, the plain loss's unembed gather
+    and mean, the norm's model-axis sum, and ZeRO-1's All-Gather of each
+    data-sliced parameter.  With ``tensor_parallel=False`` every layer
+    runs whole: none of the ``tp/`` ones, but under ``seq_shard`` the
+    embedding's block of rows and the final gather."""
     cfg = jax_config(arch)
-    ndata, m = shape
+    P_dp, m = _sizes(shape)
+    seq, tp = _splits_sequence(cfg, shape), cfg.tensor_parallel
     L, D, hd = cfg.n_layers, cfg.d_model, cfg.hd
-    act = ranks.STEP_BATCH // ndata * ranks.STEP_SEQ
+    act = ranks.STEP_BATCH // P_dp * ranks.STEP_SEQ
+    full = act * D * 4.0
     own = collections.Counter()
-    if m > 1:
-        own[("tp/embed", "AllReduce", act * D * 4.0, m)] += 1
+    if m > 1 and tp:
+        if seq:
+            own[("tp/embed", "ReduceScatter", full, m)] += 1
+            own[("tp/embed", "AllGather", full, m)] += 1
+            own[(SEQ, "AllGather", full, m)] += 1
+        else:
+            own[("tp/embed", "AllReduce", full, m)] += 1
         own[("grads/norm", "AllReduce", 4.0, m)] += 1
         n_attn = L if cfg.has_attention and cfg.attn_type != "mla" else 0
         if cfg.n_heads % m and n_attn:
@@ -245,14 +299,27 @@ def port_own_schedule(arch, shape, planner):
                      m)] += L
             if nh % m == 0:
                 own[("tp/ssm-norm", "AllReduce", act * 4.0, m)] += 2 * L
-            own[("tp/ssm-out", "AllReduce", act * D * 4.0, m)] += 2 * L
+            if seq:
+                own[("tp/ssm-out", "ReduceScatter", full, m)] += L
+                own[("tp/ssm-out", "AllGather", full, m)] += L
+                if not cfg.has_attention:
+                    # a hybrid's mixers share the attention's gather
+                    own[(SEQ, "AllGather", full, m)] += L
+                    own[(SEQ, "ReduceScatter", full, m)] += L
+            else:
+                own[("tp/ssm-out", "AllReduce", full, m)] += 2 * L
             own[("tp/ssm-param-grad", "AllReduce", 3 * nh * 4.0, m)] += L
         if cfg.attn_type == "mla":
             lat = cfg.q_lora_rank + cfg.kv_lora_rank + cfg.rope_head_dim
             own[("tp/mla-latent", "AllReduce", act * lat * 4.0, m)] += L
-        if cfg.n_shared_experts:
-            own[("moe/shared-out", "AllReduce", act * D * 4.0, m)] += \
-                2 * (L - cfg.first_dense_layers)
+        n_shared = (L - cfg.first_dense_layers) * bool(cfg.n_shared_experts)
+        if seq:
+            # the shared experts gather their rows and scatter their own
+            for col in ("AllGather", "ReduceScatter"):
+                own[("moe/shared-out", col, full, m)] += n_shared
+                own[(SEQ, col, full, m)] += n_shared
+        else:
+            own[("moe/shared-out", "AllReduce", full, m)] += 2 * n_shared
         if cfg.is_encdec:
             frames = act // ranks.STEP_SEQ * max(
                 1, ranks.STEP_SEQ // cfg.enc_ratio)
@@ -260,20 +327,24 @@ def port_own_schedule(arch, shape, planner):
         if not planner:
             own[("tp/unembed-gather", "AllGather",
                  D * cfg.padded_vocab * 4.0, m)] += 1
-    if ndata > 1:
+    elif m > 1 and seq:
+        # a whole embedding's block of rows and the final rows' gather
+        own[("tp/embed", "AllGather", full, m)] += 1
+        own[(SEQ, "AllGather", full, m)] += 1
+    if P_dp > 1:
         if not planner:
-            own[("loss/mean", "AllReduce", 4.0, ndata)] += 2
+            own[("loss/mean", "AllReduce", 4.0, P_dp)] += 2
         specs, zspecs = jax_specs(arch, shape), jax_specs(arch, shape, True)
         for path, leaf in jax.tree_util.tree_flatten_with_path(
                 JModel(cfg).abstract_params())[0]:
             name = jax.tree_util.keystr(path)
-            if "data" in zspecs[name]:
+            if any(e is not None and _dp_entry(e) for e in zspecs[name]):
                 n = np.prod(leaf.shape) / m ** len(_model_shards(specs[name]))
-                own[("zero1/params", "AllGather", n * 4.0, ndata)] += 1
+                own[("zero1/params", "AllGather", n * 4.0, P_dp)] += 1
     return own
 
 
-def declaration_corrections(arch, shape):
+def declaration_corrections(arch, shape, planner=True):
     """Where ``train_collective_schedule`` miscounts what the step issues
     (ROADMAP Queue C), each a named, counted correction of the declared
     entries: {Queue C item: {(label, type, dv_bytes, participants): signed
@@ -289,42 +360,96 @@ def declaration_corrections(arch, shape):
     - C.13: MLA reduces its backward at the latents (``tp/mla-latent``,
       q_lora + kv_lora + rope columns), not at d_model: one
       ``tp/attn-out`` a layer (the forward *g*);
-    - C.14: the shared experts' gradients are All-Reduced over ``data``
-      (``grads/...moe.shared_*``), which the declaration leaves out with
-      the routed experts' (the keys under ``moe``)."""
+    - C.14: the shared experts' gradients are All-Reduced over the data
+      axes (``grads/...moe.shared_*``), which the declaration leaves out
+      with the routed experts' (the keys under ``moe``);
+    - C.15: under ``seq_shard`` each block's two All-Reduces
+      (``tp/attn-out``, ``tp/ffn-out``; MoE's three ``moe/combine``) are
+      a Reduce-Scatter out and its transpose's All-Gather, with an
+      All-Gather of the rows in (``tp/seq-gather``) and its transpose's
+      Reduce-Scatter (none at MLA, whose latents' *f* makes the cotangent
+      whole); the leaves that act on the residual's rows (the norms,
+      hymba's mixing weights) hold partial gradients over ``model`` and
+      are All-Reduced over every axis, not over the data axes; with
+      ``tensor_parallel=False`` too, where the dense blocks' whole weights
+      gather the rows in and take their block out, which the declaration
+      (no ``tp/`` entry) leaves out;
+    - C.16: with ``tensor_parallel=False`` the expert stack and the
+      planner loss's unembed are whole on every rank and each rank cuts
+      its block (as the JAX ``shard_map`` slices them): their gradients'
+      blocks are All-Gathered over ``model`` (``moe/expert-block``,
+      ``xent/unembed-block``), which GSPMD issues undeclared."""
     cfg = jax_config(arch)
-    ndata, m = shape
+    P_dp, m = _sizes(shape)
     if m == 1:
         return {}
-    L = cfg.n_layers
-    act = ranks.STEP_BATCH // ndata * ranks.STEP_SEQ * cfg.d_model * 4.0
+    L, D = cfg.n_layers, cfg.d_model
+    act = ranks.STEP_BATCH // P_dp * ranks.STEP_SEQ * D * 4.0
     out = {}
 
     def fix(item, label, count, dv=act, col_type="AllReduce", P=m):
         if count:
             out.setdefault(item, collections.Counter())[
                 (label, col_type, dv, P)] += count
-    n_moe = L - cfg.first_dense_layers if cfg.is_moe else 0
-    if cfg.has_ssm:
-        fix("C.11", "tp/attn-out", -2 * L * (not cfg.has_attention))
-        fix("C.11", "tp/ffn-out", -2 * (L - n_moe) * (cfg.d_ff == 0))
-    if cfg.is_encdec:
-        enc = act // ranks.STEP_SEQ * max(1, ranks.STEP_SEQ // cfg.enc_ratio)
-        fix("C.12", "tp/attn-out", 2 * cfg.n_enc_layers, enc)
-        fix("C.12", "tp/ffn-out", 2 * cfg.n_enc_layers, enc)
-        fix("C.12", "tp/attn-out", 2 * L)
-    if cfg.attn_type == "mla":
-        fix("C.13", "tp/attn-out", -L)
-    if cfg.n_shared_experts and n_moe and ndata > 1:
-        specs = jax_specs(arch, shape)
-        for path, leaf in jax.tree_util.tree_flatten_with_path(
-                JModel(cfg).abstract_params())[0]:
+    n_gqa, n_mla, n_mlp, n_moe = _layer_counts(cfg)
+    if cfg.tensor_parallel:
+        if cfg.has_ssm:
+            fix("C.11", "tp/attn-out", -2 * L * (not cfg.has_attention))
+            fix("C.11", "tp/ffn-out", -2 * (L - n_moe) * (cfg.d_ff == 0))
+        if cfg.is_encdec:
+            enc = act // ranks.STEP_SEQ * max(1, ranks.STEP_SEQ
+                                              // cfg.enc_ratio)
+            fix("C.12", "tp/attn-out", 2 * cfg.n_enc_layers, enc)
+            fix("C.12", "tp/ffn-out", 2 * cfg.n_enc_layers, enc)
+            fix("C.12", "tp/attn-out", 2 * L)
+        if cfg.attn_type == "mla":
+            fix("C.13", "tp/attn-out", -L)
+    abstract = jax.tree_util.tree_flatten_with_path(
+        JModel(cfg).abstract_params())[0]
+    specs = jax_specs(arch, shape)
+    if cfg.n_shared_experts and n_moe and P_dp > 1:
+        for path, leaf in abstract:
             keys = [k.key for k in path]
             if "moe" in keys and keys[-1].startswith("shared_"):
                 name = jax.tree_util.keystr(path)
                 n = np.prod(leaf.shape) / m ** len(_model_shards(specs[name]))
                 fix("C.14", "grads/" + ".".join(keys), 1, n * 4.0,
-                    P=ndata)
+                    P=P_dp)
+    if _splits_sequence(cfg, shape):
+        blocks = (("tp/attn-out", n_gqa + n_mla, 2 * n_gqa + n_mla),
+                  ("tp/ffn-out", n_mlp, 2 * n_mlp),
+                  ("moe/combine", n_moe, 3 * n_moe))
+        if not cfg.tensor_parallel:
+            # whole weights: the dense blocks gather the rows in and take
+            # their block of the output (its transpose an All-Gather);
+            # none was declared
+            for label, n, _ in blocks[:2]:
+                fix("C.15", label, n, col_type="AllGather")
+            fix("C.15", SEQ, n_gqa + n_mla + n_mlp, col_type="AllGather")
+            blocks = blocks[2:]
+        for label, n, ars in blocks:
+            fix("C.15", label, -ars)
+            fix("C.15", label, n, col_type="ReduceScatter")
+            fix("C.15", label, n, col_type="AllGather")
+        n_split = sum(n for _, n, _ in blocks)
+        fix("C.15", SEQ, n_split, col_type="AllGather")
+        # MLA's latents' *f* leaves no partial cotangent to scatter
+        fix("C.15", SEQ, n_split - n_mla * cfg.tensor_parallel,
+            col_type="ReduceScatter")
+        for path, leaf in abstract:
+            keys = [k.key for k in path]
+            if acts_on_rows(keys):
+                label = "grads/" + ".".join(keys)
+                n = np.prod(leaf.shape) * 4.0
+                fix("C.15", label, 1, n, P=P_dp * m)
+                if P_dp > 1:
+                    fix("C.15", label, -1, n, P=P_dp)
+    if not cfg.tensor_parallel:
+        if planner:
+            fix("C.16", "xent/unembed-block", 1, D * cfg.padded_vocab * 4.0,
+                "AllGather")
+        fix("C.16", "moe/expert-block", 3 * n_moe,
+            cfg.n_experts * D * cfg.moe_d_ff * 4.0, "AllGather")
     return out
 
 
@@ -340,11 +465,11 @@ def check_collectives(res, arch, shape, variant):
         and not cfg.is_encdec
     jcfg = cfg.with_(softmax_strategy=variant if planner else "auto")
     specs = jax_specs(arch, shape)
-    m = shape[1]
+    m = shape[-1]
     want = collections.Counter()
     for d in jcp.train_collective_schedule(
-            jcfg, AbstractMesh(shape, AXES), ranks.STEP_BATCH,
-            ranks.STEP_SEQ, planner_loss=planner,
+            jcfg, AbstractMesh(shape, ranks.mesh_axes_of(shape)),
+            ranks.STEP_BATCH, ranks.STEP_SEQ, planner_loss=planner,
             params=JModel(jcfg).abstract_params()):
         if d.participants <= 1:
             continue
@@ -353,13 +478,14 @@ def check_collectives(res, arch, shape, variant):
             name = "".join(f"['{k}']" for k in d.label[6:].split("."))
             dv /= m ** len(_model_shards(specs[name]))
         want[(d.label, d.col_type, dv, d.participants)] += d.count
-    for fixes in declaration_corrections(arch, shape).values():
+    for fixes in declaration_corrections(arch, shape, planner).values():
         for key, n in fixes.items():
             want[key] += n
     want.update(port_own_schedule(arch, shape, planner))
-    assert min(want.values()) >= 0
+    assert min(want.values(), default=0) >= 0
     want = {k: n for k, n in want.items() if n}
-    assert any(k[0].startswith("tp/") for k in want) == (m > 1)
+    assert any(k[0].startswith("tp/") for k in want) == (
+        m > 1 and (cfg.tensor_parallel or _splits_sequence(cfg, shape)))
     for _, meta in res:
         for rec, again in zip(meta["records"], meta["recompute"]):
             got = collections.Counter(tuple(r) for r in rec if r[3] > 1)
@@ -367,3 +493,73 @@ def check_collectives(res, arch, shape, variant):
                 k: (got.get(k, 0), want.get(k, 0))
                 for k in set(got) | set(want) if got.get(k) != want.get(k)}
             assert {r[0] for r in again} <= RECOMPUTED
+
+
+# the share of a leaf's elements whose int8 rounding may flip
+FLIP_SHARE = 1e-3
+
+
+def within_but_flips(got, want, outlier_bound, what):
+    """``got`` within ``STEP_TOL`` of ``want`` but at most ``FLIP_SHARE``
+    of the elements, each of those within ``outlier_bound``."""
+    off = np.abs(got - want)
+    flips = off > STEP_TOL
+    assert np.count_nonzero(flips) <= FLIP_SHARE * want.size, \
+        (what, np.count_nonzero(flips), want.size)
+    assert off.max() <= outlier_bound, (what, off.max(), outlier_bound)
+
+
+def state_spec(arch, name, shape):
+    """The JAX ``PartitionSpec`` of a train state's leaf by its name."""
+    if name.startswith(".params"):
+        return jax_specs(arch, shape)[name[len(".params"):]]
+    if name.startswith((".opt.m", ".opt.v")):
+        return jax_specs(arch, shape, True)[name[len(".opt.m"):]]
+    assert name == ".opt.step", name
+    return ()
+
+
+def check_int8_step(res, arch, shape):
+    """The int8-compressed mesh step (``torch_mesh_ranks`` ``train_case``
+    with ``compression``) against the JAX compressed step without a mesh:
+    the losses within ``STEP_TOL``; the parameters and the error feedback,
+    assembled by the JAX ``PartitionSpec``s, within it but at rounding
+    flips (:func:`within_but_flips`: a flip moves Adam's update by up to
+    lr and the error feedback by a quantum, held at four times the JAX
+    step's largest residual); each leaf's int8 scale from one MAX
+    All-Reduce over the whole mesh (``grads/compress-scale``)."""
+    import jax.numpy as jnp
+    from repro.train.data import SyntheticLM as JSyntheticLM
+    zspecs, pspecs = jax_specs(arch, shape, True), jax_specs(arch, shape)
+    cfg = ranks.case_config(arch)
+    p0 = Model(cfg).init(0, device="cpu")
+    params = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), p0)
+    opt = JOptConfig(warmup_steps=1, total_steps=ranks.STEPS,
+                     grad_compression=True)
+    step = jax.jit(jmake_train_step(JModel(jax_config(arch)), opt))
+    state = JTrainState(params, jinit_opt_state(params, compression=True))
+    data = JSyntheticLM(cfg.vocab_size, ranks.STEP_SEQ, ranks.STEP_BATCH,
+                        seed=0)
+    n_leaves = len(jax.tree_util.tree_leaves(params))
+    for i in range(ranks.STEPS):
+        state, metrics = step(state, {k: jnp.asarray(v)
+                                      for k, v in data.batch(i).items()})
+        for _, meta in res:
+            assert abs(meta["losses"][i] / float(metrics["loss"]) - 1) \
+                <= STEP_TOL, i
+        for path, w in jax.tree_util.tree_flatten_with_path(
+                state.params)[0]:
+            name = jax.tree_util.keystr(path)
+            got = assemble(res, f"step{i}{name}", pspecs[name], shape,
+                           w.shape)
+            within_but_flips(got, np.asarray(w), opt.lr, (i, name))
+    for path, w in jax.tree_util.tree_flatten_with_path(state.opt.err)[0]:
+        name = jax.tree_util.keystr(path)
+        w = np.asarray(w)
+        got = assemble(res, f"err{name}", zspecs[name], shape, w.shape)
+        within_but_flips(got, w, 4 * np.abs(w).max() + STEP_TOL, name)
+    for _, meta in res:
+        for rec in meta["records"]:
+            scale = [r for r in rec if r[0] == "grads/compress-scale"]
+            assert scale == [["grads/compress-scale", "AllReduce",
+                              4.0 * n_leaves, len(res)]]

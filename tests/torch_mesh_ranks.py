@@ -27,7 +27,16 @@ a rank and case; the tests compare it with the JAX package.  Suites:
 - ``serve``: ``Model.prefill``/``decode(mesh=)`` on fixed inputs (the
   logits, every cache shard, the collectives) and ``ServeEngine(mesh=)``
   through continuous-batching refills (the tokens, the collectives, the
-  MoE drops), for each of ``SERVE_CASES``.
+  MoE drops), for each of ``SERVE_CASES``;
+- ``pod`` (world 4): ``(pod, data, model)`` meshes: two steps of the train
+  step for each of ``POD_CASES``, the int8-compressed step on (2, 2, 1),
+  a checkpoint written on (2, 2, 1) and restored onto (2, 2, 1) and (1,
+  4), and the serve cases of glm4 on (2, 1, 2) and (2, 2, 1);
+- ``seq``: two steps with ``seq_shard`` on for each of ``SEQ_CASES`` (a
+  case's arch ends in ``+seq``; glm4's ``+seq+tpoff`` has both knobs),
+  and one prefill with it for each of ``SEQ_PREFILL``;
+- ``tp_off``: two steps with ``tensor_parallel=False`` for each of
+  ``TP_OFF_CASES`` (arch ending in ``+tpoff``).
 
 :func:`run_worlds` starts the worlds of a suite side by side for a test
 module.  Nothing here imports JAX.
@@ -61,7 +70,8 @@ TP_CASES = {2: (("glm4-9b", (1, 2)),),
 FAMILY_CASES = {2: (("mamba2-130m", (1, 2), ("plain",)),
                     ("hymba-1.5b", (1, 2), ("dist", "gather", "plain")),
                     ("hymba-1.5b-h5", (1, 2), ("plain",)),
-                    ("seamless-m4t-medium", (1, 2), ("plain",))),
+                    ("seamless-m4t-medium", (1, 2), ("plain",)),
+                 ("glm4-9b+seq+tpoff", (1, 2), ("plain",))),
                 4: (("deepseek-v3-671b", (2, 2), ("dist", "plain")),
                     ("mamba2-130m", (1, 4), ("plain",)))}
 RESTORE_SHAPES = ((1, 4), (4, 1))
@@ -78,6 +88,33 @@ SERVE_CASES = {2: (("glm4-9b", (2, 1)), ("glm4-9b", (1, 2)),
                    ("seamless-m4t-medium", (1, 2))),
                4: (("glm4-9b", (1, 4)), ("mamba2-130m", (1, 4)),
                    ("hymba-1.5b", (1, 4)), ("qwen3-moe-30b-a3b", (2, 2)))}
+# the pod suite's train cases: (arch, mesh shape, variants), world 4
+POD_CASES = (("glm4-9b", (2, 2, 1), ("plain",)),
+             ("glm4-9b", (2, 1, 2), ("dist", "gather", "plain")),
+             ("qwen3-moe-30b-a3b", (2, 1, 2), ("dist", "plain")),
+             ("mamba2-130m", (2, 2, 1), ("plain",)))
+POD_CKPT_SHAPE, POD_RESTORE_SHAPES = (2, 2, 1), ((2, 2, 1), (1, 4))
+# the pod suite's engine cases: (arch, mesh shape)
+POD_SERVE = (("glm4-9b", (2, 1, 2)), ("glm4-9b", (2, 2, 1)))
+# a case's config knob, by the suffix of its arch
+KNOBS = {"+seq": {"seq_shard": True}, "+tpoff": {"tensor_parallel": False}}
+# the seq suite's cases, by world; seamless without the knob beside it
+SEQ_CASES = {2: (("glm4-9b+seq", (1, 2), ("dist", "plain")),
+                 ("mamba2-130m+seq", (1, 2), ("plain",)),
+                 ("hymba-1.5b+seq", (1, 2), ("dist",)),
+                 ("deepseek-v3-671b+seq", (1, 2), ("dist",)),
+                 ("qwen3-moe-30b-a3b+seq", (1, 2), ("plain",)),
+                 ("seamless-m4t-medium+seq", (1, 2), ("plain",)),
+                 ("seamless-m4t-medium", (1, 2), ("plain",)),
+                 ("glm4-9b+seq+tpoff", (1, 2), ("plain",))),
+             4: (("glm4-9b+seq", (1, 4), ("gather",)),
+                 ("glm4-9b+seq", (2, 2, 1), ("plain",)))}
+# the prefills with seq_shard on (1, 2) (world 2)
+SEQ_PREFILL = ("glm4-9b+seq", "hymba-1.5b+seq", "deepseek-v3-671b+seq")
+TP_OFF_CASES = {2: (("glm4-9b+tpoff", (1, 2), ("dist", "plain")),
+                    ("qwen3-moe-30b-a3b+tpoff", (1, 2), ("plain",))),
+                4: (("glm4-9b+tpoff", (2, 2), ("gather",)),
+                    ("qwen3-moe-30b-a3b+tpoff", (2, 2), ("dist",)))}
 # (slots, prompt length, cache length): hymba's prompt is longer than its
 # smoke window of 32, so that its ring cache wraps
 SERVE_SIZES = {"hymba-1.5b": (4, 40, 48), "hymba-1.5b-h5": (4, 40, 48)}
@@ -87,10 +124,34 @@ SERVE_DEFAULT_SIZES = (4, 8, 32)
 SERVE_NEW_TOKENS = (3, 2, 4, 3, 2, 3)
 
 
+def _split_knobs(arch):
+    """(the arch without its knob suffixes, the knobs they set)."""
+    knobs = {}
+    while any(arch.endswith(s) for s in KNOBS):
+        suffix = next(s for s in KNOBS if arch.endswith(s))
+        knobs.update(KNOBS[suffix])
+        arch = arch[:-len(suffix)]
+    return arch, knobs
+
+
+def reference_arch(arch) -> str:
+    """A mesh case's arch without its knob suffixes: the arch of its
+    mesh-free reference (the JAX package reads neither knob without a
+    mesh)."""
+    return _split_knobs(arch)[0]
+
+
 def case_base(arch) -> str:
     """The registry arch of a mesh case's arch ("hymba-1.5b-h5" is
-    hymba-1.5b's)."""
+    hymba-1.5b's, "glm4-9b+seq" glm4-9b's)."""
+    arch = reference_arch(arch)
     return arch[:-3] if arch.endswith("-h5") else arch
+
+
+def mesh_axes_of(shape) -> tuple:
+    """The axis names of a case's mesh shape: ``(pod, data, model)`` for
+    three dims."""
+    return ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
 
 
 def case_overrides(arch) -> dict:
@@ -106,8 +167,9 @@ def case_overrides(arch) -> dict:
     out = {"dtype": "float32"}
     if cfg.is_moe:
         out["capacity_factor"] = cfg.n_experts / cfg.top_k
-    if arch.endswith("-h5"):
+    if reference_arch(arch).endswith("-h5"):
         out.update(n_heads=5, n_kv_heads=5)
+    out.update(_split_knobs(arch)[1])
     return out
 
 
@@ -117,7 +179,7 @@ def case_config(arch):
 
 
 def serve_sizes(arch):
-    return SERVE_SIZES.get(arch, SERVE_DEFAULT_SIZES)
+    return SERVE_SIZES.get(reference_arch(arch), SERVE_DEFAULT_SIZES)
 
 
 def serve_inputs(cfg, arch):
@@ -160,6 +222,72 @@ def moe_layer_inputs():
          + 0.3 * rng.standard_normal((MOE_B, MOE_S, d))).astype(np.float32)
     cot = rng.standard_normal((MOE_B, MOE_S, d)).astype(np.float32)
     return cfg, p, x, cot
+
+
+def run_pod(rank, out_dir, meshes):
+    """The pod suite: the train cases, the int8 step and the checkpoint on
+    (2, 2, 1), restored onto each of ``POD_RESTORE_SHAPES``, and the serve
+    case."""
+    from repro_torch.train.checkpoint import (flatten_with_names,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.train_step import state_placements
+    for arch, shape, variants in POD_CASES:
+        run_train_steps(meshes[shape], rank, out_dir, arch,
+                        f"pod_{arch}_{tag_of(shape)}_{{variant}}", variants)
+    m221 = meshes[POD_CKPT_SHAPE]
+    _, cstate, arrays, cmeta = train_case("glm4-9b", m221, "auto", False,
+                                          compression=True)
+    for n, t in flatten_with_names(cstate.opt.err):
+        arrays[f"err{n}"] = t.numpy().copy()
+    _save(out_dir, "pod_int8", rank, arrays, cmeta)
+    model, state, _, meta = train_case("glm4-9b", m221, "auto", False)
+    ckpt = f"{out_dir}/ckpt"
+    save_checkpoint(ckpt, STEPS, state, extra={"mesh": list(POD_CKPT_SHAPE)},
+                    placements=state_placements(model, m221), mesh=m221)
+    _save(out_dir, "pod_ckpt_saved", rank,
+          _whole(state, state_placements(model, m221), m221), meta)
+    for shape in POD_RESTORE_SHAPES:
+        mesh = meshes[shape]
+        placed = state_placements(model, mesh)
+        got, step, extra = restore_checkpoint(ckpt, state, shardings=placed,
+                                              mesh=mesh)
+        local = {f"local{n}": t.numpy().copy()
+                 for n, t in flatten_with_names(got)}
+        _save(out_dir, f"pod_ckpt_restored_{tag_of(shape)}", rank,
+              dict(_whole(got, placed, mesh), **local),
+              {"coord": list(mesh.get_coordinate()), "step": step,
+               "extra": extra})
+    for arch, shape in POD_SERVE:
+        run_serve(meshes[shape], rank, out_dir, arch)
+
+
+def run_seq_prefill(mesh, rank, out_dir, arch):
+    """One prefill of :func:`serve_inputs` with ``seq_shard`` on: the
+    rank's rows and block of the logits, its cache shards, the
+    collectives."""
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.collective_planner import record_collectives
+    from repro_torch.parallel.sharding import (batch_spec, param_shardings,
+                                               shard_bounds, shard_tree)
+    from repro_torch.train.checkpoint import flatten_with_names
+    cfg = case_config(arch)
+    model = Model(cfg)
+    params = shard_tree(model.init(0, device="cpu"),
+                        param_shardings(model.specs, mesh), mesh)
+    B, P, C = serve_sizes(arch)
+    r0, r1 = shard_bounds((B,), batch_spec(mesh, B), mesh)[0]
+    toks = serve_inputs(cfg, arch)[0]
+    with torch.no_grad(), record_collectives() as rec:
+        logits, cache = model.prefill(
+            params, {"tokens": torch.from_numpy(toks[r0:r1]).long()}, C,
+            mesh)
+    _save(out_dir, f"prefill_{arch}", rank,
+          dict({f"prefill{n}": t.numpy().copy()
+                for n, t in flatten_with_names(cache)},
+               prefill_logits=logits.numpy().copy()),
+          {"coord": list(mesh.get_coordinate()), "rows": [r0, r1],
+           "records": list(rec)})
 
 
 def tag_of(shape) -> str:
@@ -520,7 +648,7 @@ def _rank(rank, world, out_dir, suite):
                             world_size=world)
 
     def mesh(shape):
-        return make_auto_mesh(shape, ("data", "model"), "cpu")
+        return make_auto_mesh(shape, mesh_axes_of(shape), "cpu")
     try:
         if suite == "planner" and world == 2:
             run_xent(mesh((1, 2)), rank, out_dir, "1x2")
@@ -548,6 +676,22 @@ def _rank(rank, world, out_dir, suite):
         elif suite == "serve":
             for arch, shape in SERVE_CASES[world]:
                 run_serve(mesh(shape), rank, out_dir, arch)
+        elif suite == "pod" and world == 4:
+            shapes = {s for _, s, _ in POD_CASES} | {POD_CKPT_SHAPE} | {
+                s for _, s in POD_SERVE}
+            meshes = {s: mesh(s) for s in sorted(shapes |
+                                                 set(POD_RESTORE_SHAPES))}
+            run_pod(rank, out_dir, meshes)
+        elif suite in ("seq", "tp_off"):
+            cases = SEQ_CASES if suite == "seq" else TP_OFF_CASES
+            for arch, shape, variants in cases[world]:
+                run_train_steps(mesh(shape), rank, out_dir, arch,
+                                f"{suite}_{arch}_{tag_of(shape)}_{{variant}}",
+                                variants)
+            if suite == "seq" and world == 2:
+                m12 = mesh((1, 2))
+                for arch in SEQ_PREFILL:
+                    run_seq_prefill(m12, rank, out_dir, arch)
         else:
             raise ValueError(f"unknown suite {suite!r} at world {world}")
     finally:

@@ -216,7 +216,9 @@ failure ends the run with a non-zero exit:
     steps of batch 4 x seq 256) with ``--device cuda``, counts set to 0
     just before each: FlashAttention launches > 0 and equal to what each
     reports; ``examples.comet_attention`` to its end, its planner lines
-    the expected strings;
+    the expected strings; ``launch.costmodel_compare.collective_compare``
+    (Fig. 6's predicted-vs-measured collectives on the synthetic backend)
+    logged, not degenerate;
 25. the train CLI with ``--mesh host --planner-loss`` on
     qwen3-moe-30b-a3b (full width, ``--layers 4`` of 48: 3.1 B parameters
     at 12 B each (bf16 params and grads, f32 moments) are 37 GB, all 48
@@ -282,7 +284,17 @@ failure ends the run with a non-zero exit:
     phase 23's first (4 layers, the planner loss), its loss within 1e-6
     relative of phase 23's step 0, FlashAttention 4 x 2 launches, no
     ``tp/`` collective (the dense layers run on whole weights);
-34. a JSON line of the kernels (every number in it measured in this run,
+34. calibration (``python -m repro_torch.calibrate``), each run in a fresh
+    store: ``--backend nccl`` on the one card exits 2, degenerate, nothing
+    persisted, no file written, and every point of its grid a real
+    one-rank NCCL call that was timed (none dropped as an error or a
+    non-finite time); ``--backend gloo --ranks 4`` at a small sweep (``CALIB_GLOO``)
+    is not degenerate, its constants finite, persisted; run again it
+    reuses the file (``fits_solved`` 0) and leaves its bytes as they were;
+    ``tpu_v5e(calibrated=path)`` carries the fitted constants; the gate's
+    median and max error logged (exit 0 or 1: the gate is a measurement
+    here);
+35. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
     the training run; the FlashAttention and SSD rows also carry each
@@ -1859,11 +1871,13 @@ def front_ends_phase(counters):
     """Phase 24: ``repro_torch.examples.serve_lm`` and ``train_lm`` on the
     card (a few requests and steps each, ``--device cuda``), counts set to
     0 just before each and read just after (> 0); ``comet_attention`` to
-    its end, its planner lines the expected strings."""
+    its end, its planner lines the expected strings; Fig. 6's
+    ``collective_compare`` line."""
     import contextlib
     import io
 
     from repro_torch.examples import comet_attention, serve_lm, train_lm
+    from repro_torch.launch import costmodel_compare
     rec = {}
     for name, run in (
             ("serve_lm", lambda: serve_lm.main(
@@ -1897,6 +1911,88 @@ def front_ends_phase(counters):
         log(f"  | {ln}")
     if lines[-3:] != PLANNER_LINES:
         raise AssertionError(f"comet_attention's planner lines {lines[-3:]}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec["collective_compare"] = costmodel_compare.collective_compare()
+    log(f"  | {buf.getvalue().strip()}")
+    if rec["collective_compare"]["degenerate"]:
+        raise AssertionError(f"collective_compare {rec['collective_compare']}")
+    return rec
+
+
+# phase 34's gloo sweep: 4 CPU ranks, 4 KiB to 1 MiB, 4 sizes a type, 3
+# timed iterations a point
+CALIB_GLOO = ["--backend", "gloo", "--ranks", "4", "--max-bytes",
+              str(1 << 20), "--sizes", "4", "--iters", "3"]
+
+
+def calibrate_cli(args, store):
+    """``python -m repro_torch.calibrate ARGS --store STORE --json``:
+    (exit code, summary, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.calibrate", *args, "--store",
+         store, "--json"], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    try:
+        summary = json.loads(r.stdout)
+    except ValueError:
+        raise AssertionError(f"calibrate {args} exited {r.returncode}: "
+                             f"{r.stdout[-1000:]} {r.stderr[-3000:]}")
+    return r.returncode, summary, time.perf_counter() - t0
+
+
+def calibration_phase(plan_root):
+    """Phase 34: the calibration CLI on the card's machine, each run in a
+    fresh store under ``plan_root``."""
+    from repro_torch.calibrate import CALIBRATED_TYPES, SweepConfig
+    from repro_torch.core.hardware import tpu_v5e
+    rec = {}
+    store = tempfile.mkdtemp(prefix="calib-nccl", dir=plan_root)
+    rc, s, sec = calibrate_cli(["--backend", "nccl"], store)
+    rec["nccl"] = {"rc": rc, "s": sec, "summary": s}
+    grid = len(CALIBRATED_TYPES) * SweepConfig().n_sizes
+    log(f"  nccl, one card ({sec:.1f} s): exit {rc}, {s['n_points']} of "
+        f"{grid} points (each the best of 5 timed one-rank NCCL calls after "
+        f"a warmup), dropped {s['dropped']}, degenerate {s['degenerate']}, "
+        f"persisted {s['persisted']}")
+    if rc != 2 or not s["degenerate"] or s["persisted"] or os.listdir(store):
+        raise AssertionError(f"nccl on one card: exit {rc}, {s}, "
+                             f"{os.listdir(store)}")
+    # every point a real NCCL call that returned a finite time: a call that
+    # raised would end the run (exit 3), and none may be dropped as an
+    # error or a non-finite time; a point slower than a larger one may be
+    if set(s["dropped"]) - {"non-monotone"} \
+            or s["n_points"] + s["n_dropped"] != grid:
+        raise AssertionError(f"nccl on one card: {s['n_points']} points, "
+                             f"dropped {s['dropped']} of {grid}")
+    store = tempfile.mkdtemp(prefix="calib-gloo", dir=plan_root)
+    path = Path(store) / "calibrated_noc.json"
+    rc, s, sec = calibrate_cli(CALIB_GLOO, store)
+    p = s["params"]
+    consts = [p["channel_bandwidth"], p["t_router"], p["t_enq"]]
+    rec["gloo"] = {"rc": rc, "s": sec, "summary": s}
+    log(f"  gloo, 4 CPU ranks ({sec:.1f} s): exit {rc}, {s['n_points']} "
+        f"points, dropped {s['dropped']}, channel_bandwidth "
+        f"{p['channel_bandwidth']:.6g} B/s, t_router {p['t_router']:.6g} s, "
+        f"t_enq {p['t_enq']:.6g} s; gate median {s['median_rel_err']:.4f} "
+        f"max {s['max_rel_err']:.4f} (bar {s['gate_median']}: "
+        f"{'met' if s['gate_ok'] else 'missed'})")
+    if rc not in (0, 1) or s["degenerate"] or not s["persisted"] \
+            or not all(np.isfinite(c) and c > 0 for c in consts):
+        raise AssertionError(f"gloo calibration: exit {rc}, {s}")
+    first = path.read_bytes()
+    rc2, s2, sec2 = calibrate_cli(CALIB_GLOO, store)
+    rec["gloo_again"] = {"rc": rc2, "s": sec2, "summary": s2}
+    log(f"  gloo again ({sec2:.1f} s): exit {rc2}, reused {s2['reused']}, "
+        f"fits_solved {s2['fits_solved']}, file unchanged "
+        f"{path.read_bytes() == first}")
+    if not s2["reused"] or s2["fits_solved"] != 0 or rc2 != rc \
+            or path.read_bytes() != first:
+        raise AssertionError(f"gloo calibration not reused: {s2}")
+    noc = tpu_v5e(calibrated=path).cluster_noc
+    if [noc.channel_bandwidth, noc.t_router, noc.t_enq] != consts:
+        raise AssertionError(f"tpu_v5e(calibrated=) gives {noc}")
     return rec
 
 
@@ -2680,7 +2776,13 @@ def main() -> int:
     tp_off = tp_off_phase(dev, counters, mesh_train)
     log(f"phase 33: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 34. the result
+    # ------------------------------------------------------- 34. calibration
+    t0 = phase("34. calibration (python -m repro_torch.calibrate: nccl on "
+               "the one card, gloo on 4 CPU ranks)")
+    calibration = calibration_phase(plan_root)
+    log(f"phase 34: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 35. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2827,6 +2929,7 @@ def main() -> int:
                     "train_glm4_9b_pod_mesh": pod,
                     "seq_shard": seq_shard,
                     "train_glm4_9b_tensor_parallel_off": tp_off,
+                    "calibration": calibration,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))

@@ -18,10 +18,9 @@ published-ballpark constants (documented inline); see DESIGN.md §8 —
 
 Port-local copy of ``repro/core/hardware.py`` (the port imports nothing of
 the JAX package); ``tests/test_torch_overlap.py`` holds it to the original
-field by field.  Two differences: the calibration file loader
-(``repro.calibrate.persist``) is not ported yet, so a ``calibrated=`` path
-raises ``NotImplementedError`` (see :func:`_coerce_calibrated_noc`); and
-the port adds :func:`h100`, its card, to ``PRESETS``.
+field by field.  One difference: the port adds :func:`h100`, its card, to
+``PRESETS``.  A ``calibrated=`` path loads through the port's own
+``repro_torch.calibrate.persist``.
 """
 from __future__ import annotations
 
@@ -205,10 +204,11 @@ def _coerce_calibrated_noc(calibrated) -> Optional[NoCParams]:
     """Resolve a ``calibrated=`` argument to the NoCParams carrying the
     measured timing constants.
 
-    Accepts a :class:`NoCParams` or a calibration object (anything with a
-    ``params`` NoCParams attribute).  The JAX package also takes a path to
-    a persisted ``calibrated_noc.json``; its loader (``calibrate/persist``)
-    is not ported yet, so a path raises ``NotImplementedError`` here.
+    Accepts a :class:`NoCParams`, a ``repro_torch.calibrate``
+    ``Calibration`` (anything with a ``params`` NoCParams attribute), or a
+    path to a persisted ``calibrated_noc.json``.  Returns ``None`` when the
+    path holds no usable calibration (missing / stale / corrupt — the
+    loader already warned), so callers degrade to the preset constants.
     """
     if calibrated is None:
         return None
@@ -217,10 +217,11 @@ def _coerce_calibrated_noc(calibrated) -> Optional[NoCParams]:
     params = getattr(calibrated, "params", None)
     if isinstance(params, NoCParams):
         return params
-    raise NotImplementedError(
-        f"calibrated={calibrated!r}: loading a persisted calibration file "
-        f"needs calibrate/persist, which the port does not have yet; pass "
-        f"a NoCParams or an object with a .params NoCParams")
+    # a str/Path: load the persisted file (lazy import —
+    # repro_torch.calibrate imports this module)
+    from repro_torch.calibrate.persist import load_calibration
+    cal = load_calibration(calibrated)
+    return cal.params if cal is not None else None
 
 
 def apply_calibration(arch: Arch, calibrated, *,

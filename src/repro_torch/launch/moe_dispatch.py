@@ -33,8 +33,12 @@ the JAX package's ``tests/test_collective_table.py``).
 
 Port of ``benchmarks/moe_dispatch.py`` on the port's collective model
 and presets, which add ``h100`` (a single-node cluster: no EP collective
-to cost).  A persisted calibration (``--calibrated STORE``) needs the
-calibration loader, which the port does not have yet: the presets raise.
+to cost).  ``--calibrated PATH`` hands PATH to the presets' ``calibrated=``,
+which load a persisted ``calibrated_noc.json`` (``python -m
+repro_torch.calibrate``) through ``repro_torch.calibrate.persist``; a path
+that holds no usable calibration leaves the presets' constants as they
+are.  A bare ``--calibrated`` passes ``True`` and raises ``TypeError``, as
+the original does (ROADMAP C.17).
 
 Usage::
 

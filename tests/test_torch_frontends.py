@@ -16,10 +16,13 @@
 - ``examples.train_lm``: the first two losses equal the JAX
   ``train_loop``'s within 1e-5 relative, at a cut depth (2 of 12 layers)
   and in f32, from the same parameters.
+- ``launch.costmodel_compare`` (Fig. 6): ``collective_compare`` and
+  ``compound_compare`` whole, ``single_op_compare`` at 2000 of its 20000
+  draws: the same dicts and printed rows, bit for bit.
 
 The JAX front ends outside the package (``examples/``, ``benchmarks/``)
 are loaded from their files.  Nothing here starts a process pool: the
-paper tables' sweeps run on the serial executor.
+paper tables' sweeps and Fig. 6's ``parallel_map`` run serially.
 """
 import dataclasses
 import functools
@@ -44,7 +47,7 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core import search as tsearch
 from repro_torch.examples import comet_attention, quickstart, serve_lm, \
     train_lm
-from repro_torch.launch import moe_dispatch, paper_tables
+from repro_torch.launch import costmodel_compare, moe_dispatch, paper_tables
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import Model
 
@@ -253,3 +256,29 @@ def test_train_lm_losses_match_jax_train_loop(monkeypatch, capsys):
                                rtol=LOSS_RTOL)
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["steps"] == 2 and len(line["losses"]) == 2
+
+
+# Fig. 6: the functions run whole but single_op_compare, which draws 2000
+# of its 20000 specs; parallel_map serial in both packages
+FIG6 = [("collective_compare", None), ("compound_compare", None),
+        ("single_op_compare", 2000)]
+
+
+@pytest.mark.parametrize("fn,draws", FIG6, ids=[f[0] for f in FIG6])
+def test_costmodel_compare_matches_jax(monkeypatch, capsys, fn, draws):
+    jcc = _load("benchmarks/costmodel_compare.py")
+    for mod in (jcc, costmodel_compare):
+        monkeypatch.setattr(mod, "parallel_map",
+                            lambda f, items, **kw: [f(x) for x in items])
+        if draws is not None:
+            monkeypatch.setattr(
+                mod, "_unique_specs",
+                functools.partial(lambda orig, c, k, n: orig(c, k, min(
+                    n, draws)), mod._unique_specs))
+    want = getattr(jcc, fn)()
+    jout = capsys.readouterr().out
+    got = getattr(costmodel_compare, fn)()
+    tout = capsys.readouterr().out
+    assert got == want
+    assert tout == jout and tout.count("\n") == 1
+    assert not got.get("degenerate", False)

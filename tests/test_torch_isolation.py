@@ -49,7 +49,13 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "repro_torch.examples.quickstart",
                  "repro_torch.examples.comet_attention",
                  "repro_torch.examples.serve_lm",
-                 "repro_torch.examples.train_lm"):
+                 "repro_torch.examples.train_lm",
+                 "repro_torch.calibrate", "repro_torch.calibrate.harness",
+                 "repro_torch.calibrate.fitter",
+                 "repro_torch.calibrate.persist",
+                 "repro_torch.calibrate.driver",
+                 "repro_torch.calibrate.__main__",
+                 "repro_torch.launch.costmodel_compare"):
         assert name in out["modules"], name
     assert len(out["modules"]) >= 25
 

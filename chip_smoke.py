@@ -294,7 +294,28 @@ failure ends the run with a non-zero exit:
     ``tpu_v5e(calibrated=path)`` carries the fitted constants; the gate's
     median and max error logged (exit 0 or 1: the gate is a measurement
     here);
-35. a JSON line of the kernels (every number in it measured in this run,
+35. static contracts: ``python -m repro_torch.analysis`` on the full
+    paper shapes in a subprocess (exit 0: every contract and the lint);
+    then each kernel launched once at each contract shape (the kernel
+    arm's) under ``torch.profiler``: the trace's grid equals the tiling's
+    (``tiling(...).grid``, ``gemm_epilogue.launch_grid``), its shared
+    memory holds the library's dynamic figure (``fa_smem_bytes``,
+    ``ge_smem_bytes``, ``ssd_bf16_tile``; the trace adds the static
+    part, at most what ptxas reports) and is within the card's per-block
+    opt-in, the card's half of the lint's ``smem-budget``;
+36. the dry run against the card: ``python -m repro_torch.launch.dryrun``
+    of glm4-9b (full width, 4 of 40 layers, the planner loss, batch 4 x
+    seq 1024) on the (1, 1) mesh of a fake one-rank world in a
+    subprocess, and the real step on the card's (1, 1) NCCL mesh under
+    the same counter and ``record_collectives``: equal FLOPs and equal
+    records; the state's bytes those the card allocated up to 512 B a
+    tensor; the peaks logged, with no bar;
+37. the full-width dry-run cells: glm4-9b ``train_4k`` on the 256-rank
+    single-pod mesh and qwen3-moe-30b-a3b ``train_4k`` on the 512-rank
+    multi-pod mesh, each in a subprocess: seconds, FLOPs a rank and the
+    reconciliation's findings logged, the roofline terms logged as
+    predictions;
+38. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
     the training run; the FlashAttention and SSD rows also carry each
@@ -1996,6 +2017,372 @@ def calibration_phase(plan_root):
     return rec
 
 
+# phase 35: the kernel arm's shapes (``autotune.PAPER_KERNEL_SHAPES``) and
+# the CLI's time limit; late in a long process the profiler now and then
+# loses a kernel's event (PERF.md §6), so a launch the wrapper counted is
+# profiled again, at most this many times
+ANALYSIS_TIMEOUT = 600
+PROFILE_TRIES = 5
+# phases 36-37: the dry run's cells and its time limit (a cell)
+DRYRUN_TIMEOUT = 600
+DRYRUN_GLM4 = ("glm4-9b", 4, 4, 1024)   # arch, layers, batch, seq: phase 25's
+DRYRUN_CELLS = (("glm4-9b", "train_4k", "single"),
+                ("qwen3-moe-30b-a3b", "train_4k", "multi"))
+
+
+def _static_smem(build_log):
+    """The largest static shared memory ptxas reports for an entry of a
+    source (``N bytes smem``)."""
+    return max([int(m.group(1)) for m in
+                re.finditer(r"(\d+) bytes smem", build_log)] or [0])
+
+
+def static_contracts_phase(dev, built):
+    """Phase 35: ``python -m repro_torch.analysis`` on the full paper
+    shapes (exit 0); the custom op's host cost (:func:`op_dispatch_cost`);
+    then :func:`contract_launches` in a fresh process (late in a long one
+    the profiler's trace loses some kernels' events: gemm_layernorm's, on
+    every try, in this script's earlier runs)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                        "--json", path], env=env, cwd=ROOT,
+                       capture_output=True, text=True,
+                       timeout=ANALYSIS_TIMEOUT)
+    cli_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.analysis exited "
+                             f"{r.returncode}: {r.stdout[-2000:]} "
+                             f"{r.stderr[-3000:]}")
+    with open(path) as f:
+        report = json.load(f)
+    os.remove(path)
+    c = report["contracts"]
+    rec = {"cli_s": cli_s, "checked": c["checked"], "passed": c["passed"],
+           "lint_findings": report["lint"]["count"]}
+    log(f"  python -m repro_torch.analysis ({cli_s:.1f} s): contracts "
+        f"{c['passed']}/{c['checked']} passed, arms {c['arms']}, lint "
+        f"{report['lint']['count']} findings")
+    rec["dispatch"] = op_dispatch_cost(dev)
+    static = {src: _static_smem(built[src][2])
+              for src in ("gemm_epilogue", "flash_attention", "ssd_scan")}
+    code = ("import json, sys\n"
+            "import chip_smoke as cs\n"
+            "rows = cs.contract_launches(json.loads(sys.argv[1]))\n"
+            "print(json.dumps(rows))\n")
+    r = subprocess.run([sys.executable, "-c", code, json.dumps(static)],
+                       env=dict(env, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}"),
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=ANALYSIS_TIMEOUT)
+    lines = r.stdout.rstrip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if r.returncode != 0:
+        raise AssertionError(f"the contract launches exited {r.returncode}:"
+                             f" {r.stdout[-2000:]} {r.stderr[-3000:]}")
+    rec["launches"] = json.loads(lines[-1])
+    return rec
+
+
+def contract_launches(static):
+    """Each kernel launched once at each contract shape (the kernel
+    arm's) under ``torch.profiler``: the trace's grid equals the tiling's
+    (the geometry the FLOP formula counts); its shared memory holds the
+    library's dynamic figure, plus at most the source's static shared
+    memory ``static[source]`` (ptxas's, which the trace adds), and is
+    within the card's per-block opt-in; the Python layout equals the
+    library's figure.  Returns a row a launch; raises on a failed bar."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_epilogue as ge
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.autotune import (PAPER_KERNEL_SHAPES,
+                                              ssd_chunk_len)
+    from repro_torch.kernels.gemm_layernorm import gemm_layernorm
+    from repro_torch.kernels.gemm_softmax import gemm_softmax
+    dev = torch.device("cuda")
+    props = torch.cuda.get_device_properties(0)
+    optin = props.shared_memory_per_block_optin
+    bf = torch.bfloat16
+    cases = []
+    for m, n, k in PAPER_KERNEL_SHAPES["gemm_epilogue_blocks"]:
+        a = torch.randn(m, k, device=dev, dtype=bf)
+        b = torch.randn(k, n, device=dev, dtype=bf) / 16
+        g = torch.ones(n, device=dev, dtype=bf)
+        t = ge.tiling(n, bf)
+        want = (*ge.launch_grid(m, t), 1)
+        lib = ge.smem_bytes(bf, t.rows, t.passes)
+        layout = ge.layout_smem_bytes(bf, t.rows, t.passes)
+        cases.append((f"gemm_softmax{(m, n, k)}",
+                      lambda a=a, b=b: gemm_softmax(a, b), "ge_bf16",
+                      want, lib, layout, "gemm_epilogue", gemm_softmax))
+        cases.append((f"gemm_layernorm{(m, n, k)}",
+                      lambda a=a, b=b, g=g: gemm_layernorm(a, b, g, g),
+                      "ge_bf16", want, lib, layout, "gemm_epilogue",
+                      gemm_layernorm))
+    for sq, skv, d in PAPER_KERNEL_SHAPES["attention_blocks"]:
+        M, N = max(sq, 128), max(skv, 128)
+        q = torch.randn(1, 1, M, d, device=dev, dtype=bf)
+        kv = torch.randn(1, 1, N, d, device=dev, dtype=bf)
+        t = fa.tiling(1, 1, 1, M, N, d, bf, props.multi_processor_count)
+        cases.append((f"flash_attention{(sq, skv, d)}",
+                      lambda q=q, kv=kv: fa.flash_attention_fwd(
+                          q, kv, kv, causal=False), "fa_fwd_bf16",
+                      (*t.grid, 1), fa.smem_bytes(bf, d),
+                      fa.layout_smem_bytes(bf, d), "flash_attention",
+                      fa.flash_attention_fwd))
+    for s, p, n in PAPER_KERNEL_SHAPES["ssd_chunk_len"]:
+        chunk = ssd_chunk_len(s, p, n)
+        x = torch.randn(1, s, p, device=dev, dtype=bf)
+        dA = -torch.rand(1, s, device=dev) / 8
+        bc = torch.randn(1, s, n, device=dev, dtype=bf)
+        t = ssd.tiling(1, 1, s, p, n, bf)
+        cases.append((f"ssd{(s, p, n)} chunk {chunk}",
+                      lambda x=x, dA=dA, bc=bc, c=chunk: ssd.ssd_scan_fwd(
+                          x, dA, bc, bc, chunk=c), "ssd_fwd_bf16",
+                      (*t.grid, 1), ssd.bf16_tile(n, p)[1],
+                      ssd.bf16_layout(n, p)[1], "ssd_scan",
+                      ssd.ssd_scan_fwd))
+    rows = []
+    for name, fn, entry, want, lib, layout, source, counter in cases:
+        fn()                               # the instance's first launch
+        for attempt in range(1, PROFILE_TRIES + 1):
+            before = counter.launches
+            ev = kb.launch_events(fn, (entry,))
+            if counter.launches != before + 1:
+                raise AssertionError(f"{name}: {counter.launches - before} "
+                                     f"launches counted, want 1")
+            if ev:
+                break
+            # the wrapper counted its launch: the trace lost the event
+            log(f"  {name}: the profiler's trace lost the launch (try "
+                f"{attempt} of {PROFILE_TRIES})")
+        row = {"case": name, "events": len(ev), "want_grid": list(want),
+               "library_smem": lib, "layout_smem": layout,
+               "static_smem_max": static[source], "optin": optin,
+               "tries": attempt}
+        if len(ev) != 1:
+            raise AssertionError(f"{name}: {len(ev)} launches of {entry} "
+                                 f"in the trace, want 1")
+        row.update(grid=list(ev[0]["grid"]), trace_smem=ev[0][
+            "shared_memory"], trace_keys=ev[0]["keys"])
+        rows.append(row)
+        log(f"  {name}: trace grid {ev[0]['grid']} (tiling {want}), "
+            f"shared memory {ev[0]['shared_memory']} B (library "
+            f"{lib} B dynamic, Python layout {layout} B, static at most "
+            f"{static[source]} B, opt-in {optin} B); trace keys "
+            f"{ev[0]['keys']}")
+        if ev[0]["grid"] != want:
+            raise AssertionError(f"{name}: launch grid {ev[0]['grid']}, "
+                                 f"tiling {want}")
+        if not lib <= ev[0]["shared_memory"] <= lib + static[source] \
+                or layout != lib or ev[0]["shared_memory"] > optin:
+            raise AssertionError(f"{name}: shared memory {row}")
+    return rows
+
+
+def op_dispatch_cost(dev, calls=400):
+    """The host cost of a kernel entry's custom op: the host time of
+    ``calls`` back-to-back FlashAttention calls through the entry
+    (``flash_attention_fwd``: the checks, then ``_run`` itself where no
+    dispatch mode is active), through the op (``torch.ops.repro_torch.
+    flash_attention_fwd``, the dispatcher, as under a counter or a fake
+    mode) and through ``_run`` (the launch alone), at a shape whose
+    launch is shorter than its host cost (1 x 2 heads x 64 x 64, bf16),
+    so the host's time is what the loop measures; each the best of 3."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(1, 2, 64, 64, device=dev, dtype=torch.bfloat16)
+    scale = 64 ** -0.5
+
+    def host_us(fn):
+        best = None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            us = (t1 - t0) / calls * 1e6
+            best = us if best is None else min(best, us)
+        return best
+    from torch.utils._python_dispatch import is_in_torch_dispatch_mode
+    entry = host_us(lambda: fa.flash_attention_fwd(q, q, q, causal=True))
+    op = host_us(lambda: fa._op.op(q, q, q, True, scale, None))
+    run = host_us(lambda: fa._run(q, q, q, True, scale, None))
+    check = host_us(lambda: fa._check(q, q, q, None))
+    decide = host_us(lambda: is_in_torch_dispatch_mode() or any(
+        type(a) is not torch.Tensor and isinstance(a, torch.Tensor)
+        for a in (q, q, q)))
+    ev = kb.device_ms(lambda: fa.flash_attention_fwd(q, q, q, causal=True),
+                      iters=20, match=("fa_fwd",)) * 1e3
+    rec = {"entry_us": entry, "op_us": op, "run_us": run,
+           "dispatcher_us": op - run, "check_us": check,
+           "decision_us": decide, "device_us": ev,
+           "prefill_launches_glm4": 40}
+    log(f"  custom-op dispatch: a call through the entry {entry:.2f} us "
+        f"(checks + run), through the op {op:.2f} us (the dispatcher), "
+        f"through _run {run:.2f} us (the launch alone): the dispatcher "
+        f"{op - run:.2f} us a launch, which the entry skips outside a "
+        f"dispatch mode (x 40 glm4-9b prefill launches: "
+        f"{(op - run) * 40 / 1e3:.4f} ms); the checks alone {check:.2f} us "
+        f"(the entry ran them before it became an op), its choice of path "
+        f"{decide:.2f} us; the kernel's device time here {ev:.2f} us "
+        f"(0: the trace lost it)")
+    return rec
+
+
+def dryrun_cli(args, out):
+    """``python -m repro_torch.launch.dryrun ARGS --out OUT``: (artifact,
+    seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        *args, "--out", out],
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=DRYRUN_TIMEOUT)
+    sec = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"dryrun {args} exited {r.returncode}: "
+                             f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+    with open(out) as f:
+        return json.load(f), sec
+
+
+def dryrun_vs_card_phase(dev):
+    """Phase 36: the dry run of glm4-9b (full width, 4 of 40 layers, the
+    planner loss, phase 25's batch 4 x seq 1024) on the (1, 1) mesh of a
+    fake one-rank world, in a subprocess (a fake world and this process's
+    NCCL world cannot share a process), against the real step on the
+    card's (1, 1) NCCL mesh under the same counter and
+    ``record_collectives``: equal FLOPs, equal records (the recompute's
+    too), the state's bytes those the card allocated for it up to the
+    allocator's rounding (512 B a tensor); the dry run's peak logged
+    beside ``max_memory_allocated``, with no bar."""
+    from repro_torch.analysis.counts import trace_counts
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.specs import tree_bytes
+    from repro_torch.models.model import Model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    arch, L, B, S = DRYRUN_GLM4
+    fd, out = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    dry, dry_s = dryrun_cli(
+        ["--arch", arch, "--shape", "train_4k", "--mesh", "host", "--opt",
+         f"n_layers={L},global_batch={B},seq_len={S},planner_loss=true"],
+        out)
+    os.remove(out)
+    cfg = get_config(arch).with_(n_layers=L, use_kernels=True)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh = tmesh.make_host_mesh(device=dev)
+    try:
+        m0 = torch.cuda.memory_allocated()
+        state = init_train_state(model, model.init(0, device=dev), mesh)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() - m0
+        batch = to_dev(train_data(cfg, S, B).batch(0), dev)
+        step = make_train_step(model, OptConfig(), mesh,
+                               use_planner_loss=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        real = trace_counts(step, state, batch)
+        torch.cuda.synchronize()
+        real_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_tensors = sum(1 for t in tree_leaves(state.params)) + 2 * sum(
+            1 for t in tree_leaves(state.opt.m)) + 1
+        real_bytes = tree_bytes(state)
+    finally:
+        tmesh.destroy()
+        torch.cuda.empty_cache()
+    want_bytes = dry["memory"]["state_bytes"]
+    rec = {"dryrun_s": dry_s, "dryrun_trace_s": dry["trace_s"],
+           "real_step_s": real_s,
+           "flops": {"dryrun": dry["structural_flops_per_device"],
+                     "card": real.flops},
+           "records": len(real.records), "recompute": len(real.recompute),
+           "state_bytes": {"dryrun": want_bytes, "card_tensors": real_bytes,
+                           "card_allocated": allocated,
+                           "tensors": n_tensors},
+           "peak": {"dryrun_total": dry["memory"]["peak_by_category"].get(
+               "Total"), "card_max_memory_allocated": peak},
+           "findings": {"dryrun": dry.get("trace_findings", []),
+                        "card": real.findings}}
+    log(f"  dry run (fake one-rank world, subprocess) {dry_s:.1f} s "
+        f"({dry['trace_s']} s traced); the real step under the counter "
+        f"{real_s:.2f} s")
+    log(f"  FLOPs a rank: dry run {dry['structural_flops_per_device']:.6g}, "
+        f"card {real.flops:.6g}; records {len(real.records)} (+"
+        f"{len(real.recompute)} in the recompute)")
+    log(f"  state: dry run {want_bytes} B, card tensors {real_bytes} B, "
+        f"allocated {allocated} B over {n_tensors} tensors; peak: dry run "
+        f"{rec['peak']['dryrun_total']} B, card max_memory_allocated "
+        f"{peak} B (no bar)")
+    if real.flops != dry["structural_flops_per_device"]:
+        raise AssertionError(f"FLOPs: card {real.flops}, dry run "
+                             f"{dry['structural_flops_per_device']}")
+    if [list(r) for r in real.records] != dry["records"] or \
+            [list(r) for r in real.recompute] != dry["recompute_records"]:
+        raise AssertionError(f"collective records differ: card "
+                             f"{real.records[:8]}..., dry run "
+                             f"{dry['records'][:8]}...")
+    if real_bytes != want_bytes or not \
+            0 <= allocated - want_bytes <= 512 * n_tensors:
+        raise AssertionError(f"state bytes: {rec['state_bytes']}")
+    if real.findings or dry.get("trace_findings"):
+        raise AssertionError(f"findings: {rec['findings']}")
+    return rec
+
+
+def dryrun_cells_phase():
+    """Phase 37: the full-width dry-run cells, each in a subprocess: glm4-9b
+    train_4k on the 256-rank single-pod mesh and qwen3-moe-30b-a3b
+    train_4k on the 512-rank multi-pod mesh; their seconds, FLOPs a rank
+    and reconciliation findings logged, and their roofline terms, which
+    are predictions from the H100's data-sheet constants, not times."""
+    rec = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        fd, out = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        art, sec = dryrun_cli(["--arch", arch, "--shape", shape, "--mesh",
+                               mesh], out)
+        os.remove(out)
+        r = art["roofline"]
+        rec[f"{arch} {shape} {mesh}"] = {
+            "s": sec, "trace_s": art["trace_s"], "devices": art["devices"],
+            "flops_per_device": art["structural_flops_per_device"],
+            "useful_flop_ratio": art.get("useful_flop_ratio"),
+            "state_bytes": art["memory"]["state_bytes"],
+            "peak_total": art["memory"]["peak_by_category"].get("Total"),
+            "reconcile_findings": len(art["reconcile"]["findings"]),
+            "reconcile_unexplained": sum(
+                1 for f in art["reconcile"]["findings"]
+                if not f.get("explained")),
+            "contracts_ok": art["contracts"]["ok"],
+            "predicted_roofline": {k: r[k] for k in (
+                "t_compute_s", "t_memory_s", "t_collective_s",
+                "bottleneck", "bound_serial_s", "bound_overlap_s")}}
+        log(f"  {arch} {shape} {mesh} ({art['devices']} fake ranks): "
+            f"{sec:.1f} s ({art['trace_s']} s traced), "
+            f"{art['structural_flops_per_device']:.6g} FLOPs a rank, "
+            f"reconciliation {len(art['reconcile']['findings'])} findings, "
+            f"sharded contracts ok {art['contracts']['ok']}; predicted "
+            f"(data-sheet constants, not times) compute "
+            f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, "
+            f"collective {r['t_collective_s']:.4g} s")
+        if not art["contracts"]["ok"] or art.get("trace_findings"):
+            raise AssertionError(f"{arch} {mesh}: {art['contracts']} "
+                                 f"{art.get('trace_findings')}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2782,7 +3169,25 @@ def main() -> int:
     calibration = calibration_phase(plan_root)
     log(f"phase 34: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 35. the result
+    # ------------------------------------------------- 35. static contracts
+    t0 = phase("35. static contracts (python -m repro_torch.analysis; each "
+               "contract shape's launch under torch.profiler)")
+    contracts = static_contracts_phase(dev, built)
+    log(f"phase 35: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------- 36. the dry run vs the card
+    t0 = phase("36. the dry run against the card (glm4-9b, 4 layers, batch "
+               "4 x seq 1024, the (1, 1) mesh)")
+    dryrun_card = dryrun_vs_card_phase(dev)
+    log(f"phase 36: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------ 37. the full-width dry runs
+    t0 = phase("37. full-width dry-run cells (glm4-9b single pod, 256 fake "
+               "ranks; qwen3-moe-30b-a3b multi-pod, 512)")
+    dryrun_cells = dryrun_cells_phase()
+    log(f"phase 37: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 38. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2930,6 +3335,9 @@ def main() -> int:
                     "seq_shard": seq_shard,
                     "train_glm4_9b_tensor_parallel_off": tp_off,
                     "calibration": calibration,
+                    "static_contracts": contracts,
+                    "dryrun_vs_card": dryrun_card,
+                    "dryrun_cells": dryrun_cells,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))

@@ -21,10 +21,13 @@ In bf16 the source sizes the kernel's persistent grid: a cluster of two
 CTAs per slot the card holds at once (:func:`max_active_clusters`), each
 cluster taking units of two tiles that share an operand.
 
-Dispatch: tensors on the CPU take the plain ``streamed_gemm_ref``; tensors
-on a CUDA device launch the kernel or raise.  The checks run on both, in
-the JAX package's order and with its messages, then the card's alignment
-rule.  There is no backward, as the JAX kernel has none.
+Dispatch: the entry is the custom op ``repro_torch::streamed_gemm``.
+Tensors on the CPU take the plain ``streamed_gemm_ref``; tensors on a CUDA
+device launch the kernel or raise; fake tensors (``FakeTensorMode``) take
+the op's shape function and launch nothing.  ``mma_flops`` is the op's
+FLOP formula: the products the launch issues on its tiling.  The checks
+run on all of them, in the JAX package's order and with its messages,
+then the card's alignment rule.  There is no backward, as the JAX kernel has none.
 """
 from __future__ import annotations
 
@@ -37,11 +40,13 @@ import torch.distributed as dist
 
 from .. import resolve_device
 from . import _build
+from ._op import aligned16, register_kernel_op
 from .ref import allgather_gemm_reference, gather_columns, streamed_gemm_ref
 
 __all__ = ["streamed_gemm", "allgather_gemm", "allgather_gemm_reference",
            "BUDGET_SHAPES", "TILES", "CLUSTER", "boundary_shapes",
-           "check", "cluster", "max_active_clusters", "tile", "tolerance"]
+           "check", "cluster", "max_active_clusters", "tile", "tolerance",
+           "mma_flops", "layout_smem_bytes"]
 
 # The (M, K, N, chunks) configurations the JAX package's tests and overlap
 # bench drive its kernel with (repro/kernels/allgather_gemm.py:57-61).
@@ -161,7 +166,7 @@ def check(x: torch.Tensor, w: torch.Tensor, chunks: int, buffers: int
     # start of every chunk of X's columns, must be 16-byte aligned
     per16 = 16 // x.element_size()
     kc = K // chunks
-    if N % per16 or kc % per16 or x.data_ptr() % 16 or w.data_ptr() % 16:
+    if N % per16 or kc % per16 or not aligned16(x) or not aligned16(w):
         raise ValueError(f"rows must be 16-byte aligned: N={N} and "
                          f"K/chunks={kc} must be multiples of {per16} for "
                          f"{x.dtype}")
@@ -178,8 +183,18 @@ def streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
 
     On CUDA tensors this launches the kernel and adds one to
     ``streamed_gemm.launches``; on CPU tensors it returns the plain
-    ``streamed_gemm_ref``."""
+    ``streamed_gemm_ref``; on fake tensors an empty result of the shape."""
     check(x, w, chunks, buffers)
+    return _op(x, w, int(chunks), int(buffers))
+
+
+streamed_gemm.launches = 0
+
+
+def _run(x: torch.Tensor, w: torch.Tensor, chunks: int,
+         buffers: int) -> torch.Tensor:
+    """The op on real tensors: the plain version on the CPU, else the
+    kernel's launch."""
     if x.device.type == "cpu":
         return streamed_gemm_ref(x, w, chunks=chunks)
     resolve_device(x.device)
@@ -198,7 +213,43 @@ def streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
     return out
 
 
-streamed_gemm.launches = 0
+def _fake(x, w, chunks, buffers):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+def mma_flops(M: int, N: int, K: int, chunks: int,
+              dtype: torch.dtype) -> int:
+    """The products one launch issues: every tile it computes, BM x BN
+    over each chunk's k-tiles of BK (a chunk's last k-tile padded), the
+    same in both buffer modes.  bf16: units of two 256 x 128 tiles, so
+    with an odd count of column tiles and of row tiles the last column
+    pair's second tile, past M, is computed too; f32: one 64 x 64 tile a
+    CTA."""
+    bm, bn, bk = TILES[dtype]
+    tm, tn = -(-M // bm), -(-N // bn)
+    tiles = tm * tn
+    if dtype == torch.bfloat16:
+        tiles = 2 * ((tn // 2) * tm + (tn % 2) * ((tm + 1) // 2))
+    return 2 * tiles * bm * bn * chunks * -(-(K // chunks) // bk) * bk
+
+
+def _flops(x, w, chunks, buffers, out_val=None):
+    return mma_flops(x.shape[0], w.shape[1], x.shape[1], chunks, x.dtype)
+
+
+_op = register_kernel_op("streamed_gemm", _run, _fake, _flops)
+
+
+def layout_smem_bytes(dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the instance for ``dtype``, from the
+    source's layout in Python (``Bf16Cfg::SMEM``): bf16, 1024 bytes of
+    alignment slack, 4 stages of X's (256 x 64) and W's (64 x 128) bf16
+    tiles and two 64 x 128 staging tiles of C; f32 takes static shared
+    memory only (0 dynamic)."""
+    if dtype == torch.float32:
+        return 0
+    bm, bn, bk = TILES[dtype]
+    return 1024 + 4 * (bm * bk * 2 + bk * bn * 2) + 2 * 64 * bn * 2
 
 
 def max_active_clusters(device: Optional[torch.device] = None) -> int:

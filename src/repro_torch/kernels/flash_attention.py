@@ -11,9 +11,15 @@ only copy of that rule: ``flash_attention_fwd`` hands it to the source,
 which checks only that it has such an instance and that the grid covers the
 work.  ``tile_range`` is the source's range of K/V tiles a q tile reads.
 
-Dispatch: tensors on the CPU take the plain ``attention_ref``; tensors on a
-CUDA device launch the kernel or raise.  The checks run on both, so the
-CPU refuses what the card refuses.  There is no fallback between the two.
+Dispatch: the entry is the custom op ``repro_torch::flash_attention_fwd``.
+Tensors on the CPU take the plain ``attention_ref``; tensors on a CUDA
+device launch the kernel or raise.  Fake tensors (``FakeTensorMode``, the
+dry run's) take the op's shape function, which builds and launches
+nothing.  The checks run on all three, so the CPU refuses what the card
+refuses.  There is no fallback between them.  ``mma_flops`` is the op's
+FLOP formula (``torch.utils.flop_counter``): the products the launch
+issues on its tiling, padding included, the tiles ``tile_range`` skips
+left out.
 """
 from __future__ import annotations
 
@@ -26,11 +32,13 @@ import torch
 
 from .. import resolve_device
 from . import _build
+from ._op import aligned16, register_kernel_op
 from .ref import attention_ref
 
 __all__ = ["flash_attention_fwd", "flash_attention", "HEAD_DIMS", "Tiling",
            "tiling", "tile_range", "kernel_strides", "smem_bytes",
-           "source_tile", "BOUNDARY_CASES"]
+           "source_tile", "mma_flops", "layout_smem_bytes",
+           "BOUNDARY_CASES"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -182,6 +190,19 @@ def smem_bytes(dtype: torch.dtype, D: int) -> int:
     return _library().fa_smem_bytes(_DTYPES[dtype], D)
 
 
+def layout_smem_bytes(dtype: torch.dtype, D: int) -> int:
+    """Dynamic shared memory of the instance, from the source's layout in
+    Python (``FaCfg::SMEM``, ``f32_smem``): bf16, 1024 bytes of alignment
+    slack, two q tiles of 64 rows and ``_bf16_stages`` stages of a K and a
+    V tile of ``_BF16_KEYS`` keys; f32, the q tile (odd pitch), a K and a V
+    tile of 64 keys and the 64 x 64 scores.  ``smem_bytes`` reads the
+    built library's (on the card), which chip_smoke holds it to."""
+    if dtype == torch.float32:
+        return (64 * (D + 1) + 2 * 64 * D + 64 * 64) * 4
+    q_bytes, kv_bytes = 64 * 2 * D, _BF16_KEYS * 2 * D
+    return 1024 + 2 * q_bytes + 2 * _bf16_stages(D, _BF16_KEYS) * kv_bytes
+
+
 def source_tile(D: int) -> Tuple[int, int]:
     """(keys a K/V tile, ring stages) of the source's bf16 instance of head
     dim D, which ``tiling`` must name."""
@@ -230,7 +251,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} needs a unit stride on the head dim, "
                              f"got strides {x.stride()}")
         if bf16 and (any(st % 8 or st == 0 for st in kernel_strides(x))
-                     or x.data_ptr() % 16):
+                     or not aligned16(x)):
             raise ValueError(f"{name} rows are not 16-byte aligned "
                              f"(strides {x.stride()}): TMA needs a 16-byte "
                              f"aligned base and nonzero strides of a "
@@ -246,10 +267,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On CUDA tensors this launches the kernel and adds one to
     ``flash_attention_fwd.launches``; on CPU tensors it returns the plain
-    ``attention_ref``."""
-    t = _check(q, k, v, window)     # on both devices: the CPU refuses alike
+    ``attention_ref``; on fake tensors an empty result of the shape."""
+    _check(q, k, v, window)     # on every device: the CPU refuses alike
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    return _op(q, k, v, bool(causal), float(scale), window)
+
+
+flash_attention_fwd.launches = 0
+
+
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         scale: float, window: Optional[int]) -> torch.Tensor:
+    """The op on real tensors: the plain version on the CPU, else the
+    kernel's launch."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale,
                              window=window)
@@ -276,7 +307,37 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_attention_fwd.launches = 0
+def _fake(q, k, v, causal, scale, window):
+    """The op's shape function: the output, built and launched nowhere."""
+    return q.new_empty(q.shape)
+
+
+def mma_flops(q_shape, k_shape, dtype: torch.dtype, causal: bool,
+              window: Optional[int]) -> int:
+    """The products one launch issues: for every work item (a CTA's q
+    tile of its heads) each K/V tile of ``tile_range`` costs Q K^T and P V
+    over the tile's whole q rows and keys, padding included; an item with
+    no visible key issues none.  bf16: 128 q rows an item (two warpgroups
+    of 64), ``keys``-key tiles; f32: 64 q rows a CTA, 64-key tiles."""
+    B, Hq, Sq, D = q_shape
+    Hkv, Skv = k_shape[1], k_shape[2]
+    t = tiling(B, Hq, Hkv, Sq, Skv, D, dtype)
+    if dtype == torch.float32:
+        rows, units = 64, B * Hq
+    else:
+        rows, units = t.rows, B * Hkv * (Hq // Hkv // t.heads)
+    tiles = 0
+    for q0 in range(0, Sq, rows):
+        lo, hi = tile_range(Sq, Skv, q0, rows, t.keys, causal, window)
+        tiles += max(0, hi - lo)
+    return 4 * units * tiles * (t.q_rows * t.consumers) * t.keys * D
+
+
+def _flops(q, k, v, causal, scale, window, out_val=None):
+    return mma_flops(tuple(q.shape), tuple(k.shape), q.dtype, causal, window)
+
+
+_op = register_kernel_op("flash_attention_fwd", _run, _fake, _flops)
 
 
 class _FlashAttention(torch.autograd.Function):

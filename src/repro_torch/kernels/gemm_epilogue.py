@@ -13,8 +13,12 @@ CTA's slice and the column passes a CTA makes over its slice.  It is the
 only copy of that rule: ``launch`` hands it to the source, which checks
 only that it has such an instance and that the slices cover N.
 
-The checks run on every device, so a call the kernel would refuse is
-refused on the CPU too, where the wrappers take the plain versions.
+The launch is the custom op ``repro_torch::gemm_epilogue`` (:func:`run`):
+on the CPU it takes the plain versions, on the card it launches the kernel
+or raises, and on fake tensors (``FakeTensorMode``) it builds and launches
+nothing.  The checks run on every device, so a call the kernel would
+refuse is refused on the CPU too.  ``mma_flops`` is the op's FLOP
+formula: the products the launch issues on its tiling.
 """
 from __future__ import annotations
 
@@ -28,11 +32,14 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from . import _build
+from ._op import aligned16, register_kernel_op
+from .ref import gemm_layernorm_ref, gemm_rmsnorm_ref, gemm_softmax_ref
 
 __all__ = ["EPILOGUES", "CLUSTER_SIZES", "TILING_BOUNDARIES", "Tiling",
            "tiling", "instances", "boundary_shapes", "check",
-           "kernel_operand", "launch", "smem_bytes", "max_active_clusters",
-           "tolerance"]
+           "kernel_operand", "launch", "run", "smem_bytes",
+           "max_active_clusters", "tolerance", "mma_flops", "COUNTERS",
+           "launch_grid", "layout_smem_bytes"]
 
 EPILOGUES = {"softmax": 0, "layernorm": 1, "rmsnorm": 2}
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
@@ -190,7 +197,7 @@ def check(a: torch.Tensor, b: torch.Tensor,
                          f"{a.stride()}, {b.stride()}")
     # B's rows move in 16-byte chunks (cp.async in f32, TMA boxes in bf16)
     per16 = 16 // a.element_size()
-    if N % per16 or b.data_ptr() % 16:
+    if N % per16 or not aligned16(b):
         raise ValueError(f"b's rows must be 16-byte aligned: N={N} must be a "
                          f"multiple of {per16} for {a.dtype}")
     t = tiling(N, a.dtype)
@@ -210,7 +217,7 @@ def kernel_operand(a: torch.Tensor) -> torch.Tensor:
     JAX sweep's K = 100).  f32 A is read element by element and passes as
     it is."""
     K = a.shape[1]
-    if a.dtype != torch.bfloat16 or (K % 8 == 0 and a.data_ptr() % 16 == 0):
+    if a.dtype != torch.bfloat16 or (K % 8 == 0 and aligned16(a)):
         return a
     return F.pad(a, (0, _round_up(K, 8) - K))
 
@@ -241,6 +248,84 @@ def launch(epilogue: str, a: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"gemm_{epilogue} kernel launch failed: CUDA "
                            f"error {err}")
     return out
+
+
+# epilogue -> the user's wrapper whose ``.launches`` counts its launches
+# (gemm_softmax.py, gemm_layernorm.py register theirs)
+COUNTERS = {}
+_PLAIN = {"softmax": lambda a, b, g, be, eps: gemm_softmax_ref(a, b),
+          "layernorm": lambda a, b, g, be, eps: gemm_layernorm_ref(
+              a, b, g, be, eps=eps),
+          "rmsnorm": lambda a, b, g, be, eps: gemm_rmsnorm_ref(a, b, g,
+                                                               eps=eps)}
+
+
+def run(epilogue: str, a: torch.Tensor, b: torch.Tensor,
+        gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
+        eps: float) -> torch.Tensor:
+    """``epilogue(a @ b)`` on inputs that :func:`check` passed, through the
+    op: the plain version on CPU tensors, the kernel on CUDA tensors (one
+    more launch on the wrapper's count), an empty result on fake ones."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; want one of "
+                         f"{list(EPILOGUES)}")
+    return _op(a, b, gamma, beta, epilogue, float(eps))
+
+
+def _run(a: torch.Tensor, b: torch.Tensor, gamma: Optional[torch.Tensor],
+         beta: Optional[torch.Tensor], epilogue: str,
+         eps: float) -> torch.Tensor:
+    if a.device.type == "cpu":
+        return _PLAIN[epilogue](a, b, gamma, beta, eps)
+    out = launch(epilogue, a, b, gamma, beta, eps, tiling(b.shape[1],
+                                                          a.dtype))
+    COUNTERS[epilogue].launches += 1
+    return out
+
+
+def _fake(a, b, gamma, beta, epilogue, eps):
+    return a.new_empty((a.shape[0], b.shape[1]))
+
+
+def mma_flops(M: int, N: int, K: int, dtype: torch.dtype) -> int:
+    """The products one launch issues: every block of ``rows`` rows of C
+    on a cluster of CTAs, each over its slice of ``columns`` columns and
+    all of K in steps of BK (bf16 32, or 16 with two column passes; f32
+    8), padding included."""
+    t = tiling(N, dtype)
+    bk = 8 if dtype == torch.float32 else (16 if t.passes == 2 else 32)
+    return (2 * -(-M // t.rows) * t.rows * t.cluster * t.columns
+            * -(-K // bk) * bk)
+
+
+def _flops(a, b, gamma, beta, epilogue, eps, out_val=None):
+    return mma_flops(a.shape[0], b.shape[1], a.shape[1], a.dtype)
+
+
+_op = register_kernel_op("gemm_epilogue", _run, _fake, _flops)
+
+
+def launch_grid(M: int, t: Tiling) -> Tuple[int, int]:
+    """The launch's grid: the cluster's CTAs across, a block of ``rows``
+    rows of C down."""
+    return (t.cluster, -(-M // t.rows))
+
+
+def layout_smem_bytes(dtype: torch.dtype, rows: int, passes: int) -> int:
+    """Dynamic shared memory of an instance, from the source's layout in
+    Python (``Bf16Cfg::SMEM``, ``F32Tile::SMEM``): bf16, 1024 bytes of
+    alignment slack and a ring of stages of A's (rows x BK) and B's
+    (BK x 256 or 512 columns) tiles, BK 32 (16 with two passes, beside the
+    parked first pass of 128 KB); f32, two stages of 8 rows of B (1024
+    columns) and of A (16 rows).  ``smem_bytes`` reads the built
+    library's (on the card), which chip_smoke holds it to."""
+    if dtype == torch.float32:
+        return 2 * (8 * _F32_SLICE + 8 * 16) * 4
+    bk = 16 if passes == 2 else 32
+    b_cols = 256 if rows == 128 else 512
+    stages = 5 if passes == 2 else (8 if rows == 128 else 6)
+    park = 256 * 128 * 4 if passes == 2 else 0
+    return 1024 + stages * (rows * bk * 2 + b_cols * bk * 2) + park
 
 
 def smem_bytes(dtype: torch.dtype, rows: int, passes: int) -> int:

@@ -8,16 +8,16 @@ GEMM-Softmax): a thread-block cluster splits each row of C = A @ B across
 its CTAs and all-reduces the row's mean and centred sum of squares (or
 its mean square) through distributed shared memory.
 
-Dispatch: tensors on the CPU take the plain versions; tensors on a CUDA
-device launch the kernel or raise.  The checks run on both.  There is no
-backward, as the JAX package has none.
+Dispatch (``gemm_epilogue.run``, the op ``repro_torch::gemm_epilogue``):
+tensors on the CPU take the plain versions; tensors on a CUDA device
+launch the kernel or raise; fake tensors launch nothing.  The checks run
+on all of them.  There is no backward, as the JAX package has none.
 """
 from __future__ import annotations
 
 import torch
 
 from . import gemm_epilogue as ge
-from .ref import gemm_layernorm_ref, gemm_rmsnorm_ref
 
 __all__ = ["gemm_layernorm", "gemm_rmsnorm"]
 
@@ -30,12 +30,8 @@ def gemm_layernorm(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor,
     On CUDA tensors this launches the kernel and adds one to
     ``gemm_layernorm.launches``; on CPU tensors it returns the plain
     ``gemm_layernorm_ref``."""
-    t = ge.check(a, b, gamma, beta)
-    if a.device.type == "cpu":
-        return gemm_layernorm_ref(a, b, gamma, beta, eps=eps)
-    out = ge.launch("layernorm", a, b, gamma, beta, eps, t)
-    gemm_layernorm.launches += 1
-    return out
+    ge.check(a, b, gamma, beta)
+    return ge.run("layernorm", a, b, gamma, beta, eps)
 
 
 def gemm_rmsnorm(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, *,
@@ -46,13 +42,11 @@ def gemm_rmsnorm(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, *,
     On CUDA tensors this launches the kernel and adds one to
     ``gemm_rmsnorm.launches``; on CPU tensors it returns the plain
     ``gemm_rmsnorm_ref``."""
-    t = ge.check(a, b, gamma)
-    if a.device.type == "cpu":
-        return gemm_rmsnorm_ref(a, b, gamma, eps=eps)
-    out = ge.launch("rmsnorm", a, b, gamma, None, eps, t)
-    gemm_rmsnorm.launches += 1
-    return out
+    ge.check(a, b, gamma)
+    return ge.run("rmsnorm", a, b, gamma, None, eps)
 
 
 gemm_layernorm.launches = 0
 gemm_rmsnorm.launches = 0
+ge.COUNTERS["layernorm"] = gemm_layernorm
+ge.COUNTERS["rmsnorm"] = gemm_rmsnorm

@@ -7,16 +7,17 @@ thread-block cluster splits each row of C = A @ B across its CTAs and
 all-reduces the row max and sum through distributed shared memory, so C
 never reaches device memory.
 
-Dispatch: tensors on the CPU take the plain ``gemm_softmax_ref``; tensors
-on a CUDA device launch the kernel or raise.  The checks run on both.
-There is no backward, as the JAX package has none.
+Dispatch (``gemm_epilogue.run``, the op ``repro_torch::gemm_epilogue``):
+tensors on the CPU take the plain ``gemm_softmax_ref``; tensors on a CUDA
+device launch the kernel or raise; fake tensors launch nothing.  The
+checks run on all of them.  There is no backward, as the JAX package has
+none.
 """
 from __future__ import annotations
 
 import torch
 
 from . import gemm_epilogue as ge
-from .ref import gemm_softmax_ref
 
 __all__ = ["gemm_softmax"]
 
@@ -28,12 +29,9 @@ def gemm_softmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     On CUDA tensors this launches the kernel and adds one to
     ``gemm_softmax.launches``; on CPU tensors it returns the plain
     ``gemm_softmax_ref``."""
-    t = ge.check(a, b)
-    if a.device.type == "cpu":
-        return gemm_softmax_ref(a, b)
-    out = ge.launch("softmax", a, b, None, None, 0.0, t)
-    gemm_softmax.launches += 1
-    return out
+    ge.check(a, b)
+    return ge.run("softmax", a, b, None, None, 0.0)
 
 
 gemm_softmax.launches = 0
+ge.COUNTERS["softmax"] = gemm_softmax

@@ -21,10 +21,14 @@ copy of that rule:
 ``ssd_scan_fwd`` hands it to the source, which checks only that it has
 such an instance.
 
-Dispatch: tensors on the CPU take the plain ``ssd_chunked_ref`` on B and C
-repeated to one row a head; tensors on a CUDA device launch the kernel or
-raise.  There is no fallback between the two.  The checks below run on
-both, so a call the kernel would refuse is refused on the CPU too.
+Dispatch: the entry is the custom op ``repro_torch::ssd_scan_fwd``.
+Tensors on the CPU take the plain ``ssd_chunked_ref`` on B and C repeated
+to one row a head; tensors on a CUDA device launch the kernel or raise;
+fake tensors (``FakeTensorMode``) take the op's shape function, which
+builds and launches nothing.  There is no fallback between them.  The
+checks below run on all three, so a call the kernel would refuse is
+refused on the CPU too.  ``mma_flops`` is the op's FLOP formula: the
+products the launch issues, every chunk staged as a 64-row tile.
 """
 from __future__ import annotations
 
@@ -36,11 +40,13 @@ import torch
 
 from .. import resolve_device
 from . import _build
+from ._op import aligned16, register_kernel_op
 from .ref import ssd_chunked_ref
 
 __all__ = ["ssd_scan_fwd", "ssd_scan", "expand_groups", "Tiling", "tiling",
            "bf16_layout", "bf16_tile", "f32_smem_bytes", "kernel_strides",
-           "CHUNK", "HEAD_DIMS", "STATE_DIMS", "SMS", "BOUNDARY_CASES"]
+           "CHUNK", "HEAD_DIMS", "STATE_DIMS", "SMS", "BOUNDARY_CASES",
+           "mma_flops"]
 
 CHUNK = 64                     # the kernel's chunk tile (rows)
 HEAD_DIMS = (16, 32, 64)       # P
@@ -85,6 +91,11 @@ class Tiling(NamedTuple):
     stages: int       # ring stages (1: no ring, the f32 CTA)
     units: int        # CTAs: BH
     ctas_per_sm: int  # CTAs an SM holds (shared memory and registers)
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """The launch's grid: one CTA a head."""
+        return (self.units, 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -209,7 +220,7 @@ def _check(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     # are read element by element
     if xdt.dtype == torch.bfloat16:
         for name, t in (("xdt", xdt), ("B", B), ("C", C)):
-            if any(s % 8 for s in kernel_strides(t)) or t.data_ptr() % 16:
+            if any(s % 8 for s in kernel_strides(t)) or not aligned16(t):
                 raise ValueError(f"{name} rows are not 16-byte aligned "
                                  f"(strides {t.stride()})")
     return BH // G
@@ -232,12 +243,25 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     On CUDA tensors this launches the kernel, adds one to
     ``ssd_scan_fwd.launches`` and one to ``ssd_scan_fwd.chunks[chunk]``
     (the launches at each chunk); on CPU tensors it returns the plain
-    ``ssd_chunked_ref`` of B and C repeated to one row a head."""
+    ``ssd_chunked_ref`` of B and C repeated to one row a head; on fake
+    tensors an empty y of the shape."""
     if chunk is None:
         from .autotune import ssd_chunk_len   # autotune imports this module
         chunk = ssd_chunk_len(xdt.shape[1], xdt.shape[-1], B.shape[-1])
     chunk = min(chunk, xdt.shape[1])
-    r = _check(xdt, dA, B, C, chunk)
+    _check(xdt, dA, B, C, chunk)
+    return _op(xdt, dA, B, C, chunk)
+
+
+ssd_scan_fwd.launches = 0
+ssd_scan_fwd.chunks = {}
+
+
+def _run(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+         C: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The op on real tensors: the plain version on the CPU, else the
+    kernel's launch."""
+    r = xdt.shape[0] // B.shape[0]
     if xdt.device.type == "cpu":
         return ssd_chunked_ref(xdt, dA, expand_groups(B, r),
                                expand_groups(C, r), chunk=chunk)
@@ -247,8 +271,43 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     return out
 
 
-ssd_scan_fwd.launches = 0
-ssd_scan_fwd.chunks = {}
+def _fake(xdt, dA, B, C, chunk):
+    """The op's shape function: y, built and launched nowhere."""
+    return xdt.new_empty(xdt.shape)
+
+
+def mma_flops(BH: int, S: int, P: int, N: int, chunk: int,
+              dtype: torch.dtype) -> int:
+    """The products one launch issues, a head (CTA) at a time over
+    ceil(S / chunk) chunks, each staged as a 64-row tile (rows past the
+    chunk or S zero).
+
+    bf16 (wgmma): S = C B^T (64 x 64 x N); (S o L) X (64 x P x 64) twice,
+    once for S o L's bf16 high part and once for its low part; C h
+    (64 x P x N); and the state update B^T Xd (N x P x 64, N rounded up
+    to 64 rows, one m64 tile per 64 state rows).
+    f32 (CUDA cores, as the loops run): C B^T on the tile's lower
+    triangle, (S o L) X over each valid row's visible keys, C h over the
+    valid rows, the state update over all 64 rows."""
+    nc = -(-S // chunk)
+    if dtype == torch.bfloat16:
+        n64 = -(-N // CHUNK) * CHUNK
+        per = 2 * CHUNK * (CHUNK * N + 2 * CHUNK * P + P * N + n64 * P)
+        return BH * nc * per
+    total = 0
+    for ci in range(nc):
+        rows = min(chunk, S - ci * chunk)
+        total += (CHUNK * (CHUNK + 1) * N + P * rows * (rows + 1)
+                  + 2 * rows * P * N + 2 * N * P * CHUNK)
+    return BH * total
+
+
+def _flops(xdt, dA, B, C, chunk, out_val=None):
+    BH, S, P = xdt.shape
+    return mma_flops(BH, S, P, B.shape[2], chunk, xdt.dtype)
+
+
+_op = register_kernel_op("ssd_scan_fwd", _run, _fake, _flops)
 
 
 def _launch(lib: ctypes.CDLL, xdt: torch.Tensor, dA: torch.Tensor,

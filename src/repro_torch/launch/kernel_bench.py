@@ -50,6 +50,8 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
+import tempfile
 from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -76,7 +78,7 @@ __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
            "streamed_l2_bytes", "bench_attention",
            "bench_ssd", "ssd_inputs",
            "bench_gemm_epilogue", "bench_streamed_gemm", "run_all",
-           "attention_sweep", "ssd_sweep", "main"]
+           "attention_sweep", "ssd_sweep", "launch_events", "main"]
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet, dense): bf16 on the
 # tensor cores; f32 on the CUDA cores (the kernels' f32 paths use no TF32)
@@ -274,6 +276,44 @@ def device_ms(fn: Callable[[], object], iters: int,
              and e.name != "Command Buffer Full"
              and (match is None or any(m in e.name for m in match)))
     return us / 1e3 / iters
+
+
+def launch_events(fn: Callable[[], object],
+                  match: Optional[Tuple[str, ...]] = None
+                  ) -> List[Dict[str, object]]:
+    """The kernels one call of ``fn`` launches, as ``torch.profiler``'s
+    trace records them: each one's ``name``, ``grid`` (x, y, z) and
+    ``shared_memory`` (bytes, static and dynamic: the trace's
+    ``"shared memory"``), and the trace's own keys for those two; with
+    ``match``, only the kernels whose name holds one of its strings."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.remove(path)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    out = []
+    for e in events:
+        if str(e.get("cat", "")).lower() != "kernel":
+            continue
+        if match is not None and not any(m in e["name"] for m in match):
+            continue
+        args = e.get("args", {})
+        gkey = next(k for k in args if k.lower() == "grid")
+        skey = next(k for k in args if "shared memory" in k.lower())
+        out.append({"name": e["name"], "grid": tuple(int(g) for g in
+                                                     args[gkey]),
+                    "shared_memory": int(args[skey]),
+                    "keys": [gkey, skey]})
+    return out
 
 
 def gemm_l2_bytes(M: int, N: int, K: int, dtype: torch.dtype

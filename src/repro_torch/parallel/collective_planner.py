@@ -429,11 +429,20 @@ def make_submesh(ranks: Sequence[int], shape: Sequence[int],
     return mesh
 
 
+def _mesh_ranks(mesh) -> np.ndarray:
+    """The world ranks of ``mesh``'s coordinates, as numpy, read outside
+    any ``FakeTensorMode`` of the caller (the dry run's), in which the
+    mesh's own tensor would be made fake."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        return mesh.mesh.numpy().copy()
+
+
 def mesh_group(mesh) -> dist.ProcessGroup:
     """The process group of all of ``mesh``'s ranks (every axis at once,
     such as the MoE router's gradient): the world's for a mesh over the
     whole world, else the one :func:`make_submesh` made."""
-    ranks = tuple(int(r) for r in mesh.mesh.flatten().tolist())
+    ranks = tuple(int(r) for r in _mesh_ranks(mesh).reshape(-1))
     if len(ranks) == dist.get_world_size():
         return dist.group.WORLD
     if ranks not in _SUBMESH_GROUPS:
@@ -443,7 +452,7 @@ def mesh_group(mesh) -> dist.ProcessGroup:
 
 
 def _data_key(mesh, axes) -> tuple:
-    return (tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+    return (tuple(int(r) for r in _mesh_ranks(mesh).reshape(-1)),
             tuple(mesh.mesh.shape), tuple(mesh.mesh_dim_names), axes)
 
 
@@ -456,7 +465,8 @@ def _new_data_groups(mesh, axes: Tuple[str, ...]) -> None:
     rest = [i for i in range(len(names)) if i not in keep]
     n = int(np.prod([mesh.mesh.shape[i] for i in keep]))
     me, mine = dist.get_rank(), None
-    for row in mesh.mesh.permute(rest + keep).reshape(-1, n).tolist():
+    for row in _mesh_ranks(mesh).transpose(rest + keep).reshape(
+            -1, n).tolist():
         if row != sorted(row):
             # a group's ranks are in the order of their world ranks; the
             # blocks of a tensor split over the axes are in the mesh's

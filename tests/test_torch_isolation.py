@@ -15,16 +15,22 @@ PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
 _PROBE = """
 import importlib, json, pkgutil, sys
 sys.path[:0] = [{src!r}, {root!r}]
+import torch
+base = set(sys.modules)     # torch itself loads a few torch.testing modules
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import torch.distributed as dist
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro", "ml_dtypes")
              or m.startswith(("jax.", "repro.", "ml_dtypes.")))
-print(json.dumps({{"modules": names, "bad": bad}}))
+testing = sorted(m for m in set(sys.modules) - base
+                 if m.startswith("torch.testing._internal"))
+print(json.dumps({{"modules": names, "bad": bad, "testing": testing,
+                  "world": dist.is_available() and dist.is_initialized()}}))
 """
 
 
@@ -36,6 +42,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
+    # the static contracts and the dry run make their fake world only when
+    # an arm or a cell runs: importing them makes none and loads no
+    # torch.testing module beyond those ``import torch`` loads
+    assert out["testing"] == [] and out["world"] is False
     for name in ("repro_torch.launch.serve", "repro_torch.launch.train",
                  "repro_torch.train", "repro_torch.parallel",
                  "repro_torch.train.checkpoint",
@@ -55,7 +65,14 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "repro_torch.calibrate.persist",
                  "repro_torch.calibrate.driver",
                  "repro_torch.calibrate.__main__",
-                 "repro_torch.launch.costmodel_compare"):
+                 "repro_torch.launch.costmodel_compare",
+                 "repro_torch.analysis", "repro_torch.analysis.contracts",
+                 "repro_torch.analysis.counts", "repro_torch.analysis.lint",
+                 "repro_torch.analysis.reconcile",
+                 "repro_torch.analysis.roofline",
+                 "repro_torch.analysis.__main__",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.specs",
+                 "repro_torch.launch.roofline"):
         assert name in out["modules"], name
     assert len(out["modules"]) >= 25
 

@@ -697,3 +697,62 @@ def test_allgather_gemm_through_one_nccl_rank(hopper):
             assert (out.float() - want.float()).abs().max() <= atol
     finally:
         mesh.destroy()
+
+
+# ------------------------------------------ the op's faces on the card
+
+
+def test_a_real_cuda_tensor_never_takes_the_fake_path(hopper):
+    """A CUDA tensor launches the kernel (one more launch) and counts its
+    formula; the result is real and holds the plain version's bar."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    from repro_torch.analysis.counts import trace_counts
+    q = torch.randn(1, 8, 300, 64, generator=hopper, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn(1, 2, 300, 64, generator=hopper, device="cuda",
+                    dtype=torch.bfloat16)
+    before = fa.flash_attention_fwd.launches
+    out = []
+    t = trace_counts(lambda: out.append(fa.flash_attention_fwd(
+        q, k, k, causal=True)))
+    assert fa.flash_attention_fwd.launches == before + 1
+    assert not is_fake(out[0]) and out[0].is_cuda
+    assert t.flops == fa.mma_flops(tuple(q.shape), tuple(k.shape),
+                                   torch.bfloat16, True, None)
+    want = attention_ref(q, k, k, causal=True, scale=64 ** -0.5)
+    assert (out[0].float() - want.float()).abs().max() <= TOL[torch.bfloat16]
+
+
+def test_profiler_grid_equals_the_tiling(hopper):
+    """Each launch's grid, as torch.profiler records it, is the tiling
+    the FLOP formula counted; its shared memory holds at least the
+    library's dynamic figure, within the card's opt-in limit."""
+    bf = torch.bfloat16
+    optin = torch.cuda.get_device_properties(0) \
+        .shared_memory_per_block_optin
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q = torch.randn(1, 1, 1024, 64, device="cuda", dtype=bf)
+    ev = kb.launch_events(lambda: fa.flash_attention_fwd(q, q, q,
+                                                         causal=False),
+                          ("fa_fwd",))
+    t = fa.tiling(1, 1, 1, 1024, 1024, 64, bf, sms)
+    assert [e["grid"] for e in ev] == [(*t.grid, 1)]
+    assert fa.smem_bytes(bf, 64) <= ev[0]["shared_memory"] <= optin
+    a = torch.randn(512, 128, device="cuda", dtype=bf)
+    b = torch.randn(128, 4096, device="cuda", dtype=bf)
+    ev = kb.launch_events(lambda: gemm_softmax(a, b), ("ge_",))
+    tg = ge.tiling(4096, bf)
+    assert [e["grid"] for e in ev] == [(*ge.launch_grid(512, tg), 1)]
+    assert ge.smem_bytes(bf, tg.rows, tg.passes) == \
+        ge.layout_smem_bytes(bf, tg.rows, tg.passes)
+    assert ge.smem_bytes(bf, tg.rows, tg.passes) <= \
+        ev[0]["shared_memory"] <= optin
+    x = torch.randn(4, 256, 64, device="cuda", dtype=bf)
+    dA = -torch.rand(4, 256, device="cuda")
+    bc = torch.randn(1, 256, 128, device="cuda", dtype=bf)
+    ev = kb.launch_events(lambda: ssd.ssd_scan_fwd(x, dA, bc, bc, chunk=64),
+                          ("ssd_fwd",))
+    ts = ssd.tiling(4, 4, 256, 64, 128, bf)
+    assert [e["grid"] for e in ev] == [(*ts.grid, 1)]
+    assert ssd.bf16_tile(128, 64)[1] <= ev[0]["shared_memory"] <= optin

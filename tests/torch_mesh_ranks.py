@@ -36,7 +36,11 @@ a rank and case; the tests compare it with the JAX package.  Suites:
   case's arch ends in ``+seq``; glm4's ``+seq+tpoff`` has both knobs),
   and one prefill with it for each of ``SEQ_PREFILL``;
 - ``tp_off``: two steps with ``tensor_parallel=False`` for each of
-  ``TP_OFF_CASES`` (arch ending in ``+tpoff``).
+  ``TP_OFF_CASES`` (arch ending in ``+tpoff``);
+- ``dryrun`` (world 4): two steps of the planner-loss ('dist') train
+  step for each of ``DRYRUN_CASES`` on (2, 2), with the bytes of each
+  rank's state, for the dry run's comparison
+  (tests/test_torch_dryrun.py).
 
 :func:`run_worlds` starts the worlds of a suite side by side for a test
 module.  Nothing here imports JAX.
@@ -75,6 +79,8 @@ FAMILY_CASES = {2: (("mamba2-130m", (1, 2), ("plain",)),
                 4: (("deepseek-v3-671b", (2, 2), ("dist", "plain")),
                     ("mamba2-130m", (1, 4), ("plain",)))}
 RESTORE_SHAPES = ((1, 4), (4, 1))
+# the dryrun suite's (arch) cases on (2, 2), world 4
+DRYRUN_CASES = ("glm4-9b", "qwen3-moe-30b-a3b")
 # the MoE layer at the smoke capacity: 64 tokens a data rank on (2, 2),
 # where the capacity is 32 (the whole batch's would be 40)
 MOE_ARCH, MOE_B, MOE_S = "qwen3-moe-30b-a3b", 8, 16
@@ -682,6 +688,13 @@ def _rank(rank, world, out_dir, suite):
             meshes = {s: mesh(s) for s in sorted(shapes |
                                                  set(POD_RESTORE_SHAPES))}
             run_pod(rank, out_dir, meshes)
+        elif suite == "dryrun" and world == 4:
+            from repro_torch.launch.specs import tree_bytes
+            for arch in DRYRUN_CASES:
+                _, state, arrays, meta = train_case(arch, mesh((2, 2)),
+                                                    "dist", True)
+                meta["state_bytes"] = tree_bytes(state)
+                _save(out_dir, f"dryrun_{arch}", rank, {}, meta)
         elif suite in ("seq", "tp_off"):
             cases = SEQ_CASES if suite == "seq" else TP_OFF_CASES
             for arch, shape, variants in cases[world]:

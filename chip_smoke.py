@@ -104,11 +104,16 @@ failure ends the run with a non-zero exit:
     and 16384; M at 1, BM - 1, BM + 1 and a ragged multiple; K at 8, 100
     and one off the K step), and the largest paper shape (4096, 16384,
     4096) three times;
-12. the kernel benchmark (``repro_torch.launch.kernel_bench.run_all``)
-    at the paper's eight GEMM shapes in bf16 (phases 4 and 8 time the
-    other two kernels), with every kernel's count set to 0 just before and
-    read just after: each kernel's launches equal the bench's calls to it
-    (no fallback), and each output is within the bar of phase 11; beside
+12. the bench chain (``repro_torch.launch.run``: the paper tables, Fig.
+    6, the kernel benchmark ``kernel_bench.run_all`` on the card at its
+    default shapes, the MoE dispatch model and the roofline of whatever
+    dry-run artifacts exist, from a scratch directory), with every
+    kernel's count set to 0 just before and read just after: each kernel's
+    launches equal the bench's calls to it (no fallback, every kernel
+    launched), each GEMM output within the bar of phase 11, FlashAttention
+    within 3e-2 (absolute and relative), the SSD scan within 1e-2 of its
+    largest |y| and the streamed GEMM within ``allgather_gemm.tolerance``
+    (phases 4, 8 and 14 check and time those three in full); beside
     the CUDA-event times, device-only times of the kernel and of the
     library pair from ``torch.profiler``; beside each shape, the COMET
     plan's modelled latency on ``h100()`` (logged only);
@@ -315,7 +320,16 @@ failure ends the run with a non-zero exit:
     multi-pod mesh, each in a subprocess: seconds, FLOPs a rank and the
     reconciliation's findings logged, the roofline terms logged as
     predictions;
-38. a JSON line of the kernels (every number in it measured in this run,
+38. the search-throughput bench (``python -m
+    repro_torch.launch.search_throughput``, all nine sections) in a
+    subprocess on the card: exit 0 and ``ok``, with every timing floor
+    met on the card's host (the batched engine 20x the tree path on each
+    space, warm plan lookups 100x a cold solve, process >= thread
+    jobs/sec with no fallback to threads, size-aware chunking >= 0.95x
+    contiguous) and the streamed GEMM launched by its overlap section
+    (launches == calls > 0); each section's seconds, the executors' and
+    chunking's jobs/sec and the streamed GEMM's times logged;
+39. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
     the training run; the FlashAttention and SSD rows also carry each
@@ -340,6 +354,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# and for the search's process pools: their fork server imports the
+# workers' module once, through its own path, which older Python 3.12
+# releases take from PYTHONPATH and not from this process's sys.path
+os.environ["PYTHONPATH"] = os.pathsep.join(
+    p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -2383,6 +2402,89 @@ def dryrun_cells_phase():
     return rec
 
 
+# phase 38: the bench's time limit
+SEARCH_BENCH_TIMEOUT = 600
+
+
+def search_throughput_phase(plan_root):
+    """Phase 38: ``python -m repro_torch.launch.search_throughput`` on
+    the card, in a subprocess, its record in a scratch directory.  Every
+    gate of the bench must hold (exit 0, ``ok``); the timing floors and
+    the streamed GEMM's launches are checked here again by name."""
+    from repro_torch.launch import search_throughput as st
+    import resource
+    out = Path(tempfile.mkdtemp(prefix="search", dir=plan_root)) / "st.json"
+    load = os.getloadavg()
+    own = resource.getrusage(resource.RUSAGE_SELF)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.search_throughput",
+         "--out", str(out)], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        cwd=ROOT, capture_output=True, text=True,
+        timeout=SEARCH_BENCH_TIMEOUT)
+    sec = time.perf_counter() - t0
+    used = resource.getrusage(resource.RUSAGE_SELF)
+    # the host's timing floors share its cores with this process
+    log(f"  load average before {load[0]:.2f}; this process used "
+        f"{used.ru_utime - own.ru_utime + used.ru_stime - own.ru_stime:.1f}"
+        f" s of CPU while the bench ran")
+    for line in r.stdout.splitlines():
+        log(f"  | {line}")
+    if r.returncode != 0 or not out.exists():
+        raise AssertionError(f"search_throughput exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    res = json.loads(out.read_text())
+    ex, ch, ov = res["executors"], res["chunking"], res["overlap"]
+    kern = ov["fused_kernel"]
+    log(f"  {sec:.1f} s in all on {res['device']}; host "
+        f"{res['host']['cpu_model']}, {res['host']['machine']} "
+        f"({res['host']['cpus']} CPUs); "
+        f"sections (s) " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                   res["section_seconds"].items()))
+    log("  executors jobs/s " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ex["jobs_per_sec"].items())
+        + f" (process/thread {ex['process_vs_thread']:.2f}); chunking "
+        "jobs/s " + ", ".join(f"{k} {v:.2f}" for k, v in
+                              ch["jobs_per_sec"].items())
+        + f" (size/contiguous {ch['size_vs_contiguous']:.3f})")
+    log("  spaces speedup " + ", ".join(
+        f"{s['workload']}_{s['axes']} {s['speedup']:.1f}x"
+        for s in res["spaces"]) + "; autotune warm speedup " + ", ".join(
+        f"{k} {e['warm_speedup']:.0f}x"
+        for k, e in res["autotune"]["entries"].items()))
+    for rec in kern["bench"]["double_buffer"]:
+        log(f"  streamed_gemm {rec['shape']}: ms {rec['ms']:.4f} (device "
+            f"{rec['device_ms']:.4f}), buffers=1 {rec['ms_buffers1']:.4f}, "
+            f"torch.matmul {rec['library_ms']:.4f}, bound "
+            f"{rec['bound_ms']:.4f}")
+    log(f"  overlap bench: streamed_gemm launches {kern['launches']} (calls "
+        f"{kern['calls']}), hidden fraction "
+        f"{'degenerate (one rank)' if kern['hidden_degenerate'] else kern['hidden_fraction']}")
+    floors = {
+        "spaces": all(s["speedup"] >= st.SPEEDUP_FLOOR
+                      for s in res["spaces"]),
+        "autotune": all(e["warm_speedup"] >= st.WARM_SPEEDUP_FLOOR
+                        for e in res["autotune"]["entries"].values()),
+        "process >= thread": (ex["jobs_per_sec"]["process"]
+                              >= ex["jobs_per_sec"]["thread"]
+                              and not ex["fallbacks"]),
+        "chunking": ch["size_vs_contiguous"] >= st.CHUNKING_TOLERANCE,
+    }
+    if not (res["ok"] and all(floors.values())
+            and res["schema"] == st.SCHEMA
+            and kern["launches"] == kern["calls"] > 0
+            and kern["device"] == torch.cuda.get_device_name(0)):
+        raise AssertionError(f"search_throughput: ok {res['ok']}, floors "
+                             f"{floors}, streamed_gemm launches "
+                             f"{kern['launches']} of {kern['calls']}")
+    return {"seconds": sec, "device": res["device"], "host": res["host"],
+            "section_seconds": res["section_seconds"],
+            "jobs_per_sec": {"executors": ex["jobs_per_sec"],
+                             "chunking": ch["jobs_per_sec"]},
+            "floors": floors, "streamed_gemm": kern["bench"]["double_buffer"],
+            "launches": kern["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2865,27 +2967,44 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------ 12. the kernel bench
-    t0 = phase("12. kernel bench (repro_torch.launch.kernel_bench.run_all)")
+    # ------------------------------------------------- 12. the bench chain
+    t0 = phase("12. the bench chain (repro_torch.launch.run: paper tables, "
+               "Fig. 6, kernel_bench, MoE dispatch, roofline)")
+    from repro_torch.launch import run as bench_chain
     for fn in counters.values():
         fn.launches = 0
-    bench = kb.run_all("cuda", attention_shape=None, ssd_shapes=(),
-                       streamed_shape=None)
+    cwd = os.getcwd()
+    # paper_tables writes its plan bundle (PLANS_kernels.json) to the cwd
+    os.chdir(tempfile.mkdtemp(prefix="chain", dir=plan_root))
+    try:
+        chain = bench_chain.run_all("cuda")
+    finally:
+        os.chdir(cwd)
+    bench = chain["kernel_bench"]
     torch.cuda.synchronize()
     bench_launches = {k: fn.launches for k, fn in counters.items()}
     log(f"  launches {bench_launches}  bench calls {bench['calls']}")
     want_launches = {k: bench["calls"].get(k, 0) for k in counters}
-    if bench_launches != want_launches \
-            or 0 in (bench_launches[k] for k in GEMM_KERNELS):
+    if bench_launches != want_launches or 0 in bench_launches.values():
         raise AssertionError(f"launches {bench_launches} != the bench's "
                              f"calls {bench['calls']}")
+    log(f"  chain: paper tables {sorted(chain['paper_tables'])}, Fig. 6 "
+        f"collective median {chain['costmodel_compare']['collective']['median_rel_err']:.4f}, "
+        f"MoE presets {sorted(chain['moe_dispatch'])}, roofline "
+        f"{chain['roofline']['n']} dry-run artifacts")
     for rec in bench["records"]:
-        name = rec["name"]
-        tol = ge.tolerance(name[len("gemm_"):], torch.bfloat16,
-                           rec["max_abs_plain"])
-        if not rec["max_abs_err"] <= tol:
+        name, err, big = rec["name"], rec["max_abs_err"], rec["max_abs_plain"]
+        if name in GEMM_KERNELS:
+            ok = err <= ge.tolerance(name[len("gemm_"):], torch.bfloat16, big)
+        elif name == "flash_attention":
+            ok = err <= BF16_TOL + BF16_TOL * big
+        elif name == "ssd_scan":
+            ok = err <= SSD_BF16_TOL * big
+        else:
+            ok = rec["within_tol"]
+        if not ok:
             raise AssertionError(f"bench: {name} {rec['shape']} error "
-                                 f"{rec['max_abs_err']} > {tol}")
+                                 f"{err} (largest |plain| {big})")
     for shape in sorted({(r["shape"]["M"], r["shape"]["N"], r["shape"]["K"])
                          for r in bench["records"]
                          if r["name"] in GEMM_KERNELS}):
@@ -3187,7 +3306,14 @@ def main() -> int:
     dryrun_cells = dryrun_cells_phase()
     log(f"phase 37: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 38. the result
+    # ------------------------------------- 38. the search-throughput bench
+    t0 = phase("38. the search-throughput bench (python -m "
+               "repro_torch.launch.search_throughput, nine sections)")
+    torch.cuda.empty_cache()
+    search_bench = search_throughput_phase(plan_root)
+    log(f"phase 38: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 39. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -3338,6 +3464,7 @@ def main() -> int:
                     "static_contracts": contracts,
                     "dryrun_vs_card": dryrun_card,
                     "dryrun_cells": dryrun_cells,
+                    "search_throughput": search_bench,
                     "kernel_bench": bench["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))

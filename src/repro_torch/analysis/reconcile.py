@@ -22,16 +22,16 @@ that no entry declares (``PORT_OWN``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional
+from dataclasses import dataclass, field, replace
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from .counts import TraceCounts
 
 __all__ = ["TypeReconciliation", "ReconcileReport", "CollectiveStats",
            "reconcile", "expected_wire_from_trace",
            "expected_wire_from_schedule", "stats_from_trace",
-           "reconcile_cell", "HLO_OP_FOR_TYPE", "EXPLICIT_LABELS",
-           "PORT_OWN"]
+           "reconcile_cell", "size_grads_as_issued", "HLO_OP_FOR_TYPE",
+           "EXPLICIT_LABELS", "PORT_OWN"]
 
 # COMET collective type -> the op name the per-type report is keyed by
 # (the HLO op's, as in the JAX package)
@@ -304,31 +304,21 @@ def explain(report: ReconcileReport, trace: TraceCounts, schedule,
     power of the model axis apart), the two sides agree within ``tol``.
     Returns the findings left unexplained."""
     own: Dict[str, Dict[str, float]] = {}
-    issued_grads: Dict[tuple, float] = {}
     for label, col_type, dv, P in trace.records:
         op = HLO_OP_FOR_TYPE.get(col_type)
-        if op is None or P <= 1:
-            continue
-        if label in PORT_OWN:
+        if op is not None and P > 1 and label in PORT_OWN:
             d = own.setdefault(op, {})
             d[label] = d.get(label, 0.0) + _wire_of(col_type, dv, P)
-        elif label.startswith("grads/"):
-            issued_grads[(label, col_type, P)] = dv
+    schedule = list(schedule or ())
     c6: Dict[str, float] = {}
     c6_labels: Dict[str, List[str]] = {}
-    for d in schedule or ():
-        key = (d.label, d.col_type, d.participants)
-        if d.origin != "gspmd" or key not in issued_grads \
-                or d.participants <= 1:
-            continue
-        got = issued_grads[key]
-        ratio = d.dv_bytes / got if got else 0.0
-        if ratio > 1.0 and abs(ratio - round(ratio)) < 1e-9:
-            op = HLO_OP_FOR_TYPE[d.col_type]
-            c6[op] = c6.get(op, 0.0) + d.count * (
-                _wire_of(d.col_type, d.dv_bytes, d.participants)
-                - _wire_of(d.col_type, got, d.participants))
-            c6_labels.setdefault(op, []).append(d.label)
+    for i, got in _c6_issued(schedule, trace).items():
+        d = schedule[i]
+        op = HLO_OP_FOR_TYPE[d.col_type]
+        c6[op] = c6.get(op, 0.0) + d.count * (
+            _wire_of(d.col_type, d.dv_bytes, d.participants)
+            - _wire_of(d.col_type, got, d.participants))
+        c6_labels.setdefault(op, []).append(d.label)
     left = []
     for f in report.findings:
         op = f["hlo_op"]
@@ -352,6 +342,37 @@ def explain(report: ReconcileReport, trace: TraceCounts, schedule,
         if not f["explained"]:
             left.append(f)
     return left
+
+
+def _c6_issued(schedule: List, trace: TraceCounts) -> Dict[int, float]:
+    """Index -> the issued ``grads/X`` bytes of each ``gspmd`` entry of
+    ``schedule`` the run issued a whole number of times smaller (C.6:
+    the declaration's whole leaf against each rank's ``model`` shard, a
+    power of the model axis apart)."""
+    issued = {(label, col_type, P): dv
+              for label, col_type, dv, P in trace.records
+              if label.startswith("grads/") and P > 1
+              and HLO_OP_FOR_TYPE.get(col_type) is not None}
+    out: Dict[int, float] = {}
+    for i, d in enumerate(schedule):
+        got = issued.get((d.label, d.col_type, d.participants))
+        if d.origin == "gspmd" and got:
+            ratio = d.dv_bytes / got
+            if ratio > 1.0 and abs(ratio - round(ratio)) < 1e-9:
+                out[i] = got
+    return out
+
+
+def size_grads_as_issued(schedule: Iterable, trace: TraceCounts
+                         ) -> Tuple[List, List[str]]:
+    """``schedule`` with each C.6 entry (:func:`_c6_issued`) sized as the
+    run issued it, and the labels so sized: :func:`explain`'s rule,
+    applied before the comparison."""
+    schedule = list(schedule)
+    got = _c6_issued(schedule, trace)
+    return ([replace(d, dv_bytes=got[i]) if i in got else d
+             for i, d in enumerate(schedule)],
+            [schedule[i].label for i in got])
 
 
 def reconcile_cell(trace: Optional[TraceCounts], *,

@@ -39,9 +39,10 @@ VMEM-prefiltered tile-pair sweeps.
 out over a ``concurrent.futures`` pool — the sweep driver used by the
 benchmark harnesses.  Process-pool chunk assignment is **size-aware** by
 default (``chunking='size'``): jobs are ordered by estimated space size
-and dealt longest-first round-robin across chunks, so a ~117k-point
-exhaustive job starts immediately instead of serializing behind tiny
-cells; ``chunking='contiguous'`` restores plain slicing.  Chunking only
+and dealt longest first, each to the chunk with the least estimated
+work so far, so a ~117k-point exhaustive job starts immediately, and
+alone, instead of serializing behind tiny cells;
+``chunking='contiguous'`` restores plain slicing.  Chunking only
 moves jobs between workers — results always come back in job order and
 stay bit-identical.
 
@@ -80,18 +81,24 @@ finishes the remaining jobs serially — both emit a ``RuntimeWarning``.
 
 Port-local copy of ``repro/core/search.py`` (the port imports nothing of
 the JAX package); ``tests/test_torch_core.py`` and
-``tests/test_torch_plan.py`` hold it to the original.
+``tests/test_torch_plan.py`` hold it to the original.  The process pool
+differs in scheduling only, never in a result: its fork server preloads
+this module (:func:`_mp_context`), chunks are reduced as they finish, a
+pool has no more workers than chunks, and size-aware chunks are dealt to
+the least-loaded chunk (:func:`_make_chunks`).
 """
 from __future__ import annotations
 
+import heapq
 import inspect
 import math
 import os
 import random
 import secrets
 import warnings
-from concurrent.futures import (BrokenExecutor, ProcessPoolExecutor,
-                                ThreadPoolExecutor)
+from concurrent.futures import (FIRST_COMPLETED, BrokenExecutor,
+                                ProcessPoolExecutor, ThreadPoolExecutor,
+                                wait)
 from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -613,17 +620,30 @@ def _run_search_job(job) -> SearchResult:
 
 def _mp_context():
     """The start method of both process pools: ``forkserver`` where the
-    platform has it, else ``spawn``; never ``fork``.  A forked worker
-    inherits every lock another thread of the parent holds at that
-    moment, among them the ``resource_tracker`` lock that attaching or
-    unlinking a shared-memory segment takes, and can wait on it forever.
-    The workers' entry points (``_run_search_job``, ``_run_search_chunk``)
-    are module-level, so a fresh interpreter imports them by name."""
+    platform has it, else ``spawn``; never ``fork`` of the caller.  A
+    forked caller's worker inherits every lock another thread of the
+    caller holds at that moment, among them the ``resource_tracker`` lock
+    that attaching or unlinking a shared-memory segment takes, and can
+    wait on it forever.  The workers' entry points (``_run_search_job``,
+    ``_run_search_chunk``) are module-level, so a fresh interpreter
+    imports them by name.
+
+    The fork server preloads this module: it imports the package, and
+    ``torch`` with it, once, when the first pool starts, and every worker
+    is a fork of that single-threaded server with the import done.
+    Without it each worker of each pool imported ``torch`` anew, which
+    cost a 48-job sweep more than its searches.  The server imports the
+    module through its own path, which older Python 3.12 releases take
+    from ``PYTHONPATH`` and not from the caller's ``sys.path``; where it
+    cannot, each worker imports the module itself, as without the
+    preload.  A server already running keeps the preload it started
+    with."""
     import multiprocessing
-    method = ("forkserver"
-              if "forkserver" in multiprocessing.get_all_start_methods()
-              else "spawn")
-    return multiprocessing.get_context(method)
+    if "forkserver" in multiprocessing.get_all_start_methods():
+        ctx = multiprocessing.get_context("forkserver")
+        ctx.set_forkserver_preload([__name__])
+        return ctx
+    return multiprocessing.get_context("spawn")
 
 
 def parallel_map(fn: Callable, items: Sequence, *,
@@ -851,11 +871,17 @@ def _make_chunks(jobs: List[Tuple[CompoundOp, Arch, Dict]], chunksize: int,
                  chunking: str) -> List[List[Tuple[int, Tuple]]]:
     """Split ``jobs`` into chunks of ``(original_index, job)`` pairs.
 
-    ``chunking='size'`` (default) orders jobs by estimated space size and
-    assigns them longest-first round-robin across the chunks, so a single
-    ~117k-point exhaustive job starts immediately instead of serializing
-    behind a chunk of tiny ones (ROADMAP: job costs vary by ~100x when
-    randomized cells sit next to tiny exhaustive cells).
+    ``chunking='size'`` (default) estimates each job's space size and
+    deals the jobs longest first, each to the chunk with the least
+    estimated work so far (ties to the lower chunk), so a single
+    ~117k-point exhaustive job opens the first chunk and starts
+    immediately instead of serializing behind a chunk of tiny ones
+    (ROADMAP: job costs vary by ~100x when randomized cells sit next to
+    tiny exhaustive cells), and no tiny job joins it while a lighter
+    chunk is left: ``repro.core.search``'s round-robin deal put three tiny
+    jobs behind the huge one, which made the size-aware sweep slower than
+    contiguous chunks where every chunk had a worker of its own.  Jobs of
+    equal size are dealt round-robin, as there.
     ``chunking='contiguous'`` keeps the pre-PR-5 contiguous slices.
     Either way results are reassembled in job order and each job's
     evaluation is untouched, so the executor bit-identity contract holds.
@@ -868,9 +894,12 @@ def _make_chunks(jobs: List[Tuple[CompoundOp, Arch, Dict]], chunksize: int,
     if chunking != "size":
         raise ValueError(f"unknown chunking mode {chunking!r}")
     sizes = [_job_size_estimate(co, arch, kw) for co, arch, kw in jobs]
-    order = sorted(range(len(jobs)), key=lambda i: (-sizes[i], i))
-    chunks = [[indexed[i] for i in order[c::n_chunks]]
-              for c in range(n_chunks)]
+    chunks: List[List[Tuple[int, Tuple]]] = [[] for _ in range(n_chunks)]
+    loads = [(0, c) for c in range(n_chunks)]      # (estimated work, chunk)
+    for i in sorted(range(len(jobs)), key=lambda i: (-sizes[i], i)):
+        load, c = heapq.heappop(loads)
+        chunks[c].append(indexed[i])
+        heapq.heappush(loads, (load + sizes[i], c))
     return [c for c in chunks if c]
 
 
@@ -894,7 +923,9 @@ def _search_many_process(jobs: List[Tuple[CompoundOp, Arch, Dict]], *,
         chunksize = max(1, math.ceil(len(jobs) / (workers * 4)))
     chunks = _make_chunks(jobs, chunksize, chunking)
     try:
-        pool = ProcessPoolExecutor(max_workers=max_workers,
+        # no more workers than chunks: a worker with no chunk costs a
+        # fork and takes a core from the reductions here
+        pool = ProcessPoolExecutor(max_workers=min(workers, len(chunks)),
                                    mp_context=_mp_context())
     except (OSError, PermissionError, ImportError) as e:
         warnings.warn(
@@ -908,11 +939,14 @@ def _search_many_process(jobs: List[Tuple[CompoundOp, Arch, Dict]], *,
     try:
         with pool:
             # Bounded submission window (~2 chunks in flight per worker,
-            # refilled as results drain): results are consumed strictly
-            # in order, so submitting everything upfront would let
-            # completed-but-unconsumed grids pile up in /dev/shm behind
-            # one slow early chunk — worst case the whole sweep's grid
-            # bytes against a RAM-capped tmpfs.
+            # refilled as results drain): submitting everything upfront
+            # would let completed-but-unconsumed grids pile up in
+            # /dev/shm — worst case the whole sweep's grid bytes against
+            # a RAM-capped tmpfs.  Chunks are consumed as they finish,
+            # not in submission order: the huge job that size-aware
+            # chunking deals into the first chunk then holds back no
+            # other chunk's reduction (each job's reduction is its own,
+            # so the results are the same in either order).
             window = max(2 * workers, 1)
             pending: List[Tuple[List, object]] = []
             submitted = 0
@@ -929,7 +963,10 @@ def _search_many_process(jobs: List[Tuple[CompoundOp, Arch, Dict]], *,
 
             refill()
             while pending:
-                chunk, fut = pending.pop(0)
+                finished, _ = wait([f for _c, f in pending],
+                                   return_when=FIRST_COMPLETED)
+                chunk, fut = pending.pop(next(
+                    i for i, (_c, f) in enumerate(pending) if f in finished))
                 try:
                     wires = fut.result()
                 except BrokenExecutor as e:
@@ -980,9 +1017,9 @@ def search_many(jobs: Sequence, *,
 
     ``chunking`` selects how jobs map to process-pool chunks:
     ``'size'`` (default) estimates each job's space size and assigns
-    longest-first round-robin so one huge exhaustive job cannot
-    serialize behind a chunk of tiny ones; ``'contiguous'`` slices jobs
-    in order.  Chunk assignment never changes any result — only
+    longest first to the least-loaded chunk so one huge exhaustive job
+    cannot serialize behind a chunk of tiny ones; ``'contiguous'``
+    slices jobs in order.  Chunk assignment never changes any result — only
     scheduling (results are reassembled in job order either way).
     """
     if chunking not in ("size", "contiguous"):

@@ -252,12 +252,14 @@ def run_all(device: Optional[str] = None, *,
     ``cpu``) at ``shapes`` (``BENCH_SHAPES`` if None).  The
     distributed ones run inside ``mesh.host_group``.  Returns the records,
     ``calls`` (the calls this run made to the streamed GEMM's wrapper: on
-    the card each is a launch) and ``ok`` (every bar met)."""
+    the card each is a launch), ``launches`` (what the wrapper's count
+    rose by over the run: 0 on the CPU) and ``ok`` (every bar met)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     calls: Counter = Counter()
+    launched = streamed_gemm.launches
     out: Dict = {"schema": "repro_torch/overlap_bench/v1",
                  "device": torch.cuda.get_device_name(dev)
                  if dev.type == "cuda" else "cpu"}
@@ -275,6 +277,7 @@ def run_all(device: Optional[str] = None, *,
         dev, BENCH_SHAPES if shapes is None else shapes, calls)
     out["synthetic_recovery"] = syn = synthetic_recovery()
     out["calls"] = dict(calls)
+    out["launches"] = {"streamed_gemm": streamed_gemm.launches - launched}
     out["ok"] = (out["allgather_gemm"]["ok"]
                  and all(r["ok"] for r in out["double_buffer"])
                  and syn["clean_err"] <= OVERLAP_RECOVERY_TOL_CLEAN

@@ -72,7 +72,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "repro_torch.analysis.roofline",
                  "repro_torch.analysis.__main__",
                  "repro_torch.launch.dryrun", "repro_torch.launch.specs",
-                 "repro_torch.launch.roofline"):
+                 "repro_torch.launch.roofline",
+                 "repro_torch.launch.search_throughput",
+                 "repro_torch.launch.run"):
         assert name in out["modules"], name
     assert len(out["modules"]) >= 25
 
@@ -86,3 +88,16 @@ def test_no_source_line_imports_jax_or_repro():
             if pat.search(line)]
     assert hits == []
     assert len(PORT_SOURCES) >= 25
+
+
+def test_the_bench_and_its_chain_name_no_reference_module():
+    """The search-throughput bench and the bench chain are the reference
+    bench's and chain's counterparts: their sources name neither JAX, nor
+    a module of the JAX package, nor its ``benchmarks`` directory."""
+    pat = re.compile(r"jax|\brepro\.|benchmarks", re.IGNORECASE)
+    for name in ("search_throughput.py", "run.py"):
+        path = ROOT / "src" / "repro_torch" / "launch" / name
+        hits = [f"{name}:{i}: {line.strip()}"
+                for i, line in enumerate(path.read_text().splitlines(), 1)
+                if pat.search(line)]
+        assert hits == []

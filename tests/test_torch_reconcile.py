@@ -93,6 +93,32 @@ def test_recorded_side_is_the_trace_walkers_convention():
                         + trec._wire_of("AllReduce", 1024.0, 4)}
 
 
+def test_size_grads_as_issued_takes_explains_c6_out_before_the_comparison():
+    """C.6 sizing: a ``gspmd`` ``grads/X`` entry declared a whole number of
+    times the issued bytes is sized as issued, other entries stay; the
+    sized declaration then reconciles the All-Reduce as a ``match`` where
+    the declared one is a ``mismatch`` that ``explain`` names C.6."""
+    recs = [("grads/w", "AllReduce", 1024.0, 2),
+            ("grads/b", "AllReduce", 300.0, 2),
+            ("tp/attn-out", "AllReduce", 4096.0, 4)]
+    t = counts_of_records(recs, TraceCounts())
+    sched = [DeclaredCollective("grads/w", "AllReduce", 4096.0, 2, 1,
+                                "gspmd"),
+             DeclaredCollective("grads/b", "AllReduce", 400.0, 2, 1,
+                                "gspmd"),
+             DeclaredCollective("tp/attn-out", "AllReduce", 4096.0, 4, 1,
+                                "gspmd")]
+    sized, labels = trec.size_grads_as_issued(sched, t)
+    assert labels == ["grads/w"]
+    assert [d.dv_bytes for d in sized] == [1024.0, 400.0, 4096.0]
+    assert sized[1:] == sched[1:]
+    raw = trec.reconcile_cell(t, schedule=sched)
+    assert raw.per_type["all-reduce"].status == "mismatch"
+    assert "C.6: 1 grads/* entries" in raw.findings[0]["note"]
+    assert trec.reconcile_cell(t, schedule=sized).per_type[
+        "all-reduce"].status == "match"
+
+
 ROOF = [(1e12, 2e9, 0.0), (3e14, 5e10, 2e9), (1e9, 8e11, 4e10),
         (5e13, 1e9, 9e10)]
 

@@ -15,9 +15,7 @@ failure ends the run with a non-zero exit:
    every instance (a bf16 FlashAttention, GEMM-epilogue or streamed-GEMM
    instance must not spill); FlashAttention's keys a tile and ring stages
    of every head dim (must equal ``flash_attention.tiling``'s) and its
-   shared memory; the GEMM epilogue's dynamic shared memory and
-   ``cudaOccupancyMaxActiveClusters`` of every instance at every cluster
-   size ``gemm_epilogue.tiling`` uses (each must be > 0); the streamed
+   shared memory; the streamed
    GEMM's tiles and cluster (must equal the wrapper's ``TILES`` and
    ``CLUSTER``) and the clusters of its bf16 kernel the card holds
    (must be > 0); and the SSD scan's bf16 instances: registers and spills
@@ -103,7 +101,16 @@ failure ends the run with a non-zero exit:
     (``gemm_epilogue.boundary_shapes``: N at 256/264, 4096/4104, 8192/8200
     and 16384; M at 1, BM - 1, BM + 1 and a ragged multiple; K at 8, 100
     and one off the K step), and the largest paper shape (4096, 16384,
-    4096) three times;
+    4096) three times, all at the COMET plan's tilings; then every tiling
+    the kernel runs (``gemm_epilogue.tilings``, the plan's candidates),
+    each logged with its error and bar, for both dtypes and the three
+    epilogues, at ``boundary_shapes``, at a ragged M (203) for every other
+    N of ``TILING_BOUNDARIES`` (so every slice width there meets a ragged
+    M, slices narrower than one 64-column B box among them) and at the
+    paper's (4096, 4096, 4096); the dynamic shared memory and
+    ``cudaOccupancyMaxActiveClusters`` of every candidate's instance at its
+    cluster size (each must be > 0: a cluster of 16 is non-portable, and a
+    GPC with fewer SMs may not place it);
 12. the bench chain (``repro_torch.launch.run``: the paper tables, Fig.
     6, the kernel benchmark ``kernel_bench.run_all`` on the card at its
     default shapes, the MoE dispatch model and the roofline of whatever
@@ -115,8 +122,14 @@ failure ends the run with a non-zero exit:
     largest |y| and the streamed GEMM within ``allgather_gemm.tolerance``
     (phases 4, 8 and 14 check and time those three in full); beside
     the CUDA-event times, device-only times of the kernel and of the
-    library pair from ``torch.profiler``; beside each shape, the COMET
-    plan's modelled latency on ``h100()`` (logged only);
+    library pair from ``torch.profiler``; every fused GEMM launch of the
+    bench at the plan's tiling (``autotune.gemm_epilogue_tiling``); then
+    ``kernel_bench.gemm_tiling_sweep`` (``--gemm-tilings``), counts set to
+    0 before and == its calls after: each entry at ``PAPER_GEMM_SHAPES``,
+    at every tiling the kernel runs, each within the bar, the default
+    call at the plan's tiling; the plan's tiling, its modelled ms on
+    ``h100_cluster``, every candidate's modelled and measured ms, the
+    measured best and the plan's rank and ratio to it (logged only);
 13. the streamed GEMM against its plain version ``streamed_gemm_ref`` on
     the card, both buffer modes, f32 (atol 2e-4, rtol 2e-5, the JAX test's
     bar, w scaled 0.2 as there) and bf16 (1e-2 of the output's largest
@@ -476,24 +489,24 @@ def gemm_inputs(gen, M, K, N, dtype, kind="normal"):
     return a, b, rand(N), rand(N)
 
 
-def gemm_entry(name, a, b, gamma, beta):
-    """The ``ops`` entry of fused kernel ``name`` on these inputs, as a
-    function of ``use_kernel``."""
+def gemm_entry(name, a, b, gamma, beta, tiling=None):
+    """The ``ops`` entry of fused kernel ``name`` on these inputs, at
+    ``tiling`` (default: the plan's), as a function of ``use_kernel``."""
     from repro_torch.kernels import ops
     return {"gemm_softmax": lambda k: ops.fused_gemm_softmax(
-                a, b, use_kernel=k),
+                a, b, use_kernel=k, tiling=tiling),
             "gemm_layernorm": lambda k: ops.fused_gemm_layernorm(
-                a, b, gamma, beta, use_kernel=k),
+                a, b, gamma, beta, use_kernel=k, tiling=tiling),
             "gemm_rmsnorm": lambda k: ops.fused_gemm_rmsnorm(
-                a, b, gamma, use_kernel=k)}[name]
+                a, b, gamma, use_kernel=k, tiling=tiling)}[name]
 
 
-def gemm_check(name, a, b, gamma, beta):
-    """The fused kernel of ``name`` against its plain version on the same
-    inputs, both through the ``ops`` entry: (max abs error, max |plain|,
-    tolerance, passed)."""
+def gemm_check(name, a, b, gamma, beta, tiling=None):
+    """The fused kernel of ``name`` at ``tiling`` (default: the plan's)
+    against its plain version on the same inputs, both through the ``ops``
+    entry: (max abs error, max |plain|, tolerance, passed)."""
     from repro_torch.kernels import gemm_epilogue as ge
-    entry = gemm_entry(name, a, b, gamma, beta)
+    entry = gemm_entry(name, a, b, gamma, beta, tiling)
     out, want = entry(True), entry(False)
     torch.cuda.synchronize()
     if out.dtype != a.dtype or out.shape != want.shape:
@@ -2129,7 +2142,7 @@ def contract_launches(static):
         a = torch.randn(m, k, device=dev, dtype=bf)
         b = torch.randn(k, n, device=dev, dtype=bf) / 16
         g = torch.ones(n, device=dev, dtype=bf)
-        t = ge.tiling(n, bf)
+        t = ge.planned_tiling(m, n, k, bf)     # the plan's, as launched
         want = (*ge.launch_grid(m, t), 1)
         lib = ge.smem_bytes(bf, t.rows, t.passes)
         layout = ge.layout_smem_bytes(bf, t.rows, t.passes)
@@ -2564,19 +2577,6 @@ def main() -> int:
                                  f"{keys} keys x {stages} stages, the "
                                  f"wrapper's tiling says {t.keys} x "
                                  f"{t.stages}")
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows, passes, cl in ge.instances(dtype):
-            placed = {epi: ge.max_active_clusters(epi, dtype, rows, passes,
-                                                  cl) for epi in ge.EPILOGUES}
-            log(f"  gemm_epilogue {str(dtype)[6:]} {rows} rows {passes} "
-                f"pass(es) cluster {cl:2d}: dynamic shared memory "
-                f"{ge.smem_bytes(dtype, rows, passes)} B; max active "
-                f"clusters " + ", ".join(f"{epi} {n}"
-                                         for epi, n in placed.items()))
-            if min(placed.values()) <= 0:
-                raise AssertionError(f"gemm_epilogue {dtype} {rows} rows "
-                                     f"{passes} passes: a cluster of {cl} "
-                                     f"cannot be placed: {placed}")
     for dtype, want_tile in TILES.items():
         log(f"  streamed_gemm {str(dtype)[6:]}: tile {tile(dtype)} (rows, "
             f"columns, k-tile), cluster {cluster(dtype)}")
@@ -2933,9 +2933,14 @@ def main() -> int:
     ]
     gemm_cases = []
 
-    def gemm_case(label, inputs, name):
-        err, scale, tol, ok = gemm_check(name, *inputs)
-        t = ge.tiling(inputs[1].shape[1], inputs[0].dtype)
+    def gemm_case(label, inputs, name, tiling=None):
+        err, scale, tol, ok = gemm_check(name, *inputs, tiling)
+        t = counters[name].last_tiling     # the tiling it launched
+        if tiling is None and t != ge.planned_tiling(
+                inputs[0].shape[0], inputs[1].shape[1], inputs[0].shape[1],
+                inputs[0].dtype):
+            raise AssertionError(f"{name} {label}: launched {t}, not the "
+                                 f"plan's tiling")
         log(f"  {name:14s} {label:36s} tiling {tuple(t)}  max_abs_err "
             f"{err:.3e}  max|plain| {scale:.3g}  tol {tol:.3g}  "
             f"{'ok' if ok else 'FAIL'}")
@@ -2964,6 +2969,35 @@ def main() -> int:
         for rep in range(3):
             gemm_case(f"paper_4096x16384x4096_bf16_run{rep}", inputs, name)
     del inputs
+    # every tiling the kernel runs, each a candidate of the plan
+    n_cands = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        edges = ge.boundary_shapes(dtype)
+        shapes = list(edges) + [
+            (203, 72, n) for n in ge.TILING_BOUNDARIES
+            if n not in {e[2] for e in edges}] + [(4096, 4096, 4096)]
+        for M, K, N in shapes:
+            inputs = gemm_inputs(gen, M, K, N, dtype)
+            for t in ge.tilings(N, dtype):
+                for name in GEMM_KERNELS:
+                    gemm_case(f"cand_{M}x{K}x{N}_{str(dtype)[6:]}", inputs,
+                              name, t)
+                    n_cands += 1
+            del inputs
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, passes, cl in ge.instances(dtype):   # every candidate's
+            placed = {epi: ge.max_active_clusters(epi, dtype, rows, passes,
+                                                  cl) for epi in ge.EPILOGUES}
+            log(f"  gemm_epilogue {str(dtype)[6:]} {rows} rows {passes} "
+                f"pass(es) cluster {cl:2d}: dynamic shared memory "
+                f"{ge.smem_bytes(dtype, rows, passes)} B; max active "
+                f"clusters " + ", ".join(f"{epi} {n}"
+                                         for epi, n in placed.items()))
+            if min(placed.values()) <= 0:
+                raise AssertionError(f"gemm_epilogue {dtype} {rows} rows "
+                                     f"{passes} passes: a cluster of {cl} "
+                                     f"cannot be placed: {placed}")
+    log(f"  {n_cands} candidate checks, every tiling within its bar")
     torch.cuda.empty_cache()
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
@@ -3005,17 +3039,32 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"bench: {name} {rec['shape']} error "
                                  f"{err} (largest |plain| {big})")
-    for shape in sorted({(r["shape"]["M"], r["shape"]["N"], r["shape"]["K"])
-                         for r in bench["records"]
-                         if r["name"] in GEMM_KERNELS}):
-        measured = ", ".join(
-            f"{r['name']} {r['ms']:.4f}" for r in bench["records"]
-            if r["name"] in GEMM_KERNELS
-            and (r["shape"]["M"], r["shape"]["N"], r["shape"]["K"]) == shape)
-        job = autotune.gemm_epilogue_plan_job(*shape)
-        log(f"  COMET plan on h100 (information only): (M, N, K) {shape}: "
-            f"blocks {autotune.gemm_epilogue_blocks(*shape)}, "
-            f"{plan_ms(job):.4f} ms; measured ms {measured}")
+    off_plan = [(r["name"], r["shape"], r["tiling"], r["plan_tiling"])
+                for r in bench["records"] if r["name"] in GEMM_KERNELS
+                and r["tiling"] != r["plan_tiling"]]
+    if off_plan:
+        raise AssertionError(f"bench launches off the plan's tiling: "
+                             f"{off_plan}")
+    # every tiling the kernel runs at the paper's shapes (--gemm-tilings)
+    for fn in counters.values():
+        fn.launches = 0
+    sweep = kb.gemm_tiling_sweep("cuda")
+    torch.cuda.synchronize()
+    sweep_launches = {k: counters[k].launches for k in GEMM_KERNELS}
+    if sweep_launches != {k: sweep["calls"].get(k, 0)
+                          for k in GEMM_KERNELS}:
+        raise AssertionError(f"tiling sweep: launches {sweep_launches} != "
+                             f"calls {sweep['calls']}")
+    for r in sweep["records"]:
+        shape = (r["shape"]["M"], r["shape"]["N"], r["shape"]["K"])
+        bad = [c["tiling"] for c in r["candidates"] if not c["within_tol"]]
+        if bad or r["default_tiling"] != r["plan"]:
+            raise AssertionError(f"tiling sweep {r['name']} {shape}: "
+                                 f"default launch {r['default_tiling']}, "
+                                 f"plan {r['plan']}, off the bar {bad}")
+    log(f"  tiling sweep: {len(sweep['records'])} records (lines above: "
+        f"the COMET plan on h100_cluster, information only), launches "
+        f"{sweep_launches} == its calls")
     gemm_main = {r["name"]: r for r in bench["records"]
                  if r["name"] in GEMM_KERNELS
                  and (r["shape"]["M"], r["shape"]["N"], r["shape"]["K"])
@@ -3466,6 +3515,7 @@ def main() -> int:
                     "dryrun_cells": dryrun_cells,
                     "search_throughput": search_bench,
                     "kernel_bench": bench["records"],
+                    "gemm_tiling_sweep": sweep["records"],
                     "overlap_bench": overlap}))
     log(json.dumps({"kernels": kernels}))
     plan_dir.cleanup()

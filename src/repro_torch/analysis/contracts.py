@@ -12,7 +12,11 @@ launched: every arm runs its entry on fake tensors
    planner does), run the kernel's entry on fake CUDA bf16 tensors at the
    plan's tiling, and require the FLOP formula's count (the products the
    launch issues) to equal the compound op's GEMM FLOPs, with zero
-   collectives, and the plan's pair to be the tiling the launch takes.
+   ``torch.distributed`` collectives, and the plan's tiling to be the one
+   the launch takes (the fused GEMMs: all four numbers, read from the
+   wrapper).  For the fused GEMMs the plan's DSMEM All-Reduce must run over
+   the launch's cluster, its bytes set beside the kernel's exchange
+   (``DSMEM_NOTE`` names the difference).
 2. **Sharded contracts**: run ``sharded_softmax_xent`` on a fake world's
    mesh and require its recorded collectives (type, participants, count,
    wire) to equal ``softmax_collective_schedule``, the declaration the
@@ -46,7 +50,7 @@ __all__ = ["ContractCheck", "ContractReport", "gemm_flops",
            "train_contract_checks", "train_trace",
            "TRAIN_CONTRACT_CONFIGS", "ARMS", "DEFAULT_TOL",
            "run_contracts", "KERNEL_TRACERS", "default_mesh",
-           "SSD_SPLIT_NOTE"]
+           "SSD_SPLIT_NOTE", "DSMEM_NOTE", "PASS_NOTE"]
 
 DEFAULT_TOL = 0.02
 
@@ -200,17 +204,49 @@ SSD_SPLIT_NOTE = (
     "chunks + 2 chunk^2 P x chunks, named, not a tolerance")
 
 
-def _launch_tiling(family: str, shape) -> Tuple[int, int]:
-    """The pair the launch takes at a kernel-arm shape: FlashAttention's
-    (q rows an item, keys a tile), the GEMM epilogue's (rows, columns)."""
-    if family == "flash_attention":
-        from ..kernels.flash_attention import tiling
-        sq, skv, d = shape
-        t = tiling(1, 1, 1, max(sq, 128), max(skv, 128), d, torch.bfloat16)
-        return (t.q_rows * t.consumers, t.keys)
-    from ..kernels.gemm_epilogue import tiling
-    t = tiling(shape[1], torch.bfloat16)
-    return (t.rows, t.columns)
+PASS_NOTE = (
+    "the bf16 instance computes every pass's whole width (256 columns a CTA "
+    "at 128 rows, 512 at 64; gemm_epilogue.pass_columns) whatever its "
+    "slice holds, products the compound op does not count: predicted = "
+    "gemm_flops(co) x cluster x pass columns / N, named, not a tolerance")
+
+DSMEM_NOTE = (
+    "the plan's stats All-Reduce moves each row's statistic once, in the "
+    "op's dtype (DV = rows x dtype bytes a round); the kernel all-reduces "
+    "f32 partials (4 B) and every CTA reads all cluster ranks' partials "
+    "(csrc/gemm_epilogue.cu, Bf16View::allreduce): predicted = the plan's "
+    "bytes x (4 / dtype bytes) x participants, named, not a tolerance")
+
+
+def _attention_launch_tiling(shape) -> Tuple[int, int]:
+    """The pair FlashAttention's launch takes at a kernel-arm shape: (q rows
+    an item, keys a tile)."""
+    from ..kernels.flash_attention import tiling
+    sq, skv, d = shape
+    t = tiling(1, 1, 1, max(sq, 128), max(skv, 128), d, torch.bfloat16)
+    return (t.q_rows * t.consumers, t.keys)
+
+
+def _wrapper(family: str):
+    """The fused GEMM wrapper a kernel-arm family traces."""
+    from ..kernels import gemm_epilogue as ge
+    return ge.COUNTERS[family[len("gemm_"):]]
+
+
+def _plan_allreduces(co, arch, spec) -> List:
+    """The AllReduce nodes of the plan's mapping tree."""
+    from ..core.ir import build_tree
+    from ..core.mapping import CollectiveNode
+    root, _ = build_tree(co, arch, spec)
+    out, stack = [], [root]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, CollectiveNode):
+            if node.col_type == "AllReduce":
+                out.append(node)
+        else:
+            stack.extend(getattr(node, "children", ()))
+    return out
 
 
 def kernel_contract_checks(
@@ -224,9 +260,12 @@ def kernel_contract_checks(
     FLOPs with the compound op's GEMM FLOPs, asserts zero collectives
     (single-card kernels) and that the plan's pair is the launch's."""
     from ..core.plan import get_plan_cache
+    from ..core.workload import gemm_softmax
+    from ..kernels import gemm_epilogue as ge
     from ..kernels.autotune import (PAPER_KERNEL_SHAPES, _pair_of,
                                     attention_plan_job,
-                                    gemm_epilogue_plan_job, ssd_chunk_len,
+                                    gemm_epilogue_plan_job,
+                                    gemm_epilogue_tiling, ssd_chunk_len,
                                     ssd_plan_jobs)
     shapes = shapes if shapes is not None else PAPER_KERNEL_SHAPES
     use = dict(KERNEL_TRACERS)
@@ -255,19 +294,45 @@ def kernel_contract_checks(
                 dict(detail, launched=list(launched))))
 
     for m, n, k in shapes.get("gemm_epilogue_blocks", ()):
-        job = gemm_epilogue_plan_job(m, n, k)
-        if job is None:
+        t = gemm_epilogue_tiling(m, n, k)
+        if t is None:
             continue
-        co, arch, kw, pairs = job
-        plan = cache.resolve(co, arch, **kw)
-        blocks = _pair_of(plan, pairs)
-        launched = _launch_tiling("gemm", (m, n, k))
+        # the job of the plan's tiling: one cluster's rows on h100_cluster
+        co_cl, arch, kw, ts = next(j for j in gemm_epilogue_plan_job(m, n, k)
+                                   if t in j[3])
+        plan = cache.resolve(co_cl, arch, **kw)
+        nodes = _plan_allreduces(co_cl, arch, plan.spec)
+        plan_bytes = sum(nd.data_volume_bytes * nd.count for nd in nodes)
+        e = co_cl.tensors["C"].dtype_bytes
+        co = gemm_softmax(m, n, k)             # the whole launch
+        issued = t.cluster * ge.pass_columns(t, torch.bfloat16)
+        blocks = tuple(t)
         for family in ("gemm_softmax", "gemm_layernorm"):
-            trace = use[family](co, blocks)
-            add(family, (m, n, k), co, plan, blocks, trace, gemm_flops(co),
+            wrapper = _wrapper(family)
+            wrapper.last_tiling = None
+            trace = use[family](co, t)
+            launched = wrapper.last_tiling
+            add(family, (m, n, k), co, plan, blocks, trace,
+                gemm_flops(co) * issued / n,
                 note="both epilogue kernels share the gemm_softmax plan "
-                     "(identical GEMM, different epilogue)",
-                launched=launched)
+                     "(identical GEMM, different epilogue); "
+                     f"{PASS_NOTE} ({gemm_flops(co):.6g} x {issued} / {n})",
+                launched=() if launched is None else tuple(launched))
+            rounds = ge.ROUNDS[family[len("gemm_"):]]
+            kernel_bytes = rounds * t.rows * 4 * t.cluster
+            parts = sorted({nd.participants for nd in nodes})
+            predicted = plan_bytes * (4 / e) * t.cluster
+            checks.append(ContractCheck(
+                f"{family}[{m},{n},{k}]", "dsmem_allreduce",
+                float(predicted), float(kernel_bytes), 0.0,
+                parts == [t.cluster] and len(nodes) == rounds
+                and predicted == kernel_bytes,
+                {"family": family, "shape": [m, n, k],
+                 "blocks": list(blocks), "plan": _plan_fp(plan),
+                 "participants": parts, "cluster": t.cluster,
+                 "plan_allreduces": len(nodes), "rounds": rounds,
+                 "plan_bytes": plan_bytes, "kernel_bytes": kernel_bytes,
+                 "note": DSMEM_NOTE}))
 
     for sq, skv, d in shapes.get("attention_blocks", ()):
         job = attention_plan_job(sq, skv, d)
@@ -281,7 +346,7 @@ def kernel_contract_checks(
             gemm_flops(co),
             note="traced at the plan's aligned dims (M=max(sq,128)); "
                  "causal=False matches the non-causal compound op",
-            launched=_launch_tiling("flash_attention", (sq, skv, d)))
+            launched=_attention_launch_tiling((sq, skv, d)))
 
     for s, p, n in shapes.get("ssd_chunk_len", ()):
         jobs = ssd_plan_jobs(s, p, n)

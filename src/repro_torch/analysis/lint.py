@@ -408,7 +408,8 @@ def check_core_sqlite(ctx: _Ctx) -> Iterable[LintFinding]:
 def smem_cases() -> Dict[str, Tuple[str, Callable, List[tuple]]]:
     """Per kernel: (its file, the function of (dtype, ...) giving an
     instance's dynamic shared memory, the instances its tiling launches
-    over the paper shapes, ``BOUNDARY_CASES`` and ``boundary_shapes``)."""
+    over the paper shapes, ``BOUNDARY_CASES`` and ``boundary_shapes``; the
+    fused GEMMs' at every tiling of ``gemm_epilogue.tilings``)."""
     import importlib
 
     import torch
@@ -428,9 +429,9 @@ def smem_cases() -> Dict[str, Tuple[str, Callable, List[tuple]]]:
             ge.TILING_BOUNDARIES) + [n for _, n, _ in
                                      PAPER_KERNEL_SHAPES[
                                          "gemm_epilogue_blocks"]]
-        for n in ns:
-            t = ge.tiling(n, dt)
-            ge_inst.add((dt, t.rows, t.passes))
+        for n in ns:                     # every tiling the plan may launch
+            ge_inst.update((dt, t.rows, t.passes)
+                           for t in ge.tilings(n, dt))
 
     def ssd_smem(dt, N, P):
         return ssd.bf16_layout(N, P)[1] if dt == torch.bfloat16 \

@@ -19,7 +19,8 @@ published-ballpark constants (documented inline); see DESIGN.md §8 —
 Port-local copy of ``repro/core/hardware.py`` (the port imports nothing of
 the JAX package); ``tests/test_torch_overlap.py`` holds it to the original
 field by field.  One difference: the port adds :func:`h100`, its card, to
-``PRESETS``.  A ``calibrated=`` path loads through the port's own
+``PRESETS``, and :func:`h100_cluster`, one thread-block cluster of it.  A
+``calibrated=`` path loads through the port's own
 ``repro_torch.calibrate.persist``.
 """
 from __future__ import annotations
@@ -39,6 +40,7 @@ __all__ = [
     "tpu_v5e",
     "tileflow_like",
     "h100",
+    "h100_cluster",
     "PRESETS",
 ]
 
@@ -352,19 +354,24 @@ def tileflow_like(calibrated=None) -> Arch:
     return apply_calibration(arch, calibrated)
 
 
-def h100(calibrated=None) -> Arch:
-    """NVIDIA H100 SXM5 (Hopper, sm_90), the port's card, as one node: the
-    kernel arch for per-kernel tile selection, the whole card in aggregate.
+def h100(mesh: Tuple[int, int] = (1, 1), calibrated=None) -> Arch:
+    """NVIDIA H100 SXM5 (Hopper, sm_90), the port's card.
 
-    Level mapping: DRAM -> HBM3 (80 GB, 3.35 TB/s); GB -> one CTA's shared
-    memory (227 KB, the most a block may take of an SM's 228 KB), the
-    capacity a kernel's tile must fit, at the card's aggregate shared-memory
-    rate; IB/WB/OB -> the register file (256 KB an SM: 64 KB each of
-    operand staging, 128 KB of accumulators); cluster NoC -> the DSMEM
-    network of a thread-block cluster; core NoC degenerates (1, 1).  With a
-    (1, 1) cluster mesh the whole card is one instance, so no collective is
-    charged; the 50 MB L2 is not a level (every DRAM byte is charged at
-    the HBM3 rate).
+    ``mesh=(1, 1)``: the card as one node, the kernel arch for per-kernel
+    tile selection, the whole card in aggregate.  Any other mesh: one
+    thread-block cluster of ``mesh[0] * mesh[1]`` SMs, each SM a node
+    (:func:`h100_cluster`), the arch the fused GEMM epilogues' plan ranks
+    its cluster sizes on.
+
+    Level mapping of the whole card: DRAM -> HBM3 (80 GB, 3.35 TB/s); GB
+    -> one CTA's shared memory (227 KB, the most a block may take of an
+    SM's 228 KB), the capacity a kernel's tile must fit, at the card's
+    aggregate shared-memory rate; IB/WB/OB -> the register file (256 KB an
+    SM: 64 KB each of operand staging, 128 KB of accumulators); cluster NoC
+    -> the DSMEM network of a thread-block cluster; core NoC degenerates
+    (1, 1).  With a (1, 1) cluster mesh the whole card is one instance, so
+    no collective is charged; the 50 MB L2 is not a level (every DRAM byte
+    is charged at the HBM3 rate).
 
     GEMM unit -> the 528 tensor cores (132 SMs x 4), each modelled as a
     16 x 32 array (512 bf16 MACs a clock), clocked so the card's dense
@@ -380,6 +387,8 @@ def h100(calibrated=None) -> Arch:
     ~0.1 pJ.  DSMEM: an SM-to-SM hop ~100 ns (~190 cycles, published
     microbenchmarks), 128 B a clock a link (~253 GB/s), ~0.5 pJ/B a hop.
     """
+    if tuple(mesh) != (1, 1):
+        return h100_cluster(mesh, calibrated)
     peak = 989.4e12                      # dense bf16 FLOP/s
     arrays = (132, 4)                    # SMs x tensor cores an SM
     freq = peak / (arrays[0] * arrays[1] * 16 * 32 * 2)
@@ -397,6 +406,52 @@ def h100(calibrated=None) -> Arch:
                            0.01),
         gemm_unit=GemmUnit(16, 32, arrays, freq, 0.2),
         simd_unit=SimdUnit(132 * 128, 1.98 * GIGA, 0.1),
+    )
+    return apply_calibration(arch, calibrated)
+
+
+def h100_cluster(mesh: Tuple[int, int], calibrated=None) -> Arch:
+    """One thread-block cluster of the H100: ``mesh[0] * mesh[1]`` = CL
+    SMs (1, 2, 4, 8 or 16; one SM alone is ``mesh=(1, 1)`` here, where
+    ``h100(mesh=(1, 1))`` is the whole card), each SM a node, its CTAs'
+    shared memory reached by the others through DSMEM.
+
+    The constants are :func:`h100`'s, cut to one SM:
+
+    - a node's GEMM unit: the SM's 4 tensor cores, 16 x 32 arrays at
+      h100's clock (989.4 / 132 = 7.50 TFLOP/s dense bf16 an SM); its SIMD
+      unit: the SM's 128 FP32 lanes at 1.98 GHz;
+    - GB -> the SM's shared memory, 227 KB (the most a CTA may take) at
+      the SM's rate, 128 B a clock x 1.98 GHz = 253.44 GB/s; IB/WB/OB ->
+      its register file, 64 + 64 + 128 KB, at 4x that (an estimate);
+    - cluster NoC -> DSMEM over the cluster's SMs, laid out as ``mesh``:
+      128 B a clock a link (253.44 GB/s), ~100 ns an SM-to-SM hop, one
+      clock an enqueue slot, ~0.5 pJ/B a hop (h100's DSMEM figures);
+      core NoC degenerates (1, 1): an SM is one core;
+    - DRAM -> the cluster's share of HBM3: floor(132 / CL) clusters run
+      at once, so one takes 3.35 TB/s x CL / 132;
+    - energy: h100's constants.
+
+    A plan on this arch models one cluster's work, the rows it processes
+    in a launch; every cluster of a wave does the same at the same time.
+    """
+    cl = mesh[0] * mesh[1]
+    peak = 989.4e12 / 132                # dense bf16 FLOP/s an SM
+    freq = peak / (4 * 16 * 32 * 2)      # h100's tensor-core clock
+    sm_gbs = 128 * 1.98                  # one SM's shared memory, GB/s
+    arch = Arch(
+        name="h100",
+        dram=_mk_mem("DRAM", 80 << 30, 3350 * cl / 132, 28.0, 28.0),
+        gb=_mk_mem("GB", 227 << 10, sm_gbs, 1.2, 1.2),            # smem
+        ib=_mk_mem("IB", 64 << 10, 4 * sm_gbs, 0.3, 0.3),         # regs
+        wb=_mk_mem("WB", 64 << 10, 4 * sm_gbs, 0.3, 0.3),
+        ob=_mk_mem("OB", 128 << 10, 4 * sm_gbs, 0.3, 0.3),
+        cluster_noc=NoCParams(tuple(mesh), 128, 128 * 1.98 * GIGA, 1e-7,
+                              1 / (1.98 * GIGA), 0.5),            # DSMEM
+        core_noc=NoCParams((1, 1), 128, 4 * sm_gbs * GIGA, 1e-9, 1e-9,
+                           0.01),
+        gemm_unit=GemmUnit(16, 32, (1, 4), freq, 0.2),
+        simd_unit=SimdUnit(128, 1.98 * GIGA, 0.1),
     )
     return apply_calibration(arch, calibrated)
 

@@ -3,7 +3,9 @@ kernel-level use of the paper's cost model).
 
 Port of ``repro/kernels/autotune.py``.  For each kernel this builds the
 matching compound-op workload, takes the card as one node
-(:func:`~repro_torch.core.hardware.h100`), and ranks the candidate tilings
+(:func:`~repro_torch.core.hardware.h100`; for the fused GEMM epilogues,
+one thread-block cluster, :func:`~repro_torch.core.hardware.h100_cluster`),
+and ranks the candidate tilings
 with the **shared search engine**: ``search(candidate_list=...)`` routes
 the candidates through the batched evaluator (core/batcheval.py), the same
 memory-fit validation and Eq. 1-7 latency model the map-space search uses.
@@ -17,17 +19,25 @@ a ladder of block sizes: a plan may choose only what a kernel runs.
 * FlashAttention: ``flash_attention.tiling`` in bf16 has one tiling a
   head dim (128 q rows a work item, sharing each 128-key K/V tile, in a
   ring as deep as shared memory holds), so its list holds that one.
-* The fused GEMM epilogues: ``gemm_epilogue.tiling(N, bf16)`` is one
-  tiling an N (rows of a block, the columns of a CTA's slice, the
-  cluster that shares the block); one candidate.
+* The fused GEMM epilogues: every tiling of ``gemm_epilogue.tilings(N,
+  dtype)`` (the cluster that shares a row block, the rows of a block, the
+  columns of a CTA's slice, the column passes).  A cluster of CL CTAs is
+  modelled as ``h100_cluster`` of CL SMs, DSMEM its cluster NoC, over the
+  rows one cluster processes in a launch (the row blocks spread over the
+  floor(132 / CL) clusters a wave holds); the row statistics' All-Reduce
+  over the cluster is charged at ``collective_gran="stats"``.  One job per
+  cluster size (and rows a cluster, where two instances differ there);
+  the least modelled latency across the jobs wins.
 * The SSD chunk scan: the chunks the kernel takes, at most its 64
   (``ssd.CHUNK``): 16, 32 and 64, each a workload of its own.
 
 Each rule stays where it is (``flash_attention.tiling``,
-``gemm_epilogue.tiling``, ``ssd.tiling``); a shape a kernel refuses has no
-candidate, and its entry point returns the default below.  The wrappers
-do not read these plans: only the SSD chunk reaches a kernel, through the
-model (``models/ssm.py``).
+``gemm_epilogue.tilings``, ``ssd.tiling``); a shape a kernel refuses has no
+candidate, and its entry point returns the default below.  The fused
+GEMM wrappers launch the plan's tiling (``gemm_epilogue.planned_tiling``)
+and the SSD chunk reaches its kernel through the model
+(``models/ssm.py``); FlashAttention's one bf16 tile leaves its plan
+nothing to choose, so its wrapper reads none.
 
 Every entry point resolves through the :class:`repro_torch.core.plan.
 PlanCache`: the first call per (shape, arch, engine version) solves and
@@ -44,7 +54,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.hardware import Arch, h100
+from ..core.hardware import Arch, h100, h100_cluster
 from ..core.ir import MappingSpec
 from ..core.plan import get_plan_cache
 from ..core.workload import (CompoundOp, flash_attention, gemm_softmax,
@@ -53,16 +63,22 @@ from . import flash_attention as fa
 from . import gemm_epilogue as ge
 from . import ssd
 
-__all__ = ["attention_blocks", "gemm_epilogue_blocks", "ssd_chunk_len",
-           "PAPER_KERNEL_SHAPES", "plan_jobs", "attention_plan_job",
-           "gemm_epilogue_plan_job", "ssd_plan_jobs", "SSD_CHUNKS"]
+__all__ = ["attention_blocks", "gemm_epilogue_blocks",
+           "gemm_epilogue_tiling", "ssd_chunk_len", "PAPER_KERNEL_SHAPES",
+           "plan_jobs", "attention_plan_job", "gemm_epilogue_plan_job",
+           "ssd_plan_jobs", "SSD_CHUNKS", "CLUSTER_MESH"]
 
 SCHEDULES = ("sequential", "pipelined")
 
 # Compute-collective overlap axis for kernel candidates.  On the one-node
 # kernel arch collectives cost zero, so the axis is inert (ties break to
-# overlap=0.0, the serial point), as in the JAX package.
+# overlap=0.0, the serial point), as in the JAX package; on a cluster
+# (``h100_cluster``) it prices hiding the DSMEM All-Reduce.
 OVERLAPS = (0.0, 1.0)
+
+# The mesh each cluster size of the fused GEMM epilogues is modelled on
+# (``h100_cluster``)
+CLUSTER_MESH = {1: (1, 1), 2: (1, 2), 4: (2, 2), 8: (2, 4), 16: (4, 4)}
 
 # The SSD chunks the kernel takes (``ssd._check``: at most ``ssd.CHUNK``)
 SSD_CHUNKS = (16, 32, 64)
@@ -78,6 +94,7 @@ PAPER_KERNEL_SHAPES: Dict[str, List[Tuple[int, ...]]] = {
 }
 
 _KERNEL_ARCH: Optional[Arch] = None
+_CLUSTER_ARCHS: Dict[int, Arch] = {}
 
 # Per-shape memo of *job descriptions* (compound op + candidate list): the
 # question, never the answer.  Every call still resolves through the
@@ -106,12 +123,23 @@ def _kernel_arch() -> Arch:
     return _KERNEL_ARCH
 
 
-def _candidate_specs(variant: str, tiles: Sequence[Dict[str, int]]
-                     ) -> Tuple[MappingSpec, ...]:
+def _cluster_arch(cl: int) -> Arch:
+    """One thread-block cluster of ``cl`` SMs (:func:`h100_cluster` on
+    ``CLUSTER_MESH[cl]``), memoized by hand as :func:`_kernel_arch`."""
+    arch = _CLUSTER_ARCHS.get(cl)
+    if arch is None:
+        arch = _CLUSTER_ARCHS[cl] = h100_cluster(CLUSTER_MESH[cl])
+    return arch
+
+
+def _candidate_specs(variant: str, tiles: Sequence[Dict],
+                     **fixed) -> Tuple[MappingSpec, ...]:
     """Candidate MappingSpecs in (schedule, overlap)-major order, tilings
-    minor.  A tuple: immutable sequences are what the plan layer's
-    fingerprint memo may cache by identity."""
-    return tuple(MappingSpec(variant=variant, schedule=s, overlap=ov, **t)
+    minor; ``fixed`` fields are the same in every spec.  A tuple:
+    immutable sequences are what the plan layer's fingerprint memo may
+    cache by identity."""
+    return tuple(MappingSpec(variant=variant, schedule=s, overlap=ov,
+                             **fixed, **t)
                  for s in SCHEDULES for ov in OVERLAPS for t in tiles)
 
 
@@ -174,45 +202,69 @@ def attention_blocks(sq: int, skv: int, d: int) -> Tuple[int, int]:
 # -------------------------------------------------------- gemm epilogues
 
 
-def _gemm_pairs(n: int) -> List[Tuple[int, int, int]]:
-    """(block_m, block_n, cluster) of the bf16 kernel: the rows of C a
-    block holds, the columns of a CTA's slice and the CTAs that share the
-    row block; none where the kernel refuses N."""
-    try:
-        t = ge.tiling(n, torch.bfloat16)
-    except ValueError:
-        return []
-    return [(t.rows, t.columns, t.cluster)]
+def gemm_epilogue_plan_job(m: int, n: int, k: int,
+                           dtype: torch.dtype = torch.bfloat16
+                           ) -> List[Tuple[CompoundOp, Arch, Dict,
+                                           Tuple[ge.Tiling, ...]]]:
+    """The plan jobs behind :func:`gemm_epilogue_tiling`: ``(co, arch,
+    search_kw, tilings)`` for each cluster size of ``gemm_epilogue.tilings(n,
+    dtype)`` (none where the kernel refuses N), the job triple as
+    :func:`attention_plan_job`'s.
 
-
-def gemm_epilogue_plan_job(m: int, n: int, k: int
-                           ) -> Optional[Tuple[CompoundOp, Arch, Dict,
-                                               List[Tuple[int, int]]]]:
-    """The plan job behind :func:`gemm_epilogue_blocks` (see
-    :func:`attention_plan_job`); its pairs are (block_m, block_n)."""
+    A job's compound op is ``gemm_softmax`` over the rows one cluster
+    processes, ceil(ceil(m / rows) / floor(132 / CL)) x rows, at the
+    dtype's bytes; its arch one cluster of CL SMs (``h100_cluster``); its
+    candidates that cluster's tilings as ``fused_dist`` specs with
+    ``m_tiles`` row blocks, ``sp_cluster=CL`` and ``collective_gran=
+    "stats"`` (the kernel all-reduces each block's per-row partials, once
+    a statistic round, never the C tile).  Tilings of one cluster whose
+    row blocks give a cluster different rows are jobs of their own."""
     def build():
-        tiles3 = _gemm_pairs(n)
-        if not tiles3:
-            return None
-        co = gemm_softmax(m, n, k)
-        tiles = [{"m_tiles": math.ceil(m / bm), "sp_cluster": cl}
-                 for bm, _bn, cl in tiles3]
-        kw = {"candidate_list": _candidate_specs("fused_dist", tiles)}
-        return co, _kernel_arch(), kw, [(bm, bn) for bm, bn, _ in tiles3]
+        e = torch.empty((), dtype=dtype).element_size()
+        groups: Dict[Tuple[int, int], List[ge.Tiling]] = {}
+        for t in ge.tilings(n, dtype):
+            rows_cl = -(-(-(-m // t.rows)) // (fa.SMS // t.cluster)) \
+                * t.rows
+            groups.setdefault((t.cluster, rows_cl), []).append(t)
+        jobs = []
+        for (cl, rows_cl), group in sorted(groups.items()):
+            tiles = [{"m_tiles": rows_cl // t.rows} for t in group]
+            kw = {"candidate_list": _candidate_specs(
+                "fused_dist", tiles, sp_cluster=cl,
+                collective_gran="stats")}
+            jobs.append((gemm_softmax(rows_cl, n, k, dtype_bytes=e),
+                         _cluster_arch(cl), kw, tuple(group)))
+        return jobs
 
-    return _memo_job(("gemm", m, n, k), build)
+    return _memo_job(("gemm", m, n, k, dtype), build)
+
+
+def gemm_epilogue_tiling(m: int, n: int, k: int,
+                         dtype: torch.dtype = torch.bfloat16
+                         ) -> Optional[ge.Tiling]:
+    """The fused GEMM-Softmax/-LayerNorm/-RMSNorm kernel's tiling at (m, n,
+    k) in ``dtype``: each job of :func:`gemm_epilogue_plan_job` resolves
+    through the PlanCache (a candidates-mode search: a tiling that fits
+    the cluster's memory first, then the least latency), and across the
+    jobs the same order picks the winner, a fitting plan before one that
+    overflows, then the least modelled latency (the first job on a tie).
+    None where the kernel takes no tiling."""
+    cache = get_plan_cache()
+    best = None
+    for co, arch, kw, ts in gemm_epilogue_plan_job(m, n, k, dtype):
+        plan = cache.resolve(co, arch, **kw)
+        key = (plan.headroom < 0, plan.latency_s)
+        if best is None or key < best[0]:
+            best = (key, _pair_of(plan, ts))
+    return None if best is None else best[1]
 
 
 def gemm_epilogue_blocks(m: int, n: int, k: int) -> Tuple[int, int]:
     """(block_m, block_n) for the fused GEMM-Softmax/-LayerNorm/-RMSNorm
-    kernel via a PlanCache-resolved candidates-mode search on
-    gemm_softmax; (128, 256) where the kernel takes no tiling."""
-    job = gemm_epilogue_plan_job(m, n, k)
-    if job is None:
-        return (128, 256)
-    co, arch, kw, pairs = job
-    plan = get_plan_cache().resolve(co, arch, **kw)
-    return _pair_of(plan, pairs)
+    kernel: the rows and slice columns of :func:`gemm_epilogue_tiling`'s
+    bf16 tiling; (128, 256) where the kernel takes no tiling."""
+    t = gemm_epilogue_tiling(m, n, k)
+    return (128, 256) if t is None else (t.rows, t.columns)
 
 
 # ------------------------------------------------------------------ ssd
@@ -283,9 +335,7 @@ def plan_jobs(shapes: Optional[Dict[str, Sequence[Tuple[int, ...]]]] = None
         if job is not None:
             jobs.append(job[:3])
     for m, n, k in shapes.get("gemm_epilogue_blocks", ()):
-        job = gemm_epilogue_plan_job(m, n, k)
-        if job is not None:
-            jobs.append(job[:3])
+        jobs.extend(job[:3] for job in gemm_epilogue_plan_job(m, n, k))
     for s, p, n in shapes.get("ssd_chunk_len", ()):
         jobs.extend(job[:3] for job in ssd_plan_jobs(s, p, n))
     return jobs

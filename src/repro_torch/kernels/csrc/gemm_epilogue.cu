@@ -23,9 +23,10 @@
 // columns [r ns, r ns + ns) of the cluster's row block, runs the whole K
 // loop for that slice, and the row statistics are all-reduced over the
 // cluster.  The tiling (cluster, rows per block BM, columns per CTA ns,
-// column passes) is chosen by the wrapper, gemm_epilogue.py::tiling, and
-// passed to ge_fwd, which checks only that this source has such an
-// instance and that the slices cover N.
+// column passes) is one that this source runs (`valid_tiling` below;
+// gemm_epilogue.py::tilings states the same rule), chosen by the wrapper
+// from the COMET plan (autotune.gemm_epilogue_tiling) and passed to
+// ge_fwd, which refuses any other.
 //
 // What bounds it on this card.  At (M, N, K) = (4096, 16384, 4096) bf16
 // the product is 549.8 GFLOP against 302 MB of compulsory traffic (A, B,
@@ -40,6 +41,7 @@
 //   (M, N, K)             tiling (CL, BM, ns, passes)  B from L2   A from L2
 //   (4096, 16384, 4096)   16, 64, 1024, 2              8.59 GB     1.07 GB
 //   (4096,  4096, 4096)   16, 128, 256, 1              1.07 GB     0.54 GB
+//   (4096,  4096, 4096)   4, 64, 1024, 2               2.15 GB     0.27 GB
 //   cloud (M <= 512, K <= 128)  B once per 64-128 rows: 0.26-4.2 MB
 //
 // (Each of the CL CTAs, and each pass, reads the block's rows of A.)  At
@@ -67,17 +69,17 @@
 //   accumulate, A K-major from shared memory and B MN-major (B is row-major
 //   (K, N): the transpose-B form).  One wgmma group stays in flight; a
 //   stage is released when the group that read it has retired.
-// - The row block and the slice, from N (the wrapper's tiling):
-//     ns <= 256 (N <= 4096):   BM = 128, warpgroup w owns rows 64w..64w+63
-//                              of all ns columns, CL = the smallest power
-//                              of 2 that fits;
-//     ns <= 512 (N <= 8192):   BM = 64, CL 16, warpgroup w owns columns
-//                              256w..256w+255 of the 64 rows;
-//     ns <= 1024 (N <= 16384): BM = 64, CL 16, in two column passes of
-//                              512: the first pass's f32 tile (64 x 512,
-//                              128 KB) is parked in shared memory while the
-//                              second runs in registers.
-//   So B is read from L2 once per 64 rows or fewer at every N <= 16384.
+// - The instances, by the slice ns = ceil(N / CL) rounded up to 8:
+//     ns <= 256:         BM = 128, warpgroup w owns rows 64w..64w+63 of
+//                        all ns columns;
+//     ns <= 512:         BM = 64, warpgroup w owns columns 256w..256w+255
+//                        of the 64 rows;
+//     512 < ns <= 1024:  BM = 64, in two column passes of 512: the first
+//                        pass's f32 tile (64 x 512, 128 KB) is parked in
+//                        shared memory while the second runs in registers.
+//   Any cluster of 1-16 CTAs whose slices fit an instance and all get
+//   columns may run (N <= 16384 at 16 CTAs).  So B is read from L2 once
+//   per 64 rows or fewer at every tiling.
 //   The parked tile must stay f32: at LayerNorm rows of mean 1e3 one bf16
 //   step of c is 4, against a std of about 1.
 // - The epilogue: each thread reduces its two rows' values (registers and,
@@ -824,17 +826,21 @@ bool valid_instance(int dtype, int rows, int passes) {
   return false;
 }
 
-// a tiling this source runs: an instance, a cluster it is built for, and
-// slices that cover N, fit the instance's columns and keep its stores
-// aligned (f32 float4, bf16 pairs)
+// a tiling this source runs (gemm_epilogue.py::tilings is its Python
+// copy): an instance, a cluster it is built for, the slice ceil(N /
+// cluster) rounded up to 16 columns (f32) or 8 (bf16, its stores' pairs),
+// which must fit the instance (two passes only for a slice one pass cannot
+// hold), and columns for every CTA of the cluster
 bool valid_tiling(int dtype, int N, const Tiling& t) {
-  if (!valid_instance(dtype, t.rows, t.passes) || !valid_cluster(t.cluster) ||
-      t.cols < 1 || (long long)t.cols * t.cluster < N)
+  if (!valid_instance(dtype, t.rows, t.passes) || !valid_cluster(t.cluster))
     return false;
-  if (dtype == 0) return t.cols % 4 == 0 && t.cols <= F32_NT;
+  const int align = dtype == 0 ? 16 : 8;
+  const int ns = ((N + t.cluster - 1) / t.cluster + align - 1) / align * align;
+  if (t.cols != ns || (long long)(t.cluster - 1) * ns >= N) return false;
+  if (dtype == 0) return ns <= F32_NT;
   const int pass_cols = t.rows == 128 ? Bf16Cfg<128, 1>::PASS_COLS
                                       : Bf16Cfg<64, 1>::PASS_COLS;
-  return t.cols % 8 == 0 && t.cols <= t.passes * pass_cols;
+  return ns > (t.passes - 1) * pass_cols && ns <= t.passes * pass_cols;
 }
 
 }  // namespace
@@ -850,8 +856,8 @@ extern "C" int ge_smem_bytes(int dtype, int rows, int passes) {
 
 // epilogue: 0 softmax, 1 LayerNorm, 2 RMSNorm; dtype: 0 float32, 1 bfloat16.
 // a (M, K) with rows of lda elements, b (K, N), gamma/beta f32 (N,) (beta
-// LayerNorm only), out (M, N).  The tiling is the wrapper's
-// (gemm_epilogue.py::tiling): a cluster of `cluster` CTAs, `rows` rows per
+// LayerNorm only), out (M, N).  The tiling is the wrapper's, one of
+// gemm_epilogue.py::tilings: a cluster of `cluster` CTAs, `rows` rows per
 // block, `cols` columns a CTA in `passes` column passes.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int ge_fwd(const void* a, const void* b, const void* gamma,

@@ -7,18 +7,23 @@ wrappers that users call are ``gemm_softmax.gemm_softmax`` and
 ``gemm_layernorm.gemm_layernorm`` / ``gemm_rmsnorm``; each counts its own
 launches.
 
-``tiling(N, dtype)`` says how a row of N columns is cut: the cluster of
-CTAs that shares a block of rows, the rows per block, the columns of a
-CTA's slice and the column passes a CTA makes over its slice.  It is the
-only copy of that rule: ``launch`` hands it to the source, which checks
-only that it has such an instance and that the slices cover N.
+A ``Tiling`` says how a row of N columns is cut: the cluster of CTAs that
+shares a block of rows, the rows per block, the columns of a CTA's slice
+and the column passes a CTA makes over its slice.  ``tilings(N, dtype)``
+lists every tiling the source runs at N (its ``valid_tiling`` states the
+same rule); ``tiling(N, dtype)``, the first of them, is the smallest
+cluster that holds the row.  Which one a call launches is the COMET
+plan's choice (``autotune.gemm_epilogue_tiling``, memoized here by
+``planned_tiling``), unless the caller names one; ``check`` refuses a
+tiling that is not in ``tilings``, on every device.
 
-The launch is the custom op ``repro_torch::gemm_epilogue`` (:func:`run`):
-on the CPU it takes the plain versions, on the card it launches the kernel
-or raises, and on fake tensors (``FakeTensorMode``) it builds and launches
-nothing.  The checks run on every device, so a call the kernel would
-refuse is refused on the CPU too.  ``mma_flops`` is the op's FLOP
-formula: the products the launch issues on its tiling.
+The launch is the custom op ``repro_torch::gemm_epilogue`` (:func:`run`),
+which carries the tiling's four numbers: on the CPU it takes the plain
+versions (the same math at every tiling), on the card it launches the
+kernel at that tiling or raises, and on fake tensors (``FakeTensorMode``)
+it builds and launches nothing.  The checks run on every device, so a
+call the kernel would refuse is refused on the CPU too.  ``mma_flops`` is
+the op's FLOP formula: the products the launch issues on its tiling.
 """
 from __future__ import annotations
 
@@ -35,13 +40,16 @@ from . import _build
 from ._op import aligned16, register_kernel_op
 from .ref import gemm_layernorm_ref, gemm_rmsnorm_ref, gemm_softmax_ref
 
-__all__ = ["EPILOGUES", "CLUSTER_SIZES", "TILING_BOUNDARIES", "Tiling",
-           "tiling", "instances", "boundary_shapes", "check",
-           "kernel_operand", "launch", "run", "smem_bytes",
-           "max_active_clusters", "tolerance", "mma_flops", "COUNTERS",
-           "launch_grid", "layout_smem_bytes"]
+__all__ = ["EPILOGUES", "ROUNDS", "CLUSTER_SIZES", "TILING_BOUNDARIES",
+           "Tiling", "tilings", "tiling", "planned_tiling", "instances",
+           "boundary_shapes", "check", "kernel_operand", "launch", "run",
+           "smem_bytes", "max_active_clusters", "tolerance", "pass_columns",
+           "mma_flops", "COUNTERS", "launch_grid", "layout_smem_bytes"]
 
 EPILOGUES = {"softmax": 0, "layernorm": 1, "rmsnorm": 2}
+# statistic rounds of an epilogue, each a DSMEM All-Reduce of the block's
+# per-row f32 partials over the cluster (``rounds`` in the source)
+ROUNDS = {"softmax": 2, "layernorm": 2, "rmsnorm": 1}
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # N on either side of every change of tiling (bf16 and f32), and the
 # widest row taken
@@ -51,6 +59,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _F32_SLICE = 1024              # most columns an f32 CTA holds
 _BF16_PASS = {128: 256, 64: 512}   # columns a bf16 pass holds, by rows
+# (rows, passes, fewest columns, most columns) of a CTA's slice, by
+# instance, in the order ``tilings`` lists them: a two-pass instance takes
+# only slices one pass cannot hold
+_INSTANCES = {
+    torch.float32: ((16, 1, 1, _F32_SLICE),),
+    torch.bfloat16: ((128, 1, 1, _BF16_PASS[128]),
+                     (64, 1, 1, _BF16_PASS[64]),
+                     (64, 2, _BF16_PASS[64] + 1, 2 * _BF16_PASS[64])),
+}
+_SLICE_ALIGN = {torch.float32: 16, torch.bfloat16: 8}
 
 # ge_fwd(a, b, gamma, beta, out, epilogue, dtype, M, N, K, lda, eps,
 # cluster, rows, columns, passes, stream): pointers and the stream as
@@ -83,46 +101,65 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def tiling(N: int, dtype: torch.dtype) -> Tiling:
-    """The kernel's tiling of a row of N columns in ``dtype``; ValueError
-    if no cluster of 16 CTAs holds it (N > 16384).
+@functools.lru_cache(maxsize=4096)
+def tilings(N: int, dtype: torch.dtype) -> Tuple[Tiling, ...]:
+    """Every tiling the source runs for a row of N columns in ``dtype``,
+    instance by instance, the clusters of 1, 2, 4, 8 and 16 CTAs in turn
+    within each: the slice is ceil(N / cluster) rounded up to 16 columns
+    (f32) or 8 (bf16), it must fit the instance, and every CTA of the
+    cluster must get columns.  The Python copy of ``valid_tiling`` in
+    ``csrc/gemm_epilogue.cu``; empty where no cluster holds the row.
 
-    f32 (CUDA cores): 16 rows, the smallest cluster whose slice,
-    ceil(N / cluster) rounded up to 16, fits 1024 columns.
-    bf16 (wgmma): the smallest cluster whose slice, rounded up to 8, fits
-    256 columns, at 128 rows (N <= 4096); else 16 CTAs at 64 rows, with
-    slices of up to 512 columns in one pass (N <= 8192) or up to 1024 in
-    two (N <= 16384).  B is read once per row block, so at least once per
-    64 rows, at every N it takes."""
+    f32 (CUDA cores): 16 rows, slices of up to 1024 columns.
+    bf16 (wgmma): 128 rows with slices of up to 256 columns in one pass;
+    64 rows with slices of up to 512 in one pass, or of 520 to 1024 in
+    two.  B is read once per row block, so at least once per 64 rows."""
     if dtype not in _DTYPES:
         raise TypeError(f"no tiling for {dtype}")
-    if dtype == torch.float32:
+    out = []
+    for rows, passes, lo, hi in _INSTANCES[dtype]:
         for cl in CLUSTER_SIZES:
-            ns = _round_up(math.ceil(N / cl), 16)
-            if ns <= _F32_SLICE:
-                return Tiling(cl, 16, ns, 1)
-        widest = _F32_SLICE
-    else:
-        for cl in CLUSTER_SIZES:
-            ns = _round_up(math.ceil(N / cl), 8)
-            if ns <= _BF16_PASS[128]:
-                return Tiling(cl, 128, ns, 1)
-        ns = _round_up(math.ceil(N / CLUSTER_SIZES[-1]), 8)
-        if ns <= 2 * _BF16_PASS[64]:
-            return Tiling(CLUSTER_SIZES[-1], 64, ns,
-                          1 if ns <= _BF16_PASS[64] else 2)
-        widest = 2 * _BF16_PASS[64]
-    raise ValueError(
-        f"N={N} does not fit {CLUSTER_SIZES[-1]} slices of {widest} "
-        f"columns: the fused kernel holds a row of C on one thread-block "
-        f"cluster")
+            ns = _round_up(math.ceil(N / cl), _SLICE_ALIGN[dtype])
+            if lo <= ns <= hi and (cl - 1) * ns < N:
+                out.append(Tiling(cl, rows, ns, passes))
+    return tuple(out)
+
+
+def tiling(N: int, dtype: torch.dtype) -> Tiling:
+    """The first of ``tilings(N, dtype)``: the smallest cluster whose
+    slices fit, at 128 rows in bf16 where one does (N <= 4096), else at
+    64 rows in one pass (N <= 8192), else in two; ValueError if no
+    cluster of 16 CTAs holds the row (N > 16384)."""
+    ts = tilings(N, dtype)
+    if not ts:
+        widest = _INSTANCES[dtype][-1][3]
+        raise ValueError(
+            f"N={N} does not fit {CLUSTER_SIZES[-1]} slices of {widest} "
+            f"columns: the fused kernel holds a row of C on one "
+            f"thread-block cluster")
+    return ts[0]
+
+
+@functools.lru_cache(maxsize=1024)
+def planned_tiling(M: int, N: int, K: int, dtype: torch.dtype) -> Tiling:
+    """The tiling the COMET plan chooses at (M, N, K) in ``dtype``
+    (``autotune.gemm_epilogue_tiling``), memoized per shape and dtype so a
+    repeated call looks nothing up; ValueError where the kernel takes no
+    tiling."""
+    from .autotune import gemm_epilogue_tiling
+    t = gemm_epilogue_tiling(M, N, K, dtype)
+    if t is None:
+        tiling(N, dtype)                 # raises with the reason
+    return t
 
 
 def instances(dtype: torch.dtype) -> Tuple[Tuple[int, int, int], ...]:
-    """(rows, passes, cluster) of every instance the tiling launches for
-    ``dtype``, over ``TILING_BOUNDARIES``."""
-    return tuple(sorted({(t.rows, t.passes, t.cluster) for t in
-                         (tiling(n, dtype) for n in TILING_BOUNDARIES)}))
+    """(rows, passes, cluster) of every instance and cluster size the
+    tilings at ``TILING_BOUNDARIES`` launch for ``dtype`` (every one the
+    source runs)."""
+    return tuple(sorted({(t.rows, t.passes, t.cluster)
+                         for n in TILING_BOUNDARIES
+                         for t in tilings(n, dtype)}))
 
 
 def tolerance(epilogue: str, dtype: torch.dtype,
@@ -168,8 +205,11 @@ def boundary_shapes(dtype: torch.dtype) -> Tuple[Tuple[int, int, int], ...]:
 
 def check(a: torch.Tensor, b: torch.Tensor,
           gamma: Optional[torch.Tensor] = None,
-          beta: Optional[torch.Tensor] = None) -> Tiling:
-    """Raise on anything the kernel does not take; returns the tiling."""
+          beta: Optional[torch.Tensor] = None,
+          tiling: Optional[Tiling] = None) -> Tiling:
+    """Raise on anything the kernel does not take; returns the tiling the
+    call launches: ``tiling`` if given (ValueError unless it is one of
+    ``tilings(N, dtype)``), else the plan's (``planned_tiling``)."""
     ts = [t for t in (a, b, gamma, beta) if t is not None]
     if any(t.device != a.device for t in ts):
         raise ValueError(f"a/b/gamma/beta on different devices: "
@@ -200,7 +240,14 @@ def check(a: torch.Tensor, b: torch.Tensor,
     if N % per16 or not aligned16(b):
         raise ValueError(f"b's rows must be 16-byte aligned: N={N} must be a "
                          f"multiple of {per16} for {a.dtype}")
-    t = tiling(N, a.dtype)
+    if tiling is None:
+        t = planned_tiling(M, N, K, a.dtype)
+    else:
+        t = Tiling(*tiling)
+        if t not in tilings(N, a.dtype):
+            runs = [tuple(x) for x in tilings(N, a.dtype)]
+            raise ValueError(f"the kernel does not run tiling {tuple(t)} "
+                             f"at N={N} in {a.dtype}; it runs {runs}")
     if -(-M // t.rows) > _MAX_GRID_Y:
         raise ValueError(f"M={M} exceeds {t.rows * _MAX_GRID_Y} rows "
                          f"(65535 blocks of {t.rows} at N={N})")
@@ -251,7 +298,8 @@ def launch(epilogue: str, a: torch.Tensor, b: torch.Tensor,
 
 
 # epilogue -> the user's wrapper whose ``.launches`` counts its launches
-# (gemm_softmax.py, gemm_layernorm.py register theirs)
+# and whose ``.last_tiling`` is its last call's tiling (gemm_softmax.py,
+# gemm_layernorm.py register theirs)
 COUNTERS = {}
 _PLAIN = {"softmax": lambda a, b, g, be, eps: gemm_softmax_ref(a, b),
           "layernorm": lambda a, b, g, be, eps: gemm_layernorm_ref(
@@ -262,44 +310,60 @@ _PLAIN = {"softmax": lambda a, b, g, be, eps: gemm_softmax_ref(a, b),
 
 def run(epilogue: str, a: torch.Tensor, b: torch.Tensor,
         gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
-        eps: float) -> torch.Tensor:
-    """``epilogue(a @ b)`` on inputs that :func:`check` passed, through the
-    op: the plain version on CPU tensors, the kernel on CUDA tensors (one
-    more launch on the wrapper's count), an empty result on fake ones."""
+        eps: float, t: Tiling) -> torch.Tensor:
+    """``epilogue(a @ b)`` on inputs that :func:`check` passed, at the
+    tiling ``t`` it returned, through the op: the plain version on CPU
+    tensors, the kernel at ``t`` on CUDA tensors (one more launch on the
+    wrapper's count), an empty result on fake ones.  The wrapper's
+    ``.last_tiling`` becomes ``t``."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; want one of "
                          f"{list(EPILOGUES)}")
-    return _op(a, b, gamma, beta, epilogue, float(eps))
+    COUNTERS[epilogue].last_tiling = t
+    return _op(a, b, gamma, beta, epilogue, float(eps), *t)
 
 
 def _run(a: torch.Tensor, b: torch.Tensor, gamma: Optional[torch.Tensor],
-         beta: Optional[torch.Tensor], epilogue: str,
-         eps: float) -> torch.Tensor:
+         beta: Optional[torch.Tensor], epilogue: str, eps: float,
+         cluster: int, rows: int, columns: int,
+         passes: int) -> torch.Tensor:
     if a.device.type == "cpu":
         return _PLAIN[epilogue](a, b, gamma, beta, eps)
-    out = launch(epilogue, a, b, gamma, beta, eps, tiling(b.shape[1],
-                                                          a.dtype))
+    out = launch(epilogue, a, b, gamma, beta, eps,
+                 Tiling(cluster, rows, columns, passes))
     COUNTERS[epilogue].launches += 1
     return out
 
 
-def _fake(a, b, gamma, beta, epilogue, eps):
+def _fake(a, b, gamma, beta, epilogue, eps, cluster, rows, columns, passes):
     return a.new_empty((a.shape[0], b.shape[1]))
 
 
-def mma_flops(M: int, N: int, K: int, dtype: torch.dtype) -> int:
-    """The products one launch issues: every block of ``rows`` rows of C
-    on a cluster of CTAs, each over its slice of ``columns`` columns and
-    all of K in steps of BK (bf16 32, or 16 with two column passes; f32
-    8), padding included."""
-    t = tiling(N, dtype)
+def pass_columns(t: Tiling, dtype: torch.dtype) -> int:
+    """Columns of C a CTA computes at tiling ``t``: in f32 its slice (its
+    threads past the slice idle); in bf16 every pass's whole width, 256
+    columns at 128 rows and 512 at 64 (each warpgroup issues wgmma
+    m64n256 over its 256 whatever the slice holds; the columns past the
+    slice are computed and dropped)."""
+    if dtype == torch.float32:
+        return t.columns
+    return t.passes * _BF16_PASS[t.rows]
+
+
+def mma_flops(M: int, N: int, K: int, dtype: torch.dtype, t: Tiling) -> int:
+    """The products one launch at tiling ``t`` issues: every block of
+    ``rows`` rows of C on a cluster of CTAs, each over its
+    ``pass_columns`` and all of K in steps of BK (bf16 32, or 16 with two
+    column passes; f32 8), padding included."""
     bk = 8 if dtype == torch.float32 else (16 if t.passes == 2 else 32)
-    return (2 * -(-M // t.rows) * t.rows * t.cluster * t.columns
+    return (2 * -(-M // t.rows) * t.rows * t.cluster * pass_columns(t, dtype)
             * -(-K // bk) * bk)
 
 
-def _flops(a, b, gamma, beta, epilogue, eps, out_val=None):
-    return mma_flops(a.shape[0], b.shape[1], a.shape[1], a.dtype)
+def _flops(a, b, gamma, beta, epilogue, eps, cluster, rows, columns, passes,
+           out_val=None):
+    return mma_flops(a.shape[0], b.shape[1], a.shape[1], a.dtype,
+                     Tiling(cluster, rows, columns, passes))
 
 
 _op = register_kernel_op("gemm_epilogue", _run, _fake, _flops)

@@ -5,7 +5,8 @@ the model code calls, and the paper's fused GEMM epilogues
 ``fused_gemm_softmax``, ``fused_gemm_layernorm`` and ``fused_gemm_rmsnorm``,
 which no model calls: their entry point is the kernel benchmark
 (``repro_torch.launch.kernel_bench``).  Each takes its kernel with
-``use_kernel=True``, else the plain version.
+``use_kernel=True``, else the plain version; the fused GEMMs' kernel runs
+at ``tiling`` (default the COMET plan's, ``gemm_epilogue.planned_tiling``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention
+from .gemm_epilogue import Tiling
 from .gemm_layernorm import gemm_layernorm, gemm_rmsnorm
 from .gemm_softmax import gemm_softmax
 from .ssd import expand_groups, ssd_scan
@@ -37,30 +39,33 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def fused_gemm_softmax(a: torch.Tensor, b: torch.Tensor, *,
-                       use_kernel: bool = False) -> torch.Tensor:
-    """softmax(a @ b, -1): the fused kernel or the plain version."""
+                       use_kernel: bool = False,
+                       tiling: Optional[Tiling] = None) -> torch.Tensor:
+    """softmax(a @ b, -1): the fused kernel (at ``tiling``) or the plain
+    version."""
     if use_kernel:
-        return gemm_softmax(a, b)
+        return gemm_softmax(a, b, tiling=tiling)
     return ref.gemm_softmax_ref(a, b)
 
 
 def fused_gemm_layernorm(a: torch.Tensor, b: torch.Tensor,
                          gamma: torch.Tensor, beta: torch.Tensor, *,
-                         eps: float = 1e-6, use_kernel: bool = False
-                         ) -> torch.Tensor:
-    """LayerNorm(a @ b) * gamma + beta: the fused kernel or the plain
-    version."""
+                         eps: float = 1e-6, use_kernel: bool = False,
+                         tiling: Optional[Tiling] = None) -> torch.Tensor:
+    """LayerNorm(a @ b) * gamma + beta: the fused kernel (at ``tiling``)
+    or the plain version."""
     if use_kernel:
-        return gemm_layernorm(a, b, gamma, beta, eps=eps)
+        return gemm_layernorm(a, b, gamma, beta, eps=eps, tiling=tiling)
     return ref.gemm_layernorm_ref(a, b, gamma, beta, eps=eps)
 
 
 def fused_gemm_rmsnorm(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor,
-                       *, eps: float = 1e-6, use_kernel: bool = False
-                       ) -> torch.Tensor:
-    """RMSNorm(a @ b) * gamma: the fused kernel or the plain version."""
+                       *, eps: float = 1e-6, use_kernel: bool = False,
+                       tiling: Optional[Tiling] = None) -> torch.Tensor:
+    """RMSNorm(a @ b) * gamma: the fused kernel (at ``tiling``) or the
+    plain version."""
     if use_kernel:
-        return gemm_rmsnorm(a, b, gamma, eps=eps)
+        return gemm_rmsnorm(a, b, gamma, eps=eps, tiling=tiling)
     return ref.gemm_rmsnorm_ref(a, b, gamma, eps=eps)
 
 

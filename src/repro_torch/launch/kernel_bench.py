@@ -27,9 +27,10 @@ there is one (a yardstick the port never calls):
   buffer modes; library ``torch.matmul``.
 
 Each line gives the kernel's ms, the bound ms and what sets it, the plain
-ms, the library ms, the kernel-to-library ratio and the kernel's fixed
-tile (FlashAttention: ``flash_attention.tiling``; the fused GEMMs:
-``gemm_epilogue.tiling`` of N; the plan-chosen tile is later work).
+ms, the library ms, the kernel-to-library ratio and the kernel's tile
+(FlashAttention: its fixed ``flash_attention.tiling``; the fused GEMMs:
+the tiling the wrapper launched, the COMET plan's,
+``gemm_epilogue.planned_tiling``).
 FlashAttention, the SSD scan, the fused GEMMs and the streamed GEMM also
 get device-only times from ``torch.profiler`` (``device_ms``: the kernel;
 ``library_device_ms``: every kernel of the library call, summed), which
@@ -40,8 +41,14 @@ the CPU (``device="cpu"``, for tests at small shapes) the wrappers take
 their plain versions and no time is measured: every time is ``None``
 ("not measured").
 
+``--gemm-tilings`` (:func:`gemm_tiling_sweep`) times each fused GEMM entry
+at every tiling the kernel runs (``gemm_epilogue.tilings``) at
+``PAPER_GEMM_SHAPES``, beside the plan's choice
+(``autotune.gemm_epilogue_tiling``), each candidate's modelled ms, the
+measured-best tiling and the plan's rank among the candidates.
+
     PYTHONPATH=src python -m repro_torch.launch.kernel_bench [--json PATH]
-        [--attention-sweep | --ssd-sweep]
+        [--attention-sweep | --ssd-sweep | --gemm-tilings]
 
 The timing and bound helpers here are the ones ``chip_smoke.py`` uses.
 """
@@ -61,7 +68,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm_epilogue as ge
-from repro_torch.kernels import ops, ssd
+from repro_torch.kernels import autotune, ops, ssd
 from repro_torch.kernels.allgather_gemm import (CLUSTER, TILES,
                                                 streamed_gemm, tolerance)
 from repro_torch.kernels.ref import (attention_ref, ssd_chunked_ref,
@@ -78,7 +85,8 @@ __all__ = ["PEAK_FLOPS", "BYTES_PER_S", "PAPER_GEMM_SHAPES",
            "streamed_l2_bytes", "bench_attention",
            "bench_ssd", "ssd_inputs",
            "bench_gemm_epilogue", "bench_streamed_gemm", "run_all",
-           "attention_sweep", "ssd_sweep", "launch_events", "main"]
+           "attention_sweep", "ssd_sweep", "gemm_candidates",
+           "gemm_tiling_sweep", "launch_events", "main"]
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet, dense): bf16 on the
 # tensor cores; f32 on the CUDA cores (the kernels' f32 paths use no TF32)
@@ -258,24 +266,32 @@ def gemm_flops(M: int, N: int, K: int) -> int:
 
 
 def device_ms(fn: Callable[[], object], iters: int,
-              match: Optional[Tuple[str, ...]] = None) -> float:
+              match: Optional[Tuple[str, ...]] = None,
+              launches: Optional[int] = None) -> Optional[float]:
     """Device milliseconds of ``fn`` per call: the CUDA kernels of
     ``iters`` back-to-back calls under ``torch.profiler``, summed and
     divided by ``iters``; with ``match``, only the kernels whose name
     holds one of its strings.  Unlike ``cuda_ms`` this leaves out the
-    host's cost of issuing each call."""
+    host's cost of issuing each call.  With ``launches`` (the matching
+    kernels one call launches), a trace holding fewer than ``iters`` x
+    ``launches`` of them (the profiler lost events) is taken again, up to
+    3 times in all, then the result is None ("not measured")."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3 if launches else 1):
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.name != "Command Buffer Full"
-             and (match is None or any(m in e.name for m in match)))
-    return us / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name != "Command Buffer Full"
+                   and (match is None or any(m in e.name for m in match))]
+        if not launches or len(kernels) >= iters * launches:
+            return sum(e.time_range.elapsed_us() for e in kernels) \
+                / 1e3 / iters
+    return None
 
 
 def launch_events(fn: Callable[[], object],
@@ -316,13 +332,12 @@ def launch_events(fn: Callable[[], object],
     return out
 
 
-def gemm_l2_bytes(M: int, N: int, K: int, dtype: torch.dtype
-                  ) -> Tuple[int, int]:
-    """(B, A) bytes the fused GEMM epilogue reads from L2 at (M, N, K):
-    every block of ``gemm_epilogue.tiling(N, dtype).rows`` rows reads all
-    of B once, and each CTA of its cluster reads the block's rows of A
-    once a column pass."""
-    t = ge.tiling(N, dtype)
+def gemm_l2_bytes(M: int, N: int, K: int, dtype: torch.dtype,
+                  t: ge.Tiling) -> Tuple[int, int]:
+    """(B, A) bytes the fused GEMM epilogue reads from L2 at (M, N, K) on
+    tiling ``t``: every block of ``t.rows`` rows reads all of B once, and
+    each CTA of its cluster reads the block's rows of A once a column
+    pass."""
     e = torch.empty((), dtype=dtype).element_size()
     return -(-M // t.rows) * K * N * e, M * K * e * t.cluster * t.passes
 
@@ -485,6 +500,22 @@ def ssd_inputs(gen: torch.Generator, shape: Dict, dtype: torch.dtype,
     return x, dA, Bm, Cm
 
 
+def _fused(entry: str, a: torch.Tensor, b: torch.Tensor,
+           gamma: torch.Tensor, beta: torch.Tensor) -> Callable:
+    """The ``ops`` entry of fused GEMM ``entry`` on these inputs, as a
+    function of (use_kernel, tiling=None)."""
+    if entry == "gemm_softmax":
+        return lambda k, t=None: ops.fused_gemm_softmax(
+            a, b, use_kernel=k, tiling=t)
+    if entry == "gemm_layernorm":
+        return lambda k, t=None: ops.fused_gemm_layernorm(
+            a, b, gamma, beta, use_kernel=k, tiling=t)
+    if entry == "gemm_rmsnorm":
+        return lambda k, t=None: ops.fused_gemm_rmsnorm(
+            a, b, gamma, use_kernel=k, tiling=t)
+    raise ValueError(f"unknown entry {entry!r}; want one of {GEMM_ENTRIES}")
+
+
 def bench_gemm_epilogue(entry: str, a: torch.Tensor, b: torch.Tensor,
                         gamma: torch.Tensor, beta: torch.Tensor, *,
                         calls: Optional[Counter] = None) -> Dict:
@@ -494,41 +525,149 @@ def bench_gemm_epilogue(entry: str, a: torch.Tensor, b: torch.Tensor,
     M, K = a.shape
     N = b.shape[1]
     g_lib, b_lib = gamma.to(a.dtype), beta.to(a.dtype)
+    fused = _fused(entry, a, b, gamma, beta)
     if entry == "gemm_softmax":
-        fused = lambda k: ops.fused_gemm_softmax(  # noqa: E731
-            a, b, use_kernel=k)
         library = lambda: torch.softmax(a @ b, dim=-1)  # noqa: E731
         lib_name, vecs = "torch.matmul + torch.softmax", ()
     elif entry == "gemm_layernorm":
-        fused = lambda k: ops.fused_gemm_layernorm(  # noqa: E731
-            a, b, gamma, beta, use_kernel=k)
         library = lambda: F.layer_norm(  # noqa: E731
             a @ b, (N,), g_lib, b_lib, 1e-6)
         lib_name, vecs = "torch.matmul + F.layer_norm", (gamma, beta)
-    elif entry == "gemm_rmsnorm":
-        fused = lambda k: ops.fused_gemm_rmsnorm(  # noqa: E731
-            a, b, gamma, use_kernel=k)
+    else:
         library = lambda: F.rms_norm(a @ b, (N,), g_lib, 1e-6)  # noqa: E731
         lib_name, vecs = "torch.matmul + F.rms_norm", (gamma,)
-    else:
-        raise ValueError(f"unknown entry {entry!r}; want one of "
-                         f"{GEMM_ENTRIES}")
     kernel = _counted(calls, entry, lambda: fused(True))
     plain = lambda: fused(False)  # noqa: E731
-    t = ge.tiling(N, a.dtype)
+    wrapper = ge.COUNTERS[entry[len("gemm_"):]]
+    out, want = kernel(), plain()
+    t = wrapper.last_tiling                  # the tiling it launched
     rec = {"name": entry, "shape": {"M": M, "N": N, "K": K,
                                     "dtype": str(a.dtype)[6:]},
-           "cluster": t.cluster,
-           "tile": f"{t.rows} rows x {t.columns} columns a CTA in "
-                   f"{t.passes} pass{'es' if t.passes > 1 else ''}, "
-                   f"cluster {t.cluster}",
-           "library": lib_name}
-    rec["l2_bytes_b"], rec["l2_bytes_a"] = gemm_l2_bytes(M, N, K, a.dtype)
-    out, want = kernel(), plain()
+           "cluster": t.cluster, "tiling": list(t),
+           "plan_tiling": list(autotune.gemm_epilogue_tiling(M, N, K,
+                                                             a.dtype)),
+           "tile": _tile_text(t), "library": lib_name}
+    rec["l2_bytes_b"], rec["l2_bytes_a"] = gemm_l2_bytes(M, N, K, a.dtype,
+                                                         t)
     rec.update(_timed(kernel, plain, library, a.device, 20, 3,
                       kernel_match=GEMM_KERNEL_NAMES))
     return _finish(rec, out, want, gemm_flops(M, N, K),
                    nbytes(a, b, *vecs) + M * N * a.element_size(), a.dtype)
+
+
+def _tile_text(t: ge.Tiling) -> str:
+    return (f"{t.rows} rows x {t.columns} columns a CTA in {t.passes} "
+            f"pass{'es' if t.passes > 1 else ''}, cluster {t.cluster}")
+
+
+def gemm_candidates(M: int, N: int, K: int, dtype: torch.dtype
+                    ) -> List[Dict]:
+    """Every tiling the kernel runs at (M, N, K) with the latency the
+    cost model gives it in its plan job (``autotune.
+    gemm_epilogue_plan_job``): the least over its schedules and overlaps,
+    by ``evaluate_mapping``, a fitting spec before one that overflows
+    (``model_ms``, ``fits``), in ``gemm_epilogue.tilings`` order."""
+    from repro_torch.core.ir import evaluate_mapping
+    out = {}
+    for co, arch, kw, ts in autotune.gemm_epilogue_plan_job(M, N, K, dtype):
+        specs = kw["candidate_list"]
+        for i, t in enumerate(ts):
+            best = min((not r.valid, r.latency) for r in (
+                evaluate_mapping(co, arch, sp)
+                for sp in specs[i::len(ts)]))
+            out[t] = {"tiling": list(t), "model_ms": 1e3 * best[1],
+                      "fits": not best[0]}
+    return [out[t] for t in ge.tilings(N, dtype)]
+
+
+def gemm_tiling_sweep(device: Optional[str] = None,
+                      shapes: Sequence[Tuple[int, int, int]]
+                      = tuple(PAPER_GEMM_SHAPES),
+                      dtype: torch.dtype = torch.bfloat16,
+                      iters: int = 20) -> Dict:
+    """Each fused GEMM entry at every tiling of ``gemm_epilogue.tilings``
+    at each (M, N, K) of ``shapes``, on data from seed 0, printing a line
+    a shape and entry: the plan's tiling and modelled ms, the tiling a
+    default call launched, each candidate's modelled ms, error against the
+    plain version (``within_tol``: ``gemm_epilogue.tolerance``), CUDA-event
+    ms and device ms, the measured-best tiling (by device ms) and the
+    plan's rank among the candidates (1: the fastest).  Returns {"device",
+    "records", "calls"} as ``run_all``; off the card, or where the
+    profiler lost a candidate's events three times, there is no rank."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    calls: Counter = Counter()
+    records = []
+    for M, N, K in shapes:
+        a = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+        b = (torch.randn(K, N, generator=gen, device=dev)
+             * K ** -0.5).to(dtype)
+        gamma = 1 + 0.1 * torch.randn(N, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(N, generator=gen, device=dev)
+        plan = autotune.gemm_epilogue_tiling(M, N, K, dtype)
+        cands = gemm_candidates(M, N, K, dtype)
+        for entry in GEMM_ENTRIES:
+            fn = _fused(entry, a, b, gamma, beta)
+            wrapper = ge.COUNTERS[entry[len("gemm_"):]]
+            want = fn(False).float()
+            tol = ge.tolerance(entry[len("gemm_"):], dtype,
+                               float(want.abs().max()))
+            _counted(calls, entry, functools.partial(fn, True))()
+            rec = {"name": entry, "shape": {"M": M, "N": N, "K": K,
+                                            "dtype": str(dtype)[6:]},
+                   "plan": list(plan), "default_tiling":
+                   list(wrapper.last_tiling), "tol": tol, "candidates": []}
+            for c in cands:
+                t = ge.Tiling(*c["tiling"])
+                kernel = _counted(calls, entry,
+                                  functools.partial(fn, True, t))
+                err = float((kernel().float() - want).abs().max())
+                c = dict(c, max_abs_err=err, within_tol=err <= tol)
+                if dev.type == "cuda":
+                    c["ms"] = cuda_ms(kernel, iters)
+                    c["device_ms"] = device_ms(kernel, iters,
+                                               GEMM_KERNEL_NAMES, 1)
+                else:
+                    c["ms"] = c["device_ms"] = None
+                rec["candidates"].append(c)
+            plan_c = next(c for c in rec["candidates"]
+                          if c["tiling"] == rec["plan"])
+            rec["plan_model_ms"] = plan_c["model_ms"]
+            if all(c["device_ms"] for c in rec["candidates"]):
+                order = sorted(rec["candidates"],
+                               key=lambda c: c["device_ms"])
+                rec["best"] = order[0]["tiling"]
+                rec["plan_rank"] = 1 + order.index(plan_c)
+                rec["plan_to_best"] = (plan_c["device_ms"]
+                                       / order[0]["device_ms"])
+            else:
+                rec["best"] = rec["plan_rank"] = rec["plan_to_best"] = None
+            records.append(rec)
+            print(_sweep_line(rec), flush=True)
+        del a, b
+    return {"device": torch.cuda.get_device_name(dev)
+            if dev.type == "cuda" else "cpu",
+            "records": records, "calls": dict(calls)}
+
+
+def _sweep_line(rec: Dict) -> str:
+    def f(x):
+        return "not measured" if x is None else f"{x:.4g}"
+    shape = ", ".join(f"{k} {v}" for k, v in rec["shape"].items())
+    cands = "; ".join(
+        f"{tuple(c['tiling'])} model {c['model_ms']:.4g}"
+        f"{'' if c['fits'] else ' (overflows)'} ms {f(c['ms'])} device "
+        f"{f(c['device_ms'])} err {c['max_abs_err']:.2e}"
+        for c in rec["candidates"])
+    ratio = rec["plan_to_best"]
+    return (f"{rec['name']:16s} {shape}: plan {tuple(rec['plan'])} "
+            f"(modelled {rec['plan_model_ms']:.4g} ms; default launch "
+            f"{tuple(rec['default_tiling'])}), rank {rec['plan_rank']} of "
+            f"{len(rec['candidates'])}, best {rec['best']}, plan/best "
+            f"{'n/a' if ratio is None else f'{ratio:.3f}'}  [{cands}]")
 
 
 def bench_streamed_gemm(x: torch.Tensor, w: torch.Tensor, *, chunks: int,
@@ -699,9 +838,14 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     sweep.add_argument("--ssd-sweep", action="store_true",
                        help="time the SSD scan alone at SSD_SHAPES (both "
                             "input forms) instead of every kernel")
+    sweep.add_argument("--gemm-tilings", action="store_true",
+                       help="time the fused GEMMs at every tiling the "
+                            "kernel runs at PAPER_GEMM_SHAPES, beside the "
+                            "plan's choice, instead of every kernel")
     args = ap.parse_args(argv)
     out = (attention_sweep if args.attention_sweep else ssd_sweep
-           if args.ssd_sweep else run_all)(args.device)
+           if args.ssd_sweep else gemm_tiling_sweep if args.gemm_tilings
+           else run_all)(args.device)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

@@ -54,6 +54,19 @@ def test_kernel_arm_holds_on_every_paper_shape():
     # the SSD check names the product the kernel issues twice (C.18)
     ssd = [c for c in flops if c.detail["family"] == "ssd"]
     assert ssd and all("C.18" in c.detail["note"] for c in ssd)
+    # the fused GEMMs: the launch's four tiling numbers are the plan's, and
+    # the plan's DSMEM All-Reduce runs over the launch's cluster
+    n_gemm = 2 * len(PAPER_KERNEL_SHAPES["gemm_epilogue_blocks"])
+    tilings = [c for c in checks if c.kind == "plan_tiling"
+               and c.detail["family"].startswith("gemm_")]
+    assert len(tilings) == n_gemm and all(
+        len(c.detail["launched"]) == 4 for c in tilings)
+    dsmem = [c for c in checks if c.kind == "dsmem_allreduce"]
+    assert len(dsmem) == n_gemm
+    for c in dsmem:
+        assert c.detail["participants"] == [c.detail["blocks"][0]]
+        assert c.traced == 2 * c.detail["blocks"][1] * 4 \
+            * c.detail["blocks"][0] and c.detail["note"] == C.DSMEM_NOTE
 
 
 @pytest.mark.parametrize("world,shape", [(8, (2, 4)), (8, (4, 2)),
@@ -111,6 +124,49 @@ def test_broken_tracer_is_flagged():
     msg = bad[0].describe()
     assert "MISMATCH" in msg and "op_sig=" in msg and "predicted=" in msg
     assert all(c.ok for c in checks if c.name.startswith("gemm_layernorm"))
+
+
+def test_a_launch_off_the_plans_tiling_is_flagged():
+    """A wrapper that launches another tiling than the plan's fails the
+    plan_tiling check, which compares all four numbers."""
+    from repro_torch.kernels import gemm_epilogue as ge
+    from repro_torch.kernels.autotune import gemm_epilogue_tiling
+    from repro_torch.kernels.gemm_softmax import gemm_softmax
+    plan = gemm_epilogue_tiling(512, 4096, 128)
+    # same rows and columns as the plan's, another cluster or pass count
+    other = next(t for t in ge.tilings(4096, torch.bfloat16) if t != plan)
+
+    def off_plan(co, blocks):
+        M, K, N = co.dim_sizes["M"], co.dim_sizes["K"], co.dim_sizes["N"]
+        with fake_mode():
+            a = torch.empty((M, K), dtype=torch.bfloat16, device="cuda")
+            b = torch.empty((K, N), dtype=torch.bfloat16, device="cuda")
+            return trace_counts(lambda: gemm_softmax(a, b, tiling=other))
+    checks = C.kernel_contract_checks(
+        shapes={"gemm_epilogue_blocks": [(512, 4096, 128)]},
+        tracers={"gemm_softmax": off_plan})
+    bad = [c for c in checks if not c.ok]
+    assert all(c.name.startswith("gemm_softmax") for c in bad)
+    tiling = [c for c in bad if c.kind == "plan_tiling"]
+    assert len(tiling) == 1
+    assert tiling[0].detail["launched"] == list(other)
+    assert tiling[0].detail["blocks"] == list(plan)
+
+
+def test_dsmem_participants_off_the_cluster_are_flagged(monkeypatch):
+    """The DSMEM check fails when the plan's All-Reduce runs over other
+    participants than the launch's cluster."""
+    import dataclasses
+    real = C._plan_allreduces
+
+    def halved(co, arch, spec):
+        return [dataclasses.replace(n, participants=n.participants // 2)
+                for n in real(co, arch, spec)]
+    monkeypatch.setattr(C, "_plan_allreduces", halved)
+    checks = C.kernel_contract_checks(
+        shapes={"gemm_epilogue_blocks": [(512, 4096, 128)]})
+    bad = [c for c in checks if not c.ok]
+    assert {c.kind for c in bad} == {"dsmem_allreduce"} and len(bad) == 2
 
 
 def test_wrong_schedule_is_flagged():

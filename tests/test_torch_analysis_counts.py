@@ -19,6 +19,7 @@ from torch.utils.flop_counter import flop_registry
 from repro.analysis.jaxpr import _dot_flops, structural_flops
 from repro_torch.analysis.counts import (TraceCounts, fake_mode,
                                          trace_counts)
+from repro_torch.kernels import autotune
 from repro_torch.kernels.gemm_layernorm import gemm_layernorm
 from repro_torch.kernels.gemm_softmax import gemm_softmax
 from repro_torch.kernels.ref import (attention_ref, gemm_softmax_ref,
@@ -158,7 +159,17 @@ def test_fake_ssd_and_gemms_count_their_formulas(monkeypatch):
     # four chunks of 64-row tiles, S o L's product twice (hi and lo)
     assert ssd.mma_flops(8, 256, 64, 128, 64, bf) == 8 * 4 * 2 * 64 * (
         64 * 128 + 2 * 64 * 64 + 64 * 128 + 128 * 64)
-    assert t_sm.flops == t_ln.flops == ge.mma_flops(300, 4096, 256, bf) \
+    # the wrappers launch the plan's tiling, (16, 64, 256, 1): 5 blocks
+    # of 64 rows, each CTA over a pass of 512 columns (its 256 and 256
+    # computed and dropped); the first tiling's blocks of 128 rows would
+    # issue 384 rows over 16 x 256 columns
+    plan = autotune.gemm_epilogue_tiling(300, 4096, 256, bf)
+    assert gemm_softmax.last_tiling == gemm_layernorm.last_tiling == plan \
+        == (16, 64, 256, 1)
+    assert t_sm.flops == t_ln.flops == ge.mma_flops(300, 4096, 256, bf,
+                                                    plan) \
+        == 2 * 320 * 16 * 512 * 256
+    assert ge.mma_flops(300, 4096, 256, bf, ge.tiling(4096, bf)) \
         == 2 * 384 * 4096 * 256
     assert t_sg.flops == ag.mma_flops(300, 512, 256, 4, bf)
     assert _launches() == before

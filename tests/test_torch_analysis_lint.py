@@ -137,6 +137,13 @@ def test_smem_cases_cover_every_kernel_at_its_instances():
     ge = cases["gemm_epilogue"][2]
     assert {(r, p) for dt, r, p in ge if dt == torch.bfloat16} == \
         {(128, 1), (64, 1), (64, 2)}
+    # every instance a plan may launch at the paper shapes
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import gemm_epilogue as gem
+    for _, n, _ in autotune.PAPER_KERNEL_SHAPES["gemm_epilogue_blocks"]:
+        for dt in (torch.bfloat16, torch.float32):
+            assert {(dt, t.rows, t.passes) for t in gem.tilings(n, dt)} \
+                <= set(ge)
     worst = max(fn(*i) for _, fn, insts in cases.values() for i in insts)
     assert worst <= tlint.SMEM_OPTIN
 

@@ -237,16 +237,28 @@ def test_search_many_process_pool_runs_spawned_workers():
 # ------------------------------------------------------------- the card
 
 
-def test_h100_peak_and_bandwidth():
+@pytest.mark.parametrize("mesh", [None, (4, 4)])
+def test_h100_peak_and_bandwidth(mesh):
     """The kernel arch is the whole card: dense bf16 989.4 TFLOP/s, HBM3
-    at 3.35 TB/s, one CTA's 227 KB of shared memory as the GB level."""
-    a = thw.h100()
-    assert a.peak_flops_total() == pytest.approx(989.4e12, rel=1e-3)
-    assert a.dram.bandwidth == 3.35e12
+    at 3.35 TB/s, one CTA's 227 KB of shared memory as the GB level.  A
+    cluster mesh is 16 SMs of it: 16 / 132 of the peak and of HBM3, the
+    same GB a node, 16 nodes on a DSMEM mesh."""
+    if mesh is None:
+        a = thw.h100()
+        assert a.peak_flops_total() == pytest.approx(989.4e12, rel=1e-3)
+        assert a.dram.bandwidth == 3.35e12
+        assert a.gb.size_bytes == 227 * 1024
+        assert a.cluster_noc.mesh == a.core_noc.mesh == (1, 1)
+        assert a.total_cores == 1
+        assert thw.PRESETS["h100"] is thw.h100 and a.name == "h100"
+        return
+    a = thw.h100(mesh=mesh)
+    assert a.peak_flops_total() == pytest.approx(989.4e12 * 16 / 132,
+                                                 rel=1e-3)
+    assert a.dram.bandwidth == pytest.approx(3.35e12 * 16 / 132)
     assert a.gb.size_bytes == 227 * 1024
-    assert a.cluster_noc.mesh == a.core_noc.mesh == (1, 1)
-    assert a.total_cores == 1
-    assert thw.PRESETS["h100"] is thw.h100 and a.name == "h100"
+    assert a.cluster_noc.mesh == mesh and a.core_noc.mesh == (1, 1)
+    assert a.total_cores == a.num_clusters == 16 and a.name == "h100"
 
 
 @pytest.mark.parametrize("name,args", [("gemm_softmax", (512, 1024, 128)),

@@ -27,6 +27,7 @@ paper tables' sweeps and Fig. 6's ``parallel_map`` run serially.
 import dataclasses
 import functools
 import importlib.util
+import itertools
 import json
 from pathlib import Path
 
@@ -174,16 +175,23 @@ def test_export_plans_exports_the_same_jobs(tmp_path, monkeypatch, jpaper,
         out[name] = (rec, bundle)
     capsys.readouterr()
     (jrec, jb), (trec, tb) = out["jax"], out["port"]
-    assert trec["plans"] == jrec["plans"] == len(tb["plans"]) > 0
-    assert trec["solved"] == jrec["solved"]
-    # the same jobs: one a shape of the same kernel-shape table, the same
-    # compound op kinds in the same order; solved on another card (and the
-    # SSD chunks and tiles the card's kernels take)
     from repro.kernels import autotune as jat
     from repro_torch.kernels import autotune as tat
+    tjobs, jjobs = tat.plan_jobs(), jat.plan_jobs()
+    assert trec["plans"] == len(tb["plans"]) == len(tjobs) > 0
+    assert jrec["plans"] == len(jb["plans"]) == len(jjobs) > 0
+    # a cold store solves every job in both packages
+    assert (trec["solved"], jrec["solved"]) == (len(tjobs), len(jjobs))
+    # the same kernel-shape table and compound op kinds in the same order;
+    # the port plans the fused GEMMs with one job a cluster size of the
+    # card (the JAX package: one a shape), solved on another card (and the
+    # SSD chunks and tiles the card's kernels take)
+    gemm = tat.PAPER_KERNEL_SHAPES["gemm_epilogue_blocks"]
     assert tat.PAPER_KERNEL_SHAPES == jat.PAPER_KERNEL_SHAPES
-    assert [co.name for co, _, _ in tat.plan_jobs()] == \
-        [co.name for co, _, _ in jat.plan_jobs()]
+    assert len(tjobs) == len(jjobs) - len(gemm) + sum(
+        len(tat.gemm_epilogue_plan_job(*s)) for s in gemm)
+    assert [k for k, _ in itertools.groupby(co.name for co, _, _ in tjobs)] \
+        == [k for k, _ in itertools.groupby(co.name for co, _, _ in jjobs)]
     assert {e["key"][0] for e in tb["plans"]}.isdisjoint(
         {e["key"][0] for e in jb["plans"]})
 

@@ -29,6 +29,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import autotune
 from repro_torch.kernels import gemm_epilogue as ge
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -299,11 +300,17 @@ def test_bound_at_the_paper_shapes():
     assert (1, 16384, 128) in kb.PAPER_GEMM_SHAPES \
         and len(kb.PAPER_GEMM_SHAPES) == 8
     # B from L2 once per block of 64 rows (two passes over A) at the
-    # largest shape, once per 128 rows at (4096, 4096, 4096)
-    b, a = kb.gemm_l2_bytes(M, N, K, torch.bfloat16)
+    # largest shape, once per 128 rows at (4096, 4096, 4096) on its first
+    # tiling, once per 64 rows on its 4-CTA two-pass tiling
+    b, a = kb.gemm_l2_bytes(M, N, K, torch.bfloat16,
+                            ge.Tiling(16, 64, 1024, 2))
     assert b == 64 * K * N * 2 and a == 16 * 2 * M * K * 2
-    b, a = kb.gemm_l2_bytes(4096, 4096, 4096, torch.bfloat16)
+    b, a = kb.gemm_l2_bytes(4096, 4096, 4096, torch.bfloat16,
+                            ge.Tiling(16, 128, 256, 1))
     assert b == 32 * 4096 * 4096 * 2 and a == 16 * 4096 * 4096 * 2
+    b, a = kb.gemm_l2_bytes(4096, 4096, 4096, torch.bfloat16,
+                            ge.Tiling(4, 64, 1024, 2))
+    assert b == 64 * 4096 * 4096 * 2 and a == 4 * 2 * 4096 * 4096 * 2
 
 
 def test_kernel_bench_runs_on_the_cpu():
@@ -326,9 +333,17 @@ def test_kernel_bench_runs_on_the_cpu():
         assert r["ms"] is None and r["plain_ms"] is None \
             and r["library_ms"] is None and r["to_library"] is None
         assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
-    assert [r["cluster"] for r in recs[2:-1]] == [1] * 3 + [8] * 3
-    assert recs[2]["tile"] == "128 rows x 64 columns a CTA in 1 pass, " \
-        "cluster 1"
+    # the fused GEMMs launch the plan's tiling, which the record names
+    for r, (M, N, K) in zip(recs[2:-1], [s for s in shapes for _ in
+                                         range(3)]):
+        t = autotune.gemm_epilogue_tiling(M, N, K, torch.bfloat16)
+        assert r["tiling"] == r["plan_tiling"] == list(t)
+        assert r["cluster"] == t.cluster
+        assert r["tile"] == f"{t.rows} rows x {t.columns} columns a CTA " \
+            f"in {t.passes} pass{'es' if t.passes > 1 else ''}, cluster " \
+            f"{t.cluster}"
+        assert (r["l2_bytes_b"], r["l2_bytes_a"]) == kb.gemm_l2_bytes(
+            M, N, K, torch.bfloat16, t)
     for r in recs[2:-1]:   # device-only times: not measured on the CPU
         assert r["device_ms"] is None and r["library_device_ms"] is None
     assert recs[-1]["ms_buffers1"] is None and recs[-1]["within_tol"]

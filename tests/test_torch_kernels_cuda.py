@@ -495,18 +495,25 @@ def _gemm_inputs(gen, M, K, N, dtype, kind="normal"):
     return a, b, rand(N), rand(N)
 
 
-def _gemm_check(kernel, a, b, g, be):
+def _gemm_check(kernel, a, b, g, be, tiling=None):
+    """The wrapper at ``tiling`` (default: the plan's, which it must
+    record) against its plain version."""
     fn = {"softmax": gemm_softmax, "layernorm": gemm_layernorm,
           "rmsnorm": gemm_rmsnorm}[kernel]
     before = fn.launches
     if kernel == "softmax":
-        out, want = fn(a, b), ref.gemm_softmax_ref(a, b)
+        out, want = fn(a, b, tiling=tiling), ref.gemm_softmax_ref(a, b)
     elif kernel == "layernorm":
-        out, want = fn(a, b, g, be), ref.gemm_layernorm_ref(a, b, g, be)
+        out, want = fn(a, b, g, be, tiling=tiling), \
+            ref.gemm_layernorm_ref(a, b, g, be)
     else:
-        out, want = fn(a, b, g), ref.gemm_rmsnorm_ref(a, b, g)
+        out, want = fn(a, b, g, tiling=tiling), \
+            ref.gemm_rmsnorm_ref(a, b, g)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
+    M, K = a.shape
+    assert fn.last_tiling == (tiling or ge.planned_tiling(
+        M, b.shape[1], K, a.dtype))
     assert out.dtype == a.dtype and out.shape == want.shape
     assert torch.isfinite(out).all()
     err = (out.float() - want.float()).abs().max()
@@ -567,8 +574,28 @@ def test_gemm_epilogue_tiling_boundaries(hopper, dtype, case):
         _gemm_check(kernel, *inputs)
 
 
+# one shape an instance (bf16 128 rows; 64 rows in one pass and in two;
+# f32), each with a ragged M: every tiling the kernel runs there
+CANDIDATE_SHAPES = [(200, 72, 512, torch.bfloat16),
+                    (100, 40, 4096, torch.bfloat16),
+                    (70, 100, 2056, torch.bfloat16),
+                    (37, 24, 1032, torch.float32)]
+
+
+@pytest.mark.parametrize("M,K,N,dtype", CANDIDATE_SHAPES)
+@pytest.mark.parametrize("kernel", GEMM_KERNELS)
+def test_gemm_epilogue_every_candidate_tiling(hopper, M, K, N, dtype,
+                                              kernel):
+    """Every tiling of ``ge.tilings(N, dtype)``, the plan's candidates, and
+    the default call at the plan's tiling, against the plain version."""
+    inputs = _gemm_inputs(hopper, M, K, N, dtype)
+    assert len(ge.tilings(N, dtype)) > 1
+    for t in (None,) + ge.tilings(N, dtype):
+        _gemm_check(kernel, *inputs, tiling=t)
+
+
 def test_gemm_epilogue_clusters_can_be_placed(hopper):
-    """Every instance the tiling launches can be placed at its cluster
+    """Every instance the tilings launch can be placed at its cluster
     size."""
     for dtype in (torch.float32, torch.bfloat16):
         for rows, passes, cl in ge.instances(dtype):
@@ -582,11 +609,15 @@ def test_gemm_epilogue_clusters_can_be_placed(hopper):
     (torch.bfloat16, 8192, (16, 64, 1024, 1)),   # more than a pass holds
     (torch.bfloat16, 256, (1, 32, 256, 1)),      # no 32-row instance
     (torch.float32, 1024, (3, 16, 352, 1)),      # no cluster of 3
+    (torch.bfloat16, 4096, (16, 64, 256, 2)),    # two passes, one needed
+    (torch.bfloat16, 4096, (16, 128, 264, 1)),   # not the rule's slice
+    (torch.bfloat16, 256, (16, 128, 24, 1)),     # CTAs with no columns
 ])
 def test_gemm_epilogue_source_refuses_a_tiling_it_cannot_run(hopper, dtype,
                                                             N, bad):
     """The source takes its tiling from the wrapper and checks it: a tiling
-    without an instance, or whose slices do not cover N, is refused."""
+    that is not one of ``ge.tilings`` (no instance, slices that do not
+    cover N or are not the rule's, an idle CTA) is refused."""
     a, b, _, _ = _gemm_inputs(hopper, 8, 64, N, dtype)
     ge.launch("softmax", a, b, None, None, 0.0, ge.tiling(N, dtype))
     with pytest.raises(RuntimeError, match="CUDA error 1$"):
@@ -742,7 +773,8 @@ def test_profiler_grid_equals_the_tiling(hopper):
     a = torch.randn(512, 128, device="cuda", dtype=bf)
     b = torch.randn(128, 4096, device="cuda", dtype=bf)
     ev = kb.launch_events(lambda: gemm_softmax(a, b), ("ge_",))
-    tg = ge.tiling(4096, bf)
+    tg = gemm_softmax.last_tiling
+    assert tg == ge.planned_tiling(512, 4096, 128, bf)
     assert [e["grid"] for e in ev] == [(*ge.launch_grid(512, tg), 1)]
     assert ge.smem_bytes(bf, tg.rows, tg.passes) == \
         ge.layout_smem_bytes(bf, tg.rows, tg.passes)

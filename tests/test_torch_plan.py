@@ -330,14 +330,19 @@ def test_attention_blocks_is_a_tiling_the_kernel_takes(shape, tmp_path,
                                    (64, 8200, 64)])
 def test_gemm_epilogue_blocks_is_a_tiling_the_kernel_takes(shape, tmp_path,
                                                            monkeypatch):
-    """(block_m, block_n) is ``gemm_epilogue.tiling``'s rows and slice
-    columns, which ``gemm_epilogue.check`` returns for such operands."""
+    """The plan's tiling is one of ``gemm_epilogue.tilings``, which
+    ``gemm_epilogue.check`` takes when named and returns by default;
+    (block_m, block_n) are its rows and slice columns."""
     monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans"))
     m, n, k = shape
-    t = ge.check(torch.zeros(m, k, dtype=torch.bfloat16),
-                 torch.zeros(k, n, dtype=torch.bfloat16))
+    t = autotune.gemm_epilogue_tiling(m, n, k)
+    assert t in ge.tilings(n, torch.bfloat16)
+    a = torch.zeros(m, k, dtype=torch.bfloat16)
+    b = torch.zeros(k, n, dtype=torch.bfloat16)
+    assert ge.check(a, b, tiling=t) == t == ge.check(a, b)
     assert autotune.gemm_epilogue_blocks(m, n, k) == (t.rows, t.columns)
-    assert autotune.gemm_epilogue_plan_job(8, 16392, 8) is None
+    assert autotune.gemm_epilogue_plan_job(8, 16392, 8) == []
+    assert autotune.gemm_epilogue_tiling(8, 16392, 8) is None
 
 
 def _ssd_chunk_len_ref(s, p, n):

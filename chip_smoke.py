@@ -342,13 +342,23 @@ failure ends the run with a non-zero exit:
     contiguous) and the streamed GEMM launched by its overlap section
     (launches == calls > 0); each section's seconds, the executors' and
     chunking's jobs/sec and the streamed GEMM's times logged;
-39. a JSON line of the kernels (every number in it measured in this run,
+39. ZeRO-3 (``fsdp``) on the (1, 1) NCCL mesh: glm4-9b (full width, 4
+    of 40 layers) and mamba2-130m (whole), bf16, the kernels on, 3 steps
+    of ``train_loop`` with and without ``fsdp``: the losses and params
+    equal bit for bit (one rank's data slice is the whole leaf),
+    FlashAttention 2 x 4 and SSD 2 x 24 launches a step, the
+    ``params/`` gathers in the forward and the recompute; and the dry run
+    of glm4-9b ``train_4k`` with ``fsdp=true`` on the 256-rank fake world
+    (in a subprocess, beside the card's runs): its state bytes below
+    phase 37's cell without it, both peaks logged, no unexplained
+    reconciliation finding;
+40. a JSON line of the kernels (every number in it measured in this run,
     but ``bound_ms``, computed from this run's inputs, and ``launches``
     and ``train_launches``, counted over the serve or bench run and over
     the training run; the FlashAttention and SSD rows also carry each
     family's serve and training launches and its shape's record, the
-    mesh phases' launches (phases 23, 25-27 and 31-33) and the rank shapes'
-    records), then
+    mesh phases' launches (phases 23, 25-27, 31-33 and 39) and the rank
+    shapes' records), then
     ``{"ok": true, ...}`` as the last line.
 
 Timing and bound helpers are those of ``repro_torch.launch.kernel_bench``.
@@ -1623,13 +1633,14 @@ POD_AXES = ("pod", "data", "model")
 
 
 def knob_train(arch, dev, counters, *, shape, axes, knob, steps, batch,
-               seq, n_layers=None, planner=False):
+               seq, n_layers=None, planner=False, keep=None):
     """``steps`` steps of ``launch.train.train_loop`` for ``arch`` (bf16,
     kernels on, the config ``knob`` set; ``n_layers`` of its layers) on a
     one-rank NCCL mesh of ``shape`` named ``axes``
     (``launch/mesh.make_auto_mesh``), with the counts set to 0 just before
     and read just after and every collective recorded: each must run in a
-    one-rank group (a copy).  Returns the record."""
+    one-rank group (a copy).  Returns the record; ``keep`` (a list) gets
+    the final params, copied to the host."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import mesh as tmesh
     from repro_torch.launch.train import train_loop
@@ -1670,6 +1681,9 @@ def knob_train(arch, dev, counters, *, shape, axes, knob, steps, batch,
            "collectives": _counted(coll),
            "recompute_collectives": _counted(coll.recompute),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if keep is not None:
+        from repro_torch.models.param import tree_map
+        keep.append(tree_map(lambda t: t.detach().cpu(), out["state"].params))
     del out
     torch.cuda.empty_cache()
     log(f"  {cfg.name} {knob or 'no knob'} on {rec['mesh']}: losses "
@@ -2417,6 +2431,97 @@ def dryrun_cells_phase():
 
 # phase 38: the bench's time limit
 SEARCH_BENCH_TIMEOUT = 600
+
+# phase 39: ZeRO-3 (fsdp) on the (1, 1) NCCL mesh: (arch, layers, batch,
+# the kernel of its layers) at phases 15-16's batch x seq 1024
+FSDP_STEPS = 3
+FSDP_RUNS = (("glm4-9b", 4, 4, "flash_attention"),
+             ("mamba2-130m", None, 8, "ssd_scan"))
+FSDP_CELL = ("glm4-9b", "train_4k", "single")
+
+
+def fsdp_phase(dev, counters, dryrun_cells):
+    """Phase 39: ZeRO-3 (``fsdp``) on the (1, 1) NCCL mesh.  glm4-9b (full
+    width, 4 of 40 layers) and mamba2-130m (whole), bf16, the kernels on,
+    ``FSDP_STEPS`` steps of ``train_loop`` each with and without
+    ``fsdp``: on one rank every data slice is the whole leaf, so the
+    losses and the params must be equal bit for bit; each layer's kernel
+    launched twice a step (forward and the remat recompute), the gathers
+    (``params/...``) in the forward and the recompute and their
+    Reduce-Scatters (``grads/...``) recorded.  Meanwhile, in a subprocess,
+    the dry run of glm4-9b ``train_4k`` with ``fsdp=true`` on the 256-rank
+    single-pod fake world, its state bytes and peak beside phase 37's
+    cell without it."""
+    from repro_torch.models.param import tree_leaves
+    fd, out = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    arch, shape, mesh = FSDP_CELL
+    with ThreadPoolExecutor(1) as pool:
+        cell = pool.submit(dryrun_cli, ["--arch", arch, "--shape", shape,
+                                        "--mesh", mesh, "--opt",
+                                        "fsdp=true"], out)
+        rec = {}
+        for arch_, layers, batch, kernel in FSDP_RUNS:
+            runs, params = {}, []
+            for fsdp in (False, True):
+                runs[fsdp] = knob_train(
+                    arch_, dev, counters, shape=(1, 1),
+                    axes=("data", "model"), knob={"fsdp": fsdp},
+                    steps=FSDP_STEPS, batch=batch, seq=1024,
+                    n_layers=layers, keep=params)
+            n = layers or runs[True]["layers"]
+            want = {k: 2 * n * FSDP_STEPS if k == kernel else 0
+                    for k in counters}
+            same = all(torch.equal(a, b) for a, b in zip(
+                *(tree_leaves(p) for p in params)))
+            del params
+            labels = {x.split()[0].split("/")[0] for x in
+                      runs[True]["labels"]}
+            again = {x.split("/")[0] for x in runs[True][
+                "recompute_collectives"]}
+            rec[arch_] = {"fsdp": runs[True], "no_fsdp": runs[False],
+                          "losses_equal": runs[True]["losses"] ==
+                          runs[False]["losses"], "params_equal": same}
+            log(f"  {arch_}: fsdp losses {runs[True]['losses']} == "
+                f"{runs[False]['losses']}: {rec[arch_]['losses_equal']}; "
+                f"params bit-equal {same}; launches "
+                f"{runs[True]['launches']} (want {want}); step ms "
+                f"{runs[True]['mean_step_ms']:.2f} beside "
+                f"{runs[False]['mean_step_ms']:.2f} without; peak memory "
+                f"{runs[True]['peak_mem_gb']:.2f} GB beside "
+                f"{runs[False]['peak_mem_gb']:.2f} GB")
+            if not (rec[arch_]["losses_equal"] and same):
+                raise AssertionError(f"{arch_}: the fsdp step differs from "
+                                     f"the step without it")
+            if runs[True]["launches"] != want or \
+                    runs[False]["launches"] != want:
+                raise AssertionError(f"{arch_} fsdp launches "
+                                     f"{runs[True]['launches']}; want {want}")
+            if not {"params", "grads"} <= labels or "params" not in again:
+                raise AssertionError(f"{arch_} fsdp labels {labels}, "
+                                     f"recompute {again}")
+        art, sec = cell.result()
+    os.remove(out)
+    plain = dryrun_cells[" ".join(FSDP_CELL)]
+    m = art["memory"]
+    rec["dryrun"] = {"cell": " ".join(FSDP_CELL), "s": sec,
+                     "state_bytes": m["state_bytes"],
+                     "peak_total": m["peak_by_category"].get("Total"),
+                     "no_fsdp_state_bytes": plain["state_bytes"],
+                     "no_fsdp_peak_total": plain["peak_total"],
+                     "reconcile_unexplained": sum(
+                         1 for f in art["reconcile"]["findings"]
+                         if not f.get("explained"))}
+    log(f"  dry run {' '.join(FSDP_CELL)} fsdp=true ({art['devices']} fake "
+        f"ranks, {sec:.1f} s): state {m['state_bytes']} B, peak "
+        f"{rec['dryrun']['peak_total']} B a rank, beside phase 37's without "
+        f"it: state {plain['state_bytes']} B, peak {plain['peak_total']} B; "
+        f"{rec['dryrun']['reconcile_unexplained']} unexplained findings")
+    if not m["state_bytes"] < plain["state_bytes"] or \
+            rec["dryrun"]["reconcile_unexplained"] or \
+            not art["contracts"]["ok"]:
+        raise AssertionError(f"fsdp dry run: {rec['dryrun']}")
+    return rec
 
 
 def search_throughput_phase(plan_root):
@@ -3362,7 +3467,14 @@ def main() -> int:
     search_bench = search_throughput_phase(plan_root)
     log(f"phase 38: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 39. the result
+    # -------------------------------------------- 39. ZeRO-3 on the (1, 1) mesh
+    t0 = phase("39. ZeRO-3 (fsdp) on the (1, 1) NCCL mesh (glm4-9b 4 layers, "
+               "mamba2-130m; the glm4-9b train_4k dry-run cell)")
+    torch.cuda.empty_cache()
+    fsdp = fsdp_phase(dev, counters, dryrun_cells)
+    log(f"phase 39: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 40. the result
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -3408,7 +3520,8 @@ def main() -> int:
             "pod (1, 1, 1)": pod["launches"]["flash_attention"],
             "seq_shard": seq_shard["glm4_train"]["launches"][
                 "flash_attention"],
-            "tensor_parallel=False": tp_off["launches"]["flash_attention"]},
+            "tensor_parallel=False": tp_off["launches"]["flash_attention"],
+            "fsdp": fsdp["glm4-9b"]["fsdp"]["launches"]["flash_attention"]},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -3442,7 +3555,8 @@ def main() -> int:
         "mesh_serve_launches": {
             "hymba-1.5b": mesh_hymba["launches"]["ssd_scan"]},
         "knob_train_launches": {
-            "seq_shard": seq_shard["mamba2_train"]["launches"]["ssd_scan"]},
+            "seq_shard": seq_shard["mamba2_train"]["launches"]["ssd_scan"],
+            "fsdp": fsdp["mamba2-130m"]["fsdp"]["launches"]["ssd_scan"]},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -3514,6 +3628,7 @@ def main() -> int:
                     "dryrun_vs_card": dryrun_card,
                     "dryrun_cells": dryrun_cells,
                     "search_throughput": search_bench,
+                    "fsdp": fsdp,
                     "kernel_bench": bench["records"],
                     "gemm_tiling_sweep": sweep["records"],
                     "overlap_bench": overlap}))

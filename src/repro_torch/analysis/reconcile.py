@@ -17,8 +17,11 @@ cost model and the run agree on what each rank puts on the wire.
 
 Known causes of a finding, named in its ``note``: the declaration sizes
 each ``grads/*`` entry as the whole leaf where each rank reduces its
-``model`` shard (ROADMAP C.6), and the port issues collectives of its own
-that no entry declares (``PORT_OWN``).
+``model`` shard (ROADMAP C.6; under ZeRO-3 its ``grads/*``
+Reduce-Scatters and ``params/*`` All-Gathers too, which the port issues
+a layer's slice at a time), the backward's ZeRO-3 regathers run in the
+remat recompute (C.20), and the port issues collectives of its own that
+no entry declares (``PORT_OWN``).
 """
 from __future__ import annotations
 
@@ -70,7 +73,7 @@ PORT_OWN = {
     "moe/shared-out": "the shared experts' f and g",
     "moe/expert-block": "tensor_parallel=False expert blocks (C.16)",
     "xent/unembed-block": "tensor_parallel=False unembed block (C.16)",
-    "grads/norm": "the global norm's model-sharded squares summed",
+    "grads/norm": "the global norm's sharded leaves' squares summed",
     "loss/mean": "the plain loss's mean over data",
     "zero1/params": "ZeRO-1's All-Gather of the updated parameter slices",
 }
@@ -295,13 +298,15 @@ def reconcile(expected: Dict[str, float], stats: CollectiveStats, *,
 
 
 def explain(report: ReconcileReport, trace: TraceCounts, schedule,
-            tol: float = DEFAULT_TOL) -> List[Dict]:
+            tol: float = DEFAULT_TOL,
+            shards: Optional[Dict[str, float]] = None) -> List[Dict]:
     """Name each finding's causes in its ``note``, and mark it
     ``explained`` when they account for the gap: the observed wire of the
-    port's own labels (:data:`PORT_OWN`) taken out, and each declared
-    ``grads/X`` entry sized as the issued ``grads/X`` (C.6: the
-    declaration's whole leaf against each rank's ``model`` shard, a
-    power of the model axis apart), the two sides agree within ``tol``.
+    port's own labels (:data:`PORT_OWN`) taken out, each declared
+    ``grads/X`` (or ``params/X``) entry sized as the rank's ``model``
+    shard of X (C.6, :func:`_c6_issued`), and the ``params/*`` gathers of
+    the remat recompute added (C.20: the declaration's second, backward
+    gather of each ZeRO-3 leaf), the two sides agree within ``tol``.
     Returns the findings left unexplained."""
     own: Dict[str, Dict[str, float]] = {}
     for label, col_type, dv, P in trace.records:
@@ -310,9 +315,14 @@ def explain(report: ReconcileReport, trace: TraceCounts, schedule,
             d = own.setdefault(op, {})
             d[label] = d.get(label, 0.0) + _wire_of(col_type, dv, P)
     schedule = list(schedule or ())
+    c20: Dict[str, float] = {}
+    for label, col_type, dv, P in trace.recompute:
+        if label.startswith("params/") and P > 1:
+            op = HLO_OP_FOR_TYPE[col_type]
+            c20[op] = c20.get(op, 0.0) + _wire_of(col_type, dv, P)
     c6: Dict[str, float] = {}
     c6_labels: Dict[str, List[str]] = {}
-    for i, got in _c6_issued(schedule, trace).items():
+    for i, got in _c6_issued(schedule, trace, shards).items():
         d = schedule[i]
         op = HLO_OP_FOR_TYPE[d.col_type]
         c6[op] = c6.get(op, 0.0) + d.count * (
@@ -325,12 +335,18 @@ def explain(report: ReconcileReport, trace: TraceCounts, schedule,
         t = report.per_type[op]
         ow = sum(own.get(op, {}).values())
         e = t.expected_wire - c6.get(op, 0.0)
-        h = t.hlo_wire - ow
+        h = t.hlo_wire - ow + c20.get(op, 0.0)
         notes = []
         if c6.get(op):
-            notes.append(f"C.6: {len(c6_labels[op])} grads/* entries "
-                         f"declared as the whole leaf, issued as each "
-                         f"rank's model shard ({c6[op]:.4g} wire B)")
+            kinds = [f"{n} {k}/* entries" for k, n in (
+                (k, sum(lb.startswith(k + "/") for lb in c6_labels[op]))
+                for k in ("grads", "params")) if n]
+            notes.append(f"C.6: {' and '.join(kinds)} declared as the "
+                         f"whole leaf, issued as each rank's model shard "
+                         f"({c6[op]:.4g} wire B)")
+        if c20.get(op):
+            notes.append(f"C.20: the backward's ZeRO-3 regathers, issued "
+                         f"in the remat recompute ({c20[op]:.4g} wire B)")
         if ow:
             notes.append("the port's own collectives "
                          + ", ".join(f"{k} ({v:.4g} wire B: {PORT_OWN[k]})"
@@ -344,18 +360,26 @@ def explain(report: ReconcileReport, trace: TraceCounts, schedule,
     return left
 
 
-def _c6_issued(schedule: List, trace: TraceCounts) -> Dict[int, float]:
-    """Index -> the issued ``grads/X`` bytes of each ``gspmd`` entry of
-    ``schedule`` the run issued a whole number of times smaller (C.6:
-    the declaration's whole leaf against each rank's ``model`` shard, a
-    power of the model axis apart)."""
+def _c6_issued(schedule: List, trace: TraceCounts,
+               shards: Optional[Dict[str, float]] = None
+               ) -> Dict[int, float]:
+    """Index -> the bytes of the rank's ``model`` shard of the leaf X of
+    each ``gspmd`` ``grads/X`` or ``params/X`` entry of ``schedule`` that
+    declares a whole number of times more (C.6: the declaration's whole
+    leaf, a power of the model axis apart).  ``shards`` gives each leaf's
+    shard bytes by its dotted name; without it a ``grads/X`` entry is
+    sized as the run issued it."""
     issued = {(label, col_type, P): dv
               for label, col_type, dv, P in trace.records
               if label.startswith("grads/") and P > 1
               and HLO_OP_FOR_TYPE.get(col_type) is not None}
     out: Dict[int, float] = {}
     for i, d in enumerate(schedule):
-        got = issued.get((d.label, d.col_type, d.participants))
+        if shards is not None:
+            got = shards.get(d.label.split("/", 1)[1]) \
+                if d.label.startswith(("grads/", "params/")) else None
+        else:
+            got = issued.get((d.label, d.col_type, d.participants))
         if d.origin == "gspmd" and got:
             ratio = d.dv_bytes / got
             if ratio > 1.0 and abs(ratio - round(ratio)) < 1e-9:
@@ -363,13 +387,14 @@ def _c6_issued(schedule: List, trace: TraceCounts) -> Dict[int, float]:
     return out
 
 
-def size_grads_as_issued(schedule: Iterable, trace: TraceCounts
+def size_grads_as_issued(schedule: Iterable, trace: TraceCounts,
+                         shards: Optional[Dict[str, float]] = None
                          ) -> Tuple[List, List[str]]:
     """``schedule`` with each C.6 entry (:func:`_c6_issued`) sized as the
-    run issued it, and the labels so sized: :func:`explain`'s rule,
-    applied before the comparison."""
+    rank's ``model`` shard, and the labels so sized: :func:`explain`'s
+    rule, applied before the comparison."""
     schedule = list(schedule)
-    got = _c6_issued(schedule, trace)
+    got = _c6_issued(schedule, trace, shards)
     return ([replace(d, dv_bytes=got[i]) if i in got else d
              for i, d in enumerate(schedule)],
             [schedule[i].label for i in got])
@@ -377,16 +402,19 @@ def size_grads_as_issued(schedule: Iterable, trace: TraceCounts
 
 def reconcile_cell(trace: Optional[TraceCounts], *,
                    schedule: Optional[Iterable] = None,
-                   tol: float = DEFAULT_TOL) -> ReconcileReport:
+                   tol: float = DEFAULT_TOL,
+                   shards: Optional[Dict[str, float]] = None
+                   ) -> ReconcileReport:
     """One-call reconciliation for a dry-run cell: expected = the run's
     explicit-family collectives + the declared gspmd entries, observed =
     every collective the run recorded; each finding's causes named
-    (:func:`explain`)."""
+    (:func:`explain`; ``shards``: each leaf's ``model``-shard bytes, by
+    its dotted name)."""
     trace = trace if trace is not None else TraceCounts()
     expected = expected_wire_from_trace(trace)
     if schedule is not None:
         for op, w in expected_wire_from_schedule(schedule).items():
             expected[op] = expected.get(op, 0.0) + w
     report = reconcile(expected, stats_from_trace(trace), tol=tol)
-    explain(report, trace, schedule, tol)
+    explain(report, trace, schedule, tol, shards)
     return report

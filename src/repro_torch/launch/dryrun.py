@@ -26,8 +26,10 @@ The JAX artifact's ``cost_analysis``, ``hlo_bytes`` and
 no XLA cost analysis or HLO.  Like the port's train CLI the step runs with
 ``use_kernels=True`` (``--opt use_kernels=false`` for the plain path):
 the kernels' entries take their shape functions and count their
-formulas.  ``fsdp`` (ZeRO-3, which GSPMD applies in the JAX package) is
-not run by the port's step and raises.
+formulas.  ``--opt fsdp=true`` runs the ZeRO-3 step (the params at
+their ZeRO-1 slices, ``train_step.state_placements``) in train cells and
+the same placements in prefill and decode cells, as the JAX package's
+``state_specs`` places them.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch glm4-9b --shape train_4k \
@@ -105,10 +107,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     for k, v in opt_flags.items():
         if k not in STEP_FLAGS:
             cfg = cfg.with_(**{k: v})
-    if cfg.fsdp:
-        raise NotImplementedError(
-            "fsdp=true (ZeRO-3) is not run by the port's train step: "
-            "ROADMAP Queue A, 'the ZeRO-3 step (fsdp)'")
     shape = SHAPES[shape_name]
     shape = replace(shape, **{k: int(opt_flags[k]) for k in
                               ("global_batch", "seq_len") if k in opt_flags})
@@ -205,7 +203,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                     microbatches=micro, planner_loss=planner)
             except Exception as e:  # noqa: BLE001 - a declaration gap
                 rec["schedule_error"] = repr(e)
-        recon = reconcile_cell(trace, schedule=schedule)
+        recon = reconcile_cell(trace, schedule=schedule,
+                               shards=S.model_shard_bytes(model, mesh))
         rec["reconcile"] = recon.to_dict()
         # one pass over the arguments, the outputs and the temporaries
         mem_traffic = arg_bytes + out_bytes + temps

@@ -17,7 +17,10 @@ pod and ``seq_shard`` CPU suites (``tests/torch_mesh_ranks.py``) and the
   batch over ``(pod, data)``, the gradients All-Reduced over both at
   once;
 - ``tp`` and ``seq_shard`` on (1, 4): the same step with and without the
-  residual's sequence split over ``model``.
+  residual's sequence split over ``model``;
+- ``zero1`` and ``fsdp`` on (4, 1): the data-parallel step with ZeRO-1
+  moments, and ZeRO-3 (``fsdp``): each layer's weights gathered over the
+  data axis inside its remat body, their gradients Reduce-Scattered.
 
 Every collective of steps 1 on is timed (``record_collectives(timed=True)``:
 CUDA events around the backend call on the card, the host clock on the
@@ -29,7 +32,9 @@ and its ms a step, the least and the most over the ranks: the least is the
 rank that arrived last, which waits least, so it is the closest to the
 transfer alone; the most holds the skew.  A step's collective ms are given
 the same two ways: the sum of the least, and the most of the ranks' sums,
-an upper bound.  Bars, failing the run (exit 1): every rank's losses
+an upper bound.  Each case also gives the most device memory a rank
+allocated (``torch.cuda.max_memory_allocated``, least and most over the
+ranks; None on the CPU).  Bars, failing the run (exit 1): every rank's losses
 equal; each case's step-0 loss within ``LOSS_RTOL`` of the ``tp`` case's
 (one batch, one initialisation: the meshes change only the order of the
 sums) and finite.
@@ -55,7 +60,9 @@ __all__ = ["CASES", "run_rank", "run_all", "main"]
 CASES = (("pod", (2, 2, 1), ("pod", "data", "model"), {}),
          ("pod", (2, 1, 2), ("pod", "data", "model"), {}),
          ("tp", (1, 4), ("data", "model"), {}),
-         ("seq_shard", (1, 4), ("data", "model"), {"seq_shard": True}))
+         ("seq_shard", (1, 4), ("data", "model"), {"seq_shard": True}),
+         ("zero1", (4, 1), ("data", "model"), {}),
+         ("fsdp", (4, 1), ("data", "model"), {"fsdp": True}))
 ARCH, LAYERS, BATCH, SEQ, STEPS = "glm4-9b", 4, 4, 1024, 3
 SMOKE_SEQ = 16
 # bf16 params: the meshes sum the same bf16 products in other orders
@@ -82,6 +89,8 @@ def _one_case(shape, axes, knob, smoke: bool, device) -> Dict:
            else get_config(ARCH).with_(use_kernels=True, n_layers=LAYERS))
     cfg = cfg.with_(**knob)
     mesh = make_auto_mesh(shape, axes, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     with record_collectives(timed=True) as rec:
         out = train_loop(Model(cfg), steps=STEPS, batch=BATCH,
                          seq=SMOKE_SEQ if smoke else SEQ, mesh=mesh,
@@ -101,12 +110,15 @@ def _one_case(shape, axes, knob, smoke: bool, device) -> Dict:
             per[key] += ms / n
     del out["state"]
     dist.barrier()
+    peak = None
     if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
     return {"config": cfg.name, "layers": cfg.n_layers,
             "losses": out["losses"], "step_ms": out["step_ms"],
             "mean_step_ms": sum(out["step_ms"][1:]) / n,
-            "counts": dict(counts), "ms_per_step": dict(per)}
+            "counts": dict(counts), "ms_per_step": dict(per),
+            "peak_bytes": peak}
 
 
 def run_rank(rank: int, world: int, port: int, out_path: str, smoke: bool,
@@ -152,7 +164,11 @@ def _merge(by_rank: List[List[Dict]]) -> List[Dict]:
                                 "ms_most": max(ms[k])} for k in keys},
             "collective_ms_least": sum(min(v) for v in ms.values()),
             "collective_ms_most": max(sum(r["ms_per_step"].values())
-                                      for r in recs)})
+                                      for r in recs),
+            "peak_bytes_least": None if recs[0]["peak_bytes"] is None
+            else min(r["peak_bytes"] for r in recs),
+            "peak_bytes_most": None if recs[0]["peak_bytes"] is None
+            else max(r["peak_bytes"] for r in recs)})
     return out
 
 
@@ -189,7 +205,8 @@ def _report(out: Dict) -> None:
               f"rel {c['step0_rel_err_vs_tp']:.2e} of tp's); step "
               f"{c['mean_step_ms']} ms; collectives {c['collective_ms_least']}"
               f" ms a step (least over ranks), {c['collective_ms_most']} "
-              f"(most)")
+              f"(most); peak memory a rank {c['peak_bytes_least']} / "
+              f"{c['peak_bytes_most']} B")
         for k, v in c["collectives"].items():
             print(f"    {k:60s} {v['per_step']:6.1f}/step "
                   f"{v['ms_least']:9.4f} / {v['ms_most']:9.4f} ms/step")

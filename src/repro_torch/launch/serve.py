@@ -21,7 +21,8 @@ Reduced config on the CPU:
 
 ``--mesh host`` serves on ``launch/mesh.make_host_mesh()`` (the world's
 ranks as ``(data, model)``; one card alone: the one-rank NCCL mesh), the
-params placed by ``param_shardings``, every rank running the same engine
+params placed by ``train_step.state_placements`` (``param_shardings``),
+every rank running the same engine
 (``ServeEngine(mesh=)``; under ``torchrun`` rank 0 prints), as the JAX
 CLI's ``--mesh host`` does.
 
@@ -52,8 +53,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models.model import Model
-from repro_torch.parallel.sharding import param_shardings, shard_tree
+from repro_torch.parallel.sharding import shard_tree
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.train.train_step import state_placements
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -98,7 +100,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     mesh = None
     if args.mesh == "host":
         mesh = tmesh.make_host_mesh(device=device)
-        params = shard_tree(params, param_shardings(model.specs, mesh), mesh)
+        params = shard_tree(params, state_placements(model, mesh).params,
+                            mesh)
     try:
         return _serve(args, model, params, device, mesh, imported, gc_out)
     finally:

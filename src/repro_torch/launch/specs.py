@@ -25,7 +25,7 @@ from ..train.optimizer import OptState
 from ..train.train_step import TrainState, state_placements
 
 __all__ = ["batch_specs", "state_specs", "cache_specs", "local_shape",
-           "tree_bytes"]
+           "tree_bytes", "model_shard_bytes"]
 
 F32 = torch.float32
 
@@ -67,6 +67,28 @@ def tree_bytes(tree) -> int:
     return 0
 
 
+def model_shard_bytes(model: Model, mesh) -> Dict[str, float]:
+    """Each param leaf's bytes on one rank of ``mesh`` under
+    ``param_shardings``, by its dotted key path: the size of the
+    ``model`` shard that the rank reduces (``grads/...``) or gathers over
+    the data axes (``params/...``)."""
+    placed = sharding.param_shardings(model.specs, mesh,
+                                      model.cfg.tensor_parallel)
+    out: Dict[str, float] = {}
+
+    def walk(specs, places, path):
+        if isinstance(specs, dict):
+            for k in specs:
+                walk(specs[k], places[k], path + (k,))
+            return
+        n = 1
+        for d in local_shape(specs.shape, places, mesh):
+            n *= d
+        out[".".join(path)] = float(n * torch_dtype(specs.dtype).itemsize)
+    walk(model.specs, placed, ())
+    return out
+
+
 def batch_specs(cfg: ModelConfig, shape: Shape, mesh, *,
                 with_labels: bool = True, local: bool = False,
                 device="cuda") -> Dict[str, torch.Tensor]:
@@ -92,14 +114,10 @@ def batch_specs(cfg: ModelConfig, shape: Shape, mesh, *,
 def state_specs(model: Model, mesh, *, with_opt: bool = True,
                 device="cuda") -> Tuple[Any, Any]:
     """(this rank's TrainState-or-params, their placements): each
-    parameter at its ``param_shardings`` shard, each AdamW moment (f32) at
-    its ZeRO-1 slice of that shard, the step replicated; the JAX
-    package's ``state_specs``.  ``fsdp`` (ZeRO-3) is not run by the
-    port's step and raises (ROADMAP Queue A)."""
-    if model.cfg.fsdp:
-        raise NotImplementedError(
-            "fsdp (ZeRO-3) is not run by the port's train step: ROADMAP "
-            "Queue A, 'the ZeRO-3 step'")
+    parameter at its ``state_placements`` shard (``param_shardings``; its
+    ZeRO-1 slice under ``fsdp``, ZeRO-3), each AdamW moment (f32) at its
+    ZeRO-1 slice, the step replicated; the JAX package's
+    ``state_specs``."""
     if mesh is None:
         placed = None
         params = _zip_map(lambda s, _: torch.empty(
@@ -112,16 +130,15 @@ def state_specs(model: Model, mesh, *, with_opt: bool = True,
             device=device), model.specs, placed.params)
     if not with_opt:
         return params, (placed.params if placed else None)
-    dp = sharding.dp_axes(mesh) if mesh is not None else ()
 
-    def moment(p, z):
-        return torch.empty(local_shape(p.shape, z, mesh, axes=dp),
-                           dtype=F32, device=device)
+    def moment(s, z):
+        return torch.empty(local_shape(s.shape, z, mesh), dtype=F32,
+                           device=device)
     zero1 = placed.opt.m if placed else _zip_map(lambda s, _: None,
                                                  model.specs, model.specs)
     opt = OptState(step=torch.zeros((), dtype=torch.int32, device=device),
-                   m=_zip_map(moment, params, zero1),
-                   v=_zip_map(moment, params, zero1), err=None)
+                   m=_zip_map(moment, model.specs, zero1),
+                   v=_zip_map(moment, model.specs, zero1), err=None)
     return TrainState(params, opt), placed
 
 

@@ -19,6 +19,12 @@ by ``zero1_shardings``, every family tensor-parallel and the MoE layers
 expert-parallel over ``model`` (``train/train_step.py``), checkpoints gathered and written by rank 0 and
 restored onto the mesh's placements; ``--planner-loss`` takes the
 COMET-planned explicit-collective loss over the vocab-sharded unembed.
+A model whose config sets ``fsdp`` runs the ZeRO-3 step on a mesh: the
+params at their ZeRO-1 slices (``train_step.state_placements``), each
+layer's weights gathered over the data axes inside its remat body and
+their gradients Reduce-Scattered.  The JAX loop always places the params
+at ``param_shardings``; its ZeRO-3 step is the one GSPMD compiles from
+``state_specs``' shardings.  The numbers are the same either way.
 
 Example (CPU, reduced config):
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
@@ -121,8 +127,7 @@ def train_loop(model: Model, *, steps: int, batch: int, seq: int,
 
     step_fn = make_train_step(model, opt_cfg, mesh, microbatches=microbatches,
                               use_planner_loss=use_planner_loss)
-    # on a mesh: the params by param_shardings, the moments by
-    # zero1_shardings, as the JAX loop's device_put places them
+    # on a mesh: the params and the moments by state_placements
     state = init_train_state(model, model.init(seed, device=dev), mesh,
                              compression=opt_cfg.grad_compression)
     placed = (state_placements(model, mesh,

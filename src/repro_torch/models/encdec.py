@@ -16,6 +16,9 @@ the rank's heads: its cotangent is the sum of the layers' partial ones
 over the ranks, one *f* for all of them (``tp/cross-kv``).  The
 ``seq_shard`` knob leaves an enc-dec model as it is: the JAX package
 keeps its residual at ``P(dp, None, None)`` and never reads the knob.
+Under ZeRO-3 (``fsdp``) both stacks gather their layers' slices inside
+the checkpointed bodies, and the embedding, the unembed and the two
+final norms are gathered where they are read, as in ``transformer``.
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ from .layers import (apply_norm, embed_specs, mlp_apply, mlp_specs,
                      norm_specs, unembed_apply)
 from .param import torch_dtype, tree_map
 from ..parallel.sharding import local_cache
-from .transformer import (_embed, _layer, _n_layers, _remat, _stack,
-                          _unbind_layers)
+from .transformer import (_embed, _gather_layer, _gather_stack, _gather_top,
+                          _gathering, _layer, _n_layers, _remat, _stack,
+                          _unbind_layers, _unembed_key, zero3_dims)
 
 __all__ = ["encdec_specs", "encdec_forward", "encdec_prefill",
            "encdec_decode", "encdec_init_cache"]
@@ -72,10 +76,13 @@ def _enc_layer(cfg: ModelConfig, mesh, x: torch.Tensor, pl: Dict
 def _encode(cfg: ModelConfig, params: Dict, src: torch.Tensor, mesh=None
             ) -> torch.Tensor:
     x = src.to(torch_dtype(cfg.dtype))
-    layer = _remat(cfg, functools.partial(_enc_layer, cfg, mesh))
-    for pl in _unbind_layers(params["enc_layers"]):
+    dims = zero3_dims(cfg, mesh)
+    layer = _remat(cfg, _gathering(functools.partial(_enc_layer, cfg, mesh),
+                                   dims, mesh, "enc_layers"))
+    for pl in _unbind_layers(_gather_stack(params, dims, mesh, "enc_layers")):
         x = layer(x, pl)
-    return apply_norm(cfg, params["enc_final_norm"], x)
+    return apply_norm(cfg, _gather_top(params, dims, mesh, "enc_final_norm")[
+        "enc_final_norm"], x)
 
 
 # ---------------------------------------------------------------- forward
@@ -98,12 +105,17 @@ def encdec_forward(cfg: ModelConfig, params: Dict, src_embeds: torch.Tensor,
     enc = _encode(cfg, params, src_embeds, mesh)
     if mesh is not None and cfg.tensor_parallel:
         enc = enter_parallel(enc, model_axis(mesh)[2], "tp/cross-kv")
-    x = _embed(cfg, params, tokens, mesh)
-    layer = _remat(cfg, functools.partial(_dec_layer, cfg, mesh))
-    for pl in _unbind_layers(params["dec_layers"]):
+    dims = zero3_dims(cfg, mesh)
+    x = _embed(cfg, _gather_top(params, dims, mesh, "embedding"), tokens,
+               mesh)
+    layer = _remat(cfg, _gathering(functools.partial(_dec_layer, cfg, mesh),
+                                   dims, mesh, "dec_layers"))
+    for pl in _unbind_layers(_gather_stack(params, dims, mesh, "dec_layers")):
         x = layer(x, pl, enc)
-    x = apply_norm(cfg, params["final_norm"], x)
-    return unembed_apply(cfg, params, x, mesh)
+    x = apply_norm(cfg, _gather_top(params, dims, mesh, "final_norm")[
+        "final_norm"], x)
+    return unembed_apply(cfg, _gather_top(params, dims, mesh,
+                                          _unembed_key(cfg)), x, mesh)
 
 
 # ------------------------------------------------------------------ cache
@@ -137,11 +149,14 @@ def encdec_prefill(cfg: ModelConfig, params: Dict, src_embeds: torch.Tensor,
     position, cache): the self-attention cache of ``cache_len`` slots, and
     each layer's cross-attention K/V of the encoder output."""
     enc = _encode(cfg, params, src_embeds, mesh)
-    x = _embed(cfg, params, tokens, mesh)
+    dims = zero3_dims(cfg, mesh)
+    x = _embed(cfg, _gather_top(params, dims, mesh, "embedding"), tokens,
+               mesh)
     B, S = tokens.shape
     caches = []
-    for l in range(_n_layers(params["dec_layers"])):
-        pl = _layer(params["dec_layers"], l)
+    stack = _gather_stack(params, dims, mesh, "dec_layers")
+    for l in range(_n_layers(stack)):
+        pl = _gather_layer(_layer(stack, l), dims, mesh, "dec_layers")
         h, ca = attn.attn_prefill(cfg, pl["attn"],
                                   apply_norm(cfg, pl["norm1"], x), cache_len,
                                   mesh)
@@ -153,6 +168,7 @@ def encdec_prefill(cfg: ModelConfig, params: Dict, src_embeds: torch.Tensor,
         caches.append({"self": ca, "cross": attn.make_cross_cache(
             cfg, pl["cross"], enc, mesh)})
     caches = _stack(caches)
+    params = _gather_top(params, dims, mesh, "final_norm", _unembed_key(cfg))
     x = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
     return unembed_apply(cfg, params, x), {
         "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
@@ -167,9 +183,12 @@ def encdec_decode(cfg: ModelConfig, params: Dict, cache: Dict,
     B = tokens.shape[0]
     pos = torch.as_tensor(cache["pos"], dtype=torch.int32,
                           device=tokens.device).expand(B)
-    x = _embed(cfg, params, tokens, mesh)
-    for l in range(_n_layers(params["dec_layers"])):
-        pl = _layer(params["dec_layers"], l)
+    dims = zero3_dims(cfg, mesh)
+    x = _embed(cfg, _gather_top(params, dims, mesh, "embedding"), tokens,
+               mesh)
+    stack = _gather_stack(params, dims, mesh, "dec_layers")
+    for l in range(_n_layers(stack)):
+        pl = _gather_layer(_layer(stack, l), dims, mesh, "dec_layers")
         h, _ = attn.attn_decode(cfg, pl["attn"],
                                 apply_norm(cfg, pl["norm1"], x),
                                 _layer(cache["self"], l), pos, mesh)
@@ -179,6 +198,7 @@ def encdec_decode(cfg: ModelConfig, params: Dict, cache: Dict,
                                   _layer(cache["cross"], l), mesh)
         x = x + mlp_apply(cfg, pl["mlp"], apply_norm(cfg, pl["norm2"], x),
                           mesh)
+    params = _gather_top(params, dims, mesh, "final_norm", _unembed_key(cfg))
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed_apply(cfg, params, x), {
         "pos": pos + 1, "self": cache["self"], "cross": cache["cross"]}

@@ -42,11 +42,18 @@ from .param import ParamSpec
 F32 = torch.float32
 
 __all__ = ["moe_specs", "moe_apply", "moe_local", "router_weights",
-           "capacity", "slot_positions", "MESH_REDUCED"]
+           "capacity", "slot_positions", "MESH_REDUCED", "reduced_on_mesh"]
 
 # the leaves whose gradients moe_apply reduces itself on a mesh
 # (moe/expert-grad, moe/router-grad, moe/router-bias-grad)
 MESH_REDUCED = ("router", "router_bias", "wi", "wg", "wo")
+
+
+def reduced_on_mesh(keys) -> bool:
+    """Whether the param at key path ``keys`` is one of an MoE layer's
+    :data:`MESH_REDUCED` leaves, whose gradient :func:`moe_apply` sums
+    over the data axes itself on a mesh."""
+    return len(keys) >= 2 and keys[-2] == "moe" and keys[-1] in MESH_REDUCED
 
 
 def moe_specs(cfg: ModelConfig, L: int) -> Dict[str, ParamSpec]:

@@ -36,6 +36,17 @@ shards at their own size), and returns its block of the vocab-sharded
 logits (``layers.greedy_token`` picks the token across them).  The
 prefill splits the sequence under ``seq_shard`` as the training forward
 does; decode's one token is never split.
+
+ZeRO-3 (``fsdp``) on a mesh: each param is this rank's ZeRO-1 slice, its
+``param_shardings`` shard split over the data axes as well
+(``zero1_shardings``; :func:`zero3_dims`), and every path gathers it
+(``collective_planner.gather_param``) where it is used.  A layer's
+slices are gathered inside the body that ``_remat`` checkpoints, so the
+gathered weights are not saved for the backward pass: the recompute
+gathers them again (in ``recompute_region``) and a rank holds one
+layer's gathered weights at a time.  A stacked leaf that the data axes
+split on its layer dim is gathered whole once, before the layer loop;
+the embedding, the unembed and the final norms where they are read.
 """
 from __future__ import annotations
 
@@ -47,9 +58,10 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..parallel import sharding
 from ..parallel.collective_planner import (SEQ_GATHER, enter_region,
-                                           gather_replicated, model_axis,
-                                           recompute_region)
+                                           gather_param, gather_replicated,
+                                           model_axis, recompute_region)
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -61,7 +73,7 @@ from .layers import (apply_norm, embed_apply, embed_specs, mlp_apply,
 from .param import ParamSpec, torch_dtype, tree_leaves, tree_map
 
 __all__ = ["decoder_specs", "hidden", "forward", "prefill", "decode",
-           "init_cache", "splits_sequence", "acts_on_rows"]
+           "init_cache", "splits_sequence", "acts_on_rows", "zero3_dims"]
 
 
 def _layer(params: Dict, l: int) -> Dict:
@@ -166,6 +178,82 @@ def decoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
         s[key] = _layer_specs(c, n)
     s["final_norm"] = norm_specs(cfg)
     return s
+
+
+# ------------------------------------------------------------------ ZeRO-3
+
+
+@functools.lru_cache(maxsize=64)
+def _zero3_dims(cfg: ModelConfig, mesh: sharding.MeshShape):
+    from .model import Model
+    placed = sharding.zero1_shardings(Model(cfg).specs, mesh,
+                                      cfg.tensor_parallel)
+    return tree_map(lambda p: sharding.data_dim(p, mesh), placed)
+
+
+def zero3_dims(cfg: ModelConfig, mesh):
+    """Under ``fsdp`` on a mesh, a tree like the params: the dim of each
+    leaf that the data axes split (its ``zero1_shardings`` placement),
+    None where they keep it whole; None without ``fsdp`` or a mesh."""
+    if not cfg.fsdp or mesh is None:
+        return None
+    return _zero3_dims(cfg, sharding.MeshShape(
+        tuple(int(n) for n in mesh.shape), tuple(mesh.mesh_dim_names)))
+
+
+def _map_keys(fn, tree, dims, path):
+    if isinstance(tree, dict):
+        return {k: _map_keys(fn, v, dims[k], path + (k,))
+                for k, v in tree.items()}
+    return fn(tree, path, dims)
+
+
+def _gather_leaf(mesh, x, keys, dim: int):
+    """One leaf gathered along ``dim``; the MoE layer's router and
+    experts, whose gradients it sums over the data axes itself, take the
+    rank's block of the gradient back."""
+    return gather_param(x, mesh, ".".join(keys), dim,
+                        reduced=moe_mod.reduced_on_mesh(keys))
+
+
+def _gather_top(params: Dict, dims, mesh, *keys) -> Dict:
+    """``params`` with the unstacked subtrees ``keys`` (the embedding,
+    the unembed, a final norm) gathered whole under ZeRO-3."""
+    if dims is None:
+        return params
+    return dict(params, **{k: _map_keys(
+        lambda x, p, d: x if d is None else _gather_leaf(mesh, x, p, d),
+        params[k], dims[k], (k,)) for k in keys})
+
+
+def _gather_stack(params: Dict, dims, mesh, key: str) -> Dict:
+    """The stack ``key`` with each leaf that the data axes split on its
+    layer dim gathered whole (a layer's slice of it lives on one data
+    rank); the others stay this rank's slices, for :func:`_gather_layer`."""
+    if dims is None:
+        return params[key]
+    return _map_keys(lambda x, p, d: _gather_leaf(mesh, x, p, 0)
+                     if d == 0 else x, params[key], dims[key], (key,))
+
+
+def _gather_layer(pl: Dict, dims, mesh, key: str) -> Dict:
+    """One layer's slices of the stack ``key`` gathered whole (a leaf
+    split on the stack's dim d is a layer's slice split on d - 1)."""
+    if dims is None:
+        return pl
+    return _map_keys(lambda x, p, d: _gather_leaf(mesh, x, p, d - 1)
+                     if d else x, pl, dims[key], (key,))
+
+
+def _gathering(body, dims, mesh, key: str):
+    """``body(x, pl, ...)`` with the layer's slices ``pl`` gathered first,
+    inside whatever checkpoints it."""
+    if dims is None:
+        return body
+
+    def run(x, pl, *args):
+        return body(x, _gather_layer(pl, dims, mesh, key), *args)
+    return run
 
 
 # ------------------------------------------------------------------ layer
@@ -284,21 +372,32 @@ def hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     ``seq_shard`` the final norm runs on the rank's rows, then they are
     gathered)."""
     seq = "rows" if splits_sequence(cfg, mesh, tokens.shape[1]) else None
-    x = _embed(cfg, params, tokens, _dense_mesh(cfg, mesh, seq), seq)
+    dims = zero3_dims(cfg, mesh)
+    x = _embed(cfg, _gather_top(params, dims, mesh, "embedding"), tokens,
+               _dense_mesh(cfg, mesh, seq), seq)
     chunk = _ssd_chunk(cfg, tokens.shape[1])
     for key, _, c, _ in _stacks(cfg):
-        layer = _remat(c, functools.partial(_layer_train, c, mesh))
-        for pl in _unbind_layers(params[key]):
+        layer = _remat(c, _gathering(functools.partial(_layer_train, c, mesh),
+                                     dims, mesh, key))
+        for pl in _unbind_layers(_gather_stack(params, dims, mesh, key)):
             x = layer(x, pl, chunk, seq)
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = apply_norm(cfg, _gather_top(params, dims, mesh,
+                                    "final_norm")["final_norm"], x)
     return _gather_rows(x, mesh) if seq else x
+
+
+def _unembed_key(cfg: ModelConfig) -> str:
+    return "embedding" if cfg.tie_embeddings else "unembed"
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             mesh=None) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, Vp)."""
-    return unembed_apply(cfg, params, hidden(cfg, params, tokens, mesh),
-                         _dense_mesh(cfg, mesh, False))
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, Vp).  Under
+    ZeRO-3 a tied table is gathered again for the unembed."""
+    x = hidden(cfg, params, tokens, mesh)
+    return unembed_apply(cfg, _gather_top(params, zero3_dims(cfg, mesh), mesh,
+                                          _unembed_key(cfg)),
+                         x, _dense_mesh(cfg, mesh, False))
 
 
 # ------------------------------------------------------------------ cache
@@ -366,21 +465,25 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     block of the logits and its shard of the cache."""
     B, S = tokens.shape
     seq = "rows" if splits_sequence(cfg, mesh, S) else None
-    x = _embed(cfg, params, tokens, mesh, seq)
+    dims = zero3_dims(cfg, mesh)
+    x = _embed(cfg, _gather_top(params, dims, mesh, "embedding"), tokens,
+               mesh, seq)
     chunk = _ssd_chunk(cfg, S)
     cache: Dict[str, Any] = {
         "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device)}
     for key, ckey, c, _ in _stacks(cfg):
+        stack = _gather_stack(params, dims, mesh, key)
         per_layer = []
-        for l in range(_n_layers(params[key])):
-            x, lc = _layer_prefill(c, x, _layer(params[key], l), chunk,
-                                   cache_len, mesh, seq)
+        for l in range(_n_layers(stack)):
+            pl = _gather_layer(_layer(stack, l), dims, mesh, key)
+            x, lc = _layer_prefill(c, x, pl, chunk, cache_len, mesh, seq)
             per_layer.append(lc)
         cache[ckey] = _stack(per_layer)
     x = x[:, -1:, :]
     if seq:
         # the last position is the last model rank's last row
         x = _gather_rows(x, mesh)[:, -1:, :]
+    params = _gather_top(params, dims, mesh, "final_norm", _unembed_key(cfg))
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed_apply(cfg, params, x), cache
 
@@ -418,12 +521,17 @@ def decode(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tensor,
     B = tokens.shape[0]
     pos = torch.as_tensor(cache["pos"], dtype=torch.int32,
                           device=tokens.device).expand(B)
-    x = _embed(cfg, params, tokens, mesh)
+    dims = zero3_dims(cfg, mesh)
+    x = _embed(cfg, _gather_top(params, dims, mesh, "embedding"), tokens,
+               mesh)
     out: Dict[str, Any] = {"pos": pos + 1}
     for key, ckey, c, _ in _stacks(cfg):
-        for l in range(_n_layers(params[key])):
-            x = _layer_decode(c, x, _layer(params[key], l),
-                              _layer(cache[ckey], l), pos, mesh, cache_len)
+        stack = _gather_stack(params, dims, mesh, key)
+        for l in range(_n_layers(stack)):
+            pl = _gather_layer(_layer(stack, l), dims, mesh, key)
+            x = _layer_decode(c, x, pl, _layer(cache[ckey], l), pos, mesh,
+                              cache_len)
         out[ckey] = cache[ckey]
+    params = _gather_top(params, dims, mesh, "final_norm", _unembed_key(cfg))
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed_apply(cfg, params, x), out

@@ -25,7 +25,8 @@ attention merges.  Port of ``repro/parallel/collective_planner.py``:
    (:func:`enter_region`, :func:`leave_region`) with the residual whole
    or split over the sequence (``seq_shard``), which the model layers
    call where GSPMD partitions the JAX package's step; the process group
-   over the data axes, ``(pod, data)`` as one group (:func:`data_group`).
+   over the data axes, ``(pod, data)`` as one group (:func:`data_group`);
+   and ZeRO-3's gather of a parameter's data slice (:func:`gather_param`).
 
 Every collective goes through :func:`collective`, which
 :func:`record_collectives` can count.
@@ -58,7 +59,8 @@ __all__ = ["softmax_collective_schedule", "plan_softmax_strategy",
            "model_axis", "make_submesh", "mesh_group", "data_group",
            "forget_mesh_groups", "enter_parallel", "leave_parallel",
            "gather_shards", "gather_replicated", "scatter_shards",
-           "take_block", "enter_region", "leave_region", "SEQ_GATHER"]
+           "take_block", "gather_param", "enter_region", "leave_region",
+           "SEQ_GATHER"]
 
 
 def softmax_collective_schedule(strategy: str, rows: int, cols: int,
@@ -553,6 +555,24 @@ def take_block(x: torch.Tensor, group, label: str, *,
     return _TakeBlock.apply(x, group, label, dim)
 
 
+def gather_param(x: torch.Tensor, mesh, name: str, dim: int, *,
+                 reduced: bool = False) -> torch.Tensor:
+    """A ZeRO-3 (``fsdp``) parameter's data slice ``x`` gathered whole over
+    the data axes (:func:`data_group`) along ``dim`` under autograd,
+    labelled ``params/<name>`` as ``train_collective_schedule`` declares
+    it.  Its transpose Reduce-Scatters the gradient, which each rank holds
+    as its rows' partial sum (``grads/<name>``), and keeps the rank's
+    block.  ``reduced``: the step sums this leaf's gradient over the data
+    axes itself (the MoE layer's router and experts, the planner loss's
+    unembed), so the transpose takes the rank's block of it, with no
+    collective."""
+    group = data_group(mesh)
+    if reduced:
+        return gather_replicated(x, group, "params/" + name, dim=dim)
+    return gather_shards(x, group, "params/" + name, "grads/" + name,
+                         dim=dim)
+
+
 # the All-Gather of the residual's rows at a block's entry under seq_shard
 SEQ_GATHER = "tp/seq-gather"
 
@@ -601,7 +621,8 @@ def _mask_pad(lg: torch.Tensor, v0: int, real_vocab: int) -> torch.Tensor:
 def sharded_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
                          labels: torch.Tensor, mesh, *, real_vocab: int,
                          strategy: str = "auto",
-                         vocab: Optional[int] = None) -> torch.Tensor:
+                         vocab: Optional[int] = None,
+                         zero3_dim: Optional[int] = None) -> torch.Tensor:
     """Cross-entropy over vocab-sharded logits with explicit collectives,
     called on every rank of ``mesh`` (a ``DeviceMesh`` with a ``model``
     axis and the data axes, ``data`` or ``(pod, data)``, or none).
@@ -613,7 +634,11 @@ def sharded_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
     every rank (``tensor_parallel=False``) is cut to the rank's block here,
     with no collective (its transpose All-Gathers the blocks of the
     cotangent, ``xent/unembed-block``), as the JAX ``shard_map`` slices a
-    replicated input.  Returns the scalar mean NLL over the whole batch,
+    replicated input.  Under ZeRO-3 (``zero3_dim``) the unembed is the
+    rank's data slice of that, split along ``zero3_dim``: it is gathered
+    first (:func:`gather_param`, ``params/unembed``), its transpose the
+    rank's block of the cotangent that ``xent/unembed-grad`` summed.
+    Returns the scalar mean NLL over the whole batch,
     the same on every rank.  'dist' computes the global max/logsumexp via
     All-Reduces of per-shard statistics (the paper's distSM); 'gather'
     All-Gathers the f32 logit shards and computes locally (the paper's
@@ -634,6 +659,9 @@ def sharded_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
     dp = dp_axes(mesh)
     P_model = mesh_axes(mesh)["model"]
     g_model = mesh.get_group("model")
+    if zero3_dim is not None:
+        unembed = gather_param(unembed, mesh, "unembed", zero3_dim,
+                               reduced=True)
     if vocab is not None and P_model > 1 and unembed.shape[1] == vocab:
         unembed = take_block(unembed, g_model, "xent/unembed-block")
     v_local = unembed.shape[1]

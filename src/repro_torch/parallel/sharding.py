@@ -41,7 +41,7 @@ from ..models.param import tree_map, tree_zip
 
 __all__ = ["LOGICAL_RULES", "MeshShape", "mesh_axes", "dp_axes", "dp_size",
            "spec_for", "param_shardings", "zero1_spec", "zero1_shardings",
-           "batch_spec", "cache_shardings", "split_over", "shard_bounds",
+           "data_dim", "batch_spec", "cache_shardings", "split_over", "shard_bounds",
            "cache_block", "local_cache", "partition_spec", "local_shard", "shard_leaf", "shard_tree",
            "gather_leaf", "gather_tree"]
 
@@ -157,6 +157,16 @@ def zero1_spec(axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
 def zero1_shardings(specs, mesh, tensor_parallel: bool = True):
     return tree_map(lambda s: zero1_spec(s.axes, s.shape, mesh,
                                          tensor_parallel), specs)
+
+
+def data_dim(placements: Sequence, mesh) -> Optional[int]:
+    """The tensor dim that the data axes split under ``placements`` (a
+    ZeRO-1 moment's, or a ZeRO-3 parameter's), or None where they keep it
+    whole.  ``zero1_spec`` puts every data axis on the same dim."""
+    for name, p in zip(mesh.mesh_dim_names, placements):
+        if name in dp_axes(mesh) and isinstance(p, Shard):
+            return p.dim
+    return None
 
 
 def _batch_axes(mesh, batch: int) -> Tuple[str, ...]:

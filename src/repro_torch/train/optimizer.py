@@ -18,7 +18,9 @@ All-Gathers the updated slices over the data axes, one group
 (``zero1/params``: GSPMD's gather in the JAX package, where it is not
 declared).  With ``grad_compression`` the int8 error feedback is kept
 the same way and compressed in the update, not in a collective, as in
-the JAX step.
+the JAX step.  Under ZeRO-3 the params are those slices already: the
+step passes no ``zero1``, and each param is updated in place from its
+gradient's slice, with no gather.
 """
 from __future__ import annotations
 
@@ -130,7 +132,10 @@ def adamw_update(cfg: OptConfig, params, grads, state: OptState, *,
     this rank's shard of a leaf (the mesh step); otherwise it is computed
     from ``grads``.  With ``zero1`` and ``mesh`` the moments are ZeRO-1
     slices (:func:`init_opt_state`): each rank updates its slice of the
-    param and the slices are All-Gathered over ``data``."""
+    param and the slices are All-Gathered over ``data``.  Where ``params``
+    are ZeRO-3 slices, ``zero1`` is None and ``grads`` are their slices:
+    each leaf is updated as it is, ``mesh`` giving only the int8 scales'
+    group."""
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     compress = cfg.grad_compression and state.err is not None
@@ -140,7 +145,6 @@ def adamw_update(cfg: OptConfig, params, grads, state: OptState, *,
                       state.err if compress else params, zero1)
     amax = iter(_compress_scales(leaves, scale, mesh)
                 if compress and mesh is not None else [])
-    dp = sharding.dp_axes(mesh) if mesh is not None else ()
 
     step = state.step + 1
     lr = cosine_lr(cfg, state.step)
@@ -161,10 +165,8 @@ def adamw_update(cfg: OptConfig, params, grads, state: OptState, *,
         delta.add_(pf, alpha=cfg.weight_decay)
         new = pf - lr * delta
         if ps.shape != p.shape:
-            d = next(pl.dim for a, pl in zip(mesh.mesh_dim_names, z)
-                     if a in dp and isinstance(pl, sharding.Shard))
             new = collective("AllGather", "zero1/params", new.to(p.dtype),
-                             data_group(mesh), dim=d)
+                             data_group(mesh), dim=sharding.data_dim(z, mesh))
         p.copy_(new)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, OptState(step, state.m, state.v, state.err), metrics

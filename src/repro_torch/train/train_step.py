@@ -32,6 +32,17 @@ reduced gradients are int8-compressed on each rank's slices with the
 scale of the whole leaf.  That is numerically the step GSPMD computes for
 the JAX package's mesh step.  With ``mesh=None`` ``use_planner_loss`` is
 the plain loss, as in the JAX package.
+
+ZeRO-3 (``cfg.fsdp``) on a mesh: :func:`state_placements` puts each
+param at its ZeRO-1 slice, the moments' placement, the one place that
+says where a param lives.  The model gathers each slice over the data
+axes where it is used (``params/...``, a layer's inside its remat body)
+and the gather's backward Reduce-Scatters the gradient (``grads/...``),
+so :func:`_reduce_grads` reduces only the leaves that the data axes keep
+whole; the global norm sums each leaf's squares over the axes that split
+it, and AdamW updates the slices in place, with no ``zero1/params``
+gather.  That is the step GSPMD compiles for the JAX package from its
+``state_specs``' ZeRO-3 shardings.
 """
 from __future__ import annotations
 
@@ -41,7 +52,7 @@ import torch
 
 from ..models import transformer
 from ..models.model import Model
-from ..models.moe import MESH_REDUCED
+from ..models.moe import reduced_on_mesh
 from ..models.param import tree_leaves, tree_map
 from ..parallel import sharding
 from ..parallel.collective_planner import (_flatten_sorted, collective,
@@ -81,36 +92,46 @@ def _local_rows(batch: Dict[str, torch.Tensor], mesh
 def state_placements(model: Model, mesh, *, compression: bool = False
                      ) -> TrainState:
     """The placements of a mesh step's state, a tree like
-    :class:`TrainState`: the params' ``param_shardings``, the moments' (and
-    error feedback's) ``zero1_shardings``, the step replicated (``()``)."""
+    :class:`TrainState`: the params' ``param_shardings`` (under ``fsdp``,
+    ZeRO-3, their ``zero1_shardings``), the moments' (and error
+    feedback's) ``zero1_shardings``, the step replicated (``()``).  Every
+    placement of a param, in training, checkpoints and serving, is read
+    here."""
     specs, tp = model.specs, model.cfg.tensor_parallel
     z = sharding.zero1_shardings(specs, mesh, tp)
-    return TrainState(sharding.param_shardings(specs, mesh, tp),
-                      OptState(step=(), m=z, v=z,
-                               err=z if compression else None))
+    params = z if model.cfg.fsdp else sharding.param_shardings(specs, mesh,
+                                                               tp)
+    return TrainState(params, OptState(step=(), m=z, v=z,
+                                       err=z if compression else None))
+
+
+def _moment_slices(placed: TrainState):
+    """The moments' placements where a moment is a slice of its param
+    (ZeRO-1), None where the params are at those placements already
+    (ZeRO-3): AdamW then updates them in place."""
+    return None if placed.params == placed.opt.m else placed.opt.m
 
 
 def shard_params(model: Model, params, mesh):
-    """This rank's shards of the full ``params`` under ``param_shardings``
-    (copies where a leaf is split)."""
-    return sharding.shard_tree(params, sharding.param_shardings(
-        model.specs, mesh, model.cfg.tensor_parallel), mesh)
+    """This rank's shards of the full ``params`` under
+    :func:`state_placements` (copies where a leaf is split)."""
+    return sharding.shard_tree(params, state_placements(model, mesh).params,
+                               mesh)
 
 
 def init_train_state(model: Model, params, mesh=None, *,
                      compression: bool = False) -> TrainState:
     """The state a step starts from, given the full ``params``: on a mesh,
     this rank's parameter shards and its ZeRO-1 moments, as the JAX
-    package's ``train_loop`` places them."""
+    package's ``train_loop`` places them (its ZeRO-3 step's
+    ``state_specs`` under ``fsdp``)."""
     if mesh is None:
         return TrainState(params, init_opt_state(params,
                                                  compression=compression))
     params = shard_params(model, params, mesh)
     return TrainState(params, init_opt_state(
         params, compression=compression,
-        zero1=sharding.zero1_shardings(model.specs, mesh,
-                                       model.cfg.tensor_parallel),
-        mesh=mesh))
+        zero1=_moment_slices(state_placements(model, mesh)), mesh=mesh))
 
 
 def make_loss_fn(model: Model, mesh=None, use_planner_loss: bool = False):
@@ -133,6 +154,7 @@ def make_loss_fn(model: Model, mesh=None, use_planner_loss: bool = False):
                 sharding.partition_spec(spec, mesh) != (None, "model"):
             raise ValueError(f"padded vocab {cfg.padded_vocab} does not "
                              f"split over the model axis")
+        dims = transformer.zero3_dims(cfg, mesh)
 
         def loss_fn(params, batch):
             # explicit-collective loss: forward to hidden states, then the
@@ -142,7 +164,8 @@ def make_loss_fn(model: Model, mesh=None, use_planner_loss: bool = False):
             return sharded_softmax_xent(
                 x, params["unembed"], b["labels"], mesh,
                 real_vocab=cfg.vocab_size, strategy=strategy,
-                vocab=cfg.padded_vocab)
+                vocab=cfg.padded_vocab,
+                zero3_dim=dims["unembed"] if dims else None)
         return loss_fn
 
     n = sharding.dp_size(mesh)
@@ -174,8 +197,7 @@ def _reduced_in_step(keys, cfg, sharded_unembed: bool) -> bool:
     ``data`` already (``xent/unembed-grad``, ``moe/...``)."""
     if sharded_unembed and "unembed" in keys:
         return True
-    return cfg.is_moe and len(keys) >= 2 and keys[-2] == "moe" \
-        and keys[-1] in MESH_REDUCED
+    return cfg.is_moe and reduced_on_mesh(keys)
 
 
 def _reduce_grads(grads, mesh, placements, cfg, sharded_unembed: bool,
@@ -183,40 +205,51 @@ def _reduce_grads(grads, mesh, placements, cfg, sharded_unembed: bool,
     """SUM-all-reduce every gradient leaf over the data axes (one
     collective a leaf, labelled as ``train_collective_schedule``'s
     ``grads/...``, of this rank's shard; ``pod`` and ``data`` as one
-    group) but those the step reduced already; with ``seq`` (the
-    residual's sequence split over ``model``) a leaf that acts on the
-    residual's rows over every axis of the mesh.  Returns the reduced tree
-    (in sorted key order; ``adamw_update`` matches leaves by name) and the
-    global norm: the squares of the leaves that ``model`` splits summed
-    over ``model`` (``grads/norm``, issued where one is split), those of
-    the others added."""
+    group) but those the step reduced already: the loss's and the MoE
+    layers', and under ZeRO-3 every leaf that the data axes split, whose
+    gather's backward Reduce-Scattered it.  With ``seq`` (the residual's
+    sequence split over ``model``) a leaf that acts on the residual's rows
+    is reduced over every axis of the mesh (under ZeRO-3, its
+    Reduce-Scattered slice over ``model``).  Returns the reduced tree (in
+    sorted key order; ``adamw_update`` matches leaves by name) and the
+    global norm: each leaf's squares summed, those of the leaves that
+    ``model`` splits over ``model``, of those that the data axes split
+    over them, of those that both split over the mesh (``grads/norm``,
+    one sum a group that some leaf needs), in that order."""
     group = data_group(mesh)
     model_dim = mesh.mesh_dim_names.index("model")
     where = dict(_flatten_sorted(placements))
     out = {}
-    dev = tree_leaves(grads)[0].device
-    sq_whole = torch.zeros((), dtype=F32, device=dev)
-    sq_split = torch.zeros((), dtype=F32, device=dev)
+    sq = {}
     for keys, g in _flatten_sorted(grads):
-        if _reduced_in_step(keys, cfg, sharded_unembed):
+        label = "grads/" + ".".join(keys)
+        rows = seq and transformer.acts_on_rows(keys)
+        split_data = sharding.data_dim(where[keys], mesh) is not None
+        if split_data:
+            r = collective("AllReduce", label, g, mesh.get_group("model")) \
+                if rows else g
+        elif _reduced_in_step(keys, cfg, sharded_unembed):
             r = g
         else:
-            r = collective("AllReduce", "grads/" + ".".join(keys), g,
-                           mesh_group(mesh) if seq and
-                           transformer.acts_on_rows(keys) else group)
+            r = collective("AllReduce", label, g,
+                           mesh_group(mesh) if rows else group)
         s = torch.sum(torch.square(r.to(F32)))
-        if isinstance(where[keys][model_dim], sharding.Shard):
-            sq_split = sq_split + s
-        else:
-            sq_whole = sq_whole + s
+        split = (isinstance(where[keys][model_dim], sharding.Shard),
+                 split_data)
+        sq[split] = sq[split] + s if split in sq else s
         node = out
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = r
-    if any(isinstance(p[model_dim], sharding.Shard) for p in where.values()):
-        sq_whole = sq_whole + collective("AllReduce", "grads/norm", sq_split,
-                                         mesh.get_group("model"))
-    return out, torch.sqrt(sq_whole)
+    groups = {(False, False): None, (True, False): mesh.get_group("model"),
+              (False, True): group, (True, True): mesh_group(mesh)}
+    total = None
+    for split, g in groups.items():
+        if split in sq:
+            s = sq[split] if g is None else collective(
+                "AllReduce", "grads/norm", sq[split], g)
+            total = s if total is None else total + s
+    return out, torch.sqrt(total)
 
 
 def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
@@ -256,7 +289,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
                                          model.cfg, sharded, seq)
         new_params, new_opt, metrics = adamw_update(
             opt_cfg, state.params, grads, state.opt, grad_norm=gnorm,
-            zero1=placed.opt.m if placed else None, mesh=mesh)
+            zero1=_moment_slices(placed) if placed else None, mesh=mesh)
         metrics = dict(metrics, loss=loss)
         return TrainState(new_params, new_opt), metrics
 

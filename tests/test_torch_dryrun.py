@@ -4,8 +4,9 @@ the real gloo run records on the same config and mesh
 (``tests/torch_mesh_ranks.py``'s ``dryrun`` suite), on every rank, and its
 state's bytes are the real state's; train, prefill and decode cells each
 produce an artifact with its FLOPs, memory, collectives, reconciliation
-and roofline; ``fsdp`` raises, naming the queue item; importing the
-module makes no world."""
+and roofline, with ``fsdp`` (ZeRO-3) too, whose train state is smaller
+than the same cell's without it; importing the module makes no
+world."""
 import json
 import subprocess
 import sys
@@ -87,17 +88,40 @@ def test_every_kind_of_cell_produces_an_artifact(tmp_path, arch, shape,
 
 
 def test_cli_writes_a_cell_and_refuses_fsdp(tmp_path):
+    """The CLI writes a cell; ``fsdp=true`` (ZeRO-3), which the port once
+    refused, writes a train, a prefill and a decode cell, its params at
+    their ``zero1_shardings`` slices: the train state is smaller than the
+    same cell's without it, and the train cell's reconciliation leaves no
+    finding unexplained."""
     out = tmp_path / "decode.json"
     env_code = ("from repro_torch.launch.dryrun import main\n"
                 "raise SystemExit(main(['--arch', 'glm4-9b', '--shape', "
                 "'decode_32k', '--mesh', 'host', '--opt', "
-                "'n_layers=1,global_batch=2,seq_len=128', '--out', %r]))\n"
-                % str(out))
+                "'n_layers=1,global_batch=2,seq_len=128,fsdp=true', "
+                "'--out', %r]))\n" % str(out))
     r = subprocess.run([sys.executable, "-c", env_code], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     rec = json.loads(out.read_text())
     assert rec["devices"] == 1 and rec["use_kernels"]
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        dryrun.run_cell("glm4-9b", "train_4k", "host",
-                        opt_flags={"fsdp": True})
+    assert any(x[0].startswith("params/") for x in rec["records"])
+    cfg = ranks.case_config("glm4-9b")
+    state = {}
+    for shape, opt in CELLS:
+        for fsdp in (True, False):
+            # 4 rows: a cache's batch dim of the smoke depth, 2, would
+            # read as its layer dim (cache_shardings' rule)
+            cell = dryrun.run_cell("glm4-9b", shape, "single",
+                                   config=cfg.with_(fsdp=fsdp),
+                                   mesh_shape=(2, 2),
+                                   opt_flags=dict(opt, global_batch=4))
+            assert KEYS <= set(cell) and cell["kind"] == shape.split("_")[0]
+            state[shape, fsdp] = cell["memory"]["state_bytes"]
+            labels = {x[0].split("/")[0] for x in cell["records"]}
+            assert ("params" in labels) == fsdp
+            if shape == "train_4k":
+                assert all(f["explained"]
+                           for f in cell["reconcile"]["findings"]), fsdp
+    assert state["train_4k", True] < state["train_4k", False]
+    for shape in ("prefill_32k", "decode_32k"):
+        assert state[shape, True] < state[shape, False]

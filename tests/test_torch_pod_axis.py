@@ -155,7 +155,9 @@ def test_mesh_bench_runs_the_pod_and_seq_shard_meshes_on_gloo(tmp_path):
     equal on every rank and within its bar of the (1, 4) step, the
     gradients over (pod, data) in one group, the pod meshes' and
     ``seq_shard``'s collectives each timed, least and most over the
-    ranks."""
+    ranks; the (4, 1) ZeRO-1 and ZeRO-3 (``fsdp``) cases beside them, the
+    latter's gradients Reduce-Scattered and no ``zero1/params`` gather,
+    no device memory on the CPU."""
     import json
     import os
     import subprocess
@@ -172,7 +174,8 @@ def test_mesh_bench_runs_the_pod_and_seq_shard_meshes_on_gloo(tmp_path):
     assert rec["ok"] and rec["ranks"] == 4
     by = {(c["case"], tuple(c["mesh"].values())): c for c in rec["cases"]}
     assert set(by) == {("pod", (2, 2, 1)), ("pod", (2, 1, 2)),
-                       ("tp", (1, 4)), ("seq_shard", (1, 4))}
+                       ("tp", (1, 4)), ("seq_shard", (1, 4)),
+                       ("zero1", (4, 1)), ("fsdp", (4, 1))}
     for (name, shape), c in by.items():
         keys = c["collectives"]
         grads = [k for k in keys if k.startswith("grads/layers.attn.wq ")]
@@ -184,3 +187,10 @@ def test_mesh_bench_runs_the_pod_and_seq_shard_meshes_on_gloo(tmp_path):
         assert all(0 <= v["ms_least"] <= v["ms_most"]
                    for v in keys.values())
         assert 0 <= c["collective_ms_least"] <= c["collective_ms_most"]
+        assert c["peak_bytes_least"] is None
+        if name in ("zero1", "fsdp"):
+            zero3 = any(k.startswith("grads/layers.attn.wq ReduceScatter")
+                        for k in keys)
+            assert zero3 == (name == "fsdp")
+            assert any(k.startswith("zero1/params ") for k in keys) \
+                == (name == "zero1")

@@ -17,14 +17,15 @@ not a test file.
 - :func:`check_collectives`: the collectives each rank issues outside the
   remat recompute are ``train_collective_schedule``'s entries with
   ``participants > 1``, corrected where the declaration miscounts a
-  family's layers or a knob's layout (:func:`declaration_corrections`,
-  ROADMAP C.11-C.16), and the port's own (:func:`port_own_schedule`),
-  nothing else.
+  family's layers, a knob's layout or ZeRO-3's gathers
+  (:func:`declaration_corrections`, ROADMAP C.11-C.16, C.20, C.21), and
+  the port's own (:func:`port_own_schedule`), nothing else.
 
 A mesh shape of two dims is ``(data, model)``, of three ``(pod, data,
 model)``; the data axes' size ``P_dp`` is the product of all but the
 last.  A case's arch may end in a knob (``torch_mesh_ranks.KNOBS``):
-``+seq`` (``seq_shard``) or ``+tpoff`` (``tensor_parallel=False``); its
+``+seq`` (``seq_shard``), ``+tpoff`` (``tensor_parallel=False``) or
+``+fsdp`` (ZeRO-3: each parameter at its ``zero1_shardings`` block); its
 reference is the JAX mesh-free step of the arch without it.
 """
 import collections
@@ -44,6 +45,7 @@ from repro.train.optimizer import init_opt_state as jinit_opt_state
 from repro.train.train_step import TrainState as JTrainState
 from repro.train.train_step import make_train_step as jmake_train_step
 from repro_torch.models.model import Model
+from repro_torch.models.moe import reduced_on_mesh
 from repro_torch.models.transformer import acts_on_rows
 
 import torch_mesh_ranks as ranks
@@ -57,10 +59,13 @@ STEP_TOL = 1e-5
 # (GRAD_TOL in tests/test_torch_train.py)
 SSD_TOL = 1e-2
 AXES = ("data", "model")
-# the forward collectives a remat recompute may repeat
+# the forward collectives a remat recompute may repeat ("params/": every
+# ZeRO-3 gather of a layer's weights)
 RECOMPUTED = {"tp/attn-out", "tp/ffn-out", "tp/q-gather", "tp/kv-gather",
               "tp/ssm-gather", "tp/ssm-norm", "tp/ssm-out", "moe/combine",
-              "moe/shared-out", "tp/seq-gather"}
+              "moe/shared-out", "tp/seq-gather", "params/"}
+# the parameter stacks of the layers: a leaf under one is (L, ...)
+STACKS = ("layers", "dense_layers", "enc_layers", "dec_layers")
 SEQ = "tp/seq-gather"
 
 
@@ -137,6 +142,13 @@ def jax_specs(arch, shape, zero1=False):
                     x, jax.sharding.NamedSharding))[0]}
 
 
+def param_specs(arch, shape):
+    """Each parameter's JAX ``PartitionSpec`` as the case places it: its
+    ``zero1_shardings`` spec under ``fsdp`` (ZeRO-3, the JAX
+    ``state_specs``), else its ``param_shardings`` spec."""
+    return jax_specs(arch, shape, zero1=jax_config(arch).fsdp)
+
+
 def block_index(spec, coord, shape, full_shape):
     """The slices of the block of a tensor of ``full_shape`` that the rank
     at ``coord`` holds under a JAX ``PartitionSpec``."""
@@ -179,7 +191,7 @@ def check_train_matches_jax(res, arch, shape, *, adam=False):
         assert not any(meta["drops"])       # nothing drops: see overrides
     ssd = ranks.case_config(arch).has_ssm
     b1 = JOptConfig().betas[0]
-    specs, zspecs = jax_specs(arch, shape), jax_specs(arch, shape, True)
+    specs, zspecs = param_specs(arch, shape), jax_specs(arch, shape, True)
     least, prev_m = {}, {}
     for i, (want_loss, want, want_m) in enumerate(steps):
         for _, meta in res:
@@ -279,7 +291,6 @@ def port_own_schedule(arch, shape, planner):
             own[(SEQ, "AllGather", full, m)] += 1
         else:
             own[("tp/embed", "AllReduce", full, m)] += 1
-        own[("grads/norm", "AllReduce", 4.0, m)] += 1
         n_attn = L if cfg.has_attention and cfg.attn_type != "mla" else 0
         if cfg.n_heads % m and n_attn:
             q = act * cfg.n_heads * hd * 4.0
@@ -331,17 +342,66 @@ def port_own_schedule(arch, shape, planner):
         # a whole embedding's block of rows and the final rows' gather
         own[("tp/embed", "AllGather", full, m)] += 1
         own[(SEQ, "AllGather", full, m)] += 1
+    specs, zspecs = jax_specs(arch, shape), jax_specs(arch, shape, True)
+    leaves = jax.tree_util.tree_flatten_with_path(
+        JModel(cfg).abstract_params())[0]
+    for ms, ds in {(bool(_model_shards(specs[name])),
+                    cfg.fsdp and _data_split(zspecs[name]))
+                   for name in (jax.tree_util.keystr(p) for p, _ in leaves)}:
+        # the norm's squares of each kind of leaf summed over its axes
+        P = (m if ms else 1) * (P_dp if ds else 1)
+        if P > 1:
+            own[("grads/norm", "AllReduce", 4.0, P)] += 1
     if P_dp > 1:
         if not planner:
             own[("loss/mean", "AllReduce", 4.0, P_dp)] += 2
-        specs, zspecs = jax_specs(arch, shape), jax_specs(arch, shape, True)
-        for path, leaf in jax.tree_util.tree_flatten_with_path(
-                JModel(cfg).abstract_params())[0]:
+        for path, leaf in leaves:
             name = jax.tree_util.keystr(path)
-            if any(e is not None and _dp_entry(e) for e in zspecs[name]):
+            if _data_split(zspecs[name]) and not cfg.fsdp:
                 n = np.prod(leaf.shape) / m ** len(_model_shards(specs[name]))
                 own[("zero1/params", "AllGather", n * 4.0, P_dp)] += 1
     return own
+
+
+def _data_split(zspec) -> bool:
+    return any(e is not None and _dp_entry(e) for e in zspec)
+
+
+def zero3_leaves(arch, shape):
+    """Under ``fsdp``, each parameter's ZeRO-3 collectives as the step
+    issues them outside the recompute, {name: (keys, kind, n, dv)}: the
+    data axes split it on a dim of a layer's slice ("layer": n per-layer
+    gathers of the slice, dv its bytes, each recomputed), on the stack's
+    layer dim or on an unstacked leaf ("whole": n gathers of the leaf,
+    two for a tied table, which the unembed gathers again), or not at all
+    ("kept": its gradient All-Reduced, C.6-sized); dv is the rank's
+    ``model`` shard's f32 bytes."""
+    cfg = jax_config(arch)
+    specs, zspecs = jax_specs(arch, shape), jax_specs(arch, shape, True)
+    m = shape[-1]
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            JModel(cfg).abstract_params())[0]:
+        name = jax.tree_util.keystr(path)
+        keys = tuple(k.key for k in path)
+        n = np.prod(leaf.shape) / m ** len(_model_shards(specs[name]))
+        dims = [i for i, e in enumerate(zspecs[name])
+                if e is not None and _dp_entry(e)]
+        if not dims:
+            out[name] = (keys, "kept", 1, n * 4.0)
+        elif keys[0] in STACKS and dims[0] > 0:
+            L = leaf.shape[0]
+            out[name] = (keys, "layer", L, n * 4.0 / L)
+        else:
+            tied = keys == ("embedding",) and cfg.tie_embeddings
+            out[name] = (keys, "whole", 2 if tied else 1, n * 4.0)
+    return out
+
+
+def _reduced_in_step(keys, planner) -> bool:
+    """The leaves whose gradients the step sums over data itself (the
+    planner loss's unembed, the MoE router and experts on a mesh)."""
+    return (planner and keys == ("unembed",)) or reduced_on_mesh(keys)
 
 
 def declaration_corrections(arch, shape, planner=True):
@@ -378,14 +438,27 @@ def declaration_corrections(arch, shape, planner=True):
       planner loss's unembed are whole on every rank and each rank cuts
       its block (as the JAX ``shard_map`` slices them): their gradients'
       blocks are All-Gathered over ``model`` (``moe/expert-block``,
-      ``xent/unembed-block``), which GSPMD issues undeclared."""
+      ``xent/unembed-block``), which GSPMD issues undeclared;
+    - C.20: under ``fsdp`` the declaration counts one ``grads/`` Reduce-
+      Scatter and two ``params/`` All-Gathers of each whole leaf: the
+      step issues one of each a layer, of the layer's slice, its
+      recompute's gathers in ``.recompute``; a leaf split on its layer
+      dim, or unstacked, one of each of the whole leaf (a tied table
+      two); a leaf that the data axes keep whole its ``grads/`` All-
+      Reduce (under C.14 the shared experts are this item's too);
+    - C.21: under ``fsdp`` the gathers of the leaves whose gradients the
+      step sums over data itself (the MoE router and experts, the planner
+      loss's unembed) are issued, one a layer or one of the leaf, and not
+      declared."""
     cfg = jax_config(arch)
     P_dp, m = _sizes(shape)
+    out = {}
+    if cfg.fsdp and P_dp > 1:
+        _zero3_corrections(arch, shape, planner, out)
     if m == 1:
-        return {}
+        return out
     L, D = cfg.n_layers, cfg.d_model
     act = ranks.STEP_BATCH // P_dp * ranks.STEP_SEQ * D * 4.0
-    out = {}
 
     def fix(item, label, count, dv=act, col_type="AllReduce", P=m):
         if count:
@@ -407,7 +480,7 @@ def declaration_corrections(arch, shape, planner=True):
     abstract = jax.tree_util.tree_flatten_with_path(
         JModel(cfg).abstract_params())[0]
     specs = jax_specs(arch, shape)
-    if cfg.n_shared_experts and n_moe and P_dp > 1:
+    if cfg.n_shared_experts and n_moe and P_dp > 1 and not cfg.fsdp:
         for path, leaf in abstract:
             keys = [k.key for k in path]
             if "moe" in keys and keys[-1].startswith("shared_"):
@@ -453,11 +526,40 @@ def declaration_corrections(arch, shape, planner=True):
     return out
 
 
+def _zero3_corrections(arch, shape, planner, out):
+    """C.20 and C.21 into ``out`` (:func:`declaration_corrections`)."""
+    cfg = jax_config(arch)
+    P_dp, m = _sizes(shape)
+    declared = set()
+    for d in jcp.train_collective_schedule(
+            cfg, AbstractMesh(shape, ranks.mesh_axes_of(shape)),
+            ranks.STEP_BATCH, ranks.STEP_SEQ, planner_loss=planner,
+            params=JModel(cfg).abstract_params()):
+        if d.label.startswith("params/"):
+            declared.add(d.label[len("params/"):])
+    for keys, kind, n, dv in zero3_leaves(arch, shape).values():
+        name = ".".join(keys)
+        fixes = out.setdefault(
+            "C.21" if _reduced_in_step(keys, planner) else "C.20",
+            collections.Counter())
+        if name in declared:
+            whole = dv * n if kind == "layer" else dv
+            fixes[("grads/" + name, "ReduceScatter", whole, P_dp)] -= 1
+            fixes[("params/" + name, "AllGather", whole, P_dp)] -= 2
+        if kind == "kept":
+            fixes[("grads/" + name, "AllReduce", dv, P_dp)] += 1
+            continue
+        fixes[("params/" + name, "AllGather", dv, P_dp)] += n
+        if not _reduced_in_step(keys, planner):
+            fixes[("grads/" + name, "ReduceScatter", dv, P_dp)] += n
+
+
 def check_collectives(res, arch, shape, variant):
     """Every rank's collectives of each step outside the recompute against
-    the declared schedule (participants > 1; a ``grads/...`` entry sized
-    by the declaration as the whole leaf, which the port all-reduces in
-    its ``model`` shards: the declared bytes divided by the leaf's shards)
+    the declared schedule (participants > 1; a ``grads/...`` or
+    ``params/...`` entry sized by the declaration as the whole leaf, which
+    the port reduces or gathers in its ``model`` shards: the declared
+    bytes divided by the leaf's shards)
     with :func:`declaration_corrections` applied, plus
     :func:`port_own_schedule`; the recompute's only forward ones."""
     cfg = jax_config(arch)
@@ -474,8 +576,9 @@ def check_collectives(res, arch, shape, variant):
         if d.participants <= 1:
             continue
         dv = d.dv_bytes
-        if d.label.startswith("grads/"):
-            name = "".join(f"['{k}']" for k in d.label[6:].split("."))
+        if d.label.startswith(("grads/", "params/")):
+            name = "".join(f"['{k}']" for k in
+                           d.label.split("/", 1)[1].split("."))
             dv /= m ** len(_model_shards(specs[name]))
         want[(d.label, d.col_type, dv, d.participants)] += d.count
     for fixes in declaration_corrections(arch, shape, planner).values():
@@ -492,7 +595,8 @@ def check_collectives(res, arch, shape, variant):
             assert dict(got) == want, {
                 k: (got.get(k, 0), want.get(k, 0))
                 for k in set(got) | set(want) if got.get(k) != want.get(k)}
-            assert {r[0] for r in again} <= RECOMPUTED
+            assert {"params/" if r[0].startswith("params/") else r[0]
+                    for r in again} <= RECOMPUTED
 
 
 # the share of a leaf's elements whose int8 rounding may flip
@@ -512,7 +616,7 @@ def within_but_flips(got, want, outlier_bound, what):
 def state_spec(arch, name, shape):
     """The JAX ``PartitionSpec`` of a train state's leaf by its name."""
     if name.startswith(".params"):
-        return jax_specs(arch, shape)[name[len(".params"):]]
+        return param_specs(arch, shape)[name[len(".params"):]]
     if name.startswith((".opt.m", ".opt.v")):
         return jax_specs(arch, shape, True)[name[len(".opt.m"):]]
     assert name == ".opt.step", name
@@ -530,7 +634,7 @@ def check_int8_step(res, arch, shape):
     All-Reduce over the whole mesh (``grads/compress-scale``)."""
     import jax.numpy as jnp
     from repro.train.data import SyntheticLM as JSyntheticLM
-    zspecs, pspecs = jax_specs(arch, shape, True), jax_specs(arch, shape)
+    zspecs, pspecs = jax_specs(arch, shape, True), param_specs(arch, shape)
     cfg = ranks.case_config(arch)
     p0 = Model(cfg).init(0, device="cpu")
     params = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), p0)

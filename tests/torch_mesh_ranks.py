@@ -40,7 +40,13 @@ a rank and case; the tests compare it with the JAX package.  Suites:
 - ``dryrun`` (world 4): two steps of the planner-loss ('dist') train
   step for each of ``DRYRUN_CASES`` on (2, 2), with the bytes of each
   rank's state, for the dry run's comparison
-  (tests/test_torch_dryrun.py).
+  (tests/test_torch_dryrun.py);
+- ``fsdp`` (world 4): ZeRO-3 (a case's arch ends in ``+fsdp``): two
+  steps of the train step for each of ``FSDP_CASES`` and
+  ``FSDP_SEQ_CASES``, glm4's int8-compressed step on (2, 2) and a
+  checkpoint of glm4's written there and restored onto (2, 2) and with no
+  mesh, and
+  the prefill, decode and engine of each of ``FSDP_SERVE`` on (2, 2).
 
 :func:`run_worlds` starts the worlds of a suite side by side for a test
 module.  Nothing here imports JAX.
@@ -103,7 +109,29 @@ POD_CKPT_SHAPE, POD_RESTORE_SHAPES = (2, 2, 1), ((2, 2, 1), (1, 4))
 # the pod suite's engine cases: (arch, mesh shape)
 POD_SERVE = (("glm4-9b", (2, 1, 2)), ("glm4-9b", (2, 2, 1)))
 # a case's config knob, by the suffix of its arch
-KNOBS = {"+seq": {"seq_shard": True}, "+tpoff": {"tensor_parallel": False}}
+KNOBS = {"+seq": {"seq_shard": True}, "+tpoff": {"tensor_parallel": False},
+         "+fsdp": {"fsdp": True}}
+# the fsdp suite's train cases (arch, mesh shape, variants), world 4:
+# mamba2's smoke conv_b and norm_scale split over data on their layer dim
+# on (2, 2); qwen3-moe's router and experts, and the planner loss's
+# unembed, have gradients that the step sums over data itself; with
+# tensor_parallel=False the whole unembed is gathered, then cut to the
+# rank's vocab block; deepseek's two stacks and shared experts, hymba's
+# two mixers and seamless's encoder and decoder stacks gather alike
+FSDP_CASES = (("glm4-9b+fsdp", (2, 2), ("dist", "plain")),
+              ("glm4-9b+fsdp", (4, 1), ("plain",)),
+              ("mamba2-130m+fsdp", (2, 2), ("plain",)),
+              ("qwen3-moe-30b-a3b+fsdp", (2, 2), ("dist",)),
+              ("glm4-9b+tpoff+fsdp", (2, 2), ("dist",)),
+              ("deepseek-v3-671b+fsdp", (2, 2), ("dist",)),
+              ("hymba-1.5b+fsdp", (2, 2), ("plain",)),
+              ("seamless-m4t-medium+fsdp", (2, 2), ("plain",)))
+# ZeRO-3 beside seq_shard: the norms' Reduce-Scattered gradients are
+# partial sums over model too
+FSDP_SEQ_CASES = (("glm4-9b+seq+fsdp", (2, 2), ("dist",)),)
+# the fsdp suite's serve cases on FSDP_SHAPE, and its checkpoint's arch
+FSDP_SERVE = ("glm4-9b+fsdp", "mamba2-130m+fsdp", "seamless-m4t-medium+fsdp")
+FSDP_SHAPE, FSDP_CKPT = (2, 2), "glm4-9b+fsdp"
 # the seq suite's cases, by world; seamless without the knob beside it
 SEQ_CASES = {2: (("glm4-9b+seq", (1, 2), ("dist", "plain")),
                  ("mamba2-130m+seq", (1, 2), ("plain",)),
@@ -266,6 +294,43 @@ def run_pod(rank, out_dir, meshes):
                "extra": extra})
     for arch, shape in POD_SERVE:
         run_serve(meshes[shape], rank, out_dir, arch)
+
+
+def run_fsdp(rank, out_dir, meshes):
+    """The fsdp suite: the train cases; the int8-compressed step and the
+    checkpoint on ``FSDP_SHAPE``, written and restored through
+    ``state_placements`` alone; the serve cases."""
+    from repro_torch.train.checkpoint import (flatten_with_names,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.train_step import state_placements
+    for arch, shape, variants in FSDP_CASES + FSDP_SEQ_CASES:
+        run_train_steps(meshes[shape], rank, out_dir, arch,
+                        f"fsdp_{arch}_{tag_of(shape)}_{{variant}}", variants)
+    mesh = meshes[FSDP_SHAPE]
+    _, cstate, arrays, cmeta = train_case(FSDP_CKPT, mesh, "auto", False,
+                                          compression=True)
+    for n, t in flatten_with_names(cstate.opt.err):
+        arrays[f"err{n}"] = t.numpy().copy()
+    _save(out_dir, "fsdp_int8", rank, arrays, cmeta)
+    model, state, _, meta = train_case(FSDP_CKPT, mesh, "auto", False)
+    placed = state_placements(model, mesh)
+    ckpt = f"{out_dir}/ckpt"
+    save_checkpoint(ckpt, STEPS, state, placements=placed, mesh=mesh)
+    _save(out_dir, "fsdp_ckpt_saved", rank, _whole(state, placed, mesh), meta)
+    got, step, _ = restore_checkpoint(ckpt, state, shardings=placed,
+                                      mesh=mesh)
+    _save(out_dir, "fsdp_ckpt_restored", rank,
+          dict(_whole(got, placed, mesh),
+               **{f"local{n}": t.numpy().copy()
+                  for n, t in flatten_with_names(got)}),
+          {"coord": list(mesh.get_coordinate()), "step": step})
+    whole, step, _ = restore_checkpoint(ckpt, state)
+    _save(out_dir, "fsdp_ckpt_restored_none", rank,
+          {n: t.numpy() for n, t in flatten_with_names(whole)},
+          {"step": step})
+    for arch in FSDP_SERVE:
+        run_serve(mesh, rank, out_dir, arch)
 
 
 def run_seq_prefill(mesh, rank, out_dir, arch):
@@ -583,14 +648,15 @@ def run_serve(mesh, rank, out_dir, arch):
     from repro_torch.models.layers import greedy_token
     from repro_torch.models.model import Model
     from repro_torch.parallel.collective_planner import record_collectives
-    from repro_torch.parallel.sharding import (batch_spec, param_shardings,
-                                               shard_bounds, shard_tree)
+    from repro_torch.parallel.sharding import (batch_spec, shard_bounds,
+                                               shard_tree)
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.train.checkpoint import flatten_with_names
+    from repro_torch.train.train_step import state_placements
     cfg = case_config(arch)
     model = Model(cfg)
     params = shard_tree(model.init(0, device="cpu"),
-                        param_shardings(model.specs, mesh), mesh)
+                        state_placements(model, mesh).params, mesh)
     B, P, C = serve_sizes(arch)
     r0, r1 = shard_bounds((B,), batch_spec(mesh, B), mesh)[0]
     toks, src, nxt, prompts = serve_inputs(cfg, arch)
@@ -695,6 +761,9 @@ def _rank(rank, world, out_dir, suite):
                                                     "dist", True)
                 meta["state_bytes"] = tree_bytes(state)
                 _save(out_dir, f"dryrun_{arch}", rank, {}, meta)
+        elif suite == "fsdp" and world == 4:
+            shapes = {s for _, s, _ in FSDP_CASES} | {FSDP_SHAPE}
+            run_fsdp(rank, out_dir, {s: mesh(s) for s in sorted(shapes)})
         elif suite in ("seq", "tp_off"):
             cases = SEQ_CASES if suite == "seq" else TP_OFF_CASES
             for arch, shape, variants in cases[world]:

@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from . import _build
 from ._op import aligned16, register_kernel_op
 from .ref import attention_ref
@@ -356,7 +356,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         causal, scale, window = ctx.opts
-        with torch.enable_grad():
+        with torch.enable_grad(), \
+                tracing.span("attention/backward", device=True):
             xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
             out = attention_ref(*xs, causal=causal, scale=scale,
                                 window=window)

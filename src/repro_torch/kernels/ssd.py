@@ -38,7 +38,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from . import _build
 from ._op import aligned16, register_kernel_op
 from .ref import ssd_chunked_ref
@@ -349,7 +349,7 @@ class _SSDScan(torch.autograd.Function):
     def backward(ctx, g):
         xs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         r = xs[0].shape[0] // xs[2].shape[0]
-        with torch.enable_grad():
+        with torch.enable_grad(), tracing.span("ssd/backward", device=True):
             out = ssd_chunked_ref(xs[0], xs[1], expand_groups(xs[2], r),
                                   expand_groups(xs[3], r),
                                   chunk=ctx.chunk or CHUNK)

@@ -137,6 +137,9 @@ def _serve(args, model, params, device, mesh, imported, gc_out) -> dict:
         "tok_per_s": round(n_tok / dt, 1),
         "decode_steps": eng.stats["decode_steps"],
         "prefill_calls": eng.stats["prefill_calls"],
+        # the prompt tokens among those the prefills computed (padding)
+        "prefill_prompt_tokens": eng.stats["prefill_prompt_tokens"],
+        "prefill_tokens": eng.stats["prefill_tokens"],
         "plan_bundle_imported": imported,
         "plan_warmup_solved": eng.stats.get("plan_warmup_solved", 0),
         "plan_warmup_hits": eng.stats.get("plan_warmup_hits", 0),

@@ -58,6 +58,7 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import tracing
 from ..parallel import sharding
 from ..parallel.collective_planner import (SEQ_GATHER, enter_region,
                                            gather_param, gather_replicated,
@@ -103,7 +104,8 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 def _remat_contexts(policy: str):
     """(forward, recompute) contexts of a checkpointed layer: the policy's,
-    the recompute's inside ``recompute_region``."""
+    the recompute's inside ``recompute_region`` and a ``train/remat``
+    span."""
     if policy == "full":
         fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
     else:
@@ -111,7 +113,8 @@ def _remat_contexts(policy: str):
 
     @contextlib.contextmanager
     def recompute():
-        with rec, recompute_region():
+        with rec, recompute_region(), \
+                tracing.span("train/remat", device=True):
             yield
     return fwd, recompute()
 

@@ -29,13 +29,13 @@ attention merges.  Port of ``repro/parallel/collective_planner.py``:
    and ZeRO-3's gather of a parameter's data slice (:func:`gather_param`).
 
 Every collective goes through :func:`collective`, which
-:func:`record_collectives` can count.
+:func:`record_collectives` can count and time, and which opens a
+``collective/<label>`` span of ``repro_torch.tracing``.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..core.collectives import collective_cost, noc_latency
 from ..core.hardware import tpu_v5e
 from ..models.param import torch_dtype
@@ -138,24 +138,23 @@ class CollectiveRecord(list):
     ``(label, col_type, dv_bytes, participants)``; those issued while a
     checkpointed layer is recomputed in the backward pass (remat) are kept
     apart, in ``.recompute``.  A block recorded with ``timed`` also keeps
-    each collective's time (:meth:`times`)."""
+    each collective's ``collective/<label>`` span (``.spans``: record and
+    :class:`~repro_torch.tracing.Span`, in call order; :meth:`times`)."""
 
     def __init__(self, timed: bool = False):
         super().__init__()
         self.recompute: List[Tuple[str, str, float, int]] = []
         self.timed = timed
-        self._spans: List[Tuple[Tuple[str, str, float, int], object,
-                                object]] = []
+        self.spans: List[Tuple[Tuple[str, str, float, int],
+                               tracing.Span]] = []
 
     def times(self) -> List[Tuple[Tuple[str, str, float, int], float]]:
         """(record, ms) of every collective of a ``timed`` block, the
         recompute's among them, in issue order: on the card CUDA events
         around the backend call on the current stream (which waits for
         NCCL's), synchronised here; on the CPU the host clock."""
-        if any(isinstance(a, torch.cuda.Event) for _, a, _ in self._spans):
-            torch.cuda.synchronize()
-        return [(r, a.elapsed_time(b) if isinstance(a, torch.cuda.Event)
-                 else 1e3 * (b - a)) for r, a, b in self._spans]
+        tracing.settle(s for _, s in self.spans)
+        return [(r, s.ms()) for r, s in self.spans]
 
 
 _RECORDS: Optional[CollectiveRecord] = None
@@ -210,43 +209,34 @@ def collective(col_type: str, label: str, x: torch.Tensor, group, *,
     x = x.contiguous()
     if col_type not in ("AllReduce", "AllGather", "ReduceScatter"):
         raise ValueError(f"unknown collective {col_type!r}")
-    span = _RECORDS is not None and _RECORDS.timed
-    if span:
-        t0 = _now(x)
-    if P == 1:
-        out = dv = x.clone()
-    elif col_type == "AllReduce":
-        out = x.clone()
-        dist.all_reduce(out, op=op, group=group)
-        dv = out
-    elif col_type == "AllGather":
-        parts = [torch.empty_like(x) for _ in range(P)]
-        dist.all_gather(parts, x, group=group)
-        out = dv = torch.cat(parts, dim=dim)
-    else:
-        if x.shape[dim] % P:
-            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                             f"into {P} blocks")
-        parts = [p.contiguous() for p in x.chunk(P, dim=dim)]
-        out = torch.empty_like(parts[0])
-        dist.reduce_scatter(out, parts, group=group)
-        dv = x
+    timed = _RECORDS is not None and _RECORDS.timed
+    # no profiler range: the process group opens its own
+    with tracing.span("collective/" + label, device=x.is_cuda, always=timed,
+                      annotate=False) as sp:
+        if P == 1:
+            out = dv = x.clone()
+        elif col_type == "AllReduce":
+            out = x.clone()
+            dist.all_reduce(out, op=op, group=group)
+            dv = out
+        elif col_type == "AllGather":
+            parts = [torch.empty_like(x) for _ in range(P)]
+            dist.all_gather(parts, x, group=group)
+            out = dv = torch.cat(parts, dim=dim)
+        else:
+            if x.shape[dim] % P:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                                 f"split into {P} blocks")
+            parts = [p.contiguous() for p in x.chunk(P, dim=dim)]
+            out = torch.empty_like(parts[0])
+            dist.reduce_scatter(out, parts, group=group)
+            dv = x
     if _RECORDS is not None:
         rec = (label, col_type, float(dv.numel() * dv.element_size()), P)
         (_RECORDS.recompute if _IN_RECOMPUTE else _RECORDS).append(rec)
-        if span:
-            _RECORDS._spans.append((rec, t0, _now(x)))
+        if timed:
+            _RECORDS.spans.append((rec, sp))
     return out
-
-
-def _now(x: torch.Tensor):
-    """A point in time on ``x``'s device: a recorded CUDA event on the
-    card, the host clock elsewhere."""
-    if x.is_cuda:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-    return time.perf_counter()
 
 
 class _SumOver(torch.autograd.Function):

@@ -14,6 +14,13 @@ DeepSeek's ``dense`` stack and the enc-dec ``self``/``cross`` caches
 alike, has its batch on axis 1.)  An enc-dec model's prefill gets zero
 frame embeddings (``src_embeds``), as the JAX engine feeds it.
 
+``stats`` counts the engine's work: prefill calls, decode steps, tokens
+out, timeouts, and the tokens the prefills compute against the refilled
+requests' prompt tokens (the share of a prefill that is prompt, not
+padding).  With ``repro_torch.tracing`` on, ``run`` records the spans
+``serve/run``, ``serve/queue`` (one a request), ``serve/prefill``,
+``serve/splice``, ``serve/decode`` and ``serve/sync``.
+
 The engine runs on the device its parameters live on.  At startup it warms
 the COMET mapping plans of its kernel shapes (``warm_plans``) through the
 port's plan cache, so no prefill solves a plan.
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..models.layers import greedy_token
 from ..models.model import Model
 from ..models.param import tree_leaves
@@ -97,8 +105,12 @@ class ServeEngine:
             shard_bounds((batch_size,), self.rows, mesh)[0]
         self.max_new_cap = max_new_cap
         self.default_deadline_s = default_deadline_s
-        self.stats: Dict[str, float] = {"prefill_calls": 0, "decode_steps": 0,
-                                        "tokens_out": 0, "timeouts": 0}
+        # prefill_prompt_tokens: the refilled requests' prompt tokens (at
+        # most prompt_len each, unpadded); prefill_tokens: the tokens the
+        # prefills compute, every global slot at prompt_len
+        self.stats: Dict[str, float] = {
+            "prefill_calls": 0, "decode_steps": 0, "tokens_out": 0,
+            "timeouts": 0, "prefill_prompt_tokens": 0, "prefill_tokens": 0}
         if plan_warmup:
             self.warm_plans()
 
@@ -185,22 +197,28 @@ class ServeEngine:
         """Prefill the newly refilled slots (one batched call however many
         freed this step) and splice their rows — cache, position, last
         token — into the live decode state."""
-        rows = [r if i in idxs else None for i, r in enumerate(active)]
-        fresh_last, fresh = self._prefill_batch(rows)
-        if cache is None:                  # initial fill: take it wholesale
-            return fresh_last, fresh
-        sel = torch.zeros(self.B, dtype=torch.bool, device=self.device)
-        sel[idxs] = True
-        mine = sel[self.r0:self.r1]        # this rank's rows of the cache
-        # spliced in place: the live cache belongs to this engine alone
-        cache["pos"][mine] = fresh["pos"][mine]
-        for key in cache:
-            if key == "pos":
-                continue
-            for old, new in zip(tree_leaves(cache[key]),
-                                tree_leaves(fresh[key])):
-                old[:, mine] = new[:, mine]  # stacked leaves: batch axis 1
-        return torch.where(sel, fresh_last, last), cache
+        with tracing.span("serve/prefill", device=True):
+            rows = [r if i in idxs else None for i, r in enumerate(active)]
+            self.stats["prefill_prompt_tokens"] += sum(
+                min(len(active[i].prompt), self.prompt_len) for i in idxs)
+            self.stats["prefill_tokens"] += self.B * self.prompt_len
+            fresh_last, fresh = self._prefill_batch(rows)
+            if cache is None:              # initial fill: take it wholesale
+                return fresh_last, fresh
+            with tracing.span("serve/splice", device=True):
+                sel = torch.zeros(self.B, dtype=torch.bool,
+                                  device=self.device)
+                sel[idxs] = True
+                mine = sel[self.r0:self.r1]    # this rank's rows of the cache
+                # spliced in place: the live cache belongs to this engine
+                cache["pos"][mine] = fresh["pos"][mine]
+                for key in cache:
+                    if key == "pos":
+                        continue
+                    for old, new in zip(tree_leaves(cache[key]),
+                                        tree_leaves(fresh[key])):
+                        old[:, mine] = new[:, mine]  # batch axis 1
+                return torch.where(sel, fresh_last, last), cache
 
     def _late(self, active: Sequence[Optional[Request]],
               admitted: List[float]) -> List[bool]:
@@ -234,7 +252,15 @@ class ServeEngine:
     def run(self, requests: List[Request], *, max_steps: int = 10_000
             ) -> List[Request]:
         """Process all requests with continuous slot reuse."""
+        with tracing.span("serve/run"):
+            return self._run(requests, max_steps)
+
+    def _run(self, requests: List[Request], max_steps: int
+             ) -> List[Request]:
         queue = list(requests)
+        # each queued request's wait for a slot (while tracing is on)
+        waits = [tracing.start("serve/queue") for _ in queue] \
+            if tracing.on() else None
         active: List[Optional[Request]] = [None] * self.B
         admitted: List[float] = [0.0] * self.B    # slot admission times
 
@@ -244,6 +270,8 @@ class ServeEngine:
                 if active[i] is None and queue:
                     active[i] = queue.pop(0)
                     admitted[i] = time.monotonic()
+                    if waits:
+                        tracing.stop(waits.pop(0))
                     new.append(i)
             return new
 
@@ -254,12 +282,14 @@ class ServeEngine:
                 break
             # the decode step updates the cache's tensors in place (the JAX
             # engine donates the cache to its jitted step)
-            logits, cache = self.model.decode(
-                self.params, cache, last[self.r0:self.r1, None], self.mesh,
-                self.cache_len)
+            with tracing.span("serve/decode", device=True):
+                logits, cache = self.model.decode(
+                    self.params, cache, last[self.r0:self.r1, None],
+                    self.mesh, self.cache_len)
             self.stats["decode_steps"] += 1
-            last = self._greedy(logits)
-            host = last.cpu().numpy()
+            with tracing.span("serve/sync"):
+                last = self._greedy(logits)
+                host = last.cpu().numpy()
             late = self._late(active, admitted)
             for i, r in enumerate(active):
                 if r is None or r.done:

@@ -1,5 +1,8 @@
 """Train-step factory: loss, gradients and the AdamW update, on one device
-or on a ``(data, model)`` or ``(pod, data, model)`` mesh.
+or on a ``(data, model)`` or ``(pod, data, model)`` mesh.  With
+``repro_torch.tracing`` on, a step records ``train/step`` over
+``train/forward``, ``train/backward``, ``train/reduce`` (on a mesh) and
+``train/optimizer``.
 
 Port of ``repro/train/train_step.py``.  Gradients come from
 ``torch.autograd.grad`` over the parameter leaves; microbatch gradients
@@ -50,6 +53,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from .. import tracing
 from ..models import transformer
 from ..models.model import Model
 from ..models.moe import reduced_on_mesh
@@ -185,9 +189,11 @@ def value_and_grad(loss_fn, params, batch):
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(leaves)
     with torch.enable_grad():
-        loss = loss_fn(tree_map(lambda _: next(it), params), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        with tracing.span("train/forward", device=True):
+            loss = loss_fn(tree_map(lambda _: next(it), params), batch)
+        with tracing.span("train/backward", device=True):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
     it = iter(grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
 
@@ -263,6 +269,10 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
     placed = state_placements(model, mesh) if mesh is not None else None
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with tracing.span("train/step", device=True):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if microbatches > 1:
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
@@ -285,11 +295,13 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
         if mesh is not None:
             seq = transformer.splits_sequence(model.cfg, mesh,
                                               batch["tokens"].shape[1])
-            grads, gnorm = _reduce_grads(grads, mesh, placed.params,
-                                         model.cfg, sharded, seq)
-        new_params, new_opt, metrics = adamw_update(
-            opt_cfg, state.params, grads, state.opt, grad_norm=gnorm,
-            zero1=_moment_slices(placed) if placed else None, mesh=mesh)
+            with tracing.span("train/reduce", device=True):
+                grads, gnorm = _reduce_grads(grads, mesh, placed.params,
+                                             model.cfg, sharded, seq)
+        with tracing.span("train/optimizer", device=True):
+            new_params, new_opt, metrics = adamw_update(
+                opt_cfg, state.params, grads, state.opt, grad_norm=gnorm,
+                zero1=_moment_slices(placed) if placed else None, mesh=mesh)
         metrics = dict(metrics, loss=loss)
         return TrainState(new_params, new_opt), metrics
 

@@ -204,6 +204,15 @@ def test_emitted_collectives_equal_the_declared_schedule(ranks_out, shape,
             else {"xent/logit-gather", "xent/logit-gather-grad"})
 
 
+@pytest.mark.parametrize("shape,strategy", XENT_CASES)
+def test_timed_collectives_keep_their_records(ranks_out, shape, strategy):
+    # the loss's backward ran under record_collectives(timed=True): the
+    # records above, each with its host-clock time on the CPU
+    for _, meta in _xent_results(ranks_out, shape, strategy):
+        assert [r for r, _ in meta["bwd_times"]] == meta["bwd"]
+        assert meta["bwd"] and all(ms >= 0 for _, ms in meta["bwd_times"])
+
+
 @pytest.mark.parametrize("tag,axes", [("2x2", {"data": 2, "model": 2}),
                                       ("1x4", {"data": 1, "model": 4})])
 def test_compressed_psum(ranks_out, tag, axes):

@@ -179,6 +179,17 @@ def _close(got, want, what, rel=TOL):
 
 
 @pytest.mark.parametrize("world,arch,shape", CASES, ids=IDS)
+def test_prefill_counters_count_the_global_slots(serve_out, world, arch,
+                                                 shape):
+    B, P, _ = ranks.serve_sizes(arch)
+    n = len(ranks.SERVE_NEW_TOKENS)         # prompts of P tokens each
+    for _, meta in _results(serve_out, world, arch, shape):
+        st = meta["stats"]
+        assert st["prefill_prompt_tokens"] == n * P
+        assert st["prefill_tokens"] == st["prefill_calls"] * B * P
+
+
+@pytest.mark.parametrize("world,arch,shape", CASES, ids=IDS)
 def test_engine_tokens_equal_the_jax_engine(serve_out, world, arch, shape):
     ref = jax_reference(arch)
     for _, meta in _results(serve_out, world, arch, shape):

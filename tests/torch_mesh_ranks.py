@@ -388,13 +388,14 @@ def run_xent(mesh, rank, out_dir, tag):
         with record_collectives() as fwd:
             loss = sharded_softmax_xent(hl, wl, yl, mesh, real_vocab=VOCAB,
                                         strategy=strategy)
-        with record_collectives() as bwd:
+        # the backward's collectives timed: the records stay the same
+        with record_collectives(timed=True) as bwd:
             loss.backward()
         _save(out_dir, f"xent_{tag}_{strategy}", rank,
               {"loss": loss.detach().numpy(), "gh": hl.grad.numpy(),
                "gw": wl.grad.numpy()},
               {"coord": list(mesh.get_coordinate()), "fwd": fwd, "bwd": bwd,
-               "Vp": Vp})
+               "bwd_times": bwd.times(), "Vp": Vp})
 
 
 def run_compressed(mesh, rank, out_dir, tag):
